@@ -1,0 +1,157 @@
+"""Carrying state across: plain NumPy values -> the port's objects.
+
+The "parameters" of this system are the stacked platform arrays, the sweep's
+objective arrays and the controller state.  These functions take **NumPy
+arrays and plain Python values only** (a dict per object) and build the
+port's objects from them, so state produced elsewhere — by the reference
+package, a file, another process — can be replayed through the port.  Nothing
+here imports the reference package; whoever holds its objects reads the
+fields off them into the dict (the tests carry that small helper).
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+
+from repro_torch.core.dse import SweepResult
+from repro_torch.core.islands import IslandConfig, IslandSpec, RateLadder
+from repro_torch.core.noc import NocConfig
+from repro_torch.core.perfmodel import AccelWorkload, SoCPerfModel
+from repro_torch.sim.batch import BatchSimPlatform
+from repro_torch.sim.control import BatchControllerHarness
+from repro_torch.sim.flows import FlowPattern
+
+
+def model_from_numpy(d: Mapping) -> SoCPerfModel:
+    """``d["noc"]`` holds the ``NocConfig`` fields; the other keys are the
+    model scalars of ``SoCPerfModel`` (all optional, defaults apply)."""
+    noc = dict(d.get("noc", {}))
+    for key in ("rows", "cols"):
+        if key in noc:
+            noc[key] = int(noc[key])
+    if "torus" in noc:
+        noc["torus"] = bool(noc["torus"])
+    kw = {k: float(d[k]) for k in
+          ("mem_service", "tg_demand", "tg_demand_fig4", "own_demand",
+           "hop_latency_share") if k in d}
+    if "mem_pos" in d:
+        kw["mem_pos"] = tuple(int(x) for x in d["mem_pos"])
+    return SoCPerfModel(noc=NocConfig(**noc), **kw)
+
+
+def islands_from_numpy(d: Mapping) -> IslandConfig:
+    """``d["islands"]``: a sequence of dicts with ``name``, ``tiles``,
+    ``ladder`` (``f_min_mhz, f_max_mhz, f_step_mhz``), ``rate``, ``fixed``;
+    ``d["version"]`` optional."""
+    specs = tuple(
+        IslandSpec(name=str(i["name"]),
+                   tiles=tuple(str(t) for t in i["tiles"]),
+                   ladder=RateLadder(*(int(x) for x in i["ladder"])),
+                   rate=float(i.get("rate", 1.0)),
+                   fixed=bool(i.get("fixed", False)))
+        for i in d["islands"])
+    return IslandConfig(specs, version=int(d.get("version", 0)))
+
+
+def flows_from_numpy(d: Optional[Mapping]) -> Optional[FlowPattern]:
+    """``stages`` / ``dests`` / ``demand`` of a flow pattern, or ``None``."""
+    if d is None:
+        return None
+    return FlowPattern(
+        stages=tuple(tuple(str(t) for t in s) for s in d.get("stages", ())),
+        dests=tuple((str(a), str(b)) for a, b in d.get("dests", ())),
+        demand=tuple((str(a), float(v)) for a, v in d.get("demand", ())))
+
+
+def platform_from_numpy(d: Mapping) -> BatchSimPlatform:
+    """Stacked platform: ``names``, the island structure (see
+    :func:`islands_from_numpy`), ``base_mbps/wire_share/k/pos_idx/req_mb``
+    ``(B, A)``, ``rates`` ``(B, I)``, ``f_tg`` ``(B,)``, ``n_tg``, ``model``
+    (see :func:`model_from_numpy`) and optional ``flows``."""
+    f64 = np.float64
+
+    def arr(key, dtype=f64):
+        return np.array(d[key], dtype=dtype)
+
+    plat = BatchSimPlatform(
+        model=model_from_numpy(d["model"]), islands=islands_from_numpy(d),
+        names=tuple(str(n) for n in d["names"]),
+        base_mbps=arr("base_mbps"), wire_share=arr("wire_share"),
+        k=arr("k"), pos_idx=arr("pos_idx", np.int64), req_mb=arr("req_mb"),
+        rates=arr("rates"), f_tg=arr("f_tg"), n_tg=int(d["n_tg"]),
+        flows=flows_from_numpy(d.get("flows")))
+    if plat.k.ndim != 2:
+        raise ValueError(f"k must be (B, A), got shape {plat.k.shape}")
+    B, A = plat.k.shape
+    want = {"base_mbps": (B, A), "wire_share": (B, A), "pos_idx": (B, A),
+            "req_mb": (B, A), "rates": (B, len(plat.islands.islands)),
+            "f_tg": (B,)}
+    for name, shape in want.items():
+        if getattr(plat, name).shape != shape:
+            raise ValueError(f"{name} has shape {getattr(plat, name).shape},"
+                             f" expected {shape}")
+    if len(plat.names) != A:
+        raise ValueError(f"{len(plat.names)} tile names for {A} tiles")
+    return plat
+
+
+def sweep_result_from_numpy(d: Mapping) -> SweepResult:
+    """Dense sweep result: ``axes`` (sequence of ``(name, values)``),
+    ``shape``, ``workloads`` (sequence of ``(name, base_mbps, ai)``),
+    ``n_tg`` and the flat objective arrays."""
+    def values(name, vals):
+        if name.startswith("pos:"):
+            return tuple(tuple(int(x) for x in p) for p in vals)
+        if name == "tech":
+            return tuple((int(n), str(v)) for n, v in vals)
+        if name.startswith("K:"):
+            return tuple(int(v) for v in vals)
+        return tuple(float(v) for v in vals)
+
+    axes = tuple((str(n), values(str(n), v)) for n, v in d["axes"])
+    shape = tuple(int(x) for x in d["shape"])
+    if shape != tuple(len(v) for _, v in axes):
+        raise ValueError(f"shape {shape} does not match the axes' lengths")
+    n = int(np.prod(shape, dtype=np.int64))
+    out = {}
+    for key in ("throughput", "area", "energy_per_unit", "mem_traffic"):
+        out[key] = np.array(d[key], dtype=np.float64).ravel()
+        if out[key].shape != (n,):
+            raise ValueError(f"{key} has {out[key].size} entries for a "
+                             f"grid of {n} points")
+    return SweepResult(
+        axes=axes, shape=shape,
+        workloads=tuple(AccelWorkload(str(nm), float(b), float(ai))
+                        for nm, b, ai in d["workloads"]),
+        n_tg=int(d["n_tg"]), valid=np.array(d["valid"], dtype=bool).ravel(),
+        elapsed_s=float(d.get("elapsed_s", 0.0)),
+        backend=str(d.get("backend", "numpy")), **out)
+
+
+def controller_state_from_numpy(harness: BatchControllerHarness,
+                                d: Mapping) -> BatchControllerHarness:
+    """Load carried controller state into ``harness`` (in place): ``rates``,
+    ``guard_active``, ``swaps``, ``versions`` and the policy's own state —
+    PID ``integral`` / ``prev_err``, EWMA ``ewma`` (absent or ``None`` = the
+    policy has not sampled yet)."""
+    B, I = harness.rates.shape
+    rates = np.array(d["rates"], dtype=np.float64)
+    if rates.shape != (B, I):
+        raise ValueError(f"rates has shape {rates.shape}, the harness "
+                         f"controls {(B, I)}")
+    harness.rates = rates
+    harness._guard_active = np.array(d["guard_active"], dtype=bool)
+    harness.swaps = np.array(d["swaps"], dtype=np.int64)
+    harness.versions = np.array(d["versions"], dtype=np.int64)
+    pol = harness.policy
+
+    def opt(key):
+        v = d.get(key)
+        return None if v is None else np.array(v, dtype=np.float64)
+
+    if hasattr(pol, "_integral"):
+        pol._integral, pol._prev_err = opt("integral"), opt("prev_err")
+    if hasattr(pol, "_ewma"):
+        pol._ewma = opt("ewma")
+    return harness
