@@ -27,14 +27,31 @@ main path through its public entry points at the size its users run:
 6. ``main_path_a12`` — 1,024 stacked twelve-tile platforms with a two-stage
                    chain and memory-bound DFS, 5,000 ticks, ``"fused"``; the
                    kernel against its plain version at these shapes.
+7. ``serve``     — the dense LLM serving path: ``ServeEngine`` on
+                   h2o-danube-1.8b at full width (random bf16 weights from a
+                   seed), 4 slots, a 4,096 window, 8 requests of 128-4,608
+                   prompt tokens and 32 new tokens each, through the
+                   ``flash_attention`` / ``flash_decode`` /
+                   ``fused_rmsnorm_mlp`` kernels; TTFT per request, prefill
+                   and decode tokens/s, peak memory; then the run held
+                   against the plain path on the card (teacher-forced
+                   logits), and each kernel against its plain version at the
+                   path's shapes, with times beside the bound and SDPA.
+                   Attention is held per output row as well, relative to the
+                   row's scale, and that check must reject planted faults
+                   (zero output, a dropped split or key tile, a window one
+                   key short) made with the plain version.
 
 Each phase prints one JSON line.  The line before the last but one is
-``{"kernels": [...]}`` with, per kernel, its launches on the main path, its
-error against the plain version, its time, the plain version's time and the
-least time the card could take for the same work (larger of bytes over
-3.35 TB/s and float32 operations over 67 TFLOP/s, published H100 SXM peaks).
-The last line is ``{"ok": true, "device": {...}}``.  Any failure exits with
-a non-zero code; without a CUDA device the script stops at once.
+``{"kernels": [...]}`` with, per kernel, its launches on its main path, its
+error against the plain version, its time, the plain version's time, the
+library call's time where one PyTorch call computes the same function, and
+the least time the card could take for the same work (the larger of bytes
+over 3.35 TB/s and operations over the peak for their type: 67 TFLOP/s
+float32 for ``tick_sim``, 989 TFLOP/s bf16 for the LLM kernels; published
+H100 SXM figures).  The line before the last is the card's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``.  Any failure
+exits with a non-zero code; without a CUDA device the script stops at once.
 """
 from __future__ import annotations
 
@@ -53,12 +70,37 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, published (H100 SXM)
 H100_FP32_PER_S = 67e12         # float32 outside the tensor cores, published
+H100_BF16_PER_S = 989e12        # bf16 tensor cores, dense, published
 RTOL = ATOL = 1e-4              # kernel vs plain version (same float32 math)
 SEED = 1234
+DEV = "cuda"
 
 SIZES = {"kernel_T": 500, "kernel_big_B": 1000,
          "main_B": 4096, "main_T": 8700, "check_T": 2000,
          "a12_B": 1024, "a12_T": 5000, "reps": 5}
+
+# The serving phase: h2o-danube-1.8b at full width (src/repro_torch/configs/
+# h2o_danube_1_8b.py); the 4,608-token prompts cross the 4,096 window.
+SERVE = {"arch": "h2o-danube-1.8b", "slots": 4, "window": 4096,
+         "prompts": (128, 512, 1024, 2048, 3072, 4608, 256, 4608),
+         "max_new": 32, "reps": 10}
+# kernel vs plain version, abs error (tests/test_kernels.py: f32 2e-5;
+# bf16 3e-2 attention, 5e-2 MLP)
+LLM_ATOL = {("attention", torch.float32): 2e-5,
+            ("attention", torch.bfloat16): 3e-2,
+            ("mlp", torch.float32): 2e-5, ("mlp", torch.bfloat16): 5e-2}
+# attention kernel vs plain version, per output row (one query head of one
+# query, over its head dim): max |out - ref| over max |ref| of the row.  The
+# absolute limits hold rows of O(1) outputs; a row over n live keys of unit
+# values outputs about sqrt(e / n), ~0.03 at n = 4,096, as small as the bf16
+# limit itself.  bf16: a few ulps (an ulp is 2^-8..2^-7 of the row's top).
+LLM_ROW_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the kernel path against the plain path (teacher forced): largest logit
+# error over the largest plain logit, and the share of equal greedy tokens.
+# The plain path rounds the MLP to bf16 at every product, the fused kernel
+# once, so they differ by a few bf16 ulps of the residual stream.
+LOGIT_REL_TOL = 5e-2
+AGREE_MIN = 0.9
 
 
 def sync() -> None:
@@ -590,6 +632,546 @@ def verify_main_path_a12(report, ctx):
 
 
 # ---------------------------------------------------------------------------
+# serve: the dense LLM serving path
+# ---------------------------------------------------------------------------
+
+
+def llm_kernels():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp
+    return {"flash_attention": flash_attention, "flash_decode": flash_decode,
+            "fused_mlp": fused_rmsnorm_mlp}
+
+
+def _randn(gen, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=DEV) * scale
+            ).to(dtype)
+
+
+def _err(a, b):
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def row_rel_err(out, ref) -> float:
+    """Largest error over an output row (last dim) divided by the largest
+    |value| of that row of ``ref``; a row of zeros in ``ref`` (a query with
+    no live key) counts its absolute error."""
+    if not ref.numel():
+        return 0.0
+    o, r = out.double(), ref.double()
+    err, top = (o - r).abs().amax(-1), r.abs().amax(-1)
+    return float(torch.where(top > 0, err / top.clamp(min=1e-300), err).max())
+
+
+def llm_check(kind, out, ref, dtype):
+    """``out`` held against ``ref``: shape, finite, abs error within
+    LLM_ATOL and, for attention, row-relative error within LLM_ROW_RTOL."""
+    res = {"max_abs_err": _err(out, ref),
+           "max_row_rel_err": row_rel_err(out, ref),
+           "tolerance": LLM_ATOL[(kind, dtype)],
+           "row_rtol": LLM_ROW_RTOL[dtype] if kind == "attention" else None}
+    res["ok"] = (tuple(out.shape) == tuple(ref.shape)
+                 and bool(torch.isfinite(out.float()).all())
+                 and res["max_abs_err"] <= res["tolerance"]
+                 and (res["row_rtol"] is None
+                      or res["max_row_rel_err"] <= res["row_rtol"]))
+    return res
+
+
+def planted_faults(name, args, plain, ref, split=512, tile=64):
+    """What a faulty attention kernel would return on ``args``, made with
+    the plain version: all zeros; one ``split`` of cache slots left out
+    (decode) or, for the last ``tile`` queries, one ``tile`` of keys in the
+    middle of their window (prefill); the window one key short.  The check
+    must reject each."""
+    from repro_torch.models.layers import UNWRITTEN
+    q, k, v, qpos, kpos, window, scale = args
+    out = {"zero": torch.zeros_like(ref)}
+    n_keys = k.shape[1]
+    if name == "flash_decode":
+        k0 = (n_keys // split // 2) * split
+        kp = kpos.clone()
+        kp[:, k0:k0 + split] = UNWRITTEN
+        out["dropped_split"] = plain(q, k, v, qpos, kp, window, scale)
+    else:
+        last = int(qpos[0, -1])
+        k0 = max(0, last - (window or last + 1) // 2) // tile * tile
+        kp = kpos.clone()
+        kp[:, k0:k0 + tile] = UNWRITTEN
+        f = ref.clone()
+        f[:, -tile:] = plain(q[:, -tile:].contiguous(), k, v,
+                             qpos[:, -tile:].contiguous(), kp, window, scale)
+        out["dropped_tile"] = f
+    if window > 1:
+        out["window_one_short"] = plain(q, k, v, qpos, kpos, window - 1,
+                                        scale)
+    return out
+
+
+def attention_case(gen, B, Sq, Sk, KV, G, hd, hdv, window, dtype,
+                   qpos=None, kpos=None):
+    """Inputs of one flash_attention call (positions: arange by default)."""
+    q = _randn(gen, (B, Sq, KV, G, hd), dtype)
+    k = _randn(gen, (B, Sk, KV, hd), dtype)
+    v = _randn(gen, (B, Sk, KV, hdv), dtype)
+    if qpos is None:
+        qpos = torch.arange(Sq, dtype=torch.int32, device=DEV
+                            ).expand(B, Sq).contiguous()
+    if kpos is None:
+        kpos = torch.arange(Sk, dtype=torch.int32, device=DEV
+                            ).expand(B, Sk).contiguous()
+    return (q, k, v, qpos, kpos, window, 1.0 / float(np.sqrt(hd)))
+
+
+def decode_case(gen, B, W, KV, G, hd, hdv, window, dtype, pos):
+    """Inputs of one flash_decode call over a ring cache at positions
+    ``pos`` (B,), unwritten slots included."""
+    from repro_torch.models.layers import ring_kpos
+    q = _randn(gen, (B, KV, G, hd), dtype)
+    ck = _randn(gen, (B, W, KV, hd), dtype)
+    cv = _randn(gen, (B, W, KV, hdv), dtype)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=DEV)
+    return (q, ck, cv, pos, ring_kpos(pos, W), window,
+            1.0 / float(np.sqrt(hd)))
+
+
+def mlp_case(gen, N, d, F, act, dtype):
+    return (_randn(gen, (N, d), dtype), _randn(gen, (d,), dtype, 0.1),
+            _randn(gen, (d, F), dtype, 0.02), _randn(gen, (d, F), dtype, 0.02),
+            act, 1e-5)
+
+
+def phase_llm_kernels():
+    """Each LLM kernel against its plain version on the card at small and
+    edge shapes: head dim 80, ragged tiles, windows, a query row with no
+    live key, ring caches with unwritten slots, G from 1 to 8, silu and
+    gelu, float32 and bfloat16."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
+    K = llm_kernels()
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    cases, bad = [], []
+
+    def run(name, kind, args, plain, extra=()):
+        out = K[name](*args, *extra)
+        sync()
+        ref = plain(*args)
+        dtype = args[0].dtype
+        res = llm_check(kind, out, ref, dtype)
+        case = {"kernel": name, "shape": list(args[0].shape),
+                "dtype": str(dtype).split(".")[-1],
+                "max_abs_err": res["max_abs_err"],
+                "max_row_rel_err": res["max_row_rel_err"]}
+        cases.append(case)
+        if not res["ok"]:
+            bad.append(case)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, Sq, KV, G, hd, hdv, win) in (
+                (2, 200, 2, 4, 80, 80, 64), (1, 130, 1, 8, 256, 256, 0),
+                (2, 77, 4, 1, 32, 48, 0), (1, 333, 2, 2, 192, 128, 100),
+                (1, 70, 2, 2, 20, 12, 0)):
+            run("flash_attention", "attention",
+                attention_case(gen, B, Sq, Sq, KV, G, hd, hdv, win, dtype),
+                flash_attention_plain)
+        # queries placed before every key: rows with no live key give 0
+        qpos = torch.arange(-40, 60, dtype=torch.int32, device=DEV)[None]
+        run("flash_attention", "attention",
+            attention_case(gen, 1, 100, 100, 2, 2, 80, 80, 0, dtype,
+                           qpos=qpos), flash_attention_plain)
+        for (B, W, KV, G, hd, win, split, pos) in (
+                (4, 4096, 8, 4, 80, 4096, 512, [5, 4095, 4096, 9000]),
+                (3, 100, 1, 8, 256, 0, 32, [0, 50, 250]),
+                (2, 64, 2, 1, 80, 16, 512, [10, 70])):
+            run("flash_decode", "attention",
+                decode_case(gen, B, W, KV, G, hd, hd, win, dtype, pos),
+                flash_decode_plain, (split,))
+        mlps = [(100, 96, 200, "gelu"), (17, 300, 64, "silu"),
+                (12, 64, 130, "gelu"), (1, 64, 1000, "gelu"),
+                (3, 100, 77, "silu")]
+        if dtype == torch.bfloat16:     # float32 sums over d=2560 exceed 2e-5
+            mlps.append((4, 2560, 6912, "silu"))
+        for (N, d, F, act) in mlps:
+            run("fused_mlp", "mlp", mlp_case(gen, N, d, F, act, dtype),
+                fused_rmsnorm_mlp_plain)
+    emit({"phase": "llm_kernels", "cases": len(cases), "failed": len(bad),
+          "atol": {f"{k}/{str(t).split('.')[-1]}": v
+                   for (k, t), v in LLM_ATOL.items()},
+          "attention_row_rtol": {str(t).split('.')[-1]: v
+                                 for t, v in LLM_ROW_RTOL.items()},
+          "worst": {n: max(c["max_abs_err"] for c in cases
+                           if c["kernel"] == n) for n in K},
+          "worst_row_rel": {n: max(c["max_row_rel_err"] for c in cases
+                                   if c["kernel"] == n) for n in K},
+          "first_failures": bad[:5]})
+    if bad:
+        raise SystemExit("an LLM kernel disagrees with its plain version")
+
+
+def drive_serve():
+    """The serving path through its public entry points: ``ServeEngine`` on
+    the card with the fused backend; records the logits it computed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import AttnOptions
+    from repro_torch.runtime.serve import Request, ServeEngine
+    K = llm_kernels()
+    cfg = get_config(SERVE["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, batch_slots=SERVE["slots"],
+                      window=SERVE["window"],
+                      lm_kwargs=dict(opts=AttnOptions(backend="fused")),
+                      seed=SEED, device=DEV)
+    sync()
+    init_s = time.perf_counter() - t0
+    lm = eng.lm
+
+    # warm the path (first launches, cuBLAS handles) on a throwaway cache
+    warm = torch.zeros((1, 64), dtype=torch.long, device=DEV)
+    _, c = lm.prefill(eng.params, warm, cache_len=SERVE["window"])
+    lm.decode_step(eng.params, c, warm[:, :1])
+    del c
+    sync()
+
+    # record what the engine computes: (rid, token index) -> logits row
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(rid=i, max_new=SERVE["max_new"],
+                    prompt=rng.integers(0, cfg.vocab_size, size=n
+                                        ).astype(np.int32))
+            for i, n in enumerate(SERVE["prompts"])]
+    logits = {}
+    prefill, decode_step = lm.prefill, lm.decode_step
+    admission = iter([r.rid for r in reqs])     # the queue is FIFO
+
+    def rec_prefill(params, tokens, cache_len=0):
+        lg, cache = prefill(params, tokens, cache_len=cache_len)
+        logits[(next(admission), 0)] = lg[0]
+        return lg, cache
+
+    def rec_decode(params, cache, tokens):
+        rows = {s: (r.rid, len(r.out)) for s, r in eng.active.items()}
+        lg, cache = decode_step(params, cache, tokens)
+        for s, key in rows.items():
+            logits[key] = lg[s]
+        return lg, cache
+
+    lm.prefill, lm.decode_step = rec_prefill, rec_decode
+    for f in K.values():                        # counted from here ...
+        f.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(10 * len(reqs) * SERVE["max_new"]):
+        if len(eng.done) == len(reqs):
+            break
+        eng.step()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in K.items()}   # ... to here
+    lm.prefill, lm.decode_step = prefill, decode_step
+    if len(eng.done) != len(reqs):
+        raise SystemExit(f"serve: {len(eng.done)}/{len(reqs)} requests done")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"serve: a kernel was never launched: {launches}")
+
+    tm = eng.timings
+    n_decoded = sum(len(r.out) - 1 for r in reqs)
+    report = {
+        "phase": "serve", "arch": cfg.name, "d_model": cfg.d_model,
+        "n_layers": cfg.n_layers, "slots": SERVE["slots"],
+        "window": SERVE["window"], "prompts": list(SERVE["prompts"]),
+        "max_new": SERVE["max_new"], "init_s": init_s, "wall_s": wall,
+        "ttft_s": [r.t_first - r.t_submit for r in reqs],
+        "prefill_s": tm["prefill_s"],
+        "prefill_tokens_per_s": tm["prefill_tokens"] / tm["prefill_s"],
+        "decode_s": tm["decode_s"], "decode_steps": tm["decode_steps"],
+        "decode_tokens": n_decoded,
+        "decode_tokens_per_s": n_decoded / tm["decode_s"],
+        "decode_step_ms": 1e3 * tm["decode_s"] / tm["decode_steps"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "stats": eng.stats()}
+    return report, dict(eng=eng, reqs=reqs, logits=logits)
+
+
+def verify_serve_logits(report, ctx):
+    """The kernel path against the plain path on the card, teacher forced:
+    the plain LM is fed the kernel path's tokens, so one near-tie cannot
+    make the two runs diverge."""
+    from repro_torch.models.layers import AttnOptions
+    from repro_torch.models.transformer import LM
+    eng, reqs, logits = ctx["eng"], ctx["reqs"], ctx["logits"]
+    plain = LM(eng.cfg, opts=AttnOptions(backend="naive"))
+    worst, agree, n, finite = 0.0, 0, 0, True
+    t0 = time.perf_counter()
+    for r in reqs:
+        prompt = torch.as_tensor(r.prompt[None, :], dtype=torch.long,
+                                 device=DEV)
+        lg, cache = plain.prefill(eng.params, prompt,
+                                  cache_len=SERVE["window"])
+        for i in range(len(r.out)):
+            if i:
+                tok = torch.tensor([[r.out[i - 1]]], device=DEV)
+                lg, cache = plain.decode_step(eng.params, cache, tok)
+            ref, got = lg[0], logits[(r.rid, i)]
+            finite &= bool(torch.isfinite(got).all())
+            worst = max(worst, _err(got, ref) / float(ref.abs().max()))
+            agree += int(torch.argmax(ref)) == r.out[i]
+            n += 1
+        del cache
+    sync()
+    report["teacher_forced"] = {
+        "positions": n, "max_rel_logit_err": worst, "rel_tol": LOGIT_REL_TOL,
+        "token_agreement": agree / n, "agree_min": AGREE_MIN,
+        "finite": finite, "plain_path_s": time.perf_counter() - t0}
+    if not finite or worst > LOGIT_REL_TOL or agree / n < AGREE_MIN:
+        emit(report)
+        raise SystemExit("serve: the kernel path disagrees with the plain "
+                         "path")
+
+
+def _bound(byts, ops):
+    t_bytes = byts / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_BF16_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def _nbytes(*ts):
+    return float(sum(t.numel() * t.element_size() for t in ts))
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()``: ``reps`` calls captured in one
+    CUDA graph and replayed, so no host time sits between the launches
+    (CUDA events around the replay)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                        # warm, outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sync()
+    start.record()
+    g.replay()
+    end.record()
+    sync()
+    del g
+    return start.elapsed_time(end) / reps
+
+
+def time_llm_kernel(name, kind, args, plain, library=None, extra=()):
+    """Kernel vs plain version on the same inputs: error (``llm_check``),
+    and times.  ``ms`` is the kernel's device time (CUDA graph of
+    SERVE["reps"] launches); ``call_ms`` one wrapper call as the path makes
+    it, host work included (CUDA events, mean of SERVE["reps"] after a warm
+    call); the plain version and the library call are timed as they run,
+    eagerly (CUDA events, mean of 2 after a warm call).  For attention the
+    same check is also put to the planted faults, each of which it must
+    reject (``faults_rejected``)."""
+    f = llm_kernels()[name]
+    out = f(*args, *extra)
+    sync()
+    ref = plain(*args)
+    sync()
+    res = {**llm_check(kind, out, ref, args[0].dtype),
+           "ms": graph_ms(lambda: f(*args, *extra), SERVE["reps"]),
+           "call_ms": cuda_ms(lambda: f(*args, *extra), SERVE["reps"]),
+           "plain_ms": cuda_ms(lambda: plain(*args), 2),
+           "library_ms": None}
+    if library is not None:
+        library()
+        res["library_ms"] = cuda_ms(library, 2)
+    del out
+    if kind == "attention":
+        faults = {}
+        for fault, bad in planted_faults(name, args, plain, ref).items():
+            c = llm_check(kind, bad, ref, args[0].dtype)
+            faults[fault] = {"max_abs_err": c["max_abs_err"],
+                             "max_row_rel_err": c["max_row_rel_err"],
+                             "rejected": not c["ok"]}
+            del bad
+        res["planted_faults"] = faults
+        res["faults_rejected"] = all(v["rejected"] for v in faults.values())
+    del ref
+    return res
+
+
+def time_serve_kernels(ctx):
+    """Each LLM kernel at the serving path's shapes: against its plain
+    version, timed beside its bound and, for attention, SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
+    from repro_torch.models.layers import _window_mask, ring_kpos
+    eng = ctx["eng"]
+    cfg = eng.cfg
+    KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    win, S = cfg.sliding_window, max(SERVE["prompts"])
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    bf16 = torch.bfloat16
+    rows = {}
+
+    # flash_attention: the longest prefill (S = 4,608 over a 4,096 window)
+    a = attention_case(gen, 1, S, S, KV, G, hd, hd, win, bf16)
+    q, k, v, qp, kp, _, scale = a
+    mask = _window_mask(qp[0], kp[0], win)
+    qt = q.reshape(1, S, KV * G, hd).transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    r = time_llm_kernel(
+        "flash_attention", "attention", a, flash_attention_plain,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               scale=scale, enable_gqa=True))
+    pairs = float(mask.sum())
+    ops = 2.0 * pairs * KV * G * (hd + hd)
+    # bytes: q, k, v, the positions, and the output (q's shape and type)
+    r.update(zip(("bound_ms", "bound_by"),
+                 _bound(_nbytes(q, k, v, q, qp, kp), ops)))
+    r.update(shape=f"q (1,{S},{KV},{G},{hd}) bf16, window {win}",
+             live_pairs_per_head=pairs, operations=ops)
+    rows["flash_attention"] = r
+    del a, q, k, v, qt, kt, vt, mask
+
+    # flash_decode: the 4 slots over the engine's final ring cache, layer 0
+    ck, cv = (c[0] for c in eng.cache["blocks"])
+    pos = (eng.cache["pos"] - 1).to(torch.int32)
+    kpos = ring_kpos(pos, ck.shape[1])
+    qd = _randn(gen, (SERVE["slots"], KV, G, hd), bf16)
+    d_args = (qd, ck, cv, pos, kpos, win, 1.0 / float(np.sqrt(hd)))
+    live = _window_mask(pos[:, None], kpos, win)[:, 0]           # (B, W)
+    qt = qd.reshape(SERVE["slots"], KV * G, 1, hd)
+    kt, vt = (c.transpose(1, 2).contiguous() for c in (ck, cv))
+    r = time_llm_kernel(
+        "flash_decode", "attention", d_args, flash_decode_plain,
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=live[:, None, None, :], scale=d_args[-1],
+            enable_gqa=True))
+    n_live = float(live.sum())
+    byts = n_live * KV * 2 * hd * ck.element_size() + _nbytes(
+        qd, qd, pos, kpos)
+    ops = 2.0 * n_live * KV * G * (hd + hd)
+    r.update(zip(("bound_ms", "bound_by"), _bound(byts, ops)))
+    r.update(shape=f"q ({SERVE['slots']},{KV},{G},{hd}), cache "
+             f"({SERVE['slots']},{ck.shape[1]},{KV},{hd}) bf16",
+             live_slots=n_live, split=512, operations=ops)
+    rows["flash_decode"] = r
+    del kt, vt
+
+    # fused_mlp: the longest prefill (N = 4,608) and the 4-slot decode
+    mp = eng.params["blocks"]["mlp"]
+    norm = eng.params["blocks"]["mlp_norm"][0]
+    wg, wu = mp["wi_gate"][0], mp["wi_up"][0]
+    d, Ff = wg.shape
+    per = {}
+    for label, N in (("prefill", S), ("decode", SERVE["slots"])):
+        x = _randn(gen, (N, d), bf16)
+        m_args = (x, norm, wg, wu, cfg.act, cfg.norm_eps)
+        rr = time_llm_kernel("fused_mlp", "mlp", m_args,
+                             fused_rmsnorm_mlp_plain)
+        ops = 4.0 * N * d * Ff
+        rr.update(zip(("bound_ms", "bound_by"),
+                      _bound(_nbytes(x, norm, wg, wu) + 2.0 * N * Ff, ops)))
+        rr.update(shape=f"x ({N},{d}), W ({d},{Ff}) bf16, {cfg.act}",
+                  operations=ops)
+        per[label] = rr
+    rows["fused_mlp"] = {**per["prefill"], "also": per["decode"]}
+    bad = [n for n, r in rows.items()
+           if not r["ok"] or ("also" in r and not r["also"]["ok"])]
+    blind = [n for n, r in rows.items() if not r.get("faults_rejected", True)]
+    emit({"phase": "serve_kernels", **rows})
+    if bad:
+        raise SystemExit(f"kernels disagree with their plain versions at the "
+                         f"serving path's shapes: {bad}")
+    if blind:
+        raise SystemExit(f"the check passed a planted fault of {blind}")
+    return rows
+
+
+def _kernel_group(name: str) -> str:
+    for k in ("fused_mlp", "flash_attention", "flash_decode"):
+        if k in name:
+            return k
+    if name.startswith("nvjet") or "gemm" in name.lower():
+        return "torch.matmul (cuBLAS)"
+    return "other torch ops"
+
+
+def profile_serve(ctx):
+    """Where the time of one serving step goes: a decode step at all slots
+    (on the engine's final cache) and a prefill of the longest prompt,
+    each under ``torch.profiler``: host wall time, device time by kernel
+    group, and the device's idle share (1 - device time / wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    eng, reqs = ctx["eng"], ctx["reqs"]
+    lm = eng.lm
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    prompt = torch.as_tensor(longest.prompt[None, :], dtype=torch.long,
+                             device=DEV)
+    steps = {
+        "decode_step": lambda: lm.decode_step(eng.params, eng.cache,
+                                              eng.tokens),
+        "prefill_%d" % prompt.shape[1]: lambda: lm.prefill(
+            eng.params, prompt, cache_len=SERVE["window"])}
+    out = {}
+    for label, fn in steps.items():
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall = time.perf_counter() - t0
+        groups = {}
+        for e in prof.key_averages():
+            dev = getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+            if e.self_cpu_time_total == 0 and dev > 0:   # a device kernel
+                g = _kernel_group(e.key)
+                groups[g] = groups.get(g, 0.0) + dev / 1e3
+        device_ms = sum(groups.values())
+        out[label] = {"wall_ms": wall * 1e3, "device_ms": device_ms,
+                      "idle_share": 1.0 - device_ms / (wall * 1e3),
+                      "device_ms_by_group": dict(sorted(
+                          groups.items(), key=lambda kv: -kv[1]))}
+    emit({"phase": "serve_profile", **out})
+    if any(v["device_ms"] <= 0 for v in out.values()):
+        raise SystemExit("serve_profile: the profiler saw no device time")
+    return out
+
+
+def phase_serve():
+    report, ctx = drive_serve()
+    verify_serve_logits(report, ctx)
+    emit(report)
+    profile_serve(ctx)
+    rows = time_serve_kernels(ctx)
+    return report, rows
+
+
+LLM_REPLACES = {
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:107"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode.py:90"),
+    "fused_mlp": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
+                  "src/repro/kernels/fused_mlp.py:57"),
+}
+
+KERNEL_KEYS = ("max_abs_err", "tolerance", "max_row_rel_err", "row_rtol",
+               "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -619,12 +1201,14 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": build.last_build_seconds,
           "sources": [os.path.relpath(s, ROOT) for s in build.sources()],
-          "flags": " ".join(build.NVCC_FLAGS)})
+          "flags": " ".join(build.NVCC_FLAGS),
+          "source_flags": build.SOURCE_FLAGS})
     if args.ptxas:
         for src, log in build.last_build_log.items():
             print(f"--- nvcc {src} ---\n{log}", flush=True)
 
     parity = phase_kernels()
+    phase_llm_kernels()
     device = {"platform": "gpu", "kind": name,
               "count": torch.cuda.device_count()}
     if args.quick:
@@ -646,12 +1230,15 @@ def main() -> int:
     main_report = verify_main_path(main_report, main_ctx)
     a12_report = verify_main_path_a12(a12_report, a12_ctx)
 
+    # the serving path, counted inside drive_serve the same way
+    serve_report, serve_rows = phase_serve()
+
     lin = main_report["kernel_vs_plain"]["linear"]
     a12k = a12_report["kernel_vs_plain"]
     emit({"kernels": [{
         "name": "tick_sim", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tick_sim.cu",
-        "replaces": "src/repro/kernels/tick_sim.py:205",
+        "replaces": "src/repro/kernels/tick_sim.py:350",
         "launches": launches,
         "max_abs_err": max(lin["max_abs_err"], a12k["max_abs_err"],
                            parity["max_abs_err"]),
@@ -667,7 +1254,14 @@ def main() -> int:
                  % (SIZES["a12_T"], SIZES["a12_B"]),
                  "ms": a12k["ms"], "plain_ms": a12k["plain_ms"],
                  "bound_ms": a12k["bound_ms"],
-                 "bound_by": a12k["bound_by"]}}]})
+                 "bound_by": a12k["bound_by"]}}] + [{
+        "name": n, "route": "cuda", "source": LLM_REPLACES[n][0],
+        "replaces": LLM_REPLACES[n][1],
+        "launches": serve_report["launches"][n],
+        **{k: serve_rows[n][k] for k in KERNEL_KEYS},
+        **({"also": {k: serve_rows[n]["also"][k] for k in KERNEL_KEYS}}
+           if "also" in serve_rows[n] else {})}
+        for n in LLM_REPLACES]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})
     return 0

@@ -1,7 +1,8 @@
 """Carrying state across: plain NumPy values -> the port's objects.
 
 The "parameters" of this system are the stacked platform arrays, the sweep's
-objective arrays and the controller state.  These functions take **NumPy
+objective arrays and the controller state, and for the LLM stack the model
+weights and the KV cache.  These functions take **NumPy
 arrays and plain Python values only** (a dict per object) and build the
 port's objects from them, so state produced elsewhere — by the reference
 package, a file, another process — can be replayed through the port.  Nothing
@@ -10,14 +11,16 @@ fields off them into the dict (the tests carry that small helper).
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.dse import SweepResult
 from repro_torch.core.islands import IslandConfig, IslandSpec, RateLadder
 from repro_torch.core.noc import NocConfig
 from repro_torch.core.perfmodel import AccelWorkload, SoCPerfModel
+from repro_torch.device import DeviceSpec, resolve
 from repro_torch.sim.batch import BatchSimPlatform
 from repro_torch.sim.control import BatchControllerHarness
 from repro_torch.sim.flows import FlowPattern
@@ -155,3 +158,37 @@ def controller_state_from_numpy(harness: BatchControllerHarness,
     if hasattr(pol, "_ewma"):
         pol._ewma = opt("ewma")
     return harness
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """One array -> tensor in the same dtype.  bfloat16 arrays (NumPy sees
+    them as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) go
+    through float32, which holds every bfloat16 value exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_numpy(tree: Any, device: DeviceSpec = None):
+    """The reference's LM parameter pytree, as NumPy arrays (nested dicts /
+    lists), -> the port's parameter dict (same keys, same stacked layout,
+    same dtypes) on ``device``."""
+    dev = resolve(device)
+    if isinstance(tree, Mapping):
+        return {k: lm_params_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(lm_params_from_numpy(v, dev) for v in tree)
+    return _tensor(tree, dev)
+
+
+def lm_cache_from_numpy(d: Mapping, device: DeviceSpec = None):
+    """A reference LM cache ``{"pos": scalar or (B,), "blocks": (k, v)}`` with
+    ``k``/``v`` ``(L, B, W, KV, hd)`` -> the port's cache, whose ``pos`` is
+    one int32 position per batch row."""
+    dev = resolve(device)
+    k, v = (_tensor(a, dev) for a in d["blocks"])
+    pos = torch.tensor(np.asarray(d["pos"]), dtype=torch.int32,
+                       device=dev).expand(k.shape[1]).contiguous()
+    return {"pos": pos, "blocks": (k, v)}

@@ -2,6 +2,7 @@
 
 C1 multi-replica tiles   -> tiles.py + replication.py
 C2 DFS frequency islands -> islands.py + dfs.py + voltage.py
+C3 run-time monitoring   -> monitor.py
 supporting models        -> noc.py + perfmodel.py, the sweep -> dse.py
 
 Names are re-exported lazily: ``from repro_torch.core import grid_sweep``
@@ -10,7 +11,10 @@ imports ``core/dse.py`` then, not when the package is imported.
 from repro_torch._lazy import lazy_exports
 
 _EXPORTS = {
-    **dict.fromkeys(("TilePlan", "TileSpec", "MONITOR_KINDS"), "tiles"),
+    **dict.fromkeys(("TilePlan", "TileSpec", "MONITOR_KINDS", "default_plan",
+                     "validate_plan"), "tiles"),
+    **dict.fromkeys(("init_counters", "charge", "charge_boundary",
+                     "manual_reset", "MonitorClient"), "monitor"),
     **dict.fromkeys(("replication_area_model",
                      "replication_throughput_model"), "replication"),
     **dict.fromkeys(("IslandConfig", "IslandSpec", "RateLadder",

@@ -1,0 +1,48 @@
+"""What the LLM kernel wrappers share: dtype codes, device dispatch and the
+checks made before a launch."""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """True when the tensors lie on a CUDA device (launch the kernel), False
+    on the CPU (run the plain version); anything else raises."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel and no plain version for device {dev}")
+
+
+def check(name: str, t: torch.Tensor, ndim: int,
+          dtypes: Sequence[torch.dtype] = tuple(DTYPE_CODES)) -> int:
+    """Raise unless ``t`` is contiguous, ``ndim``-dimensional and of one of
+    ``dtypes``; returns its dtype code."""
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-d, got {tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {tuple(dtypes)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return DTYPE_CODES.get(t.dtype, -1)
+
+
+def positions(p: torch.Tensor, shape) -> torch.Tensor:
+    """Positions as the kernels read them: contiguous int32 of ``shape``."""
+    if tuple(p.shape) != tuple(shape):
+        raise ValueError(f"positions of shape {tuple(p.shape)}, expected "
+                         f"{tuple(shape)}")
+    return p.to(torch.int32).contiguous()
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

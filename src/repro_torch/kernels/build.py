@@ -24,10 +24,11 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
-# -fmad=false: products and sums round separately, as the plain PyTorch
-# versions of the kernels do, so integer outputs can be compared exactly.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC")
+# tick_sim: products and sums round separately, as its plain PyTorch version
+# does, so its integer outputs (swaps, guard) can be compared exactly.
+SOURCE_FLAGS = {"tick_sim": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -93,7 +94,7 @@ def build_all(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
     """Build (all sources at once, one nvcc each) and load every kernel
     library that this source state has not built yet.  ``verbose`` adds
     ``-Xptxas -v`` (registers, spills) to the compiler's log."""
-    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    extra = ("-Xptxas", "-v") if verbose else ()
     with _lock:
         srcs = sources()
         if not srcs:
@@ -102,6 +103,7 @@ def build_all(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
         for src in srcs:
             if src.stem in _libs:
                 continue
+            flags = NVCC_FLAGS + SOURCE_FLAGS.get(src.stem, ()) + extra
             so = _target(src, flags)
             pending[src.stem] = (so, None if so.exists()
                                  else _start(src, so, flags))
@@ -123,3 +125,13 @@ def library(name: str, verbose: bool = False) -> ctypes.CDLL:
     if name not in _libs:
         build_all(verbose=verbose)
     return _libs[name]
+
+
+def function(name: str, symbol: str, argtypes):
+    """``symbol`` of ``csrc/<name>.cu`` with its ctypes argument types set
+    (pointers and the stream as ``c_void_p``, so they are not cut to 32
+    bits) and an ``int`` (``cudaError_t``) result."""
+    fn = getattr(library(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

@@ -1,0 +1,493 @@
+// Fused RMSNorm -> gated-MLP first half for NVIDIA Hopper (sm_90a), CUDA
+// C++:  out = act(rmsnorm(x) @ Wg) * (rmsnorm(x) @ Wu),
+// rmsnorm(x) = x * rsqrt(mean(x^2) + eps) * (1 + scale), act silu or gelu
+// (tanh form).  x (N,d), scale (d,), Wg/Wu (d,F) -> out (N,F); all float32
+// or all bfloat16, sums in float32.
+//
+// Replaces: src/repro/kernels/fused_mlp.py (_fused_kernel /
+// fused_rmsnorm_mlp_pallas, the Pallas kernel of the reference package).
+//
+// What bounds it on an H100.  At decode (N = the batch slots, 4) it reads
+// both weight matrices once for a few rows: 2 * d * F * 2 B = 71 MB per
+// layer of h2o-danube in bf16, ~21 us at 3.35 TB/s, bound by bytes.  At
+// prefill (N up to 4,608) it is 4 * N * d * F = 3.3e11 operations per layer,
+// bound by operations (0.33 ms on bf16 tensor cores).
+//
+// What the design does about it.
+//  * The TPU kernel loads a whole (TB, d) row tile and a (d, FB) weight
+//    slice into VMEM.  A block has at most 227 KB of shared memory, so here d
+//    is walked in 32-deep K tiles: one first pass over each row computes its
+//    rms (one warp per row), then every K tile of normalised x is formed in
+//    shared memory (rounded to the input type, as the reference's rms_norm
+//    rounds) and feeds BOTH accumulations, gate and up, which share it.  The
+//    normalised activations never reach device memory; gate and up meet
+//    only in registers, where the epilogue applies the activation and the
+//    product.
+//  * Prefill in bfloat16 (N > 8): fused_mlp_wmma_kernel, the tiling below
+//    on the tensor cores (WMMA bf16 fragments, float32 accumulators; see
+//    its note).  wgmma / TMA pipelines are later work.
+//  * float32 (N > 8): output tiles of 64 rows x 64 columns, 256 threads
+//    (16 x 16), each thread 4 rows x 4 columns of gate and of up on the
+//    CUDA cores.
+//    Weights are read in 64-wide row runs of F, neighbouring threads on
+//    neighbouring columns (coalesced), and each thread issues all its loads
+//    of a K tile before it stores any.
+//  * Decode (N <= 8 rows): fused_mlp_rows_kernel, a weight-streaming
+//    kernel with no barrier in its d loop (see its note): 216 blocks of 32
+//    columns for F = 6,912, 16-byte weight loads, several in flight per
+//    thread.  The first version ran decode through the tiled kernel and
+//    waited on every load of every K tile: latency-bound, ~20x its bound.
+//  * Ragged N, d and F are masked.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <mma.h>
+
+#include <type_traits>
+
+using namespace nvcuda;
+
+#define FM_BN 64
+#define FM_BK 32
+#define FM_THREADS 256
+
+__device__ __forceinline__ float fm_load(const float* p) { return *p; }
+__device__ __forceinline__ float fm_load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float fm_round(float x, const float*) { return x; }
+__device__ __forceinline__ float fm_round(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+__device__ __forceinline__ void fm_store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void fm_store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float fm_act(float g, int act) {
+  if (act == 1) {            // gelu, tanh form (jax.nn.gelu(approximate=True))
+    const float c = 0.7978845608028654f;      // sqrt(2 / pi)
+    return 0.5f * g * (1.f + tanhf(c * (g + 0.044715f * g * g * g)));
+  }
+  return g / (1.f + expf(-g));                // silu
+}
+
+// BM rows per block, TM rows per thread
+template <typename T>
+__global__ void __launch_bounds__(FM_THREADS)
+fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                 const T* __restrict__ wg, const T* __restrict__ wu,
+                 T* __restrict__ out, int N, int d, int F, int act,
+                 float eps) {
+  constexpr int TM = 4, BM = 16 * TM;
+  constexpr int LDX = BM + 1;
+  __shared__ float xs[FM_BK][LDX];         // normalised x, k-major
+  __shared__ float gs[FM_BK][FM_BN];
+  __shared__ float us[FM_BK][FM_BN];
+  __shared__ float inv_s[BM];
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * FM_BN, m0 = blockIdx.y * BM;
+
+  // pass 1: 1 / rms of each row of the tile
+  for (int r = warp; r < BM; r += FM_THREADS / 32) {
+    const int row = m0 + r;
+    float ss = 0.f;
+    if (row < N)
+      for (int k = lane; k < d; k += 32) {
+        const float v = fm_load(x + (size_t)row * d + k);
+        ss += v * v;
+      }
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (lane == 0) inv_s[r] = row < N ? rsqrtf(ss / (float)d + eps) : 0.f;
+  }
+  __syncthreads();
+
+  float g[TM][4], u[TM][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) g[i][j] = u[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < d; k0 += FM_BK) {
+    // normalised x tile (rounded to T as rms_norm's output is) and the two
+    // weight tiles; each thread issues all its loads before it stores any
+    constexpr int NX = BM * FM_BK / FM_THREADS;
+    constexpr int NW = FM_BK * FM_BN / FM_THREADS;
+    float xv[NX], sv[NX], gv[NW], uv[NW];
+#pragma unroll
+    for (int t = 0; t < NX; ++t) {
+      const int i = tid + t * FM_THREADS, r = i / FM_BK, kk = i - r * FM_BK;
+      const int row = m0 + r, k = k0 + kk;
+      const bool in = row < N && k < d;
+      xv[t] = in ? fm_load(x + (size_t)row * d + k) : 0.f;
+      sv[t] = in ? fm_load(scale + k) : 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < NW; ++t) {
+      const int i = tid + t * FM_THREADS, kk = i / FM_BN, c = i - kk * FM_BN;
+      const int k = k0 + kk, col = n0 + c;
+      const bool in = k < d && col < F;
+      gv[t] = in ? fm_load(wg + (size_t)k * F + col) : 0.f;
+      uv[t] = in ? fm_load(wu + (size_t)k * F + col) : 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < NX; ++t) {
+      const int i = tid + t * FM_THREADS, r = i / FM_BK, kk = i - r * FM_BK;
+      // (x * inv) * (1 + scale), in the order of the reference's rms_norm
+      xs[kk][r] = fm_round((xv[t] * inv_s[r]) * (1.f + sv[t]), x);
+    }
+#pragma unroll
+    for (int t = 0; t < NW; ++t) {
+      const int i = tid + t * FM_THREADS, kk = i / FM_BN, c = i - kk * FM_BN;
+      gs[kk][c] = gv[t];
+      us[kk][c] = uv[t];
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < FM_BK; ++kk) {
+      float a[TM], bg[4], bu[4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bg[j] = gs[kk][tx + 16 * j];
+        bu[j] = us[kk][tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          g[i][j] += a[i] * bg[j];
+          u[i][j] += a[i] * bu[j];
+        }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= N) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (col < F)
+        fm_store(out + (size_t)row * F + col, fm_act(g[i][j], act) * u[i][j]);
+    }
+  }
+}
+
+
+// Decode shapes (N <= FR_ROWS): a weight-streaming kernel.  The block
+// normalises its N rows once into shared memory, then 256 threads = 8
+// column vectors x 32 k-lanes walk d: each thread loads 8 consecutive
+// weights of one matrix per k row (one 16-byte load for bf16 when F and
+// the pointers allow), keeps FR_U rows in flight, and accumulates
+// N x 8 sums; the 32 k-lanes are summed by shuffles and through shared
+// memory, and the epilogue applies act(g) * u.  No barrier inside the
+// d loop, so the loads of a thread queue up back to back.
+#define FR_ROWS 8
+#define FR_COLS 32          // columns of F per block (4 vectors of 8)
+#define FR_U 4
+#define FR_MAX_SMEM (160 * 1024)
+
+__device__ __forceinline__ void fr_load8(const float* p, bool vec, int valid,
+                                         float* w) {
+  if (vec) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w[j] = j < valid ? p[j] : 0.f;
+  }
+}
+__device__ __forceinline__ void fr_load8(const __nv_bfloat16* p, bool vec,
+                                         int valid, float* w) {
+  if (vec) {
+    const uint4 a = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      w[2 * j] = f.x;
+      w[2 * j + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w[j] = j < valid ? __bfloat162float(p[j]) : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FM_THREADS)
+fused_mlp_rows_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                      const T* __restrict__ wg, const T* __restrict__ wu,
+                      T* __restrict__ out, int N, int d, int F, int act,
+                      float eps, int vec_ok) {
+  extern __shared__ float xn[];                  // [N][d]
+  __shared__ float red[FM_THREADS / 32][8][FR_ROWS * 8];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * FR_COLS;
+
+  // normalised rows: warp r computes row r's rms, then writes the row
+  for (int r = warp; r < N; r += FM_THREADS / 32) {
+    float ss = 0.f;
+    for (int k = lane; k < d; k += 32) {
+      const float v = fm_load(x + (size_t)r * d + k);
+      ss += v * v;
+    }
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    const float inv = rsqrtf(ss / (float)d + eps);
+    for (int k = lane; k < d; k += 32)
+      xn[r * d + k] = fm_round(
+          (fm_load(x + (size_t)r * d + k) * inv) * (1.f + fm_load(scale + k)),
+          x);
+  }
+  __syncthreads();
+
+  const int vsel = tid & 7, kl = tid >> 3;       // vector, k-lane (0..31)
+  const T* w = (vsel < 4 ? wg : wu);
+  const int col = n0 + (vsel & 3) * 8;
+  const int valid = min(8, F - col);
+  const bool vec = vec_ok && valid == 8;
+  float acc[FR_ROWS][8];
+#pragma unroll
+  for (int n = 0; n < FR_ROWS; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[n][j] = 0.f;
+
+  if (valid > 0) {
+    for (int k0 = kl; k0 < d; k0 += 32 * FR_U) {
+      float wv[FR_U][8];
+#pragma unroll
+      for (int u = 0; u < FR_U; ++u) {
+        const int k = k0 + u * 32;
+        if (k < d) fr_load8(w + (size_t)k * F + col, vec, valid, wv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < FR_U; ++u) {
+        const int k = k0 + u * 32;
+        if (k >= d) break;
+#pragma unroll
+        for (int n = 0; n < FR_ROWS; ++n) {
+          if (n < N) {
+            const float a = xn[n * d + k];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[n][j] += a * wv[u][j];
+          }
+        }
+      }
+    }
+  }
+
+  // sum the 32 k-lanes: 4 per warp by shuffles, 8 warps through shared memory
+#pragma unroll
+  for (int n = 0; n < FR_ROWS; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float a = acc[n][j];
+      a += __shfl_xor_sync(0xffffffffu, a, 8);
+      a += __shfl_xor_sync(0xffffffffu, a, 16);
+      if (lane < 8) red[warp][vsel][n * 8 + j] = a;
+    }
+  __syncthreads();
+  for (int i = tid; i < N * FR_COLS; i += FM_THREADS) {
+    const int n = i / FR_COLS, c = i - n * FR_COLS, v = c >> 3, j = c & 7;
+    if (n0 + c >= F) continue;
+    float g = 0.f, u = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < FM_THREADS / 32; ++wp) {
+      g += red[wp][v][n * 8 + j];
+      u += red[wp][4 + v][n * 8 + j];
+    }
+    fm_store(out + (size_t)n * F + n0 + c, fm_act(g, act) * u);
+  }
+}
+
+// Prefill in bfloat16 (N > 8): the same tiling on the tensor cores.  A
+// block of 4 warps owns 64 rows x 64 columns; each warp 32 x 32 of gate
+// and of up as 2 x 2 WMMA 16x16x16 bf16 fragments with float32
+// accumulators.  Each 32-deep K tile of normalised x (rounded to bf16) and
+// of both weight matrices is staged in shared memory with 16-byte loads
+// (all issued before any store) and feeds 8 products per warp per 16-deep
+// step.  The epilogue passes each fragment pair through a warp-private
+// 16 x 16 buffer to apply act(g) * u.
+#define FW_BM 64
+#define FW_BN 64
+#define FW_BK 32
+#define FW_THREADS 128
+#define FW_LDA (FW_BK + 8)      // bf16 elements; multiples of 8 for WMMA
+#define FW_LDB (FW_BN + 8)
+
+__global__ void __launch_bounds__(FW_THREADS)
+fused_mlp_wmma_kernel(const __nv_bfloat16* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ scale,
+                      const __nv_bfloat16* __restrict__ wg,
+                      const __nv_bfloat16* __restrict__ wu,
+                      __nv_bfloat16* __restrict__ out, int N, int d, int F,
+                      int act, float eps, int vec_ok) {
+  __shared__ __align__(32) __nv_bfloat16 as[FW_BM][FW_LDA];
+  __shared__ __align__(32) __nv_bfloat16 bgs[FW_BK][FW_LDB];
+  __shared__ __align__(32) __nv_bfloat16 bus[FW_BK][FW_LDB];
+  __shared__ __align__(32) float epi[FW_THREADS / 32][2][16][16];
+  __shared__ float inv_s[FW_BM];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int n0 = blockIdx.x * FW_BN, m0 = blockIdx.y * FW_BM;
+
+  for (int r = warp; r < FW_BM; r += FW_THREADS / 32) {
+    const int row = m0 + r;
+    float ss = 0.f;
+    if (row < N)
+      for (int k = lane; k < d; k += 32) {
+        const float v = fm_load(x + (size_t)row * d + k);
+        ss += v * v;
+      }
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (lane == 0) inv_s[r] = row < N ? rsqrtf(ss / (float)d + eps) : 0.f;
+  }
+  __syncthreads();
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> cg[2][2], cu[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::fill_fragment(cg[i][j], 0.f);
+      wmma::fill_fragment(cu[i][j], 0.f);
+    }
+
+  for (int k0 = 0; k0 < d; k0 += FW_BK) {
+    // loads: 2 vectors of 8 of x (+ scale), 2 of each weight matrix
+    float xv[2][8], sv[2][8], gv[2][8], uv[2][8];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int v = tid + t * FW_THREADS;
+      const int r = v >> 2, kv = (v & 3) * 8, row = m0 + r, k = k0 + kv;
+      const int kval = row < N ? min(8, d - k) : 0;
+      fr_load8(x + (size_t)row * d + k, vec_ok && kval == 8, kval, xv[t]);
+      fr_load8(scale + k, vec_ok && kval == 8, kval, sv[t]);
+      const int kk = v >> 3, cv = (v & 7) * 8, kw = k0 + kk, col = n0 + cv;
+      const int cval = kw < d ? min(8, F - col) : 0;
+      fr_load8(wg + (size_t)kw * F + col, vec_ok && cval == 8, cval, gv[t]);
+      fr_load8(wu + (size_t)kw * F + col, vec_ok && cval == 8, cval, uv[t]);
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int v = tid + t * FW_THREADS;
+      const int r = v >> 2, kv = (v & 3) * 8;
+      const int kk = v >> 3, cv = (v & 7) * 8;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // (x * inv) * (1 + scale), rounded to bf16 as rms_norm's output is
+        as[r][kv + j] = __float2bfloat16((xv[t][j] * inv_s[r]) *
+                                         (1.f + sv[t][j]));
+        bgs[kk][cv + j] = __float2bfloat16(gv[t][j]);
+        bus[kk][cv + j] = __float2bfloat16(uv[t][j]);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < FW_BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> bg[2], bu[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], &as[wm * 32 + i * 16][kk], FW_LDA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        wmma::load_matrix_sync(bg[j], &bgs[kk][wn * 32 + j * 16], FW_LDB);
+        wmma::load_matrix_sync(bu[j], &bus[kk][wn * 32 + j * 16], FW_LDB);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          wmma::mma_sync(cg[i][j], a[i], bg[j], cg[i][j]);
+          wmma::mma_sync(cu[i][j], a[i], bu[j], cu[i][j]);
+        }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(&epi[warp][0][0][0], cg[i][j], 16,
+                              wmma::mem_row_major);
+      wmma::store_matrix_sync(&epi[warp][1][0][0], cu[i][j], 16,
+                              wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int r = e >> 4, c = e & 15;
+        const int row = m0 + wm * 32 + i * 16 + r;
+        const int col = n0 + wn * 32 + j * 16 + c;
+        if (row < N && col < F)
+          out[(size_t)row * F + col] = __float2bfloat16(
+              fm_act(epi[warp][0][r][c], act) * epi[warp][1][r][c]);
+      }
+      __syncwarp();
+    }
+}
+
+template <typename T>
+static int launch_t(const void* x, const void* scale, const void* wg,
+                    const void* wu, void* out, int N, int d, int F, int act,
+                    float eps, cudaStream_t stream) {
+  const size_t rows_smem = sizeof(float) * (size_t)N * d;
+  if (N <= FR_ROWS && rows_smem <= FR_MAX_SMEM) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_mlp_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)rows_smem);
+    if (e != cudaSuccess) return (int)e;
+    // 16-byte vector loads need F % 8 == 0 and 16-byte aligned weights
+    const int vec_ok = F % 8 == 0 &&
+        ((size_t)wg % 16 == 0) && ((size_t)wu % 16 == 0);
+    fused_mlp_rows_kernel<T><<<(F + FR_COLS - 1) / FR_COLS, FM_THREADS,
+                               rows_smem, stream>>>(
+        (const T*)x, (const T*)scale, (const T*)wg, (const T*)wu, (T*)out, N,
+        d, F, act, eps, vec_ok);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // 16-byte vector loads need d, F % 8 == 0 and 16-byte aligned operands
+    const int vec_ok = d % 8 == 0 && F % 8 == 0 && (size_t)x % 16 == 0 &&
+        (size_t)scale % 16 == 0 && (size_t)wg % 16 == 0 &&
+        (size_t)wu % 16 == 0;
+    fused_mlp_wmma_kernel<<<dim3((F + FW_BN - 1) / FW_BN,
+                                 (N + FW_BM - 1) / FW_BM), FW_THREADS, 0,
+                            stream>>>(
+        (const T*)x, (const T*)scale, (const T*)wg, (const T*)wu, (T*)out, N,
+        d, F, act, eps, vec_ok);
+  } else {
+    fused_mlp_kernel<T><<<dim3((F + FM_BN - 1) / FM_BN, (N + 63) / 64),
+                          FM_THREADS, 0, stream>>>(
+        (const T*)x, (const T*)scale, (const T*)wg, (const T*)wu, (T*)out, N,
+        d, F, act, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+// act: 0 silu, 1 gelu (tanh).  dtype: 0 float32, 1 bfloat16.  Returns a
+// cudaError_t (0 = launched).
+extern "C" int fused_mlp_launch(const void* x, const void* scale,
+                                const void* wg, const void* wu, void* out,
+                                int N, int d, int F, int act, float eps,
+                                int dtype, cudaStream_t stream) {
+  if (N < 1 || d < 1 || F < 1 || act < 0 || act > 1 || dtype < 0 ||
+      dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_t<float>(x, scale, wg, wu, out, N, d, F, act, eps, stream);
+  return launch_t<__nv_bfloat16>(x, scale, wg, wu, out, N, d, F, act, eps,
+                                 stream);
+}

@@ -1,0 +1,93 @@
+"""Parameter-spec machinery of the port.
+
+A model is described once as a nested dict of :class:`ParamSpec` (shape,
+dtype, logical axis names, initializer), as in the reference
+(``repro/models/params.py``).  From that single tree come:
+
+* ``init_params``     — weights drawn from an explicit ``torch.Generator`` on
+                        the target device (normal x scale; ``"small"`` divides
+                        the scale by sqrt of the fan-in as the reference does),
+* ``abstract_params`` — shapes and dtypes only (``meta`` tensors, no memory),
+* ``count_params``.
+
+The logical axis names are kept for the sharding rules, which wait for
+ROADMAP queue A item 12; on one device the reference's ``shard_activation``
+is the identity, so the port's layers have no call to it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]          # logical axis name per dim
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"                     # normal | zeros | ones | small
+    scale: float = 0.02
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def spec(shape, axes, dtype=torch.bfloat16, init="normal",
+         scale=0.02) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), dtype, init, scale)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_map(fn: Callable, tree: Any, is_leaf: Callable = is_spec):
+    """Map ``fn`` over the leaves of a nested dict / list / tuple (dict keys
+    in sorted order, the order the reference's pytrees flatten in)."""
+    if is_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], is_leaf) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
+    if tree is None:
+        return None
+    return fn(tree)
+
+
+def tree_leaves(tree: Any, is_leaf: Callable = is_spec) -> list:
+    out: list = []
+    tree_map(out.append, tree, is_leaf)
+    return out
+
+
+def abstract_params(tree):
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), tree)
+
+
+def _init_one(s: ParamSpec, gen: torch.Generator) -> torch.Tensor:
+    dev = gen.device
+    if s.init == "zeros":
+        return torch.zeros(s.shape, dtype=s.dtype, device=dev)
+    if s.init == "ones":
+        return torch.ones(s.shape, dtype=s.dtype, device=dev)
+    scale = s.scale
+    if s.init == "small":
+        scale = s.scale / max(1, int(np.sqrt(np.prod(s.shape[:-1]) or 1)))
+    x = torch.randn(s.shape, generator=gen, dtype=torch.float32, device=dev)
+    return (x * scale).to(s.dtype)
+
+
+def init_params(tree, generator: torch.Generator):
+    """Materialise every spec on ``generator.device``, drawing from
+    ``generator`` leaf by leaf in flattening order."""
+    return tree_map(lambda s: _init_one(s, generator), tree)
+
+
+def count_params(tree) -> int:
+    return int(sum(int(np.prod(s.shape)) if len(s.shape) else 1
+                   for s in tree_leaves(tree)))

@@ -1,0 +1,242 @@
+"""Decoder LM of the port, for the ``dense`` family (pre-norm GQA/MQA
+attention + gated MLP), mirroring ``repro/models/transformer.py``.
+
+Parameters are the reference's nested dict: ``embed``, ``final_norm``,
+``lm_head`` (absent with tied embeddings) and ``blocks``, whose leaves carry
+a leading stacked-layers dim.  The reference scans over that dim; here it
+is a Python loop.  Entry points: ``prefill`` (-> cache) and ``decode_step``
+(cache -> cache).  The KV cache is ``{"pos": (B,) int32, "blocks": (k, v)}``
+with ``k``/``v`` of shape ``(L, B, W, KV, hd)``; each batch row has its own
+position, so rows admitted at different times decode side by side.
+
+Under ``AttnOptions(backend="fused")`` attention runs the ``flash_attention``
+/ ``flash_decode`` kernels, and each block's ``mlp_norm`` + gate/up
+projections run the ``fused_rmsnorm_mlp`` kernel (the down projection stays
+a ``torch.matmul``).  The families ``moe`` / ``ssm`` / ``hybrid``,
+``attn_type="mla"`` and the training entry points are not ported yet and
+raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, not_ported
+from repro_torch.models import layers as L
+from repro_torch.models.layers import AttnOptions
+from repro_torch.models.params import (ParamSpec, abstract_params,
+                                       init_params, spec, tree_map)
+
+
+def _stack_specs(tree, n: int):
+    """Add a leading stacked-layers dim to every ParamSpec leaf."""
+    return tree_map(lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes,
+                                        s.dtype, s.init, s.scale), tree)
+
+
+def _dense_block_spec(cfg: ArchConfig):
+    return {
+        "attn_norm": L.rms_norm_spec(cfg.d_model),
+        "attn": L.gqa_spec(cfg),
+        "mlp_norm": L.rms_norm_spec(cfg.d_model),
+        "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff),
+    }
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, no copy)."""
+    return tree_map(lambda a: a[i], tree, is_leaf=torch.is_tensor)
+
+
+@dataclass
+class LM:
+    cfg: ArchConfig
+    opts: AttnOptions = dataclasses.field(default_factory=AttnOptions)
+    kv_cache_dtype: Optional[torch.dtype] = None   # default bfloat16
+
+    def __post_init__(self):
+        why = not_ported(self.cfg)
+        if why:
+            raise NotImplementedError(why)
+
+    # ----------------------------------------------------------- param specs
+    def param_specs(self):
+        cfg = self.cfg
+        out: Dict[str, Any] = {
+            "embed": spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed")),
+            "final_norm": L.rms_norm_spec(cfg.d_model),
+        }
+        if not cfg.tie_embeddings:
+            out["lm_head"] = spec((cfg.d_model, cfg.vocab_size),
+                                  ("embed", "vocab"), init="small")
+        out["blocks"] = _stack_specs(_dense_block_spec(cfg), cfg.n_layers)
+        return out
+
+    def init(self, generator: torch.Generator):
+        """Random weights on ``generator.device``, drawn from ``generator``."""
+        return init_params(self.param_specs(), generator)
+
+    def abstract(self):
+        return abstract_params(self.param_specs())
+
+    # ------------------------------------------------------------- embedding
+    def _embed(self, params, tokens):
+        cfg = self.cfg
+        embeds = params["embed"][tokens]
+        if cfg.tie_embeddings:   # gemma-style scaling for tied embeddings
+            embeds = embeds * torch.tensor(math.sqrt(cfg.d_model),
+                                           dtype=embeds.dtype)
+        return embeds
+
+    def _logits(self, params, x):
+        cfg = self.cfg
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.tie_embeddings:
+            logits = x @ params["embed"].T
+        else:
+            logits = x @ params["lm_head"]
+        return logits.float()
+
+    # ------------------------------------------------------------------ MLP
+    def _mlp(self, bp, x):
+        """``x + mlp(rms_norm(x))``; under ``fused`` the norm and the gate/up
+        products are one ``fused_rmsnorm_mlp`` launch."""
+        cfg = self.cfg
+        if self.opts.backend == "fused":
+            from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp
+            mp = bp["mlp"]
+            B, S, d = x.shape
+            h = fused_rmsnorm_mlp(x.reshape(B * S, d), bp["mlp_norm"],
+                                  mp["wi_gate"], mp["wi_up"], cfg.act,
+                                  cfg.norm_eps)
+            return x + (h @ mp["wo"]).reshape(B, S, d)
+        h = L.rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
+        return x + L.mlp_apply(bp["mlp"], h, cfg.act)
+
+    # ------------------------------------------------------- full-seq blocks
+    def _block_fwd(self, bp, x, positions, want_cache: bool):
+        """One block forward; returns (x, cache_or_None)."""
+        cfg = self.cfg
+        h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+        res = L.gqa_apply(bp["attn"], cfg, h, positions, self.opts,
+                          return_cache=want_cache)
+        h, cache = res if want_cache else (res, None)
+        return self._mlp(bp, x + h), cache
+
+    def forward(self, params, tokens=None, embeds=None):
+        raise NotImplementedError(
+            "LM.forward (training / scoring) is not ported yet: it comes "
+            "with the training slice (ROADMAP queue A item 11)")
+
+    def loss_fn(self, params, batch):
+        raise NotImplementedError(
+            "LM.loss_fn (training) is not ported yet: it comes with the "
+            "training slice (ROADMAP queue A item 11)")
+
+    # -------------------------------------------------------------- prefill
+    def prefill(self, params, tokens, cache_len: int = 0):
+        """Full-sequence forward that also builds the decode cache.
+
+        tokens: (B, S).  Returns (last-token logits (B,V) float32, cache);
+        ``cache_len`` sizes the KV cache to the serving window (default: the
+        prompt length), capped at the sliding window.
+        """
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        B, S, _ = x.shape
+        W = self._window(cache_len or S)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        blocks = params["blocks"]
+        ck = cv = None
+        for i in range(cfg.n_layers):
+            x, (k, v) = self._block_fwd(_layer(blocks, i), x, positions, True)
+            if ck is None:
+                ck = k.new_empty((cfg.n_layers, B, W) + k.shape[2:])
+                cv = v.new_empty((cfg.n_layers, B, W) + v.shape[2:])
+            k, v = self._pad_attn_cache((k, v), W, S)
+            ck[i], cv[i] = k, v
+        cache = {"pos": torch.full((B,), S, dtype=torch.int32,
+                                   device=x.device),
+                 "blocks": (ck, cv)}
+        logits = self._logits(params, x[:, -1:, :])[:, 0, :]
+        return logits, cache
+
+    # ---------------------------------------------------------- decode step
+    def decode_step(self, params, cache, tokens):
+        """One-token decode for every batch row.  tokens: (B, 1).
+
+        Each row attends at its own position ``cache["pos"][b]`` and its new
+        K/V is written into ``cache["blocks"]`` **in place** at ring slot
+        ``pos[b] % W``.  Returns (logits (B,V) float32, cache) where the
+        returned cache holds the same K/V tensors and ``pos + 1``."""
+        x = self._embed(params, tokens)
+        pos = cache["pos"]
+        ck, cv = cache["blocks"]
+        blocks = params["blocks"]
+        for i in range(self.cfg.n_layers):
+            x = self._block_decode(_layer(blocks, i), x, ck[i], cv[i], pos)
+        logits = self._logits(params, x)[:, 0, :]
+        return logits, {"pos": pos + 1, "blocks": (ck, cv)}
+
+    def _block_decode(self, bp, x, cache_k, cache_v, pos):
+        cfg = self.cfg
+        h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+        h, _, _ = L.gqa_decode(bp["attn"], cfg, h, cache_k, cache_v, pos,
+                               self.opts)
+        return self._mlp(bp, x + h)
+
+    # ------------------------------------------------------------ cache mgmt
+    def _window(self, requested: int) -> int:
+        """Serving KV window: SWA archs cap at the sliding window."""
+        if self.cfg.sliding_window:
+            return min(requested, self.cfg.sliding_window)
+        return requested
+
+    def _attn_cache_dims(self):
+        cfg = self.cfg
+        return (cfg.n_kv_heads, cfg.head_dim), (cfg.n_kv_heads, cfg.head_dim)
+
+    def _zero_attn_cache(self, B, W, dtype=torch.bfloat16, device=None):
+        d0, d1 = self._attn_cache_dims()
+        return (torch.zeros((B, W) + d0, dtype=dtype, device=device),
+                torch.zeros((B, W) + d1, dtype=dtype, device=device))
+
+    def _pad_attn_cache(self, c, W: int, S: int):
+        """Fit prefill-produced caches (len S) into the serving window W."""
+        if c is None:
+            return None
+
+        def fit(a):
+            if a is None:
+                return None
+            # prefill caches come as (B,S,*tail) or stacked (L,B,S,*tail);
+            # locate the sequence axis (first axis of size S after axis 0)
+            ax = next((i for i in range(1, a.dim()) if a.shape[i] == S), None)
+            assert ax is not None, (tuple(a.shape), S)
+            if W == S:
+                return a
+            if W < S:
+                # keep the last W positions AND rotate them so position p
+                # lands in ring slot p % W (decode's slot = pos % W)
+                kept = a.narrow(ax, S - W, W)
+                return torch.roll(kept, shifts=(S - W) % W, dims=ax)
+            pad = [0, 0] * (a.dim() - ax - 1) + [0, W - S]
+            return torch.nn.functional.pad(a, pad)
+        return tree_map(fit, c, is_leaf=torch.is_tensor)
+
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
+        """Empty decode cache sized for ``max_len`` context."""
+        cfg = self.cfg
+        dtype = dtype or self.kv_cache_dtype or torch.bfloat16
+        W = self._window(max_len)
+        n = cfg.n_layers
+        k, v = self._zero_attn_cache(n * batch, W, dtype, device)
+        return {"pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device),
+                "blocks": (k.reshape((n, batch) + k.shape[1:]),
+                           v.reshape((n, batch) + v.shape[1:]))}

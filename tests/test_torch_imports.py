@@ -43,10 +43,22 @@ def test_sources_exist():
                  "src/repro_torch/core/dse.py",
                  "src/repro_torch/sim/batch.py",
                  "src/repro_torch/kernels/tick_sim.py",
-                 "src/repro_torch/kernels/build.py"):
+                 "src/repro_torch/kernels/build.py",
+                 "src/repro_torch/configs/base.py",
+                 "src/repro_torch/configs/h2o_danube_1_8b.py",
+                 "src/repro_torch/core/monitor.py",
+                 "src/repro_torch/models/params.py",
+                 "src/repro_torch/models/layers.py",
+                 "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/kernels/flash_attention.py",
+                 "src/repro_torch/kernels/flash_decode.py",
+                 "src/repro_torch/kernels/fused_mlp.py",
+                 "src/repro_torch/kernels/ops.py",
+                 "src/repro_torch/runtime/serve.py",
+                 "src/repro_torch/launch/serve.py"):
         assert must in names, must
-    assert os.path.exists(os.path.join(PKG, "kernels", "csrc",
-                                       "tick_sim.cu"))
+    for cu in CUDA_SOURCES:
+        assert os.path.exists(os.path.join(PKG, "kernels", "csrc", cu)), cu
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -58,14 +70,32 @@ def test_no_forbidden_import(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+CUDA_SOURCES = {"tick_sim.cu": ("tick_sim_launch",),
+                "flash_attention.cu": ("flash_attention_launch",),
+                "flash_decode.cu": ("flash_decode_launch",),
+                "fused_mlp.cu": ("fused_mlp_launch",)}
+
+
+def test_every_kernel_source_is_listed():
+    on_disk = {f for f in os.listdir(os.path.join(PKG, "kernels", "csrc"))
+               if f.endswith(".cu")}
+    assert on_disk == set(CUDA_SOURCES)
+
+
 def test_kernel_source_is_plain_cuda():
-    """No PyTorch headers (the build is nvcc + ctypes), no library kernels."""
-    src = open(os.path.join(PKG, "kernels", "csrc", "tick_sim.cu")).read()
-    for needle in ("torch/extension.h", "ATen/", "cublas", "cudnn",
-                   "cutlass/gemm/device", "thrust/"):
-        assert needle not in src, needle
-    assert 'extern "C" int tick_sim_launch' in src
-    assert "cudaGetLastError" in src
+    """Every csrc/*.cu: no PyTorch headers (the build is nvcc + ctypes), no
+    library kernels; a plain C entry point that returns the launch's CUDA
+    error; a source note naming the TPU kernel it replaces."""
+    for name, fns in CUDA_SOURCES.items():
+        src = open(os.path.join(PKG, "kernels", "csrc", name)).read()
+        for needle in ("torch/extension.h", "ATen/", "cublas", "cudnn",
+                       "cutlass/", "cute/", "thrust/", "cub/",
+                       "scaled_dot_product"):
+            assert needle not in src, (name, needle)
+        for fn in fns:
+            assert f'extern "C" int {fn}' in src, name
+        assert "cudaGetLastError" in src, name
+        assert "Replaces: src/repro/kernels/" in src, name
 
 
 def test_importing_every_submodule_leaves_jax_and_repro_out():
@@ -83,7 +113,7 @@ def test_importing_every_submodule_leaves_jax_and_repro_out():
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton")]
         assert not bad, bad
-        assert len(mods) >= 18, mods
+        assert len(mods) >= 44, mods
         build_dir = os.path.join(%r, "build")
         print("imported", len(mods), os.path.exists(build_dir))
     """ % ROOT)
