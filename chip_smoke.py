@@ -41,6 +41,23 @@ main path through its public entry points at the size its users run:
                    row's scale, and that check must reject planted faults
                    (zero output, a dropped split or key tile, a window one
                    key short) made with the plain version.
+8. ``serve_ssm`` — the Mamba-2 serving path: ``ServeEngine`` on mamba2-370m
+                   at full width and depth (random bf16 weights from a
+                   seed), 4 slots, 8 requests of 2-16,384 prompt tokens (a
+                   2-token prompt, a ragged single chunk, chunk padding, a
+                   64-chunk prompt; two waves) and 32 new tokens each,
+                   through the ``ssd_scan`` kernel (``ssm_backend="fused"``);
+                   TTFT per request, prefill and decode tokens/s, peak
+                   memory, launches; the run held against the plain path
+                   (``ssm_backend="torch"``, teacher forced); a profile of a
+                   decode step and of the 16,384-token prefill
+                   (``serve_ssm_profile``); and ``ssd_scan`` against its
+                   plain version at the path's shapes (``serve_ssm_kernels``:
+                   per element and per (batch, head) within 1e-4, times,
+                   bound), a check that must reject planted faults (the
+                   state carry dropped at one chunk boundary, the D term
+                   left out, the decay shifted by one position, the first
+                   super-diagonal let through the mask).
 
 Each phase prints one JSON line.  The line before the last but one is
 ``{"kernels": [...]}`` with, per kernel, its launches on its main path, its
@@ -48,10 +65,11 @@ error against the plain version, its time, the plain version's time, the
 library call's time where one PyTorch call computes the same function, and
 the least time the card could take for the same work (the larger of bytes
 over 3.35 TB/s and operations over the peak for their type: 67 TFLOP/s
-float32 for ``tick_sim``, 989 TFLOP/s bf16 for the LLM kernels; published
-H100 SXM figures).  The line before the last is the card's name and power
-limit; the last line is ``{"ok": true, "device": {...}}``.  Any failure
-exits with a non-zero code; without a CUDA device the script stops at once.
+float32 for ``tick_sim`` and ``ssd_scan``, 989 TFLOP/s bf16 for the other
+LLM kernels; published H100 SXM figures).  The line before the last is the
+card's name and power limit; the last line is ``{"ok": true, "device":
+{...}}``.  Any failure exits with a non-zero code; without a CUDA device the
+script stops at once.
 """
 from __future__ import annotations
 
@@ -101,6 +119,18 @@ LLM_ROW_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # once, so they differ by a few bf16 ulps of the residual stream.
 LOGIT_REL_TOL = 5e-2
 AGREE_MIN = 0.9
+
+# The SSM serving phase: mamba2-370m at full width and depth (src/repro_torch/
+# configs/mamba2_370m.py).  Prompts: 2 tokens (shorter than the conv), a
+# ragged single chunk (100), chunk padding (1,000, 3,000), 64 chunks
+# (16,384); 4 slots, so two waves.
+SERVE_SSM = {"arch": "mamba2-370m", "slots": 4,
+             "prompts": (2, 100, 1000, 4096, 16384, 256, 3000, 8192),
+             "max_new": 32, "reps": 10}
+# ssd_scan vs its plain version, float32 both (tests/test_kernels.py:68):
+# |err| <= SSD_TOL + SSD_TOL * |ref| per element, and per (batch, head)
+# max |err| / max |ref| <= SSD_TOL.
+SSD_TOL = 1e-4
 
 
 def sync() -> None:
@@ -644,6 +674,12 @@ def llm_kernels():
             "fused_mlp": fused_rmsnorm_mlp}
 
 
+def all_kernels():
+    """The LLM kernels and ``ssd_scan``: every count a serving run resets."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {**llm_kernels(), "ssd_scan": ssd_scan}
+
+
 def _randn(gen, shape, dtype, scale=1.0):
     return (torch.randn(shape, generator=gen, device=DEV) * scale
             ).to(dtype)
@@ -742,6 +778,123 @@ def mlp_case(gen, N, d, F, act, dtype):
             act, 1e-5)
 
 
+# ssd_scan parity cases: B, L, nh, hd, st, chunk, dt draw (see ssd_case)
+SSD_CASES = (
+    (2, 128, 3, 32, 16, 32, "normal"),      # the four shapes of
+    (1, 64, 1, 8, 8, 16, "normal"),         # tests/test_kernels.py:52-57
+    (1, 256, 2, 64, 128, 64, "normal"),
+    (3, 96, 4, 16, 32, 32, "normal"),
+    (1, 100, 32, 64, 128, 256, "normal"),   # a ragged single chunk
+    (2, 1, 4, 64, 128, 256, "normal"),      # L = 1
+    (1, 2, 8, 64, 128, 256, "normal"),      # L = 2
+    (3, 150, 5, 20, 24, 50, "normal"),      # Q = 50, widths off the tiles
+    (2, 320, 6, 64, 128, 160, "mamba"),     # Q = 160: a ragged last tile
+    (1, 512, 4, 64, 128, 256, "large_dt"),  # exp above the diagonal overflows
+    (1, 2048, 32, 64, 128, 256, "mamba"),   # 8 chunks at the path's widths
+)
+
+
+def ssd_case(gen, B, L, nh, hd, st, kind="normal"):
+    """Inputs of one ssd_scan call, float32.  ``normal``: the draws of
+    tests/test_kernels.py (dt = softplus(N(0,1)), A = -exp(0.2 N(0,1)));
+    ``large_dt``: that dt times 50, so exp(la_i - la_j) overflows above the
+    diagonal; ``mamba``: Mamba-2's initialisation ranges, A in -[1, 16] and
+    a dt per head log-uniform in [1e-3, 1e-1] (times exp(0.5 N(0,1)) per
+    token), so some heads keep their state over many chunks and others
+    forget it within a few tokens."""
+    f32 = torch.float32
+    xs = _randn(gen, (B, L, nh, hd), f32)
+    Bm, Cm = (_randn(gen, (B, L, st), f32) for _ in range(2))
+    D = _randn(gen, (nh,), f32)
+    if kind == "mamba":
+        A = -(1.0 + 15.0 * torch.rand((nh,), generator=gen, device=DEV))
+        lo, hi = float(np.log(1e-3)), float(np.log(1e-1))
+        dt_head = torch.exp(lo + (hi - lo) * torch.rand(
+            (nh,), generator=gen, device=DEV))
+        dt = dt_head * torch.exp(0.5 * _randn(gen, (B, L, nh), f32))
+    else:
+        A = -torch.exp(0.2 * _randn(gen, (nh,), f32))
+        dt = torch.nn.functional.softplus(_randn(gen, (B, L, nh), f32))
+        if kind == "large_dt":
+            dt = dt * 50.0
+    return xs, dt.contiguous(), A.contiguous(), Bm, Cm, D
+
+
+def head_rel_err(out, ref, dims) -> float:
+    """Largest error over each (batch, head) slice (the ``dims`` reduced)
+    divided by the largest |value| of that slice of ``ref``; a slice of
+    zeros in ``ref`` counts its absolute error."""
+    if not ref.numel():
+        return 0.0
+    o, r = out.double(), ref.double()
+    err, top = (o - r).abs().amax(dims), r.abs().amax(dims)
+    return float(torch.where(top > 0, err / top.clamp(min=1e-300), err).max())
+
+
+def ssd_check(y, h, ref_y, ref_h):
+    """(y, h) held against (ref_y, ref_h): shapes, finite, per element
+    |err| <= SSD_TOL + SSD_TOL * |ref| (``max_excess`` = the largest
+    |err| - SSD_TOL * |ref|), and per (batch, head) max |err| / max |ref|
+    <= SSD_TOL (``max_row_rel_err``: for ``ssd_scan`` a row is one
+    (batch, head) of y or of h)."""
+    res = {"tolerance": SSD_TOL, "row_rtol": SSD_TOL}
+    if y.shape != ref_y.shape or h.shape != ref_h.shape:
+        return {**res, "max_abs_err": float("inf"), "max_excess": float("inf"),
+                "max_row_rel_err": float("inf"), "ok": False}
+    excess = 0.0
+    for a, b in ((y, ref_y), (h, ref_h)):
+        if a.numel():
+            d = (a.double() - b.double()).abs() - SSD_TOL * b.double().abs()
+            excess = max(excess, float(d.max()))
+    res.update(max_abs_err=max(_err(y, ref_y), _err(h, ref_h)),
+               max_excess=excess,
+               max_row_rel_err=max(head_rel_err(y, ref_y, (1, 3)),
+                                   head_rel_err(h, ref_h, (2, 3))))
+    res["ok"] = (bool(torch.isfinite(y).all())
+                 and bool(torch.isfinite(h).all()) and excess <= SSD_TOL
+                 and res["max_row_rel_err"] <= SSD_TOL)
+    return res
+
+
+def ssd_planted_faults(args, chunk, ref):
+    """What a faulty ssd_scan would return on ``args``, made with the plain
+    version: the state carry dropped at the middle chunk boundary (both
+    halves scanned from a zero state); the D term left out; the decay
+    shifted by one position (la exclusive instead of inclusive); the first
+    super-diagonal let through the causal mask (y_i also gets
+    (C_i . B_{i+1}) exp(la_i - la_{i+1}) dt_{i+1} x_{i+1} within a chunk).
+    The check must reject each."""
+    from repro_torch.kernels.ssd_scan import (chunk_cumsum, chunk_len,
+                                              ssd_chunks_plain,
+                                              ssd_scan_plain)
+    xs, dt, A, Bm, Cm, D = args
+    ref_y, ref_h = ref
+    L = xs.shape[1]
+    Q = chunk_len(L, chunk)
+    out = {}
+    if L // Q > 1:
+        k = (L // Q // 2) * Q
+        part = [tuple(t[:, lo:hi].contiguous() for t in (xs, dt, Bm, Cm))
+                for lo, hi in ((0, k), (k, L))]
+        y1, _ = ssd_scan_plain(*part[0][:2], A, *part[0][2:], D, chunk)
+        y2, h2 = ssd_scan_plain(*part[1][:2], A, *part[1][2:], D, chunk)
+        out["carry_dropped"] = (torch.cat([y1, y2], dim=1), h2)
+    out["no_D"] = ssd_scan_plain(xs, dt, A, Bm, Cm, torch.zeros_like(D),
+                                 chunk)
+    la = chunk_cumsum(dt * A, Q)
+    out["decay_shifted"] = ssd_chunks_plain(xs, dt, la - dt * A, Bm, Cm, D,
+                                            Q)
+    if Q > 1:
+        same_chunk = (torch.arange(L - 1, device=xs.device) % Q) != Q - 1
+        cb = (Cm[:, :-1] * Bm[:, 1:]).sum(-1)                     # (B, L-1)
+        w = torch.exp(la[:, :-1] - la[:, 1:]) * dt[:, 1:]         # (B,L-1,nh)
+        term = (cb[..., None] * w)[..., None] * xs[:, 1:]
+        y = ref_y.clone()
+        y[:, :-1] += torch.where(same_chunk[None, :, None, None], term, 0.0)
+        out["superdiag"] = (y, ref_h)
+    return out
+
+
 def phase_llm_kernels():
     """Each LLM kernel against its plain version on the card at small and
     edge shapes: head dim 80, ragged tiles, windows, a query row with no
@@ -750,6 +903,7 @@ def phase_llm_kernels():
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.flash_decode import flash_decode_plain
     from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     K = llm_kernels()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     cases, bad = [], []
@@ -796,51 +950,71 @@ def phase_llm_kernels():
         for (N, d, F, act) in mlps:
             run("fused_mlp", "mlp", mlp_case(gen, N, d, F, act, dtype),
                 fused_rmsnorm_mlp_plain)
+    for (B, L, nh, hd, st, chunk, kind) in SSD_CASES:
+        args = ssd_case(gen, B, L, nh, hd, st, kind)
+        y, h = ssd_scan(*args, chunk)
+        sync()
+        res = ssd_check(y, h, *ssd_scan_plain(*args, chunk))
+        case = {"kernel": "ssd_scan", "shape": [B, L, nh, hd], "st": st,
+                "chunk": chunk, "dt": kind, "dtype": "float32",
+                "max_abs_err": res["max_abs_err"],
+                "max_excess": res["max_excess"],
+                "max_row_rel_err": res["max_row_rel_err"]}
+        cases.append(case)
+        if not res["ok"]:
+            bad.append(case)
+    names = sorted({c["kernel"] for c in cases})
     emit({"phase": "llm_kernels", "cases": len(cases), "failed": len(bad),
           "atol": {f"{k}/{str(t).split('.')[-1]}": v
                    for (k, t), v in LLM_ATOL.items()},
           "attention_row_rtol": {str(t).split('.')[-1]: v
                                  for t, v in LLM_ROW_RTOL.items()},
+          "ssd_tol": SSD_TOL,
           "worst": {n: max(c["max_abs_err"] for c in cases
-                           if c["kernel"] == n) for n in K},
+                           if c["kernel"] == n) for n in names},
           "worst_row_rel": {n: max(c["max_row_rel_err"] for c in cases
-                                   if c["kernel"] == n) for n in K},
+                                   if c["kernel"] == n) for n in names},
           "first_failures": bad[:5]})
     if bad:
         raise SystemExit("an LLM kernel disagrees with its plain version")
 
 
-def drive_serve():
-    """The serving path through its public entry points: ``ServeEngine`` on
-    the card with the fused backend; records the logits it computed."""
+def drive_serve(spec=SERVE, lm_kwargs=None, phase="serve",
+                path=("flash_attention", "flash_decode", "fused_mlp")):
+    """A serving path through its public entry points: ``ServeEngine`` on
+    the card with the kernel backends (``lm_kwargs``; default: attention
+    and MLP ``fused``); records the logits it computed.  Every kernel's
+    count is set to 0 just before the requests and read just after; each
+    kernel of ``path`` must have launched."""
     from repro_torch.configs import get_config
     from repro_torch.models.layers import AttnOptions
     from repro_torch.runtime.serve import Request, ServeEngine
-    K = llm_kernels()
-    cfg = get_config(SERVE["arch"])
+    K = all_kernels()
+    cfg = get_config(spec["arch"])
+    if lm_kwargs is None:
+        lm_kwargs = dict(opts=AttnOptions(backend="fused"))
+    window = spec.get("window", 256)     # the ssm cache has no window
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, batch_slots=SERVE["slots"],
-                      window=SERVE["window"],
-                      lm_kwargs=dict(opts=AttnOptions(backend="fused")),
-                      seed=SEED, device=DEV)
+    eng = ServeEngine(cfg, batch_slots=spec["slots"], window=window,
+                      lm_kwargs=lm_kwargs, seed=SEED, device=DEV)
     sync()
     init_s = time.perf_counter() - t0
     lm = eng.lm
 
     # warm the path (first launches, cuBLAS handles) on a throwaway cache
     warm = torch.zeros((1, 64), dtype=torch.long, device=DEV)
-    _, c = lm.prefill(eng.params, warm, cache_len=SERVE["window"])
+    _, c = lm.prefill(eng.params, warm, cache_len=window)
     lm.decode_step(eng.params, c, warm[:, :1])
     del c
     sync()
 
     # record what the engine computes: (rid, token index) -> logits row
     rng = np.random.default_rng(SEED)
-    reqs = [Request(rid=i, max_new=SERVE["max_new"],
+    reqs = [Request(rid=i, max_new=spec["max_new"],
                     prompt=rng.integers(0, cfg.vocab_size, size=n
                                         ).astype(np.int32))
-            for i, n in enumerate(SERVE["prompts"])]
+            for i, n in enumerate(spec["prompts"])]
     logits = {}
     prefill, decode_step = lm.prefill, lm.decode_step
     admission = iter([r.rid for r in reqs])     # the queue is FIFO
@@ -863,7 +1037,7 @@ def drive_serve():
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
-    for _ in range(10 * len(reqs) * SERVE["max_new"]):
+    for _ in range(10 * len(reqs) * spec["max_new"]):
         if len(eng.done) == len(reqs):
             break
         eng.step()
@@ -872,17 +1046,19 @@ def drive_serve():
     launches = {n: f.launches for n, f in K.items()}   # ... to here
     lm.prefill, lm.decode_step = prefill, decode_step
     if len(eng.done) != len(reqs):
-        raise SystemExit(f"serve: {len(eng.done)}/{len(reqs)} requests done")
-    if min(launches.values()) < 1:
-        raise SystemExit(f"serve: a kernel was never launched: {launches}")
+        raise SystemExit(f"{phase}: {len(eng.done)}/{len(reqs)} requests "
+                         f"done")
+    if min(launches[n] for n in path) < 1:
+        raise SystemExit(f"{phase}: a kernel was never launched: {launches}")
 
     tm = eng.timings
     n_decoded = sum(len(r.out) - 1 for r in reqs)
     report = {
-        "phase": "serve", "arch": cfg.name, "d_model": cfg.d_model,
-        "n_layers": cfg.n_layers, "slots": SERVE["slots"],
-        "window": SERVE["window"], "prompts": list(SERVE["prompts"]),
-        "max_new": SERVE["max_new"], "init_s": init_s, "wall_s": wall,
+        "phase": phase, "arch": cfg.name, "d_model": cfg.d_model,
+        "n_layers": cfg.n_layers, "slots": spec["slots"],
+        **({"window": spec["window"]} if "window" in spec else {}),
+        "prompts": list(spec["prompts"]),
+        "max_new": spec["max_new"], "init_s": init_s, "wall_s": wall,
         "ttft_s": [r.t_first - r.t_submit for r in reqs],
         "prefill_s": tm["prefill_s"],
         "prefill_tokens_per_s": tm["prefill_tokens"] / tm["prefill_s"],
@@ -892,24 +1068,27 @@ def drive_serve():
         "decode_step_ms": 1e3 * tm["decode_s"] / tm["decode_steps"],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches, "stats": eng.stats()}
-    return report, dict(eng=eng, reqs=reqs, logits=logits)
+    return report, dict(eng=eng, reqs=reqs, logits=logits, window=window)
 
 
-def verify_serve_logits(report, ctx):
+def verify_serve_logits(report, ctx, plain_kwargs=None):
     """The kernel path against the plain path on the card, teacher forced:
-    the plain LM is fed the kernel path's tokens, so one near-tie cannot
-    make the two runs diverge."""
+    the plain LM (``plain_kwargs``; default: attention ``naive``) is fed the
+    kernel path's tokens, so one near-tie cannot make the two runs
+    diverge."""
     from repro_torch.models.layers import AttnOptions
     from repro_torch.models.transformer import LM
     eng, reqs, logits = ctx["eng"], ctx["reqs"], ctx["logits"]
-    plain = LM(eng.cfg, opts=AttnOptions(backend="naive"))
+    if plain_kwargs is None:
+        plain_kwargs = dict(opts=AttnOptions(backend="naive"))
+    plain = LM(eng.cfg, **plain_kwargs)
     worst, agree, n, finite = 0.0, 0, 0, True
     t0 = time.perf_counter()
     for r in reqs:
         prompt = torch.as_tensor(r.prompt[None, :], dtype=torch.long,
                                  device=DEV)
         lg, cache = plain.prefill(eng.params, prompt,
-                                  cache_len=SERVE["window"])
+                                  cache_len=ctx["window"])
         for i in range(len(r.out)):
             if i:
                 tok = torch.tensor([[r.out[i - 1]]], device=DEV)
@@ -927,13 +1106,15 @@ def verify_serve_logits(report, ctx):
         "finite": finite, "plain_path_s": time.perf_counter() - t0}
     if not finite or worst > LOGIT_REL_TOL or agree / n < AGREE_MIN:
         emit(report)
-        raise SystemExit("serve: the kernel path disagrees with the plain "
-                         "path")
+        raise SystemExit(f"{report['phase']}: the kernel path disagrees with "
+                         f"the plain path")
 
 
-def _bound(byts, ops):
+def _bound(byts, ops, peak=H100_BF16_PER_S):
+    """Least milliseconds for ``byts`` bytes and ``ops`` operations at the
+    card's memory rate and ``peak`` operations/s, and which bounds."""
     t_bytes = byts / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_BF16_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
 
@@ -1099,12 +1280,14 @@ def _kernel_group(name: str) -> str:
     for k in ("fused_mlp", "flash_attention", "flash_decode"):
         if k in name:
             return k
+    if name.startswith("ssd_"):         # the four kernels of csrc/ssd_scan.cu
+        return "ssd_scan"
     if name.startswith("nvjet") or "gemm" in name.lower():
         return "torch.matmul (cuBLAS)"
     return "other torch ops"
 
 
-def profile_serve(ctx):
+def profile_serve(ctx, phase="serve_profile"):
     """Where the time of one serving step goes: a decode step at all slots
     (on the engine's final cache) and a prefill of the longest prompt,
     each under ``torch.profiler``: host wall time, device time by kernel
@@ -1119,7 +1302,7 @@ def profile_serve(ctx):
         "decode_step": lambda: lm.decode_step(eng.params, eng.cache,
                                               eng.tokens),
         "prefill_%d" % prompt.shape[1]: lambda: lm.prefill(
-            eng.params, prompt, cache_len=SERVE["window"])}
+            eng.params, prompt, cache_len=ctx["window"])}
     out = {}
     for label, fn in steps.items():
         fn()
@@ -1142,9 +1325,9 @@ def profile_serve(ctx):
                       "idle_share": 1.0 - device_ms / (wall * 1e3),
                       "device_ms_by_group": dict(sorted(
                           groups.items(), key=lambda kv: -kv[1]))}
-    emit({"phase": "serve_profile", **out})
+    emit({"phase": phase, **out})
     if any(v["device_ms"] <= 0 for v in out.values()):
-        raise SystemExit("serve_profile: the profiler saw no device time")
+        raise SystemExit(f"{phase}: the profiler saw no device time")
     return out
 
 
@@ -1157,6 +1340,106 @@ def phase_serve():
     return report, rows
 
 
+def ssd_bound(B, L, nh, hd, st, Q):
+    """Least time of one ssd_scan call: operations over the float32 peak
+    (67 TFLOP/s) or bytes over 3.35 TB/s.  Operations count the live
+    (i >= j) pairs of each chunk only: C B^T once per (batch, chunk), 2 st
+    each (shared by the heads); per head the pair's decay, dt and product
+    (3) and its att @ x (2 hd); C @ h_in and the state update, 2 st hd per
+    token and head each.  Bytes: each input read once, y and h written
+    once."""
+    nc = L // Q
+    pairs = Q * (Q + 1) / 2.0
+    ops = (2.0 * B * nc * pairs * st + B * nh * nc * pairs * (3.0 + 2.0 * hd)
+           + 2.0 * 2.0 * B * L * nh * st * hd)
+    byts = 4.0 * (2 * B * L * nh * hd + B * L * nh + 2 * nh + 2 * B * L * st
+                  + B * nh * st * hd)
+    return ops, byts, _bound(byts, ops, H100_FP32_PER_S)
+
+
+def time_ssm_kernels():
+    """``ssd_scan`` at the SSM serving path's shapes (the 16,384-token and
+    the 100-token prefill of mamba2-370m: nh 32, hd 64, st 128, chunk 256)
+    against its plain version, on inputs drawn in Mamba-2's initialisation
+    ranges (``ssd_case`` "mamba"): per element and per (batch, head) within
+    SSD_TOL; the kernel's device time (CUDA graph of SERVE_SSM["reps"]
+    calls), one call as the path makes it, the plain version's time, the
+    bound; and the same check put to planted faults, each of which it must
+    reject."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    cfg = get_config(SERVE_SSM["arch"])
+    nh, hd, st, chunk = (cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
+                         cfg.ssm_chunk)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    reps = SERVE_SSM["reps"]
+    rows = {}
+    for L in (max(SERVE_SSM["prompts"]), 100):
+        args = ssd_case(gen, 1, L, nh, hd, st, "mamba")
+        y, h = ssd_scan(*args, chunk)
+        sync()
+        ref = ssd_scan_plain(*args, chunk)
+        sync()
+        res = ssd_check(y, h, *ref)
+        del y, h
+        res.update(ms=graph_ms(lambda: ssd_scan(*args, chunk), reps),
+                   call_ms=cuda_ms(lambda: ssd_scan(*args, chunk), reps),
+                   plain_ms=cuda_ms(lambda: ssd_scan_plain(*args, chunk), 2),
+                   library_ms=None)
+        Q = min(chunk, L)
+        ops, byts, (bound_ms, bound_by) = ssd_bound(1, L, nh, hd, st, Q)
+        res.update(bound_ms=bound_ms, bound_by=bound_by, operations=ops,
+                   bytes=byts, shape=f"xs (1,{L},{nh},{hd}), st {st}, "
+                   f"Q {Q}, f32", kernels_per_call=4)
+        faults = {}
+        for fault, (fy, fh) in ssd_planted_faults(args, chunk, ref).items():
+            c = ssd_check(fy, fh, *ref)
+            faults[fault] = {"max_abs_err": c["max_abs_err"],
+                             "max_excess": c["max_excess"],
+                             "max_row_rel_err": c["max_row_rel_err"],
+                             "rejected": not c["ok"]}
+            del fy, fh
+        res["planted_faults"] = faults
+        res["faults_rejected"] = all(v["rejected"] for v in faults.values())
+        rows[L] = res
+        del args, ref
+    row = {**rows[max(rows)], "also": rows[100]}
+    emit({"phase": "serve_ssm_kernels", "ssd_scan": row})
+    if not (row["ok"] and row["also"]["ok"]):
+        raise SystemExit("ssd_scan disagrees with its plain version at the "
+                         "SSM serving path's shapes")
+    if not (row["faults_rejected"] and row["also"]["faults_rejected"]):
+        raise SystemExit("the ssd_scan check passed a planted fault")
+    return row
+
+
+def phase_serve_ssm():
+    """The Mamba-2 serving path (``ssm_backend="fused"``), its teacher-
+    forced check against the plain path, its profile, and ``ssd_scan`` at
+    its shapes.  One ``ssd_scan`` launch is one call (its four kernels);
+    every prefill makes one per layer."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_SSM["arch"])
+    report, ctx = drive_serve(SERVE_SSM, dict(ssm_backend="fused"),
+                              "serve_ssm", ("ssd_scan",))
+    need = cfg.n_layers * len(SERVE_SSM["prompts"])
+    report.update(d_inner=cfg.d_inner, ssm_heads=cfg.n_ssm_heads,
+                  ssm_headdim=cfg.ssm_headdim, ssm_state=cfg.ssm_state,
+                  ssm_chunk=cfg.ssm_chunk, ssd_scan_launches_min=need)
+    if report["launches"]["ssd_scan"] < need:
+        emit(report)
+        raise SystemExit(f"serve_ssm: ssd_scan launched "
+                         f"{report['launches']['ssd_scan']} times, fewer "
+                         f"than {need} (layers x prefills)")
+    verify_serve_logits(report, ctx, dict(ssm_backend="torch"))
+    emit(report)
+    profile_serve(ctx, "serve_ssm_profile")
+    del ctx
+    torch.cuda.empty_cache()
+    row = time_ssm_kernels()
+    return report, row
+
+
 LLM_REPLACES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:107"),
@@ -1164,6 +1447,8 @@ LLM_REPLACES = {
                      "src/repro/kernels/flash_decode.py:90"),
     "fused_mlp": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
                   "src/repro/kernels/fused_mlp.py:57"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:90"),
 }
 
 KERNEL_KEYS = ("max_abs_err", "tolerance", "max_row_rel_err", "row_rtol",
@@ -1230,8 +1515,12 @@ def main() -> int:
     main_report = verify_main_path(main_report, main_ctx)
     a12_report = verify_main_path_a12(a12_report, a12_ctx)
 
-    # the serving path, counted inside drive_serve the same way
+    # the serving paths, each counted inside drive_serve the same way
     serve_report, serve_rows = phase_serve()
+    ssm_report, ssm_row = phase_serve_ssm()
+    serve_rows = {**serve_rows, "ssd_scan": ssm_row}
+    path_launches = {**serve_report["launches"],
+                     "ssd_scan": ssm_report["launches"]["ssd_scan"]}
 
     lin = main_report["kernel_vs_plain"]["linear"]
     a12k = a12_report["kernel_vs_plain"]
@@ -1257,7 +1546,7 @@ def main() -> int:
                  "bound_by": a12k["bound_by"]}}] + [{
         "name": n, "route": "cuda", "source": LLM_REPLACES[n][0],
         "replaces": LLM_REPLACES[n][1],
-        "launches": serve_report["launches"][n],
+        "launches": path_launches[n],
         **{k: serve_rows[n][k] for k in KERNEL_KEYS},
         **({"also": {k: serve_rows[n]["also"][k] for k in KERNEL_KEYS}}
            if "also" in serve_rows[n] else {})}

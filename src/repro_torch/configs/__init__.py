@@ -1,8 +1,9 @@
 """Configurations of the port.
 
 ``vespa_soc`` is the paper's own 4x4 SoC.  The LLM architectures the port
-can run (dense GQA) register themselves when this package is imported, as in
-the reference; ``base.UNPORTED`` lists the ones that wait.
+can run (dense GQA, and the attention-free ``ssm`` family) register
+themselves when this package is imported, as in the reference;
+``base.UNPORTED`` lists the ones that wait.
 """
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
@@ -22,4 +23,5 @@ from repro_torch.configs import (  # noqa: F401
     gemma_2b,
     chameleon_34b,
     musicgen_large,
+    mamba2_370m,
 )

@@ -5,9 +5,10 @@ every architecture is a frozen :class:`ArchConfig`, input shapes are
 :class:`ShapeConfig`, a registry maps ``--arch <id>`` strings to configs and
 ``reduced()`` gives a CPU-sized config of the same family.
 
-Only architectures the port can run are registered (dense GQA for now).
-:func:`get_config` of a known architecture whose family or attention type
-is not ported yet raises ``NotImplementedError`` naming its ROADMAP item.
+Only architectures the port can run are registered (dense GQA and the
+attention-free ``ssm`` family).  :func:`get_config` of a known architecture
+whose family or attention type is not ported yet raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -242,22 +243,22 @@ def register(name: str):
 UNPORTED: Dict[str, Tuple[str, str]] = {
     "deepseek-v2-lite-16b": ("moe", "mla"),
     "granite-moe-1b-a400m": ("moe", "gqa"),
-    "mamba2-370m": ("ssm", "none"),
     "zamba2-7b": ("hybrid", "gqa"),
 }
 
-_SSM_WAITS = ("models/mamba2.py and the ssd_scan kernel are not ported yet "
-              "(ROADMAP queue A item 10, queue B item 4)")
 _WAITS = {
     "moe": "models/moe.py is not ported yet (ROADMAP queue A item 10)",
-    "ssm": _SSM_WAITS,
-    "hybrid": _SSM_WAITS,
+    "hybrid": ("the hybrid family's shared attention tile (one KV history "
+               "per application site) is not ported yet (ROADMAP queue A "
+               "item 10)"),
     "mla": "MLA attention is not ported yet (ROADMAP queue A item 10)",
 }
 
 
 def _reason(name: str, family: str, attn_type: str) -> Optional[str]:
-    if family != "dense":
+    if family == "ssm" and attn_type == "none":
+        return None
+    if family not in ("dense", "ssm"):
         return f"{name}: family {family!r}: {_WAITS.get(family, 'not ported')}"
     if attn_type != "gqa":
         return (f"{name}: attn_type {attn_type!r}: "

@@ -184,11 +184,19 @@ def lm_params_from_numpy(tree: Any, device: DeviceSpec = None):
 
 
 def lm_cache_from_numpy(d: Mapping, device: DeviceSpec = None):
-    """A reference LM cache ``{"pos": scalar or (B,), "blocks": (k, v)}`` with
-    ``k``/``v`` ``(L, B, W, KV, hd)`` -> the port's cache, whose ``pos`` is
-    one int32 position per batch row."""
+    """A reference LM cache ``{"pos": scalar or (B,), "blocks": ...}`` -> the
+    port's cache, whose ``pos`` is one int32 position per batch row.
+    ``blocks`` is ``(k, v)`` with ``k``/``v`` ``(L, B, W, KV, hd)`` (dense),
+    or a dict of leaves ``(L, B, ...)`` (ssm: ``conv_x``, ``conv_B``,
+    ``conv_C``, ``state``), carried leaf by leaf in their dtypes."""
     dev = resolve(device)
-    k, v = (_tensor(a, dev) for a in d["blocks"])
+    blocks = d["blocks"]
+    if isinstance(blocks, Mapping):
+        blocks = {k: _tensor(a, dev) for k, a in blocks.items()}
+        B = next(iter(blocks.values())).shape[1]
+    else:
+        blocks = tuple(_tensor(a, dev) for a in blocks)
+        B = blocks[0].shape[1]
     pos = torch.tensor(np.asarray(d["pos"]), dtype=torch.int32,
-                       device=dev).expand(k.shape[1]).contiguous()
-    return {"pos": pos, "blocks": (k, v)}
+                       device=dev).expand(B).contiguous()
+    return {"pos": pos, "blocks": blocks}

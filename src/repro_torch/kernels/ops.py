@@ -7,3 +7,4 @@ tensors and its plain PyTorch version on CPU tensors.  The backward passes
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: F401
 from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp  # noqa: F401
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401

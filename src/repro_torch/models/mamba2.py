@@ -1,0 +1,204 @@
+"""Mamba-2 (SSD, state-space duality) mixer of the port — chunked scan +
+decode step, mirroring ``repro/models/mamba2.py``.
+
+The SSD chunked algorithm (Dao & Gu, arXiv:2405.21060) splits the sequence
+into chunks of Q tokens: a quadratic *intra-chunk* term and a linear
+*inter-chunk* state recurrence.  ``ssm_apply(backend="torch")`` runs it in
+plain PyTorch (:func:`ssd_scan_ref`, the reference's ``"xla"``);
+``backend="fused"`` runs the ``ssd_scan`` kernel (the reference's
+``"pallas"``).  Decode carries (conv, state) caches and is O(1) per token.
+
+Projections are split (w_z/w_x/w_B/w_C/w_dt + per-stream depthwise convs) as
+in the reference.  Dtype order as there: ``dt`` goes to float32 before the
+softplus; ``xs``/``Bm``/``Cm`` go to float32 only for the scan; ``y`` comes
+back to the activation dtype before the gated ``rms_norm``.
+
+One difference, on purpose: the conv cache of a prompt shorter than
+``ssm_conv - 1`` tokens.  The reference keeps ``xs[:, L-(c-1):]``, which for
+such a prompt is fewer than ``c - 1`` rows (ROADMAP queue C); the port keeps
+the last ``c - 1`` pre-conv inputs left-padded with zeros, which is what the
+causal conv of the full sequence saw.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
+from repro_torch.models.layers import rms_norm, rms_norm_spec
+from repro_torch.models.params import spec
+
+SSM_BACKENDS = ("torch", "fused")
+
+
+def check_backend(backend: str) -> None:
+    if backend not in SSM_BACKENDS:
+        raise ValueError(f"ssm backend {backend!r}; the port has "
+                         f"{SSM_BACKENDS} (its names for the reference's "
+                         f"'xla' and 'pallas' are 'torch' and 'fused')")
+
+
+def ssm_spec(cfg: ArchConfig):
+    d, di, st, nh, c = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                        cfg.n_ssm_heads, cfg.ssm_conv)
+    g = cfg.ssm_ngroups
+    f32 = torch.float32
+    return {
+        "w_z": spec((d, di), ("embed", "d_inner")),
+        "w_x": spec((d, di), ("embed", "d_inner")),
+        "w_B": spec((d, g * st), ("embed", "ssm_state")),
+        "w_C": spec((d, g * st), ("embed", "ssm_state")),
+        "w_dt": spec((d, nh), ("embed", "ssm_heads")),
+        "conv_x": spec((c, di), (None, "d_inner"), init="normal", scale=0.5),
+        "conv_B": spec((c, g * st), (None, "ssm_state"), init="normal",
+                       scale=0.5),
+        "conv_C": spec((c, g * st), (None, "ssm_state"), init="normal",
+                       scale=0.5),
+        "dt_bias": spec((nh,), ("ssm_heads",), dtype=f32, init="zeros"),
+        "A_log": spec((nh,), ("ssm_heads",), dtype=f32, init="zeros"),
+        "D": spec((nh,), ("ssm_heads",), dtype=f32, init="ones"),
+        "norm": rms_norm_spec(di),
+        "out_proj": spec((di, d), ("d_inner", "embed"), init="small"),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv via shifted adds.  x: (B,L,C), w: (c,C)."""
+    c = w.shape[0]
+    out = x * w[-1]
+    for i in range(1, c):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :-i, :]
+        out = out + shifted * w[-1 - i]
+    return out
+
+
+def _conv_step(x_t: torch.Tensor, buf: torch.Tensor, w: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token depthwise conv.  x_t: (B,C); buf: (B,c-1,C) past inputs.
+    Returns (out (B,C), the new buffer (B,c-1,C) in ``buf``'s dtype); the
+    sums run in the promoted dtype of the three, as in the reference."""
+    dtype = torch.promote_types(torch.promote_types(buf.dtype, x_t.dtype),
+                                w.dtype)
+    hist = torch.cat([buf, x_t[:, None, :]], dim=1).to(dtype)   # (B,c,C)
+    out = torch.einsum("btc,tc->bc", hist, w.to(dtype))
+    return out, hist[:, 1:, :].to(buf.dtype)
+
+
+def _conv_tail(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The last ``n`` rows of x (B,L,C), left-padded with zeros when L < n
+    (the inputs the causal conv saw before position 0 are zeros)."""
+    L = x.shape[1]
+    if L >= n:
+        return x[:, L - n:, :]
+    return F.pad(x, (0, 0, n - L, 0))
+
+
+def _ssd_inputs(p: Dict, x: torch.Tensor):
+    """Shared projections for scan/decode.  x: (B,L,d)."""
+    z = x @ p["w_z"]
+    xs = x @ p["w_x"]
+    Bm = x @ p["w_B"]
+    Cm = x @ p["w_C"]
+    dt = (x @ p["w_dt"]).float()
+    return z, xs, Bm, Cm, dt
+
+
+# The chunked SSD in plain PyTorch, the reference's ``ssd_scan_ref``, is the
+# ``ssd_scan`` kernel's plain version.
+ssd_scan_ref = ssd_scan_plain
+
+
+def ssm_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+              backend: str = "torch", return_cache: bool = False):
+    """Full-sequence Mamba-2 block.  x: (B,L,d) -> (B,L,d) [, cache]."""
+    check_backend(backend)
+    Bb, L, d = x.shape
+    nh, hd = cfg.n_ssm_heads, cfg.ssm_headdim
+    c = cfg.ssm_conv
+    z, xs, Bm, Cm, dt = _ssd_inputs(p, x)
+    xs_raw, Bm_raw, Cm_raw = xs, Bm, Cm          # pre-conv (cache tails)
+    xs = F.silu(_causal_conv(xs, p["conv_x"]))
+    Bm = F.silu(_causal_conv(Bm, p["conv_B"]))
+    Cm = F.silu(_causal_conv(Cm, p["conv_C"]))
+
+    dt = F.softplus(dt + p["dt_bias"])                     # (B,L,nh) f32
+    A = -torch.exp(p["A_log"])                             # (nh,)
+
+    # pad to a chunk multiple; padded positions get dt=0 so they neither
+    # emit output nor perturb the carried state (a = exp(0*A) = 1, upd = 0)
+    Q = min(cfg.ssm_chunk, max(L, 1))
+    Lp = -(-L // Q) * Q
+    if Lp != L:
+        pad = (0, 0, 0, Lp - L)
+        xs, Bm, Cm, dt = (F.pad(t, pad) for t in (xs, Bm, Cm, dt))
+    xsh = xs.reshape(Bb, Lp, nh, hd).float().contiguous()
+    Bf, Cf = Bm.float().contiguous(), Cm.float().contiguous()
+    if backend == "fused":
+        from repro_torch.kernels.ssd_scan import ssd_scan
+        y, h_final = ssd_scan(xsh, dt.contiguous(), A, Bf, Cf, p["D"],
+                              chunk=cfg.ssm_chunk)
+    else:
+        y, h_final = ssd_scan_ref(xsh, dt, A, Bf, Cf, p["D"],
+                                  chunk=cfg.ssm_chunk)
+    y = y.reshape(Bb, Lp, nh * hd)[:, :L, :].to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    if not return_cache:
+        return out
+    cache = dict(conv_x=_conv_tail(xs_raw, c - 1),
+                 conv_B=_conv_tail(Bm_raw, c - 1),
+                 conv_C=_conv_tail(Cm_raw, c - 1),
+                 state=h_final)
+    return out, cache
+
+
+def ssm_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: Dict
+               ) -> Tuple[torch.Tensor, Dict]:
+    """Single-token decode.  x: (B,1,d); cache keys: conv_x/conv_B/conv_C
+    (B,c-1,·) and state (B,nh,st,hd) f32.  O(1) in context length.
+    Returns (out (B,1,d), a new cache dict: new tensors, the given cache is
+    not written)."""
+    Bb = x.shape[0]
+    nh, hd = cfg.n_ssm_heads, cfg.ssm_headdim
+    z, xs, Bm, Cm, dt = _ssd_inputs(p, x[:, 0:1, :])
+    z, xs, Bm, Cm, dt = z[:, 0], xs[:, 0], Bm[:, 0], Cm[:, 0], dt[:, 0]
+
+    xs, conv_x = _conv_step(xs, cache["conv_x"], p["conv_x"])
+    Bm, conv_B = _conv_step(Bm, cache["conv_B"], p["conv_B"])
+    Cm, conv_C = _conv_step(Cm, cache["conv_C"], p["conv_C"])
+    xs, Bm, Cm = F.silu(xs), F.silu(Bm), F.silu(Cm)
+
+    dt = F.softplus(dt + p["dt_bias"])                     # (B,nh)
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt * A)                                  # (B,nh)
+    xh = xs.reshape(Bb, nh, hd).float()
+    # state update: h = a h + dt * B (outer) x
+    upd = torch.einsum("bn,bs,bnh->bnsh", dt, Bm.float(), xh)
+    h = cache["state"] * a[:, :, None, None] + upd
+    y = torch.einsum("bs,bnsh->bnh", Cm.float(), h)
+    y = y + xh * p["D"][None, :, None]
+    y = y.reshape(Bb, nh * hd).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = (y @ p["out_proj"])[:, None, :]
+    new_cache = dict(conv_x=conv_x, conv_B=conv_B, conv_C=conv_C, state=h)
+    return out, new_cache
+
+
+def ssm_cache_init(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,
+                   device=None) -> Dict:
+    c = cfg.ssm_conv
+    g = cfg.ssm_ngroups
+    return dict(
+        conv_x=torch.zeros((batch, c - 1, cfg.d_inner), dtype=dtype,
+                           device=device),
+        conv_B=torch.zeros((batch, c - 1, g * cfg.ssm_state), dtype=dtype,
+                           device=device),
+        conv_C=torch.zeros((batch, c - 1, g * cfg.ssm_state), dtype=dtype,
+                           device=device),
+        state=torch.zeros((batch, cfg.n_ssm_heads, cfg.ssm_state,
+                           cfg.ssm_headdim), dtype=torch.float32,
+                          device=device),
+    )

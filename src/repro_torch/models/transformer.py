@@ -1,18 +1,24 @@
 """Decoder LM of the port, for the ``dense`` family (pre-norm GQA/MQA
-attention + gated MLP), mirroring ``repro/models/transformer.py``.
+attention + gated MLP) and the ``ssm`` family (pre-norm Mamba-2 blocks,
+attention-free), mirroring ``repro/models/transformer.py``.
 
 Parameters are the reference's nested dict: ``embed``, ``final_norm``,
 ``lm_head`` (absent with tied embeddings) and ``blocks``, whose leaves carry
 a leading stacked-layers dim.  The reference scans over that dim; here it
 is a Python loop.  Entry points: ``prefill`` (-> cache) and ``decode_step``
-(cache -> cache).  The KV cache is ``{"pos": (B,) int32, "blocks": (k, v)}``
-with ``k``/``v`` of shape ``(L, B, W, KV, hd)``; each batch row has its own
-position, so rows admitted at different times decode side by side.
+(cache -> cache).  Each batch row has its own position ``cache["pos"]``
+(B,) int32, so rows admitted at different times decode side by side.  The
+dense cache's ``blocks`` is ``(k, v)`` of shape ``(L, B, W, KV, hd)``; the
+ssm cache's is a dict of the reference's leaves with the stacked layer dim
+and no sequence axis: ``conv_x`` (L, B, c-1, d_inner), ``conv_B`` /
+``conv_C`` (L, B, c-1, st) and ``state`` (L, B, nh, st, hd) float32.
 
 Under ``AttnOptions(backend="fused")`` attention runs the ``flash_attention``
 / ``flash_decode`` kernels, and each block's ``mlp_norm`` + gate/up
 projections run the ``fused_rmsnorm_mlp`` kernel (the down projection stays
-a ``torch.matmul``).  The families ``moe`` / ``ssm`` / ``hybrid``,
+a ``torch.matmul``).  Under ``ssm_backend="fused"`` each Mamba-2 block's
+prefill scan runs the ``ssd_scan`` kernel (``"torch"``, the default, runs
+the chunked scan in plain PyTorch).  The families ``moe`` / ``hybrid``,
 ``attn_type="mla"`` and the training entry points are not ported yet and
 raise ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -27,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, not_ported
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models.layers import AttnOptions
 from repro_torch.models.params import (ParamSpec, abstract_params,
                                        init_params, spec, tree_map)
@@ -47,6 +54,10 @@ def _dense_block_spec(cfg: ArchConfig):
     }
 
 
+def _ssm_block_spec(cfg: ArchConfig):
+    return {"norm": L.rms_norm_spec(cfg.d_model), "ssm": M.ssm_spec(cfg)}
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copy)."""
     return tree_map(lambda a: a[i], tree, is_leaf=torch.is_tensor)
@@ -57,11 +68,17 @@ class LM:
     cfg: ArchConfig
     opts: AttnOptions = dataclasses.field(default_factory=AttnOptions)
     kv_cache_dtype: Optional[torch.dtype] = None   # default bfloat16
+    ssm_backend: str = "torch"   # torch | fused (reference: xla | pallas)
 
     def __post_init__(self):
         why = not_ported(self.cfg)
         if why:
             raise NotImplementedError(why)
+        M.check_backend(self.ssm_backend)
+
+    @property
+    def _ssm(self) -> bool:
+        return self.cfg.family == "ssm"
 
     # ----------------------------------------------------------- param specs
     def param_specs(self):
@@ -73,7 +90,8 @@ class LM:
         if not cfg.tie_embeddings:
             out["lm_head"] = spec((cfg.d_model, cfg.vocab_size),
                                   ("embed", "vocab"), init="small")
-        out["blocks"] = _stack_specs(_dense_block_spec(cfg), cfg.n_layers)
+        block = _ssm_block_spec(cfg) if self._ssm else _dense_block_spec(cfg)
+        out["blocks"] = _stack_specs(block, cfg.n_layers)
         return out
 
     def init(self, generator: torch.Generator):
@@ -121,6 +139,12 @@ class LM:
     def _block_fwd(self, bp, x, positions, want_cache: bool):
         """One block forward; returns (x, cache_or_None)."""
         cfg = self.cfg
+        if self._ssm:
+            h = L.rms_norm(x, bp["norm"], cfg.norm_eps)
+            res = M.ssm_apply(bp["ssm"], cfg, h, backend=self.ssm_backend,
+                              return_cache=want_cache)
+            h, cache = res if want_cache else (res, None)
+            return x + h, cache
         h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
         res = L.gqa_apply(bp["attn"], cfg, h, positions, self.opts,
                           return_cache=want_cache)
@@ -143,7 +167,8 @@ class LM:
 
         tokens: (B, S).  Returns (last-token logits (B,V) float32, cache);
         ``cache_len`` sizes the KV cache to the serving window (default: the
-        prompt length), capped at the sliding window.
+        prompt length), capped at the sliding window.  The ssm cache has no
+        sequence axis and ignores ``cache_len``.
         """
         cfg = self.cfg
         x = self._embed(params, tokens)
@@ -152,6 +177,17 @@ class LM:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
         blocks = params["blocks"]
+        pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        if self._ssm:
+            stacked: Dict[str, torch.Tensor] = {}
+            for i in range(cfg.n_layers):
+                x, c = self._block_fwd(_layer(blocks, i), x, positions, True)
+                for k, a in c.items():
+                    if k not in stacked:
+                        stacked[k] = a.new_empty((cfg.n_layers,) + a.shape)
+                    stacked[k][i] = a
+            logits = self._logits(params, x[:, -1:, :])[:, 0, :]
+            return logits, {"pos": pos, "blocks": stacked}
         ck = cv = None
         for i in range(cfg.n_layers):
             x, (k, v) = self._block_fwd(_layer(blocks, i), x, positions, True)
@@ -160,9 +196,7 @@ class LM:
                 cv = v.new_empty((cfg.n_layers, B, W) + v.shape[2:])
             k, v = self._pad_attn_cache((k, v), W, S)
             ck[i], cv[i] = k, v
-        cache = {"pos": torch.full((B,), S, dtype=torch.int32,
-                                   device=x.device),
-                 "blocks": (ck, cv)}
+        cache = {"pos": pos, "blocks": (ck, cv)}
         logits = self._logits(params, x[:, -1:, :])[:, 0, :]
         return logits, cache
 
@@ -173,11 +207,28 @@ class LM:
         Each row attends at its own position ``cache["pos"][b]`` and its new
         K/V is written into ``cache["blocks"]`` **in place** at ring slot
         ``pos[b] % W``.  Returns (logits (B,V) float32, cache) where the
-        returned cache holds the same K/V tensors and ``pos + 1``."""
+        returned cache holds the same K/V tensors and ``pos + 1``.
+
+        The ssm family also writes **in place**: each layer's new conv
+        buffers and state (computed as new tensors by ``ssm_decode``) are
+        copied into that layer's slice of the stacked cache tensors, so the
+        returned cache holds the same tensors (no new state per step)."""
         x = self._embed(params, tokens)
         pos = cache["pos"]
-        ck, cv = cache["blocks"]
         blocks = params["blocks"]
+        if self._ssm:
+            sc = cache["blocks"]
+            for i in range(self.cfg.n_layers):
+                bp = _layer(blocks, i)
+                h = L.rms_norm(x, bp["norm"], self.cfg.norm_eps)
+                h, c2 = M.ssm_decode(bp["ssm"], self.cfg, h,
+                                     {k: a[i] for k, a in sc.items()})
+                x = x + h
+                for k, a in c2.items():
+                    sc[k][i].copy_(a)               # casts to the cache dtype
+            logits = self._logits(params, x)[:, 0, :]
+            return logits, {"pos": pos + 1, "blocks": sc}
+        ck, cv = cache["blocks"]
         for i in range(self.cfg.n_layers):
             x = self._block_decode(_layer(blocks, i), x, ck[i], cv[i], pos)
         logits = self._logits(params, x)[:, 0, :]
@@ -235,8 +286,13 @@ class LM:
         dtype = dtype or self.kv_cache_dtype or torch.bfloat16
         W = self._window(max_len)
         n = cfg.n_layers
+        pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+        if self._ssm:       # conv buffers in the cache dtype, state float32
+            one = M.ssm_cache_init(cfg, n * batch, dtype, device)
+            return {"pos": pos,
+                    "blocks": {k: a.reshape((n, batch) + a.shape[1:])
+                               for k, a in one.items()}}
         k, v = self._zero_attn_cache(n * batch, W, dtype, device)
-        return {"pos": torch.zeros((batch,), dtype=torch.int32,
-                                   device=device),
+        return {"pos": pos,
                 "blocks": (k.reshape((n, batch) + k.shape[1:]),
                            v.reshape((n, batch) + v.shape[1:]))}

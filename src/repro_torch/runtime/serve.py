@@ -6,13 +6,15 @@ counter (the analogue of the paper's DMA round-trip counter).
 
 The reference ``vmap``s one decode step over a per-slot cache whose position
 is a per-slot scalar.  Here that batch dimension is written out: the cache is
-one ``(L, slots, W, KV, hd)`` pair with a ``(slots,)`` position vector, and
-one batched ``decode_step`` serves every slot, each row at its own position
-(its query position ``pos[b]``, its ring of key positions, its new K/V
-written at ``pos[b] % W`` in place).  As in the reference, empty slots
-decode too and their positions advance.  Prefill runs per admitted request
-with B=1 and ``cache_len=window``; its cache is copied into the request's
-slot.
+one ``(L, slots, W, KV, hd)`` pair with a ``(slots,)`` position vector (for
+the ``ssm`` family: the stacked conv buffers and states, ``(L, slots, ...)``
+each), and one batched ``decode_step`` serves every slot, each row at its
+own position (dense: its query position ``pos[b]``, its ring of key
+positions, its new K/V written at ``pos[b] % W`` in place; ssm: its new conv
+buffers and state written over its old ones in place).  As in the
+reference, empty slots decode too and their positions advance.  Prefill
+runs per admitted request with B=1 and ``cache_len=window``; its cache is
+copied into the request's slot leaf by leaf.
 
 Besides the tick counts of the reference, every request carries host-clock
 stamps (``t_submit``, ``t_first``, ``t_done``; the device is synchronised
@@ -112,7 +114,10 @@ class ServeEngine:
             self.counters = mon.charge(
                 self.counters, "mem",
                 rtt=float(self.tick + 1 - req.submitted_tick))
-            for stack, new in zip(self.cache["blocks"], cache1["blocks"]):
+            stacks, news = self.cache["blocks"], cache1["blocks"]
+            pairs = ([(stacks[k], news[k]) for k in stacks]
+                     if isinstance(stacks, dict) else zip(stacks, news))
+            for stack, new in pairs:                 # leaf by leaf
                 stack[:, slot] = new[:, 0]           # casts to the cache dtype
             self.cache["pos"][slot] = cache1["pos"][0]
             self.tokens[slot, 0] = tok

@@ -53,7 +53,10 @@ def test_sources_exist():
                  "src/repro_torch/kernels/flash_attention.py",
                  "src/repro_torch/kernels/flash_decode.py",
                  "src/repro_torch/kernels/fused_mlp.py",
+                 "src/repro_torch/kernels/ssd_scan.py",
                  "src/repro_torch/kernels/ops.py",
+                 "src/repro_torch/configs/mamba2_370m.py",
+                 "src/repro_torch/models/mamba2.py",
                  "src/repro_torch/runtime/serve.py",
                  "src/repro_torch/launch/serve.py"):
         assert must in names, must
@@ -73,7 +76,8 @@ def test_no_forbidden_import(path):
 CUDA_SOURCES = {"tick_sim.cu": ("tick_sim_launch",),
                 "flash_attention.cu": ("flash_attention_launch",),
                 "flash_decode.cu": ("flash_decode_launch",),
-                "fused_mlp.cu": ("fused_mlp_launch",)}
+                "fused_mlp.cu": ("fused_mlp_launch",),
+                "ssd_scan.cu": ("ssd_scan_launch",)}
 
 
 def test_every_kernel_source_is_listed():

@@ -305,11 +305,16 @@ def test_init_params_scales_and_generator():
 
 def test_unported_families_and_entry_points_raise():
     for arch in ("deepseek-v2-lite-16b", "granite-moe-1b-a400m",
-                 "mamba2-370m", "zamba2-7b"):
+                 "zamba2-7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
             port_configs.get_config(arch)
+    with pytest.raises(NotImplementedError, match="shared attention tile"):
+        port_configs.get_config("zamba2-7b")
+    # the ssm family is ported: mamba2-370m and family="ssm" build
+    assert port_configs.get_config("mamba2-370m").family == "ssm"
     cfg = port_configs.get_config("granite-8b").reduced()
-    for change in (dict(family="moe"), dict(family="ssm"),
+    PT.LM(dataclasses.replace(cfg, family="ssm"))
+    for change in (dict(family="moe"), dict(family="hybrid"),
                    dict(attn_type="mla")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PT.LM(dataclasses.replace(cfg, **change))
