@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --quick    # device, build, kernel parity only
+    python3 chip_smoke.py --ptxas    # also nvcc's registers / spills
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, and drives the port's
@@ -36,7 +37,10 @@ main path through its public entry points at the size its users run:
                    and decode tokens/s, peak memory; then the run held
                    against the plain path on the card (teacher-forced
                    logits), and each kernel against its plain version at the
-                   path's shapes, with times beside the bound and SDPA.
+                   path's shapes, with times beside the bound and SDPA
+                   (both graph-timed) and, for the MLP, cuBLAS on the same
+                   products; the prefill kernels must run their Hopper
+                   (``wgmma_tma``) variant there.
                    Attention is held per output row as well, relative to the
                    row's scale, and that check must reject planted faults
                    (zero output, a dropped split or key tile, a window one
@@ -778,6 +782,35 @@ def mlp_case(gen, N, d, F, act, dtype):
             act, 1e-5)
 
 
+# The wgmma/TMA kernels' edges (bfloat16; tests/test_torch_llm_kernels.py
+# holds the same cases): B, Sq, Sk, KV, G, hd, window, query positions
+# (kind, first), key positions ("perm": a random permutation)
+EDGE_ATTN = (
+    (2, 200, 200, 2, 2, 80, 0, ("arange", 0), "arange"),    # ragged tiles
+    (1, 150, 400, 2, 4, 128, 0, ("arange", 250), "arange"),  # Sk > Sq
+    (1, 150, 400, 1, 2, 64, 100, ("arange", 250), "arange"),  # + window
+    (1, 300, 300, 2, 2, 64, 0, ("perm", 0), "perm"),        # non-monotone
+    (1, 260, 260, 1, 2, 128, 90, ("perm", 0), "perm"),
+    (1, 512, 512, 2, 2, 80, 130, ("arange", 0), "arange"),  # live by window
+    (1, 300, 300, 2, 2, 80, 0, ("arange", -40), "arange"),  # rows no key
+    (2, 1000, 1000, 2, 4, 80, 300, ("arange", 0), "arange"),  # full tiles
+    (1, 384, 384, 1, 1, 128, 0, ("arange", 0), "arange"),   # exact tiles
+)
+# N, d, F, act: ragged rows, h2o-danube's and a 5,632 width, F and d off
+# the 128 / 64 tiles, gelu
+EDGE_MLP = ((200, 256, 384, "silu"), (300, 2560, 6912, "silu"),
+            (150, 2048, 5632, "gelu"), (130, 512, 1000, "gelu"),
+            (100, 200, 136, "silu"))
+
+
+def edge_positions(gen, kind, n, first):
+    if kind == "perm":
+        p = torch.randperm(n, generator=gen, device=DEV) + first
+    else:
+        p = torch.arange(first, first + n, device=DEV)
+    return p.to(torch.int32)[None]
+
+
 # ssd_scan parity cases: B, L, nh, hd, st, chunk, dt draw (see ssd_case)
 SSD_CASES = (
     (2, 128, 3, 32, 16, 32, "normal"),      # the four shapes of
@@ -899,7 +932,8 @@ def phase_llm_kernels():
     """Each LLM kernel against its plain version on the card at small and
     edge shapes: head dim 80, ragged tiles, windows, a query row with no
     live key, ring caches with unwritten slots, G from 1 to 8, silu and
-    gelu, float32 and bfloat16."""
+    gelu, float32 and bfloat16; and the wgmma/TMA kernels at their edges
+    (``EDGE_ATTN``, ``EDGE_MLP``), each of which must run that kernel."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.flash_decode import flash_decode_plain
     from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
@@ -908,7 +942,7 @@ def phase_llm_kernels():
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     cases, bad = [], []
 
-    def run(name, kind, args, plain, extra=()):
+    def run(name, kind, args, plain, extra=(), want=None):
         out = K[name](*args, *extra)
         sync()
         ref = plain(*args)
@@ -916,10 +950,11 @@ def phase_llm_kernels():
         res = llm_check(kind, out, ref, dtype)
         case = {"kernel": name, "shape": list(args[0].shape),
                 "dtype": str(dtype).split(".")[-1],
+                "variant": getattr(K[name], "last_variant", None),
                 "max_abs_err": res["max_abs_err"],
                 "max_row_rel_err": res["max_row_rel_err"]}
         cases.append(case)
-        if not res["ok"]:
+        if not res["ok"] or (want and case["variant"] != want):
             bad.append(case)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -950,6 +985,18 @@ def phase_llm_kernels():
         for (N, d, F, act) in mlps:
             run("fused_mlp", "mlp", mlp_case(gen, N, d, F, act, dtype),
                 fused_rmsnorm_mlp_plain)
+    # the wgmma/TMA paths' edges; each must run the new kernel
+    bf16 = torch.bfloat16
+    for (B, Sq, Sk, KV, G, hd, win, (qkind, qfirst), kkind) in EDGE_ATTN:
+        qp = edge_positions(gen, qkind, Sq, qfirst).expand(B, Sq).contiguous()
+        kp = edge_positions(gen, kkind, Sk, 0).expand(B, Sk).contiguous()
+        run("flash_attention", "attention",
+            attention_case(gen, B, Sq, Sk, KV, G, hd, hd, win, bf16,
+                           qpos=qp, kpos=kp),
+            flash_attention_plain, want="wgmma_tma")
+    for (N, d, F, act) in EDGE_MLP:
+        run("fused_mlp", "mlp", mlp_case(gen, N, d, F, act, bf16),
+            fused_rmsnorm_mlp_plain, want="wgmma_tma")
     for (B, L, nh, hd, st, chunk, kind) in SSD_CASES:
         args = ssd_case(gen, B, L, nh, hd, st, kind)
         y, h = ssd_scan(*args, chunk)
@@ -1150,26 +1197,31 @@ def graph_ms(fn, reps: int) -> float:
 
 def time_llm_kernel(name, kind, args, plain, library=None, extra=()):
     """Kernel vs plain version on the same inputs: error (``llm_check``),
-    and times.  ``ms`` is the kernel's device time (CUDA graph of
-    SERVE["reps"] launches); ``call_ms`` one wrapper call as the path makes
-    it, host work included (CUDA events, mean of SERVE["reps"] after a warm
-    call); the plain version and the library call are timed as they run,
-    eagerly (CUDA events, mean of 2 after a warm call).  For attention the
-    same check is also put to the planted faults, each of which it must
-    reject (``faults_rejected``)."""
+    the device kernel that ran (``variant``), and times.  ``ms`` is the
+    kernel's device time and ``library_ms`` the library call's, both timed
+    the same way (a CUDA graph of SERVE["reps"] calls, ``graph_ms``);
+    ``library_call_ms`` is the library call run eagerly (CUDA events, mean
+    of 2 after a warm call: host gaps between its launches included);
+    ``call_ms`` one wrapper call as the path makes it, host work included
+    (CUDA events, mean of SERVE["reps"] after a warm call); the plain
+    version is timed as it runs, eagerly (mean of 2).  For attention the same check is
+    also put to the planted faults, each of which it must reject
+    (``faults_rejected``)."""
     f = llm_kernels()[name]
     out = f(*args, *extra)
     sync()
+    variant = getattr(f, "last_variant", None)
     ref = plain(*args)
     sync()
-    res = {**llm_check(kind, out, ref, args[0].dtype),
+    res = {**llm_check(kind, out, ref, args[0].dtype), "variant": variant,
            "ms": graph_ms(lambda: f(*args, *extra), SERVE["reps"]),
            "call_ms": cuda_ms(lambda: f(*args, *extra), SERVE["reps"]),
            "plain_ms": cuda_ms(lambda: plain(*args), 2),
-           "library_ms": None}
+           "library_ms": None, "library_call_ms": None}
     if library is not None:
         library()
-        res["library_ms"] = cuda_ms(library, 2)
+        res["library_ms"] = graph_ms(library, SERVE["reps"])
+        res["library_call_ms"] = cuda_ms(library, 2)
     del out
     if kind == "attention":
         faults = {}
@@ -1192,7 +1244,7 @@ def time_serve_kernels(ctx):
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.flash_decode import flash_decode_plain
     from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
-    from repro_torch.models.layers import _window_mask, ring_kpos
+    from repro_torch.models.layers import _window_mask, ring_kpos, rms_norm
     eng = ctx["eng"]
     cfg = eng.cfg
     KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
@@ -1257,6 +1309,14 @@ def time_serve_kernels(ctx):
         m_args = (x, norm, wg, wu, cfg.act, cfg.norm_eps)
         rr = time_llm_kernel("fused_mlp", "mlp", m_args,
                              fused_rmsnorm_mlp_plain)
+        if label == "prefill":
+            # yardstick only (the port never calls it): cuBLAS on the same
+            # products, normalised x against [Wg | Wu], graph-timed
+            xn = rms_norm(x, norm, cfg.norm_eps)
+            wgu = torch.cat([wg, wu], dim=1)
+            rr["matmul_ms"] = graph_ms(lambda: torch.matmul(xn, wgu),
+                                       SERVE["reps"])
+            del xn, wgu
         ops = 4.0 * N * d * Ff
         rr.update(zip(("bound_ms", "bound_by"),
                       _bound(_nbytes(x, norm, wg, wu) + 2.0 * N * Ff, ops)))
@@ -1267,12 +1327,17 @@ def time_serve_kernels(ctx):
     bad = [n for n, r in rows.items()
            if not r["ok"] or ("also" in r and not r["also"]["ok"])]
     blind = [n for n, r in rows.items() if not r.get("faults_rejected", True)]
+    old = [n for n in PREFILL_VARIANT
+           if rows[n]["variant"] != PREFILL_VARIANT[n]]
     emit({"phase": "serve_kernels", **rows})
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions at the "
                          f"serving path's shapes: {bad}")
     if blind:
         raise SystemExit(f"the check passed a planted fault of {blind}")
+    if old:
+        raise SystemExit(f"the serving shape did not run the Hopper kernel "
+                         f"of {old}")
     return rows
 
 
@@ -1454,6 +1519,15 @@ LLM_REPLACES = {
 KERNEL_KEYS = ("max_abs_err", "tolerance", "max_row_rel_err", "row_rtol",
                "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
+# keys a row carries where it has them
+KERNEL_EXTRA_KEYS = ("variant", "library_call_ms", "matmul_ms")
+# the device kernel each prefill must run at the serving shape
+PREFILL_VARIANT = {"flash_attention": "wgmma_tma", "fused_mlp": "wgmma_tma"}
+
+
+def kernel_row(r):
+    return {**{k: r[k] for k in KERNEL_KEYS},
+            **{k: r[k] for k in KERNEL_EXTRA_KEYS if r.get(k) is not None}}
 
 
 # ---------------------------------------------------------------------------
@@ -1547,8 +1621,8 @@ def main() -> int:
         "name": n, "route": "cuda", "source": LLM_REPLACES[n][0],
         "replaces": LLM_REPLACES[n][1],
         "launches": path_launches[n],
-        **{k: serve_rows[n][k] for k in KERNEL_KEYS},
-        **({"also": {k: serve_rows[n]["also"][k] for k in KERNEL_KEYS}}
+        **kernel_row(serve_rows[n]),
+        **({"also": kernel_row(serve_rows[n]["also"])}
            if "also" in serve_rows[n] else {})}
         for n in LLM_REPLACES]})
     print(smi, flush=True)

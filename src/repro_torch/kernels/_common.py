@@ -44,5 +44,11 @@ def positions(p: torch.Tensor, shape) -> torch.Tensor:
     return p.to(torch.int32).contiguous()
 
 
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """True when every tensor's data starts on a 16-byte boundary (what a
+    TMA load or a 16-byte vector load of it needs)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -5,8 +5,9 @@ into ``build/kernels/lib<name>_<hash>.so`` (plain C interface, loaded with
 ``ctypes``; no PyTorch headers, so a build takes seconds; all sources are
 compiled side by side, one ``nvcc`` each).  The directory is ``build/``
 under the repository root (override with ``REPRO_TORCH_BUILD_DIR``) and the
-file name carries a hash of the source and the flags, so a changed source
-builds anew and an unchanged one is loaded as it is.  A failed build
+file name carries a hash of the source, of every shared header
+``csrc/*.cuh`` and of the flags, so a changed source or header builds anew
+and an unchanged one is loaded as it is.  A failed build
 raises with the compiler's output.  Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -61,6 +62,9 @@ def _find_nvcc() -> str:
 def _target(src: Path, flags) -> Path:
     h = hashlib.sha256()
     h.update(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):      # any source may include it
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(flags).encode())
     return build_dir() / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 

@@ -14,11 +14,21 @@
 // with a 4,096 window it is ~1.1e11 operations per layer, ~0.11 ms: bound by
 // operations.
 //
-// What the design does about it.
-//  * One block per (batch * q-head, 64-query tile).  The TPU kernel's
-//    sequential kv grid dimension has no GPU counterpart: the block loops
-//    over 64-key tiles itself and carries the online-softmax state (row max
-//    m, row sum l, the 64 x hd_v accumulator) in registers.
+// Three device kernels; the wrapper (kernels/flash_attention.py,
+// `_variant`) picks one by dtype and shape alone and passes its code:
+//  * flash_attention_wgmma_kernel ("wgmma_tma"): bfloat16 with hd_qk ==
+//    hd_v in {64, 80, 128} and 16-byte aligned operands (every dense
+//    config of the port but gemma-2b's 256).  The design for this card, see
+//    its note below: TMA ring, warp specialisation, wgmma, the softmax
+//    state in registers.
+//  * flash_attention_wmma_kernel ("wmma"): every other bfloat16 shape
+//    (head dims up to 256, misaligned views).  WMMA 16x16x16 fragments.
+//  * flash_attention_kernel ("cuda_cores"): float32, on the CUDA cores.
+//
+// What all three share.
+//  * The TPU kernel's sequential kv grid dimension has no GPU counterpart:
+//    a block loops over kv tiles itself and carries the online-softmax
+//    state (row max m, row sum l, the accumulator).
 //  * A kv tile with no live (query, key) pair is skipped (no loads, no
 //    products), as the Pallas kernel does; the test is made on the tile's
 //    position ranges, so it holds for any position arrays: the key tile is
@@ -26,26 +36,24 @@
 //    or (with a window) its largest is at or below the smallest query
 //    position minus the window.  Skipping is exact: a dead tile adds 0.
 //  * GQA by index: q head h reads kv head h / G directly; nothing is copied.
-//  * Any head dim up to 256 (80 for h2o-danube): the products loop over the
-//    real hd and the output columns past hd_v are masked, as are the ragged
-//    query and key tails of the last tiles.
 //  * Masking keeps the reference's form p = live ? exp(s - m) : 0 and
 //    out = acc / max(l, 1e-30), so a row with no live key gives 0 and never
 //    the exp(0) = 1 of a fully masked row.
-//  * Tiles are staged into shared memory with FA_U loads in flight per
-//    thread (the first version loaded one element at a time and waited on
-//    each: latency-bound).
-//  * bfloat16 runs on the tensor cores (flash_attention_wmma_kernel, WMMA
-//    16x16x16 fragments with float32 sums; see its note).  float32 runs on
-//    the CUDA cores (16 x 16 threads, each 4 query rows x 4 keys for q k^T
-//    and 4 rows x ceil(hd_v / 16) columns for p v, operands staged in shared
-//    memory, the score rows reduced with half-warp shuffles).  wgmma / TMA
-//    pipelines are later work.
+//  * Ragged query and key tails of the last tiles are masked.
+//
+// The CUDA-core and WMMA kernels stage tiles with FA_U loads in flight per
+// thread (the first version loaded one element at a time and waited on
+// each: latency-bound); the float32 kernel runs 16 x 16 threads, each 4
+// query rows x 4 keys for q k^T and 4 rows x ceil(hd_v / 16) columns for
+// p v, the score rows reduced with half-warp shuffles.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <math.h>
 #include <mma.h>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -551,19 +559,405 @@ static int launch_t(const void* q, const void* k, const void* v,
                           hdv, window, scale, stream);
 }
 
-// dtype: 0 float32, 1 bfloat16.  Returns a cudaError_t (0 = launched).
+// ---------------------------------------------------------------------------
+// bfloat16 with hd_qk == hd_v in {64, 80, 128}: TMA + mbarrier ring +
+// wgmma, warp specialised ("wgmma_tma").
+//
+// Block: 128 queries of one (batch, q head) x every live 128-key tile.
+// 384 threads = three warpgroups.  Warpgroup 0 is the producer: after the
+// setup below it gives registers away (setmaxnreg 40) and one thread
+// issues the TMA loads: the Q tile once, then per live kv tile the K tile
+// and the V tile into a ring of FH_STAGES stages, each with its own full
+// (TMA bytes arrived) and empty (both consumers done) mbarrier, so K of the
+// next tile streams in while V of this one is still being read.
+// Warpgroups 1 and 2 are the consumers (setmaxnreg 232), 64 query rows
+// each; per kv tile each one
+//   S = Q K^T      wgmma m64n128k16, A (Q) and B (K) K-major from shared
+//                  memory, hd / 16 k steps, f32 accumulators in registers;
+//   softmax        in registers: scores scaled to log2 units, a partial
+//                  tile masked per element (kpos read from global memory),
+//                  row max / sum over the accumulator layout with quad
+//                  shuffles, m and l per row in registers (l summed per
+//                  thread, reduced across the quad once at the end);
+//   O = O*c + P V  P rounded to bf16 straight from the S accumulators (the
+//                  m64 accumulator layout is the register A-fragment
+//                  layout) and used as the register A operand of wgmma
+//                  m64n{hd}k16 with V as an MN-major B (trans-b), 8 k steps
+//                  over the 128 keys; O stays in registers for the whole kv
+//                  loop and is rescaled there.
+// Nothing of S, P or O touches shared memory.
+//
+// Tile classes.  Before the roles split, the 12 warps classify every kv
+// tile from its position range against the query tile's (any position
+// arrays): dead (skipped: no loads, no products), full (every key live for
+// every query: kmax <= qmin and, with a window, kmin > qmax - window, and
+// the tile is not ragged: no per-element mask), partial (masked per
+// element).  The classes sit in shared memory (one byte per tile), and
+// producer and consumers walk the same list; they share the 227 KB with
+// the tiles, so Sk is at most ~8.6 M keys at hd 80 / 128 (a longer one is
+// refused at launch).
+//
+// Head dim 80: a row of 80 bf16 is 160 B, not a 128-B swizzle row.  Each
+// operand is loaded as 64-column TMA boxes; the second box of an 80-wide
+// row reads columns 64..127 of which 80..127 lie past the tensor map's
+// extent and are zero-filled by TMA.  Q K^T uses 5 k steps (the 4 of the
+// first box and the first of the second), so the padding costs no MMA
+// work, only shared memory (a 32 KB Q, K or V tile instead of 20 KB) and
+// TMA bandwidth into shared memory; P V is one m64n80k16 per k step, its B
+// spanning both boxes (LBO = the box stride).  GQA: q head h reads kv
+// head h / G; the G heads of a group are not packed into M (one block per
+// q head), and heads are the fastest grid dimension, so the G blocks that
+// share a K/V tile run side by side and meet it in L2.  (Packing them
+// into M, one K/V tile in shared memory for all G heads, was tried and
+// gave no gain: the K/V traffic from L2 is not what holds this kernel
+// back.)  Causal imbalance: the longest q tiles are launched first (q
+// tiles in reverse order).
+#define FH_BQ 128            // queries per block
+#define FH_BK 128            // keys per kv tile
+#define FH_STAGES 2
+#define FH_THREADS 384
+#define FH_BOX (FH_BK * HP_ROW_BYTES)      // one 64-column box: 16 KB
+#define FH_MAX_SMEM 232448
+
+template <int HD>
+struct FhCfg {
+  static constexpr int NB = (HD + HP_BOX_COLS - 1) / HP_BOX_COLS;
+  static constexpr int NKS = HD / 16;          // k steps of Q K^T
+  static constexpr int TILE = NB * FH_BOX;     // bytes of a Q, K or V tile
+};
+
+template <int HD>
+__device__ __forceinline__ void fh_pv(float* o, const uint32_t* a,
+                                      uint64_t db) {
+  if constexpr (HD == 64) wgmma_rs_m64n64k16_tb(o, a, db, 1);
+  else if constexpr (HD == 80) wgmma_rs_m64n80k16_tb(o, a, db, 1);
+  else wgmma_rs_m64n128k16_tb(o, a, db, 1);
+}
+
+__device__ __forceinline__ bool fh_live(int kp, int qp, int window) {
+  return kp <= qp &&
+         (window == 0 || (long long)qp - (long long)kp < (long long)window);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(FH_THREADS, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                             const __grid_constant__ CUtensorMap tmk,
+                             const __grid_constant__ CUtensorMap tmv,
+                             const int* __restrict__ qpos,
+                             const int* __restrict__ kpos,
+                             __nv_bfloat16* __restrict__ out, int Sq, int Sk,
+                             int KV, int G, int window, float scale_log2) {
+  using C = FhCfg<HD>;
+  extern __shared__ uint8_t fh_raw[];
+  const uint32_t raw = hp_smem(fh_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = base + C::TILE;
+  const uint32_t sV = base + (1 + FH_STAGES) * C::TILE;
+  uint8_t* tail = fh_raw + (base - raw) + (1 + 2 * FH_STAGES) * C::TILE;
+  const uint32_t bars = hp_smem(tail);  // fullQ, fullK[S], emptyK[S], fullV[S], emptyV[S]
+  int* qrange = reinterpret_cast<int*>(tail + 96);
+  uint8_t* cls = tail + 128;
+  const uint32_t fullQ = bars;
+  auto fullK = [&](int s) { return bars + 8u * (1 + s); };
+  auto emptyK = [&](int s) { return bars + 8u * (1 + FH_STAGES + s); };
+  auto fullV = [&](int s) { return bars + 8u * (1 + 2 * FH_STAGES + s); };
+  auto emptyV = [&](int s) { return bars + 8u * (1 + 3 * FH_STAGES + s); };
+
+  const int H = KV * G;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, kvh = h / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FH_BQ;
+  const int nq = min(FH_BQ, Sq - q0);
+  const int nkt = (Sk + FH_BK - 1) / FH_BK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    hp_mbar_init(fullQ, 1);
+    for (int s = 0; s < FH_STAGES; ++s) {
+      hp_mbar_init(fullK(s), 1);
+      hp_mbar_init(fullV(s), 1);
+      hp_mbar_init(emptyK(s), 2 * 128);
+      hp_mbar_init(emptyV(s), 2 * 128);
+    }
+    hp_mbar_fence_init();
+  }
+  if (warp == 0) {          // smallest / largest query position of the tile
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int r = lane; r < nq; r += 32) {
+      const int p = qpos[(size_t)b * Sq + q0 + r];
+      lo = min(lo, p);
+      hi = max(hi, p);
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    if (lane == 0) { qrange[0] = lo; qrange[1] = hi; }
+  }
+  __syncthreads();
+  {                         // kv tile classes: 0 dead, 1 partial, 2 full
+    const long long qlo = qrange[0], qhi = qrange[1], win = window;
+    for (int t = warp; t < nkt; t += FH_THREADS / 32) {
+      const int k0 = t * FH_BK, nk = min(FH_BK, Sk - k0);
+      int lo = INT_MAX, hi = INT_MIN;
+      for (int c = lane; c < nk; c += 32) {
+        const int p = kpos[(size_t)b * Sk + k0 + c];
+        lo = min(lo, p);
+        hi = max(hi, p);
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+      }
+      if (lane == 0) {
+        const bool live = lo <= qhi && (window == 0 || hi > qlo - win);
+        const bool full = nk == FH_BK && hi <= qlo &&
+                          (window == 0 || lo > qhi - win);
+        cls[t] = live ? (full ? 2 : 1) : 0;
+      }
+    }
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---------------------------------------------------------- producer
+    hp_setmaxnreg_dec<40>();
+    if (tid == 0) {
+      hp_mbar_expect_tx(fullQ, C::TILE);
+      for (int x = 0; x < C::NB; ++x)
+        hp_tma_load_4d(sQ + x * FH_BOX, &tmq, fullQ, x * HP_BOX_COLS, h, q0,
+                       b);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = 0; t < nkt; ++t) {
+        if (cls[t] == 0) continue;
+        hp_mbar_wait(emptyK(s), ph ^ 1);
+        hp_mbar_expect_tx(fullK(s), C::TILE);
+        for (int x = 0; x < C::NB; ++x)
+          hp_tma_load_4d(sK + s * C::TILE + x * FH_BOX, &tmk, fullK(s),
+                         x * HP_BOX_COLS, kvh, t * FH_BK, b);
+        hp_mbar_wait(emptyV(s), ph ^ 1);
+        hp_mbar_expect_tx(fullV(s), C::TILE);
+        for (int x = 0; x < C::NB; ++x)
+          hp_tma_load_4d(sV + s * C::TILE + x * FH_BOX, &tmv, fullV(s),
+                         x * HP_BOX_COLS, kvh, t * FH_BK, b);
+        if (++s == FH_STAGES) { s = 0; ph ^= 1; }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    hp_setmaxnreg_inc<232>();
+    const int wg = (warp >> 2) - 1;              // 0 or 1: rows 64 wg ..
+    const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2), r1 = r0 + 8;
+    const int c4 = 2 * (lane & 3);
+    const int qp0 = r0 < nq ? qpos[(size_t)b * Sq + q0 + r0] : qrange[0];
+    const int qp1 = r1 < nq ? qpos[(size_t)b * Sq + q0 + r1] : qrange[0];
+    const int* kp_b = kpos + (size_t)b * Sk;
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m0 = FA_NEG_INF, m1 = FA_NEG_INF, l0 = 0.f, l1 = 0.f;
+    const uint32_t sQw = sQ + wg * 64 * HP_ROW_BYTES;
+
+    hp_mbar_wait(fullQ, 0);
+    int s = 0;
+    uint32_t ph = 0;
+    for (int t = 0; t < nkt; ++t) {
+      const int cl = cls[t];
+      if (cl == 0) continue;
+      float sc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+      hp_mbar_wait(fullK(s), ph);
+      hp_fence_regs<64>(sc);
+      hp_wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < C::NKS; ++ks) {
+        const uint32_t off = (ks >> 2) * FH_BOX + (ks & 3) * 32;
+        wgmma_ss_m64n128k16(sc, hp_desc_k(sQw + off),
+                            hp_desc_k(sK + s * C::TILE + off), 1);
+      }
+      hp_wgmma_commit();
+      hp_wgmma_wait<0>();
+      hp_fence_regs<64>(sc);
+      hp_mbar_arrive(emptyK(s));
+
+      // scores in log2 units; a partial tile is masked per element (-inf:
+      // exp2 gives 0)
+      if (cl == 1) {
+        const int k0 = t * FH_BK;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kj = k0 + 8 * j + c4 + e;
+            const bool in = kj < Sk;
+            const int kp = in ? kp_b[kj] : 0;
+            sc[4 * j + e] = in && fh_live(kp, qp0, window)
+                                ? sc[4 * j + e] * scale_log2 : -INFINITY;
+            sc[4 * j + 2 + e] = in && fh_live(kp, qp1, window)
+                                    ? sc[4 * j + 2 + e] * scale_log2
+                                    : -INFINITY;
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
+      }
+      float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        t0 = fmaxf(t0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        t1 = fmaxf(t1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+        t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, o2));
+        t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, o2));
+      }
+      const float mn0 = fmaxf(m0, t0), mn1 = fmaxf(m1, t1);
+      const float cr0 = exp2f(m0 - mn0), cr1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        sc[4 * j] = exp2f(sc[4 * j] - mn0);
+        sc[4 * j + 1] = exp2f(sc[4 * j + 1] - mn0);
+        sc[4 * j + 2] = exp2f(sc[4 * j + 2] - mn1);
+        sc[4 * j + 3] = exp2f(sc[4 * j + 3] - mn1);
+        ps0 += sc[4 * j] + sc[4 * j + 1];
+        ps1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * cr0 + ps0;
+      l1 = l1 * cr1 + ps1;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j] *= cr0;
+        o[4 * j + 1] *= cr0;
+        o[4 * j + 2] *= cr1;
+        o[4 * j + 3] *= cr1;
+      }
+      uint32_t pa[32];
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        pa[4 * ks] = hp_pack_bf16(sc[8 * ks], sc[8 * ks + 1]);
+        pa[4 * ks + 1] = hp_pack_bf16(sc[8 * ks + 2], sc[8 * ks + 3]);
+        pa[4 * ks + 2] = hp_pack_bf16(sc[8 * ks + 4], sc[8 * ks + 5]);
+        pa[4 * ks + 3] = hp_pack_bf16(sc[8 * ks + 6], sc[8 * ks + 7]);
+      }
+
+      hp_mbar_wait(fullV(s), ph);
+      hp_fence_regs<HD / 2>(o);
+      hp_wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        fh_pv<HD>(o, &pa[4 * ks],
+                  hp_desc_mn(sV + s * C::TILE + ks * 16 * HP_ROW_BYTES,
+                             FH_BOX));
+      hp_wgmma_commit();
+      hp_wgmma_wait<0>();
+      hp_fence_regs<HD / 2>(o);
+      hp_mbar_arrive(emptyV(s));
+      if (++s == FH_STAGES) { s = 0; ph ^= 1; }
+    }
+
+#pragma unroll
+    for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
+    }
+    const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+    __nv_bfloat16* o0 = out + ((size_t)(b * Sq + q0 + r0) * H + h) * HD;
+    __nv_bfloat16* o1 = out + ((size_t)(b * Sq + q0 + r1) * H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int c = 8 * j + c4;
+      if (r0 < nq)
+        *reinterpret_cast<uint32_t*>(o0 + c) =
+            hp_pack_bf16(o[4 * j] * i0, o[4 * j + 1] * i0);
+      if (r1 < nq)
+        *reinterpret_cast<uint32_t*>(o1 + c) =
+            hp_pack_bf16(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+    }
+  }
+}
+
+template <int HD>
+static int launch_wgmma_hd(const void* q, const void* k, const void* v,
+                           const int* qpos, const int* kpos, void* out, int B,
+                           int Sq, int Sk, int KV, int G, int window,
+                           float scale, cudaStream_t stream) {
+  using C = FhCfg<HD>;
+  const uint64_t H = (uint64_t)KV * G, row = HD * 2;
+  const uint32_t box[4] = {HP_BOX_COLS, 1, FH_BK, 1};
+  CUtensorMap mq, mk, mv;
+  const uint64_t dq[4] = {HD, H, (uint64_t)Sq, (uint64_t)B};
+  const uint64_t sq[3] = {row, H * row, (uint64_t)Sq * H * row};
+  const uint64_t dk[4] = {HD, (uint64_t)KV, (uint64_t)Sk, (uint64_t)B};
+  const uint64_t sk[3] = {row, KV * row, (uint64_t)Sk * KV * row};
+  int e = hp_tensor_map(&mq, q, 4, dq, sq, box);
+  if (!e) e = hp_tensor_map(&mk, k, 4, dk, sk, box);
+  if (!e) e = hp_tensor_map(&mv, v, 4, dk, sk, box);
+  if (e) return e;
+  const int nkt = (Sk + FH_BK - 1) / FH_BK;
+  const size_t smem = 1024 + (size_t)(1 + 2 * FH_STAGES) * C::TILE + 128 +
+                      (((size_t)nkt + 15) & ~(size_t)15);
+  if (smem > FH_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t ce = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (ce != cudaSuccess) return (int)ce;
+  dim3 grid((unsigned)(B * H), (unsigned)((Sq + FH_BQ - 1) / FH_BQ));
+  flash_attention_wgmma_kernel<HD><<<grid, FH_THREADS, smem, stream>>>(
+      mq, mk, mv, qpos, kpos, (__nv_bfloat16*)out, Sq, Sk, KV, G, window,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+static int launch_wgmma(const void* q, const void* k, const void* v,
+                        const int* qpos, const int* kpos, void* out, int B,
+                        int Sq, int Sk, int KV, int G, int hd, int window,
+                        float scale, cudaStream_t stream) {
+  switch (hd) {
+    case 64:
+      return launch_wgmma_hd<64>(q, k, v, qpos, kpos, out, B, Sq, Sk, KV, G,
+                                 window, scale, stream);
+    case 80:
+      return launch_wgmma_hd<80>(q, k, v, qpos, kpos, out, B, Sq, Sk, KV, G,
+                                 window, scale, stream);
+    case 128:
+      return launch_wgmma_hd<128>(q, k, v, qpos, kpos, out, B, Sq, Sk, KV, G,
+                                  window, scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype: 0 float32, 1 bfloat16.  variant (chosen by the wrapper's
+// `_variant`): 0 the CUDA-core kernel (float32), 1 the WMMA kernel
+// (bfloat16), 2 the wgmma/TMA kernel (bfloat16, hd_qk == hd_v in
+// {64, 80, 128}, 16-byte aligned operands).  A variant whose conditions do
+// not hold is refused.  Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const int* qpos,
                                       const int* kpos, void* out, int B,
                                       int Sq, int Sk, int KV, int G, int hdqk,
                                       int hdv, int window, float scale,
-                                      int dtype, cudaStream_t stream) {
-  if (hdqk < 1 || hdqk > 256 || hdv < 1 || hdv > 256 || dtype < 0 ||
-      dtype > 1)
+                                      int dtype, int variant,
+                                      cudaStream_t stream) {
+  const bool known = (dtype == 0 && variant == 0) ||
+                     (dtype == 1 && (variant == 1 || variant == 2));
+  if (hdqk < 1 || hdqk > 256 || hdv < 1 || hdv > 256 || !known)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
+  if (variant == 0)
     return launch_t<float>(q, k, v, qpos, kpos, out, B, Sq, Sk, KV, G, hdqk,
                            hdv, window, scale, stream);
-  return launch_wmma(q, k, v, qpos, kpos, out, B, Sq, Sk, KV, G, hdqk, hdv,
-                     window, scale, stream);
+  if (variant == 1)
+    return launch_wmma(q, k, v, qpos, kpos, out, B, Sq, Sk, KV, G, hdqk, hdv,
+                       window, scale, stream);
+  const bool aligned = (size_t)q % 16 == 0 && (size_t)k % 16 == 0 &&
+                       (size_t)v % 16 == 0;
+  if (hdqk != hdv || !aligned) return (int)cudaErrorInvalidValue;
+  return launch_wgmma(q, k, v, qpos, kpos, out, B, Sq, Sk, KV, G, hdqk,
+                      window, scale, stream);
 }

@@ -13,38 +13,39 @@
 // prefill (N up to 4,608) it is 4 * N * d * F = 3.3e11 operations per layer,
 // bound by operations (0.33 ms on bf16 tensor cores).
 //
-// What the design does about it.
-//  * The TPU kernel loads a whole (TB, d) row tile and a (d, FB) weight
-//    slice into VMEM.  A block has at most 227 KB of shared memory, so here d
-//    is walked in 32-deep K tiles: one first pass over each row computes its
-//    rms (one warp per row), then every K tile of normalised x is formed in
-//    shared memory (rounded to the input type, as the reference's rms_norm
-//    rounds) and feeds BOTH accumulations, gate and up, which share it.  The
-//    normalised activations never reach device memory; gate and up meet
-//    only in registers, where the epilogue applies the activation and the
-//    product.
-//  * Prefill in bfloat16 (N > 8): fused_mlp_wmma_kernel, the tiling below
-//    on the tensor cores (WMMA bf16 fragments, float32 accumulators; see
-//    its note).  wgmma / TMA pipelines are later work.
-//  * float32 (N > 8): output tiles of 64 rows x 64 columns, 256 threads
-//    (16 x 16), each thread 4 rows x 4 columns of gate and of up on the
-//    CUDA cores.
-//    Weights are read in 64-wide row runs of F, neighbouring threads on
-//    neighbouring columns (coalesced), and each thread issues all its loads
-//    of a K tile before it stores any.
-//  * Decode (N <= 8 rows): fused_mlp_rows_kernel, a weight-streaming
-//    kernel with no barrier in its d loop (see its note): 216 blocks of 32
-//    columns for F = 6,912, 16-byte weight loads, several in flight per
-//    thread.  The first version ran decode through the tiled kernel and
-//    waited on every load of every K tile: latency-bound, ~20x its bound.
-//  * Ragged N, d and F are masked.
+// Four device kernels; the wrapper (kernels/fused_mlp.py, `_variant`)
+// picks one by dtype and shape alone and passes its code:
+//  * "rows" (N <= 8, either dtype): fused_mlp_rows_kernel, a
+//    weight-streaming kernel with no barrier in its d loop (see its note):
+//    216 blocks of 32 columns for F = 6,912, 16-byte weight loads, several
+//    in flight per thread.  The first version ran decode through the tiled
+//    kernel and waited on every load of every K tile: latency-bound, ~20x
+//    its bound.
+//  * "wgmma_tma" (bfloat16, N > 8, d and F multiples of 8, 16-byte aligned
+//    operands): rms_inv_kernel + fused_mlp_wgmma_kernel, the design for
+//    this card (TMA ring, warp specialisation, wgmma with the norm applied
+//    to the register A operand; see its note).
+//  * "wmma" (other bfloat16 shapes): fused_mlp_wmma_kernel, WMMA 16x16x16
+//    fragments on 64 x 64 output tiles.
+//  * "cuda_cores" (float32, N > 8): output tiles of 64 rows x 64 columns,
+//    256 threads (16 x 16), each thread 4 rows x 4 columns of gate and of
+//    up on the CUDA cores.
+// What they share: the TPU kernel loads a whole (TB, d) row tile and a
+// (d, FB) weight slice into VMEM.  A block has at most 227 KB of shared
+// memory, so here d is walked in K tiles: the rms of each row comes first
+// (one warp per row), then every K tile of normalised x is formed (rounded
+// to the input type, as the reference's rms_norm rounds) and feeds BOTH
+// accumulations, gate and up, which share it.  The normalised activations
+// never reach device memory; gate and up meet only in registers, where the
+// epilogue applies the activation and the product.  Ragged N, d and F are
+// masked.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <mma.h>
 
-#include <type_traits>
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -309,10 +310,10 @@ fused_mlp_rows_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   }
 }
 
-// Prefill in bfloat16 (N > 8): the same tiling on the tensor cores.  A
-// block of 4 warps owns 64 rows x 64 columns; each warp 32 x 32 of gate
-// and of up as 2 x 2 WMMA 16x16x16 bf16 fragments with float32
-// accumulators.  Each 32-deep K tile of normalised x (rounded to bf16) and
+// bfloat16 shapes the wgmma kernel does not take (N > 8): the same tiling
+// on the tensor cores.  A block of 4 warps owns 64 rows x 64 columns; each
+// warp 32 x 32 of gate and of up as 2 x 2 WMMA 16x16x16 bf16 fragments
+// with float32 accumulators.  Each 32-deep K tile of normalised x (rounded to bf16) and
 // of both weight matrices is staged in shared memory with 16-byte loads
 // (all issued before any store) and feeds 8 products per warp per 16-deep
 // step.  The epilogue passes each fragment pair through a warp-private
@@ -439,55 +440,351 @@ fused_mlp_wmma_kernel(const __nv_bfloat16* __restrict__ x,
     }
 }
 
-template <typename T>
-static int launch_t(const void* x, const void* scale, const void* wg,
-                    const void* wu, void* out, int N, int d, int F, int act,
-                    float eps, cudaStream_t stream) {
-  const size_t rows_smem = sizeof(float) * (size_t)N * d;
-  if (N <= FR_ROWS && rows_smem <= FR_MAX_SMEM) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_mlp_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)rows_smem);
-    if (e != cudaSuccess) return (int)e;
-    // 16-byte vector loads need F % 8 == 0 and 16-byte aligned weights
-    const int vec_ok = F % 8 == 0 &&
-        ((size_t)wg % 16 == 0) && ((size_t)wu % 16 == 0);
-    fused_mlp_rows_kernel<T><<<(F + FR_COLS - 1) / FR_COLS, FM_THREADS,
-                               rows_smem, stream>>>(
-        (const T*)x, (const T*)scale, (const T*)wg, (const T*)wu, (T*)out, N,
-        d, F, act, eps, vec_ok);
-    return (int)cudaGetLastError();
+// Prefill in bfloat16 on Hopper ("wgmma_tma": N > 8 rows, d and F
+// multiples of 8, 16-byte aligned operands).  A call is two kernels:
+//  * rms_inv_kernel: 1 / rms of every row into a float32 scratch inv_rms
+//    (N,), one warp per row with 16-byte loads (the first pass of the
+//    other kernels, written out: 18 KB at N = 4,608);
+//  * fused_mlp_wgmma_kernel: output tile 128 rows x 128 columns of F per
+//    block, 384 threads = three warpgroups.  Warpgroup 0 is the producer
+//    (setmaxnreg 40; one thread issues TMA): d is walked in 64-deep steps
+//    through a ring of FM_STAGES stages, each holding the raw x tile
+//    (128 x 64, K-major) and the Wg and Wu tiles (64 x 128 each, two
+//    64-column boxes: (d,F) row-major is an MN-major B operand, used as it
+//    lies, no re-layout), with full / empty mbarriers.  Warpgroups 1 and 2
+//    (setmaxnreg 232) own 64 rows each and accumulate BOTH gate and up
+//    (64 x 128 f32 each: 128 registers a thread): per stage each thread
+//    reads its A fragments of raw x from the swizzled tile, applies the norm
+//    on the way into the tensor core (x * inv_rms[row] * (1 + scale[k]),
+//    rounded to bf16 as the reference's rms_norm rounds its output), and
+//    issues wgmma with A from registers against [Wg | Wu] as one 256-wide
+//    B (m64n256k16, 4 k steps; the two tiles lie side by side in the
+//    stage).  A from registers rather than a normalised copy in shared
+//    memory: each element of x is used by one warpgroup only, so the
+//    multiplies are the same, and the register path saves the store, the
+//    proxy fence and a barrier per stage.  Two register sets of A: the
+//    fragments of stage k + 1 are formed while the products of stage k
+//    run, and a stage is released when the wgmma group that read it has
+//    completed.  The epilogue applies act(g) * u in registers and stores
+//    bf16 pairs.
+//  Row tiles are the fastest grid dimension, so one wave of blocks shares
+//  a few column slices of the weights (read from memory about once) and
+//  the whole of x (23.6 MB at N = 4,608: it stays in L2).
+#define FM_BM 128
+#define FM_BNW 128
+#define FM_BKD 64
+#define FM_STAGES 4
+#define FM_WTHREADS 384
+#define FM_XBYTES (FM_BM * HP_ROW_BYTES)              // 16 KB
+#define FM_WBOX (FM_BKD * HP_ROW_BYTES)               // 8 KB
+#define FM_STAGE (FM_XBYTES + 4 * FM_WBOX)            // 48 KB
+#define FM_WSMEM (1024 + FM_STAGES * FM_STAGE + 128)
+
+__global__ void __launch_bounds__(256)
+rms_inv_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ inv,
+               int N, int d, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= N) return;
+  const uint4* p = reinterpret_cast<const uint4*>(x + (size_t)row * d);
+  float ss = 0.f;
+  for (int i = lane; i < d / 8; i += 32) {
+    const uint4 v = p[i];
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      ss += f.x * f.x + f.y * f.y;
+    }
   }
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // 16-byte vector loads need d, F % 8 == 0 and 16-byte aligned operands
-    const int vec_ok = d % 8 == 0 && F % 8 == 0 && (size_t)x % 16 == 0 &&
-        (size_t)scale % 16 == 0 && (size_t)wg % 16 == 0 &&
-        (size_t)wu % 16 == 0;
-    fused_mlp_wmma_kernel<<<dim3((F + FW_BN - 1) / FW_BN,
-                                 (N + FW_BM - 1) / FW_BM), FW_THREADS, 0,
-                            stream>>>(
-        (const T*)x, (const T*)scale, (const T*)wg, (const T*)wu, (T*)out, N,
-        d, F, act, eps, vec_ok);
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if (lane == 0) inv[row] = rsqrtf(ss / (float)d + eps);
+}
+
+// A fragments of one 64-deep stage for rows r0, r1 (= r0 + 8) of the
+// warpgroup: raw x from the swizzled tile xs, times inv_rms[row] * (1 +
+// scale[k]), rounded to bf16 (as rms_norm rounds); 4 k steps of 4
+// registers (the layout in hopper.cuh).
+__device__ __forceinline__ void fm_prep_a(uint32_t (&a)[16],
+                                          const uint8_t* xs,
+                                          const __nv_bfloat16* scale, int k0,
+                                          int d, int r0, int r1, int c4,
+                                          float inv0, float inv1) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const int kk = ks * 16 + c4;
+    float f[4];                     // 1 + scale at kk, kk + 1, kk + 8, kk + 9
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int k = k0 + kk + 8 * hh;
+      float2 sv = make_float2(-1.f, -1.f);              // past d: x is 0
+      if (k < d)
+        sv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(scale + k));
+      f[2 * hh] = 1.f + sv.x;
+      f[2 * hh + 1] = 1.f + sv.y;
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float2 x0 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(
+              xs + hp_swz(r0, kk + 8 * hh)));
+      const float2 x1 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(
+              xs + hp_swz(r1, kk + 8 * hh)));
+      a[4 * ks + 2 * hh] = hp_pack_bf16((x0.x * inv0) * f[2 * hh],
+                                        (x0.y * inv0) * f[2 * hh + 1]);
+      a[4 * ks + 2 * hh + 1] = hp_pack_bf16((x1.x * inv1) * f[2 * hh],
+                                            (x1.y * inv1) * f[2 * hh + 1]);
+    }
+  }
+}
+
+// One stage's products, one wgmma group: the Wg and Wu tiles lie side by
+// side in the stage (four 64-column atoms, FM_WBOX apart), so they are one
+// 256-wide B operand: 4 k steps of m64n256k16 fill acc[0..63] with gate
+// (columns 0..127) and acc[64..127] with up.
+__device__ __forceinline__ void fm_issue(float (&acc)[128],
+                                         const uint32_t (&a)[16],
+                                         uint32_t sgu) {
+  hp_fence_regs<128>(acc);
+  hp_wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_rs_m64n256k16_tb(
+        acc, &a[4 * ks], hp_desc_mn(sgu + ks * 16 * HP_ROW_BYTES, FM_WBOX),
+        1);
+  hp_wgmma_commit();
+}
+
+__global__ void __launch_bounds__(FM_WTHREADS, 1)
+fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                       const __grid_constant__ CUtensorMap tmg,
+                       const __grid_constant__ CUtensorMap tmu,
+                       const __nv_bfloat16* __restrict__ scale,
+                       const float* __restrict__ inv_rms,
+                       __nv_bfloat16* __restrict__ out, int N, int d, int F,
+                       int act) {
+  extern __shared__ uint8_t fm_raw[];
+  const uint32_t raw = hp_smem(fm_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint8_t* gbase = fm_raw + (base - raw);
+  const uint32_t bars = base + FM_STAGES * FM_STAGE;   // full[S], empty[S]
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (FM_STAGES + s); };
+  auto sX = [&](int s) { return base + s * FM_STAGE; };
+  auto sG = [&](int s) { return base + s * FM_STAGE + FM_XBYTES; };
+  auto sU = [&](int s) {
+    return base + s * FM_STAGE + FM_XBYTES + 2 * FM_WBOX;
+  };
+
+  const int m0 = blockIdx.x * FM_BM, n0 = blockIdx.y * FM_BNW;
+  const int nkt = (d + FM_BKD - 1) / FM_BKD;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < FM_STAGES; ++s) {
+      hp_mbar_init(full(s), 1);
+      hp_mbar_init(empty(s), 2 * 128);
+    }
+    hp_mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---------------------------------------------------------- producer
+    hp_setmaxnreg_dec<40>();
+    if (tid == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int k0 = kt * FM_BKD;
+        hp_mbar_wait(empty(s), ph ^ 1);
+        hp_mbar_expect_tx(full(s), FM_STAGE);
+        hp_tma_load_2d(sX(s), &tmx, full(s), k0, m0);
+        for (int x = 0; x < 2; ++x) {
+          hp_tma_load_2d(sG(s) + x * FM_WBOX, &tmg, full(s),
+                         n0 + x * HP_BOX_COLS, k0);
+          hp_tma_load_2d(sU(s) + x * FM_WBOX, &tmu, full(s),
+                         n0 + x * HP_BOX_COLS, k0);
+        }
+        if (++s == FM_STAGES) { s = 0; ph ^= 1; }
+      }
+    }
   } else {
-    fused_mlp_kernel<T><<<dim3((F + FM_BN - 1) / FM_BN, (N + 63) / 64),
-                          FM_THREADS, 0, stream>>>(
-        (const T*)x, (const T*)scale, (const T*)wg, (const T*)wu, (T*)out, N,
-        d, F, act, eps);
+    // --------------------------------------------------------- consumers
+    hp_setmaxnreg_inc<232>();
+    const int wg = (warp >> 2) - 1;
+    const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2), r1 = r0 + 8;
+    const int c4 = 2 * (lane & 3);
+    const float inv0 = m0 + r0 < N ? inv_rms[m0 + r0] : 0.f;
+    const float inv1 = m0 + r1 < N ? inv_rms[m0 + r1] : 0.f;
+    float acc[128];                     // gate: acc[0..63], up: acc[64..]
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+    // The products of stage kt run while the A fragments of stage kt + 1
+    // are formed (two register sets, a0 / a1); a stage is released once
+    // the wgmma group that read it has completed.
+    uint32_t a0[16], a1[16];
+    int s = 0, sp = 0;
+    uint32_t ph = 0;
+    hp_mbar_wait(full(0), 0);
+    fm_prep_a(a0, gbase + (sX(0) - base), scale, 0, d, r0, r1, c4, inv0,
+              inv1);
+    auto step = [&](uint32_t (&cur)[16], uint32_t (&nxt)[16], int k) {
+      fm_issue(acc, cur, sG(s));
+      hp_wgmma_wait<1>();                      // group k - 1 has completed
+      if (k > 0) hp_mbar_arrive(empty(sp));
+      sp = s;
+      if (++s == FM_STAGES) { s = 0; ph ^= 1; }
+      if (k + 1 < nkt) {
+        hp_mbar_wait(full(s), ph);
+        fm_prep_a(nxt, gbase + (sX(s) - base), scale, (k + 1) * FM_BKD, d,
+                  r0, r1, c4, inv0, inv1);
+      }
+    };
+    for (int kt = 0; kt < nkt; kt += 2) {
+      step(a0, a1, kt);
+      if (kt + 1 < nkt) step(a1, a0, kt + 1);
+    }
+    hp_wgmma_wait<0>();
+    hp_fence_regs<128>(acc);
+    hp_mbar_arrive(empty(sp));
+
+    __nv_bfloat16* o0 = out + (size_t)(m0 + r0) * F;
+    __nv_bfloat16* o1 = out + (size_t)(m0 + r1) * F;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = n0 + 8 * j + c4;
+      if (c >= F) continue;
+      if (m0 + r0 < N)
+        *reinterpret_cast<uint32_t*>(o0 + c) = hp_pack_bf16(
+            fm_act(acc[4 * j], act) * acc[64 + 4 * j],
+            fm_act(acc[4 * j + 1], act) * acc[64 + 4 * j + 1]);
+      if (m0 + r1 < N)
+        *reinterpret_cast<uint32_t*>(o1 + c) = hp_pack_bf16(
+            fm_act(acc[4 * j + 2], act) * acc[64 + 4 * j + 2],
+            fm_act(acc[4 * j + 3], act) * acc[64 + 4 * j + 3]);
+    }
   }
+}
+
+static int launch_wgmma(const void* x, const void* scale, const void* wg,
+                        const void* wu, void* out, float* inv_rms, int N,
+                        int d, int F, int act, float eps,
+                        cudaStream_t stream) {
+  CUtensorMap mx, mg, mu;
+  const uint64_t dx[2] = {(uint64_t)d, (uint64_t)N};
+  const uint64_t sx[1] = {(uint64_t)d * 2};
+  const uint32_t bx[2] = {HP_BOX_COLS, FM_BM};
+  const uint64_t dw[2] = {(uint64_t)F, (uint64_t)d};
+  const uint64_t sw[1] = {(uint64_t)F * 2};
+  const uint32_t bw[2] = {HP_BOX_COLS, FM_BKD};
+  int e = hp_tensor_map(&mx, x, 2, dx, sx, bx);
+  if (!e) e = hp_tensor_map(&mg, wg, 2, dw, sw, bw);
+  if (!e) e = hp_tensor_map(&mu, wu, 2, dw, sw, bw);
+  if (e) return e;
+  rms_inv_kernel<<<(N + 7) / 8, 256, 0, stream>>>(
+      (const __nv_bfloat16*)x, inv_rms, N, d, eps);
+  cudaError_t ce = cudaGetLastError();
+  if (ce != cudaSuccess) return (int)ce;
+  ce = cudaFuncSetAttribute(fused_mlp_wgmma_kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            FM_WSMEM);
+  if (ce != cudaSuccess) return (int)ce;
+  dim3 grid((N + FM_BM - 1) / FM_BM, (F + FM_BNW - 1) / FM_BNW);
+  fused_mlp_wgmma_kernel<<<grid, FM_WTHREADS, FM_WSMEM, stream>>>(
+      mx, mg, mu, (const __nv_bfloat16*)scale, inv_rms,
+      (__nv_bfloat16*)out, N, d, F, act);
   return (int)cudaGetLastError();
 }
 
-// act: 0 silu, 1 gelu (tanh).  dtype: 0 float32, 1 bfloat16.  Returns a
-// cudaError_t (0 = launched).
+// N <= FR_ROWS rows whose normalised copy fits in shared memory.
+template <typename T>
+static int launch_rows(const void* x, const void* scale, const void* wg,
+                       const void* wu, void* out, int N, int d, int F,
+                       int act, float eps, cudaStream_t stream) {
+  const size_t rows_smem = sizeof(float) * (size_t)N * d;
+  if (N > FR_ROWS || rows_smem > FR_MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_mlp_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)rows_smem);
+  if (e != cudaSuccess) return (int)e;
+  // 16-byte vector loads need F % 8 == 0 and 16-byte aligned weights
+  const int vec_ok = F % 8 == 0 &&
+      ((size_t)wg % 16 == 0) && ((size_t)wu % 16 == 0);
+  fused_mlp_rows_kernel<T><<<(F + FR_COLS - 1) / FR_COLS, FM_THREADS,
+                             rows_smem, stream>>>(
+      (const T*)x, (const T*)scale, (const T*)wg, (const T*)wu, (T*)out, N,
+      d, F, act, eps, vec_ok);
+  return (int)cudaGetLastError();
+}
+
+static int launch_wmma(const void* x, const void* scale, const void* wg,
+                       const void* wu, void* out, int N, int d, int F,
+                       int act, float eps, cudaStream_t stream) {
+  // 16-byte vector loads need d, F % 8 == 0 and 16-byte aligned operands
+  const int vec_ok = d % 8 == 0 && F % 8 == 0 && (size_t)x % 16 == 0 &&
+      (size_t)scale % 16 == 0 && (size_t)wg % 16 == 0 &&
+      (size_t)wu % 16 == 0;
+  fused_mlp_wmma_kernel<<<dim3((F + FW_BN - 1) / FW_BN,
+                               (N + FW_BM - 1) / FW_BM), FW_THREADS, 0,
+                          stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)scale,
+      (const __nv_bfloat16*)wg, (const __nv_bfloat16*)wu,
+      (__nv_bfloat16*)out, N, d, F, act, eps, vec_ok);
+  return (int)cudaGetLastError();
+}
+
+static int launch_f32(const void* x, const void* scale, const void* wg,
+                      const void* wu, void* out, int N, int d, int F, int act,
+                      float eps, cudaStream_t stream) {
+  fused_mlp_kernel<float><<<dim3((F + FM_BN - 1) / FM_BN, (N + 63) / 64),
+                            FM_THREADS, 0, stream>>>(
+      (const float*)x, (const float*)scale, (const float*)wg,
+      (const float*)wu, (float*)out, N, d, F, act, eps);
+  return (int)cudaGetLastError();
+}
+
+// act: 0 silu, 1 gelu (tanh).  dtype: 0 float32, 1 bfloat16.  variant
+// (chosen by the wrapper's `_variant`): 0 the CUDA-core kernel (float32),
+// 1 the WMMA kernel (bfloat16), 2 the rows kernel (N <= 8, either dtype),
+// 3 the wgmma/TMA kernel pair (bfloat16, d and F multiples of 8, 16-byte
+// aligned operands; inv_rms: a float32 scratch of N).  A variant whose
+// conditions do not hold is refused.  Returns a cudaError_t (0 =
+// launched).
 extern "C" int fused_mlp_launch(const void* x, const void* scale,
                                 const void* wg, const void* wu, void* out,
-                                int N, int d, int F, int act, float eps,
-                                int dtype, cudaStream_t stream) {
+                                float* inv_rms, int N, int d, int F, int act,
+                                float eps, int dtype, int variant,
+                                cudaStream_t stream) {
   if (N < 1 || d < 1 || F < 1 || act < 0 || act > 1 || dtype < 0 ||
       dtype > 1)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch_t<float>(x, scale, wg, wu, out, N, d, F, act, eps, stream);
-  return launch_t<__nv_bfloat16>(x, scale, wg, wu, out, N, d, F, act, eps,
-                                 stream);
+  switch (variant) {
+    case 0:
+      if (dtype != 0) break;
+      return launch_f32(x, scale, wg, wu, out, N, d, F, act, eps, stream);
+    case 1:
+      if (dtype != 1) break;
+      return launch_wmma(x, scale, wg, wu, out, N, d, F, act, eps, stream);
+    case 2:
+      if (dtype == 0)
+        return launch_rows<float>(x, scale, wg, wu, out, N, d, F, act, eps,
+                                  stream);
+      return launch_rows<__nv_bfloat16>(x, scale, wg, wu, out, N, d, F, act,
+                                        eps, stream);
+    case 3: {
+      const bool ok = dtype == 1 && d % 8 == 0 && F % 8 == 0 &&
+          inv_rms != nullptr && (size_t)x % 16 == 0 &&
+          (size_t)scale % 16 == 0 && (size_t)wg % 16 == 0 &&
+          (size_t)wu % 16 == 0;
+      if (!ok) break;
+      return launch_wgmma(x, scale, wg, wu, out, inv_rms, N, d, F, act, eps,
+                          stream);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }

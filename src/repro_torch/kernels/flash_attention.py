@@ -3,10 +3,12 @@ version, launch count.
 
 ``flash_attention`` replaces the Pallas kernel of the reference,
 ``repro/kernels/flash_attention.py`` (``_flash_kernel`` /
-``flash_attention_pallas``).  On CUDA tensors it launches the hand-written
-kernel of ``csrc/flash_attention.cu`` (see its source note for the design)
-or raises; on CPU tensors it runs :func:`flash_attention_plain`.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention_pallas``).  On CUDA tensors it launches one of the
+hand-written kernels of ``csrc/flash_attention.cu`` (see its source note
+for the designs), chosen by :func:`_variant` from dtype and shape alone, or
+raises; on CPU tensors it runs :func:`flash_attention_plain`.
+``flash_attention.launches`` counts kernel launches and
+``flash_attention.last_variant`` names the kernel of the latest one.
 """
 from __future__ import annotations
 
@@ -14,11 +16,28 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._common import check, on_card, positions, stream_of
+from repro_torch.kernels._common import aligned16, check, on_card, \
+    positions, stream_of
 from repro_torch.models.layers import NEG_INF, _gqa_out, _gqa_scores, \
     _window_mask
 
 MAX_HEAD_DIM = 256
+# The device kernels, by the code csrc/flash_attention.cu takes.
+VARIANTS = {"cuda_cores": 0, "wmma": 1, "wgmma_tma": 2}
+WGMMA_HEAD_DIMS = (64, 80, 128)
+
+
+def _variant(dtype: torch.dtype, hd_qk: int, hd_v: int,
+             aligned: bool) -> str:
+    """The device kernel for these operands: ``wgmma_tma`` (TMA ring +
+    wgmma, Hopper) for bfloat16 with ``hd_qk == hd_v`` in
+    ``WGMMA_HEAD_DIMS`` and 16-byte aligned q, k, v; ``wmma`` for any other
+    bfloat16 shape; ``cuda_cores`` for float32."""
+    if dtype == torch.float32:
+        return "cuda_cores"
+    if hd_qk == hd_v and hd_qk in WGMMA_HEAD_DIMS and aligned:
+        return "wgmma_tma"
+    return "wmma"
 
 
 def flash_attention_plain(q, k, v, qpos, kpos, window: int = 0,
@@ -64,15 +83,19 @@ def _launch(q, k, v, qpos, kpos, window, scale):
         from repro_torch.kernels import build
         P, I = ctypes.c_void_p, ctypes.c_int
         _FN = build.function("flash_attention", "flash_attention_launch",
-                             [P] * 6 + [I] * 8 + [ctypes.c_float, I, P])
+                             [P] * 6 + [I] * 8 + [ctypes.c_float, I, I, P])
+    variant = _variant(q.dtype, hd_qk, hd_v, aligned16(q, k, v))
     with torch.cuda.device(q.device):
         rc = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
                  kp.data_ptr(), out.data_ptr(), B, Sq, Sk, KV, G, hd_qk,
-                 hd_v, int(window), float(scale), code, stream_of(q))
+                 hd_v, int(window), float(scale), code, VARIANTS[variant],
+                 stream_of(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (CUDA "
-                           f"error {rc}) for q {tuple(q.shape)}, Sk={Sk}")
+                           f"error {rc}, {variant}) for q {tuple(q.shape)}, "
+                           f"Sk={Sk}")
     flash_attention.launches += 1
+    flash_attention.last_variant = variant
     return out
 
 
@@ -89,3 +112,4 @@ def flash_attention(q, k, v, qpos, kpos, window: int = 0,
 
 
 flash_attention.launches = 0
+flash_attention.last_variant = None

@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import pytest
 import torch
@@ -169,3 +170,26 @@ def test_lazy_package_exports():
         repro_torch.core.no_such_name
     with pytest.raises(AttributeError):
         repro_torch.no_such_subpackage
+
+
+def test_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A library's file name hashes its source, every csrc/*.cuh and the
+    flags: an edit to a shared header builds anew instead of loading a
+    stale library.  The shared headers hold no PyTorch or library code."""
+    from repro_torch.kernels import build
+    for hdr in sorted(Path(PKG, "kernels", "csrc").glob("*.cuh")):
+        text = hdr.read_text()
+        for needle in ("torch/extension.h", "ATen/", "cublas", "cudnn",
+                       "cutlass/", "cute/", "thrust/", "cub/"):
+            assert needle not in text, (hdr.name, needle)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    src, flags = tmp_path / "k.cu", build.NVCC_FLAGS
+    first = build._target(src, flags)
+    assert build._target(src, flags) == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = build._target(src, flags)
+    assert second != first and second.parent == tmp_path / "out"
+    assert build._target(src, flags + ("-Xptxas", "-v")) != second

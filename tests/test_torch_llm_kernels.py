@@ -26,6 +26,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import fused_mlp as FM
 from repro_torch.kernels import ops as port_ops
+from repro_torch.kernels._common import aligned16
 from repro_torch.models import layers as L
 
 ATOL = {("attention", "float32"): 2e-5, ("attention", "bfloat16"): 3e-2,
@@ -379,3 +380,177 @@ def test_cuda_fused_mlp_matches_plain(N, d, F, act, dtype, cuda_device):
     ref = FM.fused_rmsnorm_mlp_plain(x, s, wg, wu, act)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=ATOL[("mlp", dtype)])
+
+
+# ------------------------------------------------- which device kernel runs
+def test_attention_dispatch_rule():
+    """``_variant`` is a function of dtype, head dims and alignment alone:
+    every dense config of the port gets the wgmma/TMA kernel at its head
+    dim in bfloat16 except gemma-2b's 256 (the WMMA kernel); float32 gets
+    the CUDA-core kernel; a misaligned view never gets a TMA path."""
+    from repro_torch.configs import get_config, list_configs
+    bf16, f32 = torch.bfloat16, torch.float32
+    dense = [get_config(n) for n in list_configs()
+             if get_config(n).family == "dense"]
+    assert {c.head_dim for c in dense} == {64, 80, 128, 256}
+    for cfg in dense:
+        hd = cfg.head_dim
+        want = "wmma" if hd == 256 else "wgmma_tma"
+        assert FA._variant(bf16, hd, hd, True) == want, cfg.name
+        assert FA._variant(bf16, hd, hd, False) == "wmma", cfg.name
+        assert FA._variant(f32, hd, hd, True) == "cuda_cores", cfg.name
+    assert FA._variant(bf16, 80, 64, True) == "wmma"      # unequal dims
+    assert FA._variant(bf16, 96, 96, True) == "wmma"      # uncovered dim
+    assert set(FA.VARIANTS) == {"cuda_cores", "wmma", "wgmma_tma"}
+    buf = torch.zeros(1 + 2 * 8 * 80, dtype=bf16)
+    view = buf[1:].view(1, 8, 2, 1, 80)
+    assert view.is_contiguous() and not aligned16(view)
+    assert aligned16(buf)
+
+
+def test_mlp_dispatch_rule():
+    """``_variant`` of the fused MLP: at most 8 rows (decode) take the
+    weight-streaming rows kernel in either dtype; more rows take the
+    CUDA-core kernel in float32, and in bfloat16 the wgmma/TMA pair at
+    every dense config's widths (d, F multiples of 8), the WMMA kernel for
+    odd widths or a misaligned view."""
+    from repro_torch.configs import get_config, list_configs
+    bf16, f32 = torch.bfloat16, torch.float32
+    for name in list_configs():
+        cfg = get_config(name)
+        if cfg.family != "dense":
+            continue
+        d, F = cfg.d_model, cfg.d_ff
+        assert FM._variant(bf16, 4608, d, F, True) == "wgmma_tma", name
+        assert FM._variant(bf16, 9, d, F, True) == "wgmma_tma", name
+        assert FM._variant(bf16, 4608, d, F, False) == "wmma", name
+        assert FM._variant(f32, 4608, d, F, True) == "cuda_cores", name
+        for dt in (bf16, f32):       # the 4-slot decode of the serve path
+            assert FM._variant(dt, 4, d, F, True) == "rows", name
+            assert FM._variant(dt, 4, d, F, False) == "rows", name
+    assert FM._variant(bf16, 100, 100, 77, True) == "wmma"   # F % 8 != 0
+    assert FM._variant(bf16, 100, 300, 64, True) == "wmma"   # d % 8 != 0
+    # the rows kernel keeps its float32 rows in 160 KB of shared memory
+    assert FM._variant(bf16, 8, 5120, 64, True) == "rows"
+    assert FM._variant(bf16, 8, 5128, 64, True) == "wgmma_tma"
+    assert set(FM.VARIANTS) == {"cuda_cores", "wmma", "rows", "wgmma_tma"}
+
+
+# ------------------------------------------- the wgmma/TMA paths' edges, card
+def _row_rel(out, ref):
+    """Largest error over an output row (last dim) over the row's largest
+    |ref|; a row of zeros in ``ref`` counts its absolute error (as
+    chip_smoke.py's ``row_rel_err``)."""
+    o, r = out.double(), ref.double()
+    err, top = (o - r).abs().amax(-1), r.abs().amax(-1)
+    return float(torch.where(top > 0, err / top.clamp(min=1e-300), err).max())
+
+
+def _pos(kind, n, lo=0, seed=0):
+    if kind == "perm":
+        p = np.random.default_rng(seed).permutation(n) + lo
+    else:
+        p = np.arange(lo, lo + n)
+    return torch.from_numpy(p.astype(np.int32))[None]
+
+
+# B, Sq, Sk, KV, G, hd, window, q positions (kind, first), k positions
+EDGE_ATTN = [
+    (2, 200, 200, 2, 2, 80, 0, ("arange", 0), "arange"),    # ragged tiles
+    (1, 150, 400, 2, 4, 128, 0, ("arange", 250), "arange"),  # Sk > Sq
+    (1, 150, 400, 1, 2, 64, 100, ("arange", 250), "arange"),  # + window
+    (1, 300, 300, 2, 2, 64, 0, ("perm", 0), "perm"),        # non-monotone
+    (1, 260, 260, 1, 2, 128, 90, ("perm", 0), "perm"),
+    (1, 512, 512, 2, 2, 80, 130, ("arange", 0), "arange"),  # live by window
+    (1, 300, 300, 2, 2, 80, 0, ("arange", -40), "arange"),  # rows no key
+    (2, 1000, 1000, 2, 4, 80, 300, ("arange", 0), "arange"),  # full tiles
+    (1, 384, 384, 1, 1, 128, 0, ("arange", 0), "arange"),   # exact tiles
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,KV,G,hd,win,qk,kk", EDGE_ATTN)
+def test_cuda_flash_attention_wgmma_edges(B, Sq, Sk, KV, G, hd, win, qk, kk,
+                                          cuda_device):
+    """The wgmma/TMA kernel against the plain version (bf16) at its edges:
+    ragged query and key tiles, a prefix in the cache, non-monotone
+    positions, a kv tile live only through the window, rows with no live
+    key, full tiles, head dims 64 / 80 / 128; atol 3e-2 and 2e-2 of each
+    output row's largest value."""
+    rng = np.random.default_rng(7)
+    bf16 = torch.bfloat16
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                ).to(bf16).cuda()
+               for s in ((B, Sq, KV, G, hd), (B, Sk, KV, hd),
+                         (B, Sk, KV, hd)))
+    qp = _pos(qk[0], Sq, qk[1], 1).expand(B, Sq).contiguous().cuda()
+    kp = _pos(kk, Sk, 0, 2).expand(B, Sk).contiguous().cuda()
+    args = (q, k, v, qp, kp, win, 1 / np.sqrt(hd))
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(*args)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert FA.flash_attention.last_variant == "wgmma_tma"
+    ref = FA.flash_attention_plain(*args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=ATOL[("attention", "bfloat16")])
+    assert _row_rel(out, ref) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,d,F,act", [
+    (200, 256, 384, "silu"),        # N not a multiple of 128
+    (300, 2560, 6912, "silu"),      # h2o-danube's widths
+    (150, 2048, 5632, "gelu"),
+    (130, 512, 1000, "gelu"),       # F not a multiple of 128
+    (100, 200, 136, "silu"),        # d not a multiple of 64
+])
+def test_cuda_fused_mlp_wgmma_edges(N, d, F, act, cuda_device):
+    """The wgmma/TMA pair against the plain version (bf16, atol 5e-2) at
+    ragged row, column and depth tiles, silu and gelu."""
+    rng = np.random.default_rng(3)
+    bf16 = torch.bfloat16
+    x, s, wg, wu = (torch.from_numpy(a.astype(np.float32)).to(bf16).cuda()
+                    for a in (rng.standard_normal((N, d)),
+                              0.1 * rng.standard_normal(d),
+                              0.02 * rng.standard_normal((d, F)),
+                              0.02 * rng.standard_normal((d, F))))
+    before = FM.fused_rmsnorm_mlp.launches
+    out = FM.fused_rmsnorm_mlp(x, s, wg, wu, act)
+    torch.cuda.synchronize()
+    assert FM.fused_rmsnorm_mlp.launches == before + 1
+    assert FM.fused_rmsnorm_mlp.last_variant == "wgmma_tma"
+    ref = FM.fused_rmsnorm_mlp_plain(x, s, wg, wu, act)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=ATOL[("mlp", "bfloat16")])
+
+
+@pytest.mark.gpu
+def test_cuda_misaligned_views_take_the_wmma_kernels(cuda_device):
+    """A contiguous view that starts 2 bytes into its buffer is not a TMA
+    operand: the wrappers launch the WMMA kernels, which agree with the
+    plain versions."""
+    rng = np.random.default_rng(4)
+    bf16 = torch.bfloat16
+
+    def shifted(shape):
+        n = int(np.prod(shape))
+        a = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32))
+        return a.to(bf16).cuda()[1:].view(shape)
+
+    q, k, v = shifted((1, 130, 2, 2, 80)), shifted((1, 130, 2, 80)), \
+        shifted((1, 130, 2, 80))
+    p = torch.arange(130, dtype=torch.int32, device="cuda")[None]
+    out = FA.flash_attention(q, k, v, p, p, 0, 80 ** -0.5)
+    assert FA.flash_attention.last_variant == "wmma"
+    ref = FA.flash_attention_plain(q, k, v, p, p, 0, 80 ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=ATOL[("attention", "bfloat16")])
+    x = shifted((40, 64))
+    s = (0.1 * shifted((64,)).float()).to(bf16)
+    wg, wu = ((0.1 * shifted((64, 96)).float()).to(bf16) for _ in range(2))
+    out = FM.fused_rmsnorm_mlp(x, s, wg, wu, "silu")
+    assert FM.fused_rmsnorm_mlp.last_variant == "wmma"
+    torch.testing.assert_close(
+        out.float(), FM.fused_rmsnorm_mlp_plain(x, s, wg, wu).float(),
+        rtol=0, atol=ATOL[("mlp", "bfloat16")])
