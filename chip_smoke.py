@@ -40,7 +40,9 @@ main path through its public entry points at the size its users run:
                    path's shapes, with times beside the bound and SDPA
                    (both graph-timed) and, for the MLP, cuBLAS on the same
                    products; the prefill kernels must run their Hopper
-                   (``wgmma_tma``) variant there.
+                   (``wgmma_tma``) variant there and decode its ``cp_async``
+                   sweep (timed beside the ``cuda_cores`` sweep; at one
+                   slot, its rule's split beside ``kv_block``).
                    Attention is held per output row as well, relative to the
                    row's scale, and that check must reject planted faults
                    (zero output, a dropped split or key tile, a window one
@@ -57,8 +59,10 @@ main path through its public entry points at the size its users run:
                    decode step and of the 16,384-token prefill
                    (``serve_ssm_profile``); and ``ssd_scan`` against its
                    plain version at the path's shapes (``serve_ssm_kernels``:
-                   per element and per (batch, head) within 1e-4, times,
-                   bound), a check that must reject planted faults (the
+                   per element and per (batch, head) within 1e-4, times by
+                   kernel, both bounds, the ``cuda_cores`` kernels beside; the
+                   ``tf32x3`` kernels must run), a check that must reject
+                   planted faults (the
                    state carry dropped at one chunk boundary, the D term
                    left out, the decay shifted by one position, the first
                    super-diagonal let through the mask).
@@ -69,8 +73,11 @@ error against the plain version, its time, the plain version's time, the
 library call's time where one PyTorch call computes the same function, and
 the least time the card could take for the same work (the larger of bytes
 over 3.35 TB/s and operations over the peak for their type: 67 TFLOP/s
-float32 for ``tick_sim`` and ``ssd_scan``, 989 TFLOP/s bf16 for the other
-LLM kernels; published H100 SXM figures).  The line before the last is the
+float32 for ``tick_sim``, 989 TFLOP/s bf16 for the attention and MLP
+kernels; for ``ssd_scan`` the lesser of its products on TF32 tensor cores,
+three passes at 494 TFLOP/s, with the rest at 67 (``bound_tc_ms``), and
+all of it at 67 (``bound_f32_ms``); published H100 SXM figures).  The line
+before the last is the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.  Any failure exits with a non-zero code; without a CUDA device the
 script stops at once.
@@ -803,6 +810,63 @@ EDGE_MLP = ((200, 256, 384, "silu"), (300, 2560, 6912, "silu"),
             (100, 200, 136, "silu"))
 
 
+# The cp_async decode sweep's edges (bfloat16 cache; tests/
+# test_torch_llm_kernels.py holds the same cases): B, W, KV, G, hd, hd_v,
+# window, positions, kv_block, q dtype, ring ("perm": slots and positions
+# permuted, an unwritten run in the middle)
+EDGE_DECODE = (
+    (3, 1000, 2, 4, 64, 64, 0, (5, 999, 2500), 512, "bf16", "ring"),
+    (2, 333, 1, 8, 128, 128, 100, (50, 700), 37, "bf16", "ring"),
+    (2, 2048, 2, 4, 80, 80, 0, (3000, 3000), 512, "bf16", "perm"),
+    (2, 2048, 2, 4, 80, 80, 0, (100, 100), 512, "bf16", "ring"),  # dead splits
+    (4, 4096, 8, 4, 80, 80, 4096, (4638, 4639, 3103, 2300), 512, "bf16",
+     "ring"),
+    (2, 4096, 1, 16, 128, 128, 0, (10, 5000), 512, "bf16", "ring"),  # 2,048
+    (2, 500, 2, 2, 72, 72, 0, (100, 900), 512, "bf16", "ring"),     # hd % 16
+    (2, 500, 2, 5, 128, 64, 200, (499, 900), 512, "f32", "ring"),   # f32 q
+)
+# The tf32x3 scan's edges: B, L, nh, hd, st, chunk, dt draw (Q = 1, 8, 100,
+# 256; st 16 / 128; hd 32 / 64; large dt)
+EDGE_SSD = (
+    (2, 256, 3, 32, 16, 1, "normal"),
+    (1, 64, 4, 32, 16, 8, "normal"),
+    (1, 200, 2, 64, 128, 100, "large_dt"),
+    (1, 1024, 8, 32, 128, 256, "mamba"),
+    (1, 512, 4, 64, 16, 256, "mamba"),
+    (2, 768, 4, 64, 128, 256, "large_dt"),
+)
+
+# One case of each wrapper with an operand that is not 16-byte aligned
+# (tests/test_torch_*.py hold them too): decode B, W, KV, G, hd, hd_v,
+# window, positions, kv_block with the cache shifted; the scan's B, L, nh,
+# hd, st, chunk, dt draw with xs shifted (two chunks: the state pass runs)
+MISALIGNED_DECODE = (2, 300, 2, 4, 80, 80, 0, (100, 400), 512)
+MISALIGNED_SSD = (1, 512, 4, 64, 128, 256, "mamba")
+
+
+def misaligned(t):
+    """``t`` copied into a contiguous view that starts one element into
+    its buffer, so not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+def edge_decode_case(gen, B, W, KV, G, hd, hdv, win, pos, qdtype, ring):
+    """Inputs of one EDGE_DECODE call; ``perm``: a run of W / 4 slots
+    unwritten, then slots and their positions permuted alike."""
+    a = list(decode_case(gen, B, W, KV, G, hd, hdv, win, torch.bfloat16,
+                         list(pos)))
+    a[0] = a[0].to(torch.float32 if qdtype == "f32" else torch.bfloat16)
+    if ring == "perm":
+        from repro_torch.models.layers import UNWRITTEN
+        kp = a[4].clone()
+        kp[:, W // 8:W // 8 + W // 4] = UNWRITTEN
+        perm = torch.randperm(W, generator=gen, device=DEV)
+        a[1], a[2], a[4] = (t[:, perm].contiguous() for t in (a[1], a[2], kp))
+    return tuple(a)
+
+
 def edge_positions(gen, kind, n, first):
     if kind == "perm":
         p = torch.randperm(n, generator=gen, device=DEV) + first
@@ -932,8 +996,11 @@ def phase_llm_kernels():
     """Each LLM kernel against its plain version on the card at small and
     edge shapes: head dim 80, ragged tiles, windows, a query row with no
     live key, ring caches with unwritten slots, G from 1 to 8, silu and
-    gelu, float32 and bfloat16; and the wgmma/TMA kernels at their edges
-    (``EDGE_ATTN``, ``EDGE_MLP``), each of which must run that kernel."""
+    gelu, float32 and bfloat16; the wgmma/TMA kernels at their edges
+    (``EDGE_ATTN``, ``EDGE_MLP``), the cp_async decode sweep at its edges
+    (``EDGE_DECODE``) and the tf32x3 scan at its (``EDGE_SSD``), each of
+    which must run that kernel; ``ssd_scan`` at ``SSD_CASES`` too; one
+    misaligned operand of each, which must run the older kernels."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.flash_decode import flash_decode_plain
     from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
@@ -997,18 +1064,34 @@ def phase_llm_kernels():
     for (N, d, F, act) in EDGE_MLP:
         run("fused_mlp", "mlp", mlp_case(gen, N, d, F, act, bf16),
             fused_rmsnorm_mlp_plain, want="wgmma_tma")
-    for (B, L, nh, hd, st, chunk, kind) in SSD_CASES:
+    for (B, W, KV, G, hd, hdv, win, pos, blk, qd, ring) in EDGE_DECODE:
+        a = edge_decode_case(gen, B, W, KV, G, hd, hdv, win, pos, qd, ring)
+        run("flash_decode", "attention", a, flash_decode_plain, (blk,),
+            want="cp_async")
+        cases[-1]["split"] = K["flash_decode"].last_split
+    # a cache that is no cp.async operand takes the PR 12 sweep
+    a = edge_decode_case(gen, *MISALIGNED_DECODE[:8], "bf16", "ring")
+    run("flash_decode", "attention",
+        (a[0], misaligned(a[1]), misaligned(a[2])) + a[3:],
+        flash_decode_plain, (MISALIGNED_DECODE[8],), want="cuda_cores")
+    edge_ssd = ([c + (None, False) for c in SSD_CASES]
+                + [c + ("tf32x3", False) for c in EDGE_SSD]
+                + [MISALIGNED_SSD + ("cuda_cores", True)])
+    for (B, L, nh, hd, st, chunk, kind, want, shift) in edge_ssd:
         args = ssd_case(gen, B, L, nh, hd, st, kind)
+        if shift:       # xs is no cp.async operand: the PR 13 kernels
+            args = (misaligned(args[0]),) + args[1:]
         y, h = ssd_scan(*args, chunk)
         sync()
         res = ssd_check(y, h, *ssd_scan_plain(*args, chunk))
         case = {"kernel": "ssd_scan", "shape": [B, L, nh, hd], "st": st,
                 "chunk": chunk, "dt": kind, "dtype": "float32",
+                "variant": ssd_scan.last_variant,
                 "max_abs_err": res["max_abs_err"],
                 "max_excess": res["max_excess"],
                 "max_row_rel_err": res["max_row_rel_err"]}
         cases.append(case)
-        if not res["ok"]:
+        if not res["ok"] or (want and case["variant"] != want):
             bad.append(case)
     names = sorted({c["kernel"] for c in cases})
     emit({"phase": "llm_kernels", "cases": len(cases), "failed": len(bad),
@@ -1091,6 +1174,8 @@ def drive_serve(spec=SERVE, lm_kwargs=None, phase="serve",
     sync()
     wall = time.perf_counter() - t0
     launches = {n: f.launches for n, f in K.items()}   # ... to here
+    variants = {n: getattr(f, "last_variant", None) for n, f in K.items()
+                if n in path}
     lm.prefill, lm.decode_step = prefill, decode_step
     if len(eng.done) != len(reqs):
         raise SystemExit(f"{phase}: {len(eng.done)}/{len(reqs)} requests "
@@ -1114,7 +1199,8 @@ def drive_serve(spec=SERVE, lm_kwargs=None, phase="serve",
         "decode_tokens_per_s": n_decoded / tm["decode_s"],
         "decode_step_ms": 1e3 * tm["decode_s"] / tm["decode_steps"],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": launches, "stats": eng.stats()}
+        "launches": launches, "last_variants": variants,
+        "stats": eng.stats()}
     return report, dict(eng=eng, reqs=reqs, logits=logits, window=window)
 
 
@@ -1206,14 +1292,17 @@ def time_llm_kernel(name, kind, args, plain, library=None, extra=()):
     (CUDA events, mean of SERVE["reps"] after a warm call); the plain
     version is timed as it runs, eagerly (mean of 2).  For attention the same check is
     also put to the planted faults, each of which it must reject
-    (``faults_rejected``)."""
+    (``faults_rejected``); decode drops the split the kernel itself used
+    (``split``, from ``last_split``)."""
     f = llm_kernels()[name]
     out = f(*args, *extra)
     sync()
     variant = getattr(f, "last_variant", None)
+    split = getattr(f, "last_split", None)
     ref = plain(*args)
     sync()
     res = {**llm_check(kind, out, ref, args[0].dtype), "variant": variant,
+           **({"split": split} if split is not None else {}),
            "ms": graph_ms(lambda: f(*args, *extra), SERVE["reps"]),
            "call_ms": cuda_ms(lambda: f(*args, *extra), SERVE["reps"]),
            "plain_ms": cuda_ms(lambda: plain(*args), 2),
@@ -1225,7 +1314,9 @@ def time_llm_kernel(name, kind, args, plain, library=None, extra=()):
     del out
     if kind == "attention":
         faults = {}
-        for fault, bad in planted_faults(name, args, plain, ref).items():
+        at = {"split": split} if split is not None else {}
+        for fault, bad in planted_faults(name, args, plain, ref,
+                                         **at).items():
             c = llm_check(kind, bad, ref, args[0].dtype)
             faults[fault] = {"max_abs_err": c["max_abs_err"],
                              "max_row_rel_err": c["max_row_rel_err"],
@@ -1244,7 +1335,8 @@ def time_serve_kernels(ctx):
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.flash_decode import flash_decode_plain
     from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
-    from repro_torch.models.layers import _window_mask, ring_kpos, rms_norm
+    from repro_torch.models.layers import AttnOptions, _window_mask, \
+        ring_kpos, rms_norm
     eng = ctx["eng"]
     cfg = eng.cfg
     KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
@@ -1274,6 +1366,7 @@ def time_serve_kernels(ctx):
     del a, q, k, v, qt, kt, vt, mask
 
     # flash_decode: the 4 slots over the engine's final ring cache, layer 0
+    from repro_torch.kernels.flash_decode import _launch as fd_launch
     ck, cv = (c[0] for c in eng.cache["blocks"])
     pos = (eng.cache["pos"] - 1).to(torch.int32)
     kpos = ring_kpos(pos, ck.shape[1])
@@ -1282,11 +1375,34 @@ def time_serve_kernels(ctx):
     live = _window_mask(pos[:, None], kpos, win)[:, 0]           # (B, W)
     qt = qd.reshape(SERVE["slots"], KV * G, 1, hd)
     kt, vt = (c.transpose(1, 2).contiguous() for c in (ck, cv))
+    kv_block = AttnOptions().kv_block                 # what the path passes
     r = time_llm_kernel(
         "flash_decode", "attention", d_args, flash_decode_plain,
         lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=live[:, None, None, :], scale=d_args[-1],
-            enable_gqa=True))
+            enable_gqa=True), extra=(kv_block,))
+    # the cuda_cores sweep on the same inputs (split = kv_block), graph-timed
+    r["old_variant_ms"] = graph_ms(
+        lambda: fd_launch(*d_args, kv_block, kv_block, "cuda_cores"),
+        SERVE["reps"])
+    # decode_split at one slot, where its grid would cover under one block
+    # per SM at split = kv_block and it takes a shorter split: its choice
+    # (checked against the plain version) timed against kv_block; drawn
+    # from a generator of its own, so the other rows keep their inputs
+    W = ck.shape[1]
+    sb = decode_case(torch.Generator(device=DEV).manual_seed(SEED + 4), 1,
+                     W, KV, G, hd, hd, win, bf16, [2 * W - 1])
+    fd = llm_kernels()["flash_decode"]
+    sb_out = fd(*sb, kv_block)
+    r["small_batch_split"] = {
+        "shape": f"q (1,{KV},{G},{hd}), cache (1,{W},{KV},{hd}) bf16",
+        "variant": fd.last_variant, "split": fd.last_split,
+        **llm_check("attention", sb_out, flash_decode_plain(*sb), bf16),
+        "ms": graph_ms(lambda: fd(*sb, kv_block), SERVE["reps"]),
+        "kv_block_ms": graph_ms(
+            lambda: fd_launch(*sb, kv_block, kv_block, "cp_async"),
+            SERVE["reps"])}
+    del sb, sb_out
     n_live = float(live.sum())
     byts = n_live * KV * 2 * hd * ck.element_size() + _nbytes(
         qd, qd, pos, kpos)
@@ -1294,10 +1410,9 @@ def time_serve_kernels(ctx):
     r.update(zip(("bound_ms", "bound_by"), _bound(byts, ops)))
     r.update(shape=f"q ({SERVE['slots']},{KV},{G},{hd}), cache "
              f"({SERVE['slots']},{ck.shape[1]},{KV},{hd}) bf16",
-             live_slots=n_live, split=512, operations=ops)
+             live_slots=n_live, operations=ops)
     rows["flash_decode"] = r
     del kt, vt
-
     # fused_mlp: the longest prefill (N = 4,608) and the 4-slot decode
     mp = eng.params["blocks"]["mlp"]
     norm = eng.params["blocks"]["mlp_norm"][0]
@@ -1309,14 +1424,13 @@ def time_serve_kernels(ctx):
         m_args = (x, norm, wg, wu, cfg.act, cfg.norm_eps)
         rr = time_llm_kernel("fused_mlp", "mlp", m_args,
                              fused_rmsnorm_mlp_plain)
-        if label == "prefill":
-            # yardstick only (the port never calls it): cuBLAS on the same
-            # products, normalised x against [Wg | Wu], graph-timed
-            xn = rms_norm(x, norm, cfg.norm_eps)
-            wgu = torch.cat([wg, wu], dim=1)
-            rr["matmul_ms"] = graph_ms(lambda: torch.matmul(xn, wgu),
-                                       SERVE["reps"])
-            del xn, wgu
+        # yardstick only (the port never calls it): cuBLAS on the same
+        # products, normalised x against [Wg | Wu], graph-timed
+        xn = rms_norm(x, norm, cfg.norm_eps)
+        wgu = torch.cat([wg, wu], dim=1)
+        rr["matmul_ms"] = graph_ms(lambda: torch.matmul(xn, wgu),
+                                   SERVE["reps"])
+        del xn, wgu
         ops = 4.0 * N * d * Ff
         rr.update(zip(("bound_ms", "bound_by"),
                       _bound(_nbytes(x, norm, wg, wu) + 2.0 * N * Ff, ops)))
@@ -1325,10 +1439,11 @@ def time_serve_kernels(ctx):
         per[label] = rr
     rows["fused_mlp"] = {**per["prefill"], "also": per["decode"]}
     bad = [n for n, r in rows.items()
-           if not r["ok"] or ("also" in r and not r["also"]["ok"])]
+           if not r["ok"] or ("also" in r and not r["also"]["ok"])
+           or not r.get("small_batch_split", {}).get("ok", True)]
     blind = [n for n, r in rows.items() if not r.get("faults_rejected", True)]
-    old = [n for n in PREFILL_VARIANT
-           if rows[n]["variant"] != PREFILL_VARIANT[n]]
+    old = [n for n in SERVE_VARIANT
+           if rows[n]["variant"] != SERVE_VARIANT[n]]
     emit({"phase": "serve_kernels", **rows})
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions at the "
@@ -1345,7 +1460,9 @@ def _kernel_group(name: str) -> str:
     for k in ("fused_mlp", "flash_attention", "flash_decode"):
         if k in name:
             return k
-    if name.startswith("ssd_"):         # the four kernels of csrc/ssd_scan.cu
+    if "fd2_combine" in name:           # flash_decode's cp_async combine
+        return "flash_decode"
+    if name.startswith("ssd_"):         # the kernels of csrc/ssd_scan.cu
         return "ssd_scan"
     if name.startswith("nvjet") or "gemm" in name.lower():
         return "torch.matmul (cuBLAS)"
@@ -1422,6 +1539,47 @@ def ssd_bound(B, L, nh, hd, st, Q):
     return ops, byts, _bound(byts, ops, H100_FP32_PER_S)
 
 
+H100_TF32_PER_S = 494e12        # TF32 tensor cores, dense, published
+
+
+def ssd_bound_tc(B, L, nh, hd, st, Q):
+    """The same work with the products on tensor cores in 3xTF32: the
+    product operations of ``ssd_bound`` (C B^T, att @ x, C @ h_in, the
+    state update) three times over at 494 TFLOP/s, plus the rest (the
+    pair's decay, dt and product: 3 per pair and head) at 67 TFLOP/s,
+    against the same bytes; returns (ms, "bytes" | "operations")."""
+    nc = L // Q
+    pairs = Q * (Q + 1) / 2.0
+    prod = (2.0 * B * nc * pairs * st + B * nh * nc * pairs * 2.0 * hd
+            + 2.0 * 2.0 * B * L * nh * st * hd)
+    rest = 3.0 * B * nh * nc * pairs
+    t_ops = (3.0 * prod / H100_TF32_PER_S + rest / H100_FP32_PER_S) * 1e3
+    _, byts, _ = ssd_bound(B, L, nh, hd, st, Q)
+    t_bytes = byts / H100_BYTES_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def ssd_ms_by_kernel(fn, reps=5):
+    """Device milliseconds per call of each kernel ``fn()`` launches
+    (``torch.profiler``, mean over ``reps`` calls after a warm one)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    per = {}
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0))
+        if dev > 0 and e.key.startswith("ssd_"):
+            k = e.key.split("(")[0]
+            per[k] = per.get(k, 0.0) + dev / reps / 1e3
+    return per
+
+
 def time_ssm_kernels():
     """``ssd_scan`` at the SSM serving path's shapes (the 16,384-token and
     the 100-token prefill of mamba2-370m: nh 32, hd 64, st 128, chunk 256)
@@ -1429,9 +1587,14 @@ def time_ssm_kernels():
     ranges (``ssd_case`` "mamba"): per element and per (batch, head) within
     SSD_TOL; the kernel's device time (CUDA graph of SERVE_SSM["reps"]
     calls), one call as the path makes it, the plain version's time, the
-    bound; and the same check put to planted faults, each of which it must
-    reject."""
+    bound with the products on tensor cores in 3xTF32 (``bound_tc_ms``) and
+    at the float32 CUDA-core rate (``bound_f32_ms``), ``bound_ms`` the
+    lesser of the two; the device time of each kernel of a
+    call (``ms_by_kernel``) and the ``cuda_cores`` kernels on the same inputs
+    (``old_variant_ms``, ``old_ms_by_kernel``); and the same check put to
+    planted faults, each of which it must reject."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import _launch as ssd_launch
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     cfg = get_config(SERVE_SSM["arch"])
     nh, hd, st, chunk = (cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
@@ -1447,15 +1610,29 @@ def time_ssm_kernels():
         sync()
         res = ssd_check(y, h, *ref)
         del y, h
-        res.update(ms=graph_ms(lambda: ssd_scan(*args, chunk), reps),
+        variant = ssd_scan.last_variant
+        res.update(variant=variant,
+                   ms=graph_ms(lambda: ssd_scan(*args, chunk), reps),
                    call_ms=cuda_ms(lambda: ssd_scan(*args, chunk), reps),
                    plain_ms=cuda_ms(lambda: ssd_scan_plain(*args, chunk), 2),
-                   library_ms=None)
+                   library_ms=None,
+                   # the cuda_cores kernels on the same inputs, graph-timed
+                   old_variant_ms=graph_ms(
+                       lambda: ssd_launch(*args, chunk, "cuda_cores"), reps),
+                   ms_by_kernel=ssd_ms_by_kernel(
+                       lambda: ssd_scan(*args, chunk)),
+                   old_ms_by_kernel=ssd_ms_by_kernel(
+                       lambda: ssd_launch(*args, chunk, "cuda_cores")))
         Q = min(chunk, L)
-        ops, byts, (bound_ms, bound_by) = ssd_bound(1, L, nh, hd, st, Q)
-        res.update(bound_ms=bound_ms, bound_by=bound_by, operations=ops,
-                   bytes=byts, shape=f"xs (1,{L},{nh},{hd}), st {st}, "
-                   f"Q {Q}, f32", kernels_per_call=4)
+        ops, byts, f32_bound = ssd_bound(1, L, nh, hd, st, Q)
+        tc_bound = ssd_bound_tc(1, L, nh, hd, st, Q)
+        # the row's bound is the lesser: the card can do the work that fast
+        bound_ms, bound_by = min(f32_bound, tc_bound)
+        res.update(bound_ms=bound_ms, bound_by=bound_by,
+                   bound_f32_ms=f32_bound[0], bound_tc_ms=tc_bound[0],
+                   operations=ops, bytes=byts,
+                   shape=f"xs (1,{L},{nh},{hd}), st {st}, Q {Q}, f32",
+                   kernels_per_call=len(res["ms_by_kernel"]))
         faults = {}
         for fault, (fy, fh) in ssd_planted_faults(args, chunk, ref).items():
             c = ssd_check(fy, fh, *ref)
@@ -1473,6 +1650,9 @@ def time_ssm_kernels():
     if not (row["ok"] and row["also"]["ok"]):
         raise SystemExit("ssd_scan disagrees with its plain version at the "
                          "SSM serving path's shapes")
+    if SSD_VARIANT != row["variant"] or SSD_VARIANT != row["also"]["variant"]:
+        raise SystemExit(f"the SSM serving shapes did not run the "
+                         f"{SSD_VARIANT} kernels")
     if not (row["faults_rejected"] and row["also"]["faults_rejected"]):
         raise SystemExit("the ssd_scan check passed a planted fault")
     return row
@@ -1520,9 +1700,13 @@ KERNEL_KEYS = ("max_abs_err", "tolerance", "max_row_rel_err", "row_rtol",
                "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 # keys a row carries where it has them
-KERNEL_EXTRA_KEYS = ("variant", "library_call_ms", "matmul_ms")
-# the device kernel each prefill must run at the serving shape
-PREFILL_VARIANT = {"flash_attention": "wgmma_tma", "fused_mlp": "wgmma_tma"}
+KERNEL_EXTRA_KEYS = ("variant", "split", "library_call_ms", "matmul_ms",
+                     "old_variant_ms", "bound_tc_ms", "bound_f32_ms",
+                     "small_batch_split", "ms_by_kernel")
+# the device kernel each must run at the serving shapes
+SERVE_VARIANT = {"flash_attention": "wgmma_tma", "fused_mlp": "wgmma_tma",
+                 "flash_decode": "cp_async"}
+SSD_VARIANT = "tf32x3"
 
 
 def kernel_row(r):

@@ -2,11 +2,13 @@
 
 ``ssd_scan`` replaces the Pallas kernel of the reference,
 ``repro/kernels/ssd_scan.py`` (``_ssd_kernel`` / ``ssd_scan_pallas``).  On
-CUDA tensors it launches the four kernels of ``csrc/ssd_scan.cu`` (chunk
+CUDA tensors it launches the kernels of ``csrc/ssd_scan.cu`` (chunk
 states, ``C B^T`` per chunk, the serial state pass, chunk outputs; see its
-source note) or raises; on CPU tensors it runs :func:`ssd_scan_plain`.
+source note), the set chosen by :func:`_variant` from shape and alignment
+alone, or raises; on CPU tensors it runs :func:`ssd_scan_plain`.
 ``ssd_scan.launches`` counts calls that launched, one per call (each call is
-the four kernels in a row).
+three or four kernels in a row), and ``ssd_scan.last_variant`` names the set
+of the latest one.
 """
 from __future__ import annotations
 
@@ -14,11 +16,24 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._common import check, on_card, stream_of
+from repro_torch.kernels._common import aligned16, check, on_card, \
+    stream_of
 
 MAX_CHUNK = 256        # Q, tokens of one chunk (the kernels' shared memory)
 MAX_STATE = 128        # st, the state width
 MAX_HEAD_DIM = 64      # hd, the head dim
+# The kernel sets, by the code csrc/ssd_scan.cu takes.
+VARIANTS = {"cuda_cores": 0, "tf32x3": 1}
+
+
+def _variant(hd: int, st: int, aligned: bool) -> str:
+    """The kernel set for these operands: ``tf32x3`` (products on tensor
+    cores in 3xTF32, 16-byte ``cp.async`` loads) when hd and st are
+    multiples of 4 and xs, Bm and Cm are 16-byte aligned; ``cuda_cores``
+    (float32 CUDA cores, any layout) otherwise."""
+    if hd % 4 == 0 and st % 4 == 0 and aligned:
+        return "tf32x3"
+    return "cuda_cores"
 
 
 def chunk_len(L: int, chunk: int) -> int:
@@ -123,7 +138,9 @@ def _check(xs, dt, A, Bm, Cm, D, chunk):
 _FN = None
 
 
-def _launch(xs, dt, A, Bm, Cm, D, chunk):
+def _launch(xs, dt, A, Bm, Cm, D, chunk, variant=None):
+    """One launch; ``variant`` defaults to :func:`_variant` and is given
+    only to time the other kernel set on the same inputs."""
     global _FN
     B, L, nh, hd, st, Q = _check(xs, dt, A, Bm, Cm, D, chunk)
     dev = xs.device
@@ -131,24 +148,30 @@ def _launch(xs, dt, A, Bm, Cm, D, chunk):
     hout = torch.empty((B, nh, st, hd), dtype=torch.float32, device=dev)
     nc = L // Q
     # scratch: la (B,nh,L), chunk states (B,nh,nc,st,hd), C B^T (B,nc,Q,Q)
+    # in rows of Q rounded up to 4 floats (16-byte rows for cp.async)
     la = torch.empty((B, nh, L), dtype=torch.float32, device=dev)
     states = torch.empty((B, nh, nc, st, hd), dtype=torch.float32,
                          device=dev)
-    cb = torch.empty((B, nc, Q, Q), dtype=torch.float32, device=dev)
+    cb = torch.empty((B, nc, Q, -(-Q // 4) * 4), dtype=torch.float32,
+                     device=dev)
     if _FN is None:
         from repro_torch.kernels import build
         P, I = ctypes.c_void_p, ctypes.c_int
         _FN = build.function("ssd_scan", "ssd_scan_launch",
-                             [P] * 11 + [I] * 6 + [P])
+                             [P] * 11 + [I] * 7 + [P])
+    if variant is None:
+        variant = _variant(hd, st, aligned16(xs, Bm, Cm))
     with torch.cuda.device(dev):
         rc = _FN(xs.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                  Cm.data_ptr(), D.data_ptr(), y.data_ptr(), hout.data_ptr(),
                  la.data_ptr(), states.data_ptr(), cb.data_ptr(), B, L, nh,
-                 hd, st, Q, stream_of(xs))
+                 hd, st, Q, VARIANTS[variant], stream_of(xs))
     if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed (CUDA error {rc}) "
-                           f"for xs {tuple(xs.shape)}, st={st}, Q={Q}")
+        raise RuntimeError(f"ssd_scan kernel launch failed (CUDA error {rc}, "
+                           f"{variant}) for xs {tuple(xs.shape)}, st={st}, "
+                           f"Q={Q}")
     ssd_scan.launches += 1
+    ssd_scan.last_variant = variant
     return y, hout
 
 
@@ -164,3 +187,4 @@ def ssd_scan(xs, dt, A, Bm, Cm, D, chunk: int = 256):
 
 
 ssd_scan.launches = 0
+ssd_scan.last_variant = None

@@ -554,3 +554,220 @@ def test_cuda_misaligned_views_take_the_wmma_kernels(cuda_device):
     torch.testing.assert_close(
         out.float(), FM.fused_rmsnorm_mlp_plain(x, s, wg, wu).float(),
         rtol=0, atol=ATOL[("mlp", "bfloat16")])
+
+
+# ----------------------------------------- the cp_async decode sweep (rule)
+def test_decode_dispatch_rule():
+    """``flash_decode._variant`` is a function of the cache dtype, head
+    dims, G and alignment alone: every dense config of the port gets the
+    cp_async sweep for its bf16 cache at its head dim except gemma-2b's 256
+    (the CUDA-core sweep); a float32 cache, odd head dims, G > 16 or a
+    misaligned view never get it."""
+    from repro_torch.configs import get_config, list_configs
+    bf16, f32 = torch.bfloat16, torch.float32
+    for name in list_configs():
+        cfg = get_config(name)
+        if cfg.family != "dense":
+            continue
+        hd, G = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+        want = "cuda_cores" if hd > 128 else "cp_async"
+        assert FD._variant(bf16, hd, hd, G, True) == want, name
+        assert FD._variant(bf16, hd, hd, G, False) == "cuda_cores", name
+        assert FD._variant(f32, hd, hd, G, True) == "cuda_cores", name
+    assert FD._variant(bf16, 72, 72, 16, True) == "cp_async"
+    assert FD._variant(bf16, 80, 76, 4, True) == "cuda_cores"   # hd_v % 8
+    assert FD._variant(bf16, 20, 16, 4, True) == "cuda_cores"   # hd % 8
+    assert FD._variant(bf16, 64, 64, 17, True) == "cuda_cores"  # G > 16
+    assert FD._variant(bf16, 64, 136, 2, True) == "cuda_cores"  # hd_v > 128
+    assert FD._variant(bf16, 64, 64, 2, True, 2 ** 18) == "cp_async"
+    assert FD._variant(bf16, 64, 64, 2, True, 2 ** 18 + 1) == "cuda_cores"
+    assert set(FD.VARIANTS) == {"cuda_cores", "cp_async"}
+
+
+@pytest.mark.parametrize("bkv,W,kv_block,n_sm", [
+    (32, 4096, 512, 132),        # the dense serving shape: 32 x 8 blocks
+    (32, 4096, 128, 132),        # kv_block caps the split
+    (2, 32, 8, 132),             # a split shorter than a warp step
+    (1, 100, 512, 132),          # one short row: the whole row in one block
+    (6, 1000, 512, 132),         # W not a multiple of the split
+    (256, 32768, 4096, 132),     # a large batch: the split's upper limit
+    (8, 4096, 512, 114),         # another SM count
+    (1, 40000, 8, 132),          # more than MAX_SPLITS partials
+])
+def test_decode_split_rule(bkv, W, kv_block, n_sm):
+    """``decode_split``: at most ``kv_block``, ``MAX_SPLIT`` and W slots;
+    otherwise the fewest whole 64-slot warp steps with which
+    ``BLOCKS_PER_SM`` blocks per SM hold every row, so the grid ``bkv x
+    ceil(W / split)`` covers the SMs several times over; never more than
+    ``MAX_SPLITS`` splits of a row."""
+    split = FD.decode_split(bkv, W, kv_block, n_sm)
+    assert -(-W // split) * FD.PARTS_PER_SPLIT <= FD.MAX_SPLITS
+    if W * FD.PARTS_PER_SPLIT <= kv_block * FD.MAX_SPLITS:
+        assert 1 <= split <= min(kv_block, FD.MAX_SPLIT, W)
+    target = FD.BLOCKS_PER_SM * n_sm
+    capped = split in (kv_block, FD.MAX_SPLIT, W,
+                       -(-W * FD.PARTS_PER_SPLIT // FD.MAX_SPLITS))
+    if not capped:
+        assert split % FD.SPLIT_STEP == 0
+        assert split * target >= bkv * W                  # enough slots
+        assert split == FD.SPLIT_STEP or \
+            (split - FD.SPLIT_STEP) * target < bkv * W    # the fewest
+    blocks = bkv * -(-W // split)
+    assert blocks >= n_sm or capped or split == FD.SPLIT_STEP
+    if (bkv, W, kv_block, n_sm) == (32, 4096, 512, 132):
+        assert split == 512 and blocks == 256
+
+
+def test_decode_launch_refusals_and_split_record():
+    """On CPU tensors the wrapper runs the plain version and leaves the
+    launch count, ``last_variant`` and ``last_split`` alone; ``_launch``
+    refuses bad shapes before touching the build."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 2, 4, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    ck = torch.zeros(2, 100, 2, 64, dtype=torch.bfloat16)
+    pos = torch.tensor([10, 99], dtype=torch.int32)
+    kp = L.ring_kpos(pos, 100)
+    before = (FD.flash_decode.launches, FD.flash_decode.last_variant,
+              FD.flash_decode.last_split, FD._FN)
+    out = FD.flash_decode(q, ck, ck, pos, kp, 0, 0.125, 32)
+    assert out.shape == (2, 2, 4, 64)
+    with pytest.raises(ValueError, match="does not match"):
+        FD._launch(q, ck[:, :, :1].contiguous(), ck, pos, kp, 0, 0.125, 32)
+    with pytest.raises(ValueError, match="kv_block"):
+        FD._launch(q, ck, ck, pos, kp, 0, 0.125, 0)
+    assert (FD.flash_decode.launches, FD.flash_decode.last_variant,
+            FD.flash_decode.last_split, FD._FN) == before
+
+
+@pytest.mark.parametrize("split", [512, 64])
+def test_row_check_rejects_a_dropped_split_at_the_kernels_split(split):
+    """At the dense serving shape the cp_async sweep splits the 4,096 ring
+    into 512-slot blocks (``decode_split``); the row check must still see
+    one such split left out, and one of 64 slots (the smallest split the
+    rule makes from whole warp steps) on a short ring where it is a large
+    share of the live slots."""
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(6)
+    bf16 = torch.bfloat16
+    if split == 512:
+        B, W, KV, G, hd, win = 4, 4096, 8, 4, 80, 4096
+        pos = torch.tensor([4638, 4639, 3103, 2300], dtype=torch.int32)
+        assert FD.decode_split(B * KV, W, 512, 132) == split
+    else:
+        B, W, KV, G, hd, win = 2, 256, 2, 4, 80, 0
+        pos = torch.tensor([255, 300], dtype=torch.int32)
+        assert FD.decode_split(B * KV, W, 512, 132) == split
+    q = torch.randn(B, KV, G, hd, generator=g).to(bf16)
+    ck, cv = (torch.randn(B, W, KV, hd, generator=g).to(bf16)
+              for _ in range(2))
+    args = (q, ck, cv, pos, L.ring_kpos(pos, W), win, hd ** -0.5)
+    ref = FD.flash_decode_plain(*args)
+    faults = cs.planted_faults("flash_decode", args, FD.flash_decode_plain,
+                               ref, split=split)
+    res = cs.llm_check("attention", faults["dropped_split"], ref, bf16)
+    assert not res["ok"]
+    assert res["max_row_rel_err"] > cs.LLM_ROW_RTOL[bf16]
+
+
+# B, W, KV, G, hd, hd_v, window, positions, kv_block, q dtype, ring
+EDGE_DECODE = [
+    (3, 1000, 2, 4, 64, 64, 0, (5, 999, 2500), 512, "bf16", "ring"),  # W % 64
+    (2, 333, 1, 8, 128, 128, 100, (50, 700), 37, "bf16", "ring"),  # window
+    (2, 2048, 2, 4, 80, 80, 0, (3000, 3000), 512, "bf16", "perm"),  # wrapped
+    (2, 2048, 2, 4, 80, 80, 0, (100, 100), 512, "bf16", "ring"),  # dead split
+    (2, 4096, 1, 16, 128, 128, 0, (10, 5000), 512, "bf16", "ring"),  # 2,048
+    (2, 500, 2, 2, 72, 72, 0, (100, 900), 512, "bf16", "ring"),  # hd % 16 = 8
+    (2, 500, 2, 5, 128, 64, 200, (499, 900), 512, "f32", "ring"),  # f32 q
+    (4, 4096, 8, 4, 80, 80, 4096, (4638, 4639, 3103, 2300), 512, "bf16",
+     "ring"),                                                     # serving
+]
+
+
+def test_edge_decode_cases_match_chip_smoke():
+    assert [tuple(c) for c in EDGE_DECODE] == sorted(
+        _chip_smoke().EDGE_DECODE, key=lambda c: [tuple(x) for x in
+                                                  EDGE_DECODE].index(c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,W,KV,G,hd,hdv,win,pos,blk,qd,ring", EDGE_DECODE)
+def test_cuda_flash_decode_cp_async_edges(B, W, KV, G, hd, hdv, win, pos,
+                                          blk, qd, ring, cuda_device):
+    """The cp_async sweep against the plain version at its edges: W not a
+    multiple of the split or of a warp step, a window, a ring wrapped with
+    slots and positions permuted and an unwritten run, all-dead splits,
+    G * hd_v = MAX_GROUP_OUT, hd 64 / 72 / 80 / 128, a float32 q over the
+    bf16 cache; abs limit by q's dtype and the row check."""
+    cs = _chip_smoke()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    args = cs.edge_decode_case(gen, B, W, KV, G, hd, hdv, win, pos, qd, ring)
+    before = FD.flash_decode.launches
+    out = FD.flash_decode(*args, blk)
+    torch.cuda.synchronize()
+    assert FD.flash_decode.launches == before + 1
+    assert FD.flash_decode.last_variant == "cp_async"
+    assert FD.flash_decode.last_split == FD.decode_split(
+        B * KV, W, blk, FD._sm_count(out.device))
+    ref = FD.flash_decode_plain(*args)
+    dt = "float32" if qd == "f32" else "bfloat16"
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=ATOL[("attention", dt)])
+    assert _row_rel(out, ref) <= (1e-4 if qd == "f32" else 2e-2)
+
+
+def test_chip_smoke_misaligned_cases_pick_the_older_kernels():
+    """chip_smoke.py's misaligned cases: ``misaligned`` keeps the values in
+    a contiguous view that is not 16-byte aligned, and on such a cache
+    (decode) or xs (the scan) each wrapper's rule picks its older kernels,
+    which ``llm_kernels`` then holds against the plain versions."""
+    from repro_torch.kernels import ssd_scan as SS
+    cs = _chip_smoke()
+    B, W, KV, G, hd, hdv = cs.MISALIGNED_DECODE[:6]
+    ck = torch.randn(B, W, KV, hd).to(torch.bfloat16)
+    m = cs.misaligned(ck)
+    assert m.is_contiguous() and torch.equal(m, ck) and not aligned16(m)
+    q = torch.zeros(B, KV, G, hd, dtype=torch.bfloat16)
+    assert FD._variant(ck.dtype, hd, hdv, G, aligned16(q, ck, ck),
+                       W) == "cp_async"
+    assert FD._variant(ck.dtype, hd, hdv, G, aligned16(q, m, ck),
+                       W) == "cuda_cores"
+    Bs, Ls, nh, hds, st = cs.MISALIGNED_SSD[:5]
+    xs = torch.randn(Bs, Ls, nh, hds)
+    assert SS._variant(hds, st, aligned16(xs)) == "tf32x3"
+    assert SS._variant(hds, st, aligned16(cs.misaligned(xs))) == "cuda_cores"
+    assert Ls // SS.chunk_len(Ls, cs.MISALIGNED_SSD[5]) > 1
+
+
+@pytest.mark.gpu
+def test_cuda_misaligned_decode_cache_takes_the_cuda_core_sweep(cuda_device):
+    """A cache view that starts 2 bytes into its buffer is no cp.async
+    operand: the wrapper launches the ``cuda_cores`` sweep (split =
+    kv_block); so does a q view that does."""
+    rng = np.random.default_rng(5)
+    bf16 = torch.bfloat16
+    B, W, KV, G, hd = 2, 300, 2, 4, 80
+
+    def shifted(shape):
+        n = int(np.prod(shape))
+        a = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32))
+        return a.to(bf16).cuda()[1:].view(shape)
+
+    q = torch.from_numpy(rng.standard_normal((B, KV, G, hd)).astype(
+        np.float32)).to(bf16).cuda()
+    ck, cv = shifted((B, W, KV, hd)), shifted((B, W, KV, hd))
+    pos = torch.tensor([100, 400], dtype=torch.int32, device="cuda")
+    args = (q, ck, cv, pos, L.ring_kpos(pos, W), 0, hd ** -0.5)
+    out = FD.flash_decode(*args, 128)
+    assert FD.flash_decode.last_variant == "cuda_cores"
+    assert FD.flash_decode.last_split == 128
+    torch.testing.assert_close(
+        out.float(), FD.flash_decode_plain(*args).float(), rtol=0,
+        atol=ATOL[("attention", "bfloat16")])
+    ck, cv = (c.clone() for c in (ck, cv))               # aligned copies
+    args = (shifted((B, KV, G, hd)), ck, cv) + args[3:]
+    out = FD.flash_decode(*args, 128)
+    assert FD.flash_decode.last_variant == "cuda_cores"
+    torch.testing.assert_close(
+        out.float(), FD.flash_decode_plain(*args).float(), rtol=0,
+        atol=ATOL[("attention", "bfloat16")])

@@ -238,3 +238,182 @@ def test_cuda_ssd_scan_matches_plain(B, L, nh, hd, st, chunk, dt_scale,
     ry, rh = SS.ssd_scan_plain(*a, chunk)
     torch.testing.assert_close(y, ry, rtol=TOL, atol=TOL)
     torch.testing.assert_close(h, rh, rtol=TOL, atol=TOL)
+
+
+# ------------------------------------------ the tf32x3 kernels (CPU parts)
+def test_ssd_dispatch_rule():
+    """``ssd_scan._variant``: the tensor-core set for mamba2-370m's widths
+    (hd 64, st 128) and every hd / st multiple of 4 with aligned operands;
+    the float32 CUDA-core set for other widths or a misaligned view."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-370m")
+    assert SS._variant(cfg.ssm_headdim, cfg.ssm_state, True) == "tf32x3"
+    assert SS._variant(cfg.ssm_headdim, cfg.ssm_state, False) == "cuda_cores"
+    for hd, st in ((32, 16), (8, 8), (64, 4), (4, 128), (20, 24)):
+        assert SS._variant(hd, st, True) == "tf32x3"
+    for hd, st in ((64, 126), (30, 16), (1, 1)):
+        assert SS._variant(hd, st, True) == "cuda_cores"
+    buf = torch.zeros(1 + 64 * 8)
+    view = buf[1:].view(1, 64, 8)
+    assert view.is_contiguous() and not SS.aligned16(view)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds; returned as float32."""
+    b = x.contiguous().view(torch.int32)
+    sign = b & torch.tensor(-2 ** 31, dtype=torch.int32)
+    mag = (b & 0x7FFFFFFF) + 0x1000
+    return (sign | (mag & ~0x1FFF)).view(torch.float32)
+
+
+def split_tf32(x):
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def product(eq, a, b, mode):
+    """``einsum(eq, a, b)`` of float32 operands as the card would form it:
+    ``f32`` plain; ``tf32`` one TF32 pass; ``tf32x3`` a_lo b_hi + a_hi b_lo
+    + a_hi b_hi.  Products and sums in float64, so only the operand split
+    differs between the modes."""
+    if mode == "f32":
+        return torch.einsum(eq, a, b)
+    d = torch.float64
+    if mode == "tf32":
+        return torch.einsum(eq, tf32_rna(a).to(d), tf32_rna(b).to(d)).float()
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return (torch.einsum(eq, al.to(d), bh.to(d))
+            + torch.einsum(eq, ah.to(d), bl.to(d))
+            + torch.einsum(eq, ah.to(d), bh.to(d))).float()
+
+
+def ssd_chunks_products(xs, dt, la, Bm, Cm, D, Q, mode):
+    """``ssd_chunks_plain`` with its four products (C B^T, att @ x, the
+    chunk states (B w)^T x, C @ h_in) formed as ``product`` forms them."""
+    Bb, L, nh, hd = xs.shape
+    st = Bm.shape[-1]
+    nc = L // Q
+    xc = xs.reshape(Bb, nc, Q, nh, hd)
+    dtc = dt.reshape(Bb, nc, Q, nh)
+    Bc, Cc = Bm.reshape(Bb, nc, Q, st), Cm.reshape(Bb, nc, Q, st)
+    la = la.reshape(Bb, nc, Q, nh)
+    la_last = la[:, :, -1:, :]
+    diff = la[:, :, :, None, :] - la[:, :, None, :, :]
+    causal = torch.ones((Q, Q), dtype=torch.bool).tril()
+    Lmat = torch.where(causal[None, None, :, :, None], torch.exp(diff),
+                       torch.zeros(()))
+    scores = product("bcis,bcjs->bcij", Cc, Bc, mode)
+    att = scores[..., None] * Lmat * dtc[:, :, None, :, :]
+    y_intra = product("bcijn,bcjnh->bcinh", att, xc, mode)
+    w = torch.exp(la_last - la) * dtc
+    Bw = w[..., None] * Bc[:, :, :, None, :]                 # (b,c,j,n,s)
+    S = product("bcjns,bcjnh->bcnsh", Bw, xc, mode)
+    h = xs.new_zeros((Bb, nh, st, hd))
+    y_inter = torch.empty_like(xc)
+    for c in range(nc):
+        ch = product("bis,bnsh->binh", Cc[:, c], h, mode)
+        y_inter[:, c] = ch * torch.exp(la[:, c])[..., None]
+        h = h * torch.exp(la_last[:, c, 0])[:, :, None, None] + S[:, c]
+    y = y_intra + y_inter + xc * D[None, None, None, :, None]
+    return y.reshape(Bb, L, nh, hd), h
+
+
+def test_tf32_rounding_is_cvt_rna():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                      -(1.0 + 2 ** -11), 3.0e-3, -7.5], dtype=torch.float32)
+    r = tf32_rna(x)
+    assert r[0] == 1.0 and r[1] == 1.0 + 2 ** -10        # tie: away from 0
+    assert r[2] == 1.0 + 2 ** -9 and r[3] == -(1.0 + 2 ** -10)
+    assert r[5] == -7.5
+    assert bool(((r.view(torch.int32) & 0x1FFF) == 0).all())
+    hi, lo = split_tf32(x)
+    assert torch.equal(hi + lo, x)                 # exact on these values
+
+
+def test_3xtf32_holds_the_ssd_limit_and_one_pass_does_not(cs_cpu):
+    """On Mamba-2's ranges (``ssd_case`` "mamba", two chunks at the path's
+    widths) the scan with its four products in 3xTF32 (the split of
+    ``ssd_scan.cu``'s tf32x3 kernels) stays within ``SSD_TOL`` of the
+    float32 plain version, per element and per (batch, head); one TF32 pass
+    does not."""
+    cs = cs_cpu
+    g = torch.Generator().manual_seed(3)
+    L, nh, hd, st, chunk = 512, 4, 64, 128, 256
+    args = cs.ssd_case(g, 1, L, nh, hd, st, "mamba")
+    xs, dt, A, Bm, Cm, D = args
+    ref = SS.ssd_scan_plain(*args, chunk)
+    la = SS.chunk_cumsum(dt * A, chunk)
+    f32 = ssd_chunks_products(xs, dt, la, Bm, Cm, D, chunk, "f32")
+    assert cs.ssd_check(*f32, *ref)["ok"]
+    x3 = cs.ssd_check(*ssd_chunks_products(xs, dt, la, Bm, Cm, D, chunk,
+                                           "tf32x3"), *ref)
+    x1 = cs.ssd_check(*ssd_chunks_products(xs, dt, la, Bm, Cm, D, chunk,
+                                           "tf32"), *ref)
+    assert x3["ok"], x3
+    assert not x1["ok"], x1
+    assert x1["max_abs_err"] > 10 * x3["max_abs_err"]
+
+
+def test_ssd_bound_tc_at_the_serving_shape(cs_cpu):
+    """With the products on tensor cores in 3xTF32 the 16,384-token call's
+    bound is ~0.16 ms, by operations: three times the 2.63e10 product
+    operations at 494 TFLOP/s plus the pairs' decay at 67 TFLOP/s."""
+    ms, by = cs_cpu.ssd_bound_tc(1, 16384, 32, 64, 128, 256)
+    pairs = 256 * 257 / 2
+    prod = (2 * 64 * pairs * 128 + 32 * 64 * pairs * 2 * 64
+            + 4.0 * 16384 * 32 * 128 * 64)
+    assert abs(ms - (3 * prod / 494e12 + 3 * 32 * 64 * pairs / 67e12) * 1e3) \
+        < 1e-12
+    assert by == "operations" and 0.15 < ms < 0.17
+    f32_ms = cs_cpu.ssd_bound(1, 16384, 32, 64, 128, 256)[2][0]
+    assert f32_ms > 2 * ms
+
+
+# B, L, nh, hd, st, chunk, dt draw: Q = 1, 8, 100, 256; st 16 / 128; hd
+# 32 / 64; large dt (chip_smoke.py EDGE_SSD holds the same)
+EDGE_SSD = [
+    (2, 256, 3, 32, 16, 1, "normal"),
+    (1, 64, 4, 32, 16, 8, "normal"),
+    (1, 200, 2, 64, 128, 100, "large_dt"),
+    (1, 1024, 8, 32, 128, 256, "mamba"),
+    (1, 512, 4, 64, 16, 256, "mamba"),
+    (2, 768, 4, 64, 128, 256, "large_dt"),
+]
+
+
+def test_edge_ssd_cases_match_chip_smoke(cs_cpu):
+    assert [tuple(c) for c in EDGE_SSD] == list(cs_cpu.EDGE_SSD)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,nh,hd,st,chunk,kind", EDGE_SSD)
+def test_cuda_ssd_scan_tf32x3_edges(B, L, nh, hd, st, chunk, kind,
+                                    cuda_device):
+    """The tf32x3 kernels against the plain version at their edges, with
+    ``chip_smoke.py``'s check (SSD_TOL per element and per (batch,
+    head))."""
+    cs = _chip_smoke()
+    cs.DEV = "cuda"
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    args = cs.ssd_case(gen, B, L, nh, hd, st, kind)
+    before = SS.ssd_scan.launches
+    y, h = SS.ssd_scan(*args, chunk)
+    torch.cuda.synchronize()
+    assert SS.ssd_scan.launches == before + 1
+    assert SS.ssd_scan.last_variant == "tf32x3"
+    assert cs.ssd_check(y, h, *SS.ssd_scan_plain(*args, chunk))["ok"]
+
+
+@pytest.mark.gpu
+def test_cuda_misaligned_ssd_takes_the_cuda_core_kernels(cuda_device):
+    a = [torch.from_numpy(t).to(cuda_device)
+         for t in inputs(1, 64, 2, 8, 8)]
+    buf = torch.zeros(1 + a[0].numel(), device=cuda_device)
+    buf[1:] = a[0].reshape(-1)
+    xs = buf[1:].view(a[0].shape)
+    y, h = SS.ssd_scan(xs, *a[1:], 16)
+    assert SS.ssd_scan.last_variant == "cuda_cores"
+    ry, rh = SS.ssd_scan_plain(xs, *a[1:], 16)
+    torch.testing.assert_close(y, ry, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(h, rh, rtol=TOL, atol=TOL)
