@@ -14,8 +14,12 @@ main path through its public entry points at the size its users run:
                    ``build/``; seconds.
 3. ``kernels``   — ``fused_tick_sim`` (kernel) vs ``fused_tick_sim_plain``
                    over the control kinds and options at small shapes with
-                   ragged batch sizes; floats rtol/atol 1e-4, swaps and guard
-                   exact.
+                   ragged batch sizes, A = 1, 2, 3, 5, 12, 16 (every lane
+                   group of the kernel); floats rtol/atol 1e-4, swaps and
+                   guard exact.  Then ``llm_kernels`` (each LLM kernel vs
+                   its plain version at edge shapes) and ``card_tests``
+                   (every case of every gpu-marked pytest test, which
+                   cannot run here: this machine has no jax).
 4. ``sweep``     — the dense 1.73 M-point joint sweep on the card, checked
                    against the host NumPy float64 evaluation of the same grid
                    (objectives <= 1e-9 rel, same Pareto set).
@@ -24,7 +28,7 @@ main path through its public entry points at the size its users run:
                    ``backend="fused"``; again under the 45 nm tech model; a
                    64-design cross-check against the float64 ``"torch"``
                    backend; the kernel against its plain version at exactly
-                   these shapes, with times.
+                   these shapes, with times and cycles per tick.
 6. ``main_path_a12`` — 1,024 stacked twelve-tile platforms with a two-stage
                    chain and memory-bound DFS, 5,000 ticks, ``"fused"``; the
                    kernel against its plain version at these shapes.
@@ -40,13 +44,19 @@ main path through its public entry points at the size its users run:
                    path's shapes, with times beside the bound and SDPA
                    (both graph-timed) and, for the MLP, cuBLAS on the same
                    products; the prefill kernels must run their Hopper
-                   (``wgmma_tma``) variant there and decode its ``cp_async``
-                   sweep (timed beside the ``cuda_cores`` sweep; at one
-                   slot, its rule's split beside ``kv_block``).
+                   (``wgmma_tma``) variant there, the decode MLP its
+                   ``gemv_tma`` kernel (timed beside the ``rows`` kernel)
+                   and decode its ``cp_async`` sweep (timed beside the
+                   ``cuda_cores`` sweep; at one slot, its rule's split
+                   beside ``kv_block``).
                    Attention is held per output row as well, relative to the
                    row's scale, and that check must reject planted faults
                    (zero output, a dropped split or key tile, a window one
-                   key short) made with the plain version.
+                   key short) made with the plain version; the bf16 MLP
+                   within max(5e-2, one bf16 ulp of |ref|), which must
+                   reject its planted faults (a dropped k range of a strip,
+                   a strip left at zero, gate and up swapped) and pass the
+                   inputs on which the constant limit once failed.
 8. ``serve_ssm`` — the Mamba-2 serving path: ``ServeEngine`` on mamba2-370m
                    at full width and depth (random bf16 weights from a
                    seed), 4 slots, 8 requests of 2-16,384 prompt tokens (a
@@ -118,6 +128,12 @@ SERVE = {"arch": "h2o-danube-1.8b", "slots": 4, "window": 4096,
 LLM_ATOL = {("attention", torch.float32): 2e-5,
             ("attention", torch.bfloat16): 3e-2,
             ("mlp", torch.float32): 2e-5, ("mlp", torch.bfloat16): 5e-2}
+# The MLP's bf16 outputs are rounded to bf16 by both versions, and one ulp
+# of an output of 8 or more (2^-4 at 8-16) is more than 5e-2: two right
+# answers a rounding apart differ by that ulp.  So an MLP output in bf16 is
+# held to max(5e-2, one bf16 ulp of |ref|) (``mlp_limit``): the same 5e-2
+# below 8, one ulp above.
+ULP_AWARE = {("mlp", torch.bfloat16)}
 # attention kernel vs plain version, per output row (one query head of one
 # query, over its head dim): max |out - ref| over max |ref| of the row.  The
 # absolute limits hold rows of O(1) outputs; a row over n live keys of unit
@@ -214,14 +230,17 @@ def compare_outputs(out_k, out_p):
             "guard_mismatch": guard_bad, "flag_mismatch": flags_bad}
 
 
-def twelve_tile_platforms(n, *, rng, flows=None):
-    """``n`` twelve-tile platforms: fixed placement, K in {1,2,4,8}, mixed
-    NoC rates (the layout of the reference's batched-simulation tests)."""
+def dfmul_platforms(n, A, *, rng, flows=None):
+    """``n`` platforms of ``A`` dfmul tiles: fixed placement, K in
+    {1,2,4,8}, mixed NoC rates (the layout of the reference's
+    batched-simulation tests at A = 12); past 13 tiles the mesh has a fifth
+    row (62 links)."""
+    from repro_torch.core.noc import NocConfig
     from repro_torch.core.perfmodel import AccelWorkload, SoCPerfModel
     from repro_torch.sim.engine import SimPlatform
-    model = SoCPerfModel()
-    pos = [(r, c) for r in range(4) for c in range(4)
-           if (r, c) not in {(1, 0), (0, 0), (0, 3)}][:12]
+    model = SoCPerfModel() if A <= 13 else SoCPerfModel(noc=NocConfig(5, 4))
+    pos = [(r, c) for r in range(model.noc.rows) for c in range(4)
+           if (r, c) not in {(1, 0), (0, 0), (0, 3)}][:A]
     plats = []
     for _ in range(n):
         k = int(rng.choice([1, 2, 4, 8]))
@@ -292,28 +311,44 @@ def kernel_vs_plain(engine, trace):
     return compare_outputs(out_k, out_p), (arr, consts, scalars, init, plan)
 
 
-def phase_kernels():
+def edge_chain(A):
+    """A two-stage chain over the first tiles of an A-tile dfmul platform:
+    1 -> 2 tiles at A = 3, 2 -> 3 at A = 5, 3 -> 3 beyond."""
     from repro_torch.sim.flows import FlowPattern
+    k, m = {3: (1, 2), 5: (2, 3)}.get(A, (3, 3))
+    names = [f"dfmul{i}" for i in range(k + m)]
+    demand = {"dfmul0": 0.3, **({"dfmul7": 0.05} if A > 7 else {})}
+    return FlowPattern.chain(tuple(names[:k]), tuple(names[k:]),
+                             demand=demand)
+
+
+# tick_sim's cases: A, B.  A = 2 and 12 are the main paths' widths; A = 1, 3,
+# 5 and 16 give the G = 2, 4, 8 and 16 lanes a design of the kernel, with
+# ragged batches (B = 37: not a multiple of any warp's designs)
+TICK_CASES = ((2, 1), (2, 67), (12, 67), (12, SIZES["kernel_big_B"]),
+              (2, SIZES["kernel_big_B"]), (1, 37), (3, 37), (5, 37), (16, 37))
+
+
+def phase_kernels():
     from repro_torch.sim.traffic import BatchTrace, diurnal_trace, mmpp_trace
     rng = np.random.default_rng(SEED)
-    chain = FlowPattern.chain(("dfmul0", "dfmul1", "dfmul2"),
-                              ("dfmul3", "dfmul4", "dfmul5"),
-                              demand={"dfmul0": 0.3, "dfmul7": 0.05})
+    chain = edge_chain(12)
     cases = []
     T = SIZES["kernel_T"]
     big = SIZES["kernel_big_B"]
     worst = {"max_abs_err": 0.0, "max_rel_err": 0.0}
     bad = []
-    for A, B in ((2, 1), (2, 67), (12, 67), (12, big), (2, big)):
+    for A, B in TICK_CASES:
         for kind in ("none", "guard", "membound", "pid", "ewma"):
             for variant in ("base", "maxq", "tech", "flows"):
-                if variant == "flows" and A != 12:
+                if variant == "flows" and A in (1, 2):
                     continue
                 if B == big and variant not in ("base", "flows"):
                     continue
-                flows = chain if variant == "flows" else None
-                plats = (twelve_tile_platforms(B, rng=rng, flows=flows)
-                         if A == 12 else two_tile_platforms(B, rng=rng))
+                flows = ((chain if A == 12 else edge_chain(A))
+                         if variant == "flows" else None)
+                plats = (two_tile_platforms(B, rng=rng) if A == 2
+                         else dfmul_platforms(B, A, rng=rng, flows=flows))
                 eng = make_engine(
                     plats, kind,
                     tech=(16, "cons") if variant == "tech" else None,
@@ -337,12 +372,42 @@ def phase_kernels():
                 if (not cmp["floats_ok"] or cmp["swaps_mismatch"]
                         or cmp["guard_mismatch"] or cmp["flag_mismatch"]):
                     bad.append(case)
+    div = div_check()
     emit({"phase": "kernels", "cases": len(cases), "failed": len(bad),
-          "T": T, "rtol": RTOL, "atol": ATOL, **worst,
+          "T": T, "rtol": RTOL, "atol": ATOL, **worst, "div_check": div,
           "first_failures": bad[:5]})
     if bad:
         raise SystemExit("kernel disagrees with its plain version")
+    if div["mismatches"] or not div["quotients"]:
+        raise SystemExit("tick_sim's fast division differs from the IEEE one")
     return worst
+
+
+def div_check():
+    """tick_sim's fast division (csrc/tick_sim.cu div_fast) against the
+    IEEE division on the card: every b significand times 384 dividends
+    (random significands, exponents inside the fast path's range, and a
+    few plain values) at four scales of b; the quotients compared and the
+    count whose bits differ (the kernel's exactness rests on none)."""
+    import ctypes
+    from repro_torch.kernels import build
+    fn = build.function("tick_sim", "tick_div_check",
+                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                         ctypes.c_void_p, ctypes.c_void_p])
+    rng = np.random.default_rng(SEED)
+    counts = torch.zeros(2, dtype=torch.int64, device=DEV)
+    for bscale in (1.0, 2.0 ** -40, 2.0 ** 40, 2.0 ** -60):
+        e = rng.integers(64, 191, size=384)
+        a = ((e << 23) | rng.integers(0, 1 << 23, size=384)).astype(
+            np.uint32).view(np.float32).copy()
+        a[:8] = [0.0, 1.0, 0.5, 0.999, 2.0, 3.0, 1e-3, 7.0]
+        at = torch.from_numpy(a).to(DEV)
+        rc = fn(at.data_ptr(), len(a), bscale, counts.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"tick_div_check launch failed ({rc})")
+    sync()
+    return {"quotients": int(counts[0]), "mismatches": int(counts[1])}
 
 
 # ---------------------------------------------------------------------------
@@ -391,18 +456,41 @@ def tick_sim_bound(arr, consts, scalars, init, plan):
             else "operations", byts, ops)
 
 
+def sm_clock_mhz(fn, reps: int) -> float:
+    """The SM clock (MHz, ``nvidia-smi``) read while ``reps`` calls of
+    ``fn`` queued on the card run; NaN where it cannot be read."""
+    for _ in range(reps):
+        fn()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits"], capture_output=True, text=True, timeout=30).stdout
+        mhz = float(out.split()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        mhz = float("nan")
+    sync()
+    return mhz
+
+
 def time_kernel_and_plain(inputs):
+    """The kernel's time (CUDA events, mean of SIZES["reps"] calls after a
+    warm one), the SM clock while it runs and so its cycles per tick, the
+    plain version's time and the bound."""
     from repro_torch.kernels.tick_sim import (fused_tick_sim,
                                               fused_tick_sim_plain)
     arr, consts, scalars, init, plan = inputs
     fused_tick_sim(arr, consts, scalars, init, plan=plan)      # warm
     ms = cuda_ms(lambda: fused_tick_sim(arr, consts, scalars, init,
                                         plan=plan), SIZES["reps"])
+    mhz = sm_clock_mhz(lambda: fused_tick_sim(arr, consts, scalars, init,
+                                              plan=plan), 40)
     plain_ms = cuda_ms(lambda: fused_tick_sim_plain(arr, consts, scalars,
                                                     init, plan=plan), 1)
     bound_ms, bound_by, byts, ops = tick_sim_bound(arr, consts, scalars,
                                                    init, plan)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return {"ms": ms, "sm_mhz": mhz,
+            "cycles_per_tick": ms * 1e-3 * mhz * 1e6 / arr.shape[0],
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": byts, "operations": ops}
 
 
@@ -638,7 +726,7 @@ def drive_main_path_a12():
     chain = FlowPattern.chain(("dfmul0", "dfmul1", "dfmul2"),
                               ("dfmul3", "dfmul4", "dfmul5"))
     plat = BatchSimPlatform.stack(
-        twelve_tile_platforms(B, rng=rng, flows=chain))
+        dfmul_platforms(B, 12, rng=rng, flows=chain))
     cfg = SimConfig(control_interval=50)
     cap = a12_engine(plat, cfg).capacity_rps().mean(axis=0)
     trace = diurnal_trace(cap * 0.35, T, 12, dt=dt, depth=0.5, seed=SEED)
@@ -711,16 +799,37 @@ def row_rel_err(out, ref) -> float:
     return float(torch.where(top > 0, err / top.clamp(min=1e-300), err).max())
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (2^(e - 7) for |x| in [2^e, 2^(e+1)))."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def mlp_limit(ref: torch.Tensor, atol: float) -> torch.Tensor:
+    """The bf16 MLP's limit per element: max(atol, one bf16 ulp of |ref|)."""
+    return torch.clamp(bf16_ulp(ref), min=atol)
+
+
 def llm_check(kind, out, ref, dtype):
     """``out`` held against ``ref``: shape, finite, abs error within
-    LLM_ATOL and, for attention, row-relative error within LLM_ROW_RTOL."""
+    LLM_ATOL (for the bf16 MLP: within ``mlp_limit`` per element;
+    ``max_excess`` is the largest error less its element's limit) and, for
+    attention, row-relative error within LLM_ROW_RTOL."""
+    atol = LLM_ATOL[(kind, dtype)]
     res = {"max_abs_err": _err(out, ref),
            "max_row_rel_err": row_rel_err(out, ref),
-           "tolerance": LLM_ATOL[(kind, dtype)],
+           "tolerance": atol,
            "row_rtol": LLM_ROW_RTOL[dtype] if kind == "attention" else None}
-    res["ok"] = (tuple(out.shape) == tuple(ref.shape)
-                 and bool(torch.isfinite(out.float()).all())
-                 and res["max_abs_err"] <= res["tolerance"]
+    same = tuple(out.shape) == tuple(ref.shape)
+    if (kind, dtype) in ULP_AWARE:
+        res["limit"] = "max(atol, 1 bf16 ulp of |ref|)"
+        res["max_excess"] = (float(((out.float() - ref.float()).abs()
+                                    - mlp_limit(ref, atol)).max())
+                             if same and ref.numel() else 0.0)
+        within = res["max_excess"] <= 0.0
+    else:
+        within = res["max_abs_err"] <= atol
+    res["ok"] = (same and bool(torch.isfinite(out.float()).all()) and within
                  and (res["row_rtol"] is None
                       or res["max_row_rel_err"] <= res["row_rtol"]))
     return res
@@ -789,6 +898,40 @@ def mlp_case(gen, N, d, F, act, dtype):
             act, 1e-5)
 
 
+def mlp_planted_faults(args, ref, strip=64, krows=64):
+    """What a faulty fused MLP would return on ``args``, made with the
+    plain version: one ``krows`` range of d left out of one ``strip`` of
+    columns (a lost segment of a split strip), one strip's outputs left at
+    zero, gate and up swapped.  The check must reject each."""
+    from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
+    x, scale, wg, wu, act, eps = args
+    d, F = wg.shape
+    cols = slice((F // strip // 2) * strip, (F // strip // 2 + 1) * strip)
+    k0 = (d // krows // 2) * krows
+    wg2, wu2 = wg[:, cols].clone(), wu[:, cols].clone()
+    wg2[k0:k0 + krows] = 0
+    wu2[k0:k0 + krows] = 0
+    lost = ref.clone()
+    lost[:, cols] = fused_rmsnorm_mlp_plain(x, scale, wg2, wu2, act, eps)
+    zero = ref.clone()
+    zero[:, cols] = 0
+    return {"dropped_k_range": lost, "dropped_strip": zero,
+            "gate_up_swapped": fused_rmsnorm_mlp_plain(x, scale, wu, wg, act,
+                                                       eps)}
+
+
+def mlp_faults_rejected(args, ref):
+    """``llm_check`` put to each of ``mlp_planted_faults``: per fault its
+    error, excess and whether it was rejected."""
+    out = {}
+    for fault, bad in mlp_planted_faults(args, ref).items():
+        c = llm_check("mlp", bad, ref, args[0].dtype)
+        out[fault] = {"max_abs_err": c["max_abs_err"],
+                      "max_excess": c.get("max_excess"),
+                      "rejected": not c["ok"]}
+    return out
+
+
 # The wgmma/TMA kernels' edges (bfloat16; tests/test_torch_llm_kernels.py
 # holds the same cases): B, Sq, Sk, KV, G, hd, window, query positions
 # (kind, first), key positions ("perm": a random permutation)
@@ -808,6 +951,19 @@ EDGE_ATTN = (
 EDGE_MLP = ((200, 256, 384, "silu"), (300, 2560, 6912, "silu"),
             (150, 2048, 5632, "gelu"), (130, 512, 1000, "gelu"),
             (100, 200, 136, "silu"))
+
+
+# The gemv_tma decode kernel's edges (bfloat16; tests/
+# test_torch_llm_kernels.py holds the same cases): N, d, F, act at every
+# dense config's (d, F) (configs/*.py), N from 1 to 8, silu and gelu; F off
+# the 64-column strip, and d off the 64-row chunk too
+DENSE_WIDTHS = ((2048, 16384), (4096, 14336), (2560, 6912), (2048, 8192),
+                (5120, 17920), (8192, 22016))
+EDGE_MLP_ROWS = tuple((N, d, F, "gelu" if N in (1, 3) else "silu")
+                      for d, F in DENSE_WIDTHS for N in (1, 3, 4, 8)) + (
+    (4, 2560, 1000, "gelu"), (3, 200, 1000, "silu"))
+# a decode x that is not 16-byte aligned: no TMA operand, the rows kernel
+MISALIGNED_MLP_ROWS = (4, 2560, 6912, "silu")
 
 
 # The cp_async decode sweep's edges (bfloat16 cache; tests/
@@ -1064,6 +1220,24 @@ def phase_llm_kernels():
     for (N, d, F, act) in EDGE_MLP:
         run("fused_mlp", "mlp", mlp_case(gen, N, d, F, act, bf16),
             fused_rmsnorm_mlp_plain, want="wgmma_tma")
+    # the gemv_tma decode kernel's edges, and the planted faults at the
+    # dense configs' widths (each must be rejected); a misaligned x takes
+    # the rows kernel
+    for (N, d, F, act) in EDGE_MLP_ROWS:
+        a = mlp_case(gen, N, d, F, act, bf16)
+        run("fused_mlp", "mlp", a, fused_rmsnorm_mlp_plain, want="gemv_tma")
+        if (d, F) in DENSE_WIDTHS:
+            faults = mlp_faults_rejected(a, fused_rmsnorm_mlp_plain(*a))
+            cases[-1]["faults_rejected"] = all(
+                f["rejected"] for f in faults.values())
+            if not cases[-1]["faults_rejected"]:
+                cases[-1]["planted_faults"] = faults
+                bad.append(cases[-1])
+        del a
+    a = mlp_case(gen, *MISALIGNED_MLP_ROWS[:3], MISALIGNED_MLP_ROWS[3], bf16)
+    run("fused_mlp", "mlp", (misaligned(a[0]),) + a[1:],
+        fused_rmsnorm_mlp_plain, want="rows")
+    del a
     for (B, W, KV, G, hd, hdv, win, pos, blk, qd, ring) in EDGE_DECODE:
         a = edge_decode_case(gen, B, W, KV, G, hd, hdv, win, pos, qd, ring)
         run("flash_decode", "attention", a, flash_decode_plain, (blk,),
@@ -1414,10 +1588,20 @@ def time_serve_kernels(ctx):
     rows["flash_decode"] = r
     del kt, vt
     # fused_mlp: the longest prefill (N = 4,608) and the 4-slot decode
+    from repro_torch.kernels.fused_mlp import _launch as fm_launch
     mp = eng.params["blocks"]["mlp"]
     norm = eng.params["blocks"]["mlp_norm"][0]
     wg, wu = mp["wi_gate"][0], mp["wi_up"][0]
     d, Ff = wg.shape
+    # An earlier version of this phase drew the one-slot decode case from
+    # this generator just before the MLP's inputs; its prefill x then read
+    # one bf16 ulp (2^-4, at 8-16) off the plain version and failed the
+    # constant 5e-2 limit.  Those inputs, drawn again, must pass the
+    # ulp-aware limit.
+    g_ulp = torch.Generator(device=DEV)
+    g_ulp.set_state(gen.get_state())
+    decode_case(g_ulp, 1, W, KV, G, hd, hd, win, bf16, [2 * W - 1])
+    x_ulp = _randn(g_ulp, (S, d), bf16)
     per = {}
     for label, N in (("prefill", S), ("decode", SERVE["slots"])):
         x = _randn(gen, (N, d), bf16)
@@ -1431,19 +1615,35 @@ def time_serve_kernels(ctx):
         rr["matmul_ms"] = graph_ms(lambda: torch.matmul(xn, wgu),
                                    SERVE["reps"])
         del xn, wgu
+        if label == "decode":       # the rows kernel, same inputs
+            rr["old_variant_ms"] = graph_ms(
+                lambda: fm_launch(*m_args, variant="rows"), SERVE["reps"])
+        rr["planted_faults"] = mlp_faults_rejected(
+            m_args, fused_rmsnorm_mlp_plain(*m_args))
+        rr["faults_rejected"] = all(f["rejected"]
+                                    for f in rr["planted_faults"].values())
         ops = 4.0 * N * d * Ff
         rr.update(zip(("bound_ms", "bound_by"),
                       _bound(_nbytes(x, norm, wg, wu) + 2.0 * N * Ff, ops)))
         rr.update(shape=f"x ({N},{d}), W ({d},{Ff}) bf16, {cfg.act}",
                   operations=ops)
         per[label] = rr
+    a_ulp = (x_ulp, norm, wg, wu, cfg.act, cfg.norm_eps)
+    out_ulp = llm_kernels()["fused_mlp"](*a_ulp)
+    per["prefill"]["one_ulp_inputs"] = {
+        **llm_check("mlp", out_ulp, fused_rmsnorm_mlp_plain(*a_ulp), bf16),
+        "variant": llm_kernels()["fused_mlp"].last_variant}
+    del x_ulp, a_ulp, out_ulp
     rows["fused_mlp"] = {**per["prefill"], "also": per["decode"]}
     bad = [n for n, r in rows.items()
            if not r["ok"] or ("also" in r and not r["also"]["ok"])
-           or not r.get("small_batch_split", {}).get("ok", True)]
-    blind = [n for n, r in rows.items() if not r.get("faults_rejected", True)]
-    old = [n for n in SERVE_VARIANT
-           if rows[n]["variant"] != SERVE_VARIANT[n]]
+           or not r.get("small_batch_split", {}).get("ok", True)
+           or not r.get("one_ulp_inputs", {}).get("ok", True)]
+    blind = [n for n, r in rows.items()
+             if not r.get("faults_rejected", True)
+             or not r.get("also", {}).get("faults_rejected", True)]
+    old = [n for n, want in SERVE_VARIANT.items()
+           if serve_row(rows, n)["variant"] != want]
     emit({"phase": "serve_kernels", **rows})
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions at the "
@@ -1685,6 +1885,395 @@ def phase_serve_ssm():
     return report, row
 
 
+# ---------------------------------------------------------------------------
+# card_tests: the gpu-marked pytest cases, on the card
+# ---------------------------------------------------------------------------
+# The card's machine has no jax, which tests/test_torch_*.py import.  So each
+# gpu-marked test there calls the function of its name here (``card_case``)
+# with its case, ``phase_card_tests`` runs every case of CARD_TESTS, and a
+# CPU test (tests/test_torch_card_cases.py) holds CARD_TESTS to exactly the
+# gpu-marked tests and their cases.  Inputs are drawn as the tests draw them.
+CARD_DTYPES = ("float32", "bfloat16")
+# B, S, KV, G, hd_qk, hd_v, window, block (test_torch_llm_kernels ATTN_CASES)
+CARD_ATTN = ((2, 64, 2, 2, 16, 16, 0, 16), (1, 48, 1, 4, 80, 80, 16, 16),
+             (1, 32, 4, 1, 24, 16, 0, 8), (2, 40, 2, 2, 80, 80, 12, 8),
+             (1, 24, 2, 2, 20, 12, 0, 8))
+# B, W, KV, G, hd, window, kv_block, positions (DECODE_CASES)
+CARD_DECODE = ((3, 32, 2, 4, 80, 16, 8, (5, 31, 50)),
+               (2, 32, 1, 8, 16, 0, 16, (0, 95)),
+               (2, 24, 4, 1, 32, 0, 8, (11, 23)))
+# N, d, F of the MLP's parity cases
+CARD_MLP = ((32, 64, 96), (4, 80, 64), (70, 300, 130), (12, 64, 130),
+            (3, 100, 77))
+# B, L, nh, hd, st, chunk, dt scale (test_torch_ssd CASES)
+CARD_SSD = ((2, 128, 3, 32, 16, 32, 1.0), (1, 64, 1, 8, 8, 16, 1.0),
+            (1, 256, 2, 64, 128, 64, 1.0), (3, 96, 4, 16, 32, 32, 1.0),
+            (1, 100, 2, 16, 8, 256, 1.0), (2, 2, 3, 8, 8, 256, 1.0),
+            (1, 1, 2, 8, 8, 256, 1.0), (2, 64, 2, 8, 8, 16, 50.0))
+CARD_POLICIES = ("open", "guard", "membound", "pid", "ewma")
+
+
+def _on_card(a, dtype):
+    """NumPy values -> a tensor of ``dtype`` (a name) on the card, rounded
+    from float32 as the tests round them."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(
+        getattr(torch, dtype)).to(DEV)
+
+
+def _close(out, ref, atol, rtol=0.0):
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+def _launched_once(f, before, want=None):
+    assert f.launches == before + 1, f"{f.launches} launches, not one"
+    if want is not None:
+        assert f.last_variant == want, f"ran {f.last_variant}, not {want}"
+
+
+def _shifted(rng, shape, dtype=torch.bfloat16):
+    """A contiguous view that starts one element into its buffer."""
+    n = int(np.prod(shape))
+    a = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32))
+    return a.to(dtype).to(DEV)[1:].view(shape)
+
+
+def card_flash_attention(B, S, KV, G, hdq, hdv, win, blk, dtype):
+    from repro_torch.kernels import flash_attention as FA
+    rng = np.random.default_rng(0)
+    q, k, v = (_on_card(rng.standard_normal(sh), dtype)
+               for sh in ((B, S, KV, G, hdq), (B, S, KV, hdq),
+                          (B, S, KV, hdv)))
+    pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    qp, kp = (torch.from_numpy(p).to(DEV) for p in (pos - 3, pos))
+    args = (q, k, v, qp, kp, win, 1 / np.sqrt(hdq))
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(*args)
+    sync()
+    _launched_once(FA.flash_attention, before)
+    _close(out, FA.flash_attention_plain(*args),
+           LLM_ATOL[("attention", getattr(torch, dtype))])
+
+
+def card_flash_decode(B, W, KV, G, hd, win, blk, pos, dtype):
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.models.layers import ring_kpos
+    rng = np.random.default_rng(1)
+    q, ck, cv = (_on_card(rng.standard_normal(sh), dtype)
+                 for sh in ((B, KV, G, hd), (B, W, KV, hd), (B, W, KV, hd)))
+    qp = torch.tensor(pos, dtype=torch.int32, device=DEV)
+    kp = ring_kpos(qp, W)
+    before = FD.flash_decode.launches
+    out = FD.flash_decode(q, ck, cv, qp, kp, win, 1 / np.sqrt(hd), blk)
+    sync()
+    _launched_once(FD.flash_decode, before)
+    _close(out, FD.flash_decode_plain(q, ck, cv, qp, kp, win,
+                                      1 / np.sqrt(hd)),
+           LLM_ATOL[("attention", getattr(torch, dtype))])
+
+
+def _mlp_ok(out, args):
+    from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
+    res = llm_check("mlp", out, fused_rmsnorm_mlp_plain(*args),
+                    args[0].dtype)
+    assert res["ok"], f"MLP off its plain version: {res}"
+
+
+def card_fused_mlp(N, d, F, act, dtype):
+    from repro_torch.kernels import fused_mlp as FM
+    rng = np.random.default_rng(2)
+    x, s, wg, wu = (_on_card(a, dtype) for a in (
+        rng.standard_normal((N, d)), 0.1 * rng.standard_normal(d),
+        rng.standard_normal((d, F)) / np.sqrt(d),
+        rng.standard_normal((d, F)) / np.sqrt(d)))
+    before = FM.fused_rmsnorm_mlp.launches
+    out = FM.fused_rmsnorm_mlp(x, s, wg, wu, act)
+    sync()
+    _launched_once(FM.fused_rmsnorm_mlp, before)
+    _mlp_ok(out, (x, s, wg, wu, act, 1e-5))
+
+
+def _edge_pos(kind, n, lo, seed):
+    p = (np.random.default_rng(seed).permutation(n) + lo if kind == "perm"
+         else np.arange(lo, lo + n))
+    return torch.from_numpy(p.astype(np.int32))[None].to(DEV)
+
+
+def card_flash_attention_wgmma_edges(B, Sq, Sk, KV, G, hd, win, qk, kk):
+    from repro_torch.kernels import flash_attention as FA
+    rng = np.random.default_rng(7)
+    q, k, v = (_on_card(rng.standard_normal(sh), "bfloat16")
+               for sh in ((B, Sq, KV, G, hd), (B, Sk, KV, hd),
+                          (B, Sk, KV, hd)))
+    qp = _edge_pos(qk[0], Sq, qk[1], 1).expand(B, Sq).contiguous()
+    kp = _edge_pos(kk, Sk, 0, 2).expand(B, Sk).contiguous()
+    args = (q, k, v, qp, kp, win, 1 / np.sqrt(hd))
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(*args)
+    sync()
+    _launched_once(FA.flash_attention, before, "wgmma_tma")
+    ref = FA.flash_attention_plain(*args)
+    _close(out, ref, LLM_ATOL[("attention", torch.bfloat16)])
+    assert row_rel_err(out, ref) <= LLM_ROW_RTOL[torch.bfloat16]
+
+
+def card_fused_mlp_wgmma_edges(N, d, F, act):
+    from repro_torch.kernels import fused_mlp as FM
+    rng = np.random.default_rng(3)
+    x, s, wg, wu = (_on_card(a, "bfloat16") for a in (
+        rng.standard_normal((N, d)), 0.1 * rng.standard_normal(d),
+        0.02 * rng.standard_normal((d, F)),
+        0.02 * rng.standard_normal((d, F))))
+    before = FM.fused_rmsnorm_mlp.launches
+    out = FM.fused_rmsnorm_mlp(x, s, wg, wu, act)
+    sync()
+    _launched_once(FM.fused_rmsnorm_mlp, before, "wgmma_tma")
+    _mlp_ok(out, (x, s, wg, wu, act, 1e-5))
+
+
+def card_fused_mlp_gemv_edges(N, d, F, act):
+    """The gemv_tma kernel at one EDGE_MLP_ROWS case: it runs, agrees with
+    the plain version under the MLP limit and, at a dense config's widths,
+    the check rejects every planted fault."""
+    from repro_torch.kernels import fused_mlp as FM
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    args = mlp_case(gen, N, d, F, act, torch.bfloat16)
+    before = FM.fused_rmsnorm_mlp.launches
+    out = FM.fused_rmsnorm_mlp(*args)
+    sync()
+    _launched_once(FM.fused_rmsnorm_mlp, before, "gemv_tma")
+    _mlp_ok(out, args)
+    if (d, F) in DENSE_WIDTHS:
+        faults = mlp_faults_rejected(args, FM.fused_rmsnorm_mlp_plain(*args))
+        assert all(f["rejected"] for f in faults.values()), faults
+
+
+def card_misaligned_views():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_mlp as FM
+    rng = np.random.default_rng(4)
+    bf16 = torch.bfloat16
+    q = _shifted(rng, (1, 130, 2, 2, 80))
+    k, v = _shifted(rng, (1, 130, 2, 80)), _shifted(rng, (1, 130, 2, 80))
+    p = torch.arange(130, dtype=torch.int32, device=DEV)[None]
+    out = FA.flash_attention(q, k, v, p, p, 0, 80 ** -0.5)
+    assert FA.flash_attention.last_variant == "wmma"
+    _close(out, FA.flash_attention_plain(q, k, v, p, p, 0, 80 ** -0.5),
+           LLM_ATOL[("attention", bf16)])
+    x = _shifted(rng, (40, 64))
+    s = (0.1 * _shifted(rng, (64,)).float()).to(bf16)
+    wg, wu = ((0.1 * _shifted(rng, (64, 96)).float()).to(bf16)
+              for _ in range(2))
+    out = FM.fused_rmsnorm_mlp(x, s, wg, wu, "silu")
+    assert FM.fused_rmsnorm_mlp.last_variant == "wmma"
+    _mlp_ok(out, (x, s, wg, wu, "silu", 1e-5))
+
+
+def card_misaligned_decode_mlp():
+    """A decode x that is no TMA operand takes the rows kernel."""
+    from repro_torch.kernels import fused_mlp as FM
+    N, d, F, act = MISALIGNED_MLP_ROWS
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    args = mlp_case(gen, N, d, F, act, torch.bfloat16)
+    args = (misaligned(args[0]),) + args[1:]
+    out = FM.fused_rmsnorm_mlp(*args)
+    sync()
+    assert FM.fused_rmsnorm_mlp.last_variant == "rows"
+    _mlp_ok(out, args)
+
+
+def card_flash_decode_cp_async_edges(B, W, KV, G, hd, hdv, win, pos, blk,
+                                     qd, ring):
+    from repro_torch.kernels import flash_decode as FD
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    args = edge_decode_case(gen, B, W, KV, G, hd, hdv, win, pos, qd, ring)
+    before = FD.flash_decode.launches
+    out = FD.flash_decode(*args, blk)
+    sync()
+    _launched_once(FD.flash_decode, before, "cp_async")
+    assert FD.flash_decode.last_split == FD.decode_split(
+        B * KV, W, blk, FD._sm_count(out.device))
+    ref = FD.flash_decode_plain(*args)
+    dt = torch.float32 if qd == "f32" else torch.bfloat16
+    _close(out, ref, LLM_ATOL[("attention", dt)])
+    assert row_rel_err(out, ref) <= LLM_ROW_RTOL[dt]
+
+
+def card_misaligned_decode_cache():
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.models.layers import ring_kpos
+    rng = np.random.default_rng(5)
+    bf16 = torch.bfloat16
+    B, W, KV, G, hd = 2, 300, 2, 4, 80
+    q = _on_card(rng.standard_normal((B, KV, G, hd)), "bfloat16")
+    ck, cv = _shifted(rng, (B, W, KV, hd)), _shifted(rng, (B, W, KV, hd))
+    pos = torch.tensor([100, 400], dtype=torch.int32, device=DEV)
+    args = (q, ck, cv, pos, ring_kpos(pos, W), 0, hd ** -0.5)
+    out = FD.flash_decode(*args, 128)
+    assert FD.flash_decode.last_variant == "cuda_cores"
+    assert FD.flash_decode.last_split == 128
+    _close(out, FD.flash_decode_plain(*args), LLM_ATOL[("attention", bf16)])
+    ck, cv = (c.clone() for c in (ck, cv))               # aligned copies
+    args = (_shifted(rng, (B, KV, G, hd)), ck, cv) + args[3:]
+    out = FD.flash_decode(*args, 128)
+    assert FD.flash_decode.last_variant == "cuda_cores"
+    _close(out, FD.flash_decode_plain(*args), LLM_ATOL[("attention", bf16)])
+
+
+def _ssd_inputs(B, L, nh, hd, st, dt_scale=1.0, seed=0):
+    """float32 inputs on the card, drawn as tests/test_torch_ssd.py draws
+    them (tests/test_kernels.py's draws)."""
+    rng = np.random.default_rng(seed)
+    xs = rng.standard_normal((B, L, nh, hd))
+    dt = np.logaddexp(rng.standard_normal((B, L, nh)), 0.0) * dt_scale
+    A = -np.exp(0.2 * rng.standard_normal(nh))
+    Bm, Cm = rng.standard_normal((B, L, st)), rng.standard_normal((B, L, st))
+    return [_on_card(a, "float32") for a in (xs, dt, A, Bm, Cm, np.ones(nh))]
+
+
+def card_ssd_scan(B, L, nh, hd, st, chunk, dt_scale):
+    from repro_torch.kernels import ssd_scan as SS
+    a = _ssd_inputs(B, L, nh, hd, st, dt_scale)
+    before = SS.ssd_scan.launches
+    y, h = SS.ssd_scan(*a, chunk)
+    sync()
+    _launched_once(SS.ssd_scan, before)
+    ry, rh = SS.ssd_scan_plain(*a, chunk)
+    _close(y, ry, SSD_TOL, SSD_TOL)
+    _close(h, rh, SSD_TOL, SSD_TOL)
+
+
+def card_ssd_scan_tf32x3_edges(B, L, nh, hd, st, chunk, kind):
+    from repro_torch.kernels import ssd_scan as SS
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    args = ssd_case(gen, B, L, nh, hd, st, kind)
+    before = SS.ssd_scan.launches
+    y, h = SS.ssd_scan(*args, chunk)
+    sync()
+    _launched_once(SS.ssd_scan, before, "tf32x3")
+    assert ssd_check(y, h, *SS.ssd_scan_plain(*args, chunk))["ok"]
+
+
+def card_misaligned_ssd():
+    from repro_torch.kernels import ssd_scan as SS
+    a = _ssd_inputs(1, 64, 2, 8, 8)
+    xs = misaligned(a[0])
+    y, h = SS.ssd_scan(xs, *a[1:], 16)
+    assert SS.ssd_scan.last_variant == "cuda_cores"
+    ry, rh = SS.ssd_scan_plain(xs, *a[1:], 16)
+    _close(y, ry, SSD_TOL, SSD_TOL)
+    _close(h, rh, SSD_TOL, SSD_TOL)
+
+
+def _tick_platform(k, flows=None):
+    """The four-tile dfmul platform of tests/_torch_port_helpers.py."""
+    from repro_torch.core.perfmodel import AccelWorkload, SoCPerfModel
+    from repro_torch.sim.engine import SimPlatform
+    pos = [(r, c) for r in range(4) for c in range(4)
+           if (r, c) not in {(1, 0), (0, 0), (0, 3)}][:4]
+    wls = [AccelWorkload("dfmul", 8.70, 1.1, replication=k) for _ in pos]
+    return SimPlatform.build(SoCPerfModel(), wls, pos, noc_rate=1.0, n_tg=2,
+                             req_mb=0.005, flows=flows)
+
+
+def card_tick_sim(policy):
+    """tests/test_torch_tick_sim.py's card case: four tiles, a chain, the
+    45 nm tech model, max_queue 3, an MMPP trace, every policy."""
+    from repro_torch.kernels.tick_sim import (fused_tick_sim,
+                                              fused_tick_sim_plain)
+    from repro_torch.sim.batch import BatchSimEngine, BatchSimPlatform
+    from repro_torch.sim.control import BatchControllerHarness
+    from repro_torch.sim.engine import SimConfig
+    from repro_torch.sim.flows import FlowPattern
+    from repro_torch.sim.traffic import mmpp_trace
+    flows = FlowPattern.chain(("dfmul0", "dfmul1"), ("dfmul2", "dfmul3"),
+                              demand={"dfmul0": 0.3})
+    plat = BatchSimPlatform.stack([_tick_platform(k, flows)
+                                   for k in (2, 4, 8)])
+    ctl = None
+    if policy != "open":
+        ctl = BatchControllerHarness(
+            plat.islands, plat.rates,
+            make_policy(policy),
+            tile_names=plat.names, queue_guard_ticks=3.0)
+    eng = BatchSimEngine(plat, config=SimConfig(control_interval=25,
+                                                max_queue=3.0),
+                         controller=ctl, backend="fused", tech=45, device=DEV)
+    cap = BatchSimEngine(BatchSimPlatform.stack([_tick_platform(2)]),
+                         device="cpu").capacity_rps()[0]
+    tr = mmpp_trace(cap * 0.1, cap * 1.3, 300, 4, dt=1e-3, seed=3)
+    arr, consts, scalars, init, plan = eng.fused_inputs(tr)[:5]
+    before = fused_tick_sim.launches
+    out = fused_tick_sim(arr, consts, scalars, init, plan=plan)
+    sync()
+    _launched_once(fused_tick_sim, before)
+    ref = fused_tick_sim_plain(arr, consts, scalars, init, plan=plan)
+    for key in ("adm", "served", "queue", "busy", "rtt", "rates", "energy",
+                "dropped"):
+        _close(out[key], ref[key], ATOL, RTOL)
+    assert torch.equal(out["swaps"], ref["swaps"])
+    assert torch.equal(out["guard"], ref["guard"])
+
+
+# gpu-marked test -> (the function here, its cases as the test's arguments)
+CARD_TESTS = {
+    "test_cuda_flash_attention_matches_plain": (
+        card_flash_attention,
+        tuple(c + (t,) for t in CARD_DTYPES for c in CARD_ATTN)),
+    "test_cuda_flash_decode_matches_plain": (
+        card_flash_decode,
+        tuple(c + (t,) for t in CARD_DTYPES for c in CARD_DECODE)),
+    "test_cuda_fused_mlp_matches_plain": (
+        card_fused_mlp,
+        tuple(c + (a, t) for t in CARD_DTYPES for a in ("silu", "gelu")
+              for c in CARD_MLP)),
+    "test_cuda_flash_attention_wgmma_edges": (
+        card_flash_attention_wgmma_edges, EDGE_ATTN),
+    "test_cuda_fused_mlp_wgmma_edges": (card_fused_mlp_wgmma_edges,
+                                        EDGE_MLP),
+    "test_cuda_fused_mlp_gemv_edges": (card_fused_mlp_gemv_edges,
+                                       EDGE_MLP_ROWS),
+    "test_cuda_misaligned_views_take_the_wmma_kernels": (
+        card_misaligned_views, ((),)),
+    "test_cuda_misaligned_decode_mlp_takes_the_rows_kernel": (
+        card_misaligned_decode_mlp, ((),)),
+    "test_cuda_flash_decode_cp_async_edges": (
+        card_flash_decode_cp_async_edges, EDGE_DECODE),
+    "test_cuda_misaligned_decode_cache_takes_the_cuda_core_sweep": (
+        card_misaligned_decode_cache, ((),)),
+    "test_cuda_ssd_scan_matches_plain": (card_ssd_scan, CARD_SSD),
+    "test_cuda_ssd_scan_tf32x3_edges": (card_ssd_scan_tf32x3_edges,
+                                        EDGE_SSD),
+    "test_cuda_misaligned_ssd_takes_the_cuda_core_kernels": (
+        card_misaligned_ssd, ((),)),
+    "test_cuda_kernel_matches_plain_version": (
+        card_tick_sim, tuple((p,) for p in CARD_POLICIES)),
+}
+
+
+def card_case(test_name, *args):
+    """Run one case of the gpu-marked test ``test_name`` (its arguments, in
+    its signature's order, the card fixture left out)."""
+    CARD_TESTS[test_name][0](*args)
+
+
+def phase_card_tests():
+    """Every case of every gpu-marked pytest test, on the card."""
+    n, failed = 0, []
+    for name, (fn, cases) in CARD_TESTS.items():
+        for case in cases:
+            n += 1
+            try:
+                fn(*case)
+            except AssertionError as e:
+                failed.append({"test": name, "case": repr(case),
+                               "error": str(e)[:400]})
+    emit({"phase": "card_tests", "tests": len(CARD_TESTS), "cases": n,
+          "failed": len(failed), "first_failures": failed[:5]})
+    if failed:
+        raise SystemExit("a gpu-marked test case fails on the card")
+
+
 LLM_REPLACES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:107"),
@@ -1703,9 +2292,16 @@ KERNEL_KEYS = ("max_abs_err", "tolerance", "max_row_rel_err", "row_rtol",
 KERNEL_EXTRA_KEYS = ("variant", "split", "library_call_ms", "matmul_ms",
                      "old_variant_ms", "bound_tc_ms", "bound_f32_ms",
                      "small_batch_split", "ms_by_kernel")
-# the device kernel each must run at the serving shapes
+# the device kernel each must run at the serving shapes ("name.also": the
+# row's second shape, fused_mlp's 4-slot decode)
 SERVE_VARIANT = {"flash_attention": "wgmma_tma", "fused_mlp": "wgmma_tma",
-                 "flash_decode": "cp_async"}
+                 "fused_mlp.also": "gemv_tma", "flash_decode": "cp_async"}
+
+
+def serve_row(rows, key):
+    """The row of ``rows`` a SERVE_VARIANT key names."""
+    name, _, sub = key.partition(".")
+    return rows[name][sub] if sub else rows[name]
 SSD_VARIANT = "tf32x3"
 
 
@@ -1752,6 +2348,7 @@ def main() -> int:
 
     parity = phase_kernels()
     phase_llm_kernels()
+    phase_card_tests()
     device = {"platform": "gpu", "kind": name,
               "count": torch.cuda.device_count()}
     if args.quick:
@@ -1794,12 +2391,14 @@ def main() -> int:
         "tolerance": {"rtol": RTOL, "atol": ATOL, "swaps": "exact"},
         "shape": "T=%d B=%d A=2 L=48 pid+guard" % (SIZES["main_T"],
                                                    SIZES["main_B"]),
-        "ms": lin["ms"], "plain_ms": lin["plain_ms"],
+        "ms": lin["ms"], "cycles_per_tick": lin["cycles_per_tick"],
+        "sm_mhz": lin["sm_mhz"], "plain_ms": lin["plain_ms"],
         "bound_ms": lin["bound_ms"], "bound_by": lin["bound_by"],
         "library_ms": None,
         "also": {"shape": "T=%d B=%d A=12 L=48 chain membound+guard"
                  % (SIZES["a12_T"], SIZES["a12_B"]),
-                 "ms": a12k["ms"], "plain_ms": a12k["plain_ms"],
+                 "ms": a12k["ms"], "cycles_per_tick": a12k["cycles_per_tick"],
+                 "sm_mhz": a12k["sm_mhz"], "plain_ms": a12k["plain_ms"],
                  "bound_ms": a12k["bound_ms"],
                  "bound_by": a12k["bound_by"]}}] + [{
         "name": n, "route": "cuda", "source": LLM_REPLACES[n][0],

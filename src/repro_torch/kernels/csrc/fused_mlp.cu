@@ -13,23 +13,28 @@
 // prefill (N up to 4,608) it is 4 * N * d * F = 3.3e11 operations per layer,
 // bound by operations (0.33 ms on bf16 tensor cores).
 //
-// Four device kernels; the wrapper (kernels/fused_mlp.py, `_variant`)
+// Five device kernels; the wrapper (kernels/fused_mlp.py, `_variant`)
 // picks one by dtype and shape alone and passes its code:
-//  * "rows" (N <= 8, either dtype): fused_mlp_rows_kernel, a
-//    weight-streaming kernel with no barrier in its d loop (see its note):
-//    216 blocks of 32 columns for F = 6,912, 16-byte weight loads, several
-//    in flight per thread.  The first version ran decode through the tiled
-//    kernel and waited on every load of every K tile: latency-bound, ~20x
-//    its bound.
+//  * "gemv_tma" (bfloat16, N <= 8, d and F multiples of 8, 16-byte aligned
+//    operands, the normalised rows within shared memory beside a ring of at
+//    least two stages): fused_mlp_gemv_kernel, the decode design for this
+//    card: one persistent block per SM, each an equal share of the weight
+//    bytes by TMA, the products on tensor cores (see its note).
+//  * "rows" (N <= 8, float32 or operands gemv_tma does not take):
+//    fused_mlp_rows_kernel, a weight-streaming kernel with no barrier in
+//    its d loop (see its note): 216 blocks of 32 columns for F = 6,912,
+//    16-byte weight loads, several in flight per thread.  The first version
+//    ran decode through the tiled kernel and waited on every load of every
+//    K tile: latency-bound, ~20x its bound.
 //  * "wgmma_tma" (bfloat16, N > 8, d and F multiples of 8, 16-byte aligned
 //    operands): rms_inv_kernel + fused_mlp_wgmma_kernel, the design for
 //    this card (TMA ring, warp specialisation, wgmma with the norm applied
 //    to the register A operand; see its note).
 //  * "wmma" (other bfloat16 shapes): fused_mlp_wmma_kernel, WMMA 16x16x16
 //    fragments on 64 x 64 output tiles.
-//  * "cuda_cores" (float32, N > 8): output tiles of 64 rows x 64 columns,
-//    256 threads (16 x 16), each thread 4 rows x 4 columns of gate and of
-//    up on the CUDA cores.
+//  * "cuda_cores" (float32, more rows than "rows" takes): output tiles of
+//    64 rows x 64 columns, 256 threads (16 x 16), each thread 4 rows x 4
+//    columns of gate and of up on the CUDA cores.
 // What they share: the TPU kernel loads a whole (TB, d) row tile and a
 // (d, FB) weight slice into VMEM.  A block has at most 227 KB of shared
 // memory, so here d is walked in K tiles: the rms of each row comes first
@@ -722,6 +727,459 @@ static int launch_rows(const void* x, const void* scale, const void* wg,
   return (int)cudaGetLastError();
 }
 
+// Decode in bfloat16 on Hopper ("gemv_tma": N <= 8 rows, d and F multiples
+// of 8, 16-byte aligned operands).  At N = 4, d = 2,560, F = 6,912 the call
+// is 71 MB of weights for 0.14 MB of x: a matrix-vector product whose only
+// cost that counts is the weight bytes (21 us at 3.35 TB/s).  What held the
+// rows kernel at 4x that: a serial prologue before any weight byte was
+// requested (every block normalised every row, N warps of 8 working), 216
+// blocks on 132 SMs (the SMs with two finished last), four 16-byte loads in
+// flight a thread, and a CUDA-core FMA chain per weight.  The design:
+//  * Work: the weights are cut into chunks of one 64-column strip of F by
+//    KROWS = 128 rows of d (16 KB of Wg + 16 KB of Wu), numbered
+//    strip-major; the grid is one block per SM (`blocks`), and block b
+//    takes the contiguous run [b * total / blocks, (b + 1) * total /
+//    blocks) of chunks: every SM streams the same number of bytes, within
+//    one chunk (F = 6,912: 108 strips x 20 chunks = 2,160 chunks, 16 or 17
+//    a block).  A run crosses at most a few strips, so a strip's k range is
+//    split over a few blocks (its segments, in block order).
+//  * Bytes: a producer warp issues each chunk as two TMA boxes (64 columns
+//    x 128 rows, 128-B swizzle; TMA zero-fills columns past F and rows past
+//    d) into a ring of up to 16 stages of 32 KB with full / empty mbarriers,
+//    from the kernel's start.  Each box row is its own 128-B run, so the
+//    maps ask L2 for no promotion (a 256-B fetch brought in 128 B that
+//    another block reads much later: far slower at the widest configs).
+//  * The norm, once per block, by the four consumer warps (their own named
+//    barrier, so the producer never waits): x and scale to shared memory by
+//    cp.async, per-row sums of squares in a fixed order (warp shuffles, then
+//    the four warps in order), then x * inv * (1 + scale) rounded to bf16
+//    as the reference's rms_norm rounds, kept in shared memory, rows padded
+//    by 8 elements (no bank conflicts) and zero past d.
+//  * Products on tensor cores with the weights as the M operand: out^T =
+//    W^T . xn^T, mma.sync m16n8k16 bf16 -> f32.  Four consumer warps own 16
+//    columns each of the 64-column strip; per 16-deep step a warp reads
+//    its Wg and Wu A fragments with ldmatrix.trans from the swizzled tile
+//    (k-major rows of the stage) and the B fragment (the N rows, padded to 8
+//    with zeros) from the normalised rows; gate and up share that B.  Eight
+//    accumulators a thread.  The products never limit: with them removed
+//    the kernel took the same time.
+//  * A strip held by one block is finished in registers: act(g) * u, bf16.
+//    A strip split over several blocks: each segment's partial sums go to
+//    a float32 scratch `part`, a counter per (strip, warp) counts them in,
+//    and the last to arrive adds the segments in segment order (a fixed
+//    order, so results are the same run after run; no float atomics) and
+//    writes the output; it then resets the counter to 0 for the next call.
+//  What was tried and measured slower: 16- and 32-row boxes and 2 or 4
+//  boxes side by side (more TMA operations per byte), more blocks than SMs
+//  (each block's prologue and partials cost more than the balance gains),
+//  units of chunks handed out by a counter (strip-major: the blocks in
+//  flight crowd a narrow band of columns onto a few memory channels;
+//  k-band-major: a flush per unit).  What is left (PERF.md): the SMs'
+//  equal runs end far apart, and x lands well after the start.
+#define FG_MAX_STAGES 16
+#define FG_SEG 4                                  // partials loaded at once
+#define FG_PROMO CU_TENSOR_MAP_L2_PROMOTION_NONE
+#define FG_BOXES 1                                // 64-column boxes a strip
+#define FG_KROWS 128                              // rows of d a chunk
+#define FG_CONSUMERS 4
+#define FG_THREADS (32 * (FG_CONSUMERS + 1))
+// dynamic shared memory: 1 KB alignment slack, the ring of `stages` stages
+// of `stage` bytes, the barriers, the normalised rows (N x (kc * krows + 8)
+// bf16), the scale (kc * krows bf16)
+#define FG_SMEM(stages, stage, N, dpad) \
+  (1024 + (stages) * (stage) + 16 * FG_MAX_STAGES + (N) * ((dpad) + 8) * 2 + \
+   (dpad) * 2)
+#define FG_SMEM_MAX 232448                        // what a block may use
+#define FG_STATIC_SMEM 512                        // room left for the static
+
+__device__ __forceinline__ void fg_cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               ::"r"(hp_smem(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void fg_ldm4t(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hp_smem(p)));
+}
+// d (16 x 8, f32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
+__device__ __forceinline__ void fg_mma(float* d, const uint32_t* a,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// The block whose run of chunks holds chunk c.
+__host__ __device__ __forceinline__ int fg_block_of(long long c, int total,
+                                                    int blocks) {
+  return (int)(((c + 1) * blocks - 1) / total);
+}
+
+// The consumer warps' own barrier (0 is __syncthreads): the producer warp
+// streams weights while they normalise x.
+#define FG_BAR_NORM 1
+__device__ __forceinline__ void fg_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// BOXES: 64-column TMA boxes side by side in a strip (64 * BOXES columns,
+// each row of a box a run of 128 B); a chunk is KROWS rows of d, a stage
+// 2 * BOXES * KROWS * 128 B.
+template <int BOXES, int KROWS>
+__global__ void __launch_bounds__(FG_THREADS, 1)
+fused_mlp_gemv_kernel(const __grid_constant__ CUtensorMap tmg,
+                      const __grid_constant__ CUtensorMap tmu,
+                      const __nv_bfloat16* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ scale,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ part, int* __restrict__ count,
+                      int N, int d, int F, int act, float eps, int kc,
+                      int strips, int maxseg, int stages) {
+  constexpr int COLS = 64 * BOXES;
+  constexpr int BOX = KROWS * HP_ROW_BYTES;             // bytes of a box
+  constexpr int STAGE = 2 * BOXES * BOX;
+  constexpr int PART = 16 * BOXES * 8 * 2;              // a warp's partial
+  extern __shared__ uint8_t fg_raw[];
+  __shared__ float red[FG_CONSUMERS][FR_ROWS];
+  __shared__ float inv_s[FR_ROWS];
+  const uint32_t raw = hp_smem(fg_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = fg_raw + (base - raw);
+  const uint32_t bars = base + stages * STAGE;        // full[16], empty[16]
+  const int xld = kc * KROWS + 8;                      // row stride of xn
+  __nv_bfloat16* xn = reinterpret_cast<__nv_bfloat16*>(
+      gbase + stages * STAGE + 16 * FG_MAX_STAGES);
+  __nv_bfloat16* sc = xn + (size_t)N * xld;            // the scale row
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (FG_MAX_STAGES + s); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool producer = warp == FG_CONSUMERS;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hp_mbar_init(full(s), 1);
+      hp_mbar_init(empty(s), FG_CONSUMERS);
+    }
+    hp_mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int blocks = gridDim.x, b = blockIdx.x;
+  const int total = strips * kc;
+  const long long c0 = (long long)b * total / blocks;
+  const int n_mine = (int)((long long)(b + 1) * total / blocks - c0);
+
+  if (producer) {
+    // ------------------------------------------------------------ producer
+    if (lane == 0) {
+      hp_prefetch_map(&tmg);
+      hp_prefetch_map(&tmu);
+      for (int i = 0; i < n_mine; ++i) {
+        const int s = i % stages;
+        // the (i / stages)-th reuse of a stage waits for its release
+        if (i >= stages) hp_mbar_wait(empty(s), ((i / stages) - 1) & 1);
+        const long long c = c0 + i;
+        const int strip = (int)(c / kc), k0 = (int)(c - (long long)strip * kc)
+            * KROWS;
+        hp_mbar_expect_tx(full(s), STAGE);
+#pragma unroll
+        for (int xb = 0; xb < BOXES; ++xb) {
+          hp_tma_load_2d(base + s * STAGE + xb * BOX, &tmg, full(s),
+                         strip * COLS + xb * 64, k0);
+          hp_tma_load_2d(base + s * STAGE + (BOXES + xb) * BOX, &tmu, full(s),
+                         strip * COLS + xb * 64, k0);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers: norm
+  // x and scale to shared memory by cp.async while the producer streams
+  // the first stages, then the row sums (fixed order: warp shuffles, then
+  // the four warps in order) and the normalised rows, x * inv * (1 +
+  // scale) rounded to bf16 as the reference's rms_norm rounds
+  const int ct = tid;                                  // 0..127
+  constexpr int CT = 32 * FG_CONSUMERS;
+  const int nv = d / 8;                          // 16-byte vectors a row
+  const int nvp = xld / 8 - 1;                   // vectors of kc * krows
+  for (int i = ct; i < (N + 1) * nvp; i += CT) {
+    const int n = i / nvp, v = i - n * nvp;
+    uint4* dst = n < N ? reinterpret_cast<uint4*>(xn + (size_t)n * xld) + v
+                       : reinterpret_cast<uint4*>(sc) + v;
+    if (v < nv)
+      fg_cp16(dst, n < N ? reinterpret_cast<const uint4*>(x + (size_t)n * d) + v
+                         : reinterpret_cast<const uint4*>(scale) + v);
+    else
+      *dst = make_uint4(0u, 0u, 0u, 0u);        // past d: zeros
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  fg_bar_sync(FG_BAR_NORM, CT);                  // all rows are in
+  float ss[FR_ROWS];
+#pragma unroll
+  for (int n = 0; n < FR_ROWS; ++n) ss[n] = 0.f;
+  for (int v = ct; v < nv; v += CT) {
+#pragma unroll
+    for (int n = 0; n < FR_ROWS; ++n) {
+      if (n >= N) continue;
+      const uint4 q = reinterpret_cast<const uint4*>(xn + (size_t)n * xld)[v];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        ss[n] += f.x * f.x + f.y * f.y;
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < FR_ROWS; ++n) {
+    float v = ss[n];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) red[warp][n] = v;
+  }
+  fg_bar_sync(FG_BAR_NORM, CT);
+  if (ct < N) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < FG_CONSUMERS; ++w) v += red[w][ct];
+    inv_s[ct] = rsqrtf(v / (float)d + eps);
+  }
+  fg_bar_sync(FG_BAR_NORM, CT);
+  for (int v = ct; v < nv; v += CT) {
+    const uint4 scv = reinterpret_cast<const uint4*>(sc)[v];
+    const __nv_bfloat162* hs = reinterpret_cast<const __nv_bfloat162*>(&scv);
+#pragma unroll
+    for (int n = 0; n < FR_ROWS; ++n) {
+      if (n >= N) continue;
+      uint4* px = reinterpret_cast<uint4*>(xn + (size_t)n * xld) + v;
+      uint4 o = *px;
+      uint32_t* po = reinterpret_cast<uint32_t*>(&o);
+      const float inv = inv_s[n];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 fx = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&po[j]));
+        const float2 fs = __bfloat1622float2(hs[j]);
+        po[j] = hp_pack_bf16((fx.x * inv) * (1.f + fs.x),
+                             (fx.y * inv) * (1.f + fs.y));
+      }
+      *px = o;
+    }
+  }
+  fg_bar_sync(FG_BAR_NORM, CT);
+
+  // ---------------------------------------------------- consumers: products
+  // warp w owns columns [16 BOXES w, 16 BOXES (w + 1)) of the strip: BOXES
+  // m16 tiles; this lane's ldmatrix row: k row lk of a 16-deep step,
+  // columns lf..lf+7 of tile mt
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int lk = (lane & 7) + ((lane >> 4) << 3);
+  const int lf = warp * 16 * BOXES + (((lane >> 3) & 1) << 3);
+  const bool live = g < N;                       // rows past N: B is zero
+  const __nv_bfloat16* xrow = xn + (size_t)(live ? g : 0) * xld + c2;
+  float cg[BOXES][4], cu[BOXES][4];
+
+  // out[n][f] = act(g) * u for the warp's columns of `strip`; the
+  // accumulator layout of tile mt: [0] (f = g, n = c2), [1] (g, c2 + 1),
+  // [2] (g + 8, c2), [3] (g + 8, c2 + 1)
+  auto store = [&](int strip, float (*vg)[4], float (*vu)[4]) {
+#pragma unroll
+    for (int mt = 0; mt < BOXES; ++mt) {
+      const int f = strip * COLS + warp * 16 * BOXES + mt * 16 + g;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ff = f + 8 * (e >> 1), n = c2 + (e & 1);
+        if (ff < F && n < N)
+          out[(size_t)n * F + ff] =
+              __float2bfloat16(fm_act(vg[mt][e], act) * vu[mt][e]);
+      }
+    }
+  };
+  // the end of this block's segment of `strip`: a strip held by one block
+  // is finished in registers; else the segment's partial goes to its slot,
+  // and the last of the strip's segments to arrive adds them in segment
+  // (block) order and writes the output
+  auto flush = [&](int strip) {
+    const long long sc0 = (long long)strip * kc;
+    const int fb = fg_block_of(sc0, total, blocks);
+    const int nseg = fg_block_of(sc0 + kc - 1, total, blocks) - fb + 1;
+    const int seg = b - fb;
+    if (nseg == 1) {
+      store(strip, cg, cu);
+      return;
+    }
+    float* slot = part + ((size_t)(strip * FG_CONSUMERS + warp) * maxseg) *
+        PART + lane * 8 * BOXES;
+    if (c2 < N) {                               // lanes of live rows only
+      float4* mine = reinterpret_cast<float4*>(slot + (size_t)seg * PART);
+#pragma unroll
+      for (int mt = 0; mt < BOXES; ++mt) {
+        mine[2 * mt] = make_float4(cg[mt][0], cg[mt][1], cg[mt][2],
+                                   cg[mt][3]);
+        mine[2 * mt + 1] =
+            make_float4(cu[mt][0], cu[mt][1], cu[mt][2], cu[mt][3]);
+      }
+    }
+    __threadfence();
+    __syncwarp();
+    int last = 0;
+    if (lane == 0) {
+      int* cnt = count + strip * FG_CONSUMERS + warp;
+      last = atomicAdd(cnt, 1) == nseg - 1;
+      if (last) *cnt = 0;                       // ready for the next call
+    }
+    last = __shfl_sync(0xffffffffu, last, 0);
+    if (!last || c2 >= N) return;
+    __threadfence();
+    float vg[BOXES][4], vu[BOXES][4];
+#pragma unroll
+    for (int mt = 0; mt < BOXES; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vg[mt][e] = vu[mt][e] = 0.f;
+    // the loads of FG_SEG segments go out together, the adds follow in
+    // segment order
+    for (int sg0 = 0; sg0 < nseg; sg0 += FG_SEG) {
+      float4 pg[FG_SEG][BOXES], pu[FG_SEG][BOXES];
+#pragma unroll
+      for (int q = 0; q < FG_SEG; ++q) {
+        const float4* p = reinterpret_cast<const float4*>(
+            slot + (size_t)(sg0 + q) * PART);
+#pragma unroll
+        for (int mt = 0; mt < BOXES; ++mt) {
+          const bool in = sg0 + q < nseg;
+          pg[q][mt] = in ? __ldcg(p + 2 * mt) : make_float4(0, 0, 0, 0);
+          pu[q][mt] = in ? __ldcg(p + 2 * mt + 1) : make_float4(0, 0, 0, 0);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < FG_SEG; ++q) {
+        if (sg0 + q >= nseg) break;
+#pragma unroll
+        for (int mt = 0; mt < BOXES; ++mt) {
+          vg[mt][0] += pg[q][mt].x; vg[mt][1] += pg[q][mt].y;
+          vg[mt][2] += pg[q][mt].z; vg[mt][3] += pg[q][mt].w;
+          vu[mt][0] += pu[q][mt].x; vu[mt][1] += pu[q][mt].y;
+          vu[mt][2] += pu[q][mt].z; vu[mt][3] += pu[q][mt].w;
+        }
+      }
+    }
+    store(strip, vg, vu);
+  };
+
+  int cur = (int)(c0 / kc);
+#pragma unroll
+  for (int mt = 0; mt < BOXES; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cg[mt][e] = cu[mt][e] = 0.f;
+  for (int i = 0; i < n_mine; ++i) {
+    const long long c = c0 + i;
+    const int strip = (int)(c / kc);
+    const int k0 = (int)(c - (long long)strip * kc) * KROWS;
+    if (strip != cur) {
+      flush(cur);
+#pragma unroll
+      for (int mt = 0; mt < BOXES; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cg[mt][e] = cu[mt][e] = 0.f;
+      cur = strip;
+    }
+    const int s = i % stages;
+    hp_mbar_wait(full(s), (i / stages) & 1);
+    const uint8_t* tg = gbase + s * STAGE;
+    const uint8_t* tu = tg + BOXES * BOX;
+#pragma unroll
+    for (int ks = 0; ks < KROWS / 16; ++ks) {
+      uint32_t b0 = 0u, b1 = 0u;
+      if (live) {
+        b0 = *reinterpret_cast<const uint32_t*>(xrow + k0 + ks * 16);
+        b1 = *reinterpret_cast<const uint32_t*>(xrow + k0 + ks * 16 + 8);
+      }
+#pragma unroll
+      for (int mt = 0; mt < BOXES; ++mt) {
+        const int col = lf + mt * 16;           // column of the strip
+        const uint32_t off = (col >> 6) * BOX + hp_swz(ks * 16 + lk, col & 63);
+        uint32_t ag[4], au[4];
+        fg_ldm4t(ag, tg + off);
+        fg_ldm4t(au, tu + off);
+        fg_mma(cg[mt], ag, b0, b1);
+        fg_mma(cu[mt], au, b0, b1);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hp_mbar_arrive(empty(s));    // the stage is read
+  }
+  if (n_mine > 0) flush(cur);
+}
+
+template <int BOXES, int KROWS>
+static int launch_gemv_t(const CUtensorMap& mg, const CUtensorMap& mu,
+                         const void* x, const void* scale, void* out,
+                         float* part, int* count, int N, int d, int F,
+                         int act, float eps, int kc, int strips, int maxseg,
+                         int blocks, int stages, int smem,
+                         cudaStream_t stream) {
+  cudaError_t ce = cudaFuncSetAttribute(
+      fused_mlp_gemv_kernel<BOXES, KROWS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (ce != cudaSuccess) return (int)ce;
+  fused_mlp_gemv_kernel<BOXES, KROWS><<<blocks, FG_THREADS, smem, stream>>>(
+      mg, mu, (const __nv_bfloat16*)x, (const __nv_bfloat16*)scale,
+      (__nv_bfloat16*)out, part, count, N, d, F, act, eps, kc, strips, maxseg,
+      stages);
+  return (int)cudaGetLastError();
+}
+
+// The most blocks (segments) that share one strip of a gemv_tma call.
+static int fg_maxseg(int strips, int kc, int blocks) {
+  const int total = strips * kc;
+  int most = 1;
+  for (int s = 0; s < strips; ++s) {
+    const long long c = (long long)s * kc;
+    const int n = fg_block_of(c + kc - 1, total, blocks) -
+        fg_block_of(c, total, blocks) + 1;
+    most = n > most ? n : most;
+  }
+  return most;
+}
+
+// part: float32 scratch of strips * 4 * maxseg * (256 * boxes); count:
+// strips * 4 ints, zero (the kernel leaves them zero).  Refused when the
+// wrapper's boxes / krows / blocks / stages / maxseg do not fit.
+static int launch_gemv(const void* x, const void* scale, const void* wg,
+                       const void* wu, void* out, float* part, int* count,
+                       int N, int d, int F, int act, float eps, int boxes,
+                       int krows, int blocks, int stages, int maxseg,
+                       cudaStream_t stream) {
+  if (boxes != FG_BOXES || krows != FG_KROWS)
+    return (int)cudaErrorInvalidValue;
+  const int strips = (F + 64 * boxes - 1) / (64 * boxes);
+  const int kc = (d + krows - 1) / krows;
+  const int stage = 2 * boxes * krows * HP_ROW_BYTES;
+  const int smem = FG_SMEM(stages, stage, N, kc * krows);
+  if (blocks < 1 || blocks > strips * kc || stages < 2 ||
+      stages > FG_MAX_STAGES || smem + FG_STATIC_SMEM > FG_SMEM_MAX ||
+      fg_maxseg(strips, kc, blocks) > maxseg || part == nullptr ||
+      count == nullptr)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mg, mu;
+  const uint64_t dw[2] = {(uint64_t)F, (uint64_t)d};
+  const uint64_t sw[1] = {(uint64_t)F * 2};
+  const uint32_t bw[2] = {HP_BOX_COLS, (uint32_t)krows};
+  int e = hp_tensor_map(&mg, wg, 2, dw, sw, bw, FG_PROMO);
+  if (!e) e = hp_tensor_map(&mu, wu, 2, dw, sw, bw, FG_PROMO);
+  if (e) return e;
+  return launch_gemv_t<FG_BOXES, FG_KROWS>(mg, mu, x, scale, out, part, count,
+                                          N, d, F, act, eps, kc, strips,
+                                          maxseg, blocks, stages, smem,
+                                          stream);
+}
+
 static int launch_wmma(const void* x, const void* scale, const void* wg,
                        const void* wu, void* out, int N, int d, int F,
                        int act, float eps, cudaStream_t stream) {
@@ -752,17 +1210,25 @@ static int launch_f32(const void* x, const void* scale, const void* wg,
 // (chosen by the wrapper's `_variant`): 0 the CUDA-core kernel (float32),
 // 1 the WMMA kernel (bfloat16), 2 the rows kernel (N <= 8, either dtype),
 // 3 the wgmma/TMA kernel pair (bfloat16, d and F multiples of 8, 16-byte
-// aligned operands; inv_rms: a float32 scratch of N).  A variant whose
+// aligned operands; scratch: a float32 inv_rms of N), 4 the gemv/TMA
+// kernel (bfloat16, N <= 8, d and F multiples of 8, 16-byte aligned
+// operands; scratch: the float32 partials, count: the zeroed counters,
+// boxes / krows / blocks / stages / maxseg: its split, see launch_gemv).  A variant whose
 // conditions do not hold is refused.  Returns a cudaError_t (0 =
 // launched).
 extern "C" int fused_mlp_launch(const void* x, const void* scale,
                                 const void* wg, const void* wu, void* out,
-                                float* inv_rms, int N, int d, int F, int act,
-                                float eps, int dtype, int variant,
+                                float* scratch, int* count, int N, int d,
+                                int F, int act, float eps, int dtype,
+                                int variant, int boxes, int krows,
+                                int blocks, int stages, int maxseg,
                                 cudaStream_t stream) {
   if (N < 1 || d < 1 || F < 1 || act < 0 || act > 1 || dtype < 0 ||
       dtype > 1)
     return (int)cudaErrorInvalidValue;
+  const bool tma_ok = dtype == 1 && d % 8 == 0 && F % 8 == 0 &&
+      (size_t)x % 16 == 0 && (size_t)scale % 16 == 0 &&
+      (size_t)wg % 16 == 0 && (size_t)wu % 16 == 0;
   switch (variant) {
     case 0:
       if (dtype != 0) break;
@@ -776,15 +1242,14 @@ extern "C" int fused_mlp_launch(const void* x, const void* scale,
                                   stream);
       return launch_rows<__nv_bfloat16>(x, scale, wg, wu, out, N, d, F, act,
                                         eps, stream);
-    case 3: {
-      const bool ok = dtype == 1 && d % 8 == 0 && F % 8 == 0 &&
-          inv_rms != nullptr && (size_t)x % 16 == 0 &&
-          (size_t)scale % 16 == 0 && (size_t)wg % 16 == 0 &&
-          (size_t)wu % 16 == 0;
-      if (!ok) break;
-      return launch_wgmma(x, scale, wg, wu, out, inv_rms, N, d, F, act, eps,
+    case 3:
+      if (!tma_ok || scratch == nullptr) break;
+      return launch_wgmma(x, scale, wg, wu, out, scratch, N, d, F, act, eps,
                           stream);
-    }
+    case 4:
+      if (!tma_ok || N > FR_ROWS) break;
+      return launch_gemv(x, scale, wg, wu, out, scratch, count, N, d, F, act,
+                         eps, boxes, krows, blocks, stages, maxseg, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -55,11 +55,13 @@ static hp_encode_tiled_fn hp_encode_tiled() {
 
 // A bf16 tensor map of `rank` dims (innermost first): dims[i] elements,
 // strides[i] bytes between steps of dim i + 1, box[i] elements per load;
-// 128-B swizzle, out-of-range elements read as zero.  Returns a
-// cudaError_t (0 = encoded).
+// 128-B swizzle, out-of-range elements read as zero; `promo`: how much L2
+// fetches around each request.  Returns a cudaError_t (0 = encoded).
 static int hp_tensor_map(CUtensorMap* map, const void* base, int rank,
                          const uint64_t* dims, const uint64_t* strides,
-                         const uint32_t* box) {
+                         const uint32_t* box,
+                         CUtensorMapL2promotion promo =
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
   hp_encode_tiled_fn fn = hp_encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   cuuint64_t d[5], s[4];
@@ -73,8 +75,7 @@ static int hp_tensor_map(CUtensorMap* map, const void* base, int rank,
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
                   const_cast<void*>(base), d, s, b, one,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                  promo, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -114,6 +115,12 @@ __device__ __forceinline__ void hp_mbar_wait(uint32_t bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
+}
+
+// Fetch a tensor map's descriptor ahead of its first TMA load.
+__device__ __forceinline__ void hp_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 // TMA loads into shared memory; completion is counted on `bar`.

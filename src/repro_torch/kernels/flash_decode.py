@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels._common import aligned16, check, on_card, \
-    positions, stream_of
+    positions, sm_count as _sm_count, stream_of
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
                                                  flash_attention_plain)
 
@@ -60,18 +60,6 @@ def decode_split(bkv: int, W: int, kv_block: int, n_sm: int) -> int:
     split = -(-per // SPLIT_STEP) * SPLIT_STEP
     split = max(1, min(split, kv_block, MAX_SPLIT, W))
     return max(split, -(-W * PARTS_PER_SPLIT // MAX_SPLITS))
-
-
-_SM_COUNT = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _SM_COUNT[idx]
 
 
 def flash_decode_plain(q, cache_k, cache_v, qpos, kpos, window: int = 0,

@@ -13,10 +13,14 @@ closure ``repro/sim/batch.py:_jax_control`` the reference hands to it.
 
 * On CUDA tensors the wrapper launches the kernel or raises.
 * On CPU tensors it runs :func:`fused_tick_sim_plain`, the same function as a
-  Python loop of float32 torch ops — what the CPU tests exercise and what the
-  kernel is compared with on the card.  The plain version evaluates every
-  expression in the kernel's order (sums over tiles run in tile order), so
-  on one device the two round alike.
+  Python loop of float32 torch ops on the reference's formulas — what the
+  CPU tests exercise and what the kernel is compared with on the card.  The
+  kernel reaches the same queue, busy, rates and control decisions bit for
+  bit by other means (a table of link-sharer sets instead of the incidence
+  rows; divisions by reciprocal-and-FMA sequences that give the IEEE
+  quotient, and a second, exact pass of the kernel for any design whose
+  operands leave the range where they do; see its source note); only its
+  energy and drop sums over four or more tiles add in another order.
 
 A CUDA kernel cannot take a Python closure, so the controller is described by
 a :class:`ControlPlan` record: a policy *kind*, its scalars, and the island
@@ -249,7 +253,7 @@ def _out_dict(adm, served, queue, busy, rtt, rates, guard, dropped, energy,
 
 
 def _seq_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in index order (the kernel's order)."""
+    """Sum over the last axis in index order."""
     s = x[..., 0]
     for a in range(1, x.shape[-1]):
         s = s + x[..., a]
@@ -488,7 +492,7 @@ def _kernel_fn():
     fn = build.library("tick_sim").tick_sim_launch
     if not _ARGTYPES_SET:
         fn.argtypes = ([ctypes.POINTER(_TickParams)]
-                       + [ctypes.c_void_p] * 27)
+                       + [ctypes.c_void_p] * 28)
         fn.restype = ctypes.c_int
         _ARGTYPES_SET = True
     return fn
@@ -564,6 +568,7 @@ def _launch_kernel(arrivals, consts, scalars, init, plan: ControlPlan):
     p0_out = e(B, I) if plan.n_state >= 1 else None
     p1_out = e(B, I) if plan.n_state >= 2 else None
     has_out = e(B, dtype=torch.uint8) if pol else None
+    redo = e(B, dtype=torch.uint8)      # designs the exact pass runs again
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -580,7 +585,7 @@ def _launch_kernel(arrivals, consts, scalars, init, plan: ControlPlan):
                 ptr(has_in), ptr(ctab), ptr(adm), ptr(served), ptr(queue),
                 ptr(busy), ptr(rtt), ptr(ratesF), ptr(guardF), ptr(dropped),
                 ptr(energy), ptr(swaps), ptr(p0_out), ptr(p1_out),
-                ptr(has_out), stream)
+                ptr(has_out), ptr(redo), stream)
     if rc != 0:
         raise RuntimeError(
             f"tick_sim kernel launch failed (code {rc}) for T={T} B={B} "
@@ -619,8 +624,10 @@ def fused_tick_sim(arrivals, consts, scalars, init, *,
     ``swaps`` ``(B,)`` float32 and the evolved ``pol`` tuple.
 
     CUDA tensors: launches the kernel on the current stream (no
-    synchronisation) or raises.  CPU tensors: runs the plain version.
-    ``fused_tick_sim.launches`` counts kernel launches.
+    synchronisation) or raises; a call is two launches of it, the fast pass
+    and the exact pass (which returns at once unless the fast pass marked a
+    design).  CPU tensors: runs the plain version.
+    ``fused_tick_sim.launches`` counts calls that launched.
     """
     plan = plan if plan is not None else ControlPlan()
     if torch.is_tensor(arrivals) and arrivals.device.type == "cuda":

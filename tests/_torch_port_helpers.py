@@ -5,6 +5,8 @@ reference package ``repro`` and to the port ``repro_torch`` and compares
 outputs.  ``REF`` and ``PORT`` bundle the two packages' counterparts so a
 helper written once serves both sides.
 """
+import importlib.util
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -24,6 +26,16 @@ PORT = SimpleNamespace(name="repro_torch", sim=port_sim, dfs=port_dfs,
                        pm=port_pm, dse=port_dse)
 
 POLICIES = ("open", "guard", "membound", "pid", "ewma")
+
+
+def chip_smoke():
+    """``chip_smoke.py`` (the repository root's) as a module: its checks,
+    planted faults and the card cases of the gpu-marked tests."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def make_policy(pkg, key):

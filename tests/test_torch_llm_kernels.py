@@ -5,12 +5,13 @@ against the reference's ``*_pallas(..., interpret=True)`` and against its
 ``kernels/ref.py`` oracle, on the same inputs made with NumPy from a seed.
 Tolerances are those of ``tests/test_kernels.py``: atol 2e-5 in float32,
 3e-2 (attention) and 5e-2 (MLP) in bfloat16.  The CUDA kernels themselves
-are held against the plain versions by the ``gpu``-marked tests at the end
-(skipped without a card) and by ``chip_smoke.py``.
+are held against the plain versions by the ``gpu``-marked tests (skipped
+without a card), whose cases run in ``chip_smoke.py`` (``card_case``: the
+card's machine has no jax, which this file imports), and there by its own
+phases.  On the card the bf16 MLP is held to max(5e-2, one bf16 ulp of
+|ref|): both versions round their outputs to bf16.
 """
-import importlib.util
 import inspect
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +29,8 @@ from repro_torch.kernels import fused_mlp as FM
 from repro_torch.kernels import ops as port_ops
 from repro_torch.kernels._common import aligned16
 from repro_torch.models import layers as L
+
+from _torch_port_helpers import chip_smoke
 
 ATOL = {("attention", "float32"): 2e-5, ("attention", "bfloat16"): 3e-2,
         ("mlp", "float32"): 2e-5, ("mlp", "bfloat16"): 5e-2}
@@ -258,14 +261,6 @@ def test_wrappers_refuse_bad_inputs_before_any_launch():
 
 
 # ------------------------------------------- the check chip_smoke.py applies
-def _chip_smoke():
-    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("name", ["flash_decode", "flash_attention"])
 def test_row_check_rejects_planted_faults_on_long_rows(name):
     """Rows over thousands of live keys output ~sqrt(e / n), so an absolute
@@ -273,7 +268,7 @@ def test_row_check_rejects_planted_faults_on_long_rows(name):
     row-relative check of ``chip_smoke.py`` passes a correct answer computed
     another way (``attention_chunked``: online softmax in kv blocks) and
     rejects every planted fault."""
-    cs = _chip_smoke()
+    cs = chip_smoke()
     g = torch.Generator().manual_seed(5)
     bf16 = torch.bfloat16
     opts = L.AttnOptions(backend="chunked", q_block=256, kv_block=512)
@@ -319,24 +314,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _cuda(*ts):
-    return tuple(t.cuda() if torch.is_tensor(t) else t for t in ts)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,S,KV,G,hdq,hdv,win,blk", ATTN_CASES)
 def test_cuda_flash_attention_matches_plain(B, S, KV, G, hdq, hdv, win, blk,
                                             dtype, cuda_device):
-    q, k, v, qp, kp = attn_inputs(B, S, KV, G, hdq, hdv, dtype, qshift=-3)
-    args = _cuda(q[1], k[1], v[1], qp[1], kp[1]) + (win, 1 / np.sqrt(hdq))
-    before = FA.flash_attention.launches
-    out = FA.flash_attention(*args)
-    torch.cuda.synchronize()
-    assert FA.flash_attention.launches == before + 1
-    ref = FA.flash_attention_plain(*args)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
-                               atol=ATOL[("attention", dtype)])
+    """The kernel against the plain version (atol by dtype) on
+    ``attn_inputs`` with queries 3 positions back; the case runs in
+    ``chip_smoke.py`` (``card_flash_attention``), which the card's machine
+    can run."""
+    chip_smoke().card_case("test_cuda_flash_attention_matches_plain", B, S,
+                            KV, G, hdq, hdv, win, blk, dtype)
 
 
 @pytest.mark.gpu
@@ -344,20 +332,10 @@ def test_cuda_flash_attention_matches_plain(B, S, KV, G, hdq, hdv, win, blk,
 @pytest.mark.parametrize("B,W,KV,G,hd,win,blk,pos", DECODE_CASES)
 def test_cuda_flash_decode_matches_plain(B, W, KV, G, hd, win, blk, pos,
                                          dtype, cuda_device):
-    rng = np.random.default_rng(1)
-    t = getattr(torch, dtype)
-    q, ck, cv = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
-                                  ).to(t).cuda()
-                 for s in ((B, KV, G, hd), (B, W, KV, hd), (B, W, KV, hd)))
-    qp = torch.tensor(pos, dtype=torch.int32).cuda()
-    kp = torch.from_numpy(ring_kpos(pos, W)).cuda()
-    before = FD.flash_decode.launches
-    out = FD.flash_decode(q, ck, cv, qp, kp, win, 1 / np.sqrt(hd), blk)
-    torch.cuda.synchronize()
-    assert FD.flash_decode.launches == before + 1
-    ref = FD.flash_decode_plain(q, ck, cv, qp, kp, win, 1 / np.sqrt(hd))
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
-                               atol=ATOL[("attention", dtype)])
+    """The kernel against the plain version (atol by dtype) over a ring
+    cache; runs as ``chip_smoke.py``'s ``card_flash_decode``."""
+    chip_smoke().card_case("test_cuda_flash_decode_matches_plain", B, W, KV,
+                            G, hd, win, blk, pos, dtype)
 
 
 @pytest.mark.gpu
@@ -366,20 +344,11 @@ def test_cuda_flash_decode_matches_plain(B, W, KV, G, hd, win, blk, pos,
 @pytest.mark.parametrize("N,d,F", [(32, 64, 96), (4, 80, 64), (70, 300, 130),
                                    (12, 64, 130), (3, 100, 77)])
 def test_cuda_fused_mlp_matches_plain(N, d, F, act, dtype, cuda_device):
-    rng = np.random.default_rng(2)
-    t = getattr(torch, dtype)
-    x, s, wg, wu = (torch.from_numpy(a.astype(np.float32)).to(t).cuda()
-                    for a in (rng.standard_normal((N, d)),
-                              0.1 * rng.standard_normal(d),
-                              rng.standard_normal((d, F)) / np.sqrt(d),
-                              rng.standard_normal((d, F)) / np.sqrt(d)))
-    before = FM.fused_rmsnorm_mlp.launches
-    out = FM.fused_rmsnorm_mlp(x, s, wg, wu, act)
-    torch.cuda.synchronize()
-    assert FM.fused_rmsnorm_mlp.launches == before + 1
-    ref = FM.fused_rmsnorm_mlp_plain(x, s, wg, wu, act)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
-                               atol=ATOL[("mlp", dtype)])
+    """The kernel the rule picks against the plain version (``llm_check``:
+    atol 2e-5 in float32; in bf16 max(5e-2, one bf16 ulp of |ref|)); runs
+    as ``chip_smoke.py``'s ``card_fused_mlp``."""
+    chip_smoke().card_case("test_cuda_fused_mlp_matches_plain", N, d, F,
+                            act, dtype)
 
 
 # ------------------------------------------------- which device kernel runs
@@ -409,8 +378,10 @@ def test_attention_dispatch_rule():
 
 
 def test_mlp_dispatch_rule():
-    """``_variant`` of the fused MLP: at most 8 rows (decode) take the
-    weight-streaming rows kernel in either dtype; more rows take the
+    """``_variant`` of the fused MLP: at most 8 bfloat16 rows (decode) with
+    d and F multiples of 8 and aligned operands take the gemv/TMA kernel at
+    every dense config's widths; other rows <= 8 (float32, odd widths, a
+    misaligned view) the weight-streaming rows kernel; more rows take the
     CUDA-core kernel in float32, and in bfloat16 the wgmma/TMA pair at
     every dense config's widths (d, F multiples of 8), the WMMA kernel for
     odd widths or a misaligned view."""
@@ -425,35 +396,57 @@ def test_mlp_dispatch_rule():
         assert FM._variant(bf16, 9, d, F, True) == "wgmma_tma", name
         assert FM._variant(bf16, 4608, d, F, False) == "wmma", name
         assert FM._variant(f32, 4608, d, F, True) == "cuda_cores", name
-        for dt in (bf16, f32):       # the 4-slot decode of the serve path
-            assert FM._variant(dt, 4, d, F, True) == "rows", name
-            assert FM._variant(dt, 4, d, F, False) == "rows", name
+        for N in range(1, 9):        # decode, up to 8 slots
+            assert FM._variant(bf16, N, d, F, True) == "gemv_tma", name
+        if 4 * 4 * d <= FM.ROWS_MAX_SMEM:    # the 4-slot decode otherwise
+            assert FM._variant(bf16, 4, d, F, False) == "rows", name
+            assert FM._variant(f32, 4, d, F, True) == "rows", name
     assert FM._variant(bf16, 100, 100, 77, True) == "wmma"   # F % 8 != 0
     assert FM._variant(bf16, 100, 300, 64, True) == "wmma"   # d % 8 != 0
+    assert FM._variant(bf16, 4, 100, 77, True) == "rows"     # F % 8 != 0
+    assert FM._variant(bf16, 4, 300, 64, True) == "rows"     # d % 8 != 0
     # the rows kernel keeps its float32 rows in 160 KB of shared memory
-    assert FM._variant(bf16, 8, 5120, 64, True) == "rows"
-    assert FM._variant(bf16, 8, 5128, 64, True) == "wgmma_tma"
-    assert set(FM.VARIANTS) == {"cuda_cores", "wmma", "rows", "wgmma_tma"}
+    assert FM._variant(f32, 8, 5120, 64, True) == "rows"
+    assert FM._variant(f32, 8, 5128, 64, True) == "cuda_cores"
+    # gemv_tma keeps its bf16 rows and the scale beside two ring stages:
+    # a wide enough d falls through to the other kernels
+    widest = max(d for d in range(64, 20000, 64) if FM.gemv_stages(8, d) >= 2)
+    assert 8192 <= widest < 19000
+    assert FM._variant(bf16, 8, widest, 64, True) == "gemv_tma"
+    assert FM._variant(bf16, 8, widest + 64, 64, True) == "wgmma_tma"
+    assert FM._variant(bf16, 1, widest + 64, 64, True) == "gemv_tma"
+    assert set(FM.VARIANTS) == {"cuda_cores", "wmma", "rows", "wgmma_tma",
+                                "gemv_tma"}
+
+
+@pytest.mark.parametrize("d,F", [(2048, 16384), (4096, 14336), (2560, 6912),
+                                 (2048, 8192), (5120, 17920), (8192, 22016),
+                                 (200, 1000), (64, 8)])
+@pytest.mark.parametrize("n_sm", [132, 114, 7])
+def test_gemv_split_covers_every_chunk_once(d, F, n_sm):
+    """``gemv_plan``: block b's run of chunks [b * total / blocks, (b + 1) *
+    total / blocks) covers every chunk once, the runs differ by at most
+    one chunk (every SM streams the same bytes), and no strip is shared by
+    more than ``maxseg`` blocks (the partials' scratch)."""
+    blocks, strips, maxseg = FM.gemv_plan(d, F, n_sm)
+    cols, krows = 64 * FM.GEMV_BOXES, FM.GEMV_KROWS
+    assert strips == -(-F // cols)
+    kc = -(-d // krows)
+    total = strips * kc
+    assert blocks == min(n_sm, total)
+    runs = [(b * total // blocks, (b + 1) * total // blocks)
+            for b in range(blocks)]
+    assert runs[0][0] == 0 and runs[-1][1] == total
+    assert all(runs[i][1] == runs[i + 1][0] for i in range(blocks - 1))
+    sizes = [hi - lo for lo, hi in runs]
+    assert max(sizes) - min(sizes) <= 1
+    for s in range(strips):
+        owners = {b for b, (lo, hi) in enumerate(runs)
+                  if lo < (s + 1) * kc and hi > s * kc}
+        assert 1 <= len(owners) <= maxseg
 
 
 # ------------------------------------------- the wgmma/TMA paths' edges, card
-def _row_rel(out, ref):
-    """Largest error over an output row (last dim) over the row's largest
-    |ref|; a row of zeros in ``ref`` counts its absolute error (as
-    chip_smoke.py's ``row_rel_err``)."""
-    o, r = out.double(), ref.double()
-    err, top = (o - r).abs().amax(-1), r.abs().amax(-1)
-    return float(torch.where(top > 0, err / top.clamp(min=1e-300), err).max())
-
-
-def _pos(kind, n, lo=0, seed=0):
-    if kind == "perm":
-        p = np.random.default_rng(seed).permutation(n) + lo
-    else:
-        p = np.arange(lo, lo + n)
-    return torch.from_numpy(p.astype(np.int32))[None]
-
-
 # B, Sq, Sk, KV, G, hd, window, q positions (kind, first), k positions
 EDGE_ATTN = [
     (2, 200, 200, 2, 2, 80, 0, ("arange", 0), "arange"),    # ragged tiles
@@ -476,25 +469,10 @@ def test_cuda_flash_attention_wgmma_edges(B, Sq, Sk, KV, G, hd, win, qk, kk,
     ragged query and key tiles, a prefix in the cache, non-monotone
     positions, a kv tile live only through the window, rows with no live
     key, full tiles, head dims 64 / 80 / 128; atol 3e-2 and 2e-2 of each
-    output row's largest value."""
-    rng = np.random.default_rng(7)
-    bf16 = torch.bfloat16
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
-                                ).to(bf16).cuda()
-               for s in ((B, Sq, KV, G, hd), (B, Sk, KV, hd),
-                         (B, Sk, KV, hd)))
-    qp = _pos(qk[0], Sq, qk[1], 1).expand(B, Sq).contiguous().cuda()
-    kp = _pos(kk, Sk, 0, 2).expand(B, Sk).contiguous().cuda()
-    args = (q, k, v, qp, kp, win, 1 / np.sqrt(hd))
-    before = FA.flash_attention.launches
-    out = FA.flash_attention(*args)
-    torch.cuda.synchronize()
-    assert FA.flash_attention.launches == before + 1
-    assert FA.flash_attention.last_variant == "wgmma_tma"
-    ref = FA.flash_attention_plain(*args)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
-                               atol=ATOL[("attention", "bfloat16")])
-    assert _row_rel(out, ref) <= 2e-2
+    output row's largest value (``chip_smoke.py``,
+    ``card_flash_attention_wgmma_edges``)."""
+    chip_smoke().card_case("test_cuda_flash_attention_wgmma_edges", B, Sq,
+                            Sk, KV, G, hd, win, qk, kk)
 
 
 @pytest.mark.gpu
@@ -506,54 +484,127 @@ def test_cuda_flash_attention_wgmma_edges(B, Sq, Sk, KV, G, hd, win, qk, kk,
     (100, 200, 136, "silu"),        # d not a multiple of 64
 ])
 def test_cuda_fused_mlp_wgmma_edges(N, d, F, act, cuda_device):
-    """The wgmma/TMA pair against the plain version (bf16, atol 5e-2) at
-    ragged row, column and depth tiles, silu and gelu."""
-    rng = np.random.default_rng(3)
-    bf16 = torch.bfloat16
-    x, s, wg, wu = (torch.from_numpy(a.astype(np.float32)).to(bf16).cuda()
-                    for a in (rng.standard_normal((N, d)),
-                              0.1 * rng.standard_normal(d),
-                              0.02 * rng.standard_normal((d, F)),
-                              0.02 * rng.standard_normal((d, F))))
-    before = FM.fused_rmsnorm_mlp.launches
-    out = FM.fused_rmsnorm_mlp(x, s, wg, wu, act)
-    torch.cuda.synchronize()
-    assert FM.fused_rmsnorm_mlp.launches == before + 1
-    assert FM.fused_rmsnorm_mlp.last_variant == "wgmma_tma"
-    ref = FM.fused_rmsnorm_mlp_plain(x, s, wg, wu, act)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
-                               atol=ATOL[("mlp", "bfloat16")])
+    """The wgmma/TMA pair against the plain version (bf16, the MLP limit of
+    ``llm_check``) at ragged row, column and depth tiles, silu and gelu
+    (``card_fused_mlp_wgmma_edges``)."""
+    chip_smoke().card_case("test_cuda_fused_mlp_wgmma_edges", N, d, F, act)
 
 
 @pytest.mark.gpu
 def test_cuda_misaligned_views_take_the_wmma_kernels(cuda_device):
     """A contiguous view that starts 2 bytes into its buffer is not a TMA
     operand: the wrappers launch the WMMA kernels, which agree with the
-    plain versions."""
-    rng = np.random.default_rng(4)
+    plain versions (``card_misaligned_views``)."""
+    chip_smoke().card_case(
+        "test_cuda_misaligned_views_take_the_wmma_kernels")
+
+
+# --------------------------------------- the gemv/TMA decode kernel's edges
+# N, d, F, act: N from 1 to 8 at every dense config's (d, F), silu and
+# gelu; F off the strip and d off the chunk (chip_smoke.py EDGE_MLP_ROWS
+# holds the same)
+DENSE_WIDTHS = [(2048, 16384), (4096, 14336), (2560, 6912), (2048, 8192),
+                (5120, 17920), (8192, 22016)]
+EDGE_MLP_ROWS = [(N, d, F, "gelu" if N in (1, 3) else "silu")
+                 for d, F in DENSE_WIDTHS for N in (1, 3, 4, 8)] + [
+    (4, 2560, 1000, "gelu"),        # F not a multiple of the strip
+    (3, 200, 1000, "silu"),         # and d not a multiple of the chunk
+]
+
+
+def test_edge_mlp_rows_cases_matchchip_smoke():
+    """The gpu test's list is chip_smoke.py's, and it holds every dense
+    config's (d, F) (``configs/*.py``), N = 1, 3, 4 and 8, silu and gelu,
+    and a width off the strip."""
+    from repro_torch.configs import get_config, list_configs
+    cs = chip_smoke()
+    assert [tuple(c) for c in EDGE_MLP_ROWS] == list(cs.EDGE_MLP_ROWS)
+    widths = {(get_config(n).d_model, get_config(n).d_ff)
+              for n in list_configs() if get_config(n).family == "dense"}
+    assert widths == set(DENSE_WIDTHS) == set(cs.DENSE_WIDTHS)
+    for d, F in widths:
+        assert {N for N, dd, FF, _ in EDGE_MLP_ROWS
+                if (dd, FF) == (d, F)} == {1, 3, 4, 8}
+    assert {act for *_, act in EDGE_MLP_ROWS} == {"silu", "gelu"}
+    assert any(F % (64 * FM.GEMV_BOXES) for _, _, F, _ in EDGE_MLP_ROWS)
+    assert any(d % FM.GEMV_KROWS for _, d, _, _ in EDGE_MLP_ROWS)
     bf16 = torch.bfloat16
+    assert all(FM._variant(bf16, N, d, F, True) == "gemv_tma"
+               for N, d, F, _ in EDGE_MLP_ROWS)
+    N, d, F, _ = cs.MISALIGNED_MLP_ROWS
+    assert FM._variant(bf16, N, d, F, False) == "rows"
 
-    def shifted(shape):
-        n = int(np.prod(shape))
-        a = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32))
-        return a.to(bf16).cuda()[1:].view(shape)
 
-    q, k, v = shifted((1, 130, 2, 2, 80)), shifted((1, 130, 2, 80)), \
-        shifted((1, 130, 2, 80))
-    p = torch.arange(130, dtype=torch.int32, device="cuda")[None]
-    out = FA.flash_attention(q, k, v, p, p, 0, 80 ** -0.5)
-    assert FA.flash_attention.last_variant == "wmma"
-    ref = FA.flash_attention_plain(q, k, v, p, p, 0, 80 ** -0.5)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
-                               atol=ATOL[("attention", "bfloat16")])
-    x = shifted((40, 64))
-    s = (0.1 * shifted((64,)).float()).to(bf16)
-    wg, wu = ((0.1 * shifted((64, 96)).float()).to(bf16) for _ in range(2))
-    out = FM.fused_rmsnorm_mlp(x, s, wg, wu, "silu")
-    assert FM.fused_rmsnorm_mlp.last_variant == "wmma"
-    torch.testing.assert_close(
-        out.float(), FM.fused_rmsnorm_mlp_plain(x, s, wg, wu).float(),
-        rtol=0, atol=ATOL[("mlp", "bfloat16")])
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,d,F,act", EDGE_MLP_ROWS)
+def test_cuda_fused_mlp_gemv_edges(N, d, F, act, cuda_device):
+    """The gemv/TMA kernel against the plain version (bf16, the MLP limit)
+    at every dense width and N from 1 to 8, and the check rejects each
+    planted fault there (``card_fused_mlp_gemv_edges``)."""
+    chip_smoke().card_case("test_cuda_fused_mlp_gemv_edges", N, d, F, act)
+
+
+@pytest.mark.gpu
+def test_cuda_misaligned_decode_mlp_takes_the_rows_kernel(cuda_device):
+    """A decode x that is no TMA operand takes the rows kernel, which
+    agrees with the plain version (``card_misaligned_decode_mlp``)."""
+    chip_smoke().card_case(
+        "test_cuda_misaligned_decode_mlp_takes_the_rows_kernel")
+
+
+# ------------------------------------- the MLP check chip_smoke.py applies
+def test_mlp_limit_is_one_bf16_ulp_above_8_and_5e2_below():
+    """``llm_check``'s bf16 MLP limit is max(5e-2, one bf16 ulp of |ref|):
+    an output one ulp off at |ref| in [8, 16) passes (2^-4 > 5e-2), 5e-2
+    plus a little at |ref| < 8 fails, and the limit is never a constant
+    above 5e-2 for |ref| < 8."""
+    cs = chip_smoke()
+    bf16 = torch.bfloat16
+    ref = torch.tensor([[8.0, 9.5, 15.875, 3.0, -12.0]]).to(bf16)
+    ulp = torch.tensor([[2 ** -4, 2 ** -4, 2 ** -4, 2 ** -6, 2 ** -4]])
+    assert torch.equal(cs.bf16_ulp(ref), ulp)
+    out = (ref.float() + ulp).to(bf16)
+    assert out.float().sub(ref.float()).abs().max() == 2 ** -4
+    assert cs.llm_check("mlp", out, ref, bf16)["ok"]
+    small = torch.tensor([[7.5, 0.25, -3.0, 0.0]])
+    lim = cs.mlp_limit(small, 5e-2)
+    assert torch.all(lim == 5e-2)
+    bad = small.clone()
+    bad[0, 1] += 5e-2 + 2e-3
+    assert not cs.llm_check("mlp", bad, small, torch.bfloat16)["ok"]
+    assert cs.llm_check("mlp", small + 4e-2, small, torch.bfloat16)["ok"]
+    # float32 and attention keep their constant limits
+    assert not cs.llm_check("mlp", ref.float() + 1e-4, ref.float(),
+                            torch.float32)["ok"]
+    assert not cs.llm_check("attention", out, ref, bf16)["ok"]
+
+
+def test_mlp_check_rejects_planted_faults():
+    """At a decode shape of real width the MLP check passes the plain
+    version's own answer computed another way (float64 products, rounded
+    once) and rejects each planted fault: a 64-row k range of one strip
+    left out, one strip's outputs zero, gate and up swapped."""
+    cs = chip_smoke()
+    g = torch.Generator().manual_seed(8)
+    bf16 = torch.bfloat16
+    N, d, F = 2, 2048, 1024
+    x = torch.randn(N, d, generator=g).to(bf16)
+    s = (0.1 * torch.randn(d, generator=g)).to(bf16)
+    wg, wu = ((0.02 * torch.randn(d, F, generator=g)).to(bf16)
+              for _ in range(2))
+    args = (x, s, wg, wu, "silu", 1e-5)
+    ref = FM.fused_rmsnorm_mlp_plain(*args)
+    xn = L.rms_norm(x, s, 1e-5).double()
+    other = (torch.nn.functional.silu(xn @ wg.double())
+             * (xn @ wu.double())).to(bf16)
+    assert cs.llm_check("mlp", other, ref, bf16)["ok"]
+    faults = cs.mlp_planted_faults(args, ref)
+    assert set(faults) == {"dropped_k_range", "dropped_strip",
+                           "gate_up_swapped"}
+    for fault, out in faults.items():
+        assert not cs.llm_check("mlp", out, ref, bf16)["ok"], fault
+    assert all(f["rejected"] for f in cs.mlp_faults_rejected(args, ref)
+               .values())
 
 
 # ----------------------------------------- the cp_async decode sweep (rule)
@@ -647,7 +698,7 @@ def test_row_check_rejects_a_dropped_split_at_the_kernels_split(split):
     one such split left out, and one of 64 slots (the smallest split the
     rule makes from whole warp steps) on a short ring where it is a large
     share of the live slots."""
-    cs = _chip_smoke()
+    cs = chip_smoke()
     g = torch.Generator().manual_seed(6)
     bf16 = torch.bfloat16
     if split == 512:
@@ -684,9 +735,9 @@ EDGE_DECODE = [
 ]
 
 
-def test_edge_decode_cases_match_chip_smoke():
+def test_edge_decode_cases_matchchip_smoke():
     assert [tuple(c) for c in EDGE_DECODE] == sorted(
-        _chip_smoke().EDGE_DECODE, key=lambda c: [tuple(x) for x in
+        chip_smoke().EDGE_DECODE, key=lambda c: [tuple(x) for x in
                                                   EDGE_DECODE].index(c))
 
 
@@ -698,22 +749,10 @@ def test_cuda_flash_decode_cp_async_edges(B, W, KV, G, hd, hdv, win, pos,
     multiple of the split or of a warp step, a window, a ring wrapped with
     slots and positions permuted and an unwritten run, all-dead splits,
     G * hd_v = MAX_GROUP_OUT, hd 64 / 72 / 80 / 128, a float32 q over the
-    bf16 cache; abs limit by q's dtype and the row check."""
-    cs = _chip_smoke()
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    args = cs.edge_decode_case(gen, B, W, KV, G, hd, hdv, win, pos, qd, ring)
-    before = FD.flash_decode.launches
-    out = FD.flash_decode(*args, blk)
-    torch.cuda.synchronize()
-    assert FD.flash_decode.launches == before + 1
-    assert FD.flash_decode.last_variant == "cp_async"
-    assert FD.flash_decode.last_split == FD.decode_split(
-        B * KV, W, blk, FD._sm_count(out.device))
-    ref = FD.flash_decode_plain(*args)
-    dt = "float32" if qd == "f32" else "bfloat16"
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
-                               atol=ATOL[("attention", dt)])
-    assert _row_rel(out, ref) <= (1e-4 if qd == "f32" else 2e-2)
+    bf16 cache; abs limit by q's dtype and the row check
+    (``card_flash_decode_cp_async_edges``)."""
+    chip_smoke().card_case("test_cuda_flash_decode_cp_async_edges", B, W,
+                            KV, G, hd, hdv, win, pos, blk, qd, ring)
 
 
 def test_chip_smoke_misaligned_cases_pick_the_older_kernels():
@@ -722,7 +761,7 @@ def test_chip_smoke_misaligned_cases_pick_the_older_kernels():
     (decode) or xs (the scan) each wrapper's rule picks its older kernels,
     which ``llm_kernels`` then holds against the plain versions."""
     from repro_torch.kernels import ssd_scan as SS
-    cs = _chip_smoke()
+    cs = chip_smoke()
     B, W, KV, G, hd, hdv = cs.MISALIGNED_DECODE[:6]
     ck = torch.randn(B, W, KV, hd).to(torch.bfloat16)
     m = cs.misaligned(ck)
@@ -743,31 +782,7 @@ def test_chip_smoke_misaligned_cases_pick_the_older_kernels():
 def test_cuda_misaligned_decode_cache_takes_the_cuda_core_sweep(cuda_device):
     """A cache view that starts 2 bytes into its buffer is no cp.async
     operand: the wrapper launches the ``cuda_cores`` sweep (split =
-    kv_block); so does a q view that does."""
-    rng = np.random.default_rng(5)
-    bf16 = torch.bfloat16
-    B, W, KV, G, hd = 2, 300, 2, 4, 80
-
-    def shifted(shape):
-        n = int(np.prod(shape))
-        a = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32))
-        return a.to(bf16).cuda()[1:].view(shape)
-
-    q = torch.from_numpy(rng.standard_normal((B, KV, G, hd)).astype(
-        np.float32)).to(bf16).cuda()
-    ck, cv = shifted((B, W, KV, hd)), shifted((B, W, KV, hd))
-    pos = torch.tensor([100, 400], dtype=torch.int32, device="cuda")
-    args = (q, ck, cv, pos, L.ring_kpos(pos, W), 0, hd ** -0.5)
-    out = FD.flash_decode(*args, 128)
-    assert FD.flash_decode.last_variant == "cuda_cores"
-    assert FD.flash_decode.last_split == 128
-    torch.testing.assert_close(
-        out.float(), FD.flash_decode_plain(*args).float(), rtol=0,
-        atol=ATOL[("attention", "bfloat16")])
-    ck, cv = (c.clone() for c in (ck, cv))               # aligned copies
-    args = (shifted((B, KV, G, hd)), ck, cv) + args[3:]
-    out = FD.flash_decode(*args, 128)
-    assert FD.flash_decode.last_variant == "cuda_cores"
-    torch.testing.assert_close(
-        out.float(), FD.flash_decode_plain(*args).float(), rtol=0,
-        atol=ATOL[("attention", "bfloat16")])
+    kv_block); so does a q view that does
+    (``card_misaligned_decode_cache``)."""
+    chip_smoke().card_case(
+        "test_cuda_misaligned_decode_cache_takes_the_cuda_core_sweep")

@@ -8,12 +8,11 @@ reference's tolerance (``tests/test_kernels.py``: atol = rtol = 1e-4 on y
 and h).  Also: the wrapper's signature and refusals, and the check that
 ``chip_smoke.py`` applies on the card (it must pass a right answer computed
 another way and reject planted faults).  The CUDA kernel itself is held
-against the plain version by the ``gpu``-marked test at the end (skipped
-without a card) and by ``chip_smoke.py``.
+against the plain version by the ``gpu``-marked tests (skipped without a
+card), whose cases run in ``chip_smoke.py`` (``card_case``: the card's
+machine has no jax), and there by its own phases.
 """
-import importlib.util
 import inspect
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +25,8 @@ from repro.kernels.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels import ops as port_ops
 from repro_torch.kernels import ssd_scan as SS
 from repro_torch.models import mamba2 as PM
+
+from _torch_port_helpers import chip_smoke
 
 TOL = 1e-4                      # tests/test_kernels.py:68-69
 
@@ -160,17 +161,9 @@ def test_refusals_fire_before_any_launch():
 
 
 # ------------------------------------------- the check chip_smoke.py applies
-def _chip_smoke():
-    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.fixture(scope="module")
 def cs_cpu():
-    cs = _chip_smoke()
+    cs = chip_smoke()
     cs.DEV = "cpu"                     # draw the inputs on the CPU here
     return cs
 
@@ -229,15 +222,11 @@ def cuda_device():
 @pytest.mark.parametrize("B,L,nh,hd,st,chunk,dt_scale", CASES)
 def test_cuda_ssd_scan_matches_plain(B, L, nh, hd, st, chunk, dt_scale,
                                      cuda_device):
-    a = [torch.from_numpy(t).to(cuda_device)
-         for t in inputs(B, L, nh, hd, st, dt_scale)]
-    before = SS.ssd_scan.launches
-    y, h = SS.ssd_scan(*a, chunk)
-    torch.cuda.synchronize()
-    assert SS.ssd_scan.launches == before + 1
-    ry, rh = SS.ssd_scan_plain(*a, chunk)
-    torch.testing.assert_close(y, ry, rtol=TOL, atol=TOL)
-    torch.testing.assert_close(h, rh, rtol=TOL, atol=TOL)
+    """The kernel against the plain version (atol = rtol = 1e-4) on
+    ``inputs``; the case runs in ``chip_smoke.py`` (``card_ssd_scan``),
+    which the card's machine can run."""
+    chip_smoke().card_case("test_cuda_ssd_scan_matches_plain", B, L, nh,
+                            hd, st, chunk, dt_scale)
 
 
 # ------------------------------------------ the tf32x3 kernels (CPU parts)
@@ -392,28 +381,14 @@ def test_cuda_ssd_scan_tf32x3_edges(B, L, nh, hd, st, chunk, kind,
                                     cuda_device):
     """The tf32x3 kernels against the plain version at their edges, with
     ``chip_smoke.py``'s check (SSD_TOL per element and per (batch,
-    head))."""
-    cs = _chip_smoke()
-    cs.DEV = "cuda"
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    args = cs.ssd_case(gen, B, L, nh, hd, st, kind)
-    before = SS.ssd_scan.launches
-    y, h = SS.ssd_scan(*args, chunk)
-    torch.cuda.synchronize()
-    assert SS.ssd_scan.launches == before + 1
-    assert SS.ssd_scan.last_variant == "tf32x3"
-    assert cs.ssd_check(y, h, *SS.ssd_scan_plain(*args, chunk))["ok"]
+    head)); runs as its ``card_ssd_scan_tf32x3_edges``."""
+    chip_smoke().card_case("test_cuda_ssd_scan_tf32x3_edges", B, L, nh, hd,
+                            st, chunk, kind)
 
 
 @pytest.mark.gpu
 def test_cuda_misaligned_ssd_takes_the_cuda_core_kernels(cuda_device):
-    a = [torch.from_numpy(t).to(cuda_device)
-         for t in inputs(1, 64, 2, 8, 8)]
-    buf = torch.zeros(1 + a[0].numel(), device=cuda_device)
-    buf[1:] = a[0].reshape(-1)
-    xs = buf[1:].view(a[0].shape)
-    y, h = SS.ssd_scan(xs, *a[1:], 16)
-    assert SS.ssd_scan.last_variant == "cuda_cores"
-    ry, rh = SS.ssd_scan_plain(xs, *a[1:], 16)
-    torch.testing.assert_close(y, ry, rtol=TOL, atol=TOL)
-    torch.testing.assert_close(h, rh, rtol=TOL, atol=TOL)
+    """An xs view 4 bytes into its buffer takes the cuda_cores kernels,
+    which agree with the plain version (``card_misaligned_ssd``)."""
+    chip_smoke().card_case(
+        "test_cuda_misaligned_ssd_takes_the_cuda_core_kernels")

@@ -4,14 +4,15 @@ The same platforms, controllers and arrivals go through the reference's
 Pallas kernel — ``repro.kernels.tick_sim.fused_tick_sim`` in interpret mode,
 driven through ``BatchSimEngine(backend="pallas")`` as the reference's own
 tests drive it — and through the port's ``fused_tick_sim`` (on CPU tensors:
-the plain version, the arithmetic the CUDA kernel repeats op for op).
+the plain version, whose queue, busy and control decisions the CUDA kernel
+reproduces bit for bit).
 
 Tolerance: both sides compute in float32 with the same formulas but a
 different op order (one-hot matmuls and einsums there, gathers and ordered
 sums here), so float outputs agree to rtol 1e-4 / atol 1e-4; ``swaps`` and
 the guard latch are integers/bools and must be **exact**.  The CUDA kernel
 itself runs only on a card: ``chip_smoke.py`` holds it against the plain
-version there, and the ``gpu``-marked test below does the same under pytest.
+version there, and the ``gpu``-marked test below runs its case from there.
 """
 import functools
 
@@ -24,8 +25,8 @@ from repro_torch.kernels import tick_sim as port_kernel
 from repro_torch.kernels.tick_sim import (ControlPlan, fused_tick_sim,
                                           fused_tick_sim_plain, link_masks)
 
-from _torch_port_helpers import (PORT, POLICIES, REF, capacity, make_engine,
-                                 make_trace)
+from _torch_port_helpers import (PORT, POLICIES, REF, capacity, chip_smoke,
+                                 make_engine, make_trace)
 
 RTOL = ATOL = 1e-4
 T = 300
@@ -226,17 +227,50 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("policy", POLICIES)
 def test_cuda_kernel_matches_plain_version(policy, cuda_device):
-    eng = make_engine(PORT, "fused", policy, tech=45, max_queue=3.0,
-                      chain=True, device=cuda_device)
-    tr = make_trace(PORT, "mmpp", capacity(4, k=2), ticks=T)
-    arr, consts, scalars, init, plan = eng.fused_inputs(tr)[:5]
-    before = fused_tick_sim.launches
-    out = fused_tick_sim(arr, consts, scalars, init, plan=plan)
-    torch.cuda.synchronize()
-    assert fused_tick_sim.launches == before + 1
-    ref = fused_tick_sim_plain(arr, consts, scalars, init, plan=plan)
-    for k in ("adm", "served", "queue", "busy", "rtt", "rates", "energy",
-              "dropped"):
-        torch.testing.assert_close(out[k], ref[k], rtol=RTOL, atol=ATOL)
-    assert torch.equal(out["swaps"], ref["swaps"])
-    assert torch.equal(out["guard"], ref["guard"])
+    """Four tiles, a chain, the 45 nm tech model, max_queue 3, an MMPP
+    trace: the kernel against the plain version (floats rtol / atol 1e-4,
+    swaps and guard exact).  The case runs in ``chip_smoke.py``
+    (``card_tick_sim``), which the card's machine can run."""
+    chip_smoke().card_case("test_cuda_kernel_matches_plain_version", policy)
+
+
+def _route_sharer_sets(masks, b, a, A):
+    """The kernel's table for tile a of design b (``csrc/tick_sim.cu``):
+    the sharer set of each link of a's route (bit j: tile j's route holds
+    the link), keeping the distinct maximal ones."""
+    sets = set()
+    for link in range(64):
+        if (int(masks[b, a]) >> link) & 1:
+            sets.add(sum(1 << j for j in range(A)
+                         if (int(masks[b, j]) >> link) & 1))
+    return [m for m in sets if not any(o != m and (o & m) == m for o in sets)]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_route_sharer_table_gives_the_plain_link_max(seed):
+    """The kernel takes the max link load of a tile's route over the
+    maximal sharer sets of its links, each an ordered float32 sum of the
+    demands of its tiles; for demands >= 0 that equals, bit for bit, the
+    plain version's max over the route's links of the incidence-weighted
+    load (a subset's ordered sum never exceeds its superset's)."""
+    rng = np.random.default_rng(seed)
+    B, A, L = 5, 12, 48
+    inc = (rng.uniform(size=(B, A, L)) < 0.15).astype(np.float32)
+    masks = link_masks(torch.as_tensor(inc)).numpy().astype(np.uint64)
+    d = rng.uniform(0, 2, size=(B, A)).astype(np.float32)
+    d[rng.uniform(size=(B, A)) < 0.25] = 0.0
+    d_t, inc_t = torch.as_tensor(d), torch.as_tensor(inc)
+    loads = torch.zeros(B, L)
+    for a in range(A):                  # fused_tick_sim_plain's loads
+        loads = loads + d_t[:, a:a + 1] * inc_t[:, a, :]
+    plain = (inc_t * loads.unsqueeze(1)).amax(dim=-1).numpy()
+    for b in range(B):
+        for a in range(A):
+            rmax = np.float32(0.0)
+            for m in _route_sharer_sets(masks, b, a, A):
+                s = np.float32(0.0)
+                for j in range(A):
+                    if (m >> j) & 1:
+                        s = np.float32(s + d[b, j])
+                rmax = max(rmax, s)
+            assert rmax == plain[b, a], (b, a)
