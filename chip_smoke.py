@@ -22,13 +22,32 @@ main path through its public entry points at the size its users run:
                    cannot run here: this machine has no jax).
 4. ``sweep``     — the dense 1.73 M-point joint sweep on the card, checked
                    against the host NumPy float64 evaluation of the same grid
-                   (objectives <= 1e-9 rel, same Pareto set).
+                   (objectives <= 1e-9 rel, same Pareto set); the Pareto
+                   prefilter's time on the card (``prefilter_s``), the exact
+                   scan over its candidates (``pareto_host_s``) and, as a
+                   yardstick, over every valid point (``pareto_exact_scan_s``,
+                   which must give the same set).
+   ``sweep_chunked`` — the chunked streaming sweep on the card: the
+                   20,194,758-point independent-islands grid of
+                   ``benchmarks/bench_dse.py`` (chunk 2,000,000) against the
+                   host NumPy chunked sweep (n_valid, Pareto set, top-10 of
+                   each tracked objective), then the 242,337,096-point soak
+                   of ``tests/test_dse_islands.py`` (chunk 4,000,000) alone:
+                   points/s, chunks, ``peak_chunk_bytes``, the device's own
+                   peak, the top survivor against the scalar model (1e-9)
+                   and the same Pareto set at chunk 3,000,000.
 5. ``main_path`` — ``closed_loop_score`` on the sweep's top 4,096 survivors,
                    an 8,700-tick diurnal trace, PID controllers in the loop,
                    ``backend="fused"``; again under the 45 nm tech model; a
                    64-design cross-check against the float64 ``"torch"``
-                   backend; the kernel against its plain version at exactly
-                   these shapes, with times and cycles per tick.
+                   backend, whose telemetry must equal the same run's on the
+                   CPU (rel <= 1e-12) with no host sync inside a row; the
+                   percentiles of 64 designs bit for bit against NumPy
+                   (``percentiles_ms``); the float32 ``"torch"`` loop at the
+                   full size beside ``"fused"`` (rtol 2e-3 / atol 1e-2) and
+                   on the 64 designs (the float64 ranking, swaps exact); the
+                   kernel against its plain version at exactly these shapes,
+                   with times and cycles per tick.
 6. ``main_path_a12`` — 1,024 stacked twelve-tile platforms with a two-stage
                    chain and memory-bound DFS, 5,000 ticks, ``"fused"``; the
                    kernel against its plain version at these shapes.
@@ -501,7 +520,7 @@ def time_kernel_and_plain(inputs):
 
 def phase_sweep():
     from repro_torch.configs.vespa_soc import CHSTONE
-    from repro_torch.core.dse import grid_sweep
+    from repro_torch.core.dse import grid_sweep, pareto_front_indices
     from repro_torch.core.islands import NOC_LADDER, TILE_LADDER
     from repro_torch.core.perfmodel import AccelWorkload, SoCPerfModel
     model = SoCPerfModel()
@@ -527,9 +546,17 @@ def phase_sweep():
         worst = max(worst, float(np.max(np.abs(a - b)
                                         / np.maximum(np.abs(b), 1e-300))))
     valid_same = bool(np.array_equal(res.valid, ref.valid))
+    # the prefilter ran inside grid_sweep on the card (res.prefilter_s);
+    # pareto_indices() is the exact scan over its candidates only
     t0 = time.perf_counter()
     pf_dev = res.pareto_indices()
     pareto_s = time.perf_counter() - t0
+    # yardstick: the exact scan alone over every valid point
+    flat = np.nonzero(res.valid)[0]
+    t0 = time.perf_counter()
+    pf_scan = flat[pareto_front_indices(res.throughput[flat], res.area[flat],
+                                        res.energy_per_unit[flat])]
+    scan_s = time.perf_counter() - t0
     pf_ref = ref.pareto_indices()
     sym = np.setxor1d(pf_dev, pf_ref)
     gap = 0.0
@@ -545,11 +572,162 @@ def phase_sweep():
            "host_numpy_s": host_s, "max_rel_err": worst,
            "valid_equal": valid_same, "pareto_size": int(pf_dev.size),
            "pareto_symdiff": int(sym.size), "pareto_gap": gap,
-           "pareto_host_s": pareto_s, "backend": res.backend}
+           "pareto_host_s": pareto_s, "prefilter_s": res.prefilter_s,
+           "prefilter_candidates": int(res.front_candidates.size),
+           "pareto_exact_scan_s": scan_s,
+           "prefilter_equals_exact_scan": bool(np.array_equal(pf_dev,
+                                                              pf_scan)),
+           "backend": res.backend}
     emit(out)
     if worst > 1e-9 or not valid_same or (sym.size and gap > 1e-9):
         raise SystemExit("sweep on the card disagrees with the host")
+    if not out["prefilter_equals_exact_scan"]:
+        raise SystemExit("the prefiltered Pareto set differs from the exact "
+                         "scan's on the same objectives")
     return model, res, out
+
+
+# ---------------------------------------------------------------------------
+# sweep_chunked: the streaming sweep at 2.02e7 and 2.42e8 points
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_dse.py:soc_dse_islands (20,194,758 points) and the soak
+# of tests/test_dse_islands.py:254-275 (242,337,096 points, 1.35e8 valid)
+ISLANDS = {"accels": ("dfadd", "dfmul", "dfsin"), "chunk": 2_000_000,
+           "positions": ((1, 1), (3, 3), (0, 2)), "tg_rates": (0.5, 1.0)}
+SOAK = {"chunk": 4_000_000, "chunk2": 3_000_000,
+        "positions": ((1, 1), (3, 3), (0, 2), (2, 2), (1, 2), (0, 1)),
+        "tg_rates": (0.5, 0.75, 1.0)}
+
+
+def chunked_axes(spec):
+    from repro_torch.core.islands import NOC_LADDER, TILE_LADDER
+    return dict(ks=(1, 2, 4), acc_rates=TILE_LADDER.levels(),
+                noc_rates=NOC_LADDER.levels(), tg_rates=spec["tg_rates"],
+                positions=spec["positions"], n_tg=4,
+                island_rates="independent")
+
+
+def objectives_at(model, wls, axes, idx, device):
+    """The four objectives of flat points ``idx`` of the sweep ``axes``
+    describes, evaluated one at a time by the flat evaluator on
+    ``device`` (float64)."""
+    from repro_torch.core import dse
+    lay, ax, vals = dse._prepare_axes(
+        model, tuple(wls), axes["ks"], axes["acc_rates"],
+        axes["noc_rates"], axes["tg_rates"], axes["positions"],
+        axes["island_rates"])
+    shape = tuple(len(v) for _, v in ax)
+    rows = [dse._eval_flat_points(model, tuple(wls), axes["n_tg"], lay, vals,
+                                  shape, int(i), int(i) + 1, device=device)
+            for i in idx]
+    return {o: np.asarray([r[o][0] for r in rows])
+            for o in ("throughput", "area", "energy_per_unit", "mem_traffic")}
+
+
+def set_gap(a, b, model, wls, axes, names):
+    """Indices in one of the sets ``a``, ``b`` only, and the largest
+    relative difference between the card's and the host's objectives
+    ``names`` at those points (the last-ulp rule of phase sweep)."""
+    sym = np.setxor1d(a, b)
+    if not sym.size:
+        return 0, 0.0
+    card = objectives_at(model, wls, axes, sym, DEV)
+    host = objectives_at(model, wls, axes, sym, "cpu")
+    return int(sym.size), max(
+        float(np.max(np.abs(card[n] - host[n])
+                     / np.maximum(np.abs(host[n]), 1e-300))) for n in names)
+
+
+def timed_sweep(model, wls, axes, **kw):
+    """A chunked sweep on the card: result, host seconds (synchronised) and
+    the device memory it took above what was allocated before it."""
+    from repro_torch.core.dse import grid_sweep
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sync()
+    t0 = time.perf_counter()
+    res = grid_sweep(model, wls, **axes, **kw)
+    sync()
+    return res, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated() - base
+
+
+def chunk_report(res, seconds, peak):
+    return {"points": len(res), "valid": res.n_valid, "seconds": seconds,
+            "points_per_s": len(res) / seconds, "n_chunks": res.n_chunks,
+            "chunk_points": res.chunk_points,
+            "peak_chunk_bytes": res.peak_chunk_bytes,
+            "device_peak_bytes": int(peak),
+            "pareto_size": int(res.pareto_indices().size)}
+
+
+def phase_sweep_chunked(model):
+    """The chunked streaming sweep on the card (mask, prefilter and top-k
+    there, exact front and merges on the host), held against the host
+    NumPy chunked sweep at 2.02e7 points and run alone at 2.42e8."""
+    from repro_torch.configs.vespa_soc import CHSTONE
+    from repro_torch.core.dse import _TRACKED_OBJECTIVES, grid_sweep
+    from repro_torch.core.perfmodel import AccelWorkload
+    wls = [AccelWorkload(n, *CHSTONE[n]) for n in ISLANDS["accels"]]
+    on_card = dict(device=None, backend="torch")
+    out = {"phase": "sweep_chunked"}
+
+    axes = chunked_axes(ISLANDS)
+    card, card_s, peak = timed_sweep(model, wls, axes,
+                                     chunk_points=ISLANDS["chunk"], **on_card)
+    t0 = time.perf_counter()
+    host = grid_sweep(model, wls, **axes, device="cpu",
+                      chunk_points=ISLANDS["chunk"])
+    host_s = time.perf_counter() - t0
+    pf_sym, pf_gap = set_gap(card.pareto_indices(), host.pareto_indices(),
+                             model, wls, axes,
+                             ("throughput", "energy_per_unit"))
+    top = {}
+    for o, _ in _TRACKED_OBJECTIVES:
+        n, g = set_gap(card.topk_indices(10, o), host.topk_indices(10, o),
+                       model, wls, axes, (o,))
+        top[o] = {"equal": bool(np.array_equal(card.topk_indices(10, o),
+                                               host.topk_indices(10, o))),
+                  "symdiff": n, "gap": g}
+    out["islands"] = {**chunk_report(card, card_s, peak),
+                      "host_numpy_s": host_s, "host_valid": host.n_valid,
+                      "host_n_chunks": host.n_chunks,
+                      "pareto_symdiff": pf_sym, "pareto_gap": pf_gap,
+                      "top10": top}
+    bad = (card.n_valid != host.n_valid or (pf_sym and pf_gap > 1e-9)
+           or any(not t["equal"] and t["gap"] > 1e-9 for t in top.values()))
+    if bad:
+        emit(out)
+        raise SystemExit("the chunked sweep on the card disagrees with the "
+                         "host's at 2.02e7 points")
+
+    axes = chunked_axes(SOAK)
+    soak, soak_s, peak = timed_sweep(model, wls, axes,
+                                     chunk_points=SOAK["chunk"], **on_card)
+    again, again_s, peak2 = timed_sweep(model, wls, axes,
+                                        chunk_points=SOAK["chunk2"],
+                                        **on_card)
+    dp = soak.design_point(int(soak.topk_indices(1)[0]))
+    scalar = sum(
+        model.accel_throughput(
+            AccelWorkload(w.name, w.base_mbps, w.ai,
+                          replication=dp.replication[w.name]),
+            dp.placement[w.name],
+            {"acc": dp.rates[w.name], "noc_mem": dp.rates["noc_mem"],
+             "tg": dp.rates["tg"]}, soak.n_tg)
+        for w in wls)
+    scalar_rel = abs(dp.throughput - scalar) / abs(scalar)
+    same = bool(np.array_equal(soak.pareto_indices(), again.pareto_indices()))
+    out["soak"] = {**chunk_report(soak, soak_s, peak),
+                   "top_throughput": dp.throughput,
+                   "scalar_rel_err": scalar_rel,
+                   "second_chunk": chunk_report(again, again_s, peak2),
+                   "pareto_equal_across_chunks": same}
+    emit(out)
+    if len(soak) < 100_000_000 or scalar_rel > 1e-9 or not same:
+        raise SystemExit("the 2.42e8-point chunked sweep failed its checks")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -610,6 +788,7 @@ def drive_main_path(model, res):
     trace = diurnal_trace(cap * 0.35, T, 2, dt=dt, depth=0.5, seed=SEED)
 
     report = {"phase": "main_path", "B": B, "T": T, "A": 2}
+    scores = {}
     for label, tech in (("linear", None), ("tech45", 45)):
         before = fused_tick_sim.launches
         t0 = time.perf_counter()
@@ -622,6 +801,7 @@ def drive_main_path(model, res):
         if fused_tick_sim.launches != before + 1:
             raise SystemExit("closed_loop_score did not launch the kernel "
                              "exactly once")
+        scores[label] = score
         r = score.results[0]
         cons = check_result(r, f"main_path[{label}]")
         report[label] = {
@@ -635,8 +815,164 @@ def drive_main_path(model, res):
                              float(np.nanmax(r.p99_latency_s)) * 1e3],
             "best_index": int(score.ranked_indices()[0])}
     ctx = dict(model=model, res=res, survivors=survivors, cfg=cfg, plat=plat,
-               cap=cap, trace=trace, dt=dt, req_mb=req_mb)
+               cap=cap, trace=trace, dt=dt, req_mb=req_mb, scores=scores)
     return report, ctx
+
+
+class NoSyncPerRow:
+    """While active, every telemetry row the ``"torch"`` engine records runs
+    under ``torch.cuda.set_sync_debug_mode("error")`` — an operation that
+    waits for the card inside it raises — and is counted."""
+
+    def __enter__(self):
+        from repro_torch.sim.batch import TelemetryRings
+        self.cls, self.orig, self.rows = TelemetryRings, \
+            TelemetryRings.record, 0
+
+        def guarded(rings, **kw):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self.orig(rings, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+            self.rows += 1
+
+        TelemetryRings.record = guarded
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.record = self.orig
+        return False
+
+
+def telemetry_gap(a, b):
+    """Largest relative difference between two BatchTelemetry recordings
+    (inf when their shapes, row counts or events differ)."""
+    if a.scalars.total_appended != b.scalars.total_appended \
+            or a.events != b.events:
+        return float("inf")
+    worst = 0.0
+    for ring in ("scalars", "island_rates", "queue_depth", "busy"):
+        x, y = getattr(a, ring).array(), getattr(b, ring).array()
+        if x.shape != y.shape:
+            return float("inf")
+        if x.size:
+            worst = max(worst, float(np.max(
+                np.abs(x - y) / np.maximum(np.abs(y), 1e-300))))
+    return worst
+
+
+def device_ms_by_kernel(fn, top=8):
+    """Device milliseconds of one warm call of ``fn()`` by kernel name
+    (``torch.profiler``; the ``top`` largest, the rest summed)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    per = {}
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0))
+        if dev > 0:
+            k = e.key.split("<")[0].split("(")[0].replace("void ", "")
+            per[k] = per.get(k, 0.0) + dev / 1e3
+    ranked = sorted(per.items(), key=lambda kv: -kv[1])
+    out = dict(ranked[:top])
+    out["other"] = sum(v for _, v in ranked[top:])
+    return out
+
+
+def percentile_check(ctx, report):
+    """The main path's percentiles against the NumPy per-design function
+    on 64 of its designs, bit for bit; a replay of the linear run (not
+    counted: its launch is a comparison's) gives the histories."""
+    from repro_torch.sim.batch import BatchSimEngine
+    from repro_torch.sim.engine import (latency_percentiles,
+                                        latency_percentiles_batch)
+    plat, cfg, dt = ctx["plat"], ctx["cfg"], ctx["dt"]
+    eng = BatchSimEngine(plat, config=cfg, controller=pid_factory()(plat),
+                         backend="fused")
+    r = eng.run(ctx["trace"])
+    main = ctx["scores"]["linear"].results[0]
+    adm, srv = eng.last_histories
+    B = adm.shape[1]
+    pick = np.arange(0, B, max(1, B // 64))[:64]
+    a_h = adm[:, pick].double().cpu().numpy()
+    s_h = srv[:, pick].double().cpu().numpy()
+    want = np.asarray([latency_percentiles(a_h[:, j], s_h[:, j], dt)
+                       for j in range(pick.size)])
+    got = np.stack([r.p50_latency_s[pick], r.p99_latency_s[pick]], axis=-1)
+    ms = cuda_ms(lambda: latency_percentiles_batch(adm, srv, dt), 3)
+    by_kernel = device_ms_by_kernel(
+        lambda: latency_percentiles_batch(adm, srv, dt))
+    report.update(
+        percentiles_ms_by_kernel=by_kernel,
+        percentiles_redone_on_host=latency_percentiles_batch.last_redone,
+        percentiles_ms=main.timings["percentiles"] * 1e3,
+        percentiles_event_ms=ms,
+        percentiles_designs_checked=int(pick.size),
+        percentiles_bit_equal=bool(np.array_equal(got, want,
+                                                  equal_nan=True)),
+        percentiles_replay_equal=bool(
+            np.array_equal(r.p99_latency_s, main.p99_latency_s,
+                           equal_nan=True)
+            and np.array_equal(r.p50_latency_s, main.p50_latency_s,
+                               equal_nan=True)))
+    if not (report["percentiles_bit_equal"]
+            and report["percentiles_replay_equal"]):
+        emit(report)
+        raise SystemExit("the batched percentiles differ from the NumPy "
+                         "per-design function")
+
+
+def float32_torch_check(ctx, report, pair):
+    """The float32 ``"torch"`` loop: at the main path's size against
+    ``"fused"`` (rtol 2e-3 / atol 1e-2 on p99 and energy per request), and
+    on the 64 check designs against the float64 loop (same ranking, swaps
+    exact)."""
+    from repro_torch.core.dse import closed_loop_score
+    model, res, cfg = ctx["model"], ctx["res"], ctx["cfg"]
+    common = dict(model=model, req_mb=ctx["req_mb"], sim_config=cfg,
+                  batch_controller_factory=pid_factory(), backend="torch",
+                  dtype=torch.float32)
+    sync()
+    t0 = time.perf_counter()
+    f32 = closed_loop_score(res, ctx["trace"], indices=ctx["survivors"],
+                            **common)
+    sync()
+    wall = time.perf_counter() - t0
+    fused = ctx["scores"]["linear"]
+    ok = True
+    gaps = {}
+    for name in ("p99_latency_s", "energy_per_request_j"):
+        a, b = getattr(f32, name), getattr(fused, name)
+        ok = ok and bool(np.allclose(a, b, rtol=2e-3, atol=1e-2,
+                                     equal_nan=True))
+        fin = np.isfinite(b)
+        gaps[name] = float(np.max(np.abs(a[fin] - b[fin])
+                                  / np.maximum(np.abs(b[fin]), 1e-300)))
+    t64 = pair["torch"]
+    f32s = closed_loop_score(res, pair["short"], indices=t64.indices,
+                             **common)
+    r32 = f32s.results[0]
+    report["float32_torch"] = {
+        "wall_s": wall, "fused_wall_s": report["linear"]["wall_s"],
+        "loop_s": f32.results[0].timings["loop"],
+        "max_rel_vs_fused": gaps, "within_tol": ok,
+        "swaps_total": int(f32.results[0].swaps.sum()),
+        "telemetry": f32.results[0].telemetry is not None,
+        "check64_same_ranking": bool(np.array_equal(f32s.ranked_indices(),
+                                                    t64.ranked_indices())),
+        "check64_swaps_equal": bool(np.array_equal(r32.swaps,
+                                                   t64.results[0].swaps))}
+    f = report["float32_torch"]
+    if not (ok and f["check64_same_ranking"] and f["check64_swaps_equal"]
+            and not f["telemetry"]):
+        emit(report)
+        raise SystemExit("the float32 torch loop disagrees")
 
 
 def verify_main_path(report, ctx):
@@ -652,15 +988,34 @@ def verify_main_path(report, ctx):
     sub = survivors[:: max(1, len(survivors) // 64)][:64]
     short = diurnal_trace(ctx["cap"] * 0.35, SIZES["check_T"], 2, dt=dt,
                           depth=0.5, seed=SEED)
-    pair = {}
+    pair = {"short": short}
+    guard = NoSyncPerRow()
     for backend in ("fused", "torch"):
         t0 = time.perf_counter()
-        pair[backend] = closed_loop_score(
-            res, short, model=model, indices=sub, req_mb=req_mb,
-            sim_config=cfg, batch_controller_factory=pid_factory(),
-            backend=backend)
-        sync()
+        with guard:
+            pair[backend] = closed_loop_score(
+                res, short, model=model, indices=sub, req_mb=req_mb,
+                sim_config=cfg, batch_controller_factory=pid_factory(),
+                backend=backend)
+            sync()
         report[f"check64_{backend}_s"] = time.perf_counter() - t0
+    # the float64 loop's telemetry: recorded on the card without a host
+    # sync per row, equal to the same run on the CPU
+    t0 = time.perf_counter()
+    on_cpu = closed_loop_score(
+        res, short, model=model, indices=sub, req_mb=req_mb, sim_config=cfg,
+        batch_controller_factory=pid_factory(), backend="torch",
+        device="cpu")
+    tel_card = pair["torch"].results[0].telemetry
+    report["telemetry"] = {
+        "rows": tel_card.scalars.total_appended, "rows_guarded": guard.rows,
+        "events": len(tel_card.events), "cpu_s": time.perf_counter() - t0,
+        "max_rel_vs_cpu": telemetry_gap(tel_card,
+                                        on_cpu.results[0].telemetry)}
+    if report["telemetry"]["max_rel_vs_cpu"] > 1e-12 or guard.rows != \
+            tel_card.scalars.total_appended or guard.rows == 0:
+        emit(report)
+        raise SystemExit("telemetry on the card disagrees with the CPU's")
     f, t = pair["fused"], pair["torch"]
     rel = 0.0
     for name in ("energy_per_request_j", "throughput_rps"):
@@ -683,6 +1038,8 @@ def verify_main_path(report, ctx):
         emit(report)
         raise SystemExit("fused and float64 backends disagree on the "
                          "64-design subset")
+    percentile_check(ctx, report)
+    float32_torch_check(ctx, report, pair)
 
     shapes = {}
     for label, tech in (("linear", None), ("tech45", 45)):
@@ -2215,6 +2572,121 @@ def card_tick_sim(policy):
     assert torch.equal(out["guard"], ref["guard"])
 
 
+CARD_SWEEP = dict(ks=(1, 2), acc_rates=(0.2, 0.6, 1.0), noc_rates=(0.5, 1.0),
+                  tg_rates=(0.5, 1.0), positions=((1, 1), (3, 3), (0, 2)),
+                  n_tg=4)
+CARD_CHUNKS = tuple((m, c) for m in ("shared", "independent")
+                    for c in (17, 101, 430))
+
+
+def card_chunked_sweep(mode, chunk):
+    """tests/test_torch_dse_chunked.py's card case: the chunked sweep with
+    its mask, prefilter and top-k on the card against the host NumPy
+    chunked sweep (the reference's loop): same n_valid, Pareto set, top-k
+    and tracked indices, values <= 1e-12; and the dense sweep's prefilter
+    on the card gives the host's Pareto set."""
+    from repro_torch.configs.vespa_soc import CHSTONE
+    from repro_torch.core.dse import (ChunkedSweepResult, _TRACKED_OBJECTIVES,
+                                      grid_sweep)
+    from repro_torch.core.perfmodel import AccelWorkload, SoCPerfModel
+    model = SoCPerfModel()
+    wls = [AccelWorkload(n, *CHSTONE[n]) for n in ("dfsin", "gsm")]
+    kw = dict(CARD_SWEEP, island_rates=mode)
+    card = grid_sweep(model, wls, **kw, chunk_points=chunk, topk_track=16,
+                      device=DEV, backend="torch")
+    host = grid_sweep(model, wls, **kw, chunk_points=chunk, topk_track=16,
+                      device="cpu")
+    assert isinstance(card, ChunkedSweepResult) and card.backend == "torch"
+    assert (card.n_valid, card.n_chunks) == (host.n_valid, host.n_chunks)
+    assert np.array_equal(card.pareto_indices(), host.pareto_indices())
+    for o, _ in _TRACKED_OBJECTIVES:
+        assert np.array_equal(card.topk_indices(16, o),
+                              host.topk_indices(16, o)), o
+    assert np.array_equal(card.cand_indices, host.cand_indices)
+    for o, v in host.cand_values.items():
+        assert np.all(np.abs(card.cand_values[o] - v)
+                      <= 1e-12 * np.abs(v)), o
+    dense = grid_sweep(model, wls, **kw, device=DEV, backend="torch")
+    assert dense.front_candidates is not None
+    assert np.array_equal(dense.pareto_indices(), host.pareto_indices())
+
+
+def card_telemetry(policy):
+    """tests/test_torch_telemetry.py's card case: the float64 ``"torch"``
+    loop's telemetry on the card (a wrapped ring, every policy) against
+    the same run on the CPU: rel <= 1e-12, events and rows equal, and no
+    host sync inside any row (``NoSyncPerRow``)."""
+    from repro_torch.sim.batch import BatchSimEngine, BatchSimPlatform
+    from repro_torch.sim.control import BatchControllerHarness
+    from repro_torch.sim.engine import SimConfig
+    from repro_torch.sim.traffic import mmpp_trace
+    plat = BatchSimPlatform.stack([_tick_platform(k) for k in (2, 4, 8)])
+    cfg = SimConfig(control_interval=25, telemetry_interval=7,
+                    telemetry_capacity=20)
+    cap = BatchSimEngine(BatchSimPlatform.stack([_tick_platform(2)]),
+                         device="cpu").capacity_rps()[0]
+    tr = mmpp_trace(cap * 0.1, cap * 1.3, 300, 4, dt=1e-3, seed=3)
+
+    def run(device):
+        ctl = None
+        if policy != "open":
+            ctl = BatchControllerHarness(
+                plat.islands, plat.rates, make_policy(policy),
+                tile_names=plat.names, queue_guard_ticks=3.0)
+        return BatchSimEngine(plat, config=cfg, controller=ctl,
+                              backend="torch", device=device).run(tr)
+
+    with NoSyncPerRow() as guard:
+        card = run(DEV).telemetry
+    host = run("cpu").telemetry
+    assert guard.rows == card.scalars.total_appended == 42
+    assert telemetry_gap(card, host) <= 1e-12
+
+
+# (seed, T): random histories, and T = 1
+CARD_PERCENTILES = ((0, 300), (1, 300), (2, 1), (3, 57))
+
+
+def percentile_histories(seed, T, B=9, A=3):
+    """(T, B, A) admitted / served float64 histories of FIFO fluid queues:
+    integer and fractional batches (ties in the delays), empty ticks, a
+    queue that drains by the end and one that does not, and a design with
+    nothing admitted."""
+    rng = np.random.default_rng(seed)
+    adm = rng.poisson(3.0, size=(T, B, A)).astype(np.float64)
+    adm[:, 1::2] *= rng.choice([0.5, 0.25, 1.0 / 3.0], size=(T, 1, A))
+    adm *= rng.uniform(0.0, 1.0, size=(T, B, A)) < 0.8      # empty ticks
+    cap = rng.uniform(0.5, 4.5, size=(B, A))
+    adm[:, 2] = 0.0                                          # an idle design
+    served = np.zeros_like(adm)
+    q = np.zeros((B, A))
+    for t in range(T):
+        q = q + adm[t]
+        served[t] = np.minimum(q, cap)
+        q = q - served[t]
+    return adm, served
+
+
+def card_percentiles(seed, T):
+    """tests/test_torch_sim_batch.py's card case: ``latency_percentiles_batch``
+    on the card (float64 and float32 histories, design blocks) against the
+    NumPy per-design function, bit for bit."""
+    from repro_torch.sim.engine import (latency_percentiles,
+                                        latency_percentiles_batch)
+    adm, srv = percentile_histories(seed, T)
+    for dtype in (torch.float64, torch.float32):
+        a = torch.as_tensor(adm, device=DEV).to(dtype)
+        s_ = torch.as_tensor(srv, device=DEV).to(dtype)
+        p50, p99 = latency_percentiles_batch(a, s_, 1e-3,
+                                             max_elems=T * 3 * 4)
+        ah, sh = a.double().cpu().numpy(), s_.double().cpu().numpy()
+        for b in range(adm.shape[1]):
+            want = latency_percentiles(ah[:, b], sh[:, b], 1e-3)
+            got = (float(p50[b]), float(p99[b]))
+            assert np.array_equal(np.asarray(got), np.asarray(want),
+                                  equal_nan=True), (dtype, b, got, want)
+
+
 # gpu-marked test -> (the function here, its cases as the test's arguments)
 CARD_TESTS = {
     "test_cuda_flash_attention_matches_plain": (
@@ -2248,6 +2720,12 @@ CARD_TESTS = {
         card_misaligned_ssd, ((),)),
     "test_cuda_kernel_matches_plain_version": (
         card_tick_sim, tuple((p,) for p in CARD_POLICIES)),
+    "test_cuda_chunked_sweep_matches_host": (card_chunked_sweep,
+                                             CARD_CHUNKS),
+    "test_cuda_telemetry_matches_cpu": (
+        card_telemetry, tuple((p,) for p in CARD_POLICIES)),
+    "test_cuda_percentiles_bit_equal": (card_percentiles,
+                                        CARD_PERCENTILES),
 }
 
 
@@ -2357,6 +2835,7 @@ def main() -> int:
         return 0
 
     model, res, _ = phase_sweep()
+    phase_sweep_chunked(model)
 
     # the main path, counted: every count to 0 just before, read just after
     fused_tick_sim.launches = 0

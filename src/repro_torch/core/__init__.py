@@ -31,10 +31,11 @@ _EXPORTS = {
                      "positions_to_indices"), "noc"),
     **dict.fromkeys(("SoCPerfModel", "AccelWorkload", "chip_power",
                      "chip_power_coeffs"), "perfmodel"),
-    **dict.fromkeys(("ClosedLoopScore", "DesignPoint", "SweepResult",
-                     "closed_loop_score", "grid_sweep", "pareto_front",
-                     "pareto_front_bruteforce", "pareto_front_indices"),
-                    "dse"),
+    **dict.fromkeys(("ChunkedSweepResult", "ClosedLoopScore", "DesignPoint",
+                     "SweepResult", "closed_loop_score", "grid_sweep",
+                     "pareto_front", "pareto_front_bruteforce",
+                     "pareto_front_indices", "sweep_replication_roofline",
+                     "sweep_soc", "summarize", "summarize_result"), "dse"),
 }
 
 __all__ = sorted(_EXPORTS)

@@ -12,32 +12,39 @@ grid placements), evaluates every point through the :class:`SoCPerfModel`
 formulas, and returns a :class:`SweepResult` of flat objective arrays — no
 per-point Python objects.  DesignPoints are materialized lazily
 (:meth:`SweepResult.design_point`) only for the handful of survivors (Pareto
-front / top-k).
+front / top-k).  With ``chunk_points=`` a grid larger than the chunk streams
+through fixed-size blocks with a running Pareto / top-k merge and comes back
+as a :class:`ChunkedSweepResult`.
 
 Where it runs.  With ``device="cpu"`` the grid is evaluated on the host in
 NumPy float64 as broadcast axes (:func:`_eval_grid`) — bit for bit the
 reference package's sweep, and the port's ground truth.  On a CUDA device the
-flat point axis lives on the card (:func:`_eval_flat_points`): the
+flat point axis lives on the card (:func:`_eval_flat_points_t`): the
 coordinate decode (``unravel_index`` with integer ops), the axis gathers, the
 throughput / energy / memory-traffic formulas (float64 by default), the area
-sum and the placement mask all run there, and only the flat objective arrays
-come back for the host-side Pareto / top-k, which stay NumPy float64.
+sum and the placement mask all run there, and so does the Pareto prefilter
+(:func:`_front_prefilter`) and, on the chunked path, each block's top-k; only
+candidates and survivors come back for the exact front and the merges, which
+stay NumPy float64 on the host.
 
 :func:`closed_loop_score` re-ranks survivors by *simulated* runtime behaviour
 through the batched co-simulation engine (``sim/batch.py``).
 
-The Pareto front is sort-based O(N log N) (:func:`pareto_front_indices`);
-the O(N^2) brute force survives as :func:`pareto_front_bruteforce` for
-verification.  The chunked streaming sweep, the per-point sequential scoring
-path and the scalar reference sweep of the reference package are not ported
-yet.
+The Pareto front is sort-based O(N log N) (:func:`pareto_front_indices`)
+behind a vectorized superset prefilter; the O(N^2) brute force survives as
+:func:`pareto_front_bruteforce` for verification, and :func:`sweep_soc` is
+the scalar per-point reference sweep.  The per-point sequential scoring path
+of the reference package is not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import time
 from bisect import bisect_right
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from types import SimpleNamespace
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +56,8 @@ from repro_torch.core.perfmodel import (AccelWorkload, NOC_POWER_SHARE,
                                         chip_power_coeffs,
                                         _memory_traffic_math_per_accel,
                                         _throughput_math)
-from repro_torch.core.replication import replication_area_model
+from repro_torch.core.replication import (replication_area_model,
+                                          replication_throughput_model)
 from repro_torch.core.voltage import TechModel, tech_axis_coeffs
 
 
@@ -177,6 +185,55 @@ def pareto_front(points: Sequence[DesignPoint]) -> List[DesignPoint]:
     return [pts[i] for i in idx]
 
 
+# The few array operations the prefilter needs, over NumPy arrays and over
+# torch tensors (wherever they live): one formula, two namespaces.
+_NP_SORT = SimpleNamespace(
+    unique=lambda a: np.unique(a).tolist(),
+    arange=lambda n, like: np.arange(n),
+    flatnonzero=np.flatnonzero,
+    argsort_stable=lambda a: np.argsort(a, kind="stable"),
+    cummin=np.minimum.accumulate,
+    concatenate=np.concatenate)
+_TORCH_SORT = SimpleNamespace(
+    unique=lambda a: torch.unique(a).tolist(),
+    arange=lambda n, like: torch.arange(n, device=like.device),
+    flatnonzero=lambda m: torch.nonzero(m).flatten(),
+    argsort_stable=lambda a: torch.sort(a, stable=True).indices,
+    cummin=lambda a: torch.cummin(a, 0).values,
+    concatenate=torch.cat)
+
+
+def _front_prefilter(thr, area, energy, max_classes: int = 1024):
+    """Positions of a cheap *superset* of the 3-objective Pareto front.
+
+    Per distinct-area class (area takes one value per K combination — a
+    handful), the 2-objective (max throughput, min energy) staircase via
+    one lexicographic order + cumulative min; any point dominated there is
+    dominated in 3D by the same point (equal area), so the exact — but
+    per-point Python — :func:`pareto_front_indices` scan afterwards only
+    sees the small candidate set.  Every dominated point is dominated by a
+    front point, so the exact scan over the candidates returns the front
+    of all points.  Falls back to the identity when area is effectively
+    continuous.
+
+    Written once over NumPy arrays and torch tensors: on a CUDA tensor it
+    runs on the card.  The order ``lexsort((energy, -thr))`` is two stable
+    sorts, by energy and then by ``-thr`` (the same permutation)."""
+    xp = _TORCH_SORT if torch.is_tensor(thr) else _NP_SORT
+    n = thr.shape[0]
+    uniq = xp.unique(area)
+    if n == 0 or len(uniq) > max_classes:
+        return xp.arange(n, like=thr)
+    keep = []
+    for av in uniq:
+        sel = xp.flatnonzero(area == av)
+        o = sel[xp.argsort_stable(energy[sel])]
+        o = o[xp.argsort_stable(-thr[o])]
+        e = energy[o]
+        keep.append(o[e <= xp.cummin(e)])   # over-keeps ties; exact scan next
+    return xp.concatenate(keep)
+
+
 # ---------------------------------------------------------------------------
 # Batched grid sweep
 # ---------------------------------------------------------------------------
@@ -188,7 +245,7 @@ class _SweepIndexing:
     Both carry the ordered ``axes`` (name, values) and the grid ``shape``;
     flat point indices are C-ordered over ``shape``, so any flat index —
     whether its objectives are stored densely (:class:`SweepResult`) or
-    only for tracked survivors (a chunked sweep, not ported yet) — maps back
+    only for tracked survivors (:class:`ChunkedSweepResult`) — maps back
     to concrete axis values, per-island rate vectors and
     :class:`DesignPoint` objects the same way.  Subclasses provide
     ``axes``/``shape``/``workloads``/``n_tg`` plus
@@ -283,6 +340,12 @@ class _SweepIndexing:
                 "f_tg": axis("f_tg").astype(np.float64)}
 
 
+# Objectives tracked by the chunked streaming sweep: name -> maximize?
+_TRACKED_OBJECTIVES = (("throughput", True), ("area", False),
+                       ("energy_per_unit", False), ("mem_traffic", False))
+_FLOAT_OBJECTIVES = ("throughput", "area", "energy_per_unit", "mem_traffic")
+
+
 def _topk_select(key: np.ndarray, indices: np.ndarray, k: int) -> np.ndarray:
     """Positions of the k smallest ``key`` entries, ordered — and, at the
     k-th-value boundary, *selected* — by (key, global index).
@@ -303,6 +366,25 @@ def _topk_select(key: np.ndarray, indices: np.ndarray, k: int) -> np.ndarray:
         cand = np.arange(n)
     order = np.lexsort((indices[cand], key[cand]))[:k]
     return cand[order]
+
+
+def _topk_select_t(key: torch.Tensor, k: int) -> torch.Tensor:
+    """:func:`_topk_select` on the device that holds ``key``, for rows in
+    ascending global-index order (a block's valid rows): the k-th smallest
+    value bounds the candidates (every entry tied with it stays in), and a
+    *stable* sort of the candidates by key orders ties by position, which
+    is the (key, global index) order — what ``torch.topk`` alone does not
+    promise."""
+    n = key.shape[0]
+    k = min(k, n)
+    if k == 0:
+        return torch.empty(0, dtype=torch.int64, device=key.device)
+    if k < n:
+        kth = torch.topk(key, k, largest=False, sorted=False).values.max()
+        cand = torch.nonzero(key <= kth).flatten()
+    else:
+        cand = torch.arange(n, device=key.device)
+    return cand[torch.sort(key[cand], stable=True).indices[:k]]
 
 
 @dataclass(eq=False)
@@ -326,6 +408,11 @@ class SweepResult(_SweepIndexing):
     mem_traffic: Optional[np.ndarray] = None   # (N,) float64, Fig.-4 model
     elapsed_s: float = 0.0
     backend: str = "numpy"
+    # flat indices (ascending) of the Pareto prefilter's candidates when
+    # grid_sweep ran it where the objectives were evaluated (the card);
+    # None: pareto_indices() runs it on the host arrays
+    front_candidates: Optional[np.ndarray] = None
+    prefilter_s: Optional[float] = None   # its time there, device synced
 
     def __len__(self) -> int:
         return int(self.throughput.shape[0])
@@ -343,11 +430,19 @@ class SweepResult(_SweepIndexing):
         return getattr(self, objective)[np.asarray(indices, dtype=np.int64)]
 
     def pareto_indices(self) -> np.ndarray:
-        """Flat indices of the (valid-only) Pareto front, O(N log N)."""
-        flat = np.nonzero(self.valid)[0]
-        sub = pareto_front_indices(self.throughput[flat], self.area[flat],
-                                   self.energy_per_unit[flat])
-        return flat[sub]
+        """Flat indices of the (valid-only) Pareto front, ascending: the
+        exact O(N log N) scan over the prefilter's candidates (computed by
+        :func:`grid_sweep` on the card, else here), which is exactly the
+        scan over every valid point."""
+        cand = self.front_candidates
+        if cand is None:
+            flat = np.nonzero(self.valid)[0]
+            cand = flat[np.sort(_front_prefilter(
+                self.throughput[flat], self.area[flat],
+                self.energy_per_unit[flat]))]
+        sub = pareto_front_indices(self.throughput[cand], self.area[cand],
+                                   self.energy_per_unit[cand])
+        return cand[sub]
 
     def topk_indices(self, k: int, objective: str = "throughput",
                      maximize: Optional[bool] = None) -> np.ndarray:
@@ -362,6 +457,100 @@ class SweepResult(_SweepIndexing):
         v = vals[flat]
         key = -v if maximize else v
         return flat[_topk_select(key, flat, k)]
+
+
+@dataclass(eq=False)
+class ChunkedSweepResult(_SweepIndexing):
+    """Survivors of a chunked/streaming :func:`grid_sweep`.
+
+    The full grid (``len(self)`` points, possibly >1e8) was evaluated in
+    fixed-size axis blocks and never materialized whole; only the running
+    Pareto front and the per-objective top-``topk_track`` survivors are
+    retained, with **globally addressable** flat indices — the same
+    C-order over ``shape`` a one-shot :class:`SweepResult` uses, so
+    :meth:`axis_values` / :meth:`design_point` / downstream consumers
+    (``closed_loop_score``, ``BatchSimPlatform.from_design_points``) work
+    unchanged.  Objective *values* are only retained for tracked
+    survivors: :meth:`objective_values` raises ``KeyError`` for other
+    indices, and :meth:`design_point` on an untracked index still decodes
+    replication/placement/rates exactly but carries NaN objectives.
+
+    ``peak_chunk_bytes`` counts one block's objective arrays and validity
+    mask plus one float64 temporary (~41 bytes per point), on the device
+    that evaluated the block: host memory for ``backend="numpy"``, device
+    memory for ``"torch"`` (there the coordinate decode's integer
+    temporaries come on top and are not counted).
+    """
+    axes: Tuple[Tuple[str, Tuple], ...]
+    shape: Tuple[int, ...]
+    workloads: Tuple[AccelWorkload, ...]
+    n_tg: int
+    n_points: int
+    n_valid: int
+    cand_indices: np.ndarray            # (M,) int64, sorted ascending
+    cand_values: Dict[str, np.ndarray]  # objective -> (M,) float64
+    pareto: np.ndarray                  # (F,) int64 global, ascending
+    topk: Dict[str, np.ndarray]         # objective -> best-first global idx
+    topk_track: int
+    chunk_points: int
+    n_chunks: int
+    peak_chunk_bytes: int
+    elapsed_s: float = 0.0
+    backend: str = "numpy"
+
+    def __len__(self) -> int:
+        return self.n_points
+
+    @property
+    def points_per_second(self) -> float:
+        return len(self) / self.elapsed_s if self.elapsed_s > 0 else float("inf")
+
+    def objective_values(self, objective: str, indices) -> np.ndarray:
+        """Objective values at flat ``indices`` — tracked survivors only."""
+        idx = np.atleast_1d(np.asarray(indices, dtype=np.int64))
+        pos = np.searchsorted(self.cand_indices, idx)
+        ok = (pos < self.cand_indices.shape[0]) \
+            & (self.cand_indices[np.minimum(
+                pos, self.cand_indices.shape[0] - 1)] == idx)
+        if not ok.all():
+            raise KeyError(
+                f"flat indices {idx[~ok][:5].tolist()} are not tracked "
+                "survivors of this chunked sweep (only Pareto/top-k points "
+                "retain objective values)")
+        return self.cand_values[objective][pos]
+
+    def _point_objectives(self, i: int) -> Tuple[float, float, float]:
+        """Tracked survivors report their stored objectives; any other
+        (still decodable) index degrades to NaN objectives rather than
+        refusing to materialize."""
+        try:
+            return _SweepIndexing._point_objectives(self, i)
+        except KeyError:
+            return (float("nan"),) * 3
+
+    def pareto_indices(self) -> np.ndarray:
+        """Global flat indices of the full-grid Pareto front (the running
+        block merge is exact: front(union) == front(union of block
+        fronts)), ascending — identical to the one-shot sweep's."""
+        return self.pareto
+
+    def topk_indices(self, k: int, objective: str = "throughput",
+                     maximize: Optional[bool] = None) -> np.ndarray:
+        """Best-first global indices on one objective, ``k <= topk_track``.
+        Identical to the one-shot sweep's (ties broken by flat index)."""
+        default = dict(_TRACKED_OBJECTIVES)
+        if maximize is None:
+            maximize = objective == "throughput"
+        if objective not in default or maximize != default[objective]:
+            raise KeyError(
+                f"chunked sweeps track top-k only for {sorted(default)} in "
+                "their default directions")
+        if k > self.topk_track:
+            raise ValueError(
+                f"k={k} exceeds topk_track={self.topk_track} retained by "
+                "this chunked sweep; re-run grid_sweep with a larger "
+                "topk_track")
+        return self.topk[objective][:k]
 
 
 def _axis(values, dim: int, ndim: int) -> np.ndarray:
@@ -482,13 +671,14 @@ def _eval_grid(model: SoCPerfModel, workloads, n_tg: int,
             "valid": valid}
 
 
-def _eval_flat_points(model: SoCPerfModel, workloads, n_tg: int,
-                      lay: _AxisLayout, vals: Dict[str, object],
-                      shape: Tuple[int, ...], lo: int, hi: int, *,
-                      device, dtype: torch.dtype = torch.float64
-                      ) -> Dict[str, np.ndarray]:
+def _eval_flat_points_t(model: SoCPerfModel, workloads, n_tg: int,
+                        lay: _AxisLayout, vals: Dict[str, object],
+                        shape: Tuple[int, ...], lo: int, hi: int, *,
+                        device, dtype: torch.dtype = torch.float64
+                        ) -> Dict[str, torch.Tensor]:
     """Evaluate global flat points ``[lo, hi)`` as flat (P,) tensors on
-    ``device`` and return the objective arrays on the host.
+    ``device``: the four float objectives in float64 and the validity mask,
+    left on the device.
 
     Everything per point runs on the device: the C-order coordinate decode
     (integer floor-divide / remainder, last axis fastest — what
@@ -559,13 +749,34 @@ def _eval_flat_points(model: SoCPerfModel, workloads, n_tg: int,
         for b in range(a + 1, A):
             valid &= posA[a] != posA[b]
 
-    floats = torch.stack([thr.to(torch.float64), energy.to(torch.float64),
-                          mem.to(torch.float64), area]).cpu().numpy()
-    return {"throughput": np.ascontiguousarray(floats[0]),
-            "area": np.ascontiguousarray(floats[3]),
-            "energy_per_unit": np.ascontiguousarray(floats[1]),
-            "mem_traffic": np.ascontiguousarray(floats[2]),
-            "valid": valid.cpu().numpy()}
+    return {"throughput": thr.to(torch.float64), "area": area,
+            "energy_per_unit": energy.to(torch.float64),
+            "mem_traffic": mem.to(torch.float64), "valid": valid}
+
+
+def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """One copy of the four float objectives (stacked) and one of the mask."""
+    floats = torch.stack([out[o] for o in _FLOAT_OBJECTIVES]).cpu().numpy()
+    host = {o: np.ascontiguousarray(floats[i])
+            for i, o in enumerate(_FLOAT_OBJECTIVES)}
+    host["valid"] = out["valid"].cpu().numpy()
+    return host
+
+
+def _eval_flat_points(model: SoCPerfModel, workloads, n_tg: int,
+                      lay: _AxisLayout, vals: Dict[str, object],
+                      shape: Tuple[int, ...], lo: int, hi: int, *,
+                      device, dtype: torch.dtype = torch.float64
+                      ) -> Dict[str, np.ndarray]:
+    """:func:`_eval_flat_points_t`, objective arrays brought to the host."""
+    return _to_host(_eval_flat_points_t(model, workloads, n_tg, lay, vals,
+                                        shape, lo, hi, device=device,
+                                        dtype=dtype))
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _prepare_axes(model, workloads, ks, acc_rates, noc_rates, tg_rates,
@@ -698,9 +909,21 @@ def grid_sweep(model: SoCPerfModel,
     physical ``power_scl * (P_static + P_dyn f V̂(f)^2)`` model.
     ``tech_node=None`` (the default) keeps the linear model bit for bit.
 
-    Not ported yet: ``chunk_points=`` streaming evaluation (refused when the
-    grid exceeds it; ``topk_track`` belongs to it) and ``devices=`` beyond
-    one device.
+    **Chunked/streaming evaluation**: when ``chunk_points`` is given and
+    the cross-product exceeds it, the grid is evaluated in fixed-size
+    axis blocks (whole trailing-axis panels, so every block is a
+    contiguous range of global flat indices) with a running Pareto/top-k
+    merge, and a :class:`ChunkedSweepResult` is returned — indices stay
+    globally addressable and the Pareto front / top-k are those of a
+    one-shot sweep.  ``backend="numpy"`` follows the reference package's
+    block loop bit for bit.  ``backend="torch"`` evaluates each block with
+    the flat evaluator and keeps it on the device, which also computes
+    the validity mask, the Pareto prefilter and each tracked objective's
+    top-``topk_track``; only those rows are copied to the host, where the
+    block's exact front and the running merges run in float64 as in the
+    reference.
+
+    Not ported yet: ``devices=`` beyond one device (refused).
     """
     device_mod.require_single(devices)
     dev = device_mod.resolve(device)
@@ -722,28 +945,187 @@ def grid_sweep(model: SoCPerfModel,
     ndim = lay.ndim
     shape = tuple(len(v) for _, v in axes)
     n_points = int(np.prod([len(v) for _, v in axes], dtype=np.int64))
-    if chunk_points is not None and n_points > chunk_points:
-        raise NotImplementedError(
-            f"chunk_points={chunk_points} < {n_points} grid points: the "
-            "chunked streaming sweep is not ported yet (ROADMAP queue A "
-            "item 3)")
 
     t0 = time.perf_counter()
-    if backend == "torch":
-        out = _eval_flat_points(model, workloads, n_tg, lay, vals, shape,
-                                0, n_points, device=dev, dtype=dtype)
-    else:
-        get = lambda dim, v: _axis(v, dim, ndim)    # noqa: E731
-        out = _eval_grid(model, workloads, n_tg, lay, vals, get, shape)
+    if chunk_points is None or n_points <= chunk_points:
+        cand, pre_s = None, None
+        if backend == "torch":
+            out_t = _eval_flat_points_t(model, workloads, n_tg, lay, vals,
+                                        shape, 0, n_points, device=dev,
+                                        dtype=dtype)
+            _sync(dev)
+            t1 = time.perf_counter()
+            cand = _valid_front_candidates(out_t)
+            pre_s = time.perf_counter() - t1
+            out = _to_host(out_t)
+        else:
+            get = lambda dim, v: _axis(v, dim, ndim)    # noqa: E731
+            out = _eval_grid(model, workloads, n_tg, lay, vals, get, shape)
+        elapsed = time.perf_counter() - t0
+        return SweepResult(
+            axes=axes, shape=shape, workloads=workloads, n_tg=n_tg,
+            throughput=out["throughput"].ravel(),
+            area=out["area"].ravel(),
+            energy_per_unit=out["energy_per_unit"].ravel(),
+            valid=out["valid"].ravel(),
+            mem_traffic=out["mem_traffic"].ravel(),
+            elapsed_s=elapsed, backend=backend,
+            front_candidates=cand, prefilter_s=pre_s)
+
+    # ---- chunked/streaming path: fixed-size blocks of whole trailing
+    # panels; every block covers the contiguous global flat range
+    # [o0*inner, o1*inner) so survivors carry global indices for free
+    inner = 1
+    s = ndim
+    while s > 0 and inner * shape[s - 1] <= chunk_points:
+        inner *= shape[s - 1]
+        s -= 1
+    outer_shape = shape[:s]
+    outer_n = int(np.prod(outer_shape, dtype=np.int64)) if s else 1
+    o_per_block = max(1, chunk_points // max(inner, 1))
+
+    objs = [name for name, _ in _TRACKED_OBJECTIVES]
+    empty = {"i": np.empty(0, dtype=np.int64),
+             **{o: np.empty(0, dtype=np.float64) for o in objs}}
+    front = dict(empty)
+    topk = {o: dict(empty) for o in objs}
+    n_valid = 0
+    n_chunks = 0
+    peak_bytes = 0
+
+    for o0 in range(0, outer_n, o_per_block):
+        o1 = min(o0 + o_per_block, outer_n)
+        lo, hi = o0 * inner, o1 * inner
+        if backend == "torch":
+            blk = _block_survivors_t(
+                _eval_flat_points_t(model, workloads, n_tg, lay, vals,
+                                    shape, lo, hi, device=dev, dtype=dtype),
+                lo, topk_track)
+        else:
+            blk = _block_survivors(model, workloads, n_tg, lay, vals, shape,
+                                   s, o0, o1, inner, topk_track)
+        n_chunks += 1
+        peak_bytes = max(peak_bytes, blk["bytes"])
+        n_valid += blk["n_valid"]
+        if blk["rows"] is None:
+            continue
+        rows, pre = blk["rows"], blk["pre"]
+        bf = pre[pareto_front_indices(rows["throughput"][pre],
+                                      rows["area"][pre],
+                                      rows["energy_per_unit"][pre])]
+        front = _merge_front(front, {k: v[bf] for k, v in rows.items()})
+        for o, maximize in _TRACKED_OBJECTIVES:
+            sel = blk["sel"][o]
+            cat = {k: np.concatenate([topk[o][k], v[sel]])
+                   for k, v in rows.items()}
+            ckey = -cat[o] if maximize else cat[o]
+            keep = _topk_select(ckey, cat["i"], topk_track)
+            topk[o] = {k: v[keep] for k, v in cat.items()}
+
+    # assemble the tracked-survivor store: pareto ∪ top-k, deduped
+    pools = [front] + [topk[o] for o in objs]
+    all_idx = np.concatenate([p["i"] for p in pools])
+    uniq, upos = np.unique(all_idx, return_index=True)
+    cand_values = {o: np.concatenate([p[o] for p in pools])[upos]
+                   for o in objs}
+    _sync(dev)
     elapsed = time.perf_counter() - t0
-    return SweepResult(
+    return ChunkedSweepResult(
         axes=axes, shape=shape, workloads=workloads, n_tg=n_tg,
-        throughput=out["throughput"].ravel(),
-        area=out["area"].ravel(),
-        energy_per_unit=out["energy_per_unit"].ravel(),
-        valid=out["valid"].ravel(),
-        mem_traffic=out["mem_traffic"].ravel(),
+        n_points=n_points, n_valid=n_valid,
+        cand_indices=uniq, cand_values=cand_values,
+        pareto=np.sort(front["i"]),
+        topk={o: topk[o]["i"] for o in objs},
+        topk_track=topk_track, chunk_points=chunk_points,
+        n_chunks=n_chunks, peak_chunk_bytes=int(peak_bytes),
         elapsed_s=elapsed, backend=backend)
+
+
+def _valid_front_candidates(out: Dict[str, torch.Tensor]) -> np.ndarray:
+    """Flat indices (ascending, on the host) of the Pareto prefilter's
+    candidates among the valid points of a dense flat evaluation, computed
+    on the device that holds it."""
+    vpos = torch.nonzero(out["valid"]).flatten()
+    pre = _front_prefilter(out["throughput"][vpos], out["area"][vpos],
+                           out["energy_per_unit"][vpos])
+    return np.sort(vpos[pre].cpu().numpy())
+
+
+def _block_survivors(model, workloads, n_tg, lay, vals, shape, s, o0, o1,
+                     inner, topk_track) -> Dict[str, object]:
+    """One block of the NumPy chunked sweep (the reference's loop body up
+    to the merges): the block's valid rows, the prefilter's positions in
+    them and each tracked objective's top-k positions."""
+    ndim = lay.ndim
+    O = o1 - o0
+    coords = np.unravel_index(np.arange(o0, o1), shape[:s])
+    blk_ndim = ndim - s + 1
+
+    def get(dim, v):
+        v = np.asarray(v)
+        if dim < s:
+            return v[coords[dim]].reshape((O,) + (1,) * (ndim - s))
+        bshape = [1] * blk_ndim
+        bshape[dim - s + 1] = v.shape[0]
+        return v.reshape(bshape)
+
+    out = _eval_grid(model, workloads, n_tg, lay, vals, get,
+                     (O,) + shape[s:])
+    flat = {k: v.ravel() for k, v in out.items()}
+    nbytes = (sum(v.nbytes for v in flat.values())
+              + flat["throughput"].nbytes)          # + kernel temp
+    vpos = np.nonzero(flat["valid"])[0]
+    if vpos.size == 0:
+        return {"bytes": nbytes, "n_valid": 0, "rows": None}
+    rows = {"i": o0 * inner + vpos,
+            **{o: flat[o][vpos] for o, _ in _TRACKED_OBJECTIVES}}
+    pre = _front_prefilter(rows["throughput"], rows["area"],
+                           rows["energy_per_unit"])
+    sel = {o: _topk_select(-rows[o] if maximize else rows[o], rows["i"],
+                           topk_track)
+           for o, maximize in _TRACKED_OBJECTIVES}
+    return {"bytes": nbytes, "n_valid": int(vpos.size), "rows": rows,
+            "pre": pre, "sel": sel}
+
+
+def _block_survivors_t(out: Dict[str, torch.Tensor], lo: int,
+                       topk_track: int) -> Dict[str, object]:
+    """:func:`_block_survivors` for a block evaluated on a device: the
+    mask, the prefilter and the top-k selections run there, and only the
+    rows they name are copied to the host (``pre`` / ``sel`` then index
+    those copied rows)."""
+    nbytes = (sum(v.element_size() * v.numel() for v in out.values())
+              + out["throughput"].element_size() * out["throughput"].numel())
+    vpos = torch.nonzero(out["valid"]).flatten()
+    nv = int(vpos.numel())
+    if nv == 0:
+        return {"bytes": nbytes, "n_valid": 0, "rows": None}
+    vals = {o: out[o][vpos] for o in _FLOAT_OBJECTIVES}
+    parts = [_front_prefilter(vals["throughput"], vals["area"],
+                              vals["energy_per_unit"])]
+    for o, maximize in _TRACKED_OBJECTIVES:
+        parts.append(_topk_select_t(-vals[o] if maximize else vals[o],
+                                    topk_track))
+    pos = torch.cat(parts)
+    floats = torch.stack([vals[o][pos] for o in _FLOAT_OBJECTIVES]
+                         ).cpu().numpy()
+    rows = {"i": lo + vpos[pos].cpu().numpy(),
+            **{o: np.ascontiguousarray(floats[j])
+               for j, o in enumerate(_FLOAT_OBJECTIVES)}}
+    bounds = np.cumsum([0] + [int(p.numel()) for p in parts])
+    ranges = [np.arange(bounds[j], bounds[j + 1]) for j in range(len(parts))]
+    return {"bytes": nbytes, "n_valid": nv, "rows": rows, "pre": ranges[0],
+            "sel": {o: r for (o, _), r in zip(_TRACKED_OBJECTIVES,
+                                               ranges[1:])}}
+
+
+def _merge_front(cand: Dict[str, np.ndarray],
+                 rows: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Fold one block's Pareto survivors into the running front."""
+    merged = {k: np.concatenate([cand[k], rows[k]]) for k in cand}
+    keep = pareto_front_indices(merged["throughput"], merged["area"],
+                                merged["energy_per_unit"])
+    return {k: v[keep] for k, v in merged.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -834,7 +1216,8 @@ def closed_loop_score(result: SweepResult, trace, *,
                       observe=None,
                       devices=None,
                       tech=None,
-                      device=None
+                      device=None,
+                      dtype: torch.dtype = torch.float64
                       ) -> ClosedLoopScore:
     """Re-rank static-sweep survivors by *simulated* runtime behaviour.
 
@@ -856,7 +1239,9 @@ def closed_loop_score(result: SweepResult, trace, *,
     and replayed as a single tensor program on ``device`` (``None`` = the
     CUDA card): ``backend="torch"`` (float64 tick loop, the ground truth) or
     ``"fused"`` (the hand-written CUDA tick kernel) — re-ranking thousands
-    of survivors is one batched run.  ``batch_controller_factory`` receives
+    of survivors is one batched run.  ``dtype=torch.float32`` runs the
+    ``"torch"`` tick loop in float32 (the reference's float32 scan backend;
+    no telemetry then).  ``batch_controller_factory`` receives
     the stacked platform and must return a
     ``repro_torch.sim.BatchControllerHarness`` (or None).
 
@@ -912,7 +1297,8 @@ def closed_loop_score(result: SweepResult, trace, *,
     engine = BatchSimEngine(platform, config=sim_config or SimConfig(),
                             controller=controller, backend=backend,
                             faults=fault_schedule, slo=slo, observe=observe,
-                            devices=devices, tech=tech, device=device)
+                            devices=devices, tech=tech, device=device,
+                            dtype=dtype)
     r = engine.run(trace)
     order = _rank_scores(r.p99_latency_s, r.energy_per_request_j, p99_sla_s,
                          drop_rate=None, max_drop_rate=max_drop_rate)
@@ -921,3 +1307,78 @@ def closed_loop_score(result: SweepResult, trace, *,
                            throughput_rps=r.throughput_rps,
                            order=np.asarray(order, dtype=np.int64),
                            results=[r], drop_rate=None, counters=None)
+
+
+# ---------------------------------------------------------------------------
+# Scalar reference sweep (original API)
+# ---------------------------------------------------------------------------
+
+
+def sweep_soc(model: SoCPerfModel, wl: AccelWorkload,
+              *, ks: Sequence[int] = (1, 2, 4),
+              noc_rates: Sequence[float] = (0.1, 0.5, 1.0),
+              acc_rates: Sequence[float] = (0.2, 0.6, 1.0),
+              positions: Sequence[Tuple[int, int]] = ((1, 1), (3, 3)),
+              n_tg: int = 0) -> List[DesignPoint]:
+    """Exhaustive scalar sweep over the paper's axes for one accelerator.
+
+    The per-point reference path, host Python; :func:`grid_sweep` is the
+    batched equivalent and is tested to match it within fp tolerance."""
+    out: List[DesignPoint] = []
+    for k, fn, fa, pos in itertools.product(ks, noc_rates, acc_rates,
+                                            positions):
+        w = dataclasses.replace(wl, replication=k)
+        rates = {"acc": fa, "noc_mem": fn, "tg": 1.0}
+        thr = model.accel_throughput(w, pos, rates, n_tg)
+        area = replication_area_model(
+            weight_bytes=1.0, act_bytes=0.5, k=k)["total_bytes_per_dev"]
+        power = chip_power(fa, busy=1.0) \
+            + NOC_POWER_SHARE * chip_power(fn, busy=1.0)
+        out.append(DesignPoint(
+            replication={wl.name: k}, rates=rates,
+            placement={wl.name: pos}, throughput=thr, area=area,
+            energy_per_unit=power / max(thr, 1e-9)))
+    return out
+
+
+def sweep_replication_roofline(eval_cell: Callable[[int], Dict[str, float]],
+                               ks: Sequence[int] = (1, 2, 4, 8)
+                               ) -> List[Dict[str, float]]:
+    """Pod-scale MRA sweep: ``eval_cell(K)`` evaluates the cell on the
+    K-factored mesh and returns roofline terms; each row gains ``K`` and
+    the modelled ``predicted_gain``."""
+    rows = []
+    for k in ks:
+        r = dict(eval_cell(k))
+        r["K"] = k
+        r["predicted_gain"] = replication_throughput_model(k)
+        rows.append(r)
+    return rows
+
+
+def _point_line(p: DesignPoint) -> str:
+    return (f"  K={p.replication}  rates={ {k: round(v, 2) for k, v in p.rates.items()} }"
+            f"  pos={p.placement}  thr={p.throughput:.2f}  area={p.area:.2f}"
+            f"  E/u={p.energy_per_unit:.1f}")
+
+
+def summarize(points: Sequence[DesignPoint], top: int = 10) -> str:
+    front = pareto_front(points)
+    front.sort(key=lambda p: -p.throughput)
+    lines = [f"{len(points)} points, {len(front)} on Pareto front"]
+    lines += [_point_line(p) for p in front[:top]]
+    return "\n".join(lines)
+
+
+def summarize_result(res, top: int = 10) -> str:
+    """Summary of a batched sweep (dense or chunked) without materializing
+    all points."""
+    front_idx = res.pareto_indices()
+    order = np.argsort(-res.objective_values("throughput", front_idx),
+                       kind="stable")
+    lines = [f"{len(res)} points ({res.n_valid} valid, "
+             f"{res.points_per_second:,.0f} pts/s), "
+             f"{front_idx.shape[0]} on Pareto front"]
+    lines += [_point_line(p)
+              for p in res.design_points(front_idx[order][:top])]
+    return "\n".join(lines)

@@ -21,12 +21,17 @@ counts, placements, island rates) into one platform whose tick loop advances
 Two backends:
 
 ``"torch"``
-    A Python tick loop over float64 tensors through
+    A Python tick loop over tensors through
     :func:`~repro_torch.sim.engine.tick_step`, service terms recomputed only
     on commits, the controller harness stepping on the host every
-    ``control_interval`` ticks.  The port's ground truth (it matches the
-    reference package's ``"numpy"`` backend); it runs on the CPU or the card
-    and launches one kernel per op per tick there, so it is not fast.
+    ``control_interval`` ticks.  In float64 (the default) it is the port's
+    ground truth: it matches the reference package's ``"numpy"`` backend
+    and records its :class:`~repro_torch.sim.telemetry.BatchTelemetry`
+    (rows written into device rings while it runs, no host sync per row,
+    one copy at the end).  ``dtype=torch.float32`` runs the same loop in
+    float32, the role of the reference's float32 scan backend (no
+    telemetry, as there).  It runs on the CPU or the card and launches one
+    kernel per op per tick there, so it is not fast.
 ``"fused"``
     The whole tick loop and the control step as ONE hand-written CUDA kernel
     (:func:`repro_torch.kernels.tick_sim.fused_tick_sim`), float32; on CPU
@@ -34,8 +39,8 @@ Two backends:
 
 Platform description and controller state stay in NumPy on the host; what
 the tick loop reads becomes tensors once, at engine construction.  Faults,
-SLO semantics, the load balancer, the observer plane and telemetry rings are
-not ported yet and are refused.
+SLO semantics, the load balancer and the observer plane are not ported yet
+and are refused.
 """
 from __future__ import annotations
 
@@ -59,8 +64,10 @@ from repro_torch.kernels.tick_sim import ControlPlan, fused_tick_sim
 from repro_torch.sim.control import BatchControllerHarness
 from repro_torch.sim.engine import (PKT_BYTES, SimConfig, SimPlatform,
                                     StepConsts, TickState,
-                                    latency_percentiles_batch, tick_step)
+                                    latency_percentiles_batch, sum_tiles,
+                                    tick_step)
 from repro_torch.sim.flows import FlowPattern, compile_flows
+from repro_torch.sim.telemetry import BatchTelemetry, TelemetrySchema
 from repro_torch.sim.traffic import BatchTrace
 
 BACKENDS = ("torch", "fused")
@@ -219,7 +226,7 @@ class BatchSimResult:
     elapsed_wall_s: float               # whole batch, one clock (tick loop
                                         # or kernel, device synchronised)
     backend: str = "torch"
-    telemetry: Optional[object] = None  # telemetry rings are not ported
+    telemetry: Optional[BatchTelemetry] = None   # float64 "torch" only
     # fault/SLO ledgers of the reference, (B,) zeros in this slice
     dropped_slo: Optional[np.ndarray] = None
     dropped_fault: Optional[np.ndarray] = None
@@ -268,6 +275,64 @@ class BatchSimResult:
 
 
 # ---------------------------------------------------------------------------
+# Telemetry rings on the engine's device
+# ---------------------------------------------------------------------------
+
+
+class TelemetryRings:
+    """:class:`BatchTelemetry`'s four rings as preallocated tensors on the
+    engine's device.
+
+    :meth:`record` writes one row into the slot ``rows % capacity`` (the
+    host ring's slot) from tensors already on the device — no host sync per
+    row; :meth:`to_host` copies the rings to the host once and fills a
+    :class:`BatchTelemetry` with the same contents, ``total_appended`` and
+    wrap as the reference's NumPy recording.  The drop/retry channels stay
+    zero: faults and SLO semantics are not ported (ROADMAP queue A item 8).
+    """
+
+    def __init__(self, schema: TelemetrySchema, n_designs: int, *,
+                 capacity: int, n_rows: int, device):
+        assert capacity > 0 and n_designs > 0
+        self.schema = schema
+        self.n_designs = n_designs
+        self.capacity = int(capacity)
+        self.rows = 0
+        slots = max(1, min(self.capacity, int(n_rows)))
+        self.widths = (len(BatchTelemetry.SCALARS), len(schema.islands),
+                       len(schema.tiles), len(schema.tiles))
+        # scalars | island rates | queue depth | busy, side by side
+        self.buf = torch.zeros((slots, n_designs, sum(self.widths)),
+                               dtype=torch.float64, device=device)
+
+    def record(self, *, tick: int, f_noc, island_rates, queue_depth, busy,
+               throughput_rps, power_w, link_util_max, link_util_mean,
+               latency_est_s, dropped) -> None:
+        row = self.buf[self.rows % self.capacity]
+        row[:, 0] = float(tick)
+        for i, ch in enumerate((f_noc, throughput_rps, power_w,
+                                link_util_max, link_util_mean,
+                                latency_est_s, dropped), start=1):
+            row[:, i] = ch
+        S, I, A, _ = self.widths
+        row[:, S:S + I] = island_rates
+        row[:, S + I:S + I + A] = queue_depth
+        row[:, S + I + A:] = busy
+        self.rows += 1
+
+    def to_host(self, events) -> BatchTelemetry:
+        tel = BatchTelemetry(self.schema, self.n_designs,
+                             capacity=self.capacity)
+        host = self.buf.cpu().numpy()
+        cuts = np.cumsum(self.widths)[:-1]
+        rings = (tel.scalars, tel.island_rates, tel.queue_depth, tel.busy)
+        for ring, part in zip(rings, np.split(host, cuts, axis=-1)):
+            ring.fill(part[:min(self.rows, self.capacity)], self.rows)
+        tel.events = list(events)
+        return tel
+
+
+# ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
 
@@ -281,9 +346,12 @@ class BatchSimEngine:
     """Ticks B stacked designs through one trace, controllers in loop.
 
     ``device=None`` means the CUDA card (and raises without one); the tests
-    pass ``device="cpu"``.  ``faults`` / ``slo`` / ``balancer`` /
-    ``observe`` are accepted for signature parity with the reference and
-    refused when set; ``devices`` accepts ``None`` or ``1``.
+    pass ``device="cpu"``.  ``dtype`` is the ``"torch"`` loop's float type:
+    ``torch.float64`` (the ground truth, with telemetry) or
+    ``torch.float32``; ``"fused"`` is float32 whatever it says.
+    ``faults`` / ``slo`` / ``balancer`` / ``observe`` are accepted for
+    signature parity with the reference and refused when set; ``devices``
+    accepts ``None`` or ``1``.
     """
 
     def __init__(self, platform: BatchSimPlatform, *,
@@ -292,14 +360,19 @@ class BatchSimEngine:
                  balancer=None,
                  backend: str = "torch",
                  faults=None, slo=None, observe=None,
-                 devices=None, tech=None, device=None):
+                 devices=None, tech=None, device=None,
+                 dtype: torch.dtype = torch.float64):
         if backend not in BACKENDS:
             raise ValueError(
                 f"backend must be one of {BACKENDS}, got {backend!r}")
+        if dtype not in (torch.float64, torch.float32):
+            raise ValueError(f"dtype must be torch.float64 or torch.float32, "
+                             f"got {dtype}")
         device_mod.require_single(devices)
         self.platform = platform
         self.devices = devices
         self.device = device_mod.resolve(device)
+        self.dtype = dtype
         self.config = config
         self.controller = controller
         # physical DVFS model (core/voltage.py): tick energy becomes
@@ -397,9 +470,12 @@ class BatchSimEngine:
         return self._dev_cache[dtype]
 
     # ------------------------------------------------------------ service
-    def _service_t(self, rates: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _service_t(self, rates: torch.Tensor,
+                   dtype: torch.dtype = torch.float64
+                   ) -> Dict[str, torch.Tensor]:
         """Service-time terms for a (B, I) float64 rate tensor on the
-        engine's device (recomputed only on commits)."""
+        engine's device (recomputed only on commits), computed in float64
+        and handed to the tick loop in ``dtype``."""
         p = self.platform
         B, A = p.n_designs, p.n_tiles
         tn = self._tensors(torch.float64)
@@ -410,9 +486,10 @@ class BatchSimEngine:
             wire_share=tn["w"], k=tn["k"], f_acc=f_tile,
             f_noc=f_noc[:, None], f_tg=tn["ftg"], n_tg=p.n_tg,
             hop_counts=tn["hop"], backend="torch", device=self.device)
-        return {"t_comp": t_comp.expand(B, A), "t_wire": t_wire.expand(B, A),
-                "t_ref": t_ref.expand(B, A), "f_tile": f_tile,
-                "f_noc": f_noc}
+        svc = {"t_comp": t_comp.expand(B, A), "t_wire": t_wire.expand(B, A),
+               "t_ref": t_ref.expand(B, A), "f_tile": f_tile,
+               "f_noc": f_noc}
+        return {k: v.to(dtype) for k, v in svc.items()}
 
     def _service(self, rates: np.ndarray) -> Dict[str, np.ndarray]:
         """Host NumPy form of :meth:`_service_t` (float64)."""
@@ -437,9 +514,10 @@ class BatchSimEngine:
             svc["t_comp"] + svc["t_wire"])
         return thr / self.platform.req_mb
 
-    def step_consts(self, dt: float) -> StepConsts:
+    def step_consts(self, dt: float,
+                    dtype: torch.dtype = torch.float64) -> StepConsts:
         p, cfg = self.platform, self.config
-        tn = self._tensors(torch.float64)
+        tn = self._tensors(dtype)
         return StepConsts(
             base_mbps=tn["base"], req_mb=tn["req"], hop_counts=tn["hop"],
             inc=tn["inc"],
@@ -499,11 +577,11 @@ class BatchSimEngine:
     def _run_torch(self, trace) -> BatchSimResult:
         p, cfg = self.platform, self.config
         B, A, T, dt = p.n_designs, p.n_tiles, trace.ticks, trace.dt
-        dev, f64 = self.device, torch.float64
+        dev, f64, dtype = self.device, torch.float64, self.dtype
         self._check_trace(trace)
         timings = {"copies": 0.0}
         t0 = time.perf_counter()
-        arrivals = self._arrivals_t(trace, f64)
+        arrivals = self._arrivals_t(trace, dtype)
         self._sync()
         timings["copies"] += time.perf_counter() - t0
 
@@ -515,18 +593,31 @@ class BatchSimEngine:
             swaps0 = ctl.swaps.copy()
         else:
             rates_np = p.rates
-        svc = self._service_t(torch.as_tensor(rates_np, dtype=f64,
-                                              device=dev))
+        rates_t = torch.as_tensor(rates_np, dtype=f64, device=dev)
+        svc = self._service_t(rates_t, dtype)
 
-        st = TickState.zeros((B, A), device=dev, dtype=f64)
-        consts = self.step_consts(dt)
-        carry = (torch.zeros((B, A), dtype=f64, device=dev)
+        st = TickState.zeros((B, A), device=dev, dtype=dtype)
+        consts = self.step_consts(dt, dtype)
+        carry = (torch.zeros((B, A), dtype=dtype, device=dev)
                  if consts.forward is not None else None)
-        admitted_hist = torch.zeros((T, B, A), dtype=f64, device=dev)
-        served_hist = torch.zeros((T, B, A), dtype=f64, device=dev)
-        ctl_busy = torch.zeros((B, A), dtype=f64, device=dev)
+        admitted_hist = torch.zeros((T, B, A), dtype=dtype, device=dev)
+        served_hist = torch.zeros((T, B, A), dtype=dtype, device=dev)
+        ctl_busy = torch.zeros((B, A), dtype=dtype, device=dev)
         ctl_ticks = 0
-        tcr = self._tensors(f64)["tcr"]
+        tcr = self._tensors(dtype)["tcr"]
+        # telemetry: the float64 loop records, like the reference's NumPy
+        # engine; the float32 one does not, like its float32 scan
+        rings = events = None
+        ti = cfg.telemetry_interval
+        if dtype == f64:
+            rings = TelemetryRings(
+                TelemetrySchema(islands=p.islands.names(), tiles=p.names),
+                B, capacity=cfg.telemetry_capacity,
+                n_rows=T // ti if ti else 0, device=dev)
+            events = []
+            win_busy = torch.zeros((B, A), dtype=f64, device=dev)
+            win_served = torch.zeros(B, dtype=f64, device=dev)
+            win_ticks = 0
 
         self._sync()
         wall0 = time.perf_counter()
@@ -542,6 +633,26 @@ class BatchSimEngine:
             ctl_busy += st.busy
             ctl_ticks += 1
 
+            if rings is not None and ti:
+                win_busy += st.busy
+                win_served += sum_tiles(out.served)
+                win_ticks += 1
+                if (t_i + 1) % ti == 0:
+                    rings.record(
+                        tick=t_i, f_noc=svc["f_noc"], island_rates=rates_t,
+                        queue_depth=st.queue, busy=win_busy / win_ticks,
+                        throughput_rps=win_served / (win_ticks * dt),
+                        power_w=out.tile_power + out.noc_power,
+                        link_util_max=torch.clamp(out.rho.amax(dim=-1),
+                                                  min=0.0),
+                        link_util_mean=sum_tiles(out.rho) / A,
+                        latency_est_s=(sum_tiles(st.queue) / torch.clamp(
+                            sum_tiles(out.cap_tick / dt), min=1e-9)),
+                        dropped=st.dropped)
+                    win_busy = torch.zeros((B, A), dtype=f64, device=dev)
+                    win_served = torch.zeros(B, dtype=f64, device=dev)
+                    win_ticks = 0
+
             if (ctl is not None and cfg.control_interval
                     and (t_i + 1) % cfg.control_interval == 0):
                 # the harness lives on the host: one window's counters
@@ -551,31 +662,43 @@ class BatchSimEngine:
                     ctl_busy / max(ctl_ticks, 1),
                     t_wire_now / (tcr + t_wire_now),
                     st.pkts_in, st.pkts_out, st.rtt_acc,
-                    st.queue / torch.clamp(out.cap_tick, min=1e-12)]).cpu()
+                    st.queue / torch.clamp(out.cap_tick, min=1e-12)]
+                ).to(f64).cpu()
                 busy_w, bound_w, pin, pout, rtt, qticks = window.numpy()
                 new_rates = ctl.step(
                     tick=t_i, busy=busy_w, boundness=bound_w, pkts_in=pin,
                     pkts_out=pout, rtt=rtt, queue_ticks=qticks)
-                ctl_busy = torch.zeros((B, A), dtype=f64, device=dev)
+                ctl_busy = torch.zeros((B, A), dtype=dtype, device=dev)
                 ctl_ticks = 0
                 if new_rates is not None:
-                    svc = self._service_t(torch.as_tensor(
-                        new_rates, dtype=f64, device=dev))
+                    rates_t = torch.as_tensor(new_rates, dtype=f64,
+                                              device=dev)
+                    svc = self._service_t(rates_t, dtype)
+                    if events is not None:
+                        events.append({
+                            "tick": int(t_i), "kind": "dfs_commit",
+                            "designs": np.nonzero(
+                                ctl.last_committed)[0].tolist()})
         self._sync()
         timings["loop"] = time.perf_counter() - wall0
 
+        telemetry = None
+        if rings is not None:
+            t0 = time.perf_counter()
+            telemetry = rings.to_host(events)
+            timings["copies"] += time.perf_counter() - t0
         self.last_state = st
         self.last_histories = (admitted_hist, served_hist)
         return self._result(
             trace, admitted_hist, served_hist,
-            dropped=st.dropped, residual=st.queue.sum(dim=-1),
+            dropped=st.dropped, residual=sum_tiles(st.queue),
             energy=st.energy,
             swaps=(ctl.swaps - swaps0 if ctl is not None
                    else np.zeros(B, dtype=np.int64)),
-            backend="torch", timings=timings)
+            backend="torch", timings=timings, telemetry=telemetry)
 
     def _result(self, trace, admitted_hist, served_hist, *, dropped,
-                residual, energy, swaps, backend, timings
+                residual, energy, swaps, backend, timings, telemetry=None
                 ) -> BatchSimResult:
         """Assemble the per-design result on the host.  ``dropped`` /
         ``residual`` / ``energy`` are (B,) tensors on the engine's device;
@@ -613,7 +736,8 @@ class BatchSimEngine:
             mean_power_w=(energy / sim_seconds if sim_seconds
                           else np.zeros(B)),
             swaps=np.asarray(swaps, dtype=np.int64),
-            elapsed_wall_s=timings["loop"], backend=backend, telemetry=None,
+            elapsed_wall_s=timings["loop"], backend=backend,
+            telemetry=telemetry,
             dropped_slo=zB.copy(), dropped_fault=zB.copy(),
             retried=zB.copy(), timings=timings)
 

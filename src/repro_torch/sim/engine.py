@@ -24,7 +24,9 @@ service curve with one ``searchsorted`` per tile, giving per-batch sojourn
 times whose request-count-weighted percentiles are the reported p50/p99.
 :func:`latency_percentiles` is the per-design NumPy form;
 :func:`latency_percentiles_batch` does all designs at once with torch on
-the device that holds the histories, with the same arithmetic.
+the device that holds the histories, bit for bit (an integer-delay sort in
+place of the float64 latency sort; a design whose result could depend on
+the order of its float sums goes to the per-design function).
 
 The sequential ``SimEngine`` and the fault/SLO hooks of ``tick_step`` are
 not part of this slice.
@@ -44,6 +46,7 @@ from repro_torch.core.perfmodel import (AccelWorkload, NOC_POWER_SHARE,
                                         SoCPerfModel, chip_power)
 from repro_torch.core.voltage import TechModel
 from repro_torch.sim.flows import FlowPattern
+from repro_torch.sim.telemetry import weighted_percentiles  # noqa: F401
 
 PKT_BYTES = 512.0        # bytes per monitored packet (the C3 counters' unit)
 
@@ -234,6 +237,32 @@ class TickOut:
     link_loads: Optional[torch.Tensor] = None   # (..., L) offered loads
 
 
+def sum_tiles(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the trailing (tile) axis in the order NumPy's ``sum(axis=-1)``
+    adds, so per-tile reductions come out bit for bit as the reference's
+    (torch's own last-axis sum adds in another order from 5 terms up).
+
+    NumPy's pairwise summation of up to 128 terms: in order below 8, else
+    eight running partial sums combined as a tree, then the remainder in
+    order.  A platform has at most 15 tiles (a 4x4 NoC less MEM)."""
+    cols = x.unbind(-1)
+    n = len(cols)
+    assert n <= 128, n
+    if n < 8:
+        r, i = [cols[0]], 1
+    else:
+        r = list(cols[:8])
+        i = 8
+        while i < n - n % 8:
+            r = [r[j] + cols[i + j] for j in range(8)]
+            i += 8
+        r = [((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))]
+    acc = r[0]
+    for c in cols[i:]:
+        acc = acc + c
+    return acc
+
+
 def contention_slowdown(rho: torch.Tensor, max_slowdown: float
                         ) -> torch.Tensor:
     """M/D/1-style service slowdown from utilization (tensor form of
@@ -258,7 +287,7 @@ def tick_step(st: TickState, arr_t: torch.Tensor,
         over = torch.clamp(q - c.max_queue, min=0.0)
         q = q - over
         adm = adm - over
-        st.dropped += over.sum(dim=-1)
+        st.dropped += sum_tiles(over)
     f_noc = svc["f_noc"]
     if c.dynamic_contention:
         # live tile streams onto links: one contraction + masked max; link
@@ -283,7 +312,7 @@ def tick_step(st: TickState, arr_t: torch.Tensor,
     st.pkts_out += served * c.req_mb * 1e6 / PKT_BYTES
     st.rtt_acc += c.hop_counts * dyn * c.hop_latency
 
-    tile_power = chip_power(svc["f_tile"], st.busy, tech=c.tech).sum(dim=-1)
+    tile_power = sum_tiles(chip_power(svc["f_tile"], st.busy, tech=c.tech))
     noc_power = c.noc_power_share * chip_power(f_noc, 1.0, tech=c.tech)
     st.energy += (tile_power + noc_power) * c.dt
     # chain coupling: a share of each stage's completions becomes next
@@ -298,25 +327,6 @@ def tick_step(st: TickState, arr_t: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Latency reconstruction
 # ---------------------------------------------------------------------------
-
-
-def weighted_percentiles(values: np.ndarray, weights: np.ndarray,
-                         qs: Sequence[float]) -> np.ndarray:
-    """Percentiles of a weighted sample (weights = request counts per
-    latency bin) — how per-tick aggregated latencies become request-level
-    p50/p99 without expanding to one entry per request."""
-    v = np.ravel(np.asarray(values, dtype=np.float64))
-    w = np.ravel(np.asarray(weights, dtype=np.float64))
-    keep = w > 0
-    v, w = v[keep], w[keep]
-    if v.size == 0:
-        return np.full(len(qs), np.nan)
-    order = np.argsort(v, kind="stable")
-    v, w = v[order], w[order]
-    cum = np.cumsum(w)
-    targets = np.asarray(qs, dtype=np.float64) / 100.0 * cum[-1]
-    idx = np.searchsorted(cum, targets, side="left")
-    return v[np.minimum(idx, v.size - 1)]
 
 
 def percentile_samples(admitted: np.ndarray, served: np.ndarray,
@@ -357,58 +367,126 @@ def latency_percentiles(admitted: np.ndarray, served: np.ndarray,
     return float(p50), float(p99)
 
 
+_U = 2.0 ** -53              # unit roundoff of float64
+
+
+def _sum_error(n: int) -> float:
+    """Bound, relative to the total, on how far two float64 sums of the same
+    ``n`` non-negative terms added in any two orders can differ (twice the
+    classical gamma_n = n u / (1 - n u) of each, plus a few roundings)."""
+    return 2.0 * n * _U / (1.0 - n * _U) + 4.0 * _U
+
+
+def _prefix_sums(x: torch.Tensor) -> torch.Tensor:
+    """Running sums along the last axis (in parallel on the card)."""
+    return torch.cumsum(x, dim=-1)
+
+
 def latency_percentiles_batch(admitted: torch.Tensor, served: torch.Tensor,
                               dt: float, *, max_elems: int = 1 << 24
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """p50/p99 of all B designs from ``(T, B, A)`` histories, on the device
-    that holds them: :func:`latency_percentiles` with the design axis
-    written out.
+    that holds them — bit for bit :func:`latency_percentiles` of each
+    design, with the design axis written out.
 
-    Same float64 arithmetic and the same ordering rules as the per-design
-    function: per-tile cumulative curves, mid-rank ``searchsorted``
-    (left), samples concatenated tile-major, a *stable* sort by latency and
-    a cumulative-weight ``searchsorted`` (left) for the two targets.
-    Samples the per-design function filters out (batches not departed by
-    the end, empty ticks) stay in the rectangular arrays with weight zero:
-    adding 0.0 leaves every cumulative weight as it was, so the selected
-    sample is the same one.  Designs are processed in blocks of at most
-    ``max_elems`` history elements to bound the temporaries.
+    * Cumulative arrival/service curves per (design, tile), the mid-rank
+      ``searchsorted`` (left) of each tick's batch in the service curve.
+    * A sample's latency ``(depart - t + 0.5) * dt`` is monotone in the
+      integer delay ``d = depart - t``, so a *stable* sort of ``d`` (16-bit
+      while T fits) puts the samples in the order of the reference's
+      stable float64 sort of latencies; samples the reference filters out
+      (batches not departed by the end, empty ticks) take the key ``T``
+      and weight zero and sort after every kept one, whose order they
+      leave unchanged.  Only the two selected samples' latencies are
+      formed, in float64, as the reference forms them.
+    * The reference adds every running sum in order; the card adds in a
+      parallel order, which can round otherwise.  Where a column's terms
+      are whole numbers below 2^52 (request counts) every order gives the
+      same sums.  Elsewhere each comparison a result rests on (a mid-rank
+      against its two neighbours in the service curve, a target against
+      its two neighbours in the cumulative weights) must clear the bound
+      of :func:`_sum_error` on how far the two orders can differ; a design
+      with a comparison that does not is recomputed on the host by
+      :func:`latency_percentiles` itself.  So the result is the
+      reference's in every case, and the host sees only such designs
+      (none on the main path's histories).
+
+    Designs are processed in blocks of at most ``max_elems`` history
+    elements to bound the temporaries.  ``latency_percentiles_batch.
+    last_redone`` counts the designs the latest call recomputed.
     """
     T, B, A = admitted.shape
     dev = admitted.device
-    nan = torch.full((B,), float("nan"), dtype=torch.float64, device=dev)
+    f64 = torch.float64
+    nan = torch.full((B,), float("nan"), dtype=f64, device=dev)
     if T == 0 or B == 0 or A == 0:
         return nan, nan.clone()
     p50, p99 = nan, nan.clone()
-    ticks = torch.arange(T, dtype=torch.float64, device=dev)
-    qs = torch.tensor([50.0, 99.0], dtype=torch.float64, device=dev) / 100.0
+    ticks = torch.arange(T, device=dev)
+    qs = torch.tensor([50.0, 99.0], dtype=f64, device=dev) / 100.0
+    key_dtype = torch.int16 if T < (1 << 15) - 1 else torch.int32
+    e_t, e_w = _sum_error(T), 2.0 * _sum_error(A * T)
+    unsure = []
     step = max(1, int(max_elems) // (T * A))
     for b0 in range(0, B, step):
         b1 = min(b0 + step, B)
-        # (b, A, T): one contiguous curve per (design, tile)
-        n = admitted[:, b0:b1].to(torch.float64).permute(1, 2, 0).contiguous()
-        s = served[:, b0:b1].to(torch.float64).permute(1, 2, 0).contiguous()
-        ca = torch.cumsum(n, dim=-1)
-        cs = torch.cumsum(s, dim=-1)
-        mid = ca - 0.5 * n
+        nb = b1 - b0
+        # (b, A, T): one contiguous curve per (design, tile), transposed
+        # in the histories' own dtype, then widened
+        n = admitted[:, b0:b1].permute(1, 2, 0).contiguous().to(f64)
+        srv = served[:, b0:b1].permute(1, 2, 0).contiguous().to(f64)
+        ca = _prefix_sums(n)
+        cs = _prefix_sums(srv)
+        mid = ca - 0.5 * n                      # mid-rank of each batch
         depart = torch.searchsorted(cs, mid, right=False)
+        whole_n = ((n == torch.floor(n)).all(dim=-1, keepdim=True)
+                   & (ca[..., -1:] < 2.0 ** 52))
+        whole_s = ((srv == torch.floor(srv)).all(dim=-1, keepdim=True)
+                   & (cs[..., -1:] < 2.0 ** 52))
+        err = (torch.where(whole_n, 0.0, e_t * ca[..., -1:])
+               + torch.where(whole_s, 0.0, e_t * cs[..., -1:]))
+        below = torch.gather(cs, -1, torch.clamp(depart - 1, min=0))
+        above = torch.gather(cs, -1, torch.clamp(depart, max=T - 1))
+        sure = ((((depart == 0) | (below < mid - err))
+                 & ((depart == T) | (above >= mid + err)))
+                | (n == 0)).all(dim=-1)         # empty ticks weigh nothing
         done = (depart < T) & (n > 0)
-        lat = (depart.to(torch.float64) - ticks + 0.5) * dt
-        w = torch.where(done, n, torch.zeros_like(n))
-        v = lat.reshape(b1 - b0, A * T)
-        w = w.reshape(b1 - b0, A * T)
-        v, order = torch.sort(v, dim=-1, stable=True)
-        cum = torch.cumsum(torch.gather(w, -1, order), dim=-1)
-        total = cum[:, -1]
-        targets = qs.unsqueeze(0) * total.unsqueeze(-1)
-        idx = torch.searchsorted(cum, targets.contiguous(), right=False)
-        idx = torch.clamp(idx, max=A * T - 1)
-        out = torch.gather(v, -1, idx)
-        out = torch.where((total > 0).unsqueeze(-1), out,
-                          torch.full_like(out, float("nan")))
+        key = torch.where(done, depart - ticks, T).to(key_dtype)
+        key = key.reshape(nb, A * T)            # tile-major, as concatenated
+        order = torch.sort(key, dim=-1, stable=True).indices
+        w = torch.where(done, n, 0.0).reshape(nb, A * T)
+        cum = _prefix_sums(torch.gather(w, -1, order))
+        total = cum[:, -1:]                                  # (b, 1)
+        targets = qs * total                                 # (b, 2)
+        idx = torch.clamp(torch.searchsorted(cum, targets, right=False),
+                          max=A * T - 1)
+        ew = torch.where(whole_n.all(dim=1), 0.0, e_w * total)
+        below = torch.gather(cum, -1, torch.clamp(idx - 1, min=0))
+        above = torch.gather(cum, -1, idx)
+        sure_w = (((idx == 0) | (below < targets - ew))
+                  & (above >= targets + ew)).all(dim=-1)
+        unsure.append(torch.nonzero(~(sure.all(dim=-1) & sure_w)).flatten()
+                      + b0)
+        d = torch.gather(key, -1, torch.gather(order, -1, idx))
+        out = (d.to(f64) + 0.5) * dt
+        out = torch.where(total > 0, out, torch.full_like(out, float("nan")))
         p50[b0:b1] = out[:, 0]
         p99[b0:b1] = out[:, 1]
+    redo = torch.cat(unsure).cpu().numpy()
+    latency_percentiles_batch.last_redone = int(redo.size)
+    if redo.size:
+        adm_h = admitted[:, redo].to(f64).cpu().numpy()
+        srv_h = served[:, redo].to(f64).cpu().numpy()
+        exact = torch.as_tensor(
+            [latency_percentiles(adm_h[:, j], srv_h[:, j], dt)
+             for j in range(redo.size)], dtype=f64, device=dev)
+        where = torch.as_tensor(redo, device=dev)
+        p50[where] = exact[:, 0]
+        p99[where] = exact[:, 1]
     return p50, p99
+
+
+latency_percentiles_batch.last_redone = 0
 
 
 # ---------------------------------------------------------------------------

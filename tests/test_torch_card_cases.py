@@ -12,13 +12,17 @@ import itertools
 
 import pytest
 
+import test_torch_dse_chunked
 import test_torch_llm_kernels
+import test_torch_sim_batch
 import test_torch_ssd
+import test_torch_telemetry
 import test_torch_tick_sim
 
 from _torch_port_helpers import chip_smoke
 
-MODULES = (test_torch_llm_kernels, test_torch_ssd, test_torch_tick_sim)
+MODULES = (test_torch_llm_kernels, test_torch_ssd, test_torch_tick_sim,
+           test_torch_dse_chunked, test_torch_telemetry, test_torch_sim_batch)
 
 
 def _gpu_tests():
@@ -52,7 +56,7 @@ def _gpu_tests():
 def test_every_gpu_case_is_a_card_case():
     cs = chip_smoke()
     gpu = _gpu_tests()
-    assert len(gpu) >= 14
+    assert len(gpu) >= 17
     assert set(gpu) == set(cs.CARD_TESTS)
     for name, cases in gpu.items():
         assert cases == set(cs.CARD_TESTS[name][1]), name

@@ -7,7 +7,8 @@
   float64, ``backend="torch"``) — objectives <= 1e-12 relative, area and the
   validity mask exact.
 * knobs of the reference surface that are not ported raise
-  ``NotImplementedError`` naming the ROADMAP item.
+  ``NotImplementedError`` naming the ROADMAP item (``devices=`` beyond one);
+  ``chunk_points=`` streams (``tests/test_torch_dse_chunked.py``).
 """
 import numpy as np
 import pytest
@@ -173,11 +174,23 @@ def test_rank_scores_equal():
 
 # ------------------------------------------------------- refusals / device
 def test_chunk_points_refused_when_grid_exceeds_it():
+    """(The name is historical: the chunked sweep was refused until it was
+    ported.)  A grid larger than ``chunk_points`` now streams and returns a
+    ``ChunkedSweepResult`` equal to the reference's; a chunk size the grid
+    fits in is the dense sweep."""
     names, kw = GRIDS["small_shared"]
     model, wls = PORT.pm.SoCPerfModel(), _wls(PORT, names)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 3"):
-        PORT.dse.grid_sweep(model, wls, device="cpu", chunk_points=50, **kw)
-    # a chunk size the grid fits in is the dense sweep
+    res = PORT.dse.grid_sweep(model, wls, device="cpu", chunk_points=50, **kw)
+    ref = REF.dse.grid_sweep(REF.pm.SoCPerfModel(), _wls(REF, names),
+                             chunk_points=50, **kw)
+    assert isinstance(res, PORT.dse.ChunkedSweepResult)
+    assert np.array_equal(res.pareto_indices(), ref.pareto_indices())
+    assert np.array_equal(res.cand_indices, ref.cand_indices)
+    for obj in OBJS:
+        assert np.array_equal(res.topk[obj], ref.topk[obj]), obj
+        assert np.array_equal(res.cand_values[obj], ref.cand_values[obj])
+    assert (res.n_valid, res.n_chunks, res.peak_chunk_bytes) == \
+        (ref.n_valid, ref.n_chunks, ref.peak_chunk_bytes)
     res = PORT.dse.grid_sweep(model, wls, device="cpu",
                               chunk_points=10 ** 6, **kw)
     assert isinstance(res, PORT.dse.SweepResult)

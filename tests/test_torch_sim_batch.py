@@ -12,9 +12,14 @@
 * ``backend="fused"`` (float32; the kernel's plain version on the CPU) vs
   the reference ``"numpy"``: rtol 2e-3 / atol 1e-2, ``swaps`` exact — the
   bar the reference sets for its own fused kernel.
+* ``backend="torch", dtype=torch.float32`` (the role of the reference's
+  float32 scan backend) vs the reference ``"numpy"``: rtol 2e-3 / atol 1e-2,
+  ``swaps`` exact; no telemetry.  The float64 loop's telemetry is held to
+  the reference's recording in ``tests/test_torch_telemetry.py``.
 * knobs that are not ported raise ``NotImplementedError``.
 * the batched latency-percentile reconstruction equals the per-design
-  reference function exactly.
+  reference function exactly (ties, fractional and zero weights, T = 1,
+  designs with no completion), on float64 and float32 histories.
 """
 import numpy as np
 import pytest
@@ -27,8 +32,8 @@ from repro_torch.sim.engine import (latency_percentiles,
                                     weighted_percentiles)
 
 from _torch_port_helpers import (PORT, REF, capacity, chain_flows,
-                                 make_engine, make_platform, make_trace,
-                                 rel_err)
+                                 chip_smoke, make_engine, make_platform,
+                                 make_trace, rel_err)
 
 F64_FIELDS = ("completed", "energy_j", "residual", "dropped",
               "p50_latency_s", "p99_latency_s", "throughput_rps",
@@ -65,7 +70,13 @@ def test_torch_backend_matches_numpy_reference(policy, kind):
         assert rel_err(getattr(r1, f), getattr(r0, f)) <= 1e-12, f
     np.testing.assert_array_equal(r1.swaps, r0.swaps)
     assert r1.offered == r0.offered and r1.backend == "torch"
-    assert r1.telemetry is None
+    # the float64 loop records the reference's telemetry, array for array
+    for ring in ("scalars", "island_rates", "queue_depth", "busy"):
+        np.testing.assert_array_equal(getattr(r1.telemetry, ring).array(),
+                                      getattr(r0.telemetry, ring).array())
+    assert r1.telemetry.scalars.total_appended == \
+        r0.telemetry.scalars.total_appended
+    assert r1.telemetry.events == r0.telemetry.events
     if policy != "open":
         _controller_state_equal(e0.controller, e1.controller)
     for i in range(2):
@@ -140,6 +151,69 @@ def test_fused_backend_matches_torch_backend_of_the_port(policy):
         np.testing.assert_allclose(getattr(r1, f), getattr(r0, f),
                                    rtol=2e-3, atol=1e-2, err_msg=f)
     np.testing.assert_array_equal(r1.swaps, r0.swaps)
+
+
+# ------------------------------------------- float32 "torch" vs "numpy"
+@pytest.mark.parametrize("kind", ["diurnal", "mmpp"])
+@pytest.mark.parametrize("policy", ["open", "guard", "membound", "pid",
+                                    "ewma"])
+def test_float32_torch_matches_numpy_reference(policy, kind):
+    """float32 against the float64 ground truth at the reference scan
+    backend's tolerances: rtol 2e-3 / atol 1e-2, swaps exact."""
+    _, r0 = _run(REF, "numpy", policy, kind)
+    e1, r1 = _run(PORT, "torch", policy, kind, dtype=torch.float32)
+    for f in ("completed", "energy_j", "p99_latency_s", "p50_latency_s",
+              "throughput_rps", "residual", "energy_per_request_j"):
+        np.testing.assert_allclose(getattr(r1, f), getattr(r0, f),
+                                   rtol=2e-3, atol=1e-2, err_msg=f)
+    np.testing.assert_array_equal(r1.swaps, r0.swaps)
+    assert r1.backend == "torch" and r1.telemetry is None
+    assert e1.last_histories[0].dtype == torch.float32
+    assert e1.last_state.energy.dtype == torch.float32
+
+
+@pytest.mark.parametrize("opts", [dict(tech=45, chain=True),
+                                  dict(max_queue=3.0)],
+                         ids=["tech45-chain", "maxq"])
+def test_float32_torch_matches_fused(opts):
+    """The two float32 programs of the port agree (rtol 2e-3 / atol 1e-2,
+    swaps exact)."""
+    _, r0 = _run(PORT, "fused", "pid", "mmpp", **opts)
+    _, r1 = _run(PORT, "torch", "pid", "mmpp", dtype=torch.float32, **opts)
+    for f in ("completed", "energy_j", "p99_latency_s", "residual"):
+        np.testing.assert_allclose(getattr(r1, f), getattr(r0, f),
+                                   rtol=2e-3, atol=1e-2, err_msg=f)
+    np.testing.assert_array_equal(r1.swaps, r0.swaps)
+
+
+def test_closed_loop_score_float32():
+    """``closed_loop_score(dtype=torch.float32)`` ranks the reference's
+    survivors as the reference does."""
+    kw = dict(ks=(1, 2), acc_rates=(0.2, 0.6, 1.0), noc_rates=(0.5, 1.0),
+              tg_rates=(1.0,), positions=((1, 1), (3, 3), (0, 2)), n_tg=4)
+    from repro.configs.vespa_soc import CHSTONE
+    scores = {}
+    for pkg in (REF, PORT):
+        m = pkg.pm.SoCPerfModel()
+        wls = [pkg.pm.AccelWorkload(n, *CHSTONE[n]) for n in ("dfsin", "gsm")]
+        extra = ({"device": "cpu"} if pkg is PORT else {})
+        res = pkg.dse.grid_sweep(m, wls, **kw, **extra)
+        tr = pkg.sim.diurnal_trace(5000.0, 400, 2, dt=1e-3, seed=1)
+        scores[pkg.name] = pkg.dse.closed_loop_score(
+            res, tr, model=m, top=6,
+            **({"dtype": torch.float32, "backend": "torch"}
+               if pkg is PORT else {}), **extra)
+    a, b = scores["repro_torch"], scores["repro"]
+    assert np.array_equal(a.ranked_indices(), b.ranked_indices())
+    np.testing.assert_allclose(a.energy_per_request_j,
+                               b.energy_per_request_j, rtol=2e-3, atol=1e-2)
+    assert a.results[0].telemetry is None
+
+
+def test_bad_dtype_refused():
+    plat = PORT.sim.BatchSimPlatform.stack([make_platform(PORT, 4)])
+    with pytest.raises(ValueError, match="dtype"):
+        PORT.sim.BatchSimEngine(plat, device="cpu", dtype=torch.float16)
 
 
 # ------------------------------------------------------------- refusals
@@ -220,6 +294,119 @@ def test_batched_percentiles_equal_per_design_reference(seed):
     assert np.isnan(float(p50[2]))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("seed,T", [(0, 300), (1, 300), (2, 1), (3, 57),
+                                    (4, 2), (5, 120)])
+def test_batched_percentiles_bit_equal_edge_cases(seed, T, dtype):
+    """Integer and fractional batches (ties in the delays), empty ticks, a
+    design with nothing admitted, T = 1 and 2, design blocks of every
+    size: bit for bit the reference's per-design function."""
+    adm, srv = chip_smoke().percentile_histories(seed, T)
+    a = torch.as_tensor(adm).to(dtype)
+    s_ = torch.as_tensor(srv).to(dtype)
+    ah, sh = a.double().numpy(), s_.double().numpy()
+    want = np.asarray([ref_percentiles(ah[:, b], sh[:, b], 1e-3)
+                       for b in range(adm.shape[1])])
+    assert np.isnan(want[2]).all()                  # the idle design
+    for block in (1, 4, 1 << 24):
+        p50, p99 = latency_percentiles_batch(a, s_, 1e-3,
+                                             max_elems=T * 3 * block)
+        got = np.stack([p50.numpy(), p99.numpy()], axis=-1)
+        assert np.array_equal(got, want, equal_nan=True), block
+
+
+def test_batched_percentiles_order_by_delay_not_position():
+    """Two tiles whose samples interleave in delay: the reference's stable
+    latency sort and the integer-delay sort select the same sample even
+    when a target lands exactly on a cumulative weight."""
+    T = 6
+    adm = np.zeros((T, 1, 2))
+    srv = np.zeros((T, 1, 2))
+    adm[:, 0, 0] = [2.0, 0.0, 2.0, 0.0, 0.0, 0.0]
+    srv[:, 0, 0] = [0.0, 2.0, 0.0, 0.0, 2.0, 0.0]     # delays 1, 2
+    adm[:, 0, 1] = [1.0, 1.0, 0.0, 0.0, 0.0, 0.0]
+    srv[:, 0, 1] = [1.0, 0.0, 0.0, 1.0, 0.0, 0.0]     # delays 0, 2
+    want = ref_percentiles(adm[:, 0], srv[:, 0], 1e-3)
+    p50, p99 = latency_percentiles_batch(torch.as_tensor(adm),
+                                         torch.as_tensor(srv), 1e-3)
+    assert (float(p50[0]), float(p99[0])) == want
+
+
+def _blocked_prefix_sums(x, block=5):
+    """Running sums along the last axis in another order than in turn (in
+    blocks, then the blocks' totals): how a parallel scan on the card
+    rounds."""
+    L = x.shape[-1]
+    pad = (-L) % block
+    xp = torch.nn.functional.pad(x, (0, pad)).reshape(*x.shape[:-1], -1,
+                                                      block)
+    inner = torch.cumsum(xp, dim=-1)
+    carry = torch.cumsum(inner[..., -1], dim=-1)
+    carry = torch.cat([torch.zeros_like(carry[..., :1]), carry[..., :-1]],
+                      dim=-1)
+    return (inner + carry.unsqueeze(-1)).reshape(*x.shape[:-1], -1)[..., :L]
+
+
+def _tenths_histories(seed, T=40, B=16, A=2):
+    """Batches and service capacities in tenths: running sums of such
+    terms round differently in different orders, and targets land on
+    cumulative weights often."""
+    rng = np.random.default_rng(seed)
+    adm = rng.integers(0, 4, size=(T, B, A)) * 0.1
+    adm[:, :3] = np.round(adm[:, :3] * 10.0)                # whole counts
+    cap = rng.integers(1, 6, size=(B, A)) * 0.1
+    cap[:3] = np.round(cap[:3] * 10.0)
+    srv = np.zeros_like(adm)
+    q = np.zeros((B, A))
+    for t in range(T):
+        q = q + adm[t]
+        srv[t] = np.minimum(q, cap)
+        q = q - srv[t]
+    return adm, srv
+
+
+@pytest.mark.parametrize("seed", [0, 2, 3, 4, 6])
+def test_batched_percentiles_exact_when_sums_round_otherwise(monkeypatch,
+                                                             seed):
+    """With running sums that round differently from NumPy's in-order sums
+    (as on the card), every design whose result could move is recomputed
+    by the per-design function, so the output stays bit for bit; designs
+    of whole-number counts never need it.  The same inputs without the
+    bound on the sums' difference give wrong designs, so the check has
+    something to catch."""
+    import repro_torch.sim.engine as eng_mod
+    monkeypatch.setattr(eng_mod, "_prefix_sums", _blocked_prefix_sums)
+    redone = []
+    orig = eng_mod.latency_percentiles
+
+    def counted(a, s_, dt):
+        redone.append(1)
+        return orig(a, s_, dt)
+
+    monkeypatch.setattr(eng_mod, "latency_percentiles", counted)
+    adm, srv = _tenths_histories(seed)
+    B = adm.shape[1]
+    want = np.asarray([ref_percentiles(adm[:, b], srv[:, b], 1e-3)
+                       for b in range(B)])
+
+    def batch():
+        p50, p99 = eng_mod.latency_percentiles_batch(
+            torch.as_tensor(adm), torch.as_tensor(srv), 1e-3)
+        return np.stack([p50.numpy(), p99.numpy()], axis=-1)
+
+    assert np.array_equal(batch(), want, equal_nan=True)
+    assert 0 < len(redone) <= B - 3
+    redone.clear()
+    monkeypatch.setattr(eng_mod, "_sum_error", lambda n: 0.0)
+    monkeypatch.setattr(eng_mod, "latency_percentiles",
+                        lambda a, s_, dt: (np.nan, np.nan))
+    unguarded = batch()
+    wrong = [b for b in range(B)
+             if not np.array_equal(unguarded[b], want[b], equal_nan=True)
+             and not np.isnan(unguarded[b]).all()]
+    assert wrong and min(wrong) >= 3
+
+
 def test_batched_percentiles_on_float32_histories():
     """float32 histories (the fused backend's) are widened exactly."""
     _, r = _run(PORT, "fused", "pid", "diurnal")
@@ -245,3 +432,32 @@ def test_chain_counts_exit_stage_once():
     assert rel_err(r1.completed, r0.completed) <= 1e-12
     assert np.all(r1.completed < e1.last_histories[1].sum(dim=(0, 2))
                   .numpy())
+
+
+# --------------------------------------------------------------- the card
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the batched percentiles are held "
+                    "bit for bit against NumPy there (chip_smoke.py runs "
+                    "this case on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,T", [(0, 300), (1, 300), (2, 1), (3, 57)])
+def test_cuda_percentiles_bit_equal(seed, T, cuda_device):
+    """``latency_percentiles_batch`` on the card against the NumPy
+    per-design function, bit for bit; the case runs in ``chip_smoke.py``
+    (``card_percentiles``)."""
+    chip_smoke().card_case("test_cuda_percentiles_bit_equal", seed, T)
+
+
+@pytest.mark.parametrize("A", [1, 2, 4, 5, 7, 8, 12, 15, 17, 33])
+def test_sum_tiles_adds_in_numpys_order(A):
+    """Per-tile sums of the torch loop come out bit for bit as NumPy's
+    ``sum(axis=-1)`` (whose order torch's own sum leaves from 5 terms up)."""
+    from repro_torch.sim.engine import sum_tiles
+    rng = np.random.default_rng(A)
+    x = rng.uniform(0, 1, (400, A)) * 10.0 ** rng.integers(-8, 8, (400, A))
+    assert np.array_equal(sum_tiles(torch.as_tensor(x)).numpy(), x.sum(-1))
