@@ -51,6 +51,30 @@ main path through its public entry points at the size its users run:
 6. ``main_path_a12`` — 1,024 stacked twelve-tile platforms with a two-stage
                    chain and memory-bound DFS, 5,000 ticks, ``"fused"``; the
                    kernel against its plain version at these shapes.
+   ``closed_loop`` — ``examples/torch_closed_loop.py``'s default scenario
+                   through the sequential ``SimEngine``: the 12-tile
+                   platform, 1,000,000 requests over 8,700 ticks of 5 ms,
+                   fixed-max / membound / PID; the example's gates (>= 10 %
+                   energy per request at matched p99); fixed-max and
+                   membound against the same runs on the CPU (energy,
+                   completed, dropped <= 1e-12; p50, p99, swaps and commits
+                   exact); the fixed-max tick loop under sync-debug "error",
+                   the controlled runs' syncs counted (at most one per
+                   control tick); ticks/s and requests/s of wall time.
+   ``closed_loop_pipeline`` — ``--pipeline``: the chained 3+3 platform,
+                   fixed / DFS-only / LB-only / LB+DFS, the scenario gate;
+                   LB+DFS against the CPU; syncs in the four tick loops at
+                   most the two controlled runs' control ticks.
+   ``closed_loop_dse`` — ``--dse``: ``closed_loop_score`` through
+                   ``controller_factory=`` (one ``SimEngine`` per survivor),
+                   the ranking equal to the CPU run's; the example's six
+                   survivors all score the same, so a wider re-rank (24
+                   survivors, 300 ticks) whose scores differ is held to the
+                   CPU's too.
+   ``closed_loop_b1_fused`` — membound and PID at B = 1 through
+                   ``BatchSimEngine("fused")`` (the tick_sim kernel) against
+                   the sequential float64 runs: energy per request and p99
+                   within rtol 2e-3, swaps printed.
 7. ``serve``     — the dense LLM serving path: ``ServeEngine`` on
                    h2o-danube-1.8b at full width (random bf16 weights from a
                    seed), 4 slots, a 4,096 window, 8 requests of 128-4,608
@@ -1119,6 +1143,356 @@ def verify_main_path_a12(report, ctx):
 
 # ---------------------------------------------------------------------------
 # serve: the dense LLM serving path
+# ---------------------------------------------------------------------------
+# The sequential closed-loop engine: examples/torch_closed_loop.py's
+# scenarios at full size on the card
+# ---------------------------------------------------------------------------
+
+# The sequential float64 engine on the card against the same engine on the
+# CPU: reductions may add in another order there, so not bit for bit.
+SEQ_RTOL = 1e-12                # energy, completed, dropped (relative)
+# the float32 kernel at B = 1 against the float64 sequential engine (ROADMAP
+# ground rules: f32 kernel vs f64 reference)
+B1_FUSED_RTOL = 2e-3
+CLOSED_LOOP_CI = 25             # control interval of the example's runs
+
+
+def closed_loop_example():
+    """``examples/torch_closed_loop.py`` as a module: the platform, trace,
+    controllers and gates a user of the example gets."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", "torch_closed_loop.py")
+    spec = importlib.util.spec_from_file_location("torch_closed_loop", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class SyncCount:
+    """Counts the operations that wait for the card (torch's sync debug
+    mode "warn") over a whole call (``total``) and, apart, inside the tick
+    loops of the ``"torch"`` engines (``BatchSimEngine._ticks``, which the
+    sequential engine runs at B = 1: ``in_ticks``, ``loops``).  With
+    ``strict`` every tick loop runs under mode "error" instead: an
+    operation that waits there raises."""
+
+    def __init__(self, strict: bool = False):
+        self.strict = strict
+
+    @staticmethod
+    def _syncs(records) -> int:
+        return sum("synchroniz" in str(r.message) for r in records)
+
+    def __enter__(self):
+        import warnings
+        from repro_torch.sim.batch import BatchSimEngine
+        self.in_ticks = self.loops = 0
+        self._catch = warnings.catch_warnings(record=True)
+        self.records = self._catch.__enter__()
+        warnings.simplefilter("always")
+        self._prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        self._cls, self._orig = BatchSimEngine, BatchSimEngine._ticks
+        count = self
+
+        def ticks(engine, lp, trace):
+            n0 = len(count.records)
+            if count.strict:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                count._orig(engine, lp, trace)
+            finally:
+                torch.cuda.set_sync_debug_mode("warn")
+            count.in_ticks += count._syncs(count.records[n0:])
+            count.loops += 1
+
+        BatchSimEngine._ticks = ticks
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._ticks = self._orig
+        torch.cuda.set_sync_debug_mode(self._prev)
+        self.total = self._syncs(self.records)
+        self._catch.__exit__(*exc)
+        return False
+
+
+def seq_gap(card, host) -> dict:
+    """The card's sequential run against the CPU's: the largest relative
+    gap of energy / completed / dropped / residual, and whether p50, p99,
+    swaps and the commit events agree exactly."""
+    rel = 0.0
+    for f in ("energy_j", "completed", "dropped", "residual"):
+        a, b = getattr(card, f), getattr(host, f)
+        rel = max(rel, abs(a - b) / max(abs(b), 1e-300))
+    return {"max_rel": rel,
+            "p50_equal": card.p50_latency_s == host.p50_latency_s,
+            "p99_equal": card.p99_latency_s == host.p99_latency_s,
+            "swaps_equal": card.swaps == host.swaps,
+            "events_equal": card.telemetry.events == host.telemetry.events}
+
+
+def seq_gap_ok(gap) -> bool:
+    return gap["max_rel"] <= SEQ_RTOL and all(
+        gap[k] for k in ("p50_equal", "p99_equal", "swaps_equal",
+                         "events_equal"))
+
+
+def seq_report(r, syncs=None) -> dict:
+    out = {"wall_s": r.elapsed_wall_s, "ticks_per_s": r.ticks_per_s_wall,
+           "requests_per_s": r.requests_per_s_wall,
+           "percentiles_ms": r.timings["percentiles"] * 1e3,
+           "energy_per_request_mj": r.energy_per_request_j * 1e3,
+           "p50_ms": r.p50_latency_s * 1e3, "p99_ms": r.p99_latency_s * 1e3,
+           "completed": r.completed, "offered": r.offered,
+           "swaps": r.swaps}
+    if syncs is not None:
+        out.update(syncs_in_ticks=syncs.in_ticks, syncs_per_run=syncs.total)
+    return out
+
+
+def tick_loop_profile(make_run, ticks):
+    """Where a sequential run's time goes: one warm call of ``make_run()``
+    (a ``SimEngine`` run over ``ticks`` ticks) under ``torch.profiler`` —
+    kernels launched per tick, device microseconds per tick — and the same
+    call unprofiled: host wall microseconds per tick of its tick loop and
+    the card's idle share there (1 - device time / loop wall)."""
+    from torch.profiler import ProfilerActivity, profile
+    make_run()
+    sync()
+    loop_s = make_run().elapsed_wall_s
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        make_run()
+        sync()
+    launches, dev_us = 0, 0.0
+    for e in prof.key_averages():
+        d = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if d > 0:
+            launches += e.count
+            dev_us += d
+    return {"ticks": ticks, "kernels_per_tick": launches / ticks,
+            "device_us_per_tick": dev_us / ticks,
+            "loop_wall_us_per_tick": loop_s * 1e6 / ticks,
+            "idle_share": 1.0 - dev_us / (loop_s * 1e6)}
+
+
+def phase_closed_loop():
+    """The example's default scenario on the card: the 12-tile platform, a
+    1,000,000-request diurnal day over 8,700 ticks of 5 ms, fixed-max /
+    membound / PID through ``SimEngine``.  The reference's gates; the
+    fixed-max and membound runs against the same runs on the CPU; the
+    fixed-max tick loop under sync-debug "error"; the controlled runs'
+    syncs counted (at most one per control tick)."""
+    ex = closed_loop_example()
+    from repro_torch.sim import SimConfig, SimEngine
+    plat = ex.build_platform()
+    trace = ex.default_trace(plat, device=DEV)
+    cfg = SimConfig(control_interval=CLOSED_LOOP_CI)
+    control_ticks = trace.ticks // CLOSED_LOOP_CI
+    report = {"phase": "closed_loop", "A": plat.n_tiles, "T": trace.ticks,
+              "dt": trace.dt, "requests": trace.n_requests,
+              "control_ticks": control_ticks}
+    runs = {}
+    for name in ("fixed-max", "dfs-membound", "dfs-pid"):
+        ctl = ex.controllers(plat)[name]
+        with SyncCount(strict=ctl is None) as syncs:
+            r = SimEngine(plat, config=cfg, controller=ctl,
+                          device=DEV).run(trace)
+        runs[name] = r
+        report[name] = seq_report(r, syncs)
+        if syncs.loops != 1 or syncs.in_ticks > (
+                0 if ctl is None else control_ticks):
+            emit(report)
+            raise SystemExit(f"closed_loop[{name}]: {syncs.in_ticks} syncs "
+                             f"in the tick loop")
+    for name in ("fixed-max", "dfs-membound"):
+        t0 = time.perf_counter()
+        host = SimEngine(plat, config=cfg,
+                         controller=ex.controllers(plat)[name],
+                         device="cpu").run(trace)
+        gap = seq_gap(runs[name], host)
+        report[name].update(cpu_wall_s=time.perf_counter() - t0,
+                            cpu_ticks_per_s=host.ticks_per_s_wall,
+                            vs_cpu=gap)
+        if not seq_gap_ok(gap):
+            emit(report)
+            raise SystemExit(f"closed_loop[{name}]: the card disagrees "
+                             f"with the CPU")
+    # the first 500 ticks of the membound and pipeline LB+DFS runs, profiled
+    from repro_torch.sim import Trace
+    short = Trace(trace.arrivals[:500], trace.dt)
+    report["profile_membound_500"] = tick_loop_profile(
+        lambda: SimEngine(plat, config=cfg,
+                          controller=ex.controllers(plat)["dfs-membound"],
+                          device=DEV).run(short), 500)
+    try:
+        report["membound_saving"] = ex.default_gate(runs)
+    except AssertionError as e:
+        emit(report)
+        raise SystemExit(f"closed_loop: the energy gate fails: {e}")
+    base = runs["fixed-max"]
+    report["pid_saving"] = 1.0 - (runs["dfs-pid"].energy_per_request_j
+                                  / base.energy_per_request_j)
+    emit(report)
+    return runs, {"plat": plat, "trace": trace, "cfg": cfg}
+
+
+def phase_closed_loop_pipeline():
+    """The ``--pipeline`` scenario on the card: fixed / DFS-only / LB-only
+    / LB+DFS through ``SimEngine`` on the chained 3+3 platform and a
+    5,000-tick hotspot trace, the scenario gate asserted; LB+DFS against
+    the same run on the CPU."""
+    ex = closed_loop_example()
+    from repro_torch.sim import LoadBalancer, SimConfig, SimEngine
+    plat, tr = ex.pipeline_platform(), ex.hotspot_trace()
+    with SyncCount() as syncs:
+        runs = ex.pipeline_runs(plat, tr, device=DEV)
+    # DFS-only and LB+DFS copy one window per control tick; the balancer
+    # adds none (its layout goes up before the loop)
+    control_ticks = 2 * (tr.ticks // CLOSED_LOOP_CI)
+    report = {"phase": "closed_loop_pipeline", "A": plat.n_tiles,
+              "T": tr.ticks, "requests": tr.n_requests,
+              "syncs_in_ticks": syncs.in_ticks, "loops": syncs.loops,
+              "control_ticks": control_ticks,
+              **{name: seq_report(r) for name, r in runs.items()}}
+    if syncs.loops != len(runs) or syncs.in_ticks > control_ticks:
+        emit(report)
+        raise SystemExit("closed_loop_pipeline: more syncs in the tick "
+                         "loops than control ticks")
+    def lb_dfs(device, trace=tr):
+        return SimEngine(
+            plat, config=SimConfig(control_interval=CLOSED_LOOP_CI),
+            controller=ex.controllers(plat)["dfs-membound"],
+            balancer=LoadBalancer((ex.STAGE0, ex.STAGE1), plat.names),
+            device=device).run(trace)
+
+    from repro_torch.sim import Trace
+    short = Trace(tr.arrivals[:500], tr.dt)
+    report["profile_lb_dfs_500"] = tick_loop_profile(
+        lambda: lb_dfs(DEV, short), 500)
+    t0 = time.perf_counter()
+    host = lb_dfs("cpu")
+    gap = seq_gap(runs["lb+dfs"], host)
+    report["lb+dfs"].update(cpu_wall_s=time.perf_counter() - t0, vs_cpu=gap)
+    if not seq_gap_ok(gap):
+        emit(report)
+        raise SystemExit("closed_loop_pipeline: the card disagrees with "
+                         "the CPU")
+    try:
+        report["saving_vs_dfs_only"], report["saving_vs_lb_only"] = \
+            ex.pipeline_gate(runs)
+    except AssertionError as e:
+        emit(report)
+        raise SystemExit(f"closed_loop_pipeline: the scenario gate fails: "
+                         f"{e!r}")
+    emit(report)
+
+
+DSE_WIDE = dict(top=24, ticks=300)   # survivors whose scores differ
+
+
+def _dse_rerank(ex, model, **kw):
+    """One ``dse_score`` re-rank on the card and the same on the CPU: its
+    report, and whether the card's survivors, ranking and p99 equal the
+    CPU's and its energy per request lies within SEQ_RTOL."""
+    t0 = time.perf_counter()
+    res, card = ex.dse_score(model, device=DEV, **kw)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, host = ex.dse_score(model, device="cpu", **kw)
+    ranked = card.ranked_indices()
+    report = {"points": len(res), "survivors": int(card.indices.shape[0]),
+              "wall_s": wall, "cpu_wall_s": time.perf_counter() - t0,
+              "ticks_per_s": [r.ticks_per_s_wall for r in card.results],
+              "ranked": ranked.tolist(),
+              "distinct_scores": len(set(zip(
+                  card.p99_latency_s.tolist(),
+                  card.energy_per_request_j.tolist()))),
+              "ranked_is_index_order": bool(np.array_equal(
+                  ranked, np.sort(card.indices))),
+              "p99_ms": (card.p99_latency_s * 1e3).tolist(),
+              "energy_per_request_mj": (card.energy_per_request_j
+                                        * 1e3).tolist(),
+              "swaps": [r.swaps for r in card.results],
+              "max_rel_vs_cpu": float(np.max(
+                  np.abs(card.energy_per_request_j
+                         - host.energy_per_request_j)
+                  / host.energy_per_request_j))}
+    same = (np.array_equal(card.indices, host.indices)
+            and np.array_equal(ranked, host.ranked_indices())
+            and np.array_equal(card.p99_latency_s, host.p99_latency_s)
+            and report["max_rel_vs_cpu"] <= SEQ_RTOL)
+    return report, same
+
+
+def phase_closed_loop_dse():
+    """The ``--dse`` re-rank through ``controller_factory=`` (the per-point
+    sequential path, a PID harness per survivor) on the card, its ranking
+    equal to the same call's on the CPU.  The example's six survivors
+    score alike (their ranking is their index order), so the same re-rank
+    over DSE_WIDE, whose survivors score differently, is held to the CPU
+    too, and fails unless its ranking is other than index order."""
+    ex = closed_loop_example()
+    from repro_torch.core.perfmodel import SoCPerfModel
+    model = SoCPerfModel()
+    example, same = _dse_rerank(ex, model)
+    wide, wide_same = _dse_rerank(ex, model, **DSE_WIDE)
+    emit({"phase": "closed_loop_dse", **example,
+          "wide": {**DSE_WIDE, **wide}})
+    if not (same and wide_same):
+        raise SystemExit("closed_loop_dse: the ranking on the card differs "
+                         "from the CPU's")
+    if wide["distinct_scores"] < 2 or wide["ranked_is_index_order"]:
+        raise SystemExit("closed_loop_dse: the wide re-rank's scores do not "
+                         "order its survivors, so its ranking check is "
+                         "empty")
+
+
+def phase_closed_loop_b1_fused(runs, ctx):
+    """The membound and PID scenarios at B = 1 through
+    ``BatchSimEngine("fused")`` (the tick_sim kernel) with the batch
+    policies, against the sequential float64 engine's runs on the card:
+    energy/request and p99 within B1_FUSED_RTOL; swaps printed.  The
+    path's tick_sim launches are counted."""
+    from repro_torch.core.dfs import BatchMemoryBoundPolicy, BatchPIDRatePolicy
+    from repro_torch.kernels.tick_sim import fused_tick_sim
+    from repro_torch.sim import (BatchControllerHarness, BatchSimEngine,
+                                 BatchSimPlatform)
+    bp = BatchSimPlatform.stack([ctx["plat"]])
+    report = {"phase": "closed_loop_b1_fused", "rtol": B1_FUSED_RTOL}
+    policies = {"dfs-membound": BatchMemoryBoundPolicy(threshold=0.55,
+                                                       low_rate=0.5),
+                "dfs-pid": BatchPIDRatePolicy(target=0.7)}
+    fused_tick_sim.launches = 0
+    ok = True
+    for name, pol in policies.items():
+        ctl = BatchControllerHarness(bp.islands, bp.rates, pol,
+                                     tile_names=bp.names,
+                                     queue_guard_ticks=3.0)
+        f = BatchSimEngine(bp, config=ctx["cfg"], controller=ctl,
+                           backend="fused", device=DEV).run(ctx["trace"])
+        seq = runs[name]
+        e_rel = abs(f.energy_per_request_j[0] / seq.energy_per_request_j
+                    - 1.0)
+        p_rel = abs(f.p99_latency_s[0] / seq.p99_latency_s - 1.0)
+        report[name] = {"kernel_ms": f.timings["loop"] * 1e3,
+                        "energy_per_request_rel": e_rel,
+                        "p99_rel": p_rel,
+                        "p99_ms": float(f.p99_latency_s[0]) * 1e3,
+                        "swaps_fused": int(f.swaps[0]),
+                        "swaps_sequential": seq.swaps}
+        ok = ok and e_rel <= B1_FUSED_RTOL and p_rel <= B1_FUSED_RTOL
+    report["tick_sim_launches"] = fused_tick_sim.launches
+    emit(report)
+    if fused_tick_sim.launches < len(policies):
+        raise SystemExit("closed_loop_b1_fused: the path did not launch the "
+                         "tick_sim kernel")
+    if not ok:
+        raise SystemExit("closed_loop_b1_fused: the kernel at B = 1 "
+                         "disagrees with the sequential engine")
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2643,6 +3017,56 @@ def card_telemetry(policy):
     assert telemetry_gap(card, host) <= 1e-12
 
 
+def card_sim_engine(policy):
+    """tests/test_torch_sim_engine.py's card case: the sequential engine on
+    the card (four tiles, an MMPP trace, a wrapped telemetry ring, every
+    policy) against the same run on the CPU (energy, completed, dropped,
+    residual <= SEQ_RTOL; p50, p99, swaps, commit events exact), and the
+    B = 1 batched run on the card against it, bit for bit."""
+    from functools import partial
+    from repro_torch.core.dfs import (BatchMemoryBoundPolicy,
+                                      BatchPIDRatePolicy, PIDRatePolicy,
+                                      policy_memory_bound)
+    from repro_torch.sim import (BatchControllerHarness, BatchSimEngine,
+                                 BatchSimPlatform, ControllerHarness,
+                                 SimConfig, SimEngine)
+    from repro_torch.sim.traffic import mmpp_trace
+    plat = _tick_platform(8)
+    cfg = SimConfig(control_interval=20, telemetry_interval=7,
+                    telemetry_capacity=20)
+    cap = SimEngine(plat, device="cpu").capacity_rps()
+    tr = mmpp_trace(cap * 0.1, cap * 1.3, 400, 4, dt=1e-3, seed=3)
+    scalar = {"membound": lambda: partial(policy_memory_bound,
+                                          threshold=0.55, low_rate=0.5),
+              "pid": lambda: PIDRatePolicy(target=0.7)}
+    batch = {"membound": lambda: BatchMemoryBoundPolicy(threshold=0.55,
+                                                        low_rate=0.5),
+             "pid": lambda: BatchPIDRatePolicy(target=0.7)}
+
+    def run(device):
+        ctl = (None if policy == "open" else ControllerHarness(
+            plat.islands, scalar[policy](), queue_guard_ticks=3.0))
+        eng = SimEngine(plat, config=cfg, controller=ctl, device=device)
+        return eng, eng.run(tr)
+
+    e_card, card = run(DEV)
+    _, host = run("cpu")
+    gap = seq_gap(card, host)
+    assert seq_gap_ok(gap), gap
+    bp = BatchSimPlatform.stack([plat])
+    ctl = (None if policy == "open" else BatchControllerHarness(
+        bp.islands, bp.rates, batch[policy](), tile_names=bp.names,
+        queue_guard_ticks=3.0))
+    b_eng = BatchSimEngine(bp, config=cfg, controller=ctl, device=DEV)
+    bat = b_eng.run(tr)
+    for f in ("energy_j", "completed", "residual", "p50_latency_s",
+              "p99_latency_s"):
+        assert getattr(bat, f)[0] == getattr(card, f), f
+    assert int(bat.swaps[0]) == card.swaps
+    for a, b in zip(b_eng.last_histories, e_card.last_histories):
+        assert torch.equal(a[:, 0], b)
+
+
 # (seed, T): random histories, and T = 1
 CARD_PERCENTILES = ((0, 300), (1, 300), (2, 1), (3, 57))
 
@@ -2726,6 +3150,8 @@ CARD_TESTS = {
         card_telemetry, tuple((p,) for p in CARD_POLICIES)),
     "test_cuda_percentiles_bit_equal": (card_percentiles,
                                         CARD_PERCENTILES),
+    "test_cuda_sequential_engine_matches_cpu": (
+        card_sim_engine, (("open",), ("membound",), ("pid",))),
 }
 
 
@@ -2848,6 +3274,14 @@ def main() -> int:
     # comparisons and timings (their launches are not the main path's)
     main_report = verify_main_path(main_report, main_ctx)
     a12_report = verify_main_path_a12(a12_report, a12_ctx)
+
+    # the sequential engine's paths: examples/torch_closed_loop.py's
+    # scenarios at full size (they run no kernel of their own); the B = 1
+    # fused path counts its tick_sim launches from 0
+    cl_runs, cl_ctx = phase_closed_loop()
+    phase_closed_loop_pipeline()
+    phase_closed_loop_dse()
+    phase_closed_loop_b1_fused(cl_runs, cl_ctx)
 
     # the serving paths, each counted inside drive_serve the same way
     serve_report, serve_rows = phase_serve()

@@ -22,7 +22,8 @@ from repro_torch.core.noc import NocConfig
 from repro_torch.core.perfmodel import AccelWorkload, SoCPerfModel
 from repro_torch.device import DeviceSpec, resolve
 from repro_torch.sim.batch import BatchSimPlatform
-from repro_torch.sim.control import BatchControllerHarness
+from repro_torch.sim.control import BatchControllerHarness, ControllerHarness
+from repro_torch.sim.engine import SimPlatform
 from repro_torch.sim.flows import FlowPattern
 
 
@@ -99,6 +100,29 @@ def platform_from_numpy(d: Mapping) -> BatchSimPlatform:
     return plat
 
 
+def sim_platform_from_numpy(d: Mapping) -> SimPlatform:
+    """One design: ``names``, the island structure and rates (see
+    :func:`islands_from_numpy`), ``base_mbps/wire_share/k/pos_idx/req_mb``
+    ``(A,)``, ``f_tg`` and ``n_tg`` (scalars), ``model`` (see
+    :func:`model_from_numpy`) and optional ``flows``."""
+    def arr(key, dtype=np.float64):
+        return np.array(d[key], dtype=dtype)
+
+    plat = SimPlatform(
+        model=model_from_numpy(d["model"]), islands=islands_from_numpy(d),
+        names=tuple(str(n) for n in d["names"]),
+        base_mbps=arr("base_mbps"), wire_share=arr("wire_share"),
+        k=arr("k"), pos_idx=arr("pos_idx", np.int64), req_mb=arr("req_mb"),
+        n_tg=int(d["n_tg"]), f_tg=float(d["f_tg"]),
+        flows=flows_from_numpy(d.get("flows")))
+    A = len(plat.names)
+    for name in ("base_mbps", "wire_share", "k", "pos_idx", "req_mb"):
+        if getattr(plat, name).shape != (A,):
+            raise ValueError(f"{name} has shape {getattr(plat, name).shape},"
+                             f" expected {(A,)}")
+    return plat
+
+
 def sweep_result_from_numpy(d: Mapping) -> SweepResult:
     """Dense sweep result: ``axes`` (sequence of ``(name, values)``),
     ``shape``, ``workloads`` (sequence of ``(name, base_mbps, ai)``),
@@ -157,6 +181,35 @@ def controller_state_from_numpy(harness: BatchControllerHarness,
         pol._integral, pol._prev_err = opt("integral"), opt("prev_err")
     if hasattr(pol, "_ewma"):
         pol._ewma = opt("ewma")
+    return harness
+
+
+def harness_state_from_numpy(harness: ControllerHarness,
+                             d: Mapping) -> ControllerHarness:
+    """Load one design's carried controller state into the scalar
+    ``harness`` (in place): the actuator's live config ``live`` (the
+    :func:`islands_from_numpy` form, its ``version`` included), ``swaps``,
+    ``history`` (a sequence of ``(version, {island: rate})``, oldest first,
+    kept within the actuator's bound), ``guard_active`` (island names) and
+    the policy's own state — :class:`~repro_torch.core.dfs.PIDRatePolicy`'s
+    ``integral`` / ``prev_err`` (``{island: value}``; absent = none yet)."""
+    live = islands_from_numpy(d["live"])
+    if live.names() != harness.live().names():
+        raise ValueError(f"islands {live.names()} do not match the "
+                         f"harness's {harness.live().names()}")
+    st = harness.actuator._st
+    st.live, st.shadow = live, None
+    st.swaps = int(d["swaps"])
+    st.history.clear()
+    st.history.extend((int(v), {str(k): float(r) for k, r in rates.items()})
+                      for v, rates in d.get("history", ()))
+    harness._guard_active = {str(n) for n in d.get("guard_active", ())}
+    pol = harness.policy
+    if hasattr(pol, "_integral"):
+        pol._integral = {str(k): float(v)
+                         for k, v in (d.get("integral") or {}).items()}
+        pol._prev_err = {str(k): float(v)
+                         for k, v in (d.get("prev_err") or {}).items()}
     return harness
 
 

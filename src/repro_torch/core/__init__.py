@@ -22,7 +22,11 @@ _EXPORTS = {
                      "validate_islands", "resync_boundaries"), "islands"),
     **dict.fromkeys(("TechModel", "tech_axis_coeffs", "dvfs_bounds",
                      "TECH_NODES", "TECH_VARIANTS"), "voltage"),
-    **dict.fromkeys(("BatchMemoryBoundPolicy", "BatchPIDRatePolicy",
+    **dict.fromkeys(("ActuatorState", "DFSActuator", "TileTelemetry",
+                     "policy_memory_bound", "policy_straggler",
+                     "PIDRatePolicy", "policy_energy_per_token",
+                     "policy_energy_per_token_sweep",
+                     "BatchMemoryBoundPolicy", "BatchPIDRatePolicy",
                      "BatchEWMAUtilizationPolicy"), "dfs"),
     **dict.fromkeys(("NocConfig", "NocModel", "Flow", "RoutingTables",
                      "routing_tables", "hops_batch", "stacked_incidence",

@@ -1255,23 +1255,23 @@ def closed_loop_score(result: SweepResult, trace, *,
     variant)`` pair) replays every survivor under the physical ``V^2 f``
     tick-energy model and clamps DFS commits to the node's legal range.
 
-    Not ported yet, accepted for signature parity and refused when set: the
-    per-point sequential path (``controller_factory=`` / ``batch=False``),
-    ``balancer_factory=``, ``fault_schedule=`` / ``slo=``, ``observe=`` and
-    ``devices=`` beyond one device.
+    ``controller_factory`` (platform -> a ``repro_torch.sim.
+    ControllerHarness``) or ``batch=False`` takes the per-point sequential
+    path instead: one ``repro_torch.sim.SimEngine`` per survivor, the scalar
+    policies in the loop (a ``BatchTrace`` gives each survivor its own row).
+    ``balancer_factory`` (platform -> a ``repro_torch.sim.LoadBalancer``)
+    puts a replica-group admission policy in the loop next to the DFS
+    controller, on the sequential path and on ``backend="torch"`` (the
+    ``"fused"`` kernel does not run one and refuses it).
+
+    Not ported yet, accepted for signature parity and refused when set:
+    ``fault_schedule=`` / ``slo=``, ``observe=`` and ``devices=`` beyond
+    one device.
     """
     from repro_torch.sim.batch import BatchSimEngine, BatchSimPlatform
-    from repro_torch.sim.engine import SimConfig
+    from repro_torch.sim.engine import SimConfig, SimEngine, SimPlatform
     from repro_torch.sim.traffic import BatchTrace
 
-    if controller_factory is not None or batch is False:
-        raise NotImplementedError(
-            "the per-point sequential scoring path (controller_factory= / "
-            "batch=False) is not ported yet (ROADMAP queue A item 4)")
-    if balancer_factory is not None:
-        raise NotImplementedError(
-            "load balancer: balancer_factory= not ported yet (ROADMAP "
-            "queue A item 7)")
     device_mod.require_single(devices)
     tech = TechModel.coerce(tech)
     if callable(trace):
@@ -1283,30 +1283,67 @@ def closed_loop_score(result: SweepResult, trace, *,
         ordr = np.argsort(-thr_pf, kind="stable")
         indices = pf[ordr][:top]
     indices = np.asarray(indices, dtype=np.int64)
+
+    if batch is None:
+        batch = controller_factory is None
+    assert not (batch and controller_factory is not None), \
+        "per-point controller_factory requires batch=False"
     if isinstance(trace, BatchTrace):
         # each survivor replays its own tensor row — a silent mismatch
         # would pair survivor j with the wrong workload
         assert trace.n_designs == indices.shape[0], \
             (trace.n_designs, indices.shape[0])
 
-    platform = BatchSimPlatform.from_design_points(
-        model, result, indices, req_mb=req_mb, n_tg=result.n_tg,
-        flows=flows)
-    controller = (batch_controller_factory(platform)
-                  if batch_controller_factory is not None else None)
-    engine = BatchSimEngine(platform, config=sim_config or SimConfig(),
-                            controller=controller, backend=backend,
-                            faults=fault_schedule, slo=slo, observe=observe,
-                            devices=devices, tech=tech, device=device,
-                            dtype=dtype)
-    r = engine.run(trace)
-    order = _rank_scores(r.p99_latency_s, r.energy_per_request_j, p99_sla_s,
-                         drop_rate=None, max_drop_rate=max_drop_rate)
-    return ClosedLoopScore(indices=indices, p99_latency_s=r.p99_latency_s,
-                           energy_per_request_j=r.energy_per_request_j,
-                           throughput_rps=r.throughput_rps,
+    if batch:
+        platform = BatchSimPlatform.from_design_points(
+            model, result, indices, req_mb=req_mb, n_tg=result.n_tg,
+            flows=flows)
+        controller = (batch_controller_factory(platform)
+                      if batch_controller_factory is not None else None)
+        engine = BatchSimEngine(platform, config=sim_config or SimConfig(),
+                                controller=controller,
+                                balancer=(balancer_factory(platform)
+                                          if balancer_factory is not None
+                                          else None),
+                                backend=backend, faults=fault_schedule,
+                                slo=slo, observe=observe, devices=devices,
+                                tech=tech, device=device, dtype=dtype)
+        r = engine.run(trace)
+        p99, ept = r.p99_latency_s, r.energy_per_request_j
+        thr = r.throughput_rps
+        results: List[object] = [r]
+    else:
+        p99 = np.empty(indices.shape[0])
+        ept = np.empty(indices.shape[0])
+        thr = np.empty(indices.shape[0])
+        results = []
+        for j, i in enumerate(indices):
+            dp = result.design_point(int(i))
+            platform = SimPlatform.from_design_point(
+                model, dp, result.workloads, req_mb=req_mb,
+                n_tg=result.n_tg, flows=flows)
+            controller = (controller_factory(platform)
+                          if controller_factory is not None else None)
+            engine = SimEngine(platform, config=sim_config or SimConfig(),
+                               controller=controller,
+                               balancer=(balancer_factory(platform)
+                                         if balancer_factory is not None
+                                         else None),
+                               faults=fault_schedule, slo=slo,
+                               observe=observe, tech=tech, device=device)
+            r = engine.run(trace.design(j) if isinstance(trace, BatchTrace)
+                           else trace)
+            results.append(r)
+            p99[j] = r.p99_latency_s
+            ept[j] = r.energy_per_request_j
+            thr[j] = r.throughput_rps
+
+    order = _rank_scores(p99, ept, p99_sla_s, drop_rate=None,
+                         max_drop_rate=max_drop_rate)
+    return ClosedLoopScore(indices=indices, p99_latency_s=p99,
+                           energy_per_request_j=ept, throughput_rps=thr,
                            order=np.asarray(order, dtype=np.int64),
-                           results=[r], drop_rate=None, counters=None)
+                           results=results, drop_rate=None, counters=None)
 
 
 # ---------------------------------------------------------------------------

@@ -75,6 +75,13 @@ def voltage(f):
     return V_BASE + V_SLOPE * f
 
 
+def _dynamic_coeffs(f_comp, v0, v1):
+    """``P_DYN_W * f * (v0 + v1 f)^2``: the dynamic factor of the physical
+    curve, busy not yet applied."""
+    v = v0 + v1 * f_comp
+    return P_DYN_W * f_comp * v * v
+
+
 def chip_power_coeffs(f_comp, busy, v0, v1, p_scale):
     """Chip power from explicit voltage-curve coefficients:
     ``p_scale * (P_STATIC_W + P_DYN_W * f * (v0 + v1 f)^2 * busy)``.
@@ -82,22 +89,37 @@ def chip_power_coeffs(f_comp, busy, v0, v1, p_scale):
     Operators only, so it broadcasts over numpy arrays and torch tensors
     alike — the form the tech-axis sweep evaluates with per-point
     coefficient arrays."""
-    v = v0 + v1 * f_comp
-    return p_scale * (P_STATIC_W + P_DYN_W * f_comp * v * v * busy)
+    return p_scale * (P_STATIC_W + _dynamic_coeffs(f_comp, v0, v1) * busy)
+
+
+def chip_power_dynamic(f_comp, *, tech: Optional[TechModel] = None):
+    """The busy-independent factor of :func:`chip_power`'s dynamic term,
+    so a tick loop whose rates change only on commits computes it once per
+    commit and finishes each tick with :func:`chip_power_from_dynamic`."""
+    if tech is None:
+        return P_DYN_W * f_comp * voltage(f_comp) ** 2
+    return _dynamic_coeffs(f_comp, tech.v0, tech.v1)
+
+
+def chip_power_from_dynamic(dyn_busy, *, tech: Optional[TechModel] = None):
+    """Chip power from ``chip_power_dynamic(f) * busy``."""
+    if tech is None:
+        return P_STATIC_W + dyn_busy
+    return tech.power_scl * (P_STATIC_W + dyn_busy)
 
 
 def chip_power(f_comp, busy, *, tech: Optional[TechModel] = None):
     """Modeled chip power at normalized rate f and duty cycle busy.
 
     ``tech=None`` (default) is the linear voltage proxy and keeps the
-    reference expression verbatim — the bit-exact parity reference.
-    With a :class:`~repro_torch.core.voltage.TechModel`, power follows the
-    node's physical curve ``power_scl * (P_static + P_dyn f V̂(f)^2)``.
+    reference expression ``P_STATIC_W + P_DYN_W * f * V(f)**2 * busy``
+    (the same products in the same order) — the bit-exact parity
+    reference.  With a :class:`~repro_torch.core.voltage.TechModel`, power
+    follows the node's physical curve
+    ``power_scl * (P_static + P_dyn f V̂(f)^2)``.
     """
-    if tech is None:
-        return P_STATIC_W + P_DYN_W * f_comp * voltage(f_comp) ** 2 * busy
-    return chip_power_coeffs(f_comp, busy, tech.v0, tech.v1,
-                             tech.power_scl)
+    return chip_power_from_dynamic(chip_power_dynamic(f_comp, tech=tech)
+                                   * busy, tech=tech)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@ DFS.
 
 engine.py    — the shared numeric core: SimPlatform (one design in array
                form), TickState/StepConsts/tick_step on tensors, latency
-               percentile reconstruction (per design and batched)
+               percentile reconstruction (per design and batched), and
+               SimEngine/SimResult: one design replayed with the scalar DFS
+               controller and the load balancer in the loop
 batch.py     — B design points co-simulated as ONE tensor program
                ((B, A) state, stacked incidence, vectorized DFS commits);
                backends "torch" (float64 ground truth) and "fused" (the
@@ -12,21 +14,26 @@ flows.py     — FlowPattern: tile-to-tile streams + accelerator chains,
                compiled per design into incidence/hop/forward arrays
 traffic.py   — composable arrival-trace generators (constant, Poisson,
                diurnal, MMPP-bursty, replay); BatchTrace per-design tensors
-control.py   — the vectorized multi-design BatchControllerHarness
+control.py   — ControllerHarness (scalar policies through the dual-buffer
+               DFSActuator), the vectorized multi-design
+               BatchControllerHarness, and the LoadBalancer (admission
+               across replicated tiles, split on the engine's device)
 
 Names are re-exported lazily (imported on first use).
 """
 from repro_torch._lazy import lazy_exports
 
 _EXPORTS = {
-    **dict.fromkeys(("SimConfig", "SimPlatform", "StepConsts", "TickOut",
-                     "TickState", "latency_percentiles",
+    **dict.fromkeys(("SimConfig", "SimEngine", "SimPlatform", "SimResult",
+                     "StepConsts", "TickOut", "TickState",
+                     "latency_percentiles",
                      "latency_percentiles_batch", "percentile_samples",
                      "tick_step", "weighted_percentiles"), "engine"),
     **dict.fromkeys(("BatchSimEngine", "BatchSimPlatform",
                      "BatchSimResult"), "batch"),
     **dict.fromkeys(("BatchControllerHarness", "BatchSample",
-                     "IslandTopology"), "control"),
+                     "ControlAction", "ControllerHarness", "IslandTopology",
+                     "LoadBalancer"), "control"),
     **dict.fromkeys(("CompiledFlows", "FlowPattern", "compile_flows"),
                     "flows"),
     **dict.fromkeys(("BatchTrace", "Trace", "constant_trace",

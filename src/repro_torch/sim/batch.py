@@ -38,14 +38,18 @@ Two backends:
     tensors the kernel's plain version runs instead.
 
 Platform description and controller state stay in NumPy on the host; what
-the tick loop reads becomes tensors once, at engine construction.  Faults,
-SLO semantics, the load balancer and the observer plane are not ported yet
-and are refused.
+the tick loop reads becomes tensors once, at engine construction.  A
+:class:`~repro_torch.sim.control.LoadBalancer` splits arrivals inside the
+``"torch"`` loop (the kernel does not run one).  Faults, SLO semantics and
+the observer plane are not ported yet and are refused.  The sequential
+``sim/engine.py:SimEngine`` is the ``"torch"`` loop at B = 1 with the scalar
+controller harness in it.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import types
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -64,10 +68,11 @@ from repro_torch.kernels.tick_sim import ControlPlan, fused_tick_sim
 from repro_torch.sim.control import BatchControllerHarness
 from repro_torch.sim.engine import (PKT_BYTES, SimConfig, SimPlatform,
                                     StepConsts, TickState,
-                                    latency_percentiles_batch, sum_tiles,
-                                    tick_step)
+                                    latency_percentiles_batch,
+                                    service_terms, sum_tiles, tick_step)
 from repro_torch.sim.flows import FlowPattern, compile_flows
-from repro_torch.sim.telemetry import BatchTelemetry, TelemetrySchema
+from repro_torch.sim.telemetry import (BatchTelemetry, Telemetry,
+                                       TelemetrySchema)
 from repro_torch.sim.traffic import BatchTrace
 
 BACKENDS = ("torch", "fused")
@@ -320,10 +325,9 @@ class TelemetryRings:
         row[:, S + I + A:] = busy
         self.rows += 1
 
-    def to_host(self, events) -> BatchTelemetry:
-        tel = BatchTelemetry(self.schema, self.n_designs,
-                             capacity=self.capacity)
-        host = self.buf.cpu().numpy()
+    def _fill(self, tel, host: np.ndarray, events):
+        """Fill ``tel``'s four rings from the ring slots ``host`` (one copy
+        of the device buffer, the design axis sliced as ``tel`` wants)."""
         cuts = np.cumsum(self.widths)[:-1]
         rings = (tel.scalars, tel.island_rates, tel.queue_depth, tel.busy)
         for ring, part in zip(rings, np.split(host, cuts, axis=-1)):
@@ -331,15 +335,27 @@ class TelemetryRings:
         tel.events = list(events)
         return tel
 
+    def to_host(self, events) -> BatchTelemetry:
+        return self._fill(BatchTelemetry(self.schema, self.n_designs,
+                                         capacity=self.capacity),
+                          self.buf.cpu().numpy(), events)
+
+    def to_telemetry(self, events) -> Telemetry:
+        """The one design's recording (B = 1) as the sequential engine's
+        :class:`Telemetry`."""
+        assert self.n_designs == 1
+        return self._fill(Telemetry(self.schema, capacity=self.capacity),
+                          self.buf[:, 0].cpu().numpy(), events)
+
 
 # ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} not ported yet (ROADMAP queue A item {item})")
+class _Loop(types.SimpleNamespace):
+    """The mutable state of one ``"torch"`` tick loop
+    (:meth:`BatchSimEngine._loop`)."""
 
 
 class BatchSimEngine:
@@ -349,9 +365,11 @@ class BatchSimEngine:
     pass ``device="cpu"``.  ``dtype`` is the ``"torch"`` loop's float type:
     ``torch.float64`` (the ground truth, with telemetry) or
     ``torch.float32``; ``"fused"`` is float32 whatever it says.
-    ``faults`` / ``slo`` / ``balancer`` / ``observe`` are accepted for
-    signature parity with the reference and refused when set; ``devices``
-    accepts ``None`` or ``1``.
+    ``balancer`` (a :class:`~repro_torch.sim.control.LoadBalancer`) splits
+    each tick's arrivals on ``"torch"`` and is refused on ``"fused"``;
+    ``faults`` / ``slo`` / ``observe`` are accepted for signature parity
+    with the reference and refused when set; ``devices`` accepts ``None``
+    or ``1``.
     """
 
     def __init__(self, platform: BatchSimPlatform, *,
@@ -418,9 +436,10 @@ class BatchSimEngine:
 
     # ------------------------------------------------------------ refusals
     def _refuse_unported(self) -> None:
-        """Knobs of the reference surface this slice does not honour.  The
-        four the reference's own fused kernel refuses keep its wording on
-        ``backend="fused"``."""
+        """Knobs of the reference surface the port does not honour yet, and
+        the balancer, which the tick kernel does not run (the reference's
+        own fused kernel refuses all four, and ``backend="fused"`` keeps
+        its wording)."""
         fused = self.backend == "fused"
         if self.faults is not None and self.faults:
             raise NotImplementedError(
@@ -432,11 +451,10 @@ class BatchSimEngine:
                 ("fused backend does not apply SLO semantics; "
                  if fused else "SLO semantics: ")
                 + "slo= not ported yet (ROADMAP queue A item 8)")
-        if self.balancer is not None:
+        if self.balancer is not None and fused:
             raise NotImplementedError(
-                ("fused backend does not run the load balancer; "
-                 if fused else "load balancer: ")
-                + "balancer= not ported yet (ROADMAP queue A item 7)")
+                "fused backend does not run the load balancer; "
+                "use backend='torch'")
         if self.observe is not None and self.observe != "off":
             raise NotImplementedError(
                 ("fused backend records no observer plane; "
@@ -465,6 +483,7 @@ class BatchSimEngine:
                            if np.ndim(self._flow_demand) > 0 else None),
                 "forward": (t(self._forward)
                             if self._forward is not None else None),
+                "ntg": t(float(p.n_tg)),
                 "exit": t(self._compiled_flows.exit_mask),
             }
         return self._dev_cache[dtype]
@@ -475,7 +494,8 @@ class BatchSimEngine:
                    ) -> Dict[str, torch.Tensor]:
         """Service-time terms for a (B, I) float64 rate tensor on the
         engine's device (recomputed only on commits), computed in float64
-        and handed to the tick loop in ``dtype``."""
+        and handed to the tick loop in ``dtype``, completed by
+        :func:`~repro_torch.sim.engine.service_terms` there."""
         p = self.platform
         B, A = p.n_designs, p.n_tiles
         tn = self._tensors(torch.float64)
@@ -484,12 +504,13 @@ class BatchSimEngine:
                  else torch.ones(B, dtype=torch.float64, device=self.device))
         t_comp, t_wire, t_ref = p.model.service_time_terms_batch(
             wire_share=tn["w"], k=tn["k"], f_acc=f_tile,
-            f_noc=f_noc[:, None], f_tg=tn["ftg"], n_tg=p.n_tg,
+            f_noc=f_noc[:, None], f_tg=tn["ftg"], n_tg=tn["ntg"],
             hop_counts=tn["hop"], backend="torch", device=self.device)
         svc = {"t_comp": t_comp.expand(B, A), "t_wire": t_wire.expand(B, A),
                "t_ref": t_ref.expand(B, A), "f_tile": f_tile,
                "f_noc": f_noc}
-        return {k: v.to(dtype) for k, v in svc.items()}
+        return service_terms({k: v.to(dtype) for k, v in svc.items()},
+                             self.step_consts(0.0, dtype))
 
     def _service(self, rates: np.ndarray) -> Dict[str, np.ndarray]:
         """Host NumPy form of :meth:`_service_t` (float64)."""
@@ -569,79 +590,165 @@ class BatchSimEngine:
     # ---------------------------------------------------------------- run
     def run(self, trace) -> BatchSimResult:
         """Replay a shared :class:`Trace` (every design sees the same
-        (T, A) arrivals) or a per-design :class:`BatchTrace` (T, B, A)."""
+        (T, A) arrivals) or a per-design :class:`BatchTrace` (T, B, A).
+        The knobs are checked again here, since a caller may set them after
+        construction."""
+        self._refuse_unported()
         if self.backend == "fused":
             return self._run_fused(trace)
         return self._run_torch(trace)
 
     def _run_torch(self, trace) -> BatchSimResult:
+        p = self.platform
+        B = p.n_designs
+        ctl = self.controller
+        control = None
+        if ctl is not None:
+            assert ctl.n_designs == B
+            ctl.begin_run()
+            rates = ctl.live_rates()
+            swaps0 = ctl.swaps.copy()
+
+            def control(t_i, window):
+                busy, bound, pin, pout, rtt, qticks = window
+                new_rates = ctl.step(
+                    tick=t_i, busy=busy, boundness=bound, pkts_in=pin,
+                    pkts_out=pout, rtt=rtt, queue_ticks=qticks)
+                if new_rates is None:
+                    return None
+                return new_rates, {
+                    "tick": int(t_i), "kind": "dfs_commit",
+                    "designs": np.nonzero(ctl.last_committed)[0].tolist()}
+        else:
+            rates = p.rates
+        run = self._loop(trace, rates, control)
+        telemetry = None
+        if run.rings is not None:
+            t0 = time.perf_counter()
+            telemetry = run.rings.to_host(run.events)
+            run.timings["copies"] += time.perf_counter() - t0
+        return self._result(
+            trace, run.admitted, run.served, dropped=run.state.dropped,
+            residual=sum_tiles(run.state.queue), energy=run.state.energy,
+            swaps=(ctl.swaps - swaps0 if ctl is not None
+                   else np.zeros(B, dtype=np.int64)),
+            backend="torch", timings=run.timings, telemetry=telemetry)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host float64 array -> a new tensor on the engine's device,
+        without waiting for the card (pinned memory, asynchronous copy)."""
+        t = torch.from_numpy(np.array(a, dtype=np.float64))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _capacity_t(self, svc: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(B, A) uncontended capacity (requests/s) on the device, the
+        expression of :meth:`capacity_rps`."""
+        tn = self._tensors(svc["t_comp"].dtype)
+        thr = tn["base"] * svc["t_ref"] / (svc["t_comp"] + svc["t_wire"])
+        return thr / tn["req"]
+
+    def _loop(self, trace, rates0: np.ndarray, control=None) -> "_Loop":
+        """The ``"torch"`` tick loop of ``trace`` from the (B, I) island
+        rates ``rates0``; the sequential engine runs it at B = 1.
+
+        ``control(tick, window)``, on every control tick, gets the window
+        (busy, boundness, pkts_in, pkts_out, rtt, queue_ticks) as a
+        ``(6, B, A)`` float64 host array — the loop's one copy to the host
+        — and returns ``None`` or ``(new (B, I) rates, telemetry event)``.
+        """
         p, cfg = self.platform, self.config
         B, A, T, dt = p.n_designs, p.n_tiles, trace.ticks, trace.dt
         dev, f64, dtype = self.device, torch.float64, self.dtype
         self._check_trace(trace)
-        timings = {"copies": 0.0}
+        assert A > 0, "a platform needs at least one tile"
+        lp = _Loop(timings={"copies": 0.0}, control=control, ctl_ticks=0,
+                   win_ticks=0)
         t0 = time.perf_counter()
-        arrivals = self._arrivals_t(trace, dtype)
+        lp.arrivals = self._arrivals_t(trace, dtype)
+        lp.rates_t = self._upload(rates0)
+        lp.svc = self._service_t(lp.rates_t, dtype)
+        if self.balancer is not None:   # its group layout, before the loop
+            self.balancer.layout(dev, dtype)
         self._sync()
-        timings["copies"] += time.perf_counter() - t0
+        lp.timings["copies"] += time.perf_counter() - t0
 
-        ctl = self.controller
-        if ctl is not None:
-            assert ctl.n_designs == B
-            ctl.begin_run()
-            rates_np = ctl.live_rates()
-            swaps0 = ctl.swaps.copy()
-        else:
-            rates_np = p.rates
-        rates_t = torch.as_tensor(rates_np, dtype=f64, device=dev)
-        svc = self._service_t(rates_t, dtype)
-
-        st = TickState.zeros((B, A), device=dev, dtype=dtype)
-        consts = self.step_consts(dt, dtype)
-        carry = (torch.zeros((B, A), dtype=dtype, device=dev)
-                 if consts.forward is not None else None)
-        admitted_hist = torch.zeros((T, B, A), dtype=dtype, device=dev)
-        served_hist = torch.zeros((T, B, A), dtype=dtype, device=dev)
-        ctl_busy = torch.zeros((B, A), dtype=dtype, device=dev)
-        ctl_ticks = 0
-        tcr = self._tensors(dtype)["tcr"]
+        lp.state = TickState.zeros((B, A), device=dev, dtype=dtype)
+        lp.consts = self.step_consts(dt, dtype)
+        lp.carry = (torch.zeros((B, A), dtype=dtype, device=dev)
+                    if lp.consts.forward is not None else None)
+        # the balancer splits on last tick's capacity (initially the
+        # uncontended capacity of the starting rates)
+        lp.prev_cap = (self._capacity_t(lp.svc) * dt
+                       if self.balancer is not None else None)
+        lp.admitted = torch.zeros((T, B, A), dtype=dtype, device=dev)
+        lp.served = torch.zeros((T, B, A), dtype=dtype, device=dev)
+        lp.ctl_busy = torch.zeros((B, A), dtype=dtype, device=dev)
+        lp.tcr = self._tensors(dtype)["tcr"]
         # telemetry: the float64 loop records, like the reference's NumPy
-        # engine; the float32 one does not, like its float32 scan
-        rings = events = None
+        # engines; the float32 one does not, like its float32 scan
+        lp.rings = lp.events = None
         ti = cfg.telemetry_interval
         if dtype == f64:
-            rings = TelemetryRings(
+            lp.rings = TelemetryRings(
                 TelemetrySchema(islands=p.islands.names(), tiles=p.names),
                 B, capacity=cfg.telemetry_capacity,
                 n_rows=T // ti if ti else 0, device=dev)
-            events = []
-            win_busy = torch.zeros((B, A), dtype=f64, device=dev)
-            win_served = torch.zeros(B, dtype=f64, device=dev)
-            win_ticks = 0
+            lp.events = []
+            lp.win_busy = torch.zeros((B, A), dtype=f64, device=dev)
 
         self._sync()
         wall0 = time.perf_counter()
-        for t_i in range(T):
-            arr = arrivals[t_i]
-            if carry is not None:
-                arr = arr + carry
-            out = tick_step(st, arr, svc, consts)
-            if carry is not None:
-                carry = out.forwarded
-            admitted_hist[t_i] = out.admitted
-            served_hist[t_i] = out.served
-            ctl_busy += st.busy
-            ctl_ticks += 1
+        self._ticks(lp, trace)
+        self._sync()
+        lp.timings["loop"] = time.perf_counter() - wall0
+        self.last_state = lp.state
+        self.last_histories = (lp.admitted, lp.served)
+        return lp
 
-            if rings is not None and ti:
-                win_busy += st.busy
-                win_served += sum_tiles(out.served)
-                win_ticks += 1
+    def _ticks(self, lp: "_Loop", trace) -> None:
+        """Every tick of the run, from the first to the last: on the card,
+        no value goes to the host here except the control window."""
+        cfg, dt = self.config, trace.dt
+        B, A = self.platform.n_designs, self.platform.n_tiles
+        dev, f64, dtype = self.device, torch.float64, self.dtype
+        st, consts, lb = lp.state, lp.consts, self.balancer
+        ti, ci = cfg.telemetry_interval, cfg.control_interval
+        for t_i in range(trace.ticks):
+            arr = lp.arrivals[t_i]
+            if lp.carry is not None:
+                arr = arr + lp.carry
+            if lb is not None:
+                arr = lb.split(arr, st.queue, lp.prev_cap)
+            out = tick_step(st, arr, lp.svc, consts)
+            if lp.carry is not None:
+                lp.carry = out.forwarded
+            if lb is not None:
+                lp.prev_cap = out.cap_tick
+            lp.admitted[t_i] = out.admitted
+            lp.served[t_i] = out.served
+            if lp.control is not None:
+                lp.ctl_busy += st.busy
+                lp.ctl_ticks += 1
+
+            if lp.rings is not None and ti:
+                lp.win_busy += st.busy
+                lp.win_ticks += 1
                 if (t_i + 1) % ti == 0:
-                    rings.record(
-                        tick=t_i, f_noc=svc["f_noc"], island_rates=rates_t,
-                        queue_depth=st.queue, busy=win_busy / win_ticks,
-                        throughput_rps=win_served / (win_ticks * dt),
+                    # the window's served totals added tick by tick from
+                    # zero, as the reference accumulates them, taken from
+                    # the history in one pass over the tiles
+                    totals = sum_tiles(
+                        lp.served[t_i + 1 - lp.win_ticks:t_i + 1]).unbind(0)
+                    win_served = 0.0 + totals[0]
+                    for x in totals[1:]:
+                        win_served = win_served + x
+                    lp.rings.record(
+                        tick=t_i, f_noc=lp.svc["f_noc"],
+                        island_rates=lp.rates_t, queue_depth=st.queue,
+                        busy=lp.win_busy / lp.win_ticks,
+                        throughput_rps=win_served / (lp.win_ticks * dt),
                         power_w=out.tile_power + out.noc_power,
                         link_util_max=torch.clamp(out.rho.amax(dim=-1),
                                                   min=0.0),
@@ -649,66 +756,38 @@ class BatchSimEngine:
                         latency_est_s=(sum_tiles(st.queue) / torch.clamp(
                             sum_tiles(out.cap_tick / dt), min=1e-9)),
                         dropped=st.dropped)
-                    win_busy = torch.zeros((B, A), dtype=f64, device=dev)
-                    win_served = torch.zeros(B, dtype=f64, device=dev)
-                    win_ticks = 0
+                    lp.win_busy = torch.zeros((B, A), dtype=f64, device=dev)
+                    lp.win_ticks = 0
 
-            if (ctl is not None and cfg.control_interval
-                    and (t_i + 1) % cfg.control_interval == 0):
+            if lp.control is not None and ci and (t_i + 1) % ci == 0:
                 # the harness lives on the host: one window's counters
                 # down, the committed rates (if any) back up
-                t_wire_now = svc["t_wire"] * out.dyn
+                t_wire_now = lp.svc["t_wire"] * out.dyn
                 window = torch.stack([
-                    ctl_busy / max(ctl_ticks, 1),
-                    t_wire_now / (tcr + t_wire_now),
+                    lp.ctl_busy / max(lp.ctl_ticks, 1),
+                    t_wire_now / (lp.tcr + t_wire_now),
                     st.pkts_in, st.pkts_out, st.rtt_acc,
                     st.queue / torch.clamp(out.cap_tick, min=1e-12)]
-                ).to(f64).cpu()
-                busy_w, bound_w, pin, pout, rtt, qticks = window.numpy()
-                new_rates = ctl.step(
-                    tick=t_i, busy=busy_w, boundness=bound_w, pkts_in=pin,
-                    pkts_out=pout, rtt=rtt, queue_ticks=qticks)
-                ctl_busy = torch.zeros((B, A), dtype=dtype, device=dev)
-                ctl_ticks = 0
-                if new_rates is not None:
-                    rates_t = torch.as_tensor(new_rates, dtype=f64,
-                                              device=dev)
-                    svc = self._service_t(rates_t, dtype)
-                    if events is not None:
-                        events.append({
-                            "tick": int(t_i), "kind": "dfs_commit",
-                            "designs": np.nonzero(
-                                ctl.last_committed)[0].tolist()})
-        self._sync()
-        timings["loop"] = time.perf_counter() - wall0
+                ).to(f64).cpu().numpy()
+                commit = lp.control(t_i, window)
+                lp.ctl_busy = torch.zeros((B, A), dtype=dtype, device=dev)
+                lp.ctl_ticks = 0
+                if commit is not None:
+                    new_rates, event = commit
+                    lp.rates_t = self._upload(new_rates)
+                    lp.svc = self._service_t(lp.rates_t, dtype)
+                    if lp.events is not None:
+                        lp.events.append(event)
 
-        telemetry = None
-        if rings is not None:
-            t0 = time.perf_counter()
-            telemetry = rings.to_host(events)
-            timings["copies"] += time.perf_counter() - t0
-        self.last_state = st
-        self.last_histories = (admitted_hist, served_hist)
-        return self._result(
-            trace, admitted_hist, served_hist,
-            dropped=st.dropped, residual=sum_tiles(st.queue),
-            energy=st.energy,
-            swaps=(ctl.swaps - swaps0 if ctl is not None
-                   else np.zeros(B, dtype=np.int64)),
-            backend="torch", timings=timings, telemetry=telemetry)
-
-    def _result(self, trace, admitted_hist, served_hist, *, dropped,
-                residual, energy, swaps, backend, timings, telemetry=None
-                ) -> BatchSimResult:
-        """Assemble the per-design result on the host.  ``dropped`` /
-        ``residual`` / ``energy`` are (B,) tensors on the engine's device;
-        latency percentiles are reconstructed there for all designs at
-        once."""
-        B, T, dt = self.platform.n_designs, trace.ticks, trace.dt
+    def _host_summary(self, trace, admitted_hist, served_hist, *, dropped,
+                      residual, energy, timings) -> Tuple[np.ndarray, ...]:
+        """``(completed, dropped, residual, energy, p50, p99)`` of every
+        design as (B,) host arrays: the latency percentiles reconstructed
+        on the engine's device, then one copy."""
         self._sync()
         t0 = time.perf_counter()
         p50_t, p99_t = latency_percentiles_batch(admitted_hist, served_hist,
-                                                 dt)
+                                                 trace.dt)
         self._sync()
         timings["percentiles"] = time.perf_counter() - t0
 
@@ -718,8 +797,19 @@ class BatchSimEngine:
             residual.to(torch.float64), energy.to(torch.float64),
             p50_t, p99_t]).cpu().numpy()
         timings["copies"] += time.perf_counter() - t0
-        completed, dropped, residual, energy, p50, p99 = (
-            np.ascontiguousarray(r) for r in small)
+        return tuple(np.ascontiguousarray(r) for r in small)
+
+    def _result(self, trace, admitted_hist, served_hist, *, dropped,
+                residual, energy, swaps, backend, timings, telemetry=None
+                ) -> BatchSimResult:
+        """Assemble the per-design result on the host.  ``dropped`` /
+        ``residual`` / ``energy`` are (B,) tensors on the engine's device;
+        latency percentiles are reconstructed there for all designs at
+        once."""
+        B, T, dt = self.platform.n_designs, trace.ticks, trace.dt
+        completed, dropped, residual, energy, p50, p99 = self._host_summary(
+            trace, admitted_hist, served_hist, dropped=dropped,
+            residual=residual, energy=energy, timings=timings)
 
         sim_seconds = T * dt
         zB = np.zeros(B)

@@ -28,11 +28,15 @@ the device that holds the histories, bit for bit (an integer-delay sort in
 place of the float64 latency sort; a design whose result could depend on
 the order of its float sums goes to the per-design function).
 
-The sequential ``SimEngine`` and the fault/SLO hooks of ``tick_step`` are
-not part of this slice.
+:class:`SimEngine` replays a trace through ONE design with the scalar DFS
+controller harness (and optionally a load balancer) in the loop; it runs the
+batched engine's ``"torch"`` loop at B = 1.  The fault/SLO hooks of
+``tick_step`` are not ported yet (ROADMAP queue A item 8).
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -43,10 +47,13 @@ from repro_torch.core.islands import (IslandConfig, IslandSpec, NOC_LADDER,
                                       TILE_LADDER)
 from repro_torch.core.noc import pos_index
 from repro_torch.core.perfmodel import (AccelWorkload, NOC_POWER_SHARE,
-                                        SoCPerfModel, chip_power)
+                                        SoCPerfModel, chip_power,
+                                        chip_power_dynamic,
+                                        chip_power_from_dynamic)
 from repro_torch.core.voltage import TechModel
 from repro_torch.sim.flows import FlowPattern
-from repro_torch.sim.telemetry import weighted_percentiles  # noqa: F401
+from repro_torch.sim.telemetry import (Telemetry,  # noqa: F401
+                                       weighted_percentiles)
 
 PKT_BYTES = 512.0        # bytes per monitored packet (the C3 counters' unit)
 
@@ -249,15 +256,18 @@ def sum_tiles(x: torch.Tensor) -> torch.Tensor:
     n = len(cols)
     assert n <= 128, n
     if n < 8:
-        r, i = [cols[0]], 1
+        acc, i = cols[0], 1
     else:
-        r = list(cols[:8])
+        # the eight partial sums as one (..., 8) tensor, then their tree
+        # a level at a time: the same additions, three launches
+        r = x[..., :8]
         i = 8
         while i < n - n % 8:
-            r = [r[j] + cols[i + j] for j in range(8)]
+            r = r + x[..., i:i + 8]
             i += 8
-        r = [((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))]
-    acc = r[0]
+        r = r[..., 0::2] + r[..., 1::2]
+        r = r[..., 0::2] + r[..., 1::2]
+        acc = r[..., 0] + r[..., 1]
     for c in cols[i:]:
         acc = acc + c
     return acc
@@ -271,15 +281,35 @@ def contention_slowdown(rho: torch.Tensor, max_slowdown: float
     return torch.clamp(1.0 + r / (2.0 * (1.0 - r)), max=max_slowdown)
 
 
+def service_terms(svc: Dict[str, torch.Tensor], c: StepConsts
+                  ) -> Dict[str, torch.Tensor]:
+    """Complete the service terms of one island-rate set for
+    :func:`tick_step`: ``t_comp`` / ``t_wire`` / ``t_ref`` and the tile rates
+    ``f_tile`` (``(..., A)``) and ``f_noc`` (``(...)``) in; out, beside
+    them, the factors of the tick's expressions that depend on the rates
+    alone, each formed as the reference forms it inside its expression —
+    ``cap_num`` (``base_mbps * t_ref``), ``link_cap`` (``link_bw * f_noc``),
+    ``p_dyn`` (the tiles' busy-independent power factor) and ``noc_power``
+    (the NoC+MEM island's power)."""
+    out = dict(svc)
+    out["cap_num"] = c.base_mbps * svc["t_ref"]
+    out["link_cap"] = c.link_bw * svc["f_noc"].unsqueeze(-1)
+    out["p_dyn"] = chip_power_dynamic(svc["f_tile"], tech=c.tech)
+    out["noc_power"] = c.noc_power_share * chip_power(svc["f_noc"], 1.0,
+                                                      tech=c.tech)
+    return out
+
+
 def tick_step(st: TickState, arr_t: torch.Tensor,
               svc: Dict[str, torch.Tensor], c: StepConsts) -> TickOut:
     """Advance the fluid queues by one tick (mutates ``st`` in place).
 
-    ``svc`` is the cached service-term dict (``t_comp``/``t_wire``/``t_ref``
-    and ``f_tile`` shaped ``(..., A)``, ``f_noc`` ``(...)``) — recomputed by
-    the caller only when a DFS commit changes island rates.  The
-    expressions and their order are those of the reference ``tick_step``
-    (fault-free branch); reductions run over the trailing axes.
+    ``svc`` is the service-term dict of the live island rates, recomputed
+    by the caller only when a DFS commit changes them
+    (:func:`service_terms`).  The expressions and their order are those of
+    the reference ``tick_step`` (fault-free branch), with the factors that
+    depend on the rates alone taken from ``svc``; reductions run over the
+    trailing axes.
     """
     q = st.queue + arr_t
     adm = arr_t
@@ -288,20 +318,17 @@ def tick_step(st: TickState, arr_t: torch.Tensor,
         q = q - over
         adm = adm - over
         st.dropped += sum_tiles(over)
-    f_noc = svc["f_noc"]
     if c.dynamic_contention:
         # live tile streams onto links: one contraction + masked max; link
         # capacity is f_noc-scaled like the static kernel's saturation term
         loads = ((c.own_demand * st.busy).unsqueeze(-1) * c.inc).sum(dim=-2)
-        rho = ((c.inc * loads.unsqueeze(-2)).amax(dim=-1)
-               / (c.link_bw * f_noc.unsqueeze(-1)))
+        rho = (c.inc * loads.unsqueeze(-2)).amax(dim=-1) / svc["link_cap"]
         dyn = contention_slowdown(rho, c.max_slow)
     else:
         loads = None
         rho = torch.zeros_like(q)
         dyn = torch.ones_like(q)
-    cap_tick = (c.base_mbps * svc["t_ref"]
-                / (svc["t_comp"] + svc["t_wire"] * dyn)
+    cap_tick = (svc["cap_num"] / (svc["t_comp"] + svc["t_wire"] * dyn)
                 / c.req_mb) * c.dt
     served = torch.minimum(q, cap_tick)
     st.queue = q - served
@@ -312,15 +339,15 @@ def tick_step(st: TickState, arr_t: torch.Tensor,
     st.pkts_out += served * c.req_mb * 1e6 / PKT_BYTES
     st.rtt_acc += c.hop_counts * dyn * c.hop_latency
 
-    tile_power = sum_tiles(chip_power(svc["f_tile"], st.busy, tech=c.tech))
-    noc_power = c.noc_power_share * chip_power(f_noc, 1.0, tech=c.tech)
-    st.energy += (tile_power + noc_power) * c.dt
+    tile_power = sum_tiles(chip_power_from_dynamic(svc["p_dyn"] * st.busy,
+                                                   tech=c.tech))
+    st.energy += (tile_power + svc["noc_power"]) * c.dt
     # chain coupling: a share of each stage's completions becomes next
     # tick's arrivals at the following stage
     forwarded = ((served.unsqueeze(-1) * c.forward).sum(dim=-2)
                  if c.forward is not None else None)
     return TickOut(admitted=adm, served=served, cap_tick=cap_tick, rho=rho,
-                   dyn=dyn, tile_power=tile_power, noc_power=noc_power,
+                   dyn=dyn, tile_power=tile_power, noc_power=svc["noc_power"],
                    forwarded=forwarded, link_loads=loads)
 
 
@@ -498,10 +525,221 @@ latency_percentiles_batch.last_redone = 0
 class SimConfig:
     control_interval: int = 50          # ticks between controller samples
     telemetry_interval: int = 20        # ticks between telemetry rows
-                                        # (telemetry rings are not ported;
-                                        # kept so configs carry over)
     telemetry_capacity: int = 4096      # ring-buffer rows kept
     dynamic_contention: bool = True     # live NoC queueing on the wire term
     max_queue: float = float("inf")     # requests/tile before drops
     noc_power_share: float = NOC_POWER_SHARE   # the one shared energy model
                                         # constant (core/perfmodel.py)
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+
+def _not_ported(what: str, knob: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: {knob}= not ported yet (ROADMAP queue A item {item})")
+
+
+@dataclass
+class SimResult:
+    ticks: int
+    dt: float
+    offered: float                      # external requests from the trace
+    completed: float                    # requests served; under a chained
+                                        # FlowPattern only EXIT-stage
+                                        # services count (each external
+                                        # request completes once, not once
+                                        # per stage)
+    dropped: float                      # admission drops (max_queue)
+    residual: float                     # still queued when the trace ended
+    throughput_rps: float               # completed / simulated seconds
+    p50_latency_s: float
+    p99_latency_s: float
+    energy_j: float
+    energy_per_request_j: float
+    mean_power_w: float
+    swaps: int                          # actuator commits during the run
+    elapsed_wall_s: float               # the tick loop, device synchronised
+    telemetry: Telemetry
+    dropped_slo: float = 0.0            # fault/SLO ledgers of the
+    dropped_fault: float = 0.0          # reference, zero until queue A
+    retried: float = 0.0                # item 8 is ported
+    # where the wall time of run() went, seconds (host clock, device
+    # synchronised at each boundary): "loop", "percentiles", "copies"
+    timings: Optional[Dict[str, float]] = None
+
+    @property
+    def ticks_per_s_wall(self) -> float:
+        return self.ticks / self.elapsed_wall_s if self.elapsed_wall_s else 0.0
+
+    @property
+    def requests_per_s_wall(self) -> float:
+        return (self.completed / self.elapsed_wall_s
+                if self.elapsed_wall_s else 0.0)
+
+    @property
+    def dropped_total(self) -> float:
+        """All explicit drops: admission + SLO deadline + fault-stranded."""
+        return self.dropped + self.dropped_slo + self.dropped_fault
+
+    @property
+    def drop_rate(self) -> float:
+        """Fraction of offered requests explicitly dropped."""
+        return self.dropped_total / self.offered if self.offered > 0 else 0.0
+
+    def summary(self) -> str:
+        s = (f"{self.ticks} ticks ({self.ticks * self.dt:.1f}s sim, "
+             f"{self.elapsed_wall_s:.2f}s wall, "
+             f"{self.requests_per_s_wall:,.0f} req/s wall): "
+             f"completed {self.completed:,.0f}/{self.offered:,.0f} "
+             f"({self.throughput_rps:,.0f} rps), "
+             f"p50 {self.p50_latency_s * 1e3:.2f}ms "
+             f"p99 {self.p99_latency_s * 1e3:.2f}ms, "
+             f"{self.energy_per_request_j * 1e3:.3f} mJ/req, "
+             f"{self.swaps} DFS swaps")
+        if self.dropped_total > 0:
+            s += (f", dropped {self.dropped_total:,.0f} "
+                  f"({self.drop_rate:.2%})")
+        return s
+
+
+class SimEngine:
+    """Ticks a :class:`SimPlatform` through a trace, controller in loop.
+
+    The ``"torch"`` tick loop of ``sim/batch.py`` at B = 1 — the same
+    tensors, expressions and order, so a one-design
+    :class:`~repro_torch.sim.batch.BatchSimEngine` run equals this one bit
+    for bit — with the scalar
+    :class:`~repro_torch.sim.control.ControllerHarness` (DFS actuator,
+    ``core/dfs.py`` policies) stepping on the host every
+    ``control_interval`` ticks and an optional
+    :class:`~repro_torch.sim.control.LoadBalancer` splitting arrivals on
+    the device.  On the card nothing goes to the host inside the tick loop
+    but each control tick's counter window (one copy); telemetry rows are
+    written into device rings and copied once at the end; a commit sends
+    its island rates up without waiting for the card and recomputes the
+    service terms there.
+
+    ``device=None`` means the CUDA card (and raises without one); the tests
+    pass ``device="cpu"``.  ``faults`` / ``slo`` / ``supervisor`` /
+    ``observe`` are refused until ROADMAP queue A items 8 and 9 land.
+    """
+
+    def __init__(self, platform: SimPlatform, *,
+                 config: SimConfig = SimConfig(), controller=None,
+                 balancer=None, faults=None, slo=None, supervisor=None,
+                 observe=None, tech=None, device=None):
+        from repro_torch import device as device_mod
+        from repro_torch.sim.batch import BatchSimEngine, BatchSimPlatform
+        if faults is not None and faults:
+            raise _not_ported("fault schedules", "faults", "8")
+        if slo is not None:
+            raise _not_ported("SLO semantics", "slo", "8")
+        if supervisor is not None:
+            raise _not_ported("online fault detection", "supervisor", "8")
+        if observe is not None and observe != "off":
+            raise _not_ported("observer plane", "observe", "9")
+        self.platform = platform
+        self.config = config
+        self.controller = controller    # a control.ControllerHarness or None
+        self.device = device_mod.resolve(device)
+        # physical DVFS model (core/voltage.py): tick energy becomes
+        # power_scl * (P_static + P_dyn f V̂(f)^2) and DFS commits are
+        # clamped to the node's legal [L, U] ratio range; None keeps the
+        # linear voltage proxy bit for bit
+        self.tech = TechModel.coerce(tech)
+        if self.tech is not None and controller is not None \
+                and getattr(controller, "tech", None) is None:
+            # single clamping source: the engine's tech model governs the
+            # harness unless the harness was built with its own
+            controller.tech = self.tech
+        self.balancer = balancer        # a control.LoadBalancer or None
+        self.last_state: Optional[TickState] = None          # set by run()
+        self.last_histories = None      # (admitted, served) (T, A) tensors
+        self._batch = BatchSimEngine(
+            BatchSimPlatform.stack([platform]), config=config,
+            balancer=balancer, tech=self.tech, device=self.device)
+        # the platform's compiled flows, as the reference engine keeps them
+        self._forward = self._batch._forward
+
+    # ------------------------------------------------------------ service
+    @staticmethod
+    def _rates(cfg: IslandConfig) -> np.ndarray:
+        """``(1, I)`` per-island rates of one config — the wrapped B = 1
+        engine's rate row."""
+        return np.asarray([[i.rate for i in cfg.islands]])
+
+    def capacity_rps(self, cfg: Optional[IslandConfig] = None) -> np.ndarray:
+        """Uncontended per-tile service capacity (requests/s) — exactly
+        ``accel_throughput_batch / req_mb`` for the given config (host
+        NumPy, float64)."""
+        return self._batch.capacity_rps(
+            self._rates(cfg or self.platform.islands))[0]
+
+    def step_consts(self, dt: float) -> StepConsts:
+        """The :func:`tick_step` constants of this platform + config for a
+        trace with tick length ``dt`` seconds (``(1, A)`` tensors on the
+        engine's device)."""
+        self._batch.config = self.config
+        return self._batch.step_consts(dt)
+
+    # ---------------------------------------------------------------- run
+    def run(self, trace) -> SimResult:
+        p, ctl = self.platform, self.controller
+        A, T, dt = p.n_tiles, trace.ticks, trace.dt
+        assert trace.n_dests == A, (trace.n_dests, A)
+        eng = self._batch
+        eng.config, eng.balancer = self.config, self.balancer
+        control = None
+        if ctl is not None:
+            ctl.begin_run()     # counter baselines reset per run
+            live = ctl.live()
+            swaps0 = ctl.actuator.swaps
+
+            def control(t_i, window):
+                busy, bound, pin, pout, rtt, qticks = window[:, 0]
+                new_cfg = ctl.step(
+                    tick=t_i, names=p.names, busy=busy, boundness=bound,
+                    pkts_in=pin, pkts_out=pout, rtt=rtt,
+                    queue_ticks=qticks)
+                if new_cfg is None:
+                    return None
+                rates = {i.name: i.rate for i in new_cfg.islands}
+                return self._rates(new_cfg), {
+                    "tick": int(t_i), "kind": "dfs_commit",
+                    "version": new_cfg.version, "rates": rates}
+        else:
+            live = p.islands
+        run = eng._loop(trace, self._rates(live), control)
+        st = run.state
+        t0 = time.perf_counter()
+        telem = run.rings.to_telemetry(run.events)
+        run.timings["copies"] += time.perf_counter() - t0
+        completed, dropped, residual, energy, p50, p99 = (
+            float(v[0]) for v in eng._host_summary(
+                trace, run.admitted, run.served, dropped=st.dropped,
+                residual=sum_tiles(st.queue), energy=st.energy,
+                timings=run.timings))
+        # kept for post-run analysis and the differential tests: the
+        # design axis of the B = 1 loop taken away
+        self.last_state = TickState(**{
+            f.name: getattr(st, f.name)[0]
+            for f in dataclasses.fields(TickState)})
+        self.last_histories = (run.admitted[:, 0], run.served[:, 0])
+        offered = float(trace.arrivals.sum())
+        sim_seconds = T * dt
+        return SimResult(
+            ticks=T, dt=dt, offered=offered, completed=completed,
+            dropped=dropped, residual=residual,
+            throughput_rps=completed / sim_seconds if sim_seconds else 0.0,
+            p50_latency_s=p50, p99_latency_s=p99, energy_j=energy,
+            # zero-completion (all-dropped) runs have no meaningful energy
+            # per request: NaN, which rankers mask
+            energy_per_request_j=(energy / completed if completed > 0
+                                  else float("nan")),
+            mean_power_w=energy / sim_seconds if sim_seconds else 0.0,
+            swaps=ctl.actuator.swaps - swaps0 if ctl is not None else 0,
+            elapsed_wall_s=run.timings["loop"], telemetry=telem,
+            timings=run.timings)

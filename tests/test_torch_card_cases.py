@@ -4,8 +4,8 @@ The card's machine has no jax, and the test files import it, so pytest
 cannot run there.  ``chip_smoke.py`` keeps the case lists and the checks of
 the gpu-marked tests (``CARD_TESTS``), runs all of them in its
 ``card_tests`` phase, and each gpu-marked test calls its case there.  This
-test holds ``CARD_TESTS`` to exactly the gpu-marked tests of the three
-files that have them, with exactly their parameter cases.
+test holds ``CARD_TESTS`` to exactly the gpu-marked tests of the files
+that have them, with exactly their parameter cases.
 """
 import inspect
 import itertools
@@ -15,6 +15,7 @@ import pytest
 import test_torch_dse_chunked
 import test_torch_llm_kernels
 import test_torch_sim_batch
+import test_torch_sim_engine
 import test_torch_ssd
 import test_torch_telemetry
 import test_torch_tick_sim
@@ -22,7 +23,8 @@ import test_torch_tick_sim
 from _torch_port_helpers import chip_smoke
 
 MODULES = (test_torch_llm_kernels, test_torch_ssd, test_torch_tick_sim,
-           test_torch_dse_chunked, test_torch_telemetry, test_torch_sim_batch)
+           test_torch_dse_chunked, test_torch_telemetry, test_torch_sim_batch,
+           test_torch_sim_engine)
 
 
 def _gpu_tests():
@@ -56,7 +58,7 @@ def _gpu_tests():
 def test_every_gpu_case_is_a_card_case():
     cs = chip_smoke()
     gpu = _gpu_tests()
-    assert len(gpu) >= 17
+    assert len(gpu) >= 18
     assert set(gpu) == set(cs.CARD_TESTS)
     for name, cases in gpu.items():
         assert cases == set(cs.CARD_TESTS[name][1]), name

@@ -1,7 +1,9 @@
 """The port stands alone: no import of ``jax``, of the reference package
 ``repro``, of ``triton`` or of any package of finished kernels, anywhere in
-``src/repro_torch`` or ``chip_smoke.py``; the device rule never turns into
-the CPU on its own; the CPU path never touches the CUDA build."""
+``src/repro_torch``, ``chip_smoke.py`` or the port's examples
+(``examples/torch_*.py``, which ``chip_smoke.py`` runs); the device rule
+never turns into the CPU on its own; the CPU path never touches the CUDA
+build."""
 import ast
 import os
 import subprocess
@@ -22,6 +24,9 @@ FORBIDDEN = {"jax", "jaxlib", "repro", "triton", "flash_attn", "xformers",
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    ex = os.path.join(ROOT, "examples")
+    out += [os.path.join(ex, f) for f in os.listdir(ex)
+            if f.startswith("torch_") and f.endswith(".py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -40,6 +45,10 @@ def _imports(path):
 def test_sources_exist():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
     for must in ("chip_smoke.py", "src/repro_torch/device.py",
+                 "examples/torch_closed_loop.py",
+                 "examples/torch_dse_sweep.py",
+                 "src/repro_torch/sim/engine.py",
+                 "src/repro_torch/sim/control.py",
                  "src/repro_torch/convert.py",
                  "src/repro_torch/core/dse.py",
                  "src/repro_torch/sim/batch.py",

@@ -16,7 +16,9 @@
   float32 scan backend) vs the reference ``"numpy"``: rtol 2e-3 / atol 1e-2,
   ``swaps`` exact; no telemetry.  The float64 loop's telemetry is held to
   the reference's recording in ``tests/test_torch_telemetry.py``.
-* knobs that are not ported raise ``NotImplementedError``.
+* knobs that are not ported raise ``NotImplementedError``; the load
+  balancer runs on ``"torch"`` (held to the reference) and ``"fused"``
+  refuses it in the reference's words.
 * the batched latency-percentile reconstruction equals the per-design
   reference function exactly (ties, fractional and zero weights, T = 1,
   designs with no completion), on float64 and float32 histories.
@@ -221,16 +223,65 @@ REFUSED = [("faults", "fault"), ("slo", "SLO"), ("balancer", "balancer"),
            ("observe", "observer")]
 
 
+def _balanced_chain_runs():
+    """A chained 4-tile stack of three designs with a load balancer over
+    each stage, PID in the loop: reference ``"numpy"`` and port
+    ``"torch"``."""
+    out = []
+    for pkg, backend in ((REF, "numpy"), (PORT, "torch")):
+        eng = make_engine(pkg, backend, "pid", chain=True)
+        eng.balancer = pkg.sim.LoadBalancer(
+            (("dfmul0", "dfmul1"), ("dfmul2", "dfmul3")),
+            eng.platform.names)
+        out.append(eng.run(make_trace(pkg, "mmpp", capacity(4, k=2),
+                                      ticks=300)))
+    return out
+
+
 @pytest.mark.parametrize("backend", ["torch", "fused"])
 @pytest.mark.parametrize("knob,word", REFUSED)
 def test_unported_knobs_are_refused(knob, word, backend):
+    """Faults, SLO and the observer are refused on both backends, naming
+    their ROADMAP item.  The balancer is ported: ``"torch"`` runs it (held
+    to the reference's ``"numpy"`` run — every field within 1e-12 relative,
+    bit-equal but for the chain's ``completed``, swaps exact) and
+    ``"fused"`` refuses it in the reference's own words."""
     plat = PORT.sim.BatchSimPlatform.stack([make_platform(PORT, 4)])
     value = "counters" if knob == "observe" else object()
+    if knob == "balancer" and backend == "torch":
+        r0, r1 = _balanced_chain_runs()
+        for f in F64_FIELDS:
+            assert rel_err(getattr(r1, f), getattr(r0, f)) <= 1e-12, f
+        for f in ("energy_j", "p50_latency_s", "p99_latency_s", "residual"):
+            np.testing.assert_array_equal(getattr(r1, f), getattr(r0, f))
+        np.testing.assert_array_equal(r1.swaps, r0.swaps)
+        return
+    if knob == "balancer":
+        value = PORT.sim.LoadBalancer([plat.names[:2]], plat.names)
     with pytest.raises(NotImplementedError) as err:
         PORT.sim.BatchSimEngine(plat, backend=backend, device="cpu",
                                 **{knob: value})
     assert word in str(err.value)
-    assert "not ported yet (ROADMAP queue A item" in str(err.value)
+    if knob == "balancer":
+        assert str(err.value) == ("fused backend does not run the load "
+                                  "balancer; use backend='torch'")
+    else:
+        assert "not ported yet (ROADMAP queue A item" in str(err.value)
+
+
+def test_fused_refuses_a_balancer_set_after_construction():
+    """The reference's kernel backend refuses the balancer when it runs,
+    so one assigned after construction is refused too, in the same
+    words, and nothing is replayed."""
+    plat = PORT.sim.BatchSimPlatform.stack([make_platform(PORT, 4)])
+    eng = PORT.sim.BatchSimEngine(plat, backend="fused", device="cpu")
+    eng.balancer = PORT.sim.LoadBalancer([plat.names[:2]], plat.names)
+    tr = make_trace(PORT, "constant", capacity(4, k=2), ticks=20)
+    with pytest.raises(NotImplementedError) as err:
+        eng.run(tr)
+    assert str(err.value) == ("fused backend does not run the load "
+                              "balancer; use backend='torch'")
+    assert eng.last_histories is None
 
 
 def test_unsupported_policy_type_is_refused_on_fused():

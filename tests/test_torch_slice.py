@@ -13,6 +13,10 @@ and ``"fused"``, CPU tensors).
   rtol 1e-4 and the same ranking on this configuration.
 * a reference platform / sweep / controller carried across with
   ``repro_torch.convert`` gives the same result as one built natively.
+* the per-point sequential path (``controller_factory=`` / ``batch=False``)
+  and ``balancer_factory=``: the reference's indices and ranking, scores
+  within 1e-12; what is still not ported is refused, naming its ROADMAP
+  item, and ``"fused"`` refuses the balancer in the reference's words.
 """
 import numpy as np
 import pytest
@@ -108,25 +112,68 @@ def test_default_survivors_are_the_pareto_top():
 REFUSED = [
     (dict(fault_schedule=object()), "fault"),
     (dict(slo=object()), "SLO"),
-    (dict(balancer_factory=lambda p: None), "balancer"),
+    ("balancer_factory", "balancer"),
     (dict(observe="counters"), "observer"),
-    (dict(controller_factory=lambda p: None), "sequential"),
+    ("controller_factory", "sequential"),
     (dict(batch=False), "sequential"),
     (dict(devices=2), "multi-device"),
 ]
+# the knobs of REFUSED that are ported now: each case runs through both
+# packages and must give the reference's indices and ranking, scores within
+# 1e-12 (the "fused" batched path still refuses the balancer)
+PORTED = ("balancer", "sequential")
+
+
+def _knob(pkg, kw):
+    """The keyword arguments one REFUSED entry stands for, in ``pkg``."""
+    if kw == "balancer_factory":
+        return {"balancer_factory": lambda p: pkg.sim.LoadBalancer(
+            [("dfadd",), ("dfmul",)], p.names)}
+    if kw == "controller_factory":
+        return {"controller_factory": lambda p: pkg.sim.ControllerHarness(
+            p.islands, pkg.dfs.PIDRatePolicy(target=0.7),
+            queue_guard_ticks=3.0)}
+    return kw
 
 
 @pytest.mark.parametrize("kw,word", REFUSED,
                          ids=[w + str(i) for i, (_, w) in enumerate(REFUSED)])
 @pytest.mark.parametrize("backend", ["torch", "fused"])
 def test_closed_loop_score_refuses_unported_knobs(kw, word, backend):
+    """What is not ported is refused, naming its ROADMAP item; the
+    balancer and the per-point sequential path (queue A items 7 and 4) run
+    and are held to the reference."""
+    tr = {pkg.name: pkg.sim.diurnal_trace(2000.0, 20, 2, dt=DT, seed=5)
+          for pkg in (REF, PORT)}
+    if word in PORTED and not (word == "balancer" and backend == "fused"):
+        got = {}
+        for pkg in (REF, PORT):
+            m, res = _sweep(pkg)
+            extra = ({"device": "cpu", "backend": backend} if pkg is PORT
+                     else {})
+            got[pkg.name] = pkg.dse.closed_loop_score(
+                res, tr[pkg.name], model=m, top=4, req_mb=REQ_MB,
+                sim_config=pkg.sim.SimConfig(control_interval=5),
+                **_knob(pkg, kw), **extra)
+        a, b = got["repro"], got["repro_torch"]
+        np.testing.assert_array_equal(b.indices, a.indices)
+        np.testing.assert_array_equal(b.ranked_indices(), a.ranked_indices())
+        assert rel_err(b.energy_per_request_j, a.energy_per_request_j) \
+            <= 1e-12
+        np.testing.assert_array_equal(b.p99_latency_s, a.p99_latency_s)
+        assert len(b.results) == len(a.results)
+        return
     m, res = _sweep(PORT)
-    tr = PORT.sim.diurnal_trace(2000.0, 20, 2, dt=DT, seed=5)
     with pytest.raises(NotImplementedError) as err:
-        PORT.dse.closed_loop_score(res, tr, model=m, top=4, device="cpu",
-                                   backend=backend, **kw)
+        PORT.dse.closed_loop_score(res, tr["repro_torch"], model=m, top=4,
+                                   device="cpu", backend=backend,
+                                   **_knob(PORT, kw))
     assert word in str(err.value)
-    assert "not ported yet (ROADMAP queue A item" in str(err.value)
+    if word == "balancer":
+        assert str(err.value) == ("fused backend does not run the load "
+                                  "balancer; use backend='torch'")
+    else:
+        assert "not ported yet (ROADMAP queue A item" in str(err.value)
 
 
 # ------------------------------------------------------------- converter
