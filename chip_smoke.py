@@ -75,6 +75,21 @@ main path through its public entry points at the size its users run:
                    ``BatchSimEngine("fused")`` (the tick_sim kernel) against
                    the sequential float64 runs: energy per request and p99
                    within rtol 2e-3, swaps printed.
+   ``closed_loop_faults`` — ``--faults``: the replica-kill scenario (3+3
+                   pipeline, 4,000 ticks, be1 dead on [1,800, 2,600), 50 ms
+                   deadline), five runs, the example's gate; each against
+                   the CPU (ledgers within 1e-15, p99 / events / detection
+                   tick exact); no sync in an open-loop tick loop, one per
+                   control tick with DFS; ticks/s and launches per tick
+                   against the fault-free runs.
+   ``rerank_faults`` — ``closed_loop_score`` on the float64 ``"torch"``
+                   loop at the main path's size with a stuck island, a
+                   degraded MEM link, a 20 ms deadline and a 2 % drop
+                   budget, beside the fault-free call; 64 designs' drop
+                   rate, p99 and order equal to the CPU's; the float32
+                   loop at that size within the float32 limits.
+   ``fused_refuses_faults`` — ``"fused"`` refuses faults / SLO on the card
+                   and launches nothing.
 7. ``serve``     — the dense LLM serving path: ``ServeEngine`` on
                    h2o-danube-1.8b at full width (random bf16 weights from a
                    seed), 4 slots, a 4,096 window, 8 requests of 128-4,608
@@ -1219,10 +1234,12 @@ class SyncCount:
 
 def seq_gap(card, host) -> dict:
     """The card's sequential run against the CPU's: the largest relative
-    gap of energy / completed / dropped / residual, and whether p50, p99,
-    swaps and the commit events agree exactly."""
+    gap of energy / completed / dropped / residual and the fault/SLO
+    ledgers, and whether p50, p99, swaps and the events (commits, fault
+    transitions, detections) agree exactly."""
     rel = 0.0
-    for f in ("energy_j", "completed", "dropped", "residual"):
+    for f in ("energy_j", "completed", "dropped", "residual", "dropped_slo",
+              "dropped_fault", "retried"):
         a, b = getattr(card, f), getattr(host, f)
         rel = max(rel, abs(a - b) / max(abs(b), 1e-300))
     return {"max_rel": rel,
@@ -1491,6 +1508,258 @@ def phase_closed_loop_b1_fused(runs, ctx):
     if not ok:
         raise SystemExit("closed_loop_b1_fused: the kernel at B = 1 "
                          "disagrees with the sequential engine")
+
+
+def fault_report(r, syncs=None) -> dict:
+    return {**seq_report(r, syncs), "drop_rate": r.drop_rate,
+            "dropped_slo": r.dropped_slo, "dropped_fault": r.dropped_fault,
+            "retried": r.retried, "energy_j": r.energy_j}
+
+
+def phase_closed_loop_faults():
+    """``--faults`` on the card: the paper's replica-kill scenario
+    (``examples/closed_loop.py:137-202``) through ``SimEngine`` — the 3+3
+    chained dfmul pipeline at K 8, 4,000 ticks of 1 ms at 0.45 of stage
+    capacity, be1 killed on [1,800, 2,600), a 50 ms deadline, an even
+    balancer; fixed / DFS, each without and with recovery, and DFS with
+    recovery and the online detector.  The example's gate; every run
+    against the same run on the CPU (ledgers within FAULT_RTOL, p50 / p99
+    / swaps / events exact, the same detection tick); syncs in the tick
+    loops (none open loop, exactly one per control tick with DFS); ticks/s
+    against the fault-free runs of the same platform and trace; kernels
+    launched per tick (500 ticks profiled) with faults on and off."""
+    ex = closed_loop_example()
+    from repro_torch.sim import LoadBalancer, SimConfig, SimEngine, Trace
+    plat = ex.pipeline_platform()
+    tr = ex.surge_trace(plat, device=DEV)
+    ks, ke = ex.kill_window(tr.ticks)
+    control_ticks = tr.ticks // CLOSED_LOOP_CI
+    report = {"phase": "closed_loop_faults", "A": plat.n_tiles,
+              "T": tr.ticks, "requests": tr.n_requests, "kill": [ks, ke],
+              "control_ticks": control_ticks, "rtol_vs_cpu": FAULT_RTOL}
+    runs, ok = {}, True
+    for name, (rec, dfs, det) in ex.FAULT_RUNS.items():
+        with SyncCount(strict=not dfs) as syncs:
+            runs[name] = ex.fault_run(plat, tr, recover=rec, dfs=dfs,
+                                      detect=det, device=DEV)
+        report[name] = fault_report(runs[name][1], syncs)
+        want = control_ticks if dfs else 0
+        report[name]["syncs_ok"] = (syncs.loops == 1
+                                    and syncs.in_ticks == want)
+        ok = ok and report[name]["syncs_ok"]
+    if not ok:
+        emit(report)
+        raise SystemExit("closed_loop_faults: syncs in a tick loop other "
+                         "than one per control tick")
+    det_card = ex.detection_tick(runs["dfs,rec+detect"][2])
+    report["detection_tick"] = det_card
+    report["detection_latency_ticks"] = det_card - ks
+    t0 = time.perf_counter()
+    for name, (rec, dfs, det) in ex.FAULT_RUNS.items():
+        _, host, sup = ex.fault_run(plat, tr, recover=rec, dfs=dfs,
+                                    detect=det, device="cpu")
+        gap = seq_gap(runs[name][1], host)
+        report[name]["vs_cpu"] = gap
+        report[name]["cpu_ticks_per_s"] = host.ticks_per_s_wall
+        ok = ok and gap["max_rel"] <= FAULT_RTOL and seq_gap_ok(gap)
+        if sup is not None:
+            report["detection_tick_cpu"] = ex.detection_tick(sup)
+            report["detector_events_equal"] = (
+                sup.events == runs[name][2].events)
+            ok = ok and report["detector_events_equal"] and (
+                report["detection_tick_cpu"] == det_card)
+    report["cpu_s"] = time.perf_counter() - t0
+    if not ok:
+        emit(report)
+        raise SystemExit("closed_loop_faults: the card disagrees with the "
+                         "CPU")
+
+    # the same platform and trace without the fault machinery
+    def fault_free(dfs, trace=tr):
+        ctl = ex.controllers(plat)["dfs-membound"] if dfs else None
+        return SimEngine(
+            plat, config=SimConfig(control_interval=CLOSED_LOOP_CI),
+            controller=ctl,
+            balancer=LoadBalancer((ex.STAGE0, ex.STAGE1), plat.names,
+                                  mode="even"), device=DEV).run(trace)
+
+    for dfs, name, twin in ((False, "fault_free_fixed", "fixed,recovery"),
+                            (True, "fault_free_dfs", "dfs,recovery")):
+        r = fault_free(dfs)
+        report[name] = {"ticks_per_s": r.ticks_per_s_wall,
+                        "wall_s": r.elapsed_wall_s,
+                        "faults_on_ticks_per_s":
+                            report[twin]["ticks_per_s"],
+                        "slowdown": (r.ticks_per_s_wall
+                                     / report[twin]["ticks_per_s"])}
+    short = Trace(tr.arrivals[:500], tr.dt)
+    report["profile_faults_500"] = tick_loop_profile(
+        lambda: ex.fault_run(plat, short, recover=True, dfs=True,
+                             detect=True, device=DEV)[1], 500)
+    report["profile_fault_free_500"] = tick_loop_profile(
+        lambda: fault_free(True, short), 500)
+    try:
+        ex.fault_gate(runs, tr)
+    except AssertionError as e:
+        emit(report)
+        raise SystemExit(f"closed_loop_faults: the scenario gate fails: "
+                         f"{e!r}")
+    report["gate"] = "passed"
+    emit(report)
+
+
+RERANK_FAULTS = dict(rate=0.2, link_scale=0.5, deadline_s=0.02,
+                     max_drop_rate=0.02, check=64)
+
+
+def rerank_fault_schedule(model, res, T):
+    """One accelerator island stuck at 0.2 and one MEM-tile link degraded
+    to 0.5, both over the middle third of the day."""
+    from repro_torch.sim import FaultSchedule
+    (r, c) = model.mem_pos
+    a, b = T // 3, 2 * T // 3
+    return (FaultSchedule()
+            .stick_island(res.workloads[0].name, start=a, end=b,
+                          rate=RERANK_FAULTS["rate"])
+            .degrade_link((r, c), (r, c + 1), RERANK_FAULTS["link_scale"],
+                          start=a, end=b))
+
+
+def phase_rerank_faults(ctx):
+    """``closed_loop_score`` under faults on the float64 ``"torch"`` loop at
+    the main path's size (its 4,096 survivors of the 1.73 M-point sweep,
+    8,700 diurnal ticks at 35 % of capacity, PID + guard 3.0):
+    ``rerank_fault_schedule``, a 20 ms deadline, a 2 % drop budget.  The
+    fault-free call on the same survivors beside it (loop / percentiles /
+    copies); the faulted loop's syncs (one per control tick); 64 of the
+    designs against the same call on the CPU: drop rate, p99 and their
+    order exactly; the float32 loop at the same size against the float64
+    one at the reference's float32 limits (drop rate rtol 1e-3 / atol
+    1e-4, p99 atol dt)."""
+    from repro_torch.core.dse import _rank_scores, closed_loop_score
+    from repro_torch.sim import SLOConfig
+    model, res, survivors = ctx["model"], ctx["res"], ctx["survivors"]
+    trace, cfg = ctx["trace"], ctx["cfg"]
+    T, B = trace.ticks, len(survivors)
+    fs = rerank_fault_schedule(model, res, T)
+    slo = SLOConfig(deadline_s=RERANK_FAULTS["deadline_s"])
+    common = dict(model=model, req_mb=ctx["req_mb"], sim_config=cfg,
+                  batch_controller_factory=pid_factory(), backend="torch")
+    faults = dict(fault_schedule=fs, slo=slo,
+                  max_drop_rate=RERANK_FAULTS["max_drop_rate"])
+    report = {"phase": "rerank_faults", "B": B, "T": T, "A": 2,
+              "schedule": [repr(e) for e in fs.events], **RERANK_FAULTS}
+    for label, extra in (("fault_free", {}), ("faults", faults)):
+        sync()
+        t0 = time.perf_counter()
+        with SyncCount() as syncs:
+            score = closed_loop_score(res, trace, indices=survivors,
+                                      **common, **extra)
+        sync()
+        r = score.results[0]
+        report[label] = {
+            "wall_s": time.perf_counter() - t0,
+            "loop_s": r.timings["loop"],
+            "percentiles_s": r.timings["percentiles"],
+            "copies_s": r.timings["copies"],
+            "syncs_in_ticks": syncs.in_ticks,
+            "drop_rate_range": [float(r.drop_rate.min()),
+                                float(r.drop_rate.max())],
+            "p99_ms_range": [float(np.nanmin(r.p99_latency_s)) * 1e3,
+                             float(np.nanmax(r.p99_latency_s)) * 1e3],
+            "best_index": int(score.ranked_indices()[0])}
+        if label == "faults":
+            card = score
+            if syncs.in_ticks != T // cfg.control_interval:
+                emit(report)
+                raise SystemExit("rerank_faults: syncs in the tick loop "
+                                 "other than one per control tick")
+    report["same_best_as_fault_free"] = (
+        report["fault_free"]["best_index"] == report["faults"]["best_index"])
+    sync()
+    t0 = time.perf_counter()
+    f32 = closed_loop_score(res, trace, indices=survivors,
+                            **{**common, "dtype": torch.float32}, **faults)
+    sync()
+    r32 = f32.results[0]
+    report["float32"] = {
+        "wall_s": time.perf_counter() - t0, "loop_s": r32.timings["loop"],
+        "drop_rate_within": bool(np.allclose(
+            f32.drop_rate, card.drop_rate, rtol=1e-3, atol=1e-4)),
+        "p99_within": bool(np.allclose(
+            f32.p99_latency_s, card.p99_latency_s, rtol=1e-3,
+            atol=trace.dt, equal_nan=True)),
+        "drop_rate_max_abs": float(np.max(np.abs(f32.drop_rate
+                                                 - card.drop_rate)))}
+    if not (report["float32"]["drop_rate_within"]
+            and report["float32"]["p99_within"]):
+        emit(report)
+        raise SystemExit("rerank_faults: the float32 loop disagrees with "
+                         "the float64 one beyond the float32 limits")
+    pick = np.arange(0, B, max(1, B // RERANK_FAULTS["check"]))[
+        :RERANK_FAULTS["check"]]
+    t0 = time.perf_counter()
+    host = closed_loop_score(res, trace, indices=survivors[pick],
+                             device="cpu", **common, **faults)
+    sub = dict(p99=card.p99_latency_s[pick],
+               ept=card.energy_per_request_j[pick],
+               drop=card.drop_rate[pick])
+    order = _rank_scores(sub["p99"], sub["ept"], None, drop_rate=sub["drop"],
+                         max_drop_rate=RERANK_FAULTS["max_drop_rate"])
+    report["check64"] = {
+        "cpu_s": time.perf_counter() - t0,
+        "drop_rate_equal": bool(np.array_equal(sub["drop"],
+                                               host.drop_rate)),
+        "p99_equal": bool(np.array_equal(sub["p99"], host.p99_latency_s,
+                                         equal_nan=True)),
+        "order_equal": bool(np.array_equal(order, host.order)),
+        "energy_per_request_max_rel": float(np.nanmax(
+            np.abs(sub["ept"] - host.energy_per_request_j)
+            / np.abs(host.energy_per_request_j))),
+        "designs_with_drops": int((host.drop_rate > 0).sum())}
+    emit(report)
+    c = report["check64"]
+    if not (c["drop_rate_equal"] and c["p99_equal"] and c["order_equal"]):
+        raise SystemExit("rerank_faults: the card's drop rates, p99 or "
+                         "order differ from the CPU's")
+
+
+def phase_fused_refuses_faults(ctx):
+    """``backend="fused"`` refuses a fault schedule and an SLO on the card,
+    at construction and when set before a run, and launches nothing."""
+    from repro_torch.kernels.tick_sim import fused_tick_sim
+    from repro_torch.sim import SLOConfig
+    from repro_torch.sim.batch import BatchSimEngine
+    fs = rerank_fault_schedule(ctx["model"], ctx["res"], ctx["trace"].ticks)
+    knobs = {"faults": (fs, "fused backend does not simulate fault "
+                            "schedules; faults= not ported yet (ROADMAP "
+                            "queue A item 8)"),
+             "slo": (SLOConfig(deadline_s=0.02), "fused backend does not "
+                     "apply SLO semantics; slo= not ported yet (ROADMAP "
+                     "queue A item 8)")}
+    before = fused_tick_sim.launches
+    report, ok = {"phase": "fused_refuses_faults"}, True
+    for knob, (value, text) in knobs.items():
+        said = []
+        try:
+            BatchSimEngine(ctx["plat"], config=ctx["cfg"], backend="fused",
+                           **{knob: value})
+        except NotImplementedError as e:
+            said.append(str(e))
+        eng = BatchSimEngine(ctx["plat"], config=ctx["cfg"], backend="fused")
+        setattr(eng, knob, value)
+        try:
+            eng.run(ctx["trace"])
+        except NotImplementedError as e:
+            said.append(str(e))
+        report[knob] = {"refusals": said,
+                        "replayed": eng.last_histories is not None}
+        ok = ok and said == [text, text] and eng.last_histories is None
+    report["tick_sim_launches"] = fused_tick_sim.launches - before
+    emit(report)
+    if not ok or report["tick_sim_launches"]:
+        raise SystemExit("fused_refuses_faults: the kernel backend did not "
+                         "refuse faults / SLO as it should")
 
 
 # ---------------------------------------------------------------------------
@@ -3111,6 +3380,145 @@ def card_percentiles(seed, T):
                                   equal_nan=True), (dtype, b, got, want)
 
 
+# the fault paths on the card against the CPU: every ledger within this
+# relative gap (the float64 engine's card-vs-CPU difference is ~1e-16)
+FAULT_RTOL = 1e-15
+
+
+def _fault_case_platform():
+    from repro_torch.core.perfmodel import AccelWorkload, SoCPerfModel
+    from repro_torch.sim import SimPlatform
+    pos = [(r, c) for r in range(4) for c in range(4)
+           if (r, c) not in {(1, 0), (0, 0), (0, 3)}][:6]
+    return SimPlatform.build(
+        SoCPerfModel(), [AccelWorkload("dfmul", 8.70, 1.1, replication=8)
+                         for _ in pos], pos,
+        names=("a0", "a1", "a2", "b0", "b1", "b2"), n_tg=2, req_mb=0.005)
+
+
+def card_fault_run(on_kill):
+    """tests/test_torch_sim_faults.py's card case: kills (one revived), a
+    degraded link, a stuck rate, a 30 ms deadline and an even balancer
+    through the sequential engine on the card against the CPU (ledgers
+    within FAULT_RTOL, p50 / p99 / events exact), with no sync in its
+    open-loop tick loop; the B = 1 batched run on the card bit for bit the
+    sequential one (incl. ``retry_q`` and ``queue_drops``); two designs in
+    float64 on the card against the CPU, and in float32 on the card
+    against them at the reference's float32 limits (rtol 1e-3; ledgers
+    atol 1e-2, drop rate atol 1e-4, p99 atol dt)."""
+    from repro_torch.sim import (BatchSimEngine, BatchSimPlatform,
+                                 FaultSchedule, LoadBalancer, SimConfig,
+                                 SimEngine, SLOConfig, diurnal_trace)
+    plat = _fault_case_platform()
+    names = plat.names
+    sched = (FaultSchedule().kill_tile("a1", start=150, end=380)
+             .kill_tile("b2", start=300)
+             .degrade_link((1, 1), (1, 2), 0.3, start=100, end=500)
+             .stick_island("b0", start=50, end=250, rate=0.4))
+    slo = SLOConfig(deadline_s=0.03, on_kill=on_kill,
+                    max_retries=int(on_kill == "respill"))
+    cap = SimEngine(plat, device="cpu").capacity_rps()
+    tr = diurnal_trace(cap * 0.85, 600, 6, dt=1e-3, depth=0.5, seed=4)
+    cfg = SimConfig(telemetry_interval=20, telemetry_capacity=64)
+
+    def bal():
+        return LoadBalancer((names[:3], names[3:]), names, mode="even")
+
+    def seq(device):
+        eng = SimEngine(plat, config=cfg, faults=sched, slo=slo,
+                        balancer=bal(), device=device)
+        return eng, eng.run(tr)
+
+    with SyncCount(strict=True) as syncs:
+        e_card, card = seq(DEV)
+    assert syncs.loops == 1 and syncs.in_ticks == 0, syncs.in_ticks
+    _, host = seq("cpu")
+    gap = seq_gap(card, host)
+    assert gap["max_rel"] <= FAULT_RTOL and seq_gap_ok(gap), gap
+    assert card.dropped_slo > 0.0
+    bp = BatchSimPlatform.stack([plat])
+    b_eng = BatchSimEngine(bp, config=cfg, faults=sched, slo=slo,
+                           balancer=bal(), device=DEV)
+    bat = b_eng.run(tr)
+    for f in ("energy_j", "completed", "residual", "p50_latency_s",
+              "p99_latency_s", "dropped_slo", "dropped_fault", "retried"):
+        assert getattr(bat, f)[0] == getattr(card, f), f
+    for f in ("queue", "retry_q", "busy"):
+        assert torch.equal(getattr(b_eng.last_state, f)[0],
+                           getattr(e_card.last_state, f)), f
+    for k, v in e_card.last_fault_histories.items():
+        assert torch.equal(b_eng.last_fault_histories[k][:, 0], v), k
+    two = BatchSimPlatform.stack([plat, plat])
+
+    def pair(device, dtype=torch.float64):
+        return BatchSimEngine(two, config=cfg, faults=sched, slo=slo,
+                              balancer=bal(), device=device,
+                              dtype=dtype).run(tr)
+
+    a, b = pair(DEV), pair("cpu")
+    for f in ("energy_j", "completed", "dropped_slo", "dropped_fault",
+              "retried"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert np.all(np.abs(x - y) <= FAULT_RTOL * np.abs(y)), f
+    for f in ("p50_latency_s", "p99_latency_s", "drop_rate"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    f32 = pair(DEV, torch.float32)
+    assert f32.telemetry is None
+    assert np.allclose(f32.completed, b.completed, rtol=1e-3, atol=0.0)
+    assert np.allclose(f32.energy_j, b.energy_j, rtol=1e-3, atol=0.0)
+    for f in ("dropped_slo", "dropped_fault", "retried"):
+        assert np.allclose(getattr(f32, f), getattr(b, f), rtol=1e-3,
+                           atol=1e-2), f
+    assert np.allclose(f32.drop_rate, b.drop_rate, rtol=1e-3, atol=1e-4)
+    assert np.allclose(f32.p99_latency_s, b.p99_latency_s, rtol=1e-3,
+                       atol=tr.dt)
+
+
+def card_supervisor_run(dfs):
+    """tests/test_torch_sim_faults.py's card case: the online detector in
+    the loop (be1 of the 3+3 pipeline killed on ticks [400, 900), 50 ms
+    deadline, even balancer, membound DFS or none) on the card against
+    the CPU: the same supervisor events and detection tick, ledgers within
+    FAULT_RTOL; no sync in the tick loop without a controller, exactly
+    one per control tick with one."""
+    from functools import partial
+    from repro_torch.core.dfs import policy_memory_bound
+    from repro_torch.runtime.fault import SimFaultConfig, SimFaultSupervisor
+    from repro_torch.sim import (ControllerHarness, FaultSchedule,
+                                 LoadBalancer, SimConfig, SimEngine,
+                                 SLOConfig)
+    ex = closed_loop_example()
+    plat = ex.pipeline_platform()
+    tr = ex.surge_trace(plat, 1200, device="cpu")
+
+    def run(device):
+        sup = SimFaultSupervisor(SimFaultConfig(dead_ticks=3))
+        ctl = (ControllerHarness(
+            plat.islands, partial(policy_memory_bound, threshold=0.55,
+                                  low_rate=0.5), queue_guard_ticks=3.0)
+            if dfs else None)
+        eng = SimEngine(
+            plat, config=SimConfig(telemetry_interval=50,
+                                   control_interval=CLOSED_LOOP_CI),
+            controller=ctl, supervisor=sup,
+            faults=FaultSchedule().kill_tile("be1", start=400, end=900),
+            slo=SLOConfig(deadline_s=0.05),
+            balancer=LoadBalancer((ex.STAGE0, ex.STAGE1), plat.names,
+                                  mode="even"), device=device)
+        return eng.run(tr), sup
+
+    with SyncCount(strict=not dfs) as syncs:
+        card, sup_card = run(DEV)
+    want = tr.ticks // CLOSED_LOOP_CI if dfs else 0
+    assert syncs.loops == 1 and syncs.in_ticks == want, syncs.in_ticks
+    host, sup_host = run("cpu")
+    assert sup_card.events == sup_host.events and sup_card.events
+    assert ex.detection_tick(sup_card) == ex.detection_tick(sup_host)
+    assert np.array_equal(sup_card.believed_alive, sup_host.believed_alive)
+    gap = seq_gap(card, host)
+    assert gap["max_rel"] <= FAULT_RTOL and seq_gap_ok(gap), gap
+
+
 # gpu-marked test -> (the function here, its cases as the test's arguments)
 CARD_TESTS = {
     "test_cuda_flash_attention_matches_plain": (
@@ -3152,6 +3560,10 @@ CARD_TESTS = {
                                         CARD_PERCENTILES),
     "test_cuda_sequential_engine_matches_cpu": (
         card_sim_engine, (("open",), ("membound",), ("pid",))),
+    "test_cuda_fault_run_matches_cpu": (
+        card_fault_run, (("respill",), ("drop",), ("wait",))),
+    "test_cuda_supervisor_run_matches_cpu": (
+        card_supervisor_run, ((False,), (True,))),
 }
 
 
@@ -3282,6 +3694,11 @@ def main() -> int:
     phase_closed_loop_pipeline()
     phase_closed_loop_dse()
     phase_closed_loop_b1_fused(cl_runs, cl_ctx)
+    # faults, SLO and online detection (no kernel of their own; "fused"
+    # refuses them)
+    phase_closed_loop_faults()
+    phase_rerank_faults(main_ctx)
+    phase_fused_refuses_faults(main_ctx)
 
     # the serving paths, each counted inside drive_serve the same way
     serve_report, serve_rows = phase_serve()

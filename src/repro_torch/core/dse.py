@@ -1143,8 +1143,9 @@ class ClosedLoopScore:
     ``indices`` best-first: points meeting the p99 SLA sorted by energy
     per request, then SLA violators by how badly they miss it.
 
-    ``results`` holds the single ``sim.BatchSimResult`` of the one stacked
-    replay (the per-point sequential path of the reference is not ported).
+    ``results`` holds per-point ``sim.SimResult`` objects on the sequential
+    path; on the batched path it holds the single ``sim.BatchSimResult`` of
+    the one stacked replay.
 
     ``counters`` (only when ``observe=`` enabled the monitoring plane) is
     one ``sim.CounterPlane.summary()`` dict per survivor — utilization,
@@ -1156,7 +1157,7 @@ class ClosedLoopScore:
     energy_per_request_j: np.ndarray    # (M,) float64
     throughput_rps: np.ndarray          # (M,) float64
     order: np.ndarray                   # (M,) int64 positions into indices
-    results: List[object]               # one BatchSimResult
+    results: List[object]               # SimResults, or one BatchSimResult
     drop_rate: Optional[np.ndarray] = None   # (M,) under a fault schedule
     counters: Optional[List[Dict[str, float]]] = None   # (M,) summaries
 
@@ -1264,9 +1265,18 @@ def closed_loop_score(result: SweepResult, trace, *,
     controller, on the sequential path and on ``backend="torch"`` (the
     ``"fused"`` kernel does not run one and refuses it).
 
+    Robustness scoring: ``fault_schedule`` (a ``repro_torch.sim.
+    FaultSchedule``) replays every survivor through the same injected
+    failures (tile kills, link degradation, stuck actuators) with ``slo`` (a
+    ``repro_torch.sim.SLOConfig``) fixing deadline/recovery semantics — the
+    ranking then uses p99-*under-failure* and each survivor's drop rate
+    (hard budget via ``max_drop_rate``, joining the p99 SLA in the miss
+    score; otherwise as the primary sort key ahead of energy), on the
+    sequential path and on ``backend="torch"`` (``"fused"`` refuses them).
+    Fault-free calls rank exactly as before.
+
     Not ported yet, accepted for signature parity and refused when set:
-    ``fault_schedule=`` / ``slo=``, ``observe=`` and ``devices=`` beyond
-    one device.
+    ``observe=`` and ``devices=`` beyond one device.
     """
     from repro_torch.sim.batch import BatchSimEngine, BatchSimPlatform
     from repro_torch.sim.engine import SimConfig, SimEngine, SimPlatform
@@ -1311,11 +1321,15 @@ def closed_loop_score(result: SweepResult, trace, *,
         r = engine.run(trace)
         p99, ept = r.p99_latency_s, r.energy_per_request_j
         thr = r.throughput_rps
+        drops = (np.asarray(r.drop_rate, dtype=np.float64)
+                 if fault_schedule is not None else None)
         results: List[object] = [r]
     else:
         p99 = np.empty(indices.shape[0])
         ept = np.empty(indices.shape[0])
         thr = np.empty(indices.shape[0])
+        drops = (np.empty(indices.shape[0])
+                 if fault_schedule is not None else None)
         results = []
         for j, i in enumerate(indices):
             dp = result.design_point(int(i))
@@ -1337,13 +1351,15 @@ def closed_loop_score(result: SweepResult, trace, *,
             p99[j] = r.p99_latency_s
             ept[j] = r.energy_per_request_j
             thr[j] = r.throughput_rps
+            if drops is not None:
+                drops[j] = r.drop_rate
 
-    order = _rank_scores(p99, ept, p99_sla_s, drop_rate=None,
+    order = _rank_scores(p99, ept, p99_sla_s, drop_rate=drops,
                          max_drop_rate=max_drop_rate)
     return ClosedLoopScore(indices=indices, p99_latency_s=p99,
                            energy_per_request_j=ept, throughput_rps=thr,
                            order=np.asarray(order, dtype=np.int64),
-                           results=results, drop_rate=None, counters=None)
+                           results=results, drop_rate=drops, counters=None)
 
 
 # ---------------------------------------------------------------------------

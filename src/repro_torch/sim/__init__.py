@@ -18,6 +18,10 @@ control.py   — ControllerHarness (scalar policies through the dual-buffer
                DFSActuator), the vectorized multi-design
                BatchControllerHarness, and the LoadBalancer (admission
                across replicated tiles, split on the engine's device)
+faults.py    — FaultSchedule (tile/island kills, link degradation, stuck
+               actuators) compiled to per-tick availability/scale masks
+               the tick loop consumes on its device, plus SLOConfig
+               (deadline drops, bounded retry of stranded work)
 
 Names are re-exported lazily (imported on first use).
 """
@@ -34,8 +38,13 @@ _EXPORTS = {
     **dict.fromkeys(("BatchControllerHarness", "BatchSample",
                      "ControlAction", "ControllerHarness", "IslandTopology",
                      "LoadBalancer"), "control"),
+    **dict.fromkeys(("CompiledFaults", "FaultSchedule", "IslandKill",
+                     "LinkDegrade", "SLOConfig", "StuckRate", "TileKill",
+                     "compile_faults", "respill_stranded"), "faults"),
     **dict.fromkeys(("CompiledFlows", "FlowPattern", "compile_flows"),
                     "flows"),
+    **dict.fromkeys(("BatchTelemetry", "RingBuffer", "Telemetry",
+                     "TelemetrySchema"), "telemetry"),
     **dict.fromkeys(("BatchTrace", "Trace", "constant_trace",
                      "diurnal_trace", "mmpp_trace", "poisson_trace",
                      "replay_trace", "superpose", "with_total"), "traffic"),

@@ -40,10 +40,13 @@ Two backends:
 Platform description and controller state stay in NumPy on the host; what
 the tick loop reads becomes tensors once, at engine construction.  A
 :class:`~repro_torch.sim.control.LoadBalancer` splits arrivals inside the
-``"torch"`` loop (the kernel does not run one).  Faults, SLO semantics and
-the observer plane are not ported yet and are refused.  The sequential
+``"torch"`` loop (the kernel does not run one).  So do a
+:class:`~repro_torch.sim.faults.FaultSchedule` (one shared schedule for all
+B designs, its masks copied to the device before the loop) and an
+:class:`~repro_torch.sim.faults.SLOConfig`; ``"fused"`` refuses both.  The
+observer plane is not ported yet and is refused.  The sequential
 ``sim/engine.py:SimEngine`` is the ``"torch"`` loop at B = 1 with the scalar
-controller harness in it.
+controller harness (and an optional online fault supervisor) in it.
 """
 from __future__ import annotations
 
@@ -70,6 +73,8 @@ from repro_torch.sim.engine import (PKT_BYTES, SimConfig, SimPlatform,
                                     StepConsts, TickState,
                                     latency_percentiles_batch,
                                     service_terms, sum_tiles, tick_step)
+from repro_torch.sim.faults import (CompiledFaults, SLOConfig,
+                                    compile_faults, respill_stranded)
 from repro_torch.sim.flows import FlowPattern, compile_flows
 from repro_torch.sim.telemetry import (BatchTelemetry, Telemetry,
                                        TelemetrySchema)
@@ -232,7 +237,8 @@ class BatchSimResult:
                                         # or kernel, device synchronised)
     backend: str = "torch"
     telemetry: Optional[BatchTelemetry] = None   # float64 "torch" only
-    # fault/SLO ledgers of the reference, (B,) zeros in this slice
+    # fault/SLO ledgers: SLO-deadline drops, work stranded on dead
+    # replicas, work re-spilled to survivors ((B,), zeros fault-free)
     dropped_slo: Optional[np.ndarray] = None
     dropped_fault: Optional[np.ndarray] = None
     retried: Optional[np.ndarray] = None
@@ -253,7 +259,8 @@ class BatchSimResult:
 
     @property
     def drop_rate(self) -> np.ndarray:
-        """(B,) dropped fraction of offered load (0 when nothing offered)."""
+        """(B,) dropped fraction of offered load (0 when nothing offered).
+        Per-design floats match the sequential ``SimResult.drop_rate``."""
         off = np.asarray(self.offered, dtype=np.float64)
         tot = self.dropped_total
         return np.where(off > 0.0, tot / np.where(off > 0.0, off, 1.0), 0.0)
@@ -292,8 +299,10 @@ class TelemetryRings:
     host ring's slot) from tensors already on the device — no host sync per
     row; :meth:`to_host` copies the rings to the host once and fills a
     :class:`BatchTelemetry` with the same contents, ``total_appended`` and
-    wrap as the reference's NumPy recording.  The drop/retry channels stay
-    zero: faults and SLO semantics are not ported (ROADMAP queue A item 8).
+    wrap as the reference's NumPy recording.  The drop/retry channels
+    (``dropped_slo``, ``dropped_fault``, ``retried``) are written from the
+    state's ledgers when a run keeps them, and stay zero otherwise, as the
+    ledgers do.
     """
 
     def __init__(self, schema: TelemetrySchema, n_designs: int, *,
@@ -312,12 +321,14 @@ class TelemetryRings:
 
     def record(self, *, tick: int, f_noc, island_rates, queue_depth, busy,
                throughput_rps, power_w, link_util_max, link_util_mean,
-               latency_est_s, dropped) -> None:
+               latency_est_s, dropped, ledgers=()) -> None:
+        """One row.  ``ledgers`` is ``()`` or the cumulative
+        ``(dropped_slo, dropped_fault, retried)`` tensors."""
         row = self.buf[self.rows % self.capacity]
         row[:, 0] = float(tick)
         for i, ch in enumerate((f_noc, throughput_rps, power_w,
                                 link_util_max, link_util_mean,
-                                latency_est_s, dropped), start=1):
+                                latency_est_s, dropped, *ledgers), start=1):
             row[:, i] = ch
         S, I, A, _ = self.widths
         row[:, S:S + I] = island_rates
@@ -358,6 +369,22 @@ class _Loop(types.SimpleNamespace):
     (:meth:`BatchSimEngine._loop`)."""
 
 
+# the per-tick ledgers a fault/SLO run keeps, (T, B) each, as the
+# reference's ``last_fault_histories`` names them
+FAULT_HISTORIES = ("dropped", "dropped_slo", "dropped_fault", "retried",
+                   "queue", "carry")
+
+
+def _event_order(ev) -> Tuple[int, int]:
+    """Sort key of the event log within a tick, as the reference engine
+    logs them: the schedule's transitions at the start of the tick, the
+    supervisor's detections after the step, the controller's commit at
+    the end."""
+    kind = ev["kind"]
+    return (ev["tick"], 0 if kind.startswith("fault_")
+            else 2 if kind == "dfs_commit" else 1)
+
+
 class BatchSimEngine:
     """Ticks B stacked designs through one trace, controllers in loop.
 
@@ -367,9 +394,11 @@ class BatchSimEngine:
     ``torch.float32``; ``"fused"`` is float32 whatever it says.
     ``balancer`` (a :class:`~repro_torch.sim.control.LoadBalancer`) splits
     each tick's arrivals on ``"torch"`` and is refused on ``"fused"``;
-    ``faults`` / ``slo`` / ``observe`` are accepted for signature parity
-    with the reference and refused when set; ``devices`` accepts ``None``
-    or ``1``.
+    ``faults`` (a :class:`~repro_torch.sim.faults.FaultSchedule`) and
+    ``slo`` (a :class:`~repro_torch.sim.faults.SLOConfig`) run on
+    ``"torch"`` in both dtypes and are refused on ``"fused"``; ``observe``
+    is accepted for signature parity with the reference and refused when
+    set; ``devices`` accepts ``None`` or ``1``.
     """
 
     def __init__(self, platform: BatchSimPlatform, *,
@@ -410,6 +439,8 @@ class BatchSimEngine:
         self.last_state: Optional[TickState] = None
         self.last_histories = None      # (admitted, served) (T, B, A)
                                         # tensors on the engine's device
+        self.last_fault_histories = None  # per-tick ledgers under faults /
+                                          # SLO, tensors on the device
         m = platform.model
         # per-design route->link incidence, stacked dense: (B, A, L) —
         # per-design routes of the (shared, name-keyed) flow pattern
@@ -436,21 +467,19 @@ class BatchSimEngine:
 
     # ------------------------------------------------------------ refusals
     def _refuse_unported(self) -> None:
-        """Knobs of the reference surface the port does not honour yet, and
-        the balancer, which the tick kernel does not run (the reference's
-        own fused kernel refuses all four, and ``backend="fused"`` keeps
-        its wording)."""
+        """Knobs the tick kernel does not honour — faults, SLO semantics
+        and the balancer, which the reference's own fused kernel refuses as
+        well — and the observer plane, which no backend of the port records
+        yet."""
         fused = self.backend == "fused"
-        if self.faults is not None and self.faults:
+        if self.faults is not None and self.faults and fused:
             raise NotImplementedError(
-                ("fused backend does not simulate fault schedules; "
-                 if fused else "fault schedules: ")
-                + "faults= not ported yet (ROADMAP queue A item 8)")
-        if self.slo is not None:
+                "fused backend does not simulate fault schedules; "
+                "faults= not ported yet (ROADMAP queue A item 8)")
+        if self.slo is not None and fused:
             raise NotImplementedError(
-                ("fused backend does not apply SLO semantics; "
-                 if fused else "SLO semantics: ")
-                + "slo= not ported yet (ROADMAP queue A item 8)")
+                "fused backend does not apply SLO semantics; "
+                "slo= not ported yet (ROADMAP queue A item 8)")
         if self.balancer is not None and fused:
             raise NotImplementedError(
                 "fused backend does not run the load balancer; "
@@ -490,15 +519,23 @@ class BatchSimEngine:
 
     # ------------------------------------------------------------ service
     def _service_t(self, rates: torch.Tensor,
-                   dtype: torch.dtype = torch.float64
+                   dtype: torch.dtype = torch.float64,
+                   override: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
         """Service-time terms for a (B, I) float64 rate tensor on the
         engine's device (recomputed only on commits), computed in float64
         and handed to the tick loop in ``dtype``, completed by
-        :func:`~repro_torch.sim.engine.service_terms` there."""
+        :func:`~repro_torch.sim.engine.service_terms` there.
+
+        ``override`` is the stuck-actuator hardware view: an (I,) float64
+        row on the device, NaN = follow the software rate.  It shapes only
+        these terms; the caller's ``rates`` (what telemetry records and the
+        controller reasons about) stay the software view."""
         p = self.platform
         B, A = p.n_designs, p.n_tiles
         tn = self._tensors(torch.float64)
+        if override is not None:
+            rates = torch.where(torch.isnan(override), rates, override)
         f_tile = rates[:, tn["iot"]]                         # (B, A)
         f_noc = (rates[:, self._noc_island] if self._noc_island >= 0
                  else torch.ones(B, dtype=torch.float64, device=self.device))
@@ -569,12 +606,27 @@ class BatchSimEngine:
 
     def _completed(self, served_hist: torch.Tensor) -> torch.Tensor:
         """(B,) float64 external completions.  Chained patterns count only
-        exit-stage services (each request once)."""
-        if self._forward is None:
-            return served_hist.sum(dim=(0, 2), dtype=torch.float64)
-        exit_mask = self._tensors(torch.float64)["exit"]
-        return (served_hist.sum(dim=0, dtype=torch.float64)
-                * exit_mask).sum(dim=-1)
+        exit-stage services (each request once).
+
+        Added in the reference's order: NumPy sums one design's ``(T, A)``
+        history pairwise over all of it (on the host here, from one copy of
+        it), and B > 1 designs' ``(T, B, A)`` one tick's tiles at a time
+        (pairwise, :func:`sum_tiles`), ticks in sequence — the order of the
+        running sum on the CPU; on the card the running sum adds in
+        parallel."""
+        f64 = torch.float64
+        exit_mask = (self._tensors(f64)["exit"]
+                     if self._forward is not None else None)
+        if served_hist.shape[1] == 1:
+            s = served_hist[:, 0].to(f64).cpu().numpy()
+            if exit_mask is not None:
+                s = s * self._compiled_flows.exit_mask
+            return torch.tensor([s.sum()], dtype=f64,
+                                device=served_hist.device)
+        x = served_hist.to(f64)
+        if exit_mask is not None:
+            x = x * exit_mask
+        return torch.cumsum(sum_tiles(x), dim=0)[-1]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -609,11 +661,12 @@ class BatchSimEngine:
             rates = ctl.live_rates()
             swaps0 = ctl.swaps.copy()
 
-            def control(t_i, window):
+            def control(t_i, window, dead=None, stuck=None):
                 busy, bound, pin, pout, rtt, qticks = window
                 new_rates = ctl.step(
                     tick=t_i, busy=busy, boundness=bound, pkts_in=pin,
-                    pkts_out=pout, rtt=rtt, queue_ticks=qticks)
+                    pkts_out=pout, rtt=rtt, queue_ticks=qticks, dead=dead,
+                    stuck=stuck)
                 if new_rates is None:
                     return None
                 return new_rates, {
@@ -628,11 +681,12 @@ class BatchSimEngine:
             telemetry = run.rings.to_host(run.events)
             run.timings["copies"] += time.perf_counter() - t0
         return self._result(
-            trace, run.admitted, run.served, dropped=run.state.dropped,
-            residual=sum_tiles(run.state.queue), energy=run.state.energy,
+            trace, run.admitted, run.served, state=run.state,
+            residual=sum_tiles(run.state.queue),
             swaps=(ctl.swaps - swaps0 if ctl is not None
                    else np.zeros(B, dtype=np.int64)),
-            backend="torch", timings=run.timings, telemetry=telemetry)
+            backend="torch", timings=run.timings, telemetry=telemetry,
+            queue_drops=run.qdrop)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host float64 array -> a new tensor on the engine's device,
@@ -649,14 +703,81 @@ class BatchSimEngine:
         thr = tn["base"] * svc["t_ref"] / (svc["t_comp"] + svc["t_wire"])
         return thr / tn["req"]
 
-    def _loop(self, trace, rates0: np.ndarray, control=None) -> "_Loop":
+    def _compile_faults(self, T: int) -> Optional[CompiledFaults]:
+        if self.faults is None or not self.faults:
+            return None
+        p = self.platform
+        return compile_faults(self.faults, ticks=T, names=p.names,
+                              islands=p.islands, noc=p.model.noc)
+
+    def _fault_setup(self, lp: "_Loop", T: int, dt: float,
+                     supervisor) -> None:
+        """The run's fault/SLO plan on ``lp``: the compiled schedule (one
+        for all B designs), the host flags that gate every hook of the tick
+        loop, the masks on the device (``(T, A)``, ``(T, L)``, ``(T, I)``,
+        copied once, before the loop) and the ledger histories.  Without a
+        schedule, an SLO or a supervisor every flag is off and the loop is
+        the fault-free one."""
+        B, A = self.platform.n_designs, self.platform.n_tiles
+        dev, dtype = self.device, self.dtype
+        cf = self._compile_faults(T)
+        slo = self.slo
+        if slo is None and cf is not None:
+            slo = SLOConfig()               # default kill semantics
+        lp.slo = slo
+        lp.deadline = slo is not None and slo.deadline_s is not None
+        lp.has_tile = cf is not None and cf.has_tile
+        lp.has_link = cf is not None and cf.has_link
+        lp.recover = (lp.has_tile and slo.recovers
+                      and self.balancer is not None)
+        lp.track = lp.has_tile or lp.deadline
+        lp.ev_by_tick = cf.events_by_tick() if cf is not None else {}
+        # the ticks where the hardware's stuck-rate row changes, from the
+        # host copy; the row in force is kept for commits
+        lp.stuck_changes = (set(cf.stuck_rate_changes())
+                            if cf is not None and cf.has_stuck_rate
+                            else set())
+        lp.override = None
+        lp.dead = cf.island_dead if lp.has_tile else None
+        lp.stuck = cf.stuck if cf is not None and cf.has_stuck else None
+
+        def up(a, as_dtype=dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=as_dtype,
+                                   device=dev)
+
+        lp.alive_t = up(cf.tile_alive) if lp.has_tile else None
+        lp.lscale_t = up(cf.link_scale) if lp.has_link else None
+        lp.stuck_t = (up(cf.stuck_rate, torch.float64)
+                      if lp.stuck_changes else None)
+        if lp.deadline:
+            lp.consts = dataclasses.replace(
+                lp.consts, deadline_ticks=slo.deadline_s / dt)
+        lp.qdrop = (torch.zeros((T, B, A), dtype=dtype, device=dev)
+                    if lp.track else None)
+        # dropped, dropped_slo, dropped_fault, retried, queue, carry
+        lp.fh = (torch.zeros((T, len(FAULT_HISTORIES), B), dtype=dtype,
+                             device=dev) if lp.track else None)
+        lp.sup = supervisor
+        if supervisor is not None:
+            assert lp.has_tile, \
+                "a fault supervisor needs tile faults to watch"
+            assert B == 1 and dtype == torch.float64, \
+                "the supervisor watches one float64 design"
+            supervisor.begin_device_run(self.platform.names, T, dev)
+
+    def _loop(self, trace, rates0: np.ndarray, control=None,
+              supervisor=None) -> "_Loop":
         """The ``"torch"`` tick loop of ``trace`` from the (B, I) island
         rates ``rates0``; the sequential engine runs it at B = 1.
 
-        ``control(tick, window)``, on every control tick, gets the window
-        (busy, boundness, pkts_in, pkts_out, rtt, queue_ticks) as a
-        ``(6, B, A)`` float64 host array — the loop's one copy to the host
-        — and returns ``None`` or ``(new (B, I) rates, telemetry event)``.
+        ``control(tick, window, dead=, stuck=)``, on every control tick,
+        gets the window (busy, boundness, pkts_in, pkts_out, rtt,
+        queue_ticks) as a ``(6, B, A)`` float64 host array — the loop's one
+        copy to the host — and the schedule's ``(I,)`` dead / stuck island
+        rows (host arrays, or None), and returns ``None`` or ``(new (B, I)
+        rates, telemetry event)``.  ``supervisor`` (a
+        :class:`~repro_torch.runtime.fault.SimFaultSupervisor`, B = 1 only)
+        watches the run on the device and routes recovery on its belief.
         """
         p, cfg = self.platform, self.config
         B, A, T, dt = p.n_designs, p.n_tiles, trace.ticks, trace.dt
@@ -671,11 +792,12 @@ class BatchSimEngine:
         lp.svc = self._service_t(lp.rates_t, dtype)
         if self.balancer is not None:   # its group layout, before the loop
             self.balancer.layout(dev, dtype)
+        lp.consts = self.step_consts(dt, dtype)
+        self._fault_setup(lp, T, dt, supervisor)
         self._sync()
         lp.timings["copies"] += time.perf_counter() - t0
 
         lp.state = TickState.zeros((B, A), device=dev, dtype=dtype)
-        lp.consts = self.step_consts(dt, dtype)
         lp.carry = (torch.zeros((B, A), dtype=dtype, device=dev)
                     if lp.consts.forward is not None else None)
         # the balancer splits on last tick's capacity (initially the
@@ -703,31 +825,97 @@ class BatchSimEngine:
         self._ticks(lp, trace)
         self._sync()
         lp.timings["loop"] = time.perf_counter() - wall0
+        if lp.sup is not None:
+            t0 = time.perf_counter()
+            detected = lp.sup.end_device_run()
+            if lp.events is not None:
+                # within a tick: the schedule's events, then the
+                # supervisor's, then the controller's commit
+                lp.events = sorted(lp.events + detected, key=_event_order)
+            lp.timings["copies"] += time.perf_counter() - t0
         self.last_state = lp.state
         self.last_histories = (lp.admitted, lp.served)
+        self.last_fault_histories = (
+            None if lp.fh is None else
+            {**dict(zip(FAULT_HISTORIES, lp.fh.unbind(1))),
+             "queue_drops": lp.qdrop})
         return lp
 
     def _ticks(self, lp: "_Loop", trace) -> None:
         """Every tick of the run, from the first to the last: on the card,
-        no value goes to the host here except the control window."""
+        no value goes to the host here except the control window.  Every
+        fault/SLO hook is gated by a host flag of :meth:`_fault_setup`, so
+        a fault-free run launches none of their operations."""
         cfg, dt = self.config, trace.dt
         B, A = self.platform.n_designs, self.platform.n_tiles
         dev, f64, dtype = self.device, torch.float64, self.dtype
         st, consts, lb = lp.state, lp.consts, self.balancer
         ti, ci = cfg.telemetry_interval, cfg.control_interval
+        sup, recover = lp.sup, lp.recover
+        spill = lp.has_tile and lp.slo.on_kill != "wait"
         for t_i in range(trace.ticks):
+            if lp.events is not None:
+                lp.events.extend(dict(ev)
+                                 for ev in lp.ev_by_tick.get(t_i, ()))
+            alive = lp.alive_t[t_i] if lp.has_tile else None
+            lscale = lp.lscale_t[t_i] if lp.has_link else None
+            if t_i in lp.stuck_changes:
+                # the hardware override (service terms only)
+                lp.override = lp.stuck_t[t_i]
+                lp.svc = self._service_t(lp.rates_t, dtype, lp.override)
+            # routing acts on the BELIEVED availability (the supervisor's
+            # detection state when it is in the loop, else the oracle
+            # mask); the true mask still gates the hardware
+            route_alive = (sup.believed_alive_device if sup is not None
+                           else alive)
+            respill = stranded_exit = None
+            if spill:
+                st.queue, st.retry_q, respill, fdrop = respill_stranded(
+                    st.queue, st.retry_q, route_alive,
+                    lb if recover else None)
+                st.dropped_fault = st.dropped_fault + sum_tiles(fdrop)
+                if recover:
+                    st.retried = st.retried + sum_tiles(respill)
+                stranded_exit = respill + fdrop
+
             arr = lp.arrivals[t_i]
             if lp.carry is not None:
                 arr = arr + lp.carry
+            retry_arr = None
             if lb is not None:
-                arr = lb.split(arr, st.queue, lp.prev_cap)
-            out = tick_step(st, arr, lp.svc, consts)
+                arr = lb.split(arr, st.queue, lp.prev_cap,
+                               alive=route_alive if recover else None)
+                if recover:
+                    retry_arr = lb.split(respill, st.queue, lp.prev_cap,
+                                         alive=route_alive)
+                    arr = arr + retry_arr
+            out = tick_step(st, arr, lp.svc, consts, alive=alive,
+                            link_scale=lscale, retry_in=retry_arr)
             if lp.carry is not None:
                 lp.carry = out.forwarded
             if lb is not None:
                 lp.prev_cap = out.cap_tick
             lp.admitted[t_i] = out.admitted
             lp.served[t_i] = out.served
+            if lp.track:
+                drops = [d for d in (stranded_exit, out.slo_drop)
+                         if d is not None]
+                if drops:
+                    lp.qdrop[t_i] = (drops[0] if len(drops) == 1
+                                     else drops[0] + drops[1])
+                # the backlog (and the chain's carry) added over the tiles
+                # as NumPy adds them; without a chain the carry row stays 0
+                backlog = (sum_tiles(st.queue).unsqueeze(0)
+                           if lp.carry is None else
+                           sum_tiles(torch.stack([st.queue, lp.carry])))
+                rows = torch.cat([torch.stack([
+                    st.dropped, st.dropped_slo, st.dropped_fault,
+                    st.retried]), backlog])
+                lp.fh[t_i, :rows.shape[0]] = rows
+            if sup is not None:
+                sup.observe_device(t_i, served=out.served[0],
+                                   queue=st.queue[0], cap=out.cap_tick[0],
+                                   busy=st.busy[0])
             if lp.control is not None:
                 lp.ctl_busy += st.busy
                 lp.ctl_ticks += 1
@@ -755,7 +943,9 @@ class BatchSimEngine:
                         link_util_mean=sum_tiles(out.rho) / A,
                         latency_est_s=(sum_tiles(st.queue) / torch.clamp(
                             sum_tiles(out.cap_tick / dt), min=1e-9)),
-                        dropped=st.dropped)
+                        dropped=st.dropped,
+                        ledgers=((st.dropped_slo, st.dropped_fault,
+                                  st.retried) if lp.track else ()))
                     lp.win_busy = torch.zeros((B, A), dtype=f64, device=dev)
                     lp.win_ticks = 0
 
@@ -769,57 +959,66 @@ class BatchSimEngine:
                     st.pkts_in, st.pkts_out, st.rtt_acc,
                     st.queue / torch.clamp(out.cap_tick, min=1e-12)]
                 ).to(f64).cpu().numpy()
-                commit = lp.control(t_i, window)
+                commit = lp.control(
+                    t_i, window,
+                    dead=lp.dead[t_i] if lp.dead is not None else None,
+                    stuck=lp.stuck[t_i] if lp.stuck is not None else None)
                 lp.ctl_busy = torch.zeros((B, A), dtype=dtype, device=dev)
                 lp.ctl_ticks = 0
                 if commit is not None:
                     new_rates, event = commit
                     lp.rates_t = self._upload(new_rates)
-                    lp.svc = self._service_t(lp.rates_t, dtype)
+                    lp.svc = self._service_t(lp.rates_t, dtype, lp.override)
                     if lp.events is not None:
                         lp.events.append(event)
 
-    def _host_summary(self, trace, admitted_hist, served_hist, *, dropped,
-                      residual, energy, timings) -> Tuple[np.ndarray, ...]:
-        """``(completed, dropped, residual, energy, p50, p99)`` of every
-        design as (B,) host arrays: the latency percentiles reconstructed
-        on the engine's device, then one copy."""
+    def _host_summary(self, trace, admitted_hist, served_hist, *,
+                      state: TickState, residual, timings,
+                      queue_drops=None) -> Dict[str, np.ndarray]:
+        """``completed``, ``dropped``, ``residual``, ``energy``, the three
+        fault/SLO ledgers and ``p50`` / ``p99`` of every design as (B,) host
+        arrays: the latency percentiles reconstructed on the engine's
+        device (``queue_drops`` joining the exit curves), then one copy."""
         self._sync()
         t0 = time.perf_counter()
-        p50_t, p99_t = latency_percentiles_batch(admitted_hist, served_hist,
-                                                 trace.dt)
+        p50_t, p99_t = latency_percentiles_batch(
+            admitted_hist, served_hist, trace.dt, queue_drops=queue_drops)
         self._sync()
         timings["percentiles"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        small = torch.stack([
-            self._completed(served_hist), dropped.to(torch.float64),
-            residual.to(torch.float64), energy.to(torch.float64),
-            p50_t, p99_t]).cpu().numpy()
+        f64 = torch.float64
+        cols = {"completed": self._completed(served_hist),
+                "dropped": state.dropped, "residual": residual,
+                "energy": state.energy, "dropped_slo": state.dropped_slo,
+                "dropped_fault": state.dropped_fault,
+                "retried": state.retried, "p50": p50_t, "p99": p99_t}
+        small = torch.stack([c.to(f64) for c in cols.values()]
+                            ).cpu().numpy()
         timings["copies"] += time.perf_counter() - t0
-        return tuple(np.ascontiguousarray(r) for r in small)
+        return {k: np.ascontiguousarray(r) for k, r in zip(cols, small)}
 
-    def _result(self, trace, admitted_hist, served_hist, *, dropped,
-                residual, energy, swaps, backend, timings, telemetry=None
-                ) -> BatchSimResult:
-        """Assemble the per-design result on the host.  ``dropped`` /
-        ``residual`` / ``energy`` are (B,) tensors on the engine's device;
-        latency percentiles are reconstructed there for all designs at
-        once."""
+    def _result(self, trace, admitted_hist, served_hist, *, state,
+                residual, swaps, backend, timings, telemetry=None,
+                queue_drops=None) -> BatchSimResult:
+        """Assemble the per-design result on the host.  ``state`` holds the
+        (B,) ledgers and ``residual`` is a (B,) tensor, on the engine's
+        device; latency percentiles are reconstructed there for all
+        designs at once."""
         B, T, dt = self.platform.n_designs, trace.ticks, trace.dt
-        completed, dropped, residual, energy, p50, p99 = self._host_summary(
-            trace, admitted_hist, served_hist, dropped=dropped,
-            residual=residual, energy=energy, timings=timings)
-
+        h = self._host_summary(trace, admitted_hist, served_hist,
+                               state=state, residual=residual,
+                               timings=timings, queue_drops=queue_drops)
+        completed, energy = h["completed"], h["energy"]
         sim_seconds = T * dt
-        zB = np.zeros(B)
         return BatchSimResult(
             n_designs=B, ticks=T, dt=dt,
             offered=self._offered(trace),
-            completed=completed, dropped=dropped, residual=residual,
+            completed=completed, dropped=h["dropped"],
+            residual=h["residual"],
             throughput_rps=(completed / sim_seconds if sim_seconds
                             else np.zeros(B)),
-            p50_latency_s=p50, p99_latency_s=p99, energy_j=energy,
+            p50_latency_s=h["p50"], p99_latency_s=h["p99"], energy_j=energy,
             energy_per_request_j=np.where(
                 completed > 0, energy / np.maximum(completed, 1e-9),
                 np.nan),
@@ -827,9 +1026,9 @@ class BatchSimEngine:
                           else np.zeros(B)),
             swaps=np.asarray(swaps, dtype=np.int64),
             elapsed_wall_s=timings["loop"], backend=backend,
-            telemetry=telemetry,
-            dropped_slo=zB.copy(), dropped_fault=zB.copy(),
-            retried=zB.copy(), timings=timings)
+            telemetry=telemetry, dropped_slo=h["dropped_slo"],
+            dropped_fault=h["dropped_fault"], retried=h["retried"],
+            timings=timings)
 
     # ------------------------------------------------------ control plan
     def _control_plan(self) -> ControlPlan:
@@ -998,7 +1197,7 @@ class BatchSimEngine:
         f64 = torch.float64
         req64 = self._tensors(f64)["req"]
         zB = torch.zeros(B, dtype=f64, device=dev)
-        self.last_state = TickState(
+        self.last_state = state = TickState(
             queue=out["queue"].to(f64), busy=out["busy"].to(f64),
             pkts_in=(admitted.sum(dim=0, dtype=f64) * req64
                      * 1e6 / PKT_BYTES),
@@ -1010,8 +1209,8 @@ class BatchSimEngine:
             dropped_slo=zB.clone(), dropped_fault=zB.clone(),
             retried=zB.clone())
         self.last_histories = (admitted, served)
+        self.last_fault_histories = None
         return self._result(
-            trace, admitted, served, dropped=out["dropped"],
-            residual=out["queue"].to(f64).sum(dim=-1),
-            energy=out["energy"], swaps=swapsF, backend="fused",
-            timings=timings)
+            trace, admitted, served, state=state,
+            residual=out["queue"].to(f64).sum(dim=-1), swaps=swapsF,
+            backend="fused", timings=timings)

@@ -30,8 +30,10 @@ the order of its float sums goes to the per-design function).
 
 :class:`SimEngine` replays a trace through ONE design with the scalar DFS
 controller harness (and optionally a load balancer) in the loop; it runs the
-batched engine's ``"torch"`` loop at B = 1.  The fault/SLO hooks of
-``tick_step`` are not ported yet (ROADMAP queue A item 8).
+batched engine's ``"torch"`` loop at B = 1.  Fault schedules, SLO
+semantics and online fault detection (``sim/faults.py``,
+``runtime/fault.py``) run through the ``None``-gated hooks of
+:func:`tick_step`, so a fault-free run is the fault-free loop, op for op.
 """
 from __future__ import annotations
 
@@ -170,9 +172,10 @@ class SimPlatform:
 class TickState:
     """Mutable fluid-queue + counter state, leading batch axes allowed.
 
-    All per-tile tensors are ``(..., A)``; ``dropped``/``energy`` reduce the
-    tile axis away and are ``(...)``.  The fault/SLO ledgers of the
-    reference are kept (zero) so downstream readers find the same fields.
+    All per-tile tensors are ``(..., A)``; ``dropped``/``energy`` and the
+    fault/SLO ledgers (``dropped_slo``, ``dropped_fault``, ``retried``)
+    reduce the tile axis away and are ``(...)``; ``retry_q`` is the
+    re-spilled work class inside ``queue``.
     """
     queue: torch.Tensor
     busy: torch.Tensor
@@ -224,6 +227,7 @@ class StepConsts:
     max_queue: float
     dynamic_contention: bool
     forward: Optional[torch.Tensor] = None  # (A, A) chain coupling
+    deadline_ticks: float = float("inf")    # SLO deadline in ticks
     tech: Optional[TechModel] = None        # physical DVFS model (None =
                                             # linear voltage proxy)
 
@@ -241,6 +245,7 @@ class TickOut:
     noc_power: torch.Tensor     # (...)
     forwarded: Optional[torch.Tensor] = None    # (..., A) chained
                                                 # completions for NEXT tick
+    slo_drop: Optional[torch.Tensor] = None     # (..., A) deadline drops
     link_loads: Optional[torch.Tensor] = None   # (..., L) offered loads
 
 
@@ -301,18 +306,32 @@ def service_terms(svc: Dict[str, torch.Tensor], c: StepConsts
 
 
 def tick_step(st: TickState, arr_t: torch.Tensor,
-              svc: Dict[str, torch.Tensor], c: StepConsts) -> TickOut:
+              svc: Dict[str, torch.Tensor], c: StepConsts, *,
+              alive: Optional[torch.Tensor] = None,
+              link_scale: Optional[torch.Tensor] = None,
+              retry_in: Optional[torch.Tensor] = None) -> TickOut:
     """Advance the fluid queues by one tick (mutates ``st`` in place).
 
     ``svc`` is the service-term dict of the live island rates, recomputed
     by the caller only when a DFS commit changes them
     (:func:`service_terms`).  The expressions and their order are those of
-    the reference ``tick_step`` (fault-free branch), with the factors that
-    depend on the rates alone taken from ``svc``; reductions run over the
-    trailing axes.
+    the reference ``tick_step``, with the factors that depend on the rates
+    alone taken from ``svc``; reductions run over the trailing axes.
+
+    Fault hooks (each ``None``-gated, so a fault-free tick runs none of
+    their operations): ``alive`` is this tick's ``(A,)``
+    availability row (dead tiles have zero capacity and are power-gated),
+    ``link_scale`` the ``(L,)`` link-bandwidth scale row, ``retry_in`` this
+    tick's re-spilled arrivals, tracked as a second fluid class inside the
+    queue.  The SLO deadline (``c.deadline_ticks``) drops backlog beyond
+    ``nominal capacity x deadline`` — nominal, not masked, so a dead tile's
+    backlog is re-spilled by the recovery path before the deadline sees it.
     """
     q = st.queue + arr_t
     adm = arr_t
+    if retry_in is not None:
+        q0 = q                      # retry-class mixing denominator
+        st.retry_q = st.retry_q + retry_in
     if c.max_queue != float("inf"):
         over = torch.clamp(q - c.max_queue, min=0.0)
         q = q - over
@@ -322,6 +341,8 @@ def tick_step(st: TickState, arr_t: torch.Tensor,
         # live tile streams onto links: one contraction + masked max; link
         # capacity is f_noc-scaled like the static kernel's saturation term
         loads = ((c.own_demand * st.busy).unsqueeze(-1) * c.inc).sum(dim=-2)
+        if link_scale is not None:
+            loads = loads / link_scale
         rho = (c.inc * loads.unsqueeze(-2)).amax(dim=-1) / svc["link_cap"]
         dyn = contention_slowdown(rho, c.max_slow)
     else:
@@ -330,17 +351,42 @@ def tick_step(st: TickState, arr_t: torch.Tensor,
         dyn = torch.ones_like(q)
     cap_tick = (svc["cap_num"] / (svc["t_comp"] + svc["t_wire"] * dyn)
                 / c.req_mb) * c.dt
-    served = torch.minimum(q, cap_tick)
-    st.queue = q - served
-    st.busy = served / cap_tick
+    if alive is None:
+        served = torch.minimum(q, cap_tick)
+        st.queue = q - served
+        st.busy = served / cap_tick
+    else:
+        cap_nominal = cap_tick
+        cap_tick = cap_tick * alive
+        served = torch.minimum(q, cap_tick)
+        st.queue = q - served
+        # a dead tile's busy is 0, not 0/0 (the reference's cap > 0 guard)
+        pos = cap_tick > 0.0
+        st.busy = torch.where(pos, served / torch.where(pos, cap_tick, 1.0),
+                              0.0)
+    slo_drop = None
+    if c.deadline_ticks != float("inf"):
+        horizon = ((cap_tick if alive is None else cap_nominal)
+                   * c.deadline_ticks)
+        slo_drop = torch.clamp(st.queue - horizon, min=0.0)
+        st.queue = st.queue - slo_drop
+        st.dropped_slo = st.dropped_slo + sum_tiles(slo_drop)
+    if retry_in is not None:
+        # proportional class mixing: the retry class shrinks by the same
+        # factor the whole queue did (FIFO fluid — classes are blended)
+        pos0 = q0 > 0.0
+        st.retry_q = st.retry_q * torch.where(
+            pos0, st.queue / torch.where(pos0, q0, 1.0), 0.0)
 
     # counters: pkts accumulate; exec_time (busy) auto-resets
     st.pkts_in += adm * c.req_mb * 1e6 / PKT_BYTES
     st.pkts_out += served * c.req_mb * 1e6 / PKT_BYTES
     st.rtt_acc += c.hop_counts * dyn * c.hop_latency
 
-    tile_power = sum_tiles(chip_power_from_dynamic(svc["p_dyn"] * st.busy,
-                                                   tech=c.tech))
+    tile_power = chip_power_from_dynamic(svc["p_dyn"] * st.busy, tech=c.tech)
+    if alive is not None:           # dead tiles are power-gated
+        tile_power = tile_power * alive
+    tile_power = sum_tiles(tile_power)
     st.energy += (tile_power + svc["noc_power"]) * c.dt
     # chain coupling: a share of each stage's completions becomes next
     # tick's arrivals at the following stage
@@ -348,7 +394,7 @@ def tick_step(st: TickState, arr_t: torch.Tensor,
                  if c.forward is not None else None)
     return TickOut(admitted=adm, served=served, cap_tick=cap_tick, rho=rho,
                    dyn=dyn, tile_power=tile_power, noc_power=svc["noc_power"],
-                   forwarded=forwarded, link_loads=loads)
+                   forwarded=forwarded, slo_drop=slo_drop, link_loads=loads)
 
 
 # ---------------------------------------------------------------------------
@@ -357,18 +403,25 @@ def tick_step(st: TickState, arr_t: torch.Tensor,
 
 
 def percentile_samples(admitted: np.ndarray, served: np.ndarray,
-                       dt: float) -> Tuple[np.ndarray, np.ndarray]:
+                       dt: float, queue_drops: Optional[np.ndarray] = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
     """(latency values, request weights) of one design's run, from the
     cumulative arrival/service curves of its FIFO fluid queues (tick
     granularity): the mid-rank of every tick's admitted batch is looked up
-    in the cumulative service curve with one ``searchsorted`` per tile."""
+    in the cumulative service curve with one ``searchsorted`` per tile.
+
+    ``queue_drops`` (T, A), when given, holds work that left the queue
+    *without* being served (SLO deadline drops, stranded-work drains) — it
+    joins the exit curve so later arrivals' ranks still resolve."""
     T, A = admitted.shape
     ticks = np.arange(T, dtype=np.float64)
     vals: List[np.ndarray] = []
     wts: List[np.ndarray] = []
     for a in range(A):
         ca = np.cumsum(admitted[:, a])
-        cs = np.cumsum(served[:, a])
+        exits = (served[:, a] if queue_drops is None
+                 else served[:, a] + queue_drops[:, a])
+        cs = np.cumsum(exits)
         n = admitted[:, a]
         mid = ca - 0.5 * n          # mid-rank of each tick's batch
         depart = np.searchsorted(cs, mid, side="left")
@@ -382,12 +435,14 @@ def percentile_samples(admitted: np.ndarray, served: np.ndarray,
 
 
 def latency_percentiles(admitted: np.ndarray, served: np.ndarray,
-                        dt: float) -> Tuple[float, float]:
+                        dt: float, queue_drops: Optional[np.ndarray] = None
+                        ) -> Tuple[float, float]:
     """Request-weighted p50/p99 sojourn time for one design's (T, A)
-    admitted/served histories (NumPy, float64)."""
+    admitted/served histories (NumPy, float64); ``queue_drops`` as in
+    :func:`percentile_samples`."""
     if admitted.shape[0] == 0:
         return float("nan"), float("nan")
-    v, w = percentile_samples(admitted, served, dt)
+    v, w = percentile_samples(admitted, served, dt, queue_drops)
     if v.size == 0 or w.sum() <= 0:
         return float("nan"), float("nan")
     p50, p99 = weighted_percentiles(v, w, (50.0, 99.0))
@@ -410,11 +465,16 @@ def _prefix_sums(x: torch.Tensor) -> torch.Tensor:
 
 
 def latency_percentiles_batch(admitted: torch.Tensor, served: torch.Tensor,
-                              dt: float, *, max_elems: int = 1 << 24
+                              dt: float, *,
+                              queue_drops: Optional[torch.Tensor] = None,
+                              max_elems: int = 1 << 24
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """p50/p99 of all B designs from ``(T, B, A)`` histories, on the device
     that holds them — bit for bit :func:`latency_percentiles` of each
-    design, with the design axis written out.
+    design, with the design axis written out.  ``queue_drops`` (``(T, B,
+    A)``, optional) joins the exit curve as there: the exits are ``served +
+    queue_drops``, formed in float64 as the reference forms them, and the
+    bound and the host redo below cover that sum.
 
     * Cumulative arrival/service curves per (design, tile), the mid-rank
       ``searchsorted`` (left) of each tick's batch in the service curve.
@@ -462,6 +522,8 @@ def latency_percentiles_batch(admitted: torch.Tensor, served: torch.Tensor,
         # in the histories' own dtype, then widened
         n = admitted[:, b0:b1].permute(1, 2, 0).contiguous().to(f64)
         srv = served[:, b0:b1].permute(1, 2, 0).contiguous().to(f64)
+        if queue_drops is not None:
+            srv = srv + queue_drops[:, b0:b1].permute(1, 2, 0).to(f64)
         ca = _prefix_sums(n)
         cs = _prefix_sums(srv)
         mid = ca - 0.5 * n                      # mid-rank of each batch
@@ -504,8 +566,11 @@ def latency_percentiles_batch(admitted: torch.Tensor, served: torch.Tensor,
     if redo.size:
         adm_h = admitted[:, redo].to(f64).cpu().numpy()
         srv_h = served[:, redo].to(f64).cpu().numpy()
+        qd_h = (None if queue_drops is None
+                else queue_drops[:, redo].to(f64).cpu().numpy())
         exact = torch.as_tensor(
-            [latency_percentiles(adm_h[:, j], srv_h[:, j], dt)
+            [latency_percentiles(adm_h[:, j], srv_h[:, j], dt,
+                                 *(() if qd_h is None else (qd_h[:, j],)))
              for j in range(redo.size)], dtype=f64, device=dev)
         where = torch.as_tensor(redo, device=dev)
         p50[where] = exact[:, 0]
@@ -563,9 +628,9 @@ class SimResult:
     swaps: int                          # actuator commits during the run
     elapsed_wall_s: float               # the tick loop, device synchronised
     telemetry: Telemetry
-    dropped_slo: float = 0.0            # fault/SLO ledgers of the
-    dropped_fault: float = 0.0          # reference, zero until queue A
-    retried: float = 0.0                # item 8 is ported
+    dropped_slo: float = 0.0            # explicit SLO-deadline drops
+    dropped_fault: float = 0.0          # stranded on dead replicas
+    retried: float = 0.0                # re-spilled to surviving replicas
     # where the wall time of run() went, seconds (host clock, device
     # synchronised at each boundary): "loop", "percentiles", "copies"
     timings: Optional[Dict[str, float]] = None
@@ -601,7 +666,9 @@ class SimResult:
              f"{self.swaps} DFS swaps")
         if self.dropped_total > 0:
             s += (f", dropped {self.dropped_total:,.0f} "
-                  f"({self.drop_rate:.2%})")
+                  f"({self.drop_rate:.2%}: slo {self.dropped_slo:,.0f} "
+                  f"fault {self.dropped_fault:,.0f}), "
+                  f"retried {self.retried:,.0f}")
         return s
 
 
@@ -622,9 +689,19 @@ class SimEngine:
     its island rates up without waiting for the card and recomputes the
     service terms there.
 
+    ``faults`` (a :class:`~repro_torch.sim.faults.FaultSchedule`) replays
+    injected failures, ``slo`` (a :class:`~repro_torch.sim.faults.SLOConfig`;
+    ``SLOConfig()`` when a schedule comes without one) fixes deadline and
+    recovery semantics, and ``supervisor`` (a
+    :class:`~repro_torch.runtime.fault.SimFaultSupervisor`) detects dead
+    tiles online, on the device, routing recovery on its belief.  The
+    schedule's masks go to the device before the loop;
+    ``last_fault_histories`` holds the per-tick ledgers and
+    ``queue_drops``.
+
     ``device=None`` means the CUDA card (and raises without one); the tests
-    pass ``device="cpu"``.  ``faults`` / ``slo`` / ``supervisor`` /
-    ``observe`` are refused until ROADMAP queue A items 8 and 9 land.
+    pass ``device="cpu"``.  ``observe`` is refused until ROADMAP queue A
+    item 9 lands.
     """
 
     def __init__(self, platform: SimPlatform, *,
@@ -633,12 +710,6 @@ class SimEngine:
                  observe=None, tech=None, device=None):
         from repro_torch import device as device_mod
         from repro_torch.sim.batch import BatchSimEngine, BatchSimPlatform
-        if faults is not None and faults:
-            raise _not_ported("fault schedules", "faults", "8")
-        if slo is not None:
-            raise _not_ported("SLO semantics", "slo", "8")
-        if supervisor is not None:
-            raise _not_ported("online fault detection", "supervisor", "8")
         if observe is not None and observe != "off":
             raise _not_ported("observer plane", "observe", "9")
         self.platform = platform
@@ -656,8 +727,17 @@ class SimEngine:
             # harness unless the harness was built with its own
             controller.tech = self.tech
         self.balancer = balancer        # a control.LoadBalancer or None
+        self.faults = faults            # a faults.FaultSchedule or None
+        self.slo = slo                  # a faults.SLOConfig or None
+        # online detection: a runtime.fault.SimFaultSupervisor, which sees
+        # only sim observables (served/queue/capacity) — routing and
+        # respill then act on its BELIEVED availability while the true
+        # masks gate what the hardware serves
+        self.supervisor = supervisor
         self.last_state: Optional[TickState] = None          # set by run()
         self.last_histories = None      # (admitted, served) (T, A) tensors
+        self.last_fault_histories = None  # per-tick ledgers, (T,) tensors,
+                                          # and queue_drops (T, A)
         self._batch = BatchSimEngine(
             BatchSimPlatform.stack([platform]), config=config,
             balancer=balancer, tech=self.tech, device=self.device)
@@ -692,18 +772,19 @@ class SimEngine:
         assert trace.n_dests == A, (trace.n_dests, A)
         eng = self._batch
         eng.config, eng.balancer = self.config, self.balancer
+        eng.faults, eng.slo = self.faults, self.slo
         control = None
         if ctl is not None:
             ctl.begin_run()     # counter baselines reset per run
             live = ctl.live()
             swaps0 = ctl.actuator.swaps
 
-            def control(t_i, window):
+            def control(t_i, window, dead=None, stuck=None):
                 busy, bound, pin, pout, rtt, qticks = window[:, 0]
                 new_cfg = ctl.step(
                     tick=t_i, names=p.names, busy=busy, boundness=bound,
                     pkts_in=pin, pkts_out=pout, rtt=rtt,
-                    queue_ticks=qticks)
+                    queue_ticks=qticks, dead=dead, stuck=stuck)
                 if new_cfg is None:
                     return None
                 rates = {i.name: i.rate for i in new_cfg.islands}
@@ -712,29 +793,33 @@ class SimEngine:
                     "version": new_cfg.version, "rates": rates}
         else:
             live = p.islands
-        run = eng._loop(trace, self._rates(live), control)
+        run = eng._loop(trace, self._rates(live), control,
+                        supervisor=self.supervisor)
         st = run.state
         t0 = time.perf_counter()
         telem = run.rings.to_telemetry(run.events)
         run.timings["copies"] += time.perf_counter() - t0
-        completed, dropped, residual, energy, p50, p99 = (
-            float(v[0]) for v in eng._host_summary(
-                trace, run.admitted, run.served, dropped=st.dropped,
-                residual=sum_tiles(st.queue), energy=st.energy,
-                timings=run.timings))
+        h = {k: float(v[0]) for k, v in eng._host_summary(
+            trace, run.admitted, run.served, state=st,
+            residual=sum_tiles(st.queue), timings=run.timings,
+            queue_drops=run.qdrop).items()}
+        completed, energy = h["completed"], h["energy"]
         # kept for post-run analysis and the differential tests: the
         # design axis of the B = 1 loop taken away
         self.last_state = TickState(**{
             f.name: getattr(st, f.name)[0]
             for f in dataclasses.fields(TickState)})
         self.last_histories = (run.admitted[:, 0], run.served[:, 0])
+        fh = eng.last_fault_histories
+        self.last_fault_histories = (
+            None if fh is None else {k: v[:, 0] for k, v in fh.items()})
         offered = float(trace.arrivals.sum())
         sim_seconds = T * dt
         return SimResult(
             ticks=T, dt=dt, offered=offered, completed=completed,
-            dropped=dropped, residual=residual,
+            dropped=h["dropped"], residual=h["residual"],
             throughput_rps=completed / sim_seconds if sim_seconds else 0.0,
-            p50_latency_s=p50, p99_latency_s=p99, energy_j=energy,
+            p50_latency_s=h["p50"], p99_latency_s=h["p99"], energy_j=energy,
             # zero-completion (all-dropped) runs have no meaningful energy
             # per request: NaN, which rankers mask
             energy_per_request_j=(energy / completed if completed > 0
@@ -742,4 +827,5 @@ class SimEngine:
             mean_power_w=energy / sim_seconds if sim_seconds else 0.0,
             swaps=ctl.actuator.swaps - swaps0 if ctl is not None else 0,
             elapsed_wall_s=run.timings["loop"], telemetry=telem,
-            timings=run.timings)
+            dropped_slo=h["dropped_slo"], dropped_fault=h["dropped_fault"],
+            retried=h["retried"], timings=run.timings)

@@ -16,6 +16,7 @@ import test_torch_dse_chunked
 import test_torch_llm_kernels
 import test_torch_sim_batch
 import test_torch_sim_engine
+import test_torch_sim_faults
 import test_torch_ssd
 import test_torch_telemetry
 import test_torch_tick_sim
@@ -24,7 +25,7 @@ from _torch_port_helpers import chip_smoke
 
 MODULES = (test_torch_llm_kernels, test_torch_ssd, test_torch_tick_sim,
            test_torch_dse_chunked, test_torch_telemetry, test_torch_sim_batch,
-           test_torch_sim_engine)
+           test_torch_sim_engine, test_torch_sim_faults)
 
 
 def _gpu_tests():

@@ -3,8 +3,10 @@ package's examples.
 
 * ``examples/torch_dse_sweep.py`` prints what ``examples/dse_sweep.py``
   prints, line for line, but for the timing figures (points/s, seconds).
-* ``examples/torch_closed_loop.py --faults`` / ``--observe`` exit non-zero
-  with the ROADMAP queue A item 8 / 9 refusal and print no result.
+* ``examples/torch_closed_loop.py --faults`` prints what
+  ``examples/closed_loop.py --faults`` prints, line for line (the five
+  replica-kill runs, the detection latency, the gate); ``--observe`` exits
+  non-zero with the ROADMAP queue A item 9 refusal and prints no result.
 * its pipeline scenario at the reference test's size (2,500 ticks) passes
   the gate the example asserts (``pipeline_gate``).
 """
@@ -41,7 +43,16 @@ def test_dse_sweep_example_prints_the_reference_output(args):
 @pytest.mark.parametrize("knob,item", [("--faults", "8"),
                                        ("--observe", "9")])
 def test_closed_loop_example_refuses_what_is_not_ported(knob, item):
+    """``--observe`` (queue A item 9) is refused.  ``--faults`` (item 8) is
+    ported: it runs the scenario gate and prints the reference example's
+    output exactly."""
     out = _run("torch_closed_loop.py", "--device", "cpu", knob)
+    if knob == "--faults":
+        ref = _run("closed_loop.py", knob, pythonpath=True)
+        assert ref.returncode == 0 and out.returncode == 0, out.stderr
+        assert out.stdout == ref.stdout
+        assert "acceptance: replica kill mid-surge survives" in out.stdout
+        return
     assert out.returncode != 0
     assert f"not ported yet (ROADMAP queue A item {item})" in out.stderr
     assert out.stdout == ""

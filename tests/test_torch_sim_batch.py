@@ -3,12 +3,11 @@
 * ``backend="torch"`` (float64 tick loop, CPU tensors here) vs the reference
   ``backend="numpy"``: ``completed / energy_j / residual / dropped / p50 /
   p99 / throughput_rps`` within 1e-12 relative.  On CPU tensors every one of
-  them comes out **bit-equal**, with one exception: under a chained flow
-  pattern ``completed`` (and what is derived from it) differs in the last
-  bits, ~2e-15 relative, because the port sums the served history over time
-  before masking the exit stage and the reference masks first.  The tests
-  assert the tolerance, and exact equality for ``swaps`` and the final
-  controller state.
+  them comes out **bit-equal** (``completed`` too, chained or not: the
+  port adds the served history in NumPy's order there; on the card the
+  sum over ticks adds in parallel).  The tests assert the
+  tolerance, and exact equality for ``swaps`` and the final controller
+  state.
 * ``backend="fused"`` (float32; the kernel's plain version on the CPU) vs
   the reference ``"numpy"``: rtol 2e-3 / atol 1e-2, ``swaps`` exact — the
   bar the reference sets for its own fused kernel.
@@ -238,16 +237,50 @@ def _balanced_chain_runs():
     return out
 
 
+def _faulted_runs(knob):
+    """Three designs, PID in the loop, ``knob`` set — a replica kill behind
+    a balancer and a degraded link (``faults``) or a deadline (``slo``) —
+    reference ``"numpy"`` and port ``"torch"``, under a trace at 1.2x
+    the first design's capacity so its queues stand."""
+    out = []
+    for pkg, backend in ((REF, "numpy"), (PORT, "torch")):
+        eng = make_engine(pkg, backend, "pid")
+        names = eng.platform.names
+        if knob == "faults":
+            eng.faults = (pkg.sim.FaultSchedule()
+                          .kill_tile(names[0], start=80, end=200)
+                          .degrade_link((1, 1), (1, 2), 0.4, start=50))
+            eng.balancer = pkg.sim.LoadBalancer([names[:2]], names)
+        else:
+            eng.slo = pkg.sim.SLOConfig(deadline_s=0.004)
+        out.append((eng, eng.run(pkg.sim.constant_trace(
+            capacity(4, k=2) * 1.2, 300, 4, dt=1e-3))))
+    return out
+
+
 @pytest.mark.parametrize("backend", ["torch", "fused"])
 @pytest.mark.parametrize("knob,word", REFUSED)
 def test_unported_knobs_are_refused(knob, word, backend):
-    """Faults, SLO and the observer are refused on both backends, naming
-    their ROADMAP item.  The balancer is ported: ``"torch"`` runs it (held
-    to the reference's ``"numpy"`` run — every field within 1e-12 relative,
-    bit-equal but for the chain's ``completed``, swaps exact) and
-    ``"fused"`` refuses it in the reference's own words."""
+    """The observer is refused on both backends, naming its ROADMAP item.
+    The balancer, faults and SLO are ported: ``"torch"`` runs them (held to
+    the reference's ``"numpy"`` run — every field within 1e-12 relative,
+    bit-equal but for the chain's ``completed``, swaps exact; under faults
+    and SLO the ledgers and fault histories exact too) and ``"fused"``
+    refuses them in its own words."""
     plat = PORT.sim.BatchSimPlatform.stack([make_platform(PORT, 4)])
     value = "counters" if knob == "observe" else object()
+    if knob in ("faults", "slo") and backend == "torch":
+        (e0, r0), (e1, r1) = _faulted_runs(knob)
+        for f in F64_FIELDS + ("dropped_slo", "dropped_fault", "retried",
+                               "drop_rate"):
+            np.testing.assert_array_equal(getattr(r1, f), getattr(r0, f), f)
+        np.testing.assert_array_equal(r1.swaps, r0.swaps)
+        assert (r1.dropped_slo + r1.dropped_fault + r1.retried > 0).any()
+        for k, v in e0.last_fault_histories.items():
+            np.testing.assert_array_equal(
+                e1.last_fault_histories[k].numpy(), v, err_msg=k)
+        assert r1.telemetry.events == r0.telemetry.events
+        return
     if knob == "balancer" and backend == "torch":
         r0, r1 = _balanced_chain_runs()
         for f in F64_FIELDS:

@@ -9,9 +9,9 @@ port's ``repro_torch.sim.SimEngine`` (``device="cpu"``).  Tolerances:
 * ``energy_j``, ``residual``, ``dropped``, queues, monitor counters and the
   telemetry rings: **bit-equal** on these inputs (the port runs the
   reference's expressions in its order; per-tile sums add as NumPy does);
-* ``completed`` (and what derives from it): <= 1e-12 relative — the port
-  adds the served history in torch's order, the reference in NumPy's
-  pairwise order over ticks x tiles.
+* ``completed`` (and what derives from it): <= 1e-12 relative, the limit
+  for the card; on CPU tensors the port adds the served history in NumPy's
+  pairwise order over ticks x tiles, as the reference does.
 
 The B = 1 contract of the reference (``tests/test_sim_batch.py``) holds
 inside the port **bit for bit**: ``BatchSimEngine("torch")`` with one design
@@ -747,14 +747,54 @@ def test_carried_platform_and_harness_state_continue_the_reference_run():
 
 
 # ---------------------------------------------------------------- refusals
+def _knob_run(pkg, knob):
+    """A four-tile run with ``knob`` set (queue A item 8's knobs), its
+    tiles offered 1.2x their capacity so queues stand: a kill of one
+    replica of a balanced pair for ``faults`` / ``supervisor``, a deadline
+    for ``slo``."""
+    import repro.runtime.fault as ref_rt
+    import repro_torch.runtime.fault as port_rt
+    plat = platform(pkg, 4)
+    cap = engine(pkg, plat).capacity_rps()
+    tr = pkg.sim.constant_trace(cap * 1.2, 300, 4, dt=DT)
+    kill = pkg.sim.FaultSchedule().kill_tile(plat.names[1], start=100,
+                                             end=200)
+    rt = port_rt if pkg is PORT else ref_rt
+    knobs = {"faults": dict(faults=kill),
+             "slo": dict(slo=pkg.sim.SLOConfig(deadline_s=0.004)),
+             "supervisor": dict(faults=kill, supervisor=rt.
+                                SimFaultSupervisor())}[knob]
+    eng = engine(pkg, plat, config=pkg.sim.SimConfig(telemetry_interval=7),
+                 balancer=pkg.sim.LoadBalancer([plat.names[:2]], plat.names),
+                 **knobs)
+    return eng, eng.run(tr)
+
+
 @pytest.mark.parametrize("knob,item", [("faults", "8"), ("slo", "8"),
                                        ("supervisor", "8"),
                                        ("observe", "9")])
 def test_unported_knobs_are_refused(knob, item):
+    """The observer plane (queue A item 9) is refused, naming its item.
+    Faults, SLO semantics and the online supervisor (item 8) are ported:
+    each case runs with its knob set and equals the reference's run (the
+    module's tolerances, the fault/SLO ledgers and histories exact)."""
     plat = platform(PORT, 4)
-    value = "counters" if knob == "observe" else object()
+    if knob != "observe":
+        (pe, p), (re_, r) = _knob_run(PORT, knob), _knob_run(REF, knob)
+        assert_results_match(p, r)
+        assert_state_matches(pe, re_)
+        for f in ("dropped_slo", "dropped_fault", "retried", "drop_rate"):
+            assert getattr(p, f) == getattr(r, f), f
+        assert p.dropped_slo + p.dropped_fault + p.retried > 0.0
+        for k, v in re_.last_fault_histories.items():
+            np.testing.assert_array_equal(
+                pe.last_fault_histories[k].numpy(), v, err_msg=k)
+        if knob == "supervisor":
+            assert pe.supervisor.events == re_.supervisor.events
+            assert pe.supervisor.events
+        return
     with pytest.raises(NotImplementedError) as err:
-        engine(PORT, plat, **{knob: value})
+        engine(PORT, plat, **{knob: "counters"})
     assert f"{knob}= not ported yet (ROADMAP queue A item {item})" in \
         str(err.value)
     # off / absent are accepted

@@ -12,8 +12,8 @@ The same seeded NumPy inputs go through ``repro`` and ``repro_torch``
   controller and balancer (histories, state, energy, completed, p50/p99),
   as the reference's ``tests/test_sim_flows.py`` demands of itself;
 * port vs reference: p50/p99, swaps and live rates exact; energy, residual
-  and the histories bit-equal; ``completed`` <= 1e-12 relative (torch adds
-  the served history in another order);
+  and the histories bit-equal; ``completed`` <= 1e-12 relative (on CPU
+  tensors the port adds it in NumPy's order, so it is equal here too);
 * ``closed_loop_score`` under a pipeline with the balancer: the sequential
   and batched paths give identical scores, as the reference's do, and the
   reference's ranking;

@@ -110,8 +110,8 @@ def test_default_survivors_are_the_pareto_top():
 
 
 REFUSED = [
-    (dict(fault_schedule=object()), "fault"),
-    (dict(slo=object()), "SLO"),
+    ("fault_schedule", "fault"),
+    ("slo", "SLO"),
     ("balancer_factory", "balancer"),
     (dict(observe="counters"), "observer"),
     ("controller_factory", "sequential"),
@@ -120,8 +120,10 @@ REFUSED = [
 ]
 # the knobs of REFUSED that are ported now: each case runs through both
 # packages and must give the reference's indices and ranking, scores within
-# 1e-12 (the "fused" batched path still refuses the balancer)
-PORTED = ("balancer", "sequential")
+# 1e-12 (the "fused" batched path still refuses the balancer, the fault
+# schedule and the SLO)
+PORTED = ("balancer", "sequential", "fault", "SLO")
+FUSED_REFUSES = ("balancer", "fault", "SLO")
 
 
 def _knob(pkg, kw):
@@ -129,6 +131,12 @@ def _knob(pkg, kw):
     if kw == "balancer_factory":
         return {"balancer_factory": lambda p: pkg.sim.LoadBalancer(
             [("dfadd",), ("dfmul",)], p.names)}
+    if kw == "fault_schedule":
+        return {"fault_schedule": pkg.sim.FaultSchedule().stick_island(
+            "dfmul", start=5, end=15, rate=0.2),
+            "slo": pkg.sim.SLOConfig(deadline_s=0.003), "max_drop_rate": 0.02}
+    if kw == "slo":
+        return {"slo": pkg.sim.SLOConfig(deadline_s=0.003)}
     if kw == "controller_factory":
         return {"controller_factory": lambda p: pkg.sim.ControllerHarness(
             p.islands, pkg.dfs.PIDRatePolicy(target=0.7),
@@ -141,11 +149,13 @@ def _knob(pkg, kw):
 @pytest.mark.parametrize("backend", ["torch", "fused"])
 def test_closed_loop_score_refuses_unported_knobs(kw, word, backend):
     """What is not ported is refused, naming its ROADMAP item; the
-    balancer and the per-point sequential path (queue A items 7 and 4) run
-    and are held to the reference."""
+    balancer, the per-point sequential path and fault-aware scoring (queue
+    A items 7, 4 and 8) run and are held to the reference (drop rates
+    exact), but for the balancer, the fault schedule and the SLO on
+    ``"fused"``, which refuses them."""
     tr = {pkg.name: pkg.sim.diurnal_trace(2000.0, 20, 2, dt=DT, seed=5)
           for pkg in (REF, PORT)}
-    if word in PORTED and not (word == "balancer" and backend == "fused"):
+    if word in PORTED and not (word in FUSED_REFUSES and backend == "fused"):
         got = {}
         for pkg in (REF, PORT):
             m, res = _sweep(pkg)
@@ -161,6 +171,9 @@ def test_closed_loop_score_refuses_unported_knobs(kw, word, backend):
         assert rel_err(b.energy_per_request_j, a.energy_per_request_j) \
             <= 1e-12
         np.testing.assert_array_equal(b.p99_latency_s, a.p99_latency_s)
+        assert (a.drop_rate is None) == (b.drop_rate is None)
+        if a.drop_rate is not None:
+            np.testing.assert_array_equal(b.drop_rate, a.drop_rate)
         assert len(b.results) == len(a.results)
         return
     m, res = _sweep(PORT)
