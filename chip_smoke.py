@@ -90,6 +90,21 @@ main path through its public entry points at the size its users run:
                    loop at that size within the float32 limits.
    ``fused_refuses_faults`` — ``"fused"`` refuses faults / SLO on the card
                    and launches nothing.
+   ``observe``   — the monitoring plane (``observe=``) on those paths:
+                   closed-loop-12tile-1M (membound) at off / ``"counters"``
+                   / ``"full"`` — outputs bit for bit equal, syncs in the
+                   tick loop unchanged, ticks/s and kernels per tick, the
+                   plane's reconstruction and ``export_metrics`` timed, the
+                   plane within 1e-12 of the CPU run's (stall counts exact;
+                   a check that must reject planted faults) and the trace
+                   the CPU's JSONL; the faults pipeline (DFS + recovery +
+                   detector, and open loop with no sync at all) the same
+                   way; rerank-A2 with ``observe="counters"`` on the
+                   float64 and float32 ``"torch"`` loops beside the
+                   unobserved calls (loop s, finalize s, device peak
+                   memory), 64 designs' planes against the CPU's;
+                   ``"fused"`` refusing; the chunked sweep's
+                   ``sweep_chunk`` phases timed by CUDA events.
 7. ``serve``     — the dense LLM serving path: ``ServeEngine`` on
                    h2o-danube-1.8b at full width (random bf16 weights from a
                    seed), 4 slots, a 4,096 window, 8 requests of 128-4,608
@@ -1760,6 +1775,348 @@ def phase_fused_refuses_faults(ctx):
     if not ok or report["tick_sim_launches"]:
         raise SystemExit("fused_refuses_faults: the kernel backend did not "
                          "refuse faults / SLO as it should")
+
+
+# ---------------------------------------------------------------------------
+# observe: the run-time monitoring plane on the card
+# ---------------------------------------------------------------------------
+
+# the card's counter plane against the same run's on the CPU: sums add in
+# another order on the card, so not bit for bit; stall counts exact
+PLANE_RTOL = 1e-12
+# the float32 loop's counters against the float64 plane of the same run
+# (tests/test_observe.py:157-182): 2e-4 * max(|v|, 1) + 1e-6, stall exact
+F32_PLANE = (2e-4, 1e-6)
+PLANE_GROUPS = ("tile", "link", "island")
+
+
+def plane_gap(card, host) -> dict:
+    """The card's counter plane against the CPU's: the largest relative gap
+    of any counter (to the CPU's value; where that is 0 the card's must be
+    0 too), whether shapes, finiteness, the stall counts and the tick
+    counts agree."""
+    rel, worst, shapes, finite = 0.0, None, True, True
+    for group in PLANE_GROUPS:
+        mine, theirs = getattr(card, group), getattr(host, group)
+        for k, b in theirs.items():
+            a, b = np.asarray(mine.get(k)), np.asarray(b)
+            if a.shape != b.shape:
+                shapes = False
+                continue
+            finite = finite and np.array_equal(np.isfinite(a),
+                                               np.isfinite(b))
+            d = np.abs(a - b)
+            r = np.where(b != 0.0, d / np.where(b != 0.0, np.abs(b), 1.0),
+                         np.where(d > 0.0, np.inf, 0.0))
+            m = float(np.nanmax(r)) if r.size else 0.0
+            if m > rel:
+                rel, worst = m, f"{group}.{k}"
+    return {"max_rel": rel, "worst": worst, "shapes_equal": shapes,
+            "finite_equal": bool(finite),
+            "stall_equal": bool(np.array_equal(card.tile["stall_ticks"],
+                                               host.tile["stall_ticks"])),
+            "ticks_equal": bool(np.array_equal(card.ticks, host.ticks))}
+
+
+def plane_ok(gap) -> bool:
+    return (gap["max_rel"] <= PLANE_RTOL and gap["shapes_equal"]
+            and gap["finite_equal"] and gap["stall_equal"]
+            and gap["ticks_equal"])
+
+
+def plane_planted_faults(plane):
+    """Copies of ``plane`` with one counter perturbed each (at its largest
+    element): what :func:`plane_ok` must reject."""
+    import copy
+
+    def planted(group, kind, fn):
+        p = copy.deepcopy(plane)
+        arr = np.array(getattr(p, group)[kind], dtype=np.float64)
+        at = np.unravel_index(int(np.argmax(np.abs(arr))), arr.shape)
+        arr[at] = fn(arr[at])
+        getattr(p, group)[kind] = arr
+        return p
+
+    return [("hop_flits off by 1e-9", planted(
+                "tile", "hop_flits", lambda v: v * (1.0 + 1e-9))),
+            ("one stall tick more", planted(
+                "tile", "stall_ticks", lambda v: v + 1.0)),
+            ("peak link utilization off by 1e-9", planted(
+                "link", "peak_util", lambda v: v * (1.0 + 1e-9))),
+            ("island energy off by 1e-10", planted(
+                "island", "energy_j", lambda v: v * (1.0 + 1e-10)))]
+
+
+def f32_plane_ratio(f32, f64) -> dict:
+    """The float32 plane against the float64 one: the largest ratio of any
+    counter's gap to its tolerance ``2e-4 * max(|v|, 1) + 1e-6`` (<= 1
+    passes) and whether the stall counts are equal."""
+    rtol, atol = F32_PLANE
+    worst, where = 0.0, None
+    for group in PLANE_GROUPS:
+        for k, v in getattr(f64, group).items():
+            v = np.asarray(v)
+            jv = np.asarray(getattr(f32, group)[k])
+            ratio = np.abs(jv - v) / (rtol * np.maximum(np.abs(v), 1.0)
+                                      + atol)
+            m = float(np.max(ratio)) if ratio.size else 0.0
+            if not np.isfinite(m) or m > worst:
+                worst, where = m, f"{group}.{k}"
+    return {"max_ratio": worst, "worst": where,
+            "stall_equal": bool(np.array_equal(f32.tile["stall_ticks"],
+                                               f64.tile["stall_ticks"]))}
+
+
+def plane_rows(plane, rows):
+    """The designs ``rows`` of a batched plane, as a plane of its own."""
+    from repro_torch.sim.observe import CounterPlane
+    return CounterPlane.from_arrays(
+        **{g: {k: np.asarray(v)[rows] for k, v in getattr(plane, g).items()}
+           for g in PLANE_GROUPS},
+        ticks=np.asarray(plane.ticks)[rows], lead=(len(rows),),
+        tile_names=plane.tile_names, island_names=plane.island_names)
+
+
+def results_equal(a, b) -> bool:
+    """Bit for bit the same simulated outputs (sequential or batched)."""
+    return all(np.array_equal(getattr(a, f), getattr(b, f), equal_nan=True)
+               for f in ("energy_j", "completed", "dropped", "residual",
+                         "p50_latency_s", "p99_latency_s", "swaps",
+                         "dropped_slo", "dropped_fault", "retried"))
+
+
+# the order of a phase's observed and unobserved runs: in turns, so that a
+# drift of the host's speed over the phase does not read as the plane's cost
+TURNS = ("off", "counters", "full", "full", "counters", "off")
+
+
+def _in_turns(make, levels, want_syncs, fails, label, *, strict=False):
+    """Sequential runs of ``make(level)`` in the order ``levels``: per level
+    its ticks/s of each run, and every run's syncs in the tick loop held to
+    ``want_syncs``; returns (report, {level: [(engine, result), ...]})."""
+    rep, runs = {}, {}
+    for level in levels:
+        with SyncCount(strict=strict) as syncs:
+            eng, r = make(level)
+        runs.setdefault(level, []).append((eng, r))
+        row = rep.setdefault(level, {"ticks_per_s": [],
+                                     "syncs_in_ticks": []})
+        row["ticks_per_s"].append(r.ticks_per_s_wall)
+        row["syncs_in_ticks"].append(syncs.in_ticks)
+        if syncs.loops != 1 or syncs.in_ticks != want_syncs:
+            fails.append(f"{label}[{level}]: {syncs.in_ticks} syncs in the "
+                         f"tick loop, not {want_syncs}")
+    off = runs["off"][0][1]
+    for level, rs in runs.items():
+        rep[level]["equal_to_off"] = all(results_equal(r, off)
+                                         for _, r in rs)
+        if not rep[level]["equal_to_off"]:
+            fails.append(f"{label}[{level}]: observing changed the run")
+    return rep, runs
+
+
+def phase_observe(cl_ctx, main_ctx):
+    """The monitoring plane at full size on the card.
+
+    closed-loop-12tile-1M (membound): runs at ``observe`` off /
+    ``"counters"`` / ``"full"`` in turns (``TURNS``) — outputs bit for bit
+    equal, syncs in the tick loop one per control tick at every level,
+    ticks/s per level, kernels per tick (500 ticks profiled, off and full in
+    turns); the plane's reconstruction (``finalize``) and
+    ``export_metrics`` timed; the plane within PLANE_RTOL of the CPU run's
+    (stall counts exact) and the trace the CPU's JSONL, a check that must
+    reject ``plane_planted_faults``.  closed-loop-faults-pipeline: DFS +
+    recovery + detector and the open-loop fixed + recovery run, each off
+    and at ``"full"``, the same checks (no sync at all in the open-loop
+    loop, under sync-debug "error").  rerank-A2: ``closed_loop_score`` at
+    B 4,096 x T 8,700 on the float64 ``"torch"`` loop,
+    ``observe="counters"`` and unobserved in turns, and on the float32 loop
+    unobserved then observed (loop s, finalize s, device peak memory); 64
+    designs' float64 planes against the CPU's, the float32 plane against
+    the float64 one.
+    ``"fused"`` refuses ``observe=`` and launches nothing; the chunked
+    sweep's ``sweep_chunk`` phases are timed by CUDA events."""
+    ex = closed_loop_example()
+    from repro_torch.core.dse import closed_loop_score
+    from repro_torch.kernels.tick_sim import fused_tick_sim
+    from repro_torch.sim import (Observer, Profiler, SimEngine, Trace,
+                                 export_metrics, get_profiler, reset_profiler)
+    from repro_torch.sim.batch import BatchSimEngine
+    report, fails = {"phase": "observe", "plane_rtol": PLANE_RTOL}, []
+
+    # -- closed-loop-12tile-1M, membound DFS
+    plat, trace, cfg = cl_ctx["plat"], cl_ctx["trace"], cl_ctx["cfg"]
+    control_ticks = trace.ticks // CLOSED_LOOP_CI
+
+    def membound(level, device=DEV, tr=trace):
+        eng = SimEngine(plat, config=cfg,
+                        controller=ex.controllers(plat)["dfs-membound"],
+                        observe=level, device=device)
+        return eng, eng.run(tr)
+
+    cl, runs = _in_turns(membound, TURNS, control_ticks, fails,
+                         "closed_loop")
+    cl.update(T=trace.ticks, control_ticks=control_ticks)
+    eng, r = runs["full"][0]
+    ob = eng.observer
+    sync()
+    t0 = time.perf_counter()
+    plane = ob.counters
+    cl["finalize_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    text = export_metrics(telemetry=r.telemetry, counters=plane,
+                          trace=ob.trace).render_prometheus()
+    cl["export_metrics_s"] = time.perf_counter() - t0
+    cl["export_lines"] = len(text.splitlines())
+    cl["trace_counts"] = ob.trace.counts()
+    t0 = time.perf_counter()
+    h_eng, _ = membound("full", "cpu")
+    host = h_eng.observer.counters
+    cl["cpu_s"] = time.perf_counter() - t0
+    cl["vs_cpu"] = plane_gap(plane, host)
+    cl["trace_equal_cpu"] = (ob.trace.to_jsonl()
+                             == h_eng.observer.trace.to_jsonl())
+    cl["planted_faults_passed"] = [
+        label for label, bad in plane_planted_faults(host)
+        if plane_ok(plane_gap(bad, host))]
+    if not (plane_ok(cl["vs_cpu"]) and cl["trace_equal_cpu"]):
+        fails.append("closed_loop: the plane or trace differs from the CPU's")
+    if cl["planted_faults_passed"]:
+        fails.append("the plane check passed a planted fault")
+    short = Trace(trace.arrivals[:500], trace.dt)
+    for level in ("off", "full", "full", "off"):
+        cl.setdefault(f"profile_500_{level}", []).append(tick_loop_profile(
+            lambda level=level: membound(level, tr=short)[1], 500))
+    report["closed_loop_12tile_1M"] = cl
+
+    # -- closed-loop-faults-pipeline
+    fplat = ex.pipeline_platform()
+    ftr = ex.surge_trace(fplat, device=DEV)
+    fr = {"T": ftr.ticks}
+    for name in ("dfs,rec+detect", "fixed,recovery"):
+        rec, dfs, det = ex.FAULT_RUNS[name]
+
+        def fault(level, device=DEV):
+            e, res, _ = ex.fault_run(fplat, ftr, recover=rec, dfs=dfs,
+                                     detect=det, device=device,
+                                     observe=level)
+            return e, res
+
+        out, got = _in_turns(fault, ("off", "full"),
+                             ftr.ticks // CLOSED_LOOP_CI if dfs else 0,
+                             fails, f"faults[{name}]", strict=not dfs)
+        e = got["full"][0][0]
+        h, _ = fault("full", "cpu")
+        out["vs_cpu"] = plane_gap(e.observer.counters, h.observer.counters)
+        out["trace_equal_cpu"] = (e.observer.trace.to_jsonl()
+                                  == h.observer.trace.to_jsonl())
+        out["trace_counts"] = e.observer.trace.counts()
+        fr[name] = out
+        if not (plane_ok(out["vs_cpu"]) and out["trace_equal_cpu"]):
+            fails.append(f"faults[{name}]: the plane or trace differs from "
+                         f"the CPU's")
+    report["closed_loop_faults_pipeline"] = fr
+
+    # -- rerank-A2: the float64 loop with counters, and float32 at full B
+    model, res, survivors = main_ctx["model"], main_ctx["res"], \
+        main_ctx["survivors"]
+    rtrace, rcfg = main_ctx["trace"], main_ctx["cfg"]
+    common = dict(model=model, req_mb=main_ctx["req_mb"], sim_config=rcfg,
+                  batch_controller_factory=pid_factory(), backend="torch")
+    want = rtrace.ticks // rcfg.control_interval
+    rr = {"B": len(survivors), "T": rtrace.ticks}
+    planes = {}
+    for dtype, label, levels in (
+            (torch.float64, "float64", ("off", "counters", "counters", "off")),
+            (torch.float32, "float32", ("off", "counters"))):
+        rows, results = {}, {}
+        for level in levels:
+            ob = (None if level == "off"
+                  else Observer(level, profiler=Profiler()))
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with SyncCount() as syncs:
+                sc = closed_loop_score(res, rtrace, indices=survivors,
+                                       observe=ob, dtype=dtype, **common)
+            sync()
+            row = rows.setdefault(level, {"loop_s": [], "peak_bytes": []})
+            row["loop_s"].append(sc.results[0].timings["loop"])
+            # above what was allocated before the call
+            row["peak_bytes"].append(
+                int(torch.cuda.max_memory_allocated() - base))
+            if syncs.in_ticks != want:
+                fails.append(f"rerank[{label}, {level}]: {syncs.in_ticks} "
+                             f"syncs in the tick loop, not {want}")
+            if ob is not None:
+                row.setdefault("finalize_s", []).append(
+                    ob.profiler.summary()["counters_finalize"]["total_s"])
+                planes.setdefault(label, ob.counters)
+                if len(sc.counters) != len(survivors):
+                    fails.append(f"rerank[{label}]: summaries missing")
+            results.setdefault(level, []).append(sc.results[0])
+        rows["equal_to_off"] = all(
+            results_equal(x, results["off"][0])
+            for x in results["counters"] + results["off"][1:])
+        if not rows["equal_to_off"]:
+            fails.append(f"rerank[{label}]: observing changed the run")
+        rr[label] = rows
+    pick = np.arange(0, len(survivors), max(1, len(survivors) // 64))[:64]
+    hob = Observer("counters")
+    t0 = time.perf_counter()
+    closed_loop_score(res, rtrace, indices=survivors[pick], device="cpu",
+                      observe=hob, **common)
+    rr["check64_cpu_s"] = time.perf_counter() - t0
+    rr["check64"] = plane_gap(plane_rows(planes["float64"], pick),
+                              hob.counters)
+    rr["float32_vs_float64"] = f32_plane_ratio(planes["float32"],
+                                               planes["float64"])
+    if not plane_ok(rr["check64"]):
+        fails.append("rerank: 64 designs' planes differ from the CPU's")
+    if not np.all(np.isfinite(planes["float32"].tile["invocations"])):
+        fails.append("rerank: the float32 plane is not finite")
+    report["rerank_A2"] = rr
+
+    # -- "fused" refuses observe=, and launches nothing
+    before = fused_tick_sim.launches
+    said = []
+    try:
+        BatchSimEngine(main_ctx["plat"], config=rcfg, backend="fused",
+                       observe="counters")
+    except NotImplementedError as e:
+        said.append(str(e))
+    feng = BatchSimEngine(main_ctx["plat"], config=rcfg, backend="fused")
+    feng.observer = Observer("full")
+    try:
+        feng.run(rtrace)
+    except NotImplementedError as e:
+        said.append(str(e))
+    text = "fused backend records no observer plane; use backend='torch'"
+    report["fused_refuses"] = {
+        "refusals": said, "launches": fused_tick_sim.launches - before}
+    if said != [text, text] or fused_tick_sim.launches != before:
+        fails.append("fused did not refuse observe= as it should")
+
+    # -- the chunked sweep's phases, timed by CUDA events (no sync added)
+    from repro_torch.configs.vespa_soc import CHSTONE
+    from repro_torch.core.perfmodel import AccelWorkload
+    wls = [AccelWorkload(n, *CHSTONE[n]) for n in ISLANDS["accels"]]
+    reset_profiler()
+    sw, sw_s, _ = timed_sweep(model, wls, chunked_axes(ISLANDS),
+                              chunk_points=ISLANDS["chunk"], device=None,
+                              backend="torch")
+    phase = get_profiler().summary().get("sweep_chunk", {})
+    report["sweep_chunk_profile"] = {
+        "n_chunks": sw.n_chunks, "count": phase.get("count"),
+        "device_s": phase.get("total_s"), "sweep_wall_s": sw_s}
+    if phase.get("count") != sw.n_chunks or not phase.get("total_s"):
+        fails.append("the chunked sweep's phases were not profiled")
+    reset_profiler()
+    report["failures"] = fails
+    emit(report)
+    if fails:
+        raise SystemExit("observe: " + "; ".join(fails))
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -3519,6 +3876,77 @@ def card_supervisor_run(dfs):
     assert gap["max_rel"] <= FAULT_RTOL and seq_gap_ok(gap), gap
 
 
+def card_observe(case):
+    """tests/test_torch_observe.py's card case: an observed run on the card
+    against the unobserved card run (bit for bit) and against the same
+    observed run on the CPU (plane within PLANE_RTOL, stall counts exact;
+    the trace's JSONL equal).  ``sequential``: four tiles at 1.2x capacity,
+    a balancer, PID + guard, a 4 ms deadline (SLO spans, splits, guards in
+    the trace); ``faults``: a kill, a degraded link, a stuck island and
+    the online supervisor, open loop, no sync in the tick loop (sync-debug
+    "error"); ``batch64``: three designs, PID and a kill, float64;
+    ``batch32``: the same in float32, its plane within the float32
+    tolerance of the CPU's float64 plane, stall counts exact."""
+    from repro_torch.core.dfs import BatchPIDRatePolicy, PIDRatePolicy
+    from repro_torch.runtime.fault import SimFaultSupervisor
+    from repro_torch.sim import (BatchControllerHarness, BatchSimEngine,
+                                 BatchSimPlatform, ControllerHarness,
+                                 FaultSchedule, LoadBalancer, SimConfig,
+                                 SimEngine, SLOConfig, constant_trace)
+    plat = _tick_platform(2)
+    names = plat.names
+    cap = SimEngine(plat, device="cpu").capacity_rps()
+    tr = constant_trace(cap * 1.2, 300, 4, dt=1e-3)
+    cfg = SimConfig(telemetry_interval=7, control_interval=10)
+    kill = (FaultSchedule().kill_tile(names[1], start=100, end=200)
+            .degrade_link((1, 1), (1, 2), 0.4, start=50)
+            .stick_island(names[3], start=30, end=150, rate=0.4))
+
+    def run(device, level, dtype=torch.float64):
+        if case in ("sequential", "faults"):
+            kw = dict(balancer=LoadBalancer([names[:2]], names),
+                      slo=SLOConfig(deadline_s=0.004))
+            if case == "faults":
+                kw.update(faults=kill, supervisor=SimFaultSupervisor())
+            else:
+                kw["controller"] = ControllerHarness(
+                    plat.islands, PIDRatePolicy(target=0.7),
+                    queue_guard_ticks=3.0)
+            eng = SimEngine(plat, config=cfg, observe=level, device=device,
+                            **kw)
+        else:
+            bp = BatchSimPlatform.stack([_tick_platform(k)
+                                         for k in (2, 4, 8)])
+            eng = BatchSimEngine(
+                bp, config=cfg, observe=level, device=device, dtype=dtype,
+                faults=FaultSchedule().kill_tile(names[2], start=80,
+                                                 end=200),
+                slo=SLOConfig(deadline_s=0.05, on_kill="respill",
+                              max_retries=1),
+                controller=BatchControllerHarness(
+                    bp.islands, bp.rates, BatchPIDRatePolicy(target=0.7),
+                    tile_names=bp.names, queue_guard_ticks=3.0))
+        return eng, eng.run(tr)
+
+    dtype = torch.float32 if case == "batch32" else torch.float64
+    level = "counters" if case == "batch32" else "full"
+    with SyncCount(strict=case == "faults") as syncs:
+        card, r_card = run(DEV, level, dtype)
+    assert syncs.loops == 1, syncs.loops
+    _, r_off = run(DEV, None, dtype)
+    assert results_equal(r_card, r_off)
+    host, _ = run("cpu", level if case != "batch32" else "counters")
+    if case == "batch32":
+        h64, _ = run("cpu", "counters")
+        gap = f32_plane_ratio(card.observer.counters, h64.observer.counters)
+        assert gap["max_ratio"] <= 1.0 and gap["stall_equal"], gap
+        return
+    gap = plane_gap(card.observer.counters, host.observer.counters)
+    assert plane_ok(gap), gap
+    assert card.observer.trace.to_jsonl() == host.observer.trace.to_jsonl()
+    assert len(card.observer.trace) > 2
+
+
 # gpu-marked test -> (the function here, its cases as the test's arguments)
 CARD_TESTS = {
     "test_cuda_flash_attention_matches_plain": (
@@ -3564,6 +3992,9 @@ CARD_TESTS = {
         card_fault_run, (("respill",), ("drop",), ("wait",))),
     "test_cuda_supervisor_run_matches_cpu": (
         card_supervisor_run, ((False,), (True,))),
+    "test_cuda_observed_run_matches_cpu": (
+        card_observe, (("sequential",), ("faults",), ("batch64",),
+                       ("batch32",))),
 }
 
 
@@ -3699,6 +4130,9 @@ def main() -> int:
     phase_closed_loop_faults()
     phase_rerank_faults(main_ctx)
     phase_fused_refuses_faults(main_ctx)
+    # the monitoring plane on those paths (no kernel of its own; "fused"
+    # refuses it)
+    phase_observe(cl_ctx, main_ctx)
 
     # the serving paths, each counted inside drive_serve the same way
     serve_report, serve_rows = phase_serve()

@@ -27,13 +27,19 @@ DFS, each without and with recovery (respill through alive-masked splits),
 and DFS with recovery routed by an online detector that never sees the
 injected schedule — asserting the scenario gate: without recovery over 5 %
 of requests drop, with it under 1 % at a bounded p99, and DFS still saves
-energy.  ``--observe`` (the monitoring plane) is not ported yet and exits
-with that refusal.
+energy.
+
+With ``--observe`` the default scenario runs once more at monitoring
+level ``"full"`` and prints the counter plane's roll-up (busiest tiles,
+stall fractions, effective rates), the decision trace and a slice of the
+Prometheus export; the observed run must be bit-for-bit identical to the
+unobserved run (asserted).
 
     python examples/torch_closed_loop.py                 # on the card
     python examples/torch_closed_loop.py --dse
     python examples/torch_closed_loop.py --pipeline
     python examples/torch_closed_loop.py --faults
+    python examples/torch_closed_loop.py --observe
     python examples/torch_closed_loop.py --device cpu    # the CPU instead
 """
 import argparse
@@ -55,15 +61,12 @@ from repro_torch.core.perfmodel import (AccelWorkload,  # noqa: E402
 from repro_torch.runtime.fault import (SimFaultConfig,  # noqa: E402
                                        SimFaultSupervisor)
 from repro_torch.sim import (ControllerHarness, FaultSchedule,  # noqa: E402
-                             FlowPattern, LoadBalancer, SimConfig, SimEngine,
-                             SimPlatform, SLOConfig, Trace, diurnal_trace,
-                             with_total)
+                             FlowPattern, LoadBalancer, Observer, SimConfig,
+                             SimEngine, SimPlatform, SLOConfig, Trace,
+                             diurnal_trace, export_metrics, with_total)
 
 STAGE0 = ("fe0", "fe1", "fe2")
 STAGE1 = ("be0", "be1", "be2")
-NOT_PORTED = {
-    "observe": "observer plane: observe= not ported yet (ROADMAP queue A "
-               "item 9)"}
 
 
 def build_platform() -> SimPlatform:
@@ -206,10 +209,11 @@ FAULT_RUNS = {"fixed,no-rec": (False, False, False),
 
 
 def fault_run(plat, tr, *, recover: bool, dfs: bool = False,
-              detect: bool = False, device=None):
+              detect: bool = False, device=None, observe=None):
     """One replay of the replica kill: ``(engine, result, supervisor)``.
     Without recovery stranded work is dropped; with it, respilled to the
-    surviving replicas through the balancer (alive-masked splits)."""
+    surviving replicas through the balancer (alive-masked splits).
+    ``observe`` is the engine's monitoring level (or Observer)."""
     ks, ke = kill_window(tr.ticks)
     sched = FaultSchedule().kill_tile("be1", start=ks, end=ke)
     slo = (SLOConfig(deadline_s=0.05, on_kill="respill", max_retries=1)
@@ -225,7 +229,7 @@ def fault_run(plat, tr, *, recover: bool, dfs: bool = False,
         plat, config=SimConfig(control_interval=25), controller=ctl,
         faults=sched, slo=slo, supervisor=sup,
         balancer=LoadBalancer((STAGE0, STAGE1), plat.names, mode="even"),
-        device=device)
+        observe=observe, device=device)
     return eng, eng.run(tr), sup
 
 
@@ -278,6 +282,68 @@ def run_faults(ticks: int = 4000, device=None) -> None:
           "bounded p99, DFS still saving energy ✓")
 
 
+def observe_runs(ticks: int = 4000, device=None):
+    """The default DFS scenario (membound) at ``observe="full"`` and
+    without monitoring: ``(observed result, unobserved result, observer,
+    platform)``."""
+    plat = build_platform()
+    cap = SimEngine(plat, device=device).capacity_rps()
+    tr = diurnal_trace(cap * 0.35, ticks, plat.n_tiles, dt=1e-3,
+                       depth=0.5, seed=7)
+    ctl = lambda: ControllerHarness(  # noqa: E731 — fresh per run
+        plat.islands, partial(policy_memory_bound, threshold=0.55,
+                              low_rate=0.5), queue_guard_ticks=3.0)
+    cfg = SimConfig(control_interval=25)
+    ob = Observer("full")
+    res = SimEngine(plat, config=cfg, controller=ctl(), observe=ob,
+                    device=device).run(tr)
+    blind = SimEngine(plat, config=cfg, controller=ctl(),
+                      device=device).run(tr)
+    return res, blind, ob, plat
+
+
+def run_observe(ticks: int = 4000, device=None) -> None:
+    """Monitoring demo: the default DFS scenario replayed at
+    ``observe="full"`` — counters, decision trace and metrics export —
+    with the zero-perturbation contract checked on the spot."""
+    res, blind, ob, plat = observe_runs(ticks, device=device)
+    assert res.p99_latency_s == blind.p99_latency_s
+    assert res.energy_j == blind.energy_j
+    print("zero-perturbation: observed run == unobserved run, "
+          "bit for bit ✓\n")
+
+    cp = ob.counters
+    s = cp.summary()
+    print(f"counter plane over {s['ticks']:,.0f} ticks: "
+          f"{s['invocations']:,.0f} invocations, "
+          f"busy {s['busy_frac']:.1%}, stall {s['stall_frac']:.1%}, "
+          f"mean link util {s['mean_link_util']:.1%}, "
+          f"{s['energy_j']:.1f} J")
+    busy = cp.mean_busy()
+    top = np.argsort(busy)[::-1][:3]
+    for a in top:
+        print(f"  {plat.names[a]:>6s}: busy {busy[a]:.1%}, "
+              f"stalled {cp.stall_frac()[a]:.1%}, "
+              f"eff rate {cp.effective_rate()[a]:.2f}")
+
+    print(f"\ndecision trace ({len(ob.trace)} events): "
+          f"{ob.trace.counts()}")
+    for ev in ob.trace.events()[:4]:
+        print(f"  {ev.tick:>5d} {ev.kind:<12s} {ev.subject}")
+
+    reg = export_metrics(telemetry=res.telemetry, counters=cp,
+                         trace=ob.trace)
+    text = reg.render_prometheus()
+    print(f"\nPrometheus export: {len(reg.names())} families, "
+          f"{len(text.splitlines())} lines; e.g.")
+    for line in text.splitlines():
+        if line.startswith("sim_tile_busy_ticks_total") \
+                or line.startswith("sim_trace_events_total"):
+            print(f"  {line}")
+            break
+    print("  ...")
+
+
 def dse_score(plat_model, *, device=None, top: int = 6, ticks: int = 2000):
     """Re-rank the ``top`` static survivors over a ``ticks``-tick diurnal
     trace through the per-point sequential path (one SimEngine per
@@ -328,16 +394,18 @@ def main() -> None:
                     help="run the fault-injection scenario (replica kill "
                          "mid-surge + SLO deadline + respill recovery)")
     ap.add_argument("--observe", action="store_true",
-                    help="the monitoring plane (not ported yet: refused)")
+                    help="run the monitoring demo (counter plane, decision "
+                         "trace, Prometheus export, zero-perturbation check)")
     args = ap.parse_args()
 
-    if args.observe:
-        raise SystemExit(NOT_PORTED["observe"])
+    if args.pipeline:
+        run_pipeline(args.device)
+        return
     if args.faults:
         run_faults(device=args.device)
         return
-    if args.pipeline:
-        run_pipeline(args.device)
+    if args.observe:
+        run_observe(device=args.device)
         return
 
     plat = build_platform()

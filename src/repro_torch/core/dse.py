@@ -59,6 +59,7 @@ from repro_torch.core.perfmodel import (AccelWorkload, NOC_POWER_SHARE,
 from repro_torch.core.replication import (replication_area_model,
                                           replication_throughput_model)
 from repro_torch.core.voltage import TechModel, tech_axis_coeffs
+from repro_torch.sim.observe import profiled
 
 
 @dataclass(frozen=True)
@@ -997,10 +998,13 @@ def grid_sweep(model: SoCPerfModel,
         o1 = min(o0 + o_per_block, outer_n)
         lo, hi = o0 * inner, o1 * inner
         if backend == "torch":
-            blk = _block_survivors_t(
-                _eval_flat_points_t(model, workloads, n_tg, lay, vals,
-                                    shape, lo, hi, device=dev, dtype=dtype),
-                lo, topk_track)
+            # the block's evaluation, as the reference profiles it: on the
+            # card it ends without a host sync, so a CUDA event pair times it
+            with profiled("sweep_chunk", device=dev):
+                out_t = _eval_flat_points_t(model, workloads, n_tg, lay,
+                                            vals, shape, lo, hi, device=dev,
+                                            dtype=dtype)
+            blk = _block_survivors_t(out_t, lo, topk_track)
         else:
             blk = _block_survivors(model, workloads, n_tg, lay, vals, shape,
                                    s, o0, o1, inner, topk_track)
@@ -1069,8 +1073,9 @@ def _block_survivors(model, workloads, n_tg, lay, vals, shape, s, o0, o1,
         bshape[dim - s + 1] = v.shape[0]
         return v.reshape(bshape)
 
-    out = _eval_grid(model, workloads, n_tg, lay, vals, get,
-                     (O,) + shape[s:])
+    with profiled("sweep_chunk"):
+        out = _eval_grid(model, workloads, n_tg, lay, vals, get,
+                         (O,) + shape[s:])
     flat = {k: v.ravel() for k, v in out.items()}
     nbytes = (sum(v.nbytes for v in flat.values())
               + flat["throughput"].nbytes)          # + kernel temp
@@ -1275,8 +1280,16 @@ def closed_loop_score(result: SweepResult, trace, *,
     sequential path and on ``backend="torch"`` (``"fused"`` refuses them).
     Fault-free calls rank exactly as before.
 
+    Observability: ``observe`` (a ``repro_torch.sim.Observer`` or a level
+    name ``"counters"``/``"full"``) turns on the monitoring plane inside
+    every replay; the score then carries one counter summary per survivor
+    in ``ClosedLoopScore.counters`` (batched: one ``design(j)`` slice each
+    of the single stacked plane; ``"fused"`` refuses it).
+    ``observe=None`` keeps the replays monitoring-free and is bit-for-bit
+    identical to unobserved scoring.
+
     Not ported yet, accepted for signature parity and refused when set:
-    ``observe=`` and ``devices=`` beyond one device.
+    ``devices=`` beyond one device.
     """
     from repro_torch.sim.batch import BatchSimEngine, BatchSimPlatform
     from repro_torch.sim.engine import SimConfig, SimEngine, SimPlatform
@@ -1324,6 +1337,10 @@ def closed_loop_score(result: SweepResult, trace, *,
         drops = (np.asarray(r.drop_rate, dtype=np.float64)
                  if fault_schedule is not None else None)
         results: List[object] = [r]
+        ob = engine.observer
+        counters = (None if ob is None or ob.counters is None else
+                    [ob.counters.design(j).summary()
+                     for j in range(indices.shape[0])])
     else:
         p99 = np.empty(indices.shape[0])
         ept = np.empty(indices.shape[0])
@@ -1331,6 +1348,7 @@ def closed_loop_score(result: SweepResult, trace, *,
         drops = (np.empty(indices.shape[0])
                  if fault_schedule is not None else None)
         results = []
+        summaries: List[Dict[str, float]] = []
         for j, i in enumerate(indices):
             dp = result.design_point(int(i))
             platform = SimPlatform.from_design_point(
@@ -1353,13 +1371,20 @@ def closed_loop_score(result: SweepResult, trace, *,
             thr[j] = r.throughput_rps
             if drops is not None:
                 drops[j] = r.drop_rate
+            if engine.observer is not None \
+                    and engine.observer.counters is not None:
+                # summarize NOW — a shared Observer instance re-attaches
+                # its plane on the next survivor's run
+                summaries.append(engine.observer.counters.summary())
+        counters = summaries if len(summaries) == len(results) else None
 
     order = _rank_scores(p99, ept, p99_sla_s, drop_rate=drops,
                          max_drop_rate=max_drop_rate)
     return ClosedLoopScore(indices=indices, p99_latency_s=p99,
                            energy_per_request_j=ept, throughput_rps=thr,
                            order=np.asarray(order, dtype=np.int64),
-                           results=results, drop_rate=drops, counters=None)
+                           results=results, drop_rate=drops,
+                           counters=counters)
 
 
 # ---------------------------------------------------------------------------

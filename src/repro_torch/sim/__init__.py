@@ -22,6 +22,12 @@ faults.py    — FaultSchedule (tile/island kills, link degradation, stuck
                actuators) compiled to per-tick availability/scale masks
                the tick loop consumes on its device, plus SLOConfig
                (deadline drops, bounded retry of stranded work)
+observe.py   — the run-time monitoring plane: CounterPlane (per-tile,
+               per-link and per-island hardware counters, rebuilt on the
+               engine's device after a run), ControlTrace (schema'd control
+               events, JSONL), the Observer level knob, the phase Profiler
+metrics.py   — MetricsRegistry (Prometheus text export and parse) and
+               telemetry_timeseries
 
 Names are re-exported lazily (imported on first use).
 """
@@ -43,6 +49,12 @@ _EXPORTS = {
                      "compile_faults", "respill_stranded"), "faults"),
     **dict.fromkeys(("CompiledFlows", "FlowPattern", "compile_flows"),
                     "flows"),
+    **dict.fromkeys(("MetricsRegistry", "parse_prometheus_text",
+                     "telemetry_timeseries"), "metrics"),
+    **dict.fromkeys(("LEVELS", "TRACE_KINDS", "ControlTrace", "CounterPlane",
+                     "Observer", "Profiler", "TraceEvent", "export_metrics",
+                     "get_profiler", "profiled", "reset_profiler"),
+                    "observe"),
     **dict.fromkeys(("BatchTelemetry", "RingBuffer", "Telemetry",
                      "TelemetrySchema"), "telemetry"),
     **dict.fromkeys(("BatchTrace", "Trace", "constant_trace",

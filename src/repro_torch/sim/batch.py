@@ -44,7 +44,10 @@ the tick loop reads becomes tensors once, at engine construction.  A
 :class:`~repro_torch.sim.faults.FaultSchedule` (one shared schedule for all
 B designs, its masks copied to the device before the loop) and an
 :class:`~repro_torch.sim.faults.SLOConfig`; ``"fused"`` refuses both.  The
-observer plane is not ported yet and is refused.  The sequential
+observer plane (``observe=``, :mod:`repro_torch.sim.observe`) records on
+``"torch"``: a deferred capture in float64 (one slot write per tick, the
+plane rebuilt on the device after the run), plain device accumulators in
+float32; ``"fused"`` refuses it.  The sequential
 ``sim/engine.py:SimEngine`` is the ``"torch"`` loop at B = 1 with the scalar
 controller harness (and an optional online fault supervisor) in it.
 """
@@ -76,6 +79,8 @@ from repro_torch.sim.engine import (PKT_BYTES, SimConfig, SimPlatform,
 from repro_torch.sim.faults import (CompiledFaults, SLOConfig,
                                     compile_faults, respill_stranded)
 from repro_torch.sim.flows import FlowPattern, compile_flows
+from repro_torch.sim.observe import (RANK_CONTROL, RANK_END, Observer,
+                                     emit_trace, schedule_entries)
 from repro_torch.sim.telemetry import (BatchTelemetry, Telemetry,
                                        TelemetrySchema)
 from repro_torch.sim.traffic import BatchTrace
@@ -397,8 +402,10 @@ class BatchSimEngine:
     ``faults`` (a :class:`~repro_torch.sim.faults.FaultSchedule`) and
     ``slo`` (a :class:`~repro_torch.sim.faults.SLOConfig`) run on
     ``"torch"`` in both dtypes and are refused on ``"fused"``; ``observe``
-    is accepted for signature parity with the reference and refused when
-    set; ``devices`` accepts ``None`` or ``1``.
+    (a level name or an :class:`~repro_torch.sim.observe.Observer`) records
+    the counter plane on ``"torch"`` in both dtypes and the control trace
+    in float64, as the reference's NumPy and scan backends do, and is
+    refused on ``"fused"``; ``devices`` accepts ``None`` or ``1``.
     """
 
     def __init__(self, platform: BatchSimPlatform, *,
@@ -434,7 +441,9 @@ class BatchSimEngine:
         self.backend = backend
         self.faults = faults
         self.slo = slo
-        self.observe = observe
+        # run-time monitoring (an observe.Observer or a level name); the
+        # hooks only read what the tick loop computes
+        self.observer = Observer.coerce(observe)
         self._refuse_unported()
         self.last_state: Optional[TickState] = None
         self.last_histories = None      # (admitted, served) (T, B, A)
@@ -467,10 +476,9 @@ class BatchSimEngine:
 
     # ------------------------------------------------------------ refusals
     def _refuse_unported(self) -> None:
-        """Knobs the tick kernel does not honour — faults, SLO semantics
-        and the balancer, which the reference's own fused kernel refuses as
-        well — and the observer plane, which no backend of the port records
-        yet."""
+        """Knobs the tick kernel does not honour — faults, SLO semantics,
+        the balancer and the observer plane, which the reference's own fused
+        kernel refuses as well."""
         fused = self.backend == "fused"
         if self.faults is not None and self.faults and fused:
             raise NotImplementedError(
@@ -484,11 +492,10 @@ class BatchSimEngine:
             raise NotImplementedError(
                 "fused backend does not run the load balancer; "
                 "use backend='torch'")
-        if self.observe is not None and self.observe != "off":
+        if self.observer is not None and self.observer.enabled and fused:
             raise NotImplementedError(
-                ("fused backend records no observer plane; "
-                 if fused else "observer plane: ")
-                + "observe= not ported yet (ROADMAP queue A item 9)")
+                "fused backend records no observer plane; "
+                "use backend='torch'")
 
     # ------------------------------------------------------------ tensors
     def _tensors(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -675,6 +682,18 @@ class BatchSimEngine:
         else:
             rates = p.rates
         run = self._loop(trace, rates, control)
+        if run.traced:
+            # the reference's batched NumPy loop traces the schedule's
+            # events, the commits and the run's bracket
+            T = trace.ticks
+            entries = schedule_entries(run.ev_by_tick) + [
+                (ev["tick"], RANK_CONTROL, "dfs_commit", "batch",
+                 {"designs": ev["designs"]}) for ev in run.commits]
+            entries.append((max(T - 1, 0), RANK_END, "run_end",
+                            "batch-torch", {"designs": B}))
+            emit_trace(self.observer, entries, "batch-torch", ticks=T,
+                       dt=trace.dt, designs=B,
+                       level=self.observer.level)
         telemetry = None
         if run.rings is not None:
             t0 = time.perf_counter()
@@ -766,7 +785,7 @@ class BatchSimEngine:
             supervisor.begin_device_run(self.platform.names, T, dev)
 
     def _loop(self, trace, rates0: np.ndarray, control=None,
-              supervisor=None) -> "_Loop":
+              supervisor=None, sequential: bool = False) -> "_Loop":
         """The ``"torch"`` tick loop of ``trace`` from the (B, I) island
         rates ``rates0``; the sequential engine runs it at B = 1.
 
@@ -778,6 +797,12 @@ class BatchSimEngine:
         rates, telemetry event)``.  ``supervisor`` (a
         :class:`~repro_torch.runtime.fault.SimFaultSupervisor`, B = 1 only)
         watches the run on the device and routes recovery on its belief.
+
+        With an enabled :attr:`observer` the loop captures the counter plane
+        (attached lazily to the observer after the run) and, at level
+        ``"full"``, what the trace needs from the device: the sequential
+        engine's (``sequential=True``) SLO drops and balancer weights go
+        into device rings, read after the loop (:meth:`_observe_setup`).
         """
         p, cfg = self.platform, self.config
         B, A, T, dt = p.n_designs, p.n_tiles, trace.ticks, trace.dt
@@ -819,20 +844,30 @@ class BatchSimEngine:
                 n_rows=T // ti if ti else 0, device=dev)
             lp.events = []
             lp.win_busy = torch.zeros((B, A), dtype=f64, device=dev)
+        self._observe_setup(lp, T, sequential)
 
         self._sync()
         wall0 = time.perf_counter()
         self._ticks(lp, trace)
         self._sync()
         lp.timings["loop"] = time.perf_counter() - wall0
+        lp.detected = []
         if lp.sup is not None:
             t0 = time.perf_counter()
-            detected = lp.sup.end_device_run()
+            lp.detected = lp.sup.end_device_run()
             if lp.events is not None:
                 # within a tick: the schedule's events, then the
                 # supervisor's, then the controller's commit
-                lp.events = sorted(lp.events + detected, key=_event_order)
+                lp.events = sorted(lp.events + lp.detected,
+                                   key=_event_order)
             lp.timings["copies"] += time.perf_counter() - t0
+        if lp.ocap is not None:
+            # lazy: the reconstruction runs on the first
+            # observer.counters read, not inside the engine's wall clock
+            ocap, adm, srv, qd = lp.ocap, lp.admitted, lp.served, lp.qdrop
+            self.observer.attach_lazy(lambda: ocap.finalize(adm, srv, qd))
+        elif lp.icap is not None:
+            self.observer.attach_lazy(lp.icap.finalize)
         self.last_state = lp.state
         self.last_histories = (lp.admitted, lp.served)
         self.last_fault_histories = (
@@ -840,6 +875,41 @@ class BatchSimEngine:
             {**dict(zip(FAULT_HISTORIES, lp.fh.unbind(1))),
              "queue_drops": lp.qdrop})
         return lp
+
+    def _observe_setup(self, lp: "_Loop", T: int, sequential: bool) -> None:
+        """The run's monitoring plan on ``lp``.  Float64: a deferred capture
+        (the plane's lead is ``()`` for the sequential engine, ``(B,)``
+        otherwise) and a fresh trace; at level ``"full"`` the sequential
+        engine also keeps the per-tick SLO drops ``(T, A)`` and the
+        balancer's weights at each telemetry row in device rings.  Float32:
+        device accumulators and no trace, as the reference's scan."""
+        p, ob = self.platform, self.observer
+        B, A = p.n_designs, p.n_tiles
+        lp.ocap = lp.icap = lp.slo_hist = lp.lb_ring = None
+        lp.lb_ticks, lp.commits, lp.traced = [], [], False
+        if ob is None or not ob.enabled:
+            return
+        kw = dict(consts=lp.consts, island_of_tile=self._island_of_tile,
+                  noc_island=self._noc_island, n_links=self._inc.shape[-1],
+                  n_islands=len(p.islands.names()), tile_names=p.names,
+                  island_names=p.islands.names())
+        if self.dtype == torch.float32:
+            lp.icap = ob.capture_incremental(lead=(B,), **kw)
+            return
+        lp.ocap = ob.capture_sequential(
+            T=T, lead=() if sequential else (B,), tile_alive=lp.alive_t,
+            link_scale=lp.lscale_t, **kw)
+        lp.ocap.on_service(0, lp.svc)
+        ob.begin_run()
+        lp.traced = ob.tracing
+        if lp.traced and sequential:
+            dev, ti = self.device, self.config.telemetry_interval
+            if lp.deadline:
+                lp.slo_hist = torch.zeros((T, A), dtype=torch.float64,
+                                          device=dev)
+            if self.balancer is not None and ti:
+                lp.lb_ring = torch.zeros((max(T // ti, 1), A),
+                                         dtype=torch.float64, device=dev)
 
     def _ticks(self, lp: "_Loop", trace) -> None:
         """Every tick of the run, from the first to the last: on the card,
@@ -863,6 +933,8 @@ class BatchSimEngine:
                 # the hardware override (service terms only)
                 lp.override = lp.stuck_t[t_i]
                 lp.svc = self._service_t(lp.rates_t, dtype, lp.override)
+                if lp.ocap is not None:
+                    lp.ocap.on_service(t_i, lp.svc)
             # routing acts on the BELIEVED availability (the supervisor's
             # detection state when it is in the loop, else the oracle
             # mask); the true mask still gates the hardware
@@ -891,6 +963,14 @@ class BatchSimEngine:
                     arr = arr + retry_arr
             out = tick_step(st, arr, lp.svc, consts, alive=alive,
                             link_scale=lscale, retry_in=retry_arr)
+            # monitoring: reads of the step's tensors, never fed back
+            if lp.ocap is not None:
+                lp.ocap.on_tick(t_i, out)
+                if lp.slo_hist is not None:
+                    lp.slo_hist[t_i] = out.slo_drop[0]
+            elif lp.icap is not None:
+                lp.icap.on_tick(out, queue=st.queue, busy=st.busy,
+                                svc=lp.svc, alive=alive)
             if lp.carry is not None:
                 lp.carry = out.forwarded
             if lb is not None:
@@ -948,6 +1028,11 @@ class BatchSimEngine:
                                   st.retried) if lp.track else ()))
                     lp.win_busy = torch.zeros((B, A), dtype=f64, device=dev)
                     lp.win_ticks = 0
+                    if lp.lb_ring is not None:
+                        # the split weights of this row, for the trace
+                        lp.lb_ring[len(lp.lb_ticks)] = lb.weights(
+                            st.queue, lp.prev_cap)[0]
+                        lp.lb_ticks.append(t_i)
 
             if lp.control is not None and ci and (t_i + 1) % ci == 0:
                 # the harness lives on the host: one window's counters
@@ -969,6 +1054,11 @@ class BatchSimEngine:
                     new_rates, event = commit
                     lp.rates_t = self._upload(new_rates)
                     lp.svc = self._service_t(lp.rates_t, dtype, lp.override)
+                    if lp.ocap is not None:
+                        # the new rates take effect at the NEXT tick
+                        lp.ocap.on_service(t_i + 1, lp.svc)
+                    if lp.traced:
+                        lp.commits.append(event)
                     if lp.events is not None:
                         lp.events.append(event)
 

@@ -54,6 +54,9 @@ from repro_torch.core.perfmodel import (AccelWorkload, NOC_POWER_SHARE,
                                         chip_power_from_dynamic)
 from repro_torch.core.voltage import TechModel
 from repro_torch.sim.flows import FlowPattern
+from repro_torch.sim.observe import (RANK_CONTROL, RANK_DETECT, RANK_END,
+                                     RANK_LB, RANK_SLO, Observer, emit_trace,
+                                     schedule_entries)
 from repro_torch.sim.telemetry import (Telemetry,  # noqa: F401
                                        weighted_percentiles)
 
@@ -602,11 +605,6 @@ class SimConfig:
 # ---------------------------------------------------------------------------
 
 
-def _not_ported(what: str, knob: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: {knob}= not ported yet (ROADMAP queue A item {item})")
-
-
 @dataclass
 class SimResult:
     ticks: int
@@ -700,8 +698,14 @@ class SimEngine:
     ``queue_drops``.
 
     ``device=None`` means the CUDA card (and raises without one); the tests
-    pass ``device="cpu"``.  ``observe`` is refused until ROADMAP queue A
-    item 9 lands.
+    pass ``device="cpu"``.  ``observe`` (a level name or an
+    :class:`~repro_torch.sim.observe.Observer`) records the counter plane
+    (``observer.counters``, rebuilt on the device after the run and copied
+    once, at the first read) and, at ``"full"``, the control trace
+    (``observer.trace``): the events the loop learns on the device — SLO
+    drop spans, the balancer's split weights, the supervisor's detections —
+    are kept in device rings and emitted after the loop in the reference's
+    order, so observing adds no host sync to the tick loop.
     """
 
     def __init__(self, platform: SimPlatform, *,
@@ -710,8 +714,6 @@ class SimEngine:
                  observe=None, tech=None, device=None):
         from repro_torch import device as device_mod
         from repro_torch.sim.batch import BatchSimEngine, BatchSimPlatform
-        if observe is not None and observe != "off":
-            raise _not_ported("observer plane", "observe", "9")
         self.platform = platform
         self.config = config
         self.controller = controller    # a control.ControllerHarness or None
@@ -734,6 +736,9 @@ class SimEngine:
         # respill then act on its BELIEVED availability while the true
         # masks gate what the hardware serves
         self.supervisor = supervisor
+        # run-time monitoring (observe.Observer or level string): the
+        # hooks only read what the tick loop computes
+        self.observer = Observer.coerce(observe)
         self.last_state: Optional[TickState] = None          # set by run()
         self.last_histories = None      # (admitted, served) (T, A) tensors
         self.last_fault_histories = None  # per-tick ledgers, (T,) tensors,
@@ -773,11 +778,15 @@ class SimEngine:
         eng = self._batch
         eng.config, eng.balancer = self.config, self.balancer
         eng.faults, eng.slo = self.faults, self.slo
+        eng.observer = ob = self.observer
+        tracing = ob is not None and ob.tracing
+        ctl_entries: List[tuple] = []   # the controller's trace events
         control = None
         if ctl is not None:
             ctl.begin_run()     # counter baselines reset per run
             live = ctl.live()
             swaps0 = ctl.actuator.swaps
+            guard_prev: List[Tuple[str, ...]] = [()]
 
             def control(t_i, window, dead=None, stuck=None):
                 busy, bound, pin, pout, rtt, qticks = window[:, 0]
@@ -785,16 +794,24 @@ class SimEngine:
                     tick=t_i, names=p.names, busy=busy, boundness=bound,
                     pkts_in=pin, pkts_out=pout, rtt=rtt,
                     queue_ticks=qticks, dead=dead, stuck=stuck)
+                if tracing and ctl.actions:
+                    self._trace_action(ctl_entries, t_i, ctl.actions[-1],
+                                       guard_prev)
                 if new_cfg is None:
                     return None
                 rates = {i.name: i.rate for i in new_cfg.islands}
+                if tracing:
+                    ctl_entries.append((
+                        t_i, RANK_CONTROL, "dfs_commit",
+                        f"v{new_cfg.version}",
+                        {"version": new_cfg.version, "rates": rates}))
                 return self._rates(new_cfg), {
                     "tick": int(t_i), "kind": "dfs_commit",
                     "version": new_cfg.version, "rates": rates}
         else:
             live = p.islands
         run = eng._loop(trace, self._rates(live), control,
-                        supervisor=self.supervisor)
+                        supervisor=self.supervisor, sequential=True)
         st = run.state
         t0 = time.perf_counter()
         telem = run.rings.to_telemetry(run.events)
@@ -814,6 +831,13 @@ class SimEngine:
         self.last_fault_histories = (
             None if fh is None else {k: v[:, 0] for k, v in fh.items()})
         offered = float(trace.arrivals.sum())
+        swaps = ctl.actuator.swaps - swaps0 if ctl is not None else 0
+        if run.traced:
+            t0 = time.perf_counter()
+            self._emit_trace(run, trace, ctl_entries, completed=completed,
+                             offered=offered, dropped=h["dropped"],
+                             swaps=swaps)
+            run.timings["copies"] += time.perf_counter() - t0
         sim_seconds = T * dt
         return SimResult(
             ticks=T, dt=dt, offered=offered, completed=completed,
@@ -825,7 +849,77 @@ class SimEngine:
             energy_per_request_j=(energy / completed if completed > 0
                                   else float("nan")),
             mean_power_w=energy / sim_seconds if sim_seconds else 0.0,
-            swaps=ctl.actuator.swaps - swaps0 if ctl is not None else 0,
-            elapsed_wall_s=run.timings["loop"], telemetry=telem,
+            swaps=swaps, elapsed_wall_s=run.timings["loop"], telemetry=telem,
             dropped_slo=h["dropped_slo"], dropped_fault=h["dropped_fault"],
             retried=h["retried"], timings=run.timings)
+
+    # --------------------------------------------------------------- trace
+    @staticmethod
+    def _trace_action(entries: list, t_i: int, act, guard_prev: list
+                      ) -> None:
+        """The clamp / guard events of one control step (the reference's
+        loop emits them before the commit): requests clamped into the tech
+        node's legal range, and the guard's override set when it changes."""
+        if act.tick != t_i:
+            return
+        if act.clamped:
+            entries.append((t_i, RANK_CONTROL, "dfs_clamp",
+                            ",".join(act.clamped),
+                            {"islands": list(act.clamped),
+                             "requested": {i: act.requested[i]
+                                           for i in act.clamped}}))
+        if act.guarded != guard_prev[0]:
+            if act.guarded:
+                entries.append((t_i, RANK_CONTROL, "dfs_guard",
+                                ",".join(act.guarded),
+                                {"islands": list(act.guarded),
+                                 "requested": {i: act.requested[i]
+                                               for i in act.guarded}}))
+            guard_prev[0] = act.guarded
+
+    def _emit_trace(self, run, trace, ctl_entries: list, *,
+                    completed: float, offered: float, dropped: float,
+                    swaps: int) -> None:
+        """The run's control trace, emitted after the loop in the order the
+        reference's loop emits it: the schedule's events, the SLO-drop spans
+        and the balancer's splits rebuilt from the device rings (one copy
+        each), the supervisor's detections, the controller's events."""
+        T, names, ob = trace.ticks, self.platform.names, self.observer
+        entries = schedule_entries(run.ev_by_tick) + list(ctl_entries)
+        entries += [(ev["tick"], RANK_DETECT, ev["kind"], None,
+                     {k: v for k, v in ev.items()
+                      if k not in ("tick", "kind")})
+                    for ev in run.detected]
+        span = None                     # open SLO-drop span: [start, sum, n]
+        if run.slo_hist is not None:
+            for t_i, row in enumerate(run.slo_hist.cpu().numpy()):
+                drop_amt = float(row.sum())
+                if drop_amt > 0.0 and span is None:
+                    hit = np.nonzero(row > 0.0)[0]
+                    span = [t_i, 0.0, 0]
+                    entries.append((t_i, RANK_SLO, "slo_drop_start", "",
+                                    {"tiles": [names[a] for a in hit]}))
+                if span is not None:
+                    if drop_amt > 0.0:
+                        span[1] += drop_amt
+                        span[2] += 1
+                    else:
+                        entries.append((t_i, RANK_SLO, "slo_drop_end", "",
+                                        {"ticks": span[2],
+                                         "dropped": span[1]}))
+                        span = None
+        if run.lb_ring is not None:
+            mode = self.balancer.mode
+            w = run.lb_ring[:len(run.lb_ticks)].cpu().numpy()
+            entries += [(t_i, RANK_LB, "lb_split", mode,
+                         {"mode": mode, "weights": np.round(wt, 6).tolist()})
+                        for t_i, wt in zip(run.lb_ticks, w)]
+        end = max(T - 1, 0)
+        if span is not None:            # span still open at run end
+            entries.append((end, RANK_END, "slo_drop_end", "",
+                            {"ticks": span[2], "dropped": span[1]}))
+        entries.append((end, RANK_END, "run_end", "sequential",
+                        {"completed": completed, "offered": offered,
+                         "dropped": dropped, "swaps": swaps}))
+        emit_trace(ob, entries, "sequential", ticks=T, dt=trace.dt,
+                   level=ob.level)

@@ -3,10 +3,11 @@ package's examples.
 
 * ``examples/torch_dse_sweep.py`` prints what ``examples/dse_sweep.py``
   prints, line for line, but for the timing figures (points/s, seconds).
-* ``examples/torch_closed_loop.py --faults`` prints what
-  ``examples/closed_loop.py --faults`` prints, line for line (the five
-  replica-kill runs, the detection latency, the gate); ``--observe`` exits
-  non-zero with the ROADMAP queue A item 9 refusal and prints no result.
+* ``examples/torch_closed_loop.py --faults`` and ``--observe`` print what
+  ``examples/closed_loop.py --faults`` / ``--observe`` print, line for line
+  (the five replica-kill runs, the detection latency, the gate; the
+  zero-perturbation check, the counter plane's roll-up, the decision trace,
+  the Prometheus export).
 * its pipeline scenario at the reference test's size (2,500 ticks) passes
   the gate the example asserts (``pipeline_gate``).
 """
@@ -43,19 +44,16 @@ def test_dse_sweep_example_prints_the_reference_output(args):
 @pytest.mark.parametrize("knob,item", [("--faults", "8"),
                                        ("--observe", "9")])
 def test_closed_loop_example_refuses_what_is_not_ported(knob, item):
-    """``--observe`` (queue A item 9) is refused.  ``--faults`` (item 8) is
-    ported: it runs the scenario gate and prints the reference example's
-    output exactly."""
+    """``--faults`` (queue A item 8) and ``--observe`` (item 9) are both
+    ported: each runs its scenario (the gate; the zero-perturbation check)
+    and prints the reference example's output exactly."""
     out = _run("torch_closed_loop.py", "--device", "cpu", knob)
-    if knob == "--faults":
-        ref = _run("closed_loop.py", knob, pythonpath=True)
-        assert ref.returncode == 0 and out.returncode == 0, out.stderr
-        assert out.stdout == ref.stdout
-        assert "acceptance: replica kill mid-surge survives" in out.stdout
-        return
-    assert out.returncode != 0
-    assert f"not ported yet (ROADMAP queue A item {item})" in out.stderr
-    assert out.stdout == ""
+    ref = _run("closed_loop.py", knob, pythonpath=True)
+    assert ref.returncode == 0 and out.returncode == 0, out.stderr
+    assert out.stdout == ref.stdout
+    assert {"--faults": "acceptance: replica kill mid-surge survives",
+            "--observe": "zero-perturbation: observed run == unobserved "
+                         "run"}[knob] in out.stdout
 
 
 def test_closed_loop_example_pipeline_gate():

@@ -10,9 +10,19 @@ without a card), whose cases run in ``chip_smoke.py`` (``card_case``: the
 card's machine has no jax, which this file imports), and there by its own
 phases.  On the card the bf16 MLP is held to max(5e-2, one bf16 ulp of
 |ref|): both versions round their outputs to bf16.
+
+Each side gets inputs of its own: ``both`` / ``ints`` copy the NumPy
+array into a fresh JAX array and a fresh torch tensor, so neither package
+can see the other's buffer (a 64-byte aligned NumPy array would otherwise
+back the JAX array without a copy, and ``torch.from_numpy`` always shares
+it).  The attention and decode comparisons also measure the port, the
+Pallas kernel and the oracle against the same attention in float64 on the
+host, and a failure names each side's distance from it, so the side that
+moved is in the report.
 """
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,24 +48,52 @@ DTYPES = ("float32", "bfloat16")
 
 
 def both(a, dtype):
-    """One NumPy float array -> (jax array, torch tensor) of ``dtype``; both
-    sides round float32 to bfloat16 the same way (to nearest even)."""
+    """One NumPy float array -> (jax array, torch tensor) of ``dtype``, each
+    on a buffer of its own (copies, never views of ``a`` or of each other);
+    both sides round float32 to bfloat16 the same way (to nearest even)."""
     a = np.asarray(a, np.float32)
-    j = jnp.asarray(a).astype(getattr(jnp, dtype))
-    return j, torch.from_numpy(a).to(getattr(torch, dtype))
+    j = jnp.array(np.array(a, copy=True)).astype(getattr(jnp, dtype))
+    return j, torch.tensor(a).to(getattr(torch, dtype))
 
 
 def ints(a):
     a = np.asarray(a, np.int32)
-    return jnp.asarray(a), torch.from_numpy(a)
+    return jnp.array(np.array(a, copy=True)), torch.tensor(a)
 
 
-def close(port, ref, atol, rows=None):
+def attention64(q, k, v, qpos, kpos, window, scale):
+    """The attention the kernels compute, in float64 on the host from the
+    torch inputs: masked softmax over the key axis (a row with no live key
+    gives 0, as the kernels do).  q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd)."""
+    q, k, v = (x.double().numpy() for x in (q, k, v))
+    qp, kp = qpos.numpy()[:, :, None], kpos.numpy()[:, None, :]
+    mask = kp <= qp
+    if window:
+        mask &= (qp - kp) < window
+    s = np.einsum("bqkgh,bskh->bkgqs", q, k) * scale
+    s = np.where(mask[:, None, None], s, -np.inf)
+    m = np.max(s, axis=-1, keepdims=True)
+    e = np.where(mask[:, None, None], np.exp(s - np.where(np.isfinite(m), m,
+                                                          0.0)), 0.0)
+    w = e / np.maximum(e.sum(axis=-1, keepdims=True), 1e-300)
+    return np.einsum("bkgqs,bskh->bqkgh", w, v)
+
+
+def close(port, ref, atol, rows=None, sides=None):
+    """``port`` within ``atol`` of ``ref``.  ``sides`` (name -> output) and
+    a float64 truth under ``"float64"``: the failure message then gives each
+    side's largest distance from the truth, naming the side that moved."""
     p = port.float().numpy()
     r = np.asarray(ref, np.float32)
     if rows is not None:
         p, r = p[rows], r[rows]
-    np.testing.assert_allclose(p, r, atol=atol, rtol=0)
+    msg = ""
+    if sides is not None:
+        truth = np.asarray(sides["float64"])
+        msg = "max |side - float64|: " + ", ".join(
+            f"{name} {np.max(np.abs(np.asarray(out, np.float64) - truth)):.3e}"
+            for name, out in sides.items() if name != "float64")
+    np.testing.assert_allclose(p, r, atol=atol, rtol=0, err_msg=msg)
 
 
 def ring_kpos(pos, W):
@@ -105,8 +143,41 @@ def test_flash_attention_plain_matches_pallas_and_oracle(B, S, KV, G, hdq,
     oracle = REF.flash_attention_ref(q[0], k[0], v[0], qp[0], kp[0],
                                      scale=scale, window=win)
     atol = ATOL[("attention", dtype)]
-    close(port, pallas, atol)
-    close(port, oracle, atol)
+    sides = {"port": port.float().numpy(),
+             "pallas": np.asarray(jax.block_until_ready(pallas), np.float32),
+             "oracle": np.asarray(jax.block_until_ready(oracle), np.float32),
+             "float64": attention64(q[1], k[1], v[1], qp[1], kp[1], win,
+                                    scale)}
+    close(port, pallas, atol, sides=sides)
+    close(port, oracle, atol, sides=sides)
+
+
+def test_inputs_are_copies_and_a_moved_side_is_named():
+    """The two packages never share an input buffer, even where the NumPy
+    source is 64-byte aligned (the JAX CPU client then backs an array with
+    it without a copy); and a comparison that fails names the side that
+    moved from the float64 attention."""
+    raw = np.zeros(8192 + 16, np.float32)
+    off = (-raw.ctypes.data % 64) // 4
+    src = raw[off:off + 8192].reshape(2, 64, 2, 2, 16)
+    assert src.ctypes.data % 64 == 0
+    src[...] = np.random.default_rng(0).standard_normal(src.shape)
+    for dtype in DTYPES:
+        j, t = both(src, dtype)
+        ptrs = {j.unsafe_buffer_pointer(), t.data_ptr(), src.ctypes.data}
+        assert len(ptrs) == 3, dtype
+    qi = ints(np.arange(64, dtype=np.int32))
+    assert qi[0].unsafe_buffer_pointer() != qi[1].data_ptr()
+    q, k, v, qp, kp = attn_inputs(2, 64, 2, 2, 16, 16, "float32")
+    port = FA.flash_attention_plain(q[1], k[1], v[1], qp[1], kp[1], 0, 0.25)
+    truth = attention64(q[1], k[1], v[1], qp[1], kp[1], 0, 0.25)
+    assert np.max(np.abs(port.double().numpy() - truth)) < 2e-6
+    moved = port.float().numpy().copy()
+    moved[0, 3, 1, 0, :4] += 7e-5                   # a planted shift
+    with pytest.raises(AssertionError, match=r"pallas 7\.0\d*e-05"):
+        close(port, moved, 2e-5,
+              sides={"port": port.float().numpy(), "pallas": moved,
+                     "float64": truth})
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -163,8 +234,14 @@ def test_flash_decode_plain_matches_pallas_and_oracle(B, W, KV, G, hd, win,
     oracle = REF.flash_decode_ref(q[0], ck[0], cv[0], qp[0], kp[0],
                                   scale=scale, window=win)
     atol = ATOL[("attention", dtype)]
-    close(port, pallas, atol)
-    close(port, oracle, atol)
+    truth = attention64(q[1][:, None], ck[1], cv[1], qp[1][:, None], kp[1],
+                        win, scale)[:, 0]
+    sides = {"port": port.float().numpy(),
+             "pallas": np.asarray(jax.block_until_ready(pallas), np.float32),
+             "oracle": np.asarray(jax.block_until_ready(oracle), np.float32),
+             "float64": truth}
+    close(port, pallas, atol, sides=sides)
+    close(port, oracle, atol, sides=sides)
 
 
 # ------------------------------------------------------------------ fused MLP

@@ -261,14 +261,33 @@ def _faulted_runs(knob):
 @pytest.mark.parametrize("backend", ["torch", "fused"])
 @pytest.mark.parametrize("knob,word", REFUSED)
 def test_unported_knobs_are_refused(knob, word, backend):
-    """The observer is refused on both backends, naming its ROADMAP item.
-    The balancer, faults and SLO are ported: ``"torch"`` runs them (held to
-    the reference's ``"numpy"`` run — every field within 1e-12 relative,
-    bit-equal but for the chain's ``completed``, swaps exact; under faults
-    and SLO the ledgers and fault histories exact too) and ``"fused"``
-    refuses them in its own words."""
+    """The balancer, faults, SLO and the observer are ported: ``"torch"``
+    runs them (held to the reference's ``"numpy"`` run — every field within
+    1e-12 relative, bit-equal but for the chain's ``completed``, swaps
+    exact; under faults and SLO the ledgers and fault histories exact too;
+    with the observer the run unperturbed and the plane the reference's)
+    and ``"fused"`` refuses them in its own words."""
     plat = PORT.sim.BatchSimPlatform.stack([make_platform(PORT, 4)])
     value = "counters" if knob == "observe" else object()
+    if knob == "observe" and backend == "torch":
+        got = {}
+        for pkg, backend_, level in ((REF, "numpy", "counters"),
+                                     (PORT, "torch", "counters"),
+                                     (PORT, "torch", None)):
+            eng = make_engine(pkg, backend_, "pid", observe=level)
+            got[pkg.name, level] = (eng, eng.run(make_trace(
+                pkg, "mmpp", capacity(4, k=2), ticks=300)))
+        (pe, p), (_, blind) = got["repro_torch", "counters"], \
+            got["repro_torch", None]
+        re_, r = got["repro", "counters"]
+        for f in F64_FIELDS:
+            np.testing.assert_array_equal(getattr(p, f), getattr(blind, f))
+            assert rel_err(getattr(p, f), getattr(r, f)) <= 1e-12, f
+        for group in ("tile", "link", "island"):
+            for k, v in getattr(re_.observer.counters, group).items():
+                np.testing.assert_array_equal(
+                    getattr(pe.observer.counters, group)[k], v)
+        return
     if knob in ("faults", "slo") and backend == "torch":
         (e0, r0), (e1, r1) = _faulted_runs(knob)
         for f in F64_FIELDS + ("dropped_slo", "dropped_fault", "retried",
@@ -298,6 +317,9 @@ def test_unported_knobs_are_refused(knob, word, backend):
     if knob == "balancer":
         assert str(err.value) == ("fused backend does not run the load "
                                   "balancer; use backend='torch'")
+    elif knob == "observe":
+        assert str(err.value) == ("fused backend records no observer "
+                                  "plane; use backend='torch'")
     else:
         assert "not ported yet (ROADMAP queue A item" in str(err.value)
 

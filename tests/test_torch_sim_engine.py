@@ -774,10 +774,11 @@ def _knob_run(pkg, knob):
                                        ("supervisor", "8"),
                                        ("observe", "9")])
 def test_unported_knobs_are_refused(knob, item):
-    """The observer plane (queue A item 9) is refused, naming its item.
-    Faults, SLO semantics and the online supervisor (item 8) are ported:
-    each case runs with its knob set and equals the reference's run (the
-    module's tolerances, the fault/SLO ledgers and histories exact)."""
+    """Every knob of queue A items 8 and 9 is ported now: faults, SLO
+    semantics and the online supervisor each run with the knob set and
+    equal the reference's run (the module's tolerances, the fault/SLO
+    ledgers and histories exact); the observer plane (item 9) leaves the
+    run bit for bit as it was and records the reference's counters."""
     plat = platform(PORT, 4)
     if knob != "observe":
         (pe, p), (re_, r) = _knob_run(PORT, knob), _knob_run(REF, knob)
@@ -793,12 +794,20 @@ def test_unported_knobs_are_refused(knob, item):
             assert pe.supervisor.events == re_.supervisor.events
             assert pe.supervisor.events
         return
-    with pytest.raises(NotImplementedError) as err:
-        engine(PORT, plat, **{knob: "counters"})
-    assert f"{knob}= not ported yet (ROADMAP queue A item {item})" in \
-        str(err.value)
-    # off / absent are accepted
-    engine(PORT, plat, observe="off", faults=None)
+    cap = engine(PORT, plat).capacity_rps()
+    runs = {}
+    for level in (None, "off", "counters"):
+        pe = engine(PORT, plat, observe=level, faults=None)
+        runs[level] = (pe, pe.run(trace(PORT, "poisson", cap, ticks=300)))
+        assert_results_match(runs[level][1], runs[None][1])
+    assert runs["off"][0].observer is None
+    re_ = engine(REF, platform(REF, 4), observe="counters")
+    re_.run(trace(REF, "poisson", cap, ticks=300))
+    mine, theirs = runs["counters"][0].observer.counters, \
+        re_.observer.counters
+    for group in ("tile", "link", "island"):
+        for k, v in getattr(theirs, group).items():
+            np.testing.assert_array_equal(getattr(mine, group)[k], v)
 
 
 def test_zero_tiles_refused_like_the_reference():

@@ -120,10 +120,16 @@ REFUSED = [
 ]
 # the knobs of REFUSED that are ported now: each case runs through both
 # packages and must give the reference's indices and ranking, scores within
-# 1e-12 (the "fused" batched path still refuses the balancer, the fault
-# schedule and the SLO)
-PORTED = ("balancer", "sequential", "fault", "SLO")
-FUSED_REFUSES = ("balancer", "fault", "SLO")
+# 1e-12, and the reference's counter summaries (the "fused" batched path
+# still refuses the balancer, the fault schedule, the SLO and the observer)
+PORTED = ("balancer", "sequential", "fault", "SLO", "observer")
+FUSED_REFUSES = ("balancer", "fault", "SLO", "observer")
+# what "fused" says for each knob it refuses, where its words are fixed
+FUSED_WORDS = {
+    "balancer": "fused backend does not run the load balancer; use "
+                "backend='torch'",
+    "observer": "fused backend records no observer plane; use "
+                "backend='torch'"}
 
 
 def _knob(pkg, kw):
@@ -149,10 +155,11 @@ def _knob(pkg, kw):
 @pytest.mark.parametrize("backend", ["torch", "fused"])
 def test_closed_loop_score_refuses_unported_knobs(kw, word, backend):
     """What is not ported is refused, naming its ROADMAP item; the
-    balancer, the per-point sequential path and fault-aware scoring (queue
-    A items 7, 4 and 8) run and are held to the reference (drop rates
-    exact), but for the balancer, the fault schedule and the SLO on
-    ``"fused"``, which refuses them."""
+    balancer, the per-point sequential path, fault-aware scoring and the
+    observer (queue A items 7, 4, 8 and 9) run and are held to the
+    reference (drop rates exact, counter summaries equal), but for the
+    balancer, the fault schedule, the SLO and the observer on ``"fused"``,
+    which refuses them."""
     tr = {pkg.name: pkg.sim.diurnal_trace(2000.0, 20, 2, dt=DT, seed=5)
           for pkg in (REF, PORT)}
     if word in PORTED and not (word in FUSED_REFUSES and backend == "fused"):
@@ -174,6 +181,8 @@ def test_closed_loop_score_refuses_unported_knobs(kw, word, backend):
         assert (a.drop_rate is None) == (b.drop_rate is None)
         if a.drop_rate is not None:
             np.testing.assert_array_equal(b.drop_rate, a.drop_rate)
+        assert (a.counters is None) == (b.counters is None)
+        assert b.counters == a.counters
         assert len(b.results) == len(a.results)
         return
     m, res = _sweep(PORT)
@@ -182,9 +191,8 @@ def test_closed_loop_score_refuses_unported_knobs(kw, word, backend):
                                    device="cpu", backend=backend,
                                    **_knob(PORT, kw))
     assert word in str(err.value)
-    if word == "balancer":
-        assert str(err.value) == ("fused backend does not run the load "
-                                  "balancer; use backend='torch'")
+    if word in FUSED_WORDS:
+        assert str(err.value) == FUSED_WORDS[word]
     else:
         assert "not ported yet (ROADMAP queue A item" in str(err.value)
 
