@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --quick    # device, build, kernel parity only
+    python3 chip_smoke.py --serve-only   # ... and the serving phases
     python3 chip_smoke.py --ptxas    # also nvcc's registers / spills
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
@@ -149,8 +150,27 @@ main path through its public entry points at the size its users run:
                    state carry dropped at one chunk boundary, the D term
                    left out, the decay shifted by one position, the first
                    super-diagonal let through the mask).
+9. ``serve_hybrid`` — the hybrid serving path: ``ServeEngine`` on zamba2-7b
+                   at full width and depth (81 Mamba-2 blocks, the shared
+                   attention + MLP tile at 14 sites, head dim 112; random
+                   bf16 weights from a seed), 4 slots, a 4,096 window, 8
+                   requests of 1-4,608 prompt tokens (one token, shorter
+                   than the conv, a ragged chunk, padded chunks, the
+                   window exactly, across it) and 32 new each, through all
+                   four LLM kernels (attention and ``ssm_backend``
+                   ``"fused"``), each of which must launch at least once
+                   per block or site and prefill or step; TTFT, tokens/s,
+                   peak memory; teacher forced against the plain path;
+                   ``serve_hybrid_profile``; ``serve_hybrid_kernels`` (the
+                   attention kernels at head dim 112 beside SDPA, the
+                   ``wmma`` kernel and the bound, which must run
+                   ``wgmma_tma`` / ``cp_async``; the MLP at d 3,584 and F
+                   14,336, ``gelu``; each attention check must also reject
+                   a head dim's tail lost) and ``serve_hybrid_ssd_kernels``
+                   (``ssd_scan`` at nh 112, st 64).
 
-Each phase prints one JSON line.  The line before the last but one is
+Each phase prints one JSON line, with ``t_s``: the seconds since the
+script started.  The line before the last but one is
 ``{"kernels": [...]}`` with, per kernel, its launches on its main path, its
 error against the plain version, its time, the plain version's time, the
 library call's time where one PyTorch call computes the same function, and
@@ -159,10 +179,11 @@ over 3.35 TB/s and operations over the peak for their type: 67 TFLOP/s
 float32 for ``tick_sim``, 989 TFLOP/s bf16 for the attention and MLP
 kernels; for ``ssd_scan`` the lesser of its products on TF32 tensor cores,
 three passes at 494 TFLOP/s, with the rest at 67 (``bound_tc_ms``), and
-all of it at 67 (``bound_f32_ms``); published H100 SXM figures).  The line
-before the last is the
-card's name and power limit; the last line is ``{"ok": true, "device":
-{...}}``.  Any failure exits with a non-zero code; without a CUDA device the
+all of it at 67 (``bound_f32_ms``); published H100 SXM figures); each LLM
+kernel's row carries the hybrid path's as ``hybrid``, with its own
+launches (the row's ``launches`` are the sum over the serving paths).  The
+line before the last is the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.  Any failure exits with a non-zero code; without a CUDA device the
 script stops at once.
 """
 from __future__ import annotations
@@ -227,6 +248,15 @@ AGREE_MIN = 0.9
 SERVE_SSM = {"arch": "mamba2-370m", "slots": 4,
              "prompts": (2, 100, 1000, 4096, 16384, 256, 3000, 8192),
              "max_new": 32, "reps": 10}
+# The hybrid serving phase: zamba2-7b at full width and depth (src/
+# repro_torch/configs/zamba2_7b.py): 81 Mamba-2 blocks and the shared tile
+# at 14 sites, head dim 112.  Prompts: one token (S == B at the engine's
+# B = 1 prefill), two (shorter than the conv), a ragged single chunk (100),
+# chunk padding (1,000, 3,000), exactly the window (4,096), across it
+# (4,608: each site's history rotated into its ring), a second wave (256).
+SERVE_HYBRID = {"arch": "zamba2-7b", "slots": 4, "window": 4096,
+                "prompts": (1, 2, 100, 1000, 3000, 4096, 4608, 256),
+                "max_new": 32, "reps": 10}
 # ssd_scan vs its plain version, float32 both (tests/test_kernels.py:68):
 # |err| <= SSD_TOL + SSD_TOL * |ref| per element, and per (batch, head)
 # max |err| / max |ref| <= SSD_TOL.
@@ -237,7 +267,14 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it was written
+    (``t_s``, seconds since the script started)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1747,11 +1784,9 @@ def phase_fused_refuses_faults(ctx):
     from repro_torch.sim.batch import BatchSimEngine
     fs = rerank_fault_schedule(ctx["model"], ctx["res"], ctx["trace"].ticks)
     knobs = {"faults": (fs, "fused backend does not simulate fault "
-                            "schedules; faults= not ported yet (ROADMAP "
-                            "queue A item 8)"),
+                            "schedules; use backend='torch'"),
              "slo": (SLOConfig(deadline_s=0.02), "fused backend does not "
-                     "apply SLO semantics; slo= not ported yet (ROADMAP "
-                     "queue A item 8)")}
+                     "apply SLO semantics; use backend='torch'")}
     before = fused_tick_sim.launches
     report, ok = {"phase": "fused_refuses_faults"}, True
     for knob, (value, text) in knobs.items():
@@ -2222,6 +2257,22 @@ def planted_faults(name, args, plain, ref, split=512, tile=64):
     return out
 
 
+def head_tail_faults(args, plain, ref, tail=16, box=64):
+    """What an attention kernel that lost the part of the head dim past
+    its first 64-column TMA box would return on ``args`` (head dims 80 and
+    112 load each row as two boxes), made with the plain version: the
+    scores without the last ``tail`` dims (Q K^T's last k step dropped) and
+    the output's columns past ``box`` left at zero (P V's second box lost).
+    The check must reject each."""
+    q, k, v, qpos, kpos, window, scale = args
+    q2 = q.clone()
+    q2[..., -tail:] = 0
+    cut = ref.clone()
+    cut[..., box:] = 0
+    return {"scores_tail_dropped": plain(q2, k, v, qpos, kpos, window, scale),
+            "out_second_box_zero": cut}
+
+
 def attention_case(gen, B, Sq, Sk, KV, G, hd, hdv, window, dtype,
                    qpos=None, kpos=None):
     """Inputs of one flash_attention call (positions: arange by default)."""
@@ -2302,6 +2353,11 @@ EDGE_ATTN = (
     (1, 300, 300, 2, 2, 80, 0, ("arange", -40), "arange"),  # rows no key
     (2, 1000, 1000, 2, 4, 80, 300, ("arange", 0), "arange"),  # full tiles
     (1, 384, 384, 1, 1, 128, 0, ("arange", 0), "arange"),   # exact tiles
+    # zamba2's head dim 112 (two TMA boxes, 16 columns of zero fill), G 1
+    (2, 200, 330, 2, 1, 112, 0, ("arange", 130), "arange"),  # ragged, offset
+    (1, 300, 300, 4, 1, 112, 100, ("arange", 0), "arange"),  # a window
+    (1, 260, 260, 2, 2, 112, 0, ("perm", 0), "perm"),       # non-monotone
+    (1, 300, 300, 2, 1, 112, 0, ("arange", -40), "arange"),  # rows no key
 )
 # N, d, F, act: ragged rows, h2o-danube's and a 5,632 width, F and d off
 # the 128 / 64 tiles, gelu
@@ -2669,6 +2725,9 @@ def drive_serve(spec=SERVE, lm_kwargs=None, phase="serve",
     lm.decode_step(eng.params, c, warm[:, :1])
     del c
     sync()
+    init_peak = torch.cuda.max_memory_allocated()     # weights' draw included
+    held = torch.cuda.memory_allocated()              # weights + slot cache
+    torch.cuda.reset_peak_memory_stats()
 
     # record what the engine computes: (rid, token index) -> logits row
     rng = np.random.default_rng(SEED)
@@ -2729,7 +2788,10 @@ def drive_serve(spec=SERVE, lm_kwargs=None, phase="serve",
         "decode_tokens": n_decoded,
         "decode_tokens_per_s": n_decoded / tm["decode_s"],
         "decode_step_ms": 1e3 * tm["decode_s"] / tm["decode_steps"],
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_mem_gb": max(init_peak, torch.cuda.max_memory_allocated())
+        / 2**30,
+        "held_mem_gb": held / 2**30,
+        "serve_peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches, "last_variants": variants,
         "stats": eng.stats()}
     return report, dict(eng=eng, reqs=reqs, logits=logits, window=window)
@@ -2739,30 +2801,43 @@ def verify_serve_logits(report, ctx, plain_kwargs=None):
     """The kernel path against the plain path on the card, teacher forced:
     the plain LM (``plain_kwargs``; default: attention ``naive``) is fed the
     kernel path's tokens, so one near-tie cannot make the two runs
-    diverge."""
+    diverge.  Each request is prefilled alone (B = 1) and written into its
+    row of one batched cache, as the engine admits it; then all requests
+    decode together, each row at its own position."""
     from repro_torch.models.layers import AttnOptions
     from repro_torch.models.transformer import LM
+    from repro_torch.runtime.serve import write_slot
     eng, reqs, logits = ctx["eng"], ctx["reqs"], ctx["logits"]
     if plain_kwargs is None:
         plain_kwargs = dict(opts=AttnOptions(backend="naive"))
     plain = LM(eng.cfg, **plain_kwargs)
     worst, agree, n, finite = 0.0, 0, 0, True
     t0 = time.perf_counter()
-    for r in reqs:
+
+    def held(r, i, lg):
+        nonlocal worst, agree, n, finite
+        got = logits[(r.rid, i)]
+        finite &= bool(torch.isfinite(got).all())
+        worst = max(worst, _err(got, lg) / float(lg.abs().max()))
+        agree += int(torch.argmax(lg)) == r.out[i]
+        n += 1
+
+    cache = plain.init_cache(len(reqs), ctx["window"], device=DEV)
+    for b, r in enumerate(reqs):
         prompt = torch.as_tensor(r.prompt[None, :], dtype=torch.long,
                                  device=DEV)
-        lg, cache = plain.prefill(eng.params, prompt,
-                                  cache_len=ctx["window"])
-        for i in range(len(r.out)):
-            if i:
-                tok = torch.tensor([[r.out[i - 1]]], device=DEV)
-                lg, cache = plain.decode_step(eng.params, cache, tok)
-            ref, got = lg[0], logits[(r.rid, i)]
-            finite &= bool(torch.isfinite(got).all())
-            worst = max(worst, _err(got, ref) / float(ref.abs().max()))
-            agree += int(torch.argmax(ref)) == r.out[i]
-            n += 1
-        del cache
+        lg, one = plain.prefill(eng.params, prompt, cache_len=ctx["window"])
+        held(r, 0, lg[0])
+        write_slot(cache, b, one)
+        del one
+    for i in range(1, max(len(r.out) for r in reqs)):
+        tok = torch.tensor([[r.out[i - 1] if i < len(r.out) else 0]
+                            for r in reqs], device=DEV)
+        lg, cache = plain.decode_step(eng.params, cache, tok)
+        for b, r in enumerate(reqs):
+            if i < len(r.out):
+                held(r, i, lg[b])
+    del cache
     sync()
     report["teacher_forced"] = {
         "positions": n, "max_rel_logit_err": worst, "rel_tol": LOGIT_REL_TOL,
@@ -2824,7 +2899,8 @@ def time_llm_kernel(name, kind, args, plain, library=None, extra=()):
     version is timed as it runs, eagerly (mean of 2).  For attention the same check is
     also put to the planted faults, each of which it must reject
     (``faults_rejected``); decode drops the split the kernel itself used
-    (``split``, from ``last_split``)."""
+    (``split``, from ``last_split``); a head dim past 64 adds
+    ``head_tail_faults``."""
     f = llm_kernels()[name]
     out = f(*args, *extra)
     sync()
@@ -2846,8 +2922,10 @@ def time_llm_kernel(name, kind, args, plain, library=None, extra=()):
     if kind == "attention":
         faults = {}
         at = {"split": split} if split is not None else {}
-        for fault, bad in planted_faults(name, args, plain, ref,
-                                         **at).items():
+        planted = planted_faults(name, args, plain, ref, **at)
+        if args[0].shape[-1] > 64:
+            planted.update(head_tail_faults(args, plain, ref))
+        for fault, bad in planted.items():
             c = llm_check(kind, bad, ref, args[0].dtype)
             faults[fault] = {"max_abs_err": c["max_abs_err"],
                              "max_row_rel_err": c["max_row_rel_err"],
@@ -2859,10 +2937,15 @@ def time_llm_kernel(name, kind, args, plain, library=None, extra=()):
     return res
 
 
-def time_serve_kernels(ctx):
-    """Each LLM kernel at the serving path's shapes: against its plain
-    version, timed beside its bound and, for attention, SDPA."""
+def time_serve_kernels(ctx, spec=SERVE, phase="serve_kernels"):
+    """Each LLM kernel at a serving path's shapes (``spec``: the dense
+    path's by default; the hybrid path's shared tile with SERVE_HYBRID):
+    against its plain version, timed beside its bound and, for attention,
+    SDPA; the older kernel of each on the same inputs (``old_variant_ms``).
+    Each row must have run the kernel SERVE_VARIANT names (at the hybrid
+    path's head dim 112 too)."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import _launch as fa_launch
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.flash_decode import flash_decode_plain
     from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
@@ -2871,40 +2954,50 @@ def time_serve_kernels(ctx):
     eng = ctx["eng"]
     cfg = eng.cfg
     KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
-    win, S = cfg.sliding_window, max(SERVE["prompts"])
+    win, S, slots = cfg.sliding_window, max(spec["prompts"]), spec["slots"]
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
     bf16 = torch.bfloat16
     rows = {}
+    # the hybrid path's attention is its shared tile (site 0's history)
+    hybrid = "shared_attn" in eng.cache
 
-    # flash_attention: the longest prefill (S = 4,608 over a 4,096 window)
+    # flash_attention: the longest prefill (dense: S = 4,608 over a 4,096
+    # window; hybrid: 4,608, causal)
     a = attention_case(gen, 1, S, S, KV, G, hd, hd, win, bf16)
     q, k, v, qp, kp, _, scale = a
     mask = _window_mask(qp[0], kp[0], win)
     qt = q.reshape(1, S, KV * G, hd).transpose(1, 2).contiguous()
     kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    # SDPA with the mask, or causal (its flash kernel) where no window
+    sdpa = dict(attn_mask=mask) if win else dict(is_causal=True)
     r = time_llm_kernel(
         "flash_attention", "attention", a, flash_attention_plain,
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                               scale=scale, enable_gqa=True))
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale,
+                                               enable_gqa=True, **sdpa))
+    # the PR 12 WMMA kernel on the same inputs, graph-timed
+    r["old_variant_ms"] = graph_ms(lambda: fa_launch(*a, variant="wmma"),
+                                   spec["reps"])
     pairs = float(mask.sum())
     ops = 2.0 * pairs * KV * G * (hd + hd)
     # bytes: q, k, v, the positions, and the output (q's shape and type)
     r.update(zip(("bound_ms", "bound_by"),
                  _bound(_nbytes(q, k, v, q, qp, kp), ops)))
-    r.update(shape=f"q (1,{S},{KV},{G},{hd}) bf16, window {win}",
+    r.update(shape=f"q (1,{S},{KV},{G},{hd}) bf16, "
+             + (f"window {win}" if win else "causal"),
              live_pairs_per_head=pairs, operations=ops)
     rows["flash_attention"] = r
     del a, q, k, v, qt, kt, vt, mask
 
-    # flash_decode: the 4 slots over the engine's final ring cache, layer 0
+    # flash_decode: the slots over the engine's final ring cache, layer 0
+    # (hybrid: the shared tile's first site)
     from repro_torch.kernels.flash_decode import _launch as fd_launch
-    ck, cv = (c[0] for c in eng.cache["blocks"])
+    ck, cv = (c[0] for c in eng.cache["shared_attn" if hybrid else "blocks"])
     pos = (eng.cache["pos"] - 1).to(torch.int32)
     kpos = ring_kpos(pos, ck.shape[1])
-    qd = _randn(gen, (SERVE["slots"], KV, G, hd), bf16)
+    qd = _randn(gen, (slots, KV, G, hd), bf16)
     d_args = (qd, ck, cv, pos, kpos, win, 1.0 / float(np.sqrt(hd)))
     live = _window_mask(pos[:, None], kpos, win)[:, 0]           # (B, W)
-    qt = qd.reshape(SERVE["slots"], KV * G, 1, hd)
+    qt = qd.reshape(slots, KV * G, 1, hd)
     kt, vt = (c.transpose(1, 2).contiguous() for c in (ck, cv))
     kv_block = AttnOptions().kv_block                 # what the path passes
     r = time_llm_kernel(
@@ -2915,7 +3008,7 @@ def time_serve_kernels(ctx):
     # the cuda_cores sweep on the same inputs (split = kv_block), graph-timed
     r["old_variant_ms"] = graph_ms(
         lambda: fd_launch(*d_args, kv_block, kv_block, "cuda_cores"),
-        SERVE["reps"])
+        spec["reps"])
     # decode_split at one slot, where its grid would cover under one block
     # per SM at split = kv_block and it takes a shorter split: its choice
     # (checked against the plain version) timed against kv_block; drawn
@@ -2929,38 +3022,42 @@ def time_serve_kernels(ctx):
         "shape": f"q (1,{KV},{G},{hd}), cache (1,{W},{KV},{hd}) bf16",
         "variant": fd.last_variant, "split": fd.last_split,
         **llm_check("attention", sb_out, flash_decode_plain(*sb), bf16),
-        "ms": graph_ms(lambda: fd(*sb, kv_block), SERVE["reps"]),
+        "ms": graph_ms(lambda: fd(*sb, kv_block), spec["reps"]),
         "kv_block_ms": graph_ms(
             lambda: fd_launch(*sb, kv_block, kv_block, "cp_async"),
-            SERVE["reps"])}
+            spec["reps"])}
     del sb, sb_out
     n_live = float(live.sum())
     byts = n_live * KV * 2 * hd * ck.element_size() + _nbytes(
         qd, qd, pos, kpos)
     ops = 2.0 * n_live * KV * G * (hd + hd)
     r.update(zip(("bound_ms", "bound_by"), _bound(byts, ops)))
-    r.update(shape=f"q ({SERVE['slots']},{KV},{G},{hd}), cache "
-             f"({SERVE['slots']},{ck.shape[1]},{KV},{hd}) bf16",
+    r.update(shape=f"q ({slots},{KV},{G},{hd}), cache "
+             f"({slots},{ck.shape[1]},{KV},{hd}) bf16",
              live_slots=n_live, operations=ops)
     rows["flash_decode"] = r
     del kt, vt
-    # fused_mlp: the longest prefill (N = 4,608) and the 4-slot decode
+    # fused_mlp: the longest prefill (N = 4,608) and the 4-slot decode, with
+    # layer 0's weights (hybrid: the shared tile's)
     from repro_torch.kernels.fused_mlp import _launch as fm_launch
-    mp = eng.params["blocks"]["mlp"]
-    norm = eng.params["blocks"]["mlp_norm"][0]
-    wg, wu = mp["wi_gate"][0], mp["wi_up"][0]
+    from repro_torch.models.transformer import _layer
+    bp = (eng.params["shared_attn"] if hybrid
+          else _layer(eng.params["blocks"], 0))
+    norm, wg, wu = bp["mlp_norm"], bp["mlp"]["wi_gate"], bp["mlp"]["wi_up"]
     d, Ff = wg.shape
-    # An earlier version of this phase drew the one-slot decode case from
-    # this generator just before the MLP's inputs; its prefill x then read
-    # one bf16 ulp (2^-4, at 8-16) off the plain version and failed the
-    # constant 5e-2 limit.  Those inputs, drawn again, must pass the
-    # ulp-aware limit.
-    g_ulp = torch.Generator(device=DEV)
-    g_ulp.set_state(gen.get_state())
-    decode_case(g_ulp, 1, W, KV, G, hd, hd, win, bf16, [2 * W - 1])
-    x_ulp = _randn(g_ulp, (S, d), bf16)
+    x_ulp = None
+    if not hybrid:
+        # An earlier version of this phase drew the one-slot decode case
+        # from this generator just before the MLP's inputs; its prefill x
+        # then read one bf16 ulp (2^-4, at 8-16) off the plain version and
+        # failed the constant 5e-2 limit.  Those inputs, drawn again, must
+        # pass the ulp-aware limit.
+        g_ulp = torch.Generator(device=DEV)
+        g_ulp.set_state(gen.get_state())
+        decode_case(g_ulp, 1, W, KV, G, hd, hd, win, bf16, [2 * W - 1])
+        x_ulp = _randn(g_ulp, (S, d), bf16)
     per = {}
-    for label, N in (("prefill", S), ("decode", SERVE["slots"])):
+    for label, N in (("prefill", S), ("decode", slots)):
         x = _randn(gen, (N, d), bf16)
         m_args = (x, norm, wg, wu, cfg.act, cfg.norm_eps)
         rr = time_llm_kernel("fused_mlp", "mlp", m_args,
@@ -2970,11 +3067,11 @@ def time_serve_kernels(ctx):
         xn = rms_norm(x, norm, cfg.norm_eps)
         wgu = torch.cat([wg, wu], dim=1)
         rr["matmul_ms"] = graph_ms(lambda: torch.matmul(xn, wgu),
-                                   SERVE["reps"])
+                                   spec["reps"])
         del xn, wgu
         if label == "decode":       # the rows kernel, same inputs
             rr["old_variant_ms"] = graph_ms(
-                lambda: fm_launch(*m_args, variant="rows"), SERVE["reps"])
+                lambda: fm_launch(*m_args, variant="rows"), spec["reps"])
         rr["planted_faults"] = mlp_faults_rejected(
             m_args, fused_rmsnorm_mlp_plain(*m_args))
         rr["faults_rejected"] = all(f["rejected"]
@@ -2985,12 +3082,14 @@ def time_serve_kernels(ctx):
         rr.update(shape=f"x ({N},{d}), W ({d},{Ff}) bf16, {cfg.act}",
                   operations=ops)
         per[label] = rr
-    a_ulp = (x_ulp, norm, wg, wu, cfg.act, cfg.norm_eps)
-    out_ulp = llm_kernels()["fused_mlp"](*a_ulp)
-    per["prefill"]["one_ulp_inputs"] = {
-        **llm_check("mlp", out_ulp, fused_rmsnorm_mlp_plain(*a_ulp), bf16),
-        "variant": llm_kernels()["fused_mlp"].last_variant}
-    del x_ulp, a_ulp, out_ulp
+    if x_ulp is not None:
+        a_ulp = (x_ulp, norm, wg, wu, cfg.act, cfg.norm_eps)
+        out_ulp = llm_kernels()["fused_mlp"](*a_ulp)
+        per["prefill"]["one_ulp_inputs"] = {
+            **llm_check("mlp", out_ulp, fused_rmsnorm_mlp_plain(*a_ulp),
+                        bf16),
+            "variant": llm_kernels()["fused_mlp"].last_variant}
+        del x_ulp, a_ulp, out_ulp
     rows["fused_mlp"] = {**per["prefill"], "also": per["decode"]}
     bad = [n for n, r in rows.items()
            if not r["ok"] or ("also" in r and not r["also"]["ok"])
@@ -3001,7 +3100,7 @@ def time_serve_kernels(ctx):
              or not r.get("also", {}).get("faults_rejected", True)]
     old = [n for n, want in SERVE_VARIANT.items()
            if serve_row(rows, n)["variant"] != want]
-    emit({"phase": "serve_kernels", **rows})
+    emit({"phase": phase, **rows})
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions at the "
                          f"serving path's shapes: {bad}")
@@ -3030,7 +3129,8 @@ def profile_serve(ctx, phase="serve_profile"):
     """Where the time of one serving step goes: a decode step at all slots
     (on the engine's final cache) and a prefill of the longest prompt,
     each under ``torch.profiler``: host wall time, device time by kernel
-    group, and the device's idle share (1 - device time / wall time)."""
+    group, the kernels launched (``device_kernels``) and the device's idle
+    share (1 - device time / wall time)."""
     from torch.profiler import ProfilerActivity, profile
     eng, reqs = ctx["eng"], ctx["reqs"]
     lm = eng.lm
@@ -3052,15 +3152,17 @@ def profile_serve(ctx, phase="serve_profile"):
             fn()
             sync()
             wall = time.perf_counter() - t0
-        groups = {}
+        groups, kernels = {}, 0
         for e in prof.key_averages():
             dev = getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0.0))
             if e.self_cpu_time_total == 0 and dev > 0:   # a device kernel
                 g = _kernel_group(e.key)
                 groups[g] = groups.get(g, 0.0) + dev / 1e3
+                kernels += e.count
         device_ms = sum(groups.values())
         out[label] = {"wall_ms": wall * 1e3, "device_ms": device_ms,
+                      "device_kernels": kernels,
                       "idle_share": 1.0 - device_ms / (wall * 1e3),
                       "device_ms_by_group": dict(sorted(
                           groups.items(), key=lambda kv: -kv[1]))}
@@ -3137,13 +3239,14 @@ def ssd_ms_by_kernel(fn, reps=5):
     return per
 
 
-def time_ssm_kernels():
-    """``ssd_scan`` at the SSM serving path's shapes (the 16,384-token and
-    the 100-token prefill of mamba2-370m: nh 32, hd 64, st 128, chunk 256)
-    against its plain version, on inputs drawn in Mamba-2's initialisation
-    ranges (``ssd_case`` "mamba"): per element and per (batch, head) within
-    SSD_TOL; the kernel's device time (CUDA graph of SERVE_SSM["reps"]
-    calls), one call as the path makes it, the plain version's time, the
+def time_ssm_kernels(spec=SERVE_SSM, phase="serve_ssm_kernels"):
+    """``ssd_scan`` at a serving path's shapes (``spec``: by default the
+    16,384-token and the 100-token prefill of mamba2-370m, nh 32, hd 64,
+    st 128, chunk 256; SERVE_HYBRID: zamba2-7b's 4,608 and 100 tokens, nh
+    112, hd 64, st 64) against its plain version, on inputs drawn in
+    Mamba-2's initialisation ranges (``ssd_case`` "mamba"): per element and
+    per (batch, head) within SSD_TOL; the kernel's device time (CUDA graph
+    of ``spec["reps"]`` calls), one call as the path makes it, the plain version's time, the
     bound with the products on tensor cores in 3xTF32 (``bound_tc_ms``) and
     at the float32 CUDA-core rate (``bound_f32_ms``), ``bound_ms`` the
     lesser of the two; the device time of each kernel of a
@@ -3153,13 +3256,13 @@ def time_ssm_kernels():
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan import _launch as ssd_launch
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
-    cfg = get_config(SERVE_SSM["arch"])
+    cfg = get_config(spec["arch"])
     nh, hd, st, chunk = (cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
                          cfg.ssm_chunk)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
-    reps = SERVE_SSM["reps"]
+    reps = spec["reps"]
     rows = {}
-    for L in (max(SERVE_SSM["prompts"]), 100):
+    for L in (max(spec["prompts"]), 100):
         args = ssd_case(gen, 1, L, nh, hd, st, "mamba")
         y, h = ssd_scan(*args, chunk)
         sync()
@@ -3203,13 +3306,13 @@ def time_ssm_kernels():
         rows[L] = res
         del args, ref
     row = {**rows[max(rows)], "also": rows[100]}
-    emit({"phase": "serve_ssm_kernels", "ssd_scan": row})
+    emit({"phase": phase, "ssd_scan": row})
     if not (row["ok"] and row["also"]["ok"]):
-        raise SystemExit("ssd_scan disagrees with its plain version at the "
-                         "SSM serving path's shapes")
+        raise SystemExit(f"ssd_scan disagrees with its plain version at the "
+                         f"{spec['arch']} serving path's shapes")
     if SSD_VARIANT != row["variant"] or SSD_VARIANT != row["also"]["variant"]:
-        raise SystemExit(f"the SSM serving shapes did not run the "
-                         f"{SSD_VARIANT} kernels")
+        raise SystemExit(f"the {spec['arch']} serving shapes did not run "
+                         f"the {SSD_VARIANT} kernels")
     if not (row["faults_rejected"] and row["also"]["faults_rejected"]):
         raise SystemExit("the ssd_scan check passed a planted fault")
     return row
@@ -3242,6 +3345,54 @@ def phase_serve_ssm():
     return report, row
 
 
+def phase_serving():
+    """The three serving paths in turn (dense, SSM, hybrid): each one's
+    report and kernel rows."""
+    return phase_serve() + phase_serve_ssm() + phase_serve_hybrid()
+
+
+def phase_serve_hybrid():
+    """The hybrid serving path (zamba2-7b at full width and depth: 81
+    Mamba-2 blocks, the shared attention + MLP tile at 14 sites) through
+    all four LLM kernels, each of which must launch: ``ssd_scan`` once per
+    block and prefill, ``flash_attention`` once per site and prefill,
+    ``flash_decode`` once per site and decode step, ``fused_rmsnorm_mlp``
+    once per site and prefill or step.  Its teacher-forced check against
+    the plain path (attention ``naive``, ``ssm_backend="torch"``), its
+    profile, and the four kernels at its shapes."""
+    from repro_torch.models.layers import AttnOptions
+    spec = SERVE_HYBRID
+    report, ctx = drive_serve(
+        spec, dict(opts=AttnOptions(backend="fused"), ssm_backend="fused"),
+        "serve_hybrid",
+        ("flash_attention", "flash_decode", "fused_mlp", "ssd_scan"))
+    lm = ctx["eng"].lm
+    cfg, n_apps = lm.cfg, lm.n_apps
+    prefills, steps = len(spec["prompts"]), report["decode_steps"]
+    need = {"ssd_scan": cfg.n_layers * prefills,
+            "flash_attention": n_apps * prefills,
+            "flash_decode": n_apps * steps,
+            "fused_mlp": n_apps * (prefills + steps)}
+    report.update(d_inner=cfg.d_inner, ssm_heads=cfg.n_ssm_heads,
+                  ssm_state=cfg.ssm_state, head_dim=cfg.head_dim,
+                  shared_attn_every=cfg.shared_attn_every, sites=n_apps,
+                  launches_min=need)
+    short = [n for n, k in need.items() if report["launches"][n] < k]
+    if short:
+        emit(report)
+        raise SystemExit(f"serve_hybrid: fewer launches than sites x "
+                         f"prefills / steps (or blocks x prefills): {short}")
+    verify_serve_logits(report, ctx, dict(opts=AttnOptions(backend="naive"),
+                                          ssm_backend="torch"))
+    emit(report)
+    profile_serve(ctx, "serve_hybrid_profile")
+    rows = time_serve_kernels(ctx, spec, "serve_hybrid_kernels")
+    del ctx
+    torch.cuda.empty_cache()
+    rows["ssd_scan"] = time_ssm_kernels(spec, "serve_hybrid_ssd_kernels")
+    return report, rows
+
+
 # ---------------------------------------------------------------------------
 # card_tests: the gpu-marked pytest cases, on the card
 # ---------------------------------------------------------------------------
@@ -3254,11 +3405,12 @@ CARD_DTYPES = ("float32", "bfloat16")
 # B, S, KV, G, hd_qk, hd_v, window, block (test_torch_llm_kernels ATTN_CASES)
 CARD_ATTN = ((2, 64, 2, 2, 16, 16, 0, 16), (1, 48, 1, 4, 80, 80, 16, 16),
              (1, 32, 4, 1, 24, 16, 0, 8), (2, 40, 2, 2, 80, 80, 12, 8),
-             (1, 24, 2, 2, 20, 12, 0, 8))
+             (1, 24, 2, 2, 20, 12, 0, 8), (1, 40, 2, 1, 112, 112, 24, 8))
 # B, W, KV, G, hd, window, kv_block, positions (DECODE_CASES)
 CARD_DECODE = ((3, 32, 2, 4, 80, 16, 8, (5, 31, 50)),
                (2, 32, 1, 8, 16, 0, 16, (0, 95)),
-               (2, 24, 4, 1, 32, 0, 8, (11, 23)))
+               (2, 24, 4, 1, 32, 0, 8, (11, 23)),
+               (2, 24, 2, 1, 112, 0, 8, (7, 40)))
 # N, d, F of the MLP's parity cases
 CARD_MLP = ((32, 64, 96), (4, 80, 64), (70, 300, 130), (12, 64, 130),
             (3, 100, 77))
@@ -4039,8 +4191,9 @@ KERNEL_KEYS = ("max_abs_err", "tolerance", "max_row_rel_err", "row_rtol",
 KERNEL_EXTRA_KEYS = ("variant", "split", "library_call_ms", "matmul_ms",
                      "old_variant_ms", "bound_tc_ms", "bound_f32_ms",
                      "small_batch_split", "ms_by_kernel")
-# the device kernel each must run at the serving shapes ("name.also": the
-# row's second shape, fused_mlp's 4-slot decode)
+# the device kernel each must run at the serving shapes, the dense path's
+# and the hybrid path's ("name.also": the row's second shape, fused_mlp's
+# 4-slot decode)
 SERVE_VARIANT = {"flash_attention": "wgmma_tma", "fused_mlp": "wgmma_tma",
                  "fused_mlp.also": "gemv_tma", "flash_decode": "cp_async"}
 
@@ -4064,6 +4217,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="device, build and kernel parity only")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="device, build, kernel parity and the serving "
+                         "phases only")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/spill report")
     args = ap.parse_args()
@@ -4102,6 +4258,11 @@ def main() -> int:
         print(smi, flush=True)
         emit({"ok": True, "quick": True, "device": device})
         return 0
+    if args.serve_only:
+        phase_serving()
+        print(smi, flush=True)
+        emit({"ok": True, "serve_only": True, "device": device})
+        return 0
 
     model, res, _ = phase_sweep()
     phase_sweep_chunked(model)
@@ -4135,11 +4296,12 @@ def main() -> int:
     phase_observe(cl_ctx, main_ctx)
 
     # the serving paths, each counted inside drive_serve the same way
-    serve_report, serve_rows = phase_serve()
-    ssm_report, ssm_row = phase_serve_ssm()
+    serve_report, serve_rows, ssm_report, ssm_row, hyb_report, hyb_rows = \
+        phase_serving()
     serve_rows = {**serve_rows, "ssd_scan": ssm_row}
     path_launches = {**serve_report["launches"],
                      "ssd_scan": ssm_report["launches"]["ssd_scan"]}
+    hyb_launches = hyb_report["launches"]
 
     lin = main_report["kernel_vs_plain"]["linear"]
     a12k = a12_report["kernel_vs_plain"]
@@ -4167,10 +4329,13 @@ def main() -> int:
                  "bound_by": a12k["bound_by"]}}] + [{
         "name": n, "route": "cuda", "source": LLM_REPLACES[n][0],
         "replaces": LLM_REPLACES[n][1],
-        "launches": path_launches[n],
+        "launches": path_launches[n] + hyb_launches[n],
         **kernel_row(serve_rows[n]),
         **({"also": kernel_row(serve_rows[n]["also"])}
-           if "also" in serve_rows[n] else {})}
+           if "also" in serve_rows[n] else {}),
+        "hybrid": {"launches": hyb_launches[n], **kernel_row(hyb_rows[n]),
+                   **({"also": kernel_row(hyb_rows[n]["also"])}
+                      if "also" in hyb_rows[n] else {})}}
         for n in LLM_REPLACES]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -5,10 +5,11 @@ every architecture is a frozen :class:`ArchConfig`, input shapes are
 :class:`ShapeConfig`, a registry maps ``--arch <id>`` strings to configs and
 ``reduced()`` gives a CPU-sized config of the same family.
 
-Only architectures the port can run are registered (dense GQA and the
-attention-free ``ssm`` family).  :func:`get_config` of a known architecture
-whose family or attention type is not ported yet raises
-``NotImplementedError`` naming its ROADMAP item.
+Only architectures the port can run are registered (dense GQA, the
+attention-free ``ssm`` family and the ``hybrid`` family with its GQA shared
+tile).  :func:`get_config` of a known architecture whose family or
+attention type is not ported yet raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -243,14 +244,10 @@ def register(name: str):
 UNPORTED: Dict[str, Tuple[str, str]] = {
     "deepseek-v2-lite-16b": ("moe", "mla"),
     "granite-moe-1b-a400m": ("moe", "gqa"),
-    "zamba2-7b": ("hybrid", "gqa"),
 }
 
 _WAITS = {
     "moe": "models/moe.py is not ported yet (ROADMAP queue A item 10)",
-    "hybrid": ("the hybrid family's shared attention tile (one KV history "
-               "per application site) is not ported yet (ROADMAP queue A "
-               "item 10)"),
     "mla": "MLA attention is not ported yet (ROADMAP queue A item 10)",
 }
 
@@ -258,7 +255,7 @@ _WAITS = {
 def _reason(name: str, family: str, attn_type: str) -> Optional[str]:
     if family == "ssm" and attn_type == "none":
         return None
-    if family not in ("dense", "ssm"):
+    if family not in ("dense", "ssm", "hybrid"):
         return f"{name}: family {family!r}: {_WAITS.get(family, 'not ported')}"
     if attn_type != "gqa":
         return (f"{name}: attn_type {attn_type!r}: "

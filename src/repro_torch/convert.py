@@ -240,16 +240,21 @@ def lm_cache_from_numpy(d: Mapping, device: DeviceSpec = None):
     """A reference LM cache ``{"pos": scalar or (B,), "blocks": ...}`` -> the
     port's cache, whose ``pos`` is one int32 position per batch row.
     ``blocks`` is ``(k, v)`` with ``k``/``v`` ``(L, B, W, KV, hd)`` (dense),
-    or a dict of leaves ``(L, B, ...)`` (ssm: ``conv_x``, ``conv_B``,
-    ``conv_C``, ``state``), carried leaf by leaf in their dtypes."""
+    or a dict of leaves ``(L, B, ...)`` (ssm and hybrid: ``conv_x``,
+    ``conv_B``, ``conv_C``, ``state``); a hybrid cache also has
+    ``shared_attn``, ``(k, v)`` of shape ``(n_apps, B, W, KV, hd)``.  Leaves
+    are carried one by one in their dtypes."""
     dev = resolve(device)
-    blocks = d["blocks"]
-    if isinstance(blocks, Mapping):
-        blocks = {k: _tensor(a, dev) for k, a in blocks.items()}
-        B = next(iter(blocks.values())).shape[1]
-    else:
-        blocks = tuple(_tensor(a, dev) for a in blocks)
-        B = blocks[0].shape[1]
-    pos = torch.tensor(np.asarray(d["pos"]), dtype=torch.int32,
-                       device=dev).expand(B).contiguous()
-    return {"pos": pos, "blocks": blocks}
+
+    def leaves(tree):
+        if isinstance(tree, Mapping):
+            return {k: _tensor(a, dev) for k, a in tree.items()}
+        return tuple(_tensor(a, dev) for a in tree)
+
+    out = {k: leaves(d[k]) for k in ("blocks", "shared_attn") if k in d}
+    blocks = out["blocks"]
+    B = (next(iter(blocks.values())) if isinstance(blocks, dict)
+         else blocks[0]).shape[1]
+    out["pos"] = torch.tensor(np.asarray(d["pos"]), dtype=torch.int32,
+                              device=dev).expand(B).contiguous()
+    return out

@@ -560,7 +560,7 @@ static int launch_t(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 with hd_qk == hd_v in {64, 80, 128}: TMA + mbarrier ring +
+// bfloat16 with hd_qk == hd_v in {64, 80, 112, 128}: TMA + mbarrier ring +
 // wgmma, warp specialised ("wgmma_tma").
 //
 // Block: 128 queries of one (batch, q head) x every live 128-key tile.
@@ -594,8 +594,8 @@ static int launch_t(const void* q, const void* k, const void* v,
 // the tile is not ragged: no per-element mask), partial (masked per
 // element).  The classes sit in shared memory (one byte per tile), and
 // producer and consumers walk the same list; they share the 227 KB with
-// the tiles, so Sk is at most ~8.6 M keys at hd 80 / 128 (a longer one is
-// refused at launch).
+// the tiles, so Sk is at most ~8.6 M keys at hd 80 / 112 / 128 (a longer
+// one is refused at launch).
 //
 // Head dim 80: a row of 80 bf16 is 160 B, not a 128-B swizzle row.  Each
 // operand is loaded as 64-column TMA boxes; the second box of an 80-wide
@@ -604,14 +604,16 @@ static int launch_t(const void* q, const void* k, const void* v,
 // first box and the first of the second), so the padding costs no MMA
 // work, only shared memory (a 32 KB Q, K or V tile instead of 20 KB) and
 // TMA bandwidth into shared memory; P V is one m64n80k16 per k step, its B
-// spanning both boxes (LBO = the box stride).  GQA: q head h reads kv
-// head h / G; the G heads of a group are not packed into M (one block per
-// q head), and heads are the fastest grid dimension, so the G blocks that
-// share a K/V tile run side by side and meet it in L2.  (Packing them
-// into M, one K/V tile in shared memory for all G heads, was tried and
-// gave no gain: the K/V traffic from L2 is not what holds this kernel
-// back.)  Causal imbalance: the longest q tiles are launched first (q
-// tiles in reverse order).
+// spanning both boxes (LBO = the box stride).  Head dim 112 (224-B rows)
+// the same way: the second box's columns 112..127 are zero fill, Q K^T
+// takes 7 k steps, P V one m64n112k16 per k step, O is 56 registers.
+// GQA: q head h reads kv head h / G; the G heads of a group are not packed
+// into M (one block per q head), and heads are the fastest grid dimension,
+// so the G blocks that share a K/V tile run side by side and meet it in
+// L2.  (Packing them into M, one K/V tile in shared memory for all G
+// heads, was tried and gave no gain: the K/V traffic from L2 is not what
+// holds this kernel back.)  Causal imbalance: the longest q tiles are
+// launched first (q tiles in reverse order).
 #define FH_BQ 128            // queries per block
 #define FH_BK 128            // keys per kv tile
 #define FH_STAGES 2
@@ -631,6 +633,7 @@ __device__ __forceinline__ void fh_pv(float* o, const uint32_t* a,
                                       uint64_t db) {
   if constexpr (HD == 64) wgmma_rs_m64n64k16_tb(o, a, db, 1);
   else if constexpr (HD == 80) wgmma_rs_m64n80k16_tb(o, a, db, 1);
+  else if constexpr (HD == 112) wgmma_rs_m64n112k16_tb(o, a, db, 1);
   else wgmma_rs_m64n128k16_tb(o, a, db, 1);
 }
 
@@ -926,6 +929,9 @@ static int launch_wgmma(const void* q, const void* k, const void* v,
     case 80:
       return launch_wgmma_hd<80>(q, k, v, qpos, kpos, out, B, Sq, Sk, KV, G,
                                  window, scale, stream);
+    case 112:
+      return launch_wgmma_hd<112>(q, k, v, qpos, kpos, out, B, Sq, Sk, KV, G,
+                                  window, scale, stream);
     case 128:
       return launch_wgmma_hd<128>(q, k, v, qpos, kpos, out, B, Sq, Sk, KV, G,
                                   window, scale, stream);
@@ -936,8 +942,8 @@ static int launch_wgmma(const void* q, const void* k, const void* v,
 // dtype: 0 float32, 1 bfloat16.  variant (chosen by the wrapper's
 // `_variant`): 0 the CUDA-core kernel (float32), 1 the WMMA kernel
 // (bfloat16), 2 the wgmma/TMA kernel (bfloat16, hd_qk == hd_v in
-// {64, 80, 128}, 16-byte aligned operands).  A variant whose conditions do
-// not hold is refused.  Returns a cudaError_t (0 = launched).
+// {64, 80, 112, 128}, 16-byte aligned operands).  A variant whose
+// conditions do not hold is refused.  Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const int* qpos,
                                       const int* kpos, void* out, int B,

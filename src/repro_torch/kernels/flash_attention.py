@@ -24,7 +24,7 @@ from repro_torch.models.layers import NEG_INF, _gqa_out, _gqa_scores, \
 MAX_HEAD_DIM = 256
 # The device kernels, by the code csrc/flash_attention.cu takes.
 VARIANTS = {"cuda_cores": 0, "wmma": 1, "wgmma_tma": 2}
-WGMMA_HEAD_DIMS = (64, 80, 128)
+WGMMA_HEAD_DIMS = (64, 80, 112, 128)
 
 
 def _variant(dtype: torch.dtype, hd_qk: int, hd_v: int,
@@ -63,7 +63,10 @@ def flash_attention_plain(q, k, v, qpos, kpos, window: int = 0,
 _FN = None
 
 
-def _launch(q, k, v, qpos, kpos, window, scale):
+def _launch(q, k, v, qpos, kpos, window, scale, variant=None):
+    """One launch.  ``variant`` defaults to :func:`_variant`; it is given
+    only to time an older kernel on the same inputs, and the kernel refuses
+    one whose conditions do not hold."""
     global _FN
     code = check("q", q, 5)
     for name, t in (("k", k), ("v", v)):
@@ -84,7 +87,8 @@ def _launch(q, k, v, qpos, kpos, window, scale):
         P, I = ctypes.c_void_p, ctypes.c_int
         _FN = build.function("flash_attention", "flash_attention_launch",
                              [P] * 6 + [I] * 8 + [ctypes.c_float, I, I, P])
-    variant = _variant(q.dtype, hd_qk, hd_v, aligned16(q, k, v))
+    if variant is None:
+        variant = _variant(q.dtype, hd_qk, hd_v, aligned16(q, k, v))
     with torch.cuda.device(q.device):
         rc = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
                  kp.data_ptr(), out.data_ptr(), B, Sq, Sk, KV, G, hd_qk,

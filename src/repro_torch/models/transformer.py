@@ -1,26 +1,33 @@
 """Decoder LM of the port, for the ``dense`` family (pre-norm GQA/MQA
-attention + gated MLP) and the ``ssm`` family (pre-norm Mamba-2 blocks,
-attention-free), mirroring ``repro/models/transformer.py``.
+attention + gated MLP), the ``ssm`` family (pre-norm Mamba-2 blocks,
+attention-free) and the ``hybrid`` family (a Mamba-2 backbone and one
+*shared* attention + MLP tile applied before every ``shared_attn_every``-th
+block, Zamba-2), mirroring ``repro/models/transformer.py``.
 
 Parameters are the reference's nested dict: ``embed``, ``final_norm``,
-``lm_head`` (absent with tied embeddings) and ``blocks``, whose leaves carry
-a leading stacked-layers dim.  The reference scans over that dim; here it
-is a Python loop.  Entry points: ``prefill`` (-> cache) and ``decode_step``
+``lm_head`` (absent with tied embeddings), ``blocks``, whose leaves carry
+a leading stacked-layers dim, and for ``hybrid`` the unstacked dense block
+``shared_attn``.  The reference scans over the layer dim; here it is a
+Python loop.  Entry points: ``prefill`` (-> cache) and ``decode_step``
 (cache -> cache).  Each batch row has its own position ``cache["pos"]``
 (B,) int32, so rows admitted at different times decode side by side.  The
 dense cache's ``blocks`` is ``(k, v)`` of shape ``(L, B, W, KV, hd)``; the
-ssm cache's is a dict of the reference's leaves with the stacked layer dim
-and no sequence axis: ``conv_x`` (L, B, c-1, d_inner), ``conv_B`` /
-``conv_C`` (L, B, c-1, st) and ``state`` (L, B, nh, st, hd) float32.
+ssm and hybrid caches' is a dict of the reference's leaves with the stacked
+layer dim and no sequence axis: ``conv_x`` (L, B, c-1, d_inner), ``conv_B``
+/ ``conv_C`` (L, B, c-1, st) and ``state`` (L, B, nh, st, hd) float32.  The
+hybrid cache adds ``shared_attn``: ``(k, v)`` of shape
+``(n_apps, B, W, KV, hd)``, one KV history per application site of the
+shared tile (``n_apps = ceil(L / shared_attn_every)``).
 
 Under ``AttnOptions(backend="fused")`` attention runs the ``flash_attention``
 / ``flash_decode`` kernels, and each block's ``mlp_norm`` + gate/up
 projections run the ``fused_rmsnorm_mlp`` kernel (the down projection stays
 a ``torch.matmul``).  Under ``ssm_backend="fused"`` each Mamba-2 block's
 prefill scan runs the ``ssd_scan`` kernel (``"torch"``, the default, runs
-the chunked scan in plain PyTorch).  The families ``moe`` / ``hybrid``,
-``attn_type="mla"`` and the training entry points are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+the chunked scan in plain PyTorch); the hybrid family's shared tile takes
+the attention options and the MLP kernel like a dense block.  The ``moe``
+family, ``attn_type="mla"`` and the training entry points are not ported
+yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -78,7 +85,21 @@ class LM:
 
     @property
     def _ssm(self) -> bool:
-        return self.cfg.family == "ssm"
+        """The blocks are Mamba-2 blocks (``ssm`` and ``hybrid``)."""
+        return self.cfg.family in ("ssm", "hybrid")
+
+    @property
+    def _every(self) -> int:
+        """The shared tile's period (0: no shared tile)."""
+        return self.cfg.shared_attn_every if self.cfg.family == "hybrid" \
+            else 0
+
+    @property
+    def n_apps(self) -> int:
+        """Application sites of the shared tile: one before every block
+        ``i`` with ``i % shared_attn_every == 0``."""
+        every = self._every
+        return -(-self.cfg.n_layers // every) if every else 0
 
     # ----------------------------------------------------------- param specs
     def param_specs(self):
@@ -92,6 +113,8 @@ class LM:
                                   ("embed", "vocab"), init="small")
         block = _ssm_block_spec(cfg) if self._ssm else _dense_block_spec(cfg)
         out["blocks"] = _stack_specs(block, cfg.n_layers)
+        if cfg.family == "hybrid":
+            out["shared_attn"] = _dense_block_spec(cfg)
         return out
 
     def init(self, generator: torch.Generator):
@@ -137,9 +160,10 @@ class LM:
 
     # ------------------------------------------------------- full-seq blocks
     def _block_fwd(self, bp, x, positions, want_cache: bool):
-        """One block forward; returns (x, cache_or_None)."""
+        """One block forward (a Mamba-2 block, or a dense block: the hybrid
+        family's shared tile is one); returns (x, cache_or_None)."""
         cfg = self.cfg
-        if self._ssm:
+        if "ssm" in bp:
             h = L.rms_norm(x, bp["norm"], cfg.norm_eps)
             res = M.ssm_apply(bp["ssm"], cfg, h, backend=self.ssm_backend,
                               return_cache=want_cache)
@@ -168,7 +192,8 @@ class LM:
         tokens: (B, S).  Returns (last-token logits (B,V) float32, cache);
         ``cache_len`` sizes the KV cache to the serving window (default: the
         prompt length), capped at the sliding window.  The ssm cache has no
-        sequence axis and ignores ``cache_len``.
+        sequence axis and ignores ``cache_len``; the hybrid tile's KV history
+        of each site is fitted to the window on its own.
         """
         cfg = self.cfg
         x = self._embed(params, tokens)
@@ -180,14 +205,26 @@ class LM:
         pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
         if self._ssm:
             stacked: Dict[str, torch.Tensor] = {}
+            every, shared = self._every, params.get("shared_attn")
+            sh = None
             for i in range(cfg.n_layers):
+                if every and i % every == 0:     # the tile, site i // every
+                    x, kv = self._block_fwd(shared, x, positions, True)
+                    kv = self._pad_attn_cache(kv, W, S)
+                    if sh is None:
+                        sh = tuple(a.new_empty((self.n_apps,) + a.shape)
+                                   for a in kv)
+                    sh[0][i // every], sh[1][i // every] = kv
                 x, c = self._block_fwd(_layer(blocks, i), x, positions, True)
                 for k, a in c.items():
                     if k not in stacked:
                         stacked[k] = a.new_empty((cfg.n_layers,) + a.shape)
                     stacked[k][i] = a
             logits = self._logits(params, x[:, -1:, :])[:, 0, :]
-            return logits, {"pos": pos, "blocks": stacked}
+            cache = {"pos": pos, "blocks": stacked}
+            if sh is not None:
+                cache["shared_attn"] = sh
+            return logits, cache
         ck = cv = None
         for i in range(cfg.n_layers):
             x, (k, v) = self._block_fwd(_layer(blocks, i), x, positions, True)
@@ -212,13 +249,21 @@ class LM:
         The ssm family also writes **in place**: each layer's new conv
         buffers and state (computed as new tensors by ``ssm_decode``) are
         copied into that layer's slice of the stacked cache tensors, so the
-        returned cache holds the same tensors (no new state per step)."""
+        returned cache holds the same tensors (no new state per step).  The
+        hybrid family's shared tile, before block ``i``, attends over site
+        ``i // shared_attn_every`` of ``cache["shared_attn"]`` and writes its
+        new K/V there in place, as a dense block does."""
         x = self._embed(params, tokens)
         pos = cache["pos"]
         blocks = params["blocks"]
         if self._ssm:
             sc = cache["blocks"]
+            every, shared = self._every, params.get("shared_attn")
+            sh = cache.get("shared_attn")
             for i in range(self.cfg.n_layers):
+                if every and i % every == 0:
+                    x = self._block_decode(shared, x, sh[0][i // every],
+                                           sh[1][i // every], pos)
                 bp = _layer(blocks, i)
                 h = L.rms_norm(x, bp["norm"], self.cfg.norm_eps)
                 h, c2 = M.ssm_decode(bp["ssm"], self.cfg, h,
@@ -227,7 +272,10 @@ class LM:
                 for k, a in c2.items():
                     sc[k][i].copy_(a)               # casts to the cache dtype
             logits = self._logits(params, x)[:, 0, :]
-            return logits, {"pos": pos + 1, "blocks": sc}
+            out = {"pos": pos + 1, "blocks": sc}
+            if sh is not None:
+                out["shared_attn"] = sh
+            return logits, out
         ck, cv = cache["blocks"]
         for i in range(self.cfg.n_layers):
             x = self._block_decode(_layer(blocks, i), x, ck[i], cv[i], pos)
@@ -252,10 +300,12 @@ class LM:
         cfg = self.cfg
         return (cfg.n_kv_heads, cfg.head_dim), (cfg.n_kv_heads, cfg.head_dim)
 
-    def _zero_attn_cache(self, B, W, dtype=torch.bfloat16, device=None):
+    def _zero_attn_cache(self, n, batch, W, dtype, device):
+        """Zero ``(k, v)`` of shape ``(n, batch, W, KV, hd)``: ``n`` stacked
+        layers (dense) or sites of the shared tile (hybrid)."""
         d0, d1 = self._attn_cache_dims()
-        return (torch.zeros((B, W) + d0, dtype=dtype, device=device),
-                torch.zeros((B, W) + d1, dtype=dtype, device=device))
+        return (torch.zeros((n, batch, W) + d0, dtype=dtype, device=device),
+                torch.zeros((n, batch, W) + d1, dtype=dtype, device=device))
 
     def _pad_attn_cache(self, c, W: int, S: int):
         """Fit prefill-produced caches (len S) into the serving window W."""
@@ -289,10 +339,12 @@ class LM:
         pos = torch.zeros((batch,), dtype=torch.int32, device=device)
         if self._ssm:       # conv buffers in the cache dtype, state float32
             one = M.ssm_cache_init(cfg, n * batch, dtype, device)
-            return {"pos": pos,
-                    "blocks": {k: a.reshape((n, batch) + a.shape[1:])
-                               for k, a in one.items()}}
-        k, v = self._zero_attn_cache(n * batch, W, dtype, device)
+            cache = {"pos": pos,
+                     "blocks": {k: a.reshape((n, batch) + a.shape[1:])
+                                for k, a in one.items()}}
+            if self.n_apps:       # the shared tile: one history per site
+                cache["shared_attn"] = self._zero_attn_cache(
+                    self.n_apps, batch, W, dtype, device)
+            return cache
         return {"pos": pos,
-                "blocks": (k.reshape((n, batch) + k.shape[1:]),
-                           v.reshape((n, batch) + v.shape[1:]))}
+                "blocks": self._zero_attn_cache(n, batch, W, dtype, device)}

@@ -8,13 +8,14 @@ The reference ``vmap``s one decode step over a per-slot cache whose position
 is a per-slot scalar.  Here that batch dimension is written out: the cache is
 one ``(L, slots, W, KV, hd)`` pair with a ``(slots,)`` position vector (for
 the ``ssm`` family: the stacked conv buffers and states, ``(L, slots, ...)``
-each), and one batched ``decode_step`` serves every slot, each row at its
-own position (dense: its query position ``pos[b]``, its ring of key
+each; the ``hybrid`` family adds the shared tile's ``(n_apps, slots, W, KV,
+hd)`` pair), and one batched ``decode_step`` serves every slot, each row at
+its own position (dense: its query position ``pos[b]``, its ring of key
 positions, its new K/V written at ``pos[b] % W`` in place; ssm: its new conv
 buffers and state written over its old ones in place).  As in the
 reference, empty slots decode too and their positions advance.  Prefill
 runs per admitted request with B=1 and ``cache_len=window``; its cache is
-copied into the request's slot leaf by leaf.
+copied into the request's slot leaf by leaf (:func:`write_slot`).
 
 Besides the tick counts of the reference, every request carries host-clock
 stamps (``t_submit``, ``t_first``, ``t_done``; the device is synchronised
@@ -34,6 +35,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import monitor as mon
 from repro_torch.core.tiles import TilePlan, default_plan
 from repro_torch.device import DeviceSpec, resolve
+from repro_torch.models.params import tree_leaves
 from repro_torch.models.transformer import LM
 
 
@@ -56,6 +58,19 @@ class Request:
         if self.first_token_tick is None:
             return None
         return self.first_token_tick - self.submitted_tick
+
+
+def write_slot(cache, slot: int, one) -> None:
+    """Copy a B=1 prefill cache ``one`` into row ``slot`` of the batched
+    ``cache``, leaf by leaf (every leaf's batch axis is 1, ``pos``'s 0),
+    casting to the cache's dtypes."""
+    for key, stacks in cache.items():
+        if key == "pos":
+            stacks[slot] = one["pos"][0]
+            continue
+        for stack, new in zip(tree_leaves(stacks, torch.is_tensor),
+                              tree_leaves(one[key], torch.is_tensor)):
+            stack[:, slot] = new[:, 0]
 
 
 class ServeEngine:
@@ -114,12 +129,7 @@ class ServeEngine:
             self.counters = mon.charge(
                 self.counters, "mem",
                 rtt=float(self.tick + 1 - req.submitted_tick))
-            stacks, news = self.cache["blocks"], cache1["blocks"]
-            pairs = ([(stacks[k], news[k]) for k in stacks]
-                     if isinstance(stacks, dict) else zip(stacks, news))
-            for stack, new in pairs:                 # leaf by leaf
-                stack[:, slot] = new[:, 0]           # casts to the cache dtype
-            self.cache["pos"][slot] = cache1["pos"][0]
+            write_slot(self.cache, slot, cache1)
             self.tokens[slot, 0] = tok
             self.active[slot] = req
 

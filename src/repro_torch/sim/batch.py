@@ -483,11 +483,11 @@ class BatchSimEngine:
         if self.faults is not None and self.faults and fused:
             raise NotImplementedError(
                 "fused backend does not simulate fault schedules; "
-                "faults= not ported yet (ROADMAP queue A item 8)")
+                "use backend='torch'")
         if self.slo is not None and fused:
             raise NotImplementedError(
                 "fused backend does not apply SLO semantics; "
-                "slo= not ported yet (ROADMAP queue A item 8)")
+                "use backend='torch'")
         if self.balancer is not None and fused:
             raise NotImplementedError(
                 "fused backend does not run the load balancer; "

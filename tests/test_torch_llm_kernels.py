@@ -115,6 +115,7 @@ ATTN_CASES = [
     (1, 32, 4, 1, 24, 16, 0, 8),         # separate qk / v head dims
     (2, 40, 2, 2, 80, 80, 12, 8),
     (1, 24, 2, 2, 20, 12, 0, 8),         # head dims not multiples of 8
+    (1, 40, 2, 1, 112, 112, 24, 8),      # zamba2's head dim, G 1, a window
 ]
 
 
@@ -211,6 +212,7 @@ DECODE_CASES = [
     (3, 32, 2, 4, 80, 16, 8, (5, 31, 50)),
     (2, 32, 1, 8, 16, 0, 16, (0, 95)),
     (2, 24, 4, 1, 32, 0, 8, (11, 23)),
+    (2, 24, 2, 1, 112, 0, 8, (7, 40)),   # zamba2's head dim, G 1, wrapped
 ]
 
 
@@ -381,6 +383,41 @@ def test_row_check_rejects_planted_faults_on_long_rows(name):
         assert short <= ATOL[("attention", "bfloat16")]
 
 
+@pytest.mark.parametrize("name", ["flash_attention", "flash_decode"])
+def test_row_check_rejects_head_tail_faults_at_hd_112(name):
+    """At zamba2's head dim 112 each row is loaded as two 64-column TMA
+    boxes (the second zero-filled past 112): the row check of
+    ``chip_smoke.py`` must reject the scores without their last 16 dims
+    (Q K^T's last k step lost) and the output past column 64 at zero (P V's
+    second box lost), over a prefill of 1,024 keys and a ring cache."""
+    cs = chip_smoke()
+    g = torch.Generator().manual_seed(7)
+    bf16, hd = torch.bfloat16, 112
+    if name == "flash_decode":
+        B, W, KV, G = 4, 1024, 4, 1
+        q = torch.randn(B, KV, G, hd, generator=g).to(bf16)
+        ck, cv = (torch.randn(B, W, KV, hd, generator=g).to(bf16)
+                  for _ in range(2))
+        pos = torch.tensor([1023, 1500, 600, 2047], dtype=torch.int32)
+        args = (q, ck, cv, pos, L.ring_kpos(pos, W), 0, hd ** -0.5)
+        plain = FD.flash_decode_plain
+    else:
+        B, S, KV, G = 1, 1024, 4, 1
+        q = torch.randn(B, S, KV, G, hd, generator=g).to(bf16)
+        k, v = (torch.randn(B, S, KV, hd, generator=g).to(bf16)
+                for _ in range(2))
+        p = torch.arange(S, dtype=torch.int32)[None]
+        args = (q, k, v, p, p, 0, hd ** -0.5)
+        plain = FA.flash_attention_plain
+    ref = plain(*args)
+    faults = cs.head_tail_faults(args, plain, ref)
+    assert sorted(faults) == ["out_second_box_zero", "scores_tail_dropped"]
+    for fault, out in faults.items():
+        res = cs.llm_check("attention", out, ref, bf16)
+        assert not res["ok"], fault
+        assert res["max_row_rel_err"] > cs.LLM_ROW_RTOL[bf16], fault
+
+
 # ------------------------------------------------------------------- the card
 @pytest.fixture
 def cuda_device():
@@ -445,6 +482,9 @@ def test_attention_dispatch_rule():
         assert FA._variant(bf16, hd, hd, True) == want, cfg.name
         assert FA._variant(bf16, hd, hd, False) == "wmma", cfg.name
         assert FA._variant(f32, hd, hd, True) == "cuda_cores", cfg.name
+    # the hybrid family's shared tile (zamba2-7b: hd 112) since its slice
+    assert FA._variant(bf16, get_config("zamba2-7b").head_dim, 112,
+                       True) == "wgmma_tma"
     assert FA._variant(bf16, 80, 64, True) == "wmma"      # unequal dims
     assert FA._variant(bf16, 96, 96, True) == "wmma"      # uncovered dim
     assert set(FA.VARIANTS) == {"cuda_cores", "wmma", "wgmma_tma"}
@@ -535,6 +575,11 @@ EDGE_ATTN = [
     (1, 300, 300, 2, 2, 80, 0, ("arange", -40), "arange"),  # rows no key
     (2, 1000, 1000, 2, 4, 80, 300, ("arange", 0), "arange"),  # full tiles
     (1, 384, 384, 1, 1, 128, 0, ("arange", 0), "arange"),   # exact tiles
+    # zamba2's head dim 112 (two TMA boxes, 16 columns of zero fill), G 1
+    (2, 200, 330, 2, 1, 112, 0, ("arange", 130), "arange"),  # ragged, offset
+    (1, 300, 300, 4, 1, 112, 100, ("arange", 0), "arange"),  # a window
+    (1, 260, 260, 2, 2, 112, 0, ("perm", 0), "perm"),       # non-monotone
+    (1, 300, 300, 2, 1, 112, 0, ("arange", -40), "arange"),  # rows no key
 ]
 
 
@@ -545,7 +590,7 @@ def test_cuda_flash_attention_wgmma_edges(B, Sq, Sk, KV, G, hd, win, qk, kk,
     """The wgmma/TMA kernel against the plain version (bf16) at its edges:
     ragged query and key tiles, a prefix in the cache, non-monotone
     positions, a kv tile live only through the window, rows with no live
-    key, full tiles, head dims 64 / 80 / 128; atol 3e-2 and 2e-2 of each
+    key, full tiles, head dims 64 / 80 / 112 / 128; atol 3e-2 and 2e-2 of each
     output row's largest value (``chip_smoke.py``,
     ``card_flash_attention_wgmma_edges``)."""
     chip_smoke().card_case("test_cuda_flash_attention_wgmma_edges", B, Sq,

@@ -304,18 +304,19 @@ def test_init_params_scales_and_generator():
 
 
 def test_unported_families_and_entry_points_raise():
-    for arch in ("deepseek-v2-lite-16b", "granite-moe-1b-a400m",
-                 "zamba2-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+    for arch in ("deepseek-v2-lite-16b", "granite-moe-1b-a400m"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue A item 10"):
             port_configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="shared attention tile"):
-        port_configs.get_config("zamba2-7b")
-    # the ssm family is ported: mamba2-370m and family="ssm" build
+    # the ssm and hybrid families are ported: mamba2-370m, zamba2-7b,
+    # family="ssm" and family="hybrid" build
     assert port_configs.get_config("mamba2-370m").family == "ssm"
+    assert port_configs.get_config("zamba2-7b").family == "hybrid"
+    PT.LM(port_configs.get_config("zamba2-7b"))
     cfg = port_configs.get_config("granite-8b").reduced()
     PT.LM(dataclasses.replace(cfg, family="ssm"))
-    for change in (dict(family="moe"), dict(family="hybrid"),
-                   dict(attn_type="mla")):
+    PT.LM(dataclasses.replace(cfg, family="hybrid", shared_attn_every=2))
+    for change in (dict(family="moe"), dict(attn_type="mla")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PT.LM(dataclasses.replace(cfg, **change))
     lm = PT.LM(cfg)

@@ -220,6 +220,15 @@ def test_bad_dtype_refused():
 # ------------------------------------------------------------- refusals
 REFUSED = [("faults", "fault"), ("slo", "SLO"), ("balancer", "balancer"),
            ("observe", "observer")]
+# what "fused" says for each, in the words of the reference's refusals
+FUSED_WORDS = {
+    "faults": "fused backend does not simulate fault schedules; use "
+              "backend='torch'",
+    "slo": "fused backend does not apply SLO semantics; use backend='torch'",
+    "balancer": "fused backend does not run the load balancer; use "
+                "backend='torch'",
+    "observe": "fused backend records no observer plane; use "
+               "backend='torch'"}
 
 
 def _balanced_chain_runs():
@@ -314,14 +323,7 @@ def test_unported_knobs_are_refused(knob, word, backend):
         PORT.sim.BatchSimEngine(plat, backend=backend, device="cpu",
                                 **{knob: value})
     assert word in str(err.value)
-    if knob == "balancer":
-        assert str(err.value) == ("fused backend does not run the load "
-                                  "balancer; use backend='torch'")
-    elif knob == "observe":
-        assert str(err.value) == ("fused backend records no observer "
-                                  "plane; use backend='torch'")
-    else:
-        assert "not ported yet (ROADMAP queue A item" in str(err.value)
+    assert str(err.value) == FUSED_WORDS[knob]
 
 
 def test_fused_refuses_a_balancer_set_after_construction():

@@ -387,9 +387,9 @@ def test_fused_still_refuses_faults_and_slo():
     bplat = PORT.sim.BatchSimPlatform.stack([plat])
     for knob, value, text in (
             ("faults", sched, "fused backend does not simulate fault "
-             "schedules; faults= not ported yet (ROADMAP queue A item 8)"),
+             "schedules; use backend='torch'"),
             ("slo", slo, "fused backend does not apply SLO semantics; "
-             "slo= not ported yet (ROADMAP queue A item 8)")):
+             "use backend='torch'")):
         with pytest.raises(NotImplementedError) as err:
             PORT.sim.BatchSimEngine(bplat, backend="fused", device="cpu",
                                     **{knob: value})

@@ -129,7 +129,11 @@ FUSED_WORDS = {
     "balancer": "fused backend does not run the load balancer; use "
                 "backend='torch'",
     "observer": "fused backend records no observer plane; use "
-                "backend='torch'"}
+                "backend='torch'",
+    "fault": "fused backend does not simulate fault schedules; use "
+             "backend='torch'",
+    "SLO": "fused backend does not apply SLO semantics; use "
+           "backend='torch'"}
 
 
 def _knob(pkg, kw):
