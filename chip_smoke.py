@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --quick    # device, build, kernel parity only
-    python3 chip_smoke.py --serve-only   # ... and the serving phases
+    python3 chip_smoke.py --serve-only   # ... and the four serving phases
     python3 chip_smoke.py --ptxas    # also nvcc's registers / spills
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
@@ -168,6 +168,32 @@ main path through its public entry points at the size its users run:
                    14,336, ``gelu``; each attention check must also reject
                    a head dim's tail lost) and ``serve_hybrid_ssd_kernels``
                    (``ssd_scan`` at nh 112, st 64).
+10. ``serve_moe`` — the moe serving path: ``ServeEngine`` on
+                   granite-moe-1b-a400m at full width and depth (24 layers,
+                   d 1,024, 32 experts, top 8, expert width 512, head dim
+                   64, G 2, causal; random bf16 weights from a seed), 4
+                   slots, a 4,096 window, 8 requests of 1-4,608 prompt
+                   tokens (one token: 8 of 32 experts hit; one short of the
+                   window, the window, across it) and 32 new each, through
+                   ``flash_attention`` / ``flash_decode`` (at least once per
+                   layer and prefill or step), the expert products through
+                   ``torch._grouped_mm`` (``grouped_variant``); TTFT,
+                   tokens/s, memory; syncs per decode step (``SyncCount``'s
+                   way, the whole step and ``LM.decode_step`` alone, beside
+                   the plain path's); teacher forced against the plain path
+                   (attention ``naive``, the experts through the per-expert
+                   loop); ``serve_moe_profile`` (the MoE's grouped products
+                   and its other passes as groups of their own);
+                   ``serve_moe_kernels`` (both attention kernels at head dim
+                   64 beside SDPA, the older kernels and the bound; they
+                   must run ``wgmma_tma`` / ``cp_async``) and
+                   ``serve_moe_experts`` (``grouped_matmul`` against the
+                   per-expert loop at 36,864, 32 and 8 rows, each product
+                   within max(5e-2, one bf16 ulp) and 2e-2 of the largest
+                   output, timed beside the loop and the bound; the check
+                   must reject two experts' weights swapped and a group end
+                   shifted by one row; ``top_k`` on the card equal to the
+                   CPU's on tied rows).
 
 Each phase prints one JSON line, with ``t_s``: the seconds since the
 script started.  The line before the last but one is
@@ -180,8 +206,9 @@ float32 for ``tick_sim``, 989 TFLOP/s bf16 for the attention and MLP
 kernels; for ``ssd_scan`` the lesser of its products on TF32 tensor cores,
 three passes at 494 TFLOP/s, with the rest at 67 (``bound_tc_ms``), and
 all of it at 67 (``bound_f32_ms``); published H100 SXM figures); each LLM
-kernel's row carries the hybrid path's as ``hybrid``, with its own
-launches (the row's ``launches`` are the sum over the serving paths).  The
+kernel's row carries the hybrid path's as ``hybrid`` and the attention
+rows the moe path's as ``moe``, each with its own launches (the row's
+``launches`` are the sum over the serving paths).  The
 line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits with a non-zero code; without a CUDA device the
 script stops at once.
@@ -257,6 +284,16 @@ SERVE_SSM = {"arch": "mamba2-370m", "slots": 4,
 SERVE_HYBRID = {"arch": "zamba2-7b", "slots": 4, "window": 4096,
                 "prompts": (1, 2, 100, 1000, 3000, 4096, 4608, 256),
                 "max_new": 32, "reps": 10}
+# The MoE serving phase: granite-moe-1b-a400m at full width and depth (src/
+# repro_torch/configs/granite_moe_1b_a400m.py): 24 layers, d 1,024, 32
+# experts, top 8, expert width 512, head dim 64, G 2, causal attention with
+# no window.  Prompts: one token (8 of the 32 experts hit), two, a ragged
+# hundred, 1,000, 2,048, one short of the window (4,095), the window exactly
+# (4,096) and across it (4,608: the history rotated into its ring); 4 slots,
+# so two waves.
+SERVE_MOE = {"arch": "granite-moe-1b-a400m", "slots": 4, "window": 4096,
+             "prompts": (1, 2, 100, 1000, 2048, 4095, 4096, 4608),
+             "max_new": 32, "reps": 10}
 # ssd_scan vs its plain version, float32 both (tests/test_kernels.py:68):
 # |err| <= SSD_TOL + SSD_TOL * |ref| per element, and per (batch, head)
 # max |err| / max |ref| <= SSD_TOL.
@@ -2937,9 +2974,76 @@ def time_llm_kernel(name, kind, args, plain, library=None, extra=()):
     return res
 
 
-def time_serve_kernels(ctx, spec=SERVE, phase="serve_kernels"):
-    """Each LLM kernel at a serving path's shapes (``spec``: the dense
-    path's by default; the hybrid path's shared tile with SERVE_HYBRID):
+def time_serve_mlp(cfg, eng, spec, gen, hybrid, W, KV, G, hd, win, S,
+                   slots):
+    """``fused_rmsnorm_mlp`` at a serving path's shapes (time_serve_kernels'
+    MLP row, its inputs drawn from ``gen`` after the attention rows'): the
+    longest prefill (N = 4,608) and the 4-slot decode, with layer 0's
+    weights (hybrid: the shared tile's)."""
+    from repro_torch.kernels.fused_mlp import _launch as fm_launch
+    from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import _layer
+    bf16 = torch.bfloat16
+    bp = (eng.params["shared_attn"] if hybrid
+          else _layer(eng.params["blocks"], 0))
+    norm, wg, wu = bp["mlp_norm"], bp["mlp"]["wi_gate"], bp["mlp"]["wi_up"]
+    d, Ff = wg.shape
+    x_ulp = None
+    if not hybrid:
+        # An earlier version of this phase drew the one-slot decode case
+        # from this generator just before the MLP's inputs; its prefill x
+        # then read one bf16 ulp (2^-4, at 8-16) off the plain version and
+        # failed the constant 5e-2 limit.  Those inputs, drawn again, must
+        # pass the ulp-aware limit.
+        g_ulp = torch.Generator(device=DEV)
+        g_ulp.set_state(gen.get_state())
+        decode_case(g_ulp, 1, W, KV, G, hd, hd, win, bf16, [2 * W - 1])
+        x_ulp = _randn(g_ulp, (S, d), bf16)
+    per = {}
+    for label, N in (("prefill", S), ("decode", slots)):
+        x = _randn(gen, (N, d), bf16)
+        m_args = (x, norm, wg, wu, cfg.act, cfg.norm_eps)
+        rr = time_llm_kernel("fused_mlp", "mlp", m_args,
+                             fused_rmsnorm_mlp_plain)
+        # yardstick only (the port never calls it): cuBLAS on the same
+        # products, normalised x against [Wg | Wu], graph-timed
+        xn = rms_norm(x, norm, cfg.norm_eps)
+        wgu = torch.cat([wg, wu], dim=1)
+        rr["matmul_ms"] = graph_ms(lambda: torch.matmul(xn, wgu),
+                                   spec["reps"])
+        del xn, wgu
+        if label == "decode":       # the rows kernel, same inputs
+            rr["old_variant_ms"] = graph_ms(
+                lambda: fm_launch(*m_args, variant="rows"), spec["reps"])
+        rr["planted_faults"] = mlp_faults_rejected(
+            m_args, fused_rmsnorm_mlp_plain(*m_args))
+        rr["faults_rejected"] = all(f["rejected"]
+                                    for f in rr["planted_faults"].values())
+        ops = 4.0 * N * d * Ff
+        rr.update(zip(("bound_ms", "bound_by"),
+                      _bound(_nbytes(x, norm, wg, wu) + 2.0 * N * Ff, ops)))
+        rr.update(shape=f"x ({N},{d}), W ({d},{Ff}) bf16, {cfg.act}",
+                  operations=ops)
+        per[label] = rr
+    if x_ulp is not None:
+        a_ulp = (x_ulp, norm, wg, wu, cfg.act, cfg.norm_eps)
+        out_ulp = llm_kernels()["fused_mlp"](*a_ulp)
+        per["prefill"]["one_ulp_inputs"] = {
+            **llm_check("mlp", out_ulp, fused_rmsnorm_mlp_plain(*a_ulp),
+                        bf16),
+            "variant": llm_kernels()["fused_mlp"].last_variant}
+        del x_ulp, a_ulp, out_ulp
+    return {**per["prefill"], "also": per["decode"]}
+
+
+def time_serve_kernels(ctx, spec=SERVE, phase="serve_kernels",
+                       kernels=("flash_attention", "flash_decode",
+                                "fused_mlp")):
+    """Each LLM kernel of ``kernels`` at a serving path's shapes (``spec``:
+    the dense path's by default; the hybrid path's shared tile with
+    SERVE_HYBRID; the moe path's attention, which has no dense MLP, with
+    SERVE_MOE):
     against its plain version, timed beside its bound and, for attention,
     SDPA; the older kernel of each on the same inputs (``old_variant_ms``).
     Each row must have run the kernel SERVE_VARIANT names (at the hybrid
@@ -2948,9 +3052,7 @@ def time_serve_kernels(ctx, spec=SERVE, phase="serve_kernels"):
     from repro_torch.kernels.flash_attention import _launch as fa_launch
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.flash_decode import flash_decode_plain
-    from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
-    from repro_torch.models.layers import AttnOptions, _window_mask, \
-        ring_kpos, rms_norm
+    from repro_torch.models.layers import AttnOptions, _window_mask, ring_kpos
     eng = ctx["eng"]
     cfg = eng.cfg
     KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
@@ -3037,60 +3139,9 @@ def time_serve_kernels(ctx, spec=SERVE, phase="serve_kernels"):
              live_slots=n_live, operations=ops)
     rows["flash_decode"] = r
     del kt, vt
-    # fused_mlp: the longest prefill (N = 4,608) and the 4-slot decode, with
-    # layer 0's weights (hybrid: the shared tile's)
-    from repro_torch.kernels.fused_mlp import _launch as fm_launch
-    from repro_torch.models.transformer import _layer
-    bp = (eng.params["shared_attn"] if hybrid
-          else _layer(eng.params["blocks"], 0))
-    norm, wg, wu = bp["mlp_norm"], bp["mlp"]["wi_gate"], bp["mlp"]["wi_up"]
-    d, Ff = wg.shape
-    x_ulp = None
-    if not hybrid:
-        # An earlier version of this phase drew the one-slot decode case
-        # from this generator just before the MLP's inputs; its prefill x
-        # then read one bf16 ulp (2^-4, at 8-16) off the plain version and
-        # failed the constant 5e-2 limit.  Those inputs, drawn again, must
-        # pass the ulp-aware limit.
-        g_ulp = torch.Generator(device=DEV)
-        g_ulp.set_state(gen.get_state())
-        decode_case(g_ulp, 1, W, KV, G, hd, hd, win, bf16, [2 * W - 1])
-        x_ulp = _randn(g_ulp, (S, d), bf16)
-    per = {}
-    for label, N in (("prefill", S), ("decode", slots)):
-        x = _randn(gen, (N, d), bf16)
-        m_args = (x, norm, wg, wu, cfg.act, cfg.norm_eps)
-        rr = time_llm_kernel("fused_mlp", "mlp", m_args,
-                             fused_rmsnorm_mlp_plain)
-        # yardstick only (the port never calls it): cuBLAS on the same
-        # products, normalised x against [Wg | Wu], graph-timed
-        xn = rms_norm(x, norm, cfg.norm_eps)
-        wgu = torch.cat([wg, wu], dim=1)
-        rr["matmul_ms"] = graph_ms(lambda: torch.matmul(xn, wgu),
-                                   spec["reps"])
-        del xn, wgu
-        if label == "decode":       # the rows kernel, same inputs
-            rr["old_variant_ms"] = graph_ms(
-                lambda: fm_launch(*m_args, variant="rows"), spec["reps"])
-        rr["planted_faults"] = mlp_faults_rejected(
-            m_args, fused_rmsnorm_mlp_plain(*m_args))
-        rr["faults_rejected"] = all(f["rejected"]
-                                    for f in rr["planted_faults"].values())
-        ops = 4.0 * N * d * Ff
-        rr.update(zip(("bound_ms", "bound_by"),
-                      _bound(_nbytes(x, norm, wg, wu) + 2.0 * N * Ff, ops)))
-        rr.update(shape=f"x ({N},{d}), W ({d},{Ff}) bf16, {cfg.act}",
-                  operations=ops)
-        per[label] = rr
-    if x_ulp is not None:
-        a_ulp = (x_ulp, norm, wg, wu, cfg.act, cfg.norm_eps)
-        out_ulp = llm_kernels()["fused_mlp"](*a_ulp)
-        per["prefill"]["one_ulp_inputs"] = {
-            **llm_check("mlp", out_ulp, fused_rmsnorm_mlp_plain(*a_ulp),
-                        bf16),
-            "variant": llm_kernels()["fused_mlp"].last_variant}
-        del x_ulp, a_ulp, out_ulp
-    rows["fused_mlp"] = {**per["prefill"], "also": per["decode"]}
+    if "fused_mlp" in kernels:     # the moe path has no dense MLP
+        rows["fused_mlp"] = time_serve_mlp(cfg, eng, spec, gen, hybrid, W, KV,
+                                           G, hd, win, S, slots)
     bad = [n for n, r in rows.items()
            if not r["ok"] or ("also" in r and not r["also"]["ok"])
            or not r.get("small_batch_split", {}).get("ok", True)
@@ -3099,7 +3150,8 @@ def time_serve_kernels(ctx, spec=SERVE, phase="serve_kernels"):
              if not r.get("faults_rejected", True)
              or not r.get("also", {}).get("faults_rejected", True)]
     old = [n for n, want in SERVE_VARIANT.items()
-           if serve_row(rows, n)["variant"] != want]
+           if n.partition(".")[0] in rows
+           and serve_row(rows, n)["variant"] != want]
     emit({"phase": phase, **rows})
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions at the "
@@ -3112,10 +3164,17 @@ def time_serve_kernels(ctx, spec=SERVE, phase="serve_kernels"):
     return rows
 
 
+def _is_grouped_gemm(name: str) -> bool:
+    """A kernel of ``torch._grouped_mm`` (CUTLASS's grouped GEMM)."""
+    return "GroupProblemShape" in name or "grouped" in name.lower()
+
+
 def _kernel_group(name: str) -> str:
     for k in ("fused_mlp", "flash_attention", "flash_decode"):
         if k in name:
             return k
+    if _is_grouped_gemm(name):          # the MoE's expert products
+        return "torch._grouped_mm (MoE experts)"
     if "fd2_combine" in name:           # flash_decode's cp_async combine
         return "flash_decode"
     if name.startswith("ssd_"):         # the kernels of csrc/ssd_scan.cu
@@ -3125,13 +3184,38 @@ def _kernel_group(name: str) -> str:
     return "other torch ops"
 
 
+def moe_ms_by_group(prof) -> dict:
+    """Device ms of the kernels launched inside the ``moe`` ranges of a
+    profile (``moe_apply`` under ``record_function("moe")``), by group: the
+    grouped expert products and every other pass of the MoE (routing, sort,
+    gathers, activation, gates, combine)."""
+    out = {"moe: grouped products": 0.0, "moe: other passes": 0.0}
+    for e in prof.events():
+        if not getattr(e, "kernels", None):
+            continue
+        p = e
+        while p is not None and p.name != "moe":
+            p = p.cpu_parent
+        if p is None:
+            continue
+        for k in e.kernels:
+            g = ("moe: grouped products" if _is_grouped_gemm(k.name)
+                 else "moe: other passes")
+            out[g] += k.duration / 1e3
+    return out
+
+
 def profile_serve(ctx, phase="serve_profile"):
     """Where the time of one serving step goes: a decode step at all slots
     (on the engine's final cache) and a prefill of the longest prompt,
     each under ``torch.profiler``: host wall time, device time by kernel
     group, the kernels launched (``device_kernels``) and the device's idle
-    share (1 - device time / wall time)."""
-    from torch.profiler import ProfilerActivity, profile
+    share (1 - device time / wall time).  On a moe path each ``moe_apply``
+    runs inside ``record_function("moe")``, and ``moe_ms_by_group`` splits
+    the device time of its kernels into the grouped products and the
+    other passes."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe as MoE
     eng, reqs = ctx["eng"], ctx["reqs"]
     lm = eng.lm
     longest = max(reqs, key=lambda r: len(r.prompt))
@@ -3142,30 +3226,47 @@ def profile_serve(ctx, phase="serve_profile"):
                                               eng.tokens),
         "prefill_%d" % prompt.shape[1]: lambda: lm.prefill(
             eng.params, prompt, cache_len=ctx["window"])}
+    moe = eng.cfg.family == "moe"
+    apply = MoE.moe_apply
+
+    def ranged(*a, **kw):
+        with record_function("moe"):
+            return apply(*a, **kw)
+
     out = {}
     for label, fn in steps.items():
         fn()
         sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            wall = time.perf_counter() - t0
-        groups, kernels = {}, 0
+        MoE.moe_apply = ranged if moe else apply
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                wall = time.perf_counter() - t0
+        finally:
+            MoE.moe_apply = apply
+        groups, kernels, top = {}, 0, []
         for e in prof.key_averages():
             dev = getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0.0))
-            if e.self_cpu_time_total == 0 and dev > 0:   # a device kernel
+            # a device kernel; the "moe" range's own device-side span
+            # would count its kernels twice
+            if e.self_cpu_time_total == 0 and dev > 0 and e.key != "moe":
                 g = _kernel_group(e.key)
                 groups[g] = groups.get(g, 0.0) + dev / 1e3
                 kernels += e.count
+                top.append((dev / 1e3, e.count, e.key[:100]))
         device_ms = sum(groups.values())
         out[label] = {"wall_ms": wall * 1e3, "device_ms": device_ms,
                       "device_kernels": kernels,
                       "idle_share": 1.0 - device_ms / (wall * 1e3),
                       "device_ms_by_group": dict(sorted(
-                          groups.items(), key=lambda kv: -kv[1]))}
+                          groups.items(), key=lambda kv: -kv[1])),
+                      "top_kernels": [list(t) for t in sorted(top)[::-1][:6]]}
+        if moe:
+            out[label]["moe_ms_by_group"] = moe_ms_by_group(prof)
     emit({"phase": phase, **out})
     if any(v["device_ms"] <= 0 for v in out.values()):
         raise SystemExit(f"{phase}: the profiler saw no device time")
@@ -3346,9 +3447,10 @@ def phase_serve_ssm():
 
 
 def phase_serving():
-    """The three serving paths in turn (dense, SSM, hybrid): each one's
+    """The four serving paths in turn (dense, SSM, hybrid, moe): each one's
     report and kernel rows."""
-    return phase_serve() + phase_serve_ssm() + phase_serve_hybrid()
+    return (phase_serve() + phase_serve_ssm() + phase_serve_hybrid()
+            + phase_serve_moe())
 
 
 def phase_serve_hybrid():
@@ -3390,6 +3492,220 @@ def phase_serve_hybrid():
     del ctx
     torch.cuda.empty_cache()
     rows["ssd_scan"] = time_ssm_kernels(spec, "serve_hybrid_ssd_kernels")
+    return report, rows
+
+
+def decode_syncs(ctx, plain_kwargs, steps=4):
+    """Operations that wait for the card (torch's sync debug mode "warn", as
+    ``SyncCount`` counts them) per decode step of the engine with every
+    slot busy: over the whole ``ServeEngine.step`` (the token read
+    included) and inside ``LM.decode_step`` alone; then the same with the
+    engine's LM swapped for the plain one (``plain_kwargs``).  Fresh
+    8-token requests fill the slots first (their prefills are not
+    counted)."""
+    from repro_torch.models.transformer import LM
+    from repro_torch.runtime.serve import Request
+    eng = ctx["eng"]
+    rng = np.random.default_rng(SEED + 5)
+    out = {"steps": steps}
+    lms = {"kernel_path": eng.lm, "plain_path": LM(eng.cfg, **plain_kwargs)}
+    for label, lm in lms.items():
+        for i in range(eng.slots):
+            eng.submit(Request(rid=10_000 + i, max_new=steps + 2,
+                               prompt=rng.integers(0, eng.cfg.vocab_size,
+                                                   size=8).astype(np.int32)))
+        eng.lm = lm
+        eng.step()                       # admits every slot, decodes once
+        sync()
+        decode_step, inner = lm.decode_step, [0]
+        try:
+            with SyncCount() as sc:
+                def counted(*a, **kw):
+                    n0 = len(sc.records)
+                    res = decode_step(*a, **kw)
+                    inner[0] += sc._syncs(sc.records[n0:])
+                    return res
+                lm.decode_step = counted
+                for _ in range(steps):
+                    eng.step()
+        finally:
+            lm.decode_step = decode_step
+        eng.run(4)                       # the requests finish
+        sites = {}
+        for r in sc.records:
+            if "synchroniz" in str(r.message):
+                at = f"{os.path.relpath(r.filename, ROOT)}:{r.lineno}"
+                sites[at] = sites.get(at, 0) + 1 / steps
+        out[label] = {"per_step": sc.total / steps,
+                      "in_decode_step": inner[0] / steps,
+                      "sites_per_step": sites}
+    eng.lm = lms["kernel_path"]
+    return out
+
+
+def grouped_check(out, ref):
+    """``grouped_matmul`` (bf16) against its plain loop: per element as the
+    bf16 MLP rows (max(5e-2, one bf16 ulp of |ref|), ``llm_check``) and the
+    largest error over the largest |ref| within LLM_ROW_RTOL's bf16 2e-2
+    (a product of small weights has outputs far below 5e-2)."""
+    res = llm_check("mlp", out, ref, torch.bfloat16)
+    top = float(ref.float().abs().max()) if ref.numel() else 0.0
+    res["rel_err"] = res["max_abs_err"] / top if top > 0 else \
+        res["max_abs_err"]
+    res["rel_tol"] = LLM_ROW_RTOL[torch.bfloat16]
+    res["ok"] = res["ok"] and res["rel_err"] <= res["rel_tol"]
+    return res
+
+
+def grouped_planted_faults(xs, w, offsets, ref):
+    """What a faulty grouped product would return on (xs, w, offsets):
+    the weights of the two largest groups' experts swapped, and the end of
+    the first group followed by a non-empty one shifted one row up (that
+    row taken by the wrong expert).  ``grouped_check`` must reject each."""
+    from repro_torch.models.moe import grouped_matmul
+    sizes = torch.diff(offsets, prepend=offsets.new_zeros(1)).tolist()
+    out = {}
+    a, b = sorted(range(len(sizes)), key=lambda e: -sizes[e])[:2]
+    if sizes[b] > 0:
+        swapped = w.clone()
+        swapped[[a, b]] = w[[b, a]]
+        out["experts_swapped"] = grouped_matmul(xs, swapped, offsets)
+    j = next((e for e in range(len(sizes) - 1) if sizes[e + 1] > 0), None)
+    if j is not None:
+        shifted = offsets.clone()
+        shifted[j] += 1
+        out["offset_shifted"] = grouped_matmul(xs, w, shifted)
+    return {name: {**{k: c[k] for k in ("max_abs_err", "rel_err")},
+                   "rejected": not c["ok"]}
+            for name, c in ((n, grouped_check(bad, ref))
+                            for n, bad in out.items())}
+
+
+def time_moe_experts(ctx, spec=SERVE_MOE, phase="serve_moe_experts"):
+    """``grouped_matmul`` at the moe path's shapes, with layer 0's experts
+    and router: the longest prefill (4,608 tokens, 36,864 rows), the
+    4-slot decode (32 rows) and one token (8 rows, 24 of 32 groups empty),
+    the rows routed and sorted as the path does.  Each of the three
+    products against the plain loop (``grouped_check``), which must reject
+    ``grouped_planted_faults``; the three products together (gate, up,
+    down and the activation: ``expert_ffn``) graph-timed (``ms``), eagerly
+    (``call_ms``) and through the per-expert loop as the plain path runs it
+    (``loop_ms``: the offsets read once, eager), beside the bound (the
+    gathered rows read, the weights of the experts with rows read, the
+    output rows written; 2 rows d f 3 operations at the bf16 peak).  Also
+    ``top_k`` on the card against the CPU on the same logits, all-tied and
+    integer-tied rows included: the ids must be equal."""
+    from repro_torch.models import moe as MoE
+    from repro_torch.models.layers import _act
+    from repro_torch.models.transformer import _layer
+    eng = ctx["eng"]
+    cfg = eng.cfg
+    E, k, d, f = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff_expert
+    p = _layer(eng.params["blocks"], 0)["moe"]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    bf16 = torch.bfloat16
+    rows, bad, blind = {}, [], []
+    for label, n in (("prefill", max(spec["prompts"])),
+                     ("decode", spec["slots"]), ("one_token", 1)):
+        x = _randn(gen, (n, d), bf16)
+        _, ids, _ = MoE._route(p["router"], x, k)
+        flat = ids.reshape(-1)
+        xs = x[torch.argsort(flat, stable=True) // k]
+        offs = MoE.group_offsets(flat, E)
+        gate = MoE.grouped_matmul_plain(xs, p["wi_gate"], offs)
+        h = _act(gate, cfg.act) * MoE.grouped_matmul_plain(xs, p["wi_up"],
+                                                           offs)
+        products = {}
+        for name, (a, w) in (("wi_gate", (xs, p["wi_gate"])),
+                             ("wi_up", (xs, p["wi_up"])), ("wo", (h, p["wo"]))):
+            got = MoE.grouped_matmul(a, w, offs)
+            sync()
+            c = grouped_check(got, MoE.grouped_matmul_plain(a, w, offs))
+            products[name] = {**c, "variant": MoE.grouped_matmul.last_variant}
+            if not c["ok"] or products[name]["variant"] != "grouped_mm":
+                bad.append(f"{label}.{name}")
+        faults = grouped_planted_faults(xs, p["wi_gate"], offs, gate)
+        if not all(v["rejected"] for v in faults.values()):
+            blind.append(label)
+        sizes = torch.diff(offs, prepend=offs.new_zeros(1))
+        used = int((sizes > 0).sum())
+        n_rows = int(flat.numel())
+        byts = 2.0 * (2 * n_rows * d + used * 3 * d * f) + 4.0 * E
+        ops = 2.0 * n_rows * d * f * 3
+        ffn = (lambda: MoE.expert_ffn(xs, p, offs, cfg.act))
+        rows[label] = {
+            "rows": n_rows, "groups_used": used, "products": products,
+            "planted_faults": faults,
+            "faults_rejected": all(v["rejected"] for v in faults.values()),
+            "ms": graph_ms(ffn, spec["reps"]),
+            "call_ms": cuda_ms(ffn, spec["reps"]),
+            "loop_ms": cuda_ms(lambda: MoE.expert_ffn(
+                xs, p, offs.tolist(), cfg.act, MoE.grouped_matmul_plain), 3),
+            **dict(zip(("bound_ms", "bound_by"), _bound(byts, ops))),
+            "operations": ops,
+            "shape": f"xs ({n_rows},{d}), W ({E},{d},{f}) bf16, {cfg.act}"}
+        del x, xs, h, gate
+    # routing ties: the card's ids against the CPU's on the same logits
+    logits = _randn(gen, (64, E), torch.float32)
+    logits[0] = 0.0                                       # all tied
+    logits[1:9] = torch.round(logits[1:9] * 2)            # integer ties
+    card_ids = MoE.top_k(logits, k)[1].cpu()
+    cpu_ids = MoE.top_k(logits.cpu(), k)[1]
+    ties = {"rows": 64, "equal": bool(torch.equal(card_ids, cpu_ids)),
+            "all_tied_row": card_ids[0].tolist()}
+    if not ties["equal"] or ties["all_tied_row"] != list(range(k)):
+        bad.append("top_k")
+    emit({"phase": phase, **rows, "routing_ties": ties})
+    if bad:
+        raise SystemExit(f"{phase}: grouped products or routing off the "
+                         f"plain versions (or not torch._grouped_mm): {bad}")
+    if blind:
+        raise SystemExit(f"{phase}: the check passed a planted fault at "
+                         f"{blind}")
+    return rows
+
+
+def phase_serve_moe():
+    """The moe serving path (granite-moe-1b-a400m at full width and depth:
+    24 layers of GQA attention at head dim 64 and a 32-expert top-8 MoE)
+    through the two attention kernels, each of which must launch at least
+    once per layer and prefill or decode step, with the expert products
+    through ``torch._grouped_mm`` (``grouped_variant``); syncs per decode
+    step (and where they come from, ``sites_per_step``); its teacher-forced
+    check against the plain path (attention
+    ``naive``, which also runs the experts through the per-expert loop);
+    its profile; the attention kernels at its shapes; ``grouped_matmul`` at
+    its shapes (``serve_moe_experts``)."""
+    from repro_torch.models import moe as MoE
+    from repro_torch.models.layers import AttnOptions
+    spec = SERVE_MOE
+    MoE.grouped_matmul.last_variant = None
+    report, ctx = drive_serve(spec, dict(opts=AttnOptions(backend="fused")),
+                              "serve_moe", ("flash_attention", "flash_decode"))
+    cfg = ctx["eng"].cfg
+    prefills, steps = len(spec["prompts"]), report["decode_steps"]
+    need = {"flash_attention": cfg.n_layers * prefills,
+            "flash_decode": cfg.n_layers * steps}
+    report.update(head_dim=cfg.head_dim, kv_heads=cfg.n_kv_heads,
+                  n_experts=cfg.n_experts, top_k=cfg.top_k,
+                  d_ff_expert=cfg.d_ff_expert, launches_min=need,
+                  grouped_variant=MoE.grouped_matmul.last_variant)
+    short = [n for n, m in need.items() if report["launches"][n] < m]
+    if short or report["grouped_variant"] != "grouped_mm":
+        emit(report)
+        raise SystemExit(f"serve_moe: fewer launches than layers x prefills "
+                         f"/ steps ({short}) or the experts did not run "
+                         f"torch._grouped_mm")
+    plain = dict(opts=AttnOptions(backend="naive"))
+    verify_serve_logits(report, ctx, plain)
+    profile_serve(ctx, "serve_moe_profile")
+    rows = time_serve_kernels(ctx, spec, "serve_moe_kernels",
+                              ("flash_attention", "flash_decode"))
+    report["syncs"] = decode_syncs(ctx, plain)
+    emit(report)
+    time_moe_experts(ctx, spec)
+    del ctx
+    torch.cuda.empty_cache()
     return report, rows
 
 
@@ -4099,6 +4415,34 @@ def card_observe(case):
     assert len(card.observer.trace) > 2
 
 
+# rows, E, K, N, seed (test_torch_moe GROUPED_CASES): granite's one-token
+# (8 rows over 32 experts: 24 empty groups), 4-slot decode and 4,608-token
+# prefill rows against its gate/up weights, a reduced shape, its down
+# product's K and N
+CARD_GROUPED = ((8, 32, 1024, 512, 0), (32, 32, 1024, 512, 1),
+                (36864, 32, 1024, 512, 2), (40, 4, 64, 64, 3),
+                (64, 32, 512, 1024, 4))
+
+
+def card_grouped_matmul(rows, E, K, N, seed):
+    """``grouped_matmul`` on CUDA bf16 rows sorted by expert (ids drawn
+    uniformly, so some groups may be empty) runs ``torch._grouped_mm`` and
+    agrees with the per-expert loop (``grouped_check``)."""
+    from repro_torch.models import moe as MoE
+    rng = np.random.default_rng(seed)
+    ids = np.sort(rng.integers(0, E, size=rows))
+    offs = torch.from_numpy(np.cumsum(np.bincount(ids, minlength=E)).astype(
+        np.int32)).to(DEV)
+    xs = _on_card(rng.standard_normal((rows, K)), "bfloat16")
+    w = _on_card(rng.standard_normal((E, K, N)) / np.sqrt(K), "bfloat16")
+    out = MoE.grouped_matmul(xs, w, offs)
+    sync()
+    assert MoE.grouped_matmul.last_variant == "grouped_mm", \
+        MoE.grouped_matmul.last_variant
+    res = grouped_check(out, MoE.grouped_matmul_plain(xs, w, offs))
+    assert res["ok"], f"grouped product off its loop: {res}"
+
+
 # gpu-marked test -> (the function here, its cases as the test's arguments)
 CARD_TESTS = {
     "test_cuda_flash_attention_matches_plain": (
@@ -4147,6 +4491,8 @@ CARD_TESTS = {
     "test_cuda_observed_run_matches_cpu": (
         card_observe, (("sequential",), ("faults",), ("batch64",),
                        ("batch32",))),
+    "test_cuda_grouped_matmul_matches_plain": (card_grouped_matmul,
+                                               CARD_GROUPED),
 }
 
 
@@ -4296,12 +4642,19 @@ def main() -> int:
     phase_observe(cl_ctx, main_ctx)
 
     # the serving paths, each counted inside drive_serve the same way
-    serve_report, serve_rows, ssm_report, ssm_row, hyb_report, hyb_rows = \
-        phase_serving()
+    (serve_report, serve_rows, ssm_report, ssm_row, hyb_report, hyb_rows,
+     moe_report, moe_rows) = phase_serving()
     serve_rows = {**serve_rows, "ssd_scan": ssm_row}
     path_launches = {**serve_report["launches"],
                      "ssd_scan": ssm_report["launches"]["ssd_scan"]}
     hyb_launches = hyb_report["launches"]
+    moe_launches = moe_report["launches"]
+
+    def sub_row(rows, launches, n):
+        """A serving path's row of kernel ``n``, with its own launches."""
+        return {"launches": launches[n], **kernel_row(rows[n]),
+                **({"also": kernel_row(rows[n]["also"])}
+                   if "also" in rows[n] else {})}
 
     lin = main_report["kernel_vs_plain"]["linear"]
     a12k = a12_report["kernel_vs_plain"]
@@ -4329,13 +4682,13 @@ def main() -> int:
                  "bound_by": a12k["bound_by"]}}] + [{
         "name": n, "route": "cuda", "source": LLM_REPLACES[n][0],
         "replaces": LLM_REPLACES[n][1],
-        "launches": path_launches[n] + hyb_launches[n],
+        "launches": path_launches[n] + hyb_launches[n] + moe_launches[n],
         **kernel_row(serve_rows[n]),
         **({"also": kernel_row(serve_rows[n]["also"])}
            if "also" in serve_rows[n] else {}),
-        "hybrid": {"launches": hyb_launches[n], **kernel_row(hyb_rows[n]),
-                   **({"also": kernel_row(hyb_rows[n]["also"])}
-                      if "also" in hyb_rows[n] else {})}}
+        "hybrid": sub_row(hyb_rows, hyb_launches, n),
+        **({"moe": sub_row(moe_rows, moe_launches, n)} if n in moe_rows
+           else {})}
         for n in LLM_REPLACES]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -1,9 +1,10 @@
 """Configurations of the port.
 
 ``vespa_soc`` is the paper's own 4x4 SoC.  The LLM architectures the port
-can run (dense GQA, the attention-free ``ssm`` family and the ``hybrid``
-family) register themselves when this package is imported, as in the
-reference; ``base.UNPORTED`` lists the ones that wait.
+can run (dense GQA, the attention-free ``ssm`` family, the ``hybrid``
+family and the GQA ``moe`` family) register themselves when this package
+is imported, as in the reference; ``base.UNPORTED`` lists the ones that
+wait.
 """
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
@@ -25,4 +26,5 @@ from repro_torch.configs import (  # noqa: F401
     musicgen_large,
     mamba2_370m,
     zamba2_7b,
+    granite_moe_1b_a400m,
 )

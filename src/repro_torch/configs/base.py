@@ -6,8 +6,8 @@ every architecture is a frozen :class:`ArchConfig`, input shapes are
 ``reduced()`` gives a CPU-sized config of the same family.
 
 Only architectures the port can run are registered (dense GQA, the
-attention-free ``ssm`` family and the ``hybrid`` family with its GQA shared
-tile).  :func:`get_config` of a known architecture whose family or
+attention-free ``ssm`` family, the ``hybrid`` family with its GQA shared
+tile and the ``moe`` family with GQA attention).  :func:`get_config` of a known architecture whose family or
 attention type is not ported yet raises ``NotImplementedError`` naming its
 ROADMAP item.
 """
@@ -243,19 +243,17 @@ def register(name: str):
 # Architectures of the reference the port cannot run yet: (family, attn_type).
 UNPORTED: Dict[str, Tuple[str, str]] = {
     "deepseek-v2-lite-16b": ("moe", "mla"),
-    "granite-moe-1b-a400m": ("moe", "gqa"),
 }
 
 _WAITS = {
-    "moe": "models/moe.py is not ported yet (ROADMAP queue A item 10)",
-    "mla": "MLA attention is not ported yet (ROADMAP queue A item 10)",
+    "mla": "MLA attention is not ported yet (ROADMAP queue A item 10.3)",
 }
 
 
 def _reason(name: str, family: str, attn_type: str) -> Optional[str]:
     if family == "ssm" and attn_type == "none":
         return None
-    if family not in ("dense", "ssm", "hybrid"):
+    if family not in ("dense", "moe", "ssm", "hybrid"):
         return f"{name}: family {family!r}: {_WAITS.get(family, 'not ported')}"
     if attn_type != "gqa":
         return (f"{name}: attn_type {attn_type!r}: "

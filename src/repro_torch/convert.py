@@ -239,11 +239,15 @@ def lm_params_from_numpy(tree: Any, device: DeviceSpec = None):
 def lm_cache_from_numpy(d: Mapping, device: DeviceSpec = None):
     """A reference LM cache ``{"pos": scalar or (B,), "blocks": ...}`` -> the
     port's cache, whose ``pos`` is one int32 position per batch row.
-    ``blocks`` is ``(k, v)`` with ``k``/``v`` ``(L, B, W, KV, hd)`` (dense),
-    or a dict of leaves ``(L, B, ...)`` (ssm and hybrid: ``conv_x``,
-    ``conv_B``, ``conv_C``, ``state``); a hybrid cache also has
-    ``shared_attn``, ``(k, v)`` of shape ``(n_apps, B, W, KV, hd)``.  Leaves
-    are carried one by one in their dtypes."""
+    ``blocks`` is ``(k, v)`` with ``k``/``v`` ``(L, B, W, KV, hd)`` (dense
+    and moe), or a dict of leaves ``(L, B, ...)`` (ssm and hybrid:
+    ``conv_x``, ``conv_B``, ``conv_C``, ``state``); a hybrid cache also has
+    ``shared_attn``, ``(k, v)`` of shape ``(n_apps, B, W, KV, hd)``.  A moe
+    cache with dense prelude layers has ``prelude``, a list of one ``(k, v)``
+    of shape ``(B, W, KV, hd)`` per prelude layer; the port keeps no list:
+    the prelude's layers are folded in front of ``blocks``, which then
+    covers all ``n_layers``.  Leaves are carried one by one in their
+    dtypes."""
     dev = resolve(device)
 
     def leaves(tree):
@@ -252,6 +256,11 @@ def lm_cache_from_numpy(d: Mapping, device: DeviceSpec = None):
         return tuple(_tensor(a, dev) for a in tree)
 
     out = {k: leaves(d[k]) for k in ("blocks", "shared_attn") if k in d}
+    if d.get("prelude"):
+        pre = [leaves(c) for c in d["prelude"]]
+        out["blocks"] = tuple(
+            torch.cat([torch.stack([c[j] for c in pre]), out["blocks"][j]])
+            for j in range(2))
     blocks = out["blocks"]
     B = (next(iter(blocks.values())) if isinstance(blocks, dict)
          else blocks[0]).shape[1]

@@ -76,6 +76,11 @@ def charge(counters: Counters, tile: str, *, exec_time=None, pkts_in=None,
     row = dict(counters[tile])
 
     def f32(val, like):
+        if isinstance(val, (int, float)):
+            # filled on the device: no host-to-device copy, which would
+            # wait for the card
+            return torch.full((), float(val), dtype=torch.float32,
+                              device=like.device)
         return torch.as_tensor(val, dtype=torch.float32, device=like.device)
 
     if exec_time is not None and "exec_time" in row:

@@ -12,7 +12,7 @@ Plain functions on tensors; parameters are the nested dicts built from
                 ``flash_attention`` and ``gqa_decode`` launches
                 ``flash_decode``.  On CPU tensors their plain versions run.
 
-MLA (``mla_*``, ``quant_kv``) is not ported yet (ROADMAP queue A item 10).
+MLA (``mla_*``, ``quant_kv``) is not ported yet (ROADMAP queue A item 10.3).
 """
 from __future__ import annotations
 
@@ -54,10 +54,12 @@ def rms_norm_spec(d: int):
 
 def rope_freqs(head_dim: int, theta: float,
                device: Optional[torch.device] = None) -> torch.Tensor:
+    """``1 / theta ** (2i / head_dim)`` in float32.  ``theta`` enters as a
+    Python scalar: a tensor made from it on a card would be a host-to-device
+    copy, which waits for the card (two per layer and step)."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    return 1.0 / torch.pow(theta, exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -181,7 +183,7 @@ def attention_chunked(q, k, v, qpos, kpos, window: int, scale: float,
     if opts.folded:
         raise NotImplementedError(
             "folded-triangle attention schedule is not ported yet (ROADMAP "
-            "queue A item 10)")
+            "queue A item 10.4)")
     B, Sq, KV, G, _ = q.shape
     hd = v.shape[-1]
     Sk = k.shape[1]
@@ -313,7 +315,7 @@ def gqa_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor,
 def _mla_waits(*args, **kwargs):
     raise NotImplementedError(
         "MLA attention (mla_spec / mla_apply / mla_decode / quant_kv) is not "
-        "ported yet (ROADMAP queue A item 10)")
+        "ported yet (ROADMAP queue A item 10.3)")
 
 
 mla_spec = mla_apply = mla_decode = quant_kv = dequant_kv = _mla_waits

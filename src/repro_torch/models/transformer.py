@@ -1,33 +1,40 @@
 """Decoder LM of the port, for the ``dense`` family (pre-norm GQA/MQA
-attention + gated MLP), the ``ssm`` family (pre-norm Mamba-2 blocks,
-attention-free) and the ``hybrid`` family (a Mamba-2 backbone and one
-*shared* attention + MLP tile applied before every ``shared_attn_every``-th
-block, Zamba-2), mirroring ``repro/models/transformer.py``.
+attention + gated MLP), the ``moe`` family (the same attention and a
+mixture-of-experts FFN, optionally after ``n_dense_layers`` dense prelude
+blocks), the ``ssm`` family (pre-norm Mamba-2 blocks, attention-free) and
+the ``hybrid`` family (a Mamba-2 backbone and one *shared* attention + MLP
+tile applied before every ``shared_attn_every``-th block, Zamba-2),
+mirroring ``repro/models/transformer.py``.
 
 Parameters are the reference's nested dict: ``embed``, ``final_norm``,
 ``lm_head`` (absent with tied embeddings), ``blocks``, whose leaves carry
-a leading stacked-layers dim, and for ``hybrid`` the unstacked dense block
-``shared_attn``.  The reference scans over the layer dim; here it is a
-Python loop.  Entry points: ``prefill`` (-> cache) and ``decode_step``
-(cache -> cache).  Each batch row has its own position ``cache["pos"]``
-(B,) int32, so rows admitted at different times decode side by side.  The
-dense cache's ``blocks`` is ``(k, v)`` of shape ``(L, B, W, KV, hd)``; the
-ssm and hybrid caches' is a dict of the reference's leaves with the stacked
-layer dim and no sequence axis: ``conv_x`` (L, B, c-1, d_inner), ``conv_B``
-/ ``conv_C`` (L, B, c-1, st) and ``state`` (L, B, nh, st, hd) float32.  The
+a leading stacked-layers dim, for ``moe`` the list ``prelude`` of unstacked
+dense blocks (absent without dense layers), and for ``hybrid`` the
+unstacked dense block ``shared_attn``.  The reference scans over the layer
+dim; here it is a Python loop.  Entry points: ``prefill`` (-> cache) and
+``decode_step`` (cache -> cache).  Each batch row has its own position
+``cache["pos"]`` (B,) int32, so rows admitted at different times decode
+side by side.  The dense and moe caches' ``blocks`` is ``(k, v)`` of shape
+``(L, B, W, KV, hd)`` over all ``n_layers`` attention layers, the prelude's
+first (the reference keeps the prelude's apart, as a list); the ssm and
+hybrid caches' is a dict of the reference's leaves with the stacked layer
+dim and no sequence axis: ``conv_x`` (L, B, c-1, d_inner), ``conv_B`` /
+``conv_C`` (L, B, c-1, st) and ``state`` (L, B, nh, st, hd) float32.  The
 hybrid cache adds ``shared_attn``: ``(k, v)`` of shape
 ``(n_apps, B, W, KV, hd)``, one KV history per application site of the
 shared tile (``n_apps = ceil(L / shared_attn_every)``).
 
 Under ``AttnOptions(backend="fused")`` attention runs the ``flash_attention``
-/ ``flash_decode`` kernels, and each block's ``mlp_norm`` + gate/up
+/ ``flash_decode`` kernels, each dense block's ``mlp_norm`` + gate/up
 projections run the ``fused_rmsnorm_mlp`` kernel (the down projection stays
-a ``torch.matmul``).  Under ``ssm_backend="fused"`` each Mamba-2 block's
-prefill scan runs the ``ssd_scan`` kernel (``"torch"``, the default, runs
-the chunked scan in plain PyTorch); the hybrid family's shared tile takes
-the attention options and the MLP kernel like a dense block.  The ``moe``
-family, ``attn_type="mla"`` and the training entry points are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP item.
+a ``torch.matmul``) and each MoE block's expert products run
+``moe.grouped_matmul``; the other backends run the per-expert loop.  Under
+``ssm_backend="fused"`` each Mamba-2 block's prefill scan runs the
+``ssd_scan`` kernel (``"torch"``, the default, runs the chunked scan in
+plain PyTorch); the hybrid family's shared tile takes the attention
+options and the MLP kernel like a dense block.  ``attn_type="mla"`` and the
+training entry points are not ported yet and raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, not_ported
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MoE
 from repro_torch.models.layers import AttnOptions
 from repro_torch.models.params import (ParamSpec, abstract_params,
                                        init_params, spec, tree_map)
@@ -58,6 +66,15 @@ def _dense_block_spec(cfg: ArchConfig):
         "attn": L.gqa_spec(cfg),
         "mlp_norm": L.rms_norm_spec(cfg.d_model),
         "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff),
+    }
+
+
+def _moe_block_spec(cfg: ArchConfig):
+    return {
+        "attn_norm": L.rms_norm_spec(cfg.d_model),
+        "attn": L.gqa_spec(cfg),
+        "mlp_norm": L.rms_norm_spec(cfg.d_model),
+        "moe": MoE.moe_spec(cfg),
     }
 
 
@@ -111,8 +128,17 @@ class LM:
         if not cfg.tie_embeddings:
             out["lm_head"] = spec((cfg.d_model, cfg.vocab_size),
                                   ("embed", "vocab"), init="small")
-        block = _ssm_block_spec(cfg) if self._ssm else _dense_block_spec(cfg)
-        out["blocks"] = _stack_specs(block, cfg.n_layers)
+        if self._ssm:
+            out["blocks"] = _stack_specs(_ssm_block_spec(cfg), cfg.n_layers)
+        elif cfg.family == "moe":
+            out["blocks"] = _stack_specs(_moe_block_spec(cfg),
+                                         cfg.n_layers - cfg.n_dense_layers)
+            if cfg.n_dense_layers:
+                out["prelude"] = [_dense_block_spec(cfg)
+                                  for _ in range(cfg.n_dense_layers)]
+        else:
+            out["blocks"] = _stack_specs(_dense_block_spec(cfg),
+                                         cfg.n_layers)
         if cfg.family == "hybrid":
             out["shared_attn"] = _dense_block_spec(cfg)
         return out
@@ -142,7 +168,20 @@ class LM:
             logits = x @ params["lm_head"]
         return logits.float()
 
-    # ------------------------------------------------------------------ MLP
+    # ------------------------------------------------------------------ FFN
+    def _ffn(self, bp, x):
+        """``x`` + the block's FFN of ``rms_norm(x)``: the MoE, or the gated
+        MLP (``_mlp``).  Under ``fused`` the expert products run
+        ``grouped_matmul``, else the per-expert loop; serving asks for no
+        aux loss."""
+        if "moe" not in bp:
+            return self._mlp(bp, x)
+        h = L.rms_norm(x, bp["mlp_norm"], self.cfg.norm_eps)
+        experts = "grouped" if self.opts.backend == "fused" else "loop"
+        out, _ = MoE.moe_apply(bp["moe"], self.cfg, h, experts=experts,
+                               aux=False)
+        return x + out
+
     def _mlp(self, bp, x):
         """``x + mlp(rms_norm(x))``; under ``fused`` the norm and the gate/up
         products are one ``fused_rmsnorm_mlp`` launch."""
@@ -160,8 +199,9 @@ class LM:
 
     # ------------------------------------------------------- full-seq blocks
     def _block_fwd(self, bp, x, positions, want_cache: bool):
-        """One block forward (a Mamba-2 block, or a dense block: the hybrid
-        family's shared tile is one); returns (x, cache_or_None)."""
+        """One block forward (a Mamba-2 block, or an attention block with a
+        dense or MoE FFN: the hybrid family's shared tile is a dense one);
+        returns (x, cache_or_None)."""
         cfg = self.cfg
         if "ssm" in bp:
             h = L.rms_norm(x, bp["norm"], cfg.norm_eps)
@@ -173,7 +213,14 @@ class LM:
         res = L.gqa_apply(bp["attn"], cfg, h, positions, self.opts,
                           return_cache=want_cache)
         h, cache = res if want_cache else (res, None)
-        return self._mlp(bp, x + h), cache
+        return self._ffn(bp, x + h), cache
+
+    def _attn_blocks(self, params):
+        """The attention blocks in cache order (dense and moe families): the
+        prelude's dense blocks, then the stacked blocks one by one."""
+        pre = list(params.get("prelude", []))
+        n = self.cfg.n_layers - len(pre)
+        return pre + [_layer(params["blocks"], i) for i in range(n)]
 
     def forward(self, params, tokens=None, embeds=None):
         raise NotImplementedError(
@@ -226,8 +273,8 @@ class LM:
                 cache["shared_attn"] = sh
             return logits, cache
         ck = cv = None
-        for i in range(cfg.n_layers):
-            x, (k, v) = self._block_fwd(_layer(blocks, i), x, positions, True)
+        for i, bp in enumerate(self._attn_blocks(params)):
+            x, (k, v) = self._block_fwd(bp, x, positions, True)
             if ck is None:
                 ck = k.new_empty((cfg.n_layers, B, W) + k.shape[2:])
                 cv = v.new_empty((cfg.n_layers, B, W) + v.shape[2:])
@@ -277,8 +324,8 @@ class LM:
                 out["shared_attn"] = sh
             return logits, out
         ck, cv = cache["blocks"]
-        for i in range(self.cfg.n_layers):
-            x = self._block_decode(_layer(blocks, i), x, ck[i], cv[i], pos)
+        for i, bp in enumerate(self._attn_blocks(params)):
+            x = self._block_decode(bp, x, ck[i], cv[i], pos)
         logits = self._logits(params, x)[:, 0, :]
         return logits, {"pos": pos + 1, "blocks": (ck, cv)}
 
@@ -287,7 +334,7 @@ class LM:
         h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
         h, _, _ = L.gqa_decode(bp["attn"], cfg, h, cache_k, cache_v, pos,
                                self.opts)
-        return self._mlp(bp, x + h)
+        return self._ffn(bp, x + h)
 
     # ------------------------------------------------------------ cache mgmt
     def _window(self, requested: int) -> int:

@@ -14,6 +14,7 @@ import pytest
 
 import test_torch_dse_chunked
 import test_torch_llm_kernels
+import test_torch_moe
 import test_torch_observe
 import test_torch_sim_batch
 import test_torch_sim_engine
@@ -26,7 +27,8 @@ from _torch_port_helpers import chip_smoke
 
 MODULES = (test_torch_llm_kernels, test_torch_ssd, test_torch_tick_sim,
            test_torch_dse_chunked, test_torch_telemetry, test_torch_sim_batch,
-           test_torch_sim_engine, test_torch_sim_faults, test_torch_observe)
+           test_torch_sim_engine, test_torch_sim_faults, test_torch_observe,
+           test_torch_moe)
 
 
 def _gpu_tests():

@@ -67,6 +67,8 @@ def test_sources_exist():
                  "src/repro_torch/kernels/ops.py",
                  "src/repro_torch/configs/mamba2_370m.py",
                  "src/repro_torch/models/mamba2.py",
+                 "src/repro_torch/models/moe.py",
+                 "src/repro_torch/configs/granite_moe_1b_a400m.py",
                  "src/repro_torch/runtime/serve.py",
                  "src/repro_torch/launch/serve.py"):
         assert must in names, must

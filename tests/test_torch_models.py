@@ -304,20 +304,26 @@ def test_init_params_scales_and_generator():
 
 
 def test_unported_families_and_entry_points_raise():
-    for arch in ("deepseek-v2-lite-16b", "granite-moe-1b-a400m"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A item 10"):
-            port_configs.get_config(arch)
-    # the ssm and hybrid families are ported: mamba2-370m, zamba2-7b,
-    # family="ssm" and family="hybrid" build
+    with pytest.raises(NotImplementedError,
+                       match=r"attn_type 'mla'.*ROADMAP queue A item 10\.3"):
+        port_configs.get_config("deepseek-v2-lite-16b")
+    # the ssm, hybrid and moe families are ported: mamba2-370m, zamba2-7b,
+    # granite-moe-1b-a400m, family="ssm", "hybrid" and "moe" build
     assert port_configs.get_config("mamba2-370m").family == "ssm"
     assert port_configs.get_config("zamba2-7b").family == "hybrid"
+    assert port_configs.get_config("granite-moe-1b-a400m").family == "moe"
     PT.LM(port_configs.get_config("zamba2-7b"))
+    PT.LM(port_configs.get_config("granite-moe-1b-a400m"))
     cfg = port_configs.get_config("granite-8b").reduced()
     PT.LM(dataclasses.replace(cfg, family="ssm"))
     PT.LM(dataclasses.replace(cfg, family="hybrid", shared_attn_every=2))
-    for change in (dict(family="moe"), dict(attn_type="mla")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    PT.LM(dataclasses.replace(cfg, family="moe", n_experts=4, top_k=2,
+                              d_ff_expert=64))
+    for change in (dict(attn_type="mla"),
+                   dict(family="moe", attn_type="mla", n_experts=4, top_k=2,
+                        d_ff_expert=64)):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP queue A item 10\.3"):
             PT.LM(dataclasses.replace(cfg, **change))
     lm = PT.LM(cfg)
     with pytest.raises(NotImplementedError, match="queue A item 11"):

@@ -167,6 +167,17 @@ def test_launcher_walks_the_cli_on_the_cpu(capsys):
     assert "on cpu" in out and "mem.rtt=" in out
 
 
+def test_launcher_serves_granite_moe_on_the_cpu(capsys):
+    """The moe family through the CLI: reduced granite-moe-1b-a400m, with
+    prompts longer than the window."""
+    port_launch.main(["--device", "cpu", "--arch", "granite-moe-1b-a400m",
+                      "--requests", "3", "--max-new", "4", "--window", "16",
+                      "--prompt-len", "20"])
+    out = capsys.readouterr().out
+    assert "served 3/3 requests (12 tokens)" in out
+    assert "on cpu" in out and "mem.rtt=" in out
+
+
 def test_bf16_weights_are_carried_exactly():
     a = np.random.default_rng(0).standard_normal((3, 4)).astype(
         ml_dtypes.bfloat16)
