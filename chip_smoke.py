@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --quick    # device, build, kernel parity only
-    python3 chip_smoke.py --serve-only   # ... and the four serving phases
+    python3 chip_smoke.py --serve-only   # ... and the five serving paths
     python3 chip_smoke.py --ptxas    # also nvcc's registers / spills
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
@@ -92,8 +92,9 @@ main path through its public entry points at the size its users run:
    ``fused_refuses_faults`` — ``"fused"`` refuses faults / SLO on the card
                    and launches nothing.
    ``observe``   — the monitoring plane (``observe=``) on those paths:
-                   closed-loop-12tile-1M (membound) at off / ``"counters"``
-                   / ``"full"`` — outputs bit for bit equal, syncs in the
+                   closed-loop-12tile-1M (membound, its first 2,900 ticks)
+                   at off / ``"counters"`` / ``"full"`` in turns — outputs
+                   bit for bit equal, syncs in the
                    tick loop unchanged, ticks/s and kernels per tick, the
                    plane's reconstruction and ``export_metrics`` timed, the
                    plane within 1e-12 of the CPU run's (stall counts exact;
@@ -194,6 +195,31 @@ main path through its public entry points at the size its users run:
                    must reject two experts' weights swapped and a group end
                    shifted by one row; ``top_k`` on the card equal to the
                    CPU's on tied rows).
+11. ``serve_mla`` — the MLA serving path: ``ServeEngine`` on
+                   deepseek-v2-lite-16b at full width and depth (27 layers
+                   of MLA: latent 512, rope 64, qk head dim 192, v 128; a
+                   dense first layer of width 10,944, then 64 experts top 6
+                   plus 2 shared; 15.7 B parameters; random bf16 weights
+                   from a seed), 4 slots, a 4,096 window, the moe phase's 8
+                   prompts (1-4,608 tokens) and 32 new each, through
+                   ``flash_attention`` (the expanded prefill, at least once
+                   per layer and prefill) and ``fused_rmsnorm_mlp`` (the
+                   dense layer, once per prefill and step); decode is the
+                   absorbed einsums over the latent cache (no kernel,
+                   ``flash_decode`` must not launch); TTFT, tokens/s, held /
+                   serving / draw peaks, the latent cache's size; syncs per
+                   decode step (0 inside ``LM.decode_step`` or it fails);
+                   teacher forced against the plain path; the int8 latent
+                   cache (``quant_kv`` on the card equal to the CPU's, an
+                   int8 run's logits finite, its tokens' agreement with the
+                   bf16 run); ``serve_mla_profile``; ``serve_mla_kernels``
+                   (attention at q (1,4608,16,1,192), v 128, causal: the
+                   ``wmma`` kernel against its plain version, the planted
+                   faults plus the rope's 64 qk columns dropped and a v
+                   tail lost, beside the bound and every SDPA backend that
+                   takes hd_qk != hd_v; the MLP at d 2,048 / F 10,944 and
+                   N 4,608 / 4, ``wgmma_tma`` / ``gemv_tma``, beside cuBLAS
+                   and the bound).
 
 Each phase prints one JSON line, with ``t_s``: the seconds since the
 script started.  The line before the last but one is
@@ -206,9 +232,10 @@ float32 for ``tick_sim``, 989 TFLOP/s bf16 for the attention and MLP
 kernels; for ``ssd_scan`` the lesser of its products on TF32 tensor cores,
 three passes at 494 TFLOP/s, with the rest at 67 (``bound_tc_ms``), and
 all of it at 67 (``bound_f32_ms``); published H100 SXM figures); each LLM
-kernel's row carries the hybrid path's as ``hybrid`` and the attention
-rows the moe path's as ``moe``, each with its own launches (the row's
-``launches`` are the sum over the serving paths).  The
+kernel's row carries the hybrid path's as ``hybrid``, the attention
+rows the moe path's as ``moe``, and the attention and MLP rows the MLA
+path's as ``mla``, each with its own launches (the row's ``launches`` are
+the sum over the serving paths).  The
 line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits with a non-zero code; without a CUDA device the
 script stops at once.
@@ -294,6 +321,19 @@ SERVE_HYBRID = {"arch": "zamba2-7b", "slots": 4, "window": 4096,
 SERVE_MOE = {"arch": "granite-moe-1b-a400m", "slots": 4, "window": 4096,
              "prompts": (1, 2, 100, 1000, 2048, 4095, 4096, 4608),
              "max_new": 32, "reps": 10}
+# The MLA serving phase: deepseek-v2-lite-16b at full width and depth (src/
+# repro_torch/configs/deepseek_v2_lite_16b.py): 27 layers (a dense first
+# layer of width 10,944, then 26 of 64 experts top 6 plus 2 shared), d
+# 2,048, 16 heads of MLA (latent 512, rope 64: qk head dim 192, v 128),
+# causal, vocab 102,400.  The prompts of the moe phase: one token, two, a
+# ragged hundred, 1,000, 2,048, one short of the window, the window exactly
+# and across it (4,608: the latent history rotated into its ring).
+SERVE_MLA = {"arch": "deepseek-v2-lite-16b", "slots": 4, "window": 4096,
+             "prompts": (1, 2, 100, 1000, 2048, 4095, 4096, 4608),
+             "max_new": 32, "reps": 10}
+# The int8 latent cache's run: these prompts, 8 new tokens each, beside the
+# bf16 cache's run of the same requests (agreement reported, not gated).
+MLA_INT8 = {"prompts": (100, 1000, 4095, 4608), "max_new": 8}
 # ssd_scan vs its plain version, float32 both (tests/test_kernels.py:68):
 # |err| <= SSD_TOL + SSD_TOL * |ref| per element, and per (batch, head)
 # max |err| / max |ref| <= SSD_TOL.
@@ -1278,10 +1318,13 @@ class SyncCount:
     loops of the ``"torch"`` engines (``BatchSimEngine._ticks``, which the
     sequential engine runs at B = 1: ``in_ticks``, ``loops``).  With
     ``strict`` every tick loop runs under mode "error" instead: an
-    operation that waits there raises."""
+    operation that waits there raises.  With ``stacks`` each record keeps
+    the Python stack it was raised from (``self.stacks``, None for
+    warnings that are not syncs)."""
 
-    def __init__(self, strict: bool = False):
+    def __init__(self, strict: bool = False, stacks: bool = False):
         self.strict = strict
+        self.keep_stacks = stacks
 
     @staticmethod
     def _syncs(records) -> int:
@@ -1294,8 +1337,23 @@ class SyncCount:
         self._catch = warnings.catch_warnings(record=True)
         self.records = self._catch.__enter__()
         warnings.simplefilter("always")
+        self.stacks = []
+        if self.keep_stacks:
+            import traceback
+            append = warnings._showwarnmsg_impl        # the records' list
+
+            def keep(msg):
+                self.stacks.append(
+                    traceback.extract_stack()[:-1]
+                    if "synchroniz" in str(msg.message) else None)
+                append(msg)
+            warnings._showwarnmsg_impl = keep
         self._prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("warn")
+        # what turning the mode on said (the first time in a process it
+        # says "synchronizing" itself) is not the block's
+        self.records.clear()
+        self.stacks.clear()
         self._cls, self._orig = BatchSimEngine, BatchSimEngine._ticks
         count = self
 
@@ -1959,7 +2017,10 @@ def results_equal(a, b) -> bool:
 
 # the order of a phase's observed and unobserved runs: in turns, so that a
 # drift of the host's speed over the phase does not read as the plane's cost
-TURNS = ("off", "counters", "full", "full", "counters", "off")
+# observe's runs of closed-loop-12tile-1M: these levels in turns, over the
+# first OBSERVE_TICKS ticks of the day (a third: 96 control ticks)
+TURNS = ("off", "counters", "full", "off")
+OBSERVE_TICKS = 2900
 
 
 def _in_turns(make, levels, want_syncs, fails, label, *, strict=False):
@@ -1990,8 +2051,9 @@ def _in_turns(make, levels, want_syncs, fails, label, *, strict=False):
 def phase_observe(cl_ctx, main_ctx):
     """The monitoring plane at full size on the card.
 
-    closed-loop-12tile-1M (membound): runs at ``observe`` off /
-    ``"counters"`` / ``"full"`` in turns (``TURNS``) — outputs bit for bit
+    closed-loop-12tile-1M (membound), cut to its first OBSERVE_TICKS ticks:
+    runs at ``observe`` off / ``"counters"`` / ``"full"`` in turns
+    (``TURNS``) — outputs bit for bit
     equal, syncs in the tick loop one per control tick at every level,
     ticks/s per level, kernels per tick (500 ticks profiled, off and full in
     turns); the plane's reconstruction (``finalize``) and
@@ -2001,8 +2063,8 @@ def phase_observe(cl_ctx, main_ctx):
     recovery + detector and the open-loop fixed + recovery run, each off
     and at ``"full"``, the same checks (no sync at all in the open-loop
     loop, under sync-debug "error").  rerank-A2: ``closed_loop_score`` at
-    B 4,096 x T 8,700 on the float64 ``"torch"`` loop,
-    ``observe="counters"`` and unobserved in turns, and on the float32 loop
+    B 4,096 x T 8,700 on the float64 ``"torch"`` loop, unobserved then
+    ``observe="counters"``, and on the float32 loop
     unobserved then observed (loop s, finalize s, device peak memory); 64
     designs' float64 planes against the CPU's, the float32 plane against
     the float64 one.
@@ -2016,8 +2078,10 @@ def phase_observe(cl_ctx, main_ctx):
     from repro_torch.sim.batch import BatchSimEngine
     report, fails = {"phase": "observe", "plane_rtol": PLANE_RTOL}, []
 
-    # -- closed-loop-12tile-1M, membound DFS
-    plat, trace, cfg = cl_ctx["plat"], cl_ctx["trace"], cl_ctx["cfg"]
+    # -- closed-loop-12tile-1M, membound DFS, its first OBSERVE_TICKS ticks
+    plat, cfg = cl_ctx["plat"], cl_ctx["cfg"]
+    trace = Trace(cl_ctx["trace"].arrivals[:OBSERVE_TICKS],
+                  cl_ctx["trace"].dt)
     control_ticks = trace.ticks // CLOSED_LOOP_CI
 
     def membound(level, device=DEV, tr=trace):
@@ -2099,7 +2163,7 @@ def phase_observe(cl_ctx, main_ctx):
     rr = {"B": len(survivors), "T": rtrace.ticks}
     planes = {}
     for dtype, label, levels in (
-            (torch.float64, "float64", ("off", "counters", "counters", "off")),
+            (torch.float64, "float64", ("off", "counters")),
             (torch.float32, "float32", ("off", "counters"))):
         rows, results = {}, {}
         for level in levels:
@@ -2127,9 +2191,8 @@ def phase_observe(cl_ctx, main_ctx):
                 if len(sc.counters) != len(survivors):
                     fails.append(f"rerank[{label}]: summaries missing")
             results.setdefault(level, []).append(sc.results[0])
-        rows["equal_to_off"] = all(
-            results_equal(x, results["off"][0])
-            for x in results["counters"] + results["off"][1:])
+        rows["equal_to_off"] = all(results_equal(x, results["off"][0])
+                                   for x in results["counters"])
         if not rows["equal_to_off"]:
             fails.append(f"rerank[{label}]: observing changed the run")
         rr[label] = rows
@@ -2975,22 +3038,25 @@ def time_llm_kernel(name, kind, args, plain, library=None, extra=()):
 
 
 def time_serve_mlp(cfg, eng, spec, gen, hybrid, W, KV, G, hd, win, S,
-                   slots):
+                   slots, bp=None):
     """``fused_rmsnorm_mlp`` at a serving path's shapes (time_serve_kernels'
     MLP row, its inputs drawn from ``gen`` after the attention rows'): the
     longest prefill (N = 4,608) and the 4-slot decode, with layer 0's
-    weights (hybrid: the shared tile's)."""
+    weights (hybrid: the shared tile's; ``bp``: that block's, the MLA
+    path's dense prelude)."""
     from repro_torch.kernels.fused_mlp import _launch as fm_launch
     from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp_plain
     from repro_torch.models.layers import rms_norm
     from repro_torch.models.transformer import _layer
     bf16 = torch.bfloat16
-    bp = (eng.params["shared_attn"] if hybrid
-          else _layer(eng.params["blocks"], 0))
+    replay_ulp = bp is None and not hybrid
+    if bp is None:
+        bp = (eng.params["shared_attn"] if hybrid
+              else _layer(eng.params["blocks"], 0))
     norm, wg, wu = bp["mlp_norm"], bp["mlp"]["wi_gate"], bp["mlp"]["wi_up"]
     d, Ff = wg.shape
     x_ulp = None
-    if not hybrid:
+    if replay_ulp:
         # An earlier version of this phase drew the one-slot decode case
         # from this generator just before the MLP's inputs; its prefill x
         # then read one bf16 ulp (2^-4, at 8-16) off the plain version and
@@ -3447,10 +3513,10 @@ def phase_serve_ssm():
 
 
 def phase_serving():
-    """The four serving paths in turn (dense, SSM, hybrid, moe): each one's
-    report and kernel rows."""
+    """The five serving paths in turn (dense, SSM, hybrid, moe, MLA): each
+    one's report and kernel rows."""
     return (phase_serve() + phase_serve_ssm() + phase_serve_hybrid()
-            + phase_serve_moe())
+            + phase_serve_moe() + phase_serve_mla())
 
 
 def phase_serve_hybrid():
@@ -3519,7 +3585,7 @@ def decode_syncs(ctx, plain_kwargs, steps=4):
         sync()
         decode_step, inner = lm.decode_step, [0]
         try:
-            with SyncCount() as sc:
+            with SyncCount(stacks=True) as sc:
                 def counted(*a, **kw):
                     n0 = len(sc.records)
                     res = decode_step(*a, **kw)
@@ -3531,14 +3597,19 @@ def decode_syncs(ctx, plain_kwargs, steps=4):
         finally:
             lm.decode_step = decode_step
         eng.run(4)                       # the requests finish
-        sites = {}
-        for r in sc.records:
+        sites, via = {}, {}
+        for r, stack in zip(sc.records, sc.stacks):
             if "synchroniz" in str(r.message):
                 at = f"{os.path.relpath(r.filename, ROOT)}:{r.lineno}"
                 sites[at] = sites.get(at, 0) + 1 / steps
+                if at.startswith(".."):    # raised outside the repo: by what
+                    via[at] = [f"{os.path.relpath(f.filename, ROOT)}:"
+                               f"{f.lineno} {f.name}" for f in stack
+                               if f.filename.startswith(ROOT)][-4:]
         out[label] = {"per_step": sc.total / steps,
                       "in_decode_step": inner[0] / steps,
-                      "sites_per_step": sites}
+                      "sites_per_step": sites,
+                      **({"outside_repo_via": via} if via else {})}
     eng.lm = lms["kernel_path"]
     return out
 
@@ -3705,6 +3776,281 @@ def phase_serve_moe():
     emit(report)
     time_moe_experts(ctx, spec)
     del ctx
+    torch.cuda.empty_cache()
+    return report, rows
+
+
+def mla_faults(args, plain, ref, rope=64, v_tail=16):
+    """What an attention kernel that lost part of MLA's uneven head dims
+    would return on ``args`` (hd_qk 192 = nope 128 + rope 64, hd_v 128),
+    made with the plain version: the scores without the last ``rope``
+    qk columns (the rope part, where position lives) and the output's last
+    ``v_tail`` columns left at zero (a v tail lost).  The check must
+    reject each."""
+    q, k, v, qpos, kpos, window, scale = args
+    q2 = q.clone()
+    q2[..., -rope:] = 0
+    cut = ref.clone()
+    cut[..., -v_tail:] = 0
+    return {"rope_columns_dropped": plain(q2, k, v, qpos, kpos, window,
+                                          scale),
+            "v_tail_lost": cut}
+
+
+def sdpa_call(backend, qt, kt, vt, scale):
+    """SDPA on ``backend`` alone, causal (a function of no arguments)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    def call():
+        with sdpa_kernel([backend]):
+            return F.scaled_dot_product_attention(qt, kt, vt, scale=scale,
+                                                  is_causal=True)
+    return call
+
+
+def sdpa_backends(qt, kt, vt, scale, reps):
+    """Which of SDPA's backends take these operands (causal): each one's
+    graph time where it does, the reason it gave where not."""
+    import warnings
+    from torch.nn.attention import SDPBackend
+    out = {}
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION):
+        call = sdpa_call(b, qt, kt, vt, scale)
+        with warnings.catch_warnings(record=True) as said:
+            warnings.simplefilter("always")
+            try:
+                call()
+                sync()
+            except RuntimeError as e:
+                # the dispatcher says why each backend declined; keep the
+                # line about this one
+                key = {"FLASH_ATTENTION": "flash",
+                       "CUDNN_ATTENTION": "cudnn",
+                       "EFFICIENT_ATTENTION": "efficient"}[b.name]
+                why = [str(w.message).strip().splitlines()[0] for w in said]
+                mine = [w for w in why if key in w.lower()
+                        and "not used because" not in w]
+                out[b.name] = {"takes": False, "reason": (
+                    mine or why or [str(e).strip().splitlines()[0]]
+                    )[0][:200]}
+                continue
+        try:
+            out[b.name] = {"takes": True, "ms": graph_ms(call, reps)}
+        except RuntimeError as e:        # no graph capture: eager events
+            out[b.name] = {"takes": True, "ms": cuda_ms(call, reps),
+                           "eager": str(e).strip().splitlines()[0][:160]}
+    return out
+
+
+def time_mla_kernels(ctx, spec=SERVE_MLA, phase="serve_mla_kernels"):
+    """The MLA path's two kernels at its shapes, with its own weights where
+    it has them.  ``flash_attention`` at q (1,4608,16,1,192), k (1,4608,16,
+    192), v (1,4608,16,128), causal (the prefill's MHA over the expanded
+    latent): against its plain version per element and per row, with the
+    planted faults (``planted_faults``, ``head_tail_faults`` and
+    ``mla_faults``: the rope's 64 qk columns dropped, a v tail lost) each
+    rejected; graph-timed beside the bound and SDPA on the same inputs
+    (``sdpa_backends`` says which backend takes hd_qk != hd_v, and the
+    fastest of them is the library time; with none, flash on v zero-padded
+    to 192, which is timed in any case: ``sdpa_flash_v_padded_ms``).  It must run
+    ``wmma`` (``wgmma_tma`` takes hd_qk == hd_v only).
+    ``fused_rmsnorm_mlp`` at the dense prelude's d 2,048 / F 10,944 with its
+    weights, N 4,608 (``wgmma_tma``) and the 4-slot decode (``gemv_tma``),
+    beside cuBLAS's ``matmul_ms`` and the bound (``time_serve_mlp``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    eng = ctx["eng"]
+    cfg = eng.cfg
+    H = cfg.n_heads
+    hd, hdv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    S, slots = max(spec["prompts"]), spec["slots"]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+    from torch.nn.attention import SDPBackend
+    a = attention_case(gen, 1, S, S, H, 1, hd, hdv, 0, bf16)
+    q, k, v, qp, kp, _, scale = a
+    qt = q.reshape(1, S, H, hd).transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    backends = sdpa_backends(qt, kt, vt, scale, spec["reps"])
+    vpad = F.pad(vt, (0, hd - hdv)).contiguous()
+    padded = sdpa_call(SDPBackend.FLASH_ATTENTION, qt, kt, vpad, scale)
+    takes = {n: b["ms"] for n, b in backends.items()
+             if b["takes"] and "eager" not in b}
+    # the library call: the fastest backend that takes hd_qk != hd_v, else
+    # flash on v zero-padded to hd_qk (its output's first hdv columns)
+    best = min(takes, key=takes.get) if takes else None
+    library = (sdpa_call(getattr(SDPBackend, best), qt, kt, vt, scale)
+               if best else padded)
+    r = time_llm_kernel("flash_attention", "attention", a,
+                        flash_attention_plain, library)
+    r["sdpa_backends"] = backends
+    r["library"] = (f"SDPA {best}" if best else
+                    "SDPA FLASH_ATTENTION, v zero-padded to hd_qk")
+    r["sdpa_flash_v_padded_ms"] = graph_ms(padded, spec["reps"])
+    del vpad
+    ref = flash_attention_plain(*a)
+    for fault, bad in mla_faults(a, flash_attention_plain, ref).items():
+        c = llm_check("attention", bad, ref, bf16)
+        r["planted_faults"][fault] = {
+            "max_abs_err": c["max_abs_err"],
+            "max_row_rel_err": c["max_row_rel_err"], "rejected": not c["ok"]}
+    r["faults_rejected"] = all(f["rejected"]
+                               for f in r["planted_faults"].values())
+    del ref, bad
+    pairs = S * (S + 1) / 2.0
+    ops = 2.0 * pairs * H * (hd + hdv)
+    out_bytes = float(S * H * hdv * 2)
+    r.update(zip(("bound_ms", "bound_by"),
+                 _bound(_nbytes(q, k, v, qp, kp) + out_bytes, ops)))
+    r.update(shape=f"q (1,{S},{H},1,{hd}), v hd {hdv}, bf16, causal",
+             live_pairs_per_head=pairs, operations=ops)
+    rows = {"flash_attention": r}
+    del a, q, k, v, qt, kt, vt
+    rows["fused_mlp"] = time_serve_mlp(cfg, eng, spec, gen, False, 0, 0, 0,
+                                       0, 0, S, slots,
+                                       bp=eng.params["prelude"][0])
+    want = {"flash_attention": "wmma", "fused_mlp": "wgmma_tma",
+            "fused_mlp.also": "gemv_tma"}
+    bad = [n for n, r in rows.items()
+           if not r["ok"] or ("also" in r and not r["also"]["ok"])]
+    blind = [n for n, r in rows.items()
+             if not r["faults_rejected"]
+             or not r.get("also", {}).get("faults_rejected", True)]
+    other = [n for n, v in want.items() if serve_row(rows, n)["variant"] != v]
+    emit({"phase": phase, **rows})
+    if bad:
+        raise SystemExit(f"{phase}: kernels disagree with their plain "
+                         f"versions at the MLA path's shapes: {bad}")
+    if blind:
+        raise SystemExit(f"{phase}: the check passed a planted fault of "
+                         f"{blind}")
+    if other:
+        raise SystemExit(f"{phase}: not the expected device kernel: {other}")
+    return rows
+
+
+def mla_int8_run(ctx, lm_kwargs):
+    """The int8 latent cache on the card: ``quant_kv`` of a prefill's bf16
+    latent equal, bit for bit, to the CPU's on the same values; then the
+    engine's LM and cache swapped for int8 ones (same weights) to serve
+    MLA_INT8's requests, and swapped back to serve them again with the bf16
+    cache: every logit of the int8 run finite, and the share of greedy
+    tokens equal between the two runs (no gate: int8 is a different
+    cache)."""
+    from repro_torch.models.layers import quant_kv
+    from repro_torch.models.transformer import LM
+    from repro_torch.runtime.serve import Request
+    eng = ctx["eng"]
+    cfg = eng.cfg
+    rng = np.random.default_rng(SEED + 8)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 1000)),
+                             dtype=torch.long, device=DEV)
+    _, c = eng.lm.prefill(eng.params, prompt, cache_len=ctx["window"])
+    latent = c["blocks"]
+    same = all(torch.equal(quant_kv(a).cpu(), quant_kv(a.cpu()))
+               for a in latent)
+    del c, latent
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in MLA_INT8["prompts"]]
+    bf16_lm, bf16_cache = eng.lm, eng.cache
+    int8_lm = LM(cfg, **{**lm_kwargs, "kv_cache_dtype": torch.int8})
+    finite = []
+
+    def checked(fn):
+        def call(*a, **kw):
+            lg, cache = fn(*a, **kw)
+            finite.append(torch.isfinite(lg).all())
+            return lg, cache
+        return call
+
+    int8_lm.prefill = checked(int8_lm.prefill)
+    int8_lm.decode_step = checked(int8_lm.decode_step)
+    outs = {}
+    try:
+        for label, lm in (("int8", int8_lm), ("bfloat16", bf16_lm)):
+            eng.lm = lm
+            eng.cache = lm.init_cache(eng.slots, ctx["window"], device=DEV)
+            n0 = len(eng.done)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(rid=20_000 + i, prompt=p,
+                                   max_new=MLA_INT8["max_new"]))
+            while len(eng.done) < n0 + len(prompts):
+                eng.step()
+            outs[label] = {r.rid: r.out for r in eng.done[n0:]}
+    finally:
+        eng.lm, eng.cache = bf16_lm, bf16_cache
+    pairs = [(a, b) for rid in outs["int8"]
+             for a, b in zip(outs["int8"][rid], outs["bfloat16"][rid])]
+    return {"quant_kv_card_equals_cpu": same,
+            "cache_dtype": str(int8_lm.kv_cache_dtype),
+            "prompts": list(MLA_INT8["prompts"]),
+            "max_new": MLA_INT8["max_new"],
+            "finite": bool(torch.stack(finite).all()) if finite else False,
+            "token_agreement_with_bf16": sum(a == b for a, b in pairs)
+            / len(pairs)}
+
+
+def phase_serve_mla():
+    """The MLA serving path (deepseek-v2-lite-16b at full width and depth:
+    27 layers of MLA, the first with a dense MLP of width 10,944, the rest
+    64 experts top 6 with 2 shared; random bf16 weights from a seed)
+    through ``flash_attention`` (the expanded prefill, hd 192 / 128: once
+    per layer and prefill) and ``fused_rmsnorm_mlp`` (the prelude's MLP:
+    once per prefill and per decode step); MLA decode runs the reference's
+    absorbed einsums over the latent cache (no kernel), the expert products
+    ``torch._grouped_mm``.  Syncs per decode step (0 inside
+    ``LM.decode_step`` on the kernel path, or the phase fails); the
+    teacher-forced check against the plain path (attention ``naive``, the
+    per-expert loop, the MLP unfused); the int8 latent cache
+    (``mla_int8_run``); the profile with the MoE grouped; the kernels at
+    the path's shapes (``time_mla_kernels``)."""
+    from repro_torch.models import moe as MoE
+    from repro_torch.models.layers import AttnOptions
+    spec = SERVE_MLA
+    MoE.grouped_matmul.last_variant = None
+    report, ctx = drive_serve(spec, dict(opts=AttnOptions(backend="fused")),
+                              "serve_mla", ("flash_attention", "fused_mlp"))
+    eng = ctx["eng"]
+    cfg = eng.cfg
+    prefills, steps = len(spec["prompts"]), report["decode_steps"]
+    need = {"flash_attention": cfg.n_layers * prefills,
+            "fused_mlp": cfg.n_dense_layers * (prefills + steps)}
+    ck, cr = eng.cache["blocks"]
+    report.update(
+        kv_lora_rank=cfg.kv_lora_rank, qk_rope_dim=cfg.qk_rope_dim,
+        head_dim_qk=cfg.qk_nope_dim + cfg.qk_rope_dim,
+        head_dim_v=cfg.v_head_dim, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        n_shared_experts=cfg.n_shared_experts, d_ff=cfg.d_ff,
+        latent_cache_gb=_nbytes(ck, cr) / 2**30,
+        cache_shapes=[list(ck.shape), list(cr.shape)], launches_min=need,
+        grouped_variant=MoE.grouped_matmul.last_variant)
+    short = [n for n, m in need.items() if report["launches"][n] < m]
+    if (short or report["grouped_variant"] != "grouped_mm"
+            or report["launches"]["flash_decode"]):
+        emit(report)
+        raise SystemExit(f"serve_mla: fewer launches than layers x prefills "
+                         f"/ prefills + steps ({short}), flash_decode "
+                         f"launched, or the experts did not run "
+                         f"torch._grouped_mm")
+    plain = dict(opts=AttnOptions(backend="naive"))
+    verify_serve_logits(report, ctx, plain)
+    report["syncs"] = decode_syncs(ctx, plain)
+    report["int8_cache"] = mla_int8_run(ctx, dict(opts=AttnOptions(
+        backend="fused")))
+    emit(report)
+    kp = report["syncs"]["kernel_path"]
+    if kp["in_decode_step"] != 0 or kp["per_step"] > 1:
+        raise SystemExit(f"serve_mla: {kp['in_decode_step']} syncs inside "
+                         f"LM.decode_step, {kp['per_step']} a step")
+    i8 = report["int8_cache"]
+    if not (i8["quant_kv_card_equals_cpu"] and i8["finite"]):
+        raise SystemExit("serve_mla: quant_kv on the card differs from the "
+                         "CPU's, or the int8 run's logits are not finite")
+    profile_serve(ctx, "serve_mla_profile")
+    rows = time_mla_kernels(ctx, spec)
+    del ctx, eng, ck, cr
     torch.cuda.empty_cache()
     return report, rows
 
@@ -4643,12 +4989,13 @@ def main() -> int:
 
     # the serving paths, each counted inside drive_serve the same way
     (serve_report, serve_rows, ssm_report, ssm_row, hyb_report, hyb_rows,
-     moe_report, moe_rows) = phase_serving()
+     moe_report, moe_rows, mla_report, mla_rows) = phase_serving()
     serve_rows = {**serve_rows, "ssd_scan": ssm_row}
     path_launches = {**serve_report["launches"],
                      "ssd_scan": ssm_report["launches"]["ssd_scan"]}
     hyb_launches = hyb_report["launches"]
     moe_launches = moe_report["launches"]
+    mla_launches = mla_report["launches"]
 
     def sub_row(rows, launches, n):
         """A serving path's row of kernel ``n``, with its own launches."""
@@ -4682,12 +5029,15 @@ def main() -> int:
                  "bound_by": a12k["bound_by"]}}] + [{
         "name": n, "route": "cuda", "source": LLM_REPLACES[n][0],
         "replaces": LLM_REPLACES[n][1],
-        "launches": path_launches[n] + hyb_launches[n] + moe_launches[n],
+        "launches": (path_launches[n] + hyb_launches[n] + moe_launches[n]
+                     + mla_launches[n]),
         **kernel_row(serve_rows[n]),
         **({"also": kernel_row(serve_rows[n]["also"])}
            if "also" in serve_rows[n] else {}),
         "hybrid": sub_row(hyb_rows, hyb_launches, n),
         **({"moe": sub_row(moe_rows, moe_launches, n)} if n in moe_rows
+           else {}),
+        **({"mla": sub_row(mla_rows, mla_launches, n)} if n in mla_rows
            else {})}
         for n in LLM_REPLACES]})
     print(smi, flush=True)

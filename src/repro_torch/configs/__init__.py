@@ -1,10 +1,9 @@
 """Configurations of the port.
 
-``vespa_soc`` is the paper's own 4x4 SoC.  The LLM architectures the port
-can run (dense GQA, the attention-free ``ssm`` family, the ``hybrid``
-family and the GQA ``moe`` family) register themselves when this package
-is imported, as in the reference; ``base.UNPORTED`` lists the ones that
-wait.
+``vespa_soc`` is the paper's own 4x4 SoC.  Every LLM architecture of the
+reference (dense GQA, the attention-free ``ssm`` family, the ``hybrid``
+family, the GQA ``moe`` family and the MLA ``moe`` deepseek-v2-lite-16b)
+registers itself when this package is imported, as in the reference.
 """
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
@@ -27,4 +26,5 @@ from repro_torch.configs import (  # noqa: F401
     mamba2_370m,
     zamba2_7b,
     granite_moe_1b_a400m,
+    deepseek_v2_lite_16b,
 )

@@ -5,11 +5,11 @@ every architecture is a frozen :class:`ArchConfig`, input shapes are
 :class:`ShapeConfig`, a registry maps ``--arch <id>`` strings to configs and
 ``reduced()`` gives a CPU-sized config of the same family.
 
-Only architectures the port can run are registered (dense GQA, the
-attention-free ``ssm`` family, the ``hybrid`` family with its GQA shared
-tile and the ``moe`` family with GQA attention).  :func:`get_config` of a known architecture whose family or
-attention type is not ported yet raises ``NotImplementedError`` naming its
-ROADMAP item.
+Every architecture of the reference is registered: the dense and ``moe``
+families with GQA or MLA attention, the attention-free ``ssm`` family and
+the ``hybrid`` family with its GQA shared tile.  :func:`not_ported` names
+what the port refuses (MLA in the hybrid family's shared tile, which no
+registered architecture uses).
 """
 from __future__ import annotations
 
@@ -241,23 +241,19 @@ def register(name: str):
 
 
 # Architectures of the reference the port cannot run yet: (family, attn_type).
-UNPORTED: Dict[str, Tuple[str, str]] = {
-    "deepseek-v2-lite-16b": ("moe", "mla"),
-}
-
-_WAITS = {
-    "mla": "MLA attention is not ported yet (ROADMAP queue A item 10.3)",
-}
+UNPORTED: Dict[str, Tuple[str, str]] = {}
 
 
 def _reason(name: str, family: str, attn_type: str) -> Optional[str]:
     if family == "ssm" and attn_type == "none":
         return None
     if family not in ("dense", "moe", "ssm", "hybrid"):
-        return f"{name}: family {family!r}: {_WAITS.get(family, 'not ported')}"
+        return f"{name}: family {family!r}: not ported"
+    if attn_type == "mla" and family in ("dense", "moe"):
+        return None
     if attn_type != "gqa":
-        return (f"{name}: attn_type {attn_type!r}: "
-                f"{_WAITS.get(attn_type, 'not ported')}")
+        return (f"{name}: attn_type {attn_type!r} in the {family!r} family: "
+                f"not ported")
     return None
 
 

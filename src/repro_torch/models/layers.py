@@ -1,4 +1,5 @@
-"""Transformer layers of the port: norms, RoPE, GQA/MQA attention, gated MLPs.
+"""Transformer layers of the port: norms, RoPE, GQA/MQA/MLA attention, gated
+MLPs.
 
 Plain functions on tensors; parameters are the nested dicts built from
 :mod:`repro_torch.models.params` specs, in the reference's layout
@@ -6,13 +7,19 @@ Plain functions on tensors; parameters are the nested dicts built from
 
 * ``naive``   — full score matrix (the oracle; what ``gqa_decode`` uses too),
 * ``chunked`` — the online-softmax schedule over (q-block, kv-block) tiles,
-                written as two Python loops (the reference's ``lax.scan``),
+                written as Python loops (the reference's ``lax.scan``): every
+                rectangle, or with ``AttnOptions.folded`` the folded-triangle
+                schedule that pairs q-block ``i`` with ``nq - 1 - i``,
 * ``fused``   — the hand-written CUDA kernels of :mod:`repro_torch.kernels`
                 (the reference's ``"pallas"``): ``attention_core`` launches
                 ``flash_attention`` and ``gqa_decode`` launches
                 ``flash_decode``.  On CPU tensors their plain versions run.
 
-MLA (``mla_*``, ``quant_kv``) is not ported yet (ROADMAP queue A item 10.3).
+MLA (DeepSeek-V2): ``mla_apply`` expands K and V from the latent and runs
+plain MHA through ``attention_core`` (hd_qk ``nope + rope``, hd_v
+``v_head_dim``); ``mla_decode`` runs the absorbed products over the latent
+cache in float32, as the reference does (no kernel), optionally int8
+(``quant_kv`` / ``dequant_kv``).
 """
 from __future__ import annotations
 
@@ -178,30 +185,54 @@ def _online_block(carry, qb, kb, vb, mask, scale):
 def attention_chunked(q, k, v, qpos, kpos, window: int, scale: float,
                       opts: AttnOptions) -> torch.Tensor:
     """Flash-style attention with online softmax over (q-block, kv-block)
-    tiles; every rectangle is computed and masked (the reference's baseline
-    schedule).  The folded-triangle schedule is not ported."""
-    if opts.folded:
-        raise NotImplementedError(
-            "folded-triangle attention schedule is not ported yet (ROADMAP "
-            "queue A item 10.4)")
+    tiles.  Baseline schedule: every rectangle is computed and masked.
+    Folded schedule (``opts.folded``): q-blocks ``i`` and ``nq - 1 - i`` are
+    paired, and the pair's ``nq + 1`` kv steps serve the low block with kv
+    blocks ``0..i`` and then the high block with ``0..nq-1-i``: only the
+    blocks on or below the causal diagonal, about half the work.  It needs
+    the reference's block grid (``nq == nk``, ``nq`` even) and queries and
+    keys on one causal grid of positions (the blocks above the diagonal are
+    skipped, not masked)."""
     B, Sq, KV, G, _ = q.shape
-    hd = v.shape[-1]
+    hd = v.shape[-1]                    # accumulator dim (MLA: v != qk)
     Sk = k.shape[1]
     QB = min(opts.q_block, Sq)
     KB = min(opts.kv_block, Sk)
+    nq, nk = Sq // QB, Sk // KB
     assert Sq % QB == 0 and Sk % KB == 0, (Sq, QB, Sk, KB)
-    outs = []
-    for i in range(0, Sq, QB):
-        qb, qp = q[:, i:i + QB], qpos[:, i:i + QB]
-        carry = (q.new_zeros((B, KV, G, QB, hd), dtype=torch.float32),
-                 q.new_full((B, KV, G, QB), NEG_INF, dtype=torch.float32),
-                 q.new_zeros((B, KV, G, QB), dtype=torch.float32))
-        for j in range(0, Sk, KB):
-            mask = _window_mask(qp, kpos[:, j:j + KB], window)
-            carry = _online_block(carry, qb, k[:, j:j + KB], v[:, j:j + KB],
-                                  mask, scale)
+
+    def init_carry():
+        return (q.new_zeros((B, KV, G, QB, hd), dtype=torch.float32),
+                q.new_full((B, KV, G, QB), NEG_INF, dtype=torch.float32),
+                q.new_zeros((B, KV, G, QB), dtype=torch.float32))
+
+    def step(carry, i, j):                  # q-block i, kv-block j
+        qs, ks = slice(i * QB, (i + 1) * QB), slice(j * KB, (j + 1) * KB)
+        mask = _window_mask(qpos[:, qs], kpos[:, ks], window)
+        return _online_block(carry, q[:, qs], k[:, ks], v[:, ks], mask,
+                             scale)
+
+    def finish(carry):
         acc, _, l = carry
-        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+        return acc / torch.clamp(l[..., None], min=1e-30)
+
+    outs = [None] * nq
+    if not opts.folded:
+        for i in range(nq):
+            carry = init_carry()
+            for j in range(nk):
+                carry = step(carry, i, j)
+            outs[i] = finish(carry)
+    else:
+        assert nq == nk and nq % 2 == 0, \
+            "folded schedule needs even block grid"
+        for i in range(nq // 2):
+            hi = nq - 1 - i
+            carries = {i: init_carry(), hi: init_carry()}
+            for j in range(nq + 1):
+                qi, kj = (i, j) if j <= i else (hi, j - (i + 1))
+                carries[qi] = step(carries[qi], qi, kj)
+            outs[i], outs[hi] = finish(carries[i]), finish(carries[hi])
     out = torch.cat(outs, dim=3)                               # (B,KV,G,Sq,hd)
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
@@ -308,14 +339,130 @@ def gqa_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLA (DeepSeek-V2 multi-head latent attention) — not ported yet
+# MLA (DeepSeek-V2 multi-head latent attention)
 # ---------------------------------------------------------------------------
 
 
-def _mla_waits(*args, **kwargs):
-    raise NotImplementedError(
-        "MLA attention (mla_spec / mla_apply / mla_decode / quant_kv) is not "
-        "ported yet (ROADMAP queue A item 10.3)")
+def mla_spec(cfg: ArchConfig):
+    d, H = cfg.d_model, cfg.n_heads
+    r, rope, nope, vh = (cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim,
+                         cfg.v_head_dim)
+    return {
+        "wq": spec((d, H * (nope + rope)), ("embed", "qkv")),
+        "w_dkv": spec((d, r + rope), ("embed", "kv_lora")),
+        "w_uk": spec((r, H * nope), ("kv_lora", "qkv")),
+        "w_uv": spec((r, H * vh), ("kv_lora", "qkv")),
+        "wo": spec((H * vh, d), ("qkv", "embed"), init="small"),
+        "kv_norm": rms_norm_spec(r),
+    }
 
 
-mla_spec = mla_apply = mla_decode = quant_kv = dequant_kv = _mla_waits
+def _mla_qc(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+            positions: torch.Tensor):
+    """Queries and the compressed KV stream: q_nope (B,S,H,nope), rotated
+    q_rope (B,S,H,rope), the normed latent ckv (B,S,r) and the rotated
+    shared key k_rope (B,S,rope)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    rope, nope, r = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.kv_lora_rank
+    q = (x @ p["wq"]).reshape(B, S, H, nope + rope)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    dkv = x @ p["w_dkv"]                                   # (B,S,r+rope)
+    ckv = rms_norm(dkv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., None, r:], positions,
+                        cfg.rope_theta)[..., 0, :]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+              positions: torch.Tensor, opts: AttnOptions,
+              return_cache: bool = False):
+    """Full-sequence (prefill) MLA, not absorbed: K and V are expanded from
+    the latent and attention runs as MHA (KV = H, G = 1) at hd_qk
+    ``nope + rope`` and hd_v ``v_head_dim``, scale ``1/sqrt(nope + rope)``.
+    ``return_cache`` adds the compressed cache ``(ckv (B,S,r), k_rope
+    (B,S,rope))``."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    rope, nope, vh = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    q_nope, q_rope, ckv, k_rope = _mla_qc(p, cfg, x, positions)
+    k_nope = (ckv @ p["w_uk"]).reshape(B, S, H, nope)
+    v = (ckv @ p["w_uv"]).reshape(B, S, H, vh)
+    q = torch.cat([q_nope, q_rope], dim=-1).reshape(B, S, H, 1, nope + rope)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope)],
+                  dim=-1)
+    out = attention_core(q, k, v, positions, positions, 0, opts,
+                         scale=1.0 / math.sqrt(nope + rope))
+    out = out.reshape(B, S, H * vh) @ p["wo"]
+    if return_cache:
+        return out, (ckv, k_rope)
+    return out
+
+
+# int8 latent cache (symmetric, static scale), as the reference: the latent
+# is RMS-normed, so a static range of +-KV_QUANT_RANGE holds it.
+KV_QUANT_RANGE = 8.0
+
+
+def quant_kv(x: torch.Tensor) -> torch.Tensor:
+    """float -> int8 at 127 / KV_QUANT_RANGE per unit; ``torch.round``
+    rounds half to even, as ``jnp.round``; clipped to +-127."""
+    s = 127.0 / KV_QUANT_RANGE
+    return torch.clamp(torch.round(x.float() * s), -127, 127).to(torch.int8)
+
+
+def dequant_kv(q: torch.Tensor) -> torch.Tensor:
+    return q.float() * (KV_QUANT_RANGE / 127.0)
+
+
+def mla_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+               cache_ckv: torch.Tensor, cache_krope: torch.Tensor,
+               pos: torch.Tensor, opts: AttnOptions
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token MLA decode over the compressed cache, absorbed: W_uk
+    goes into the query and W_uv after the weights, so attention reads
+    ``r + rope`` values per position (576 for deepseek-v2-lite) instead of
+    ``H (nope + vh)``.  float32 einsums, as the reference's (no kernel).
+
+    x: (B,1,d); cache_ckv (B,W,r), cache_krope (B,W,rope), bfloat16 /
+    float32, or int8 (``quant_kv`` on write, ``dequant_kv`` on read); pos:
+    (B,) int32, each row's position (a scalar is broadcast).  Row b's latent
+    is written at ring slot ``pos[b] % W`` **in place**.  Two departures
+    from the reference, both on purpose: per-row positions, and the mask
+    ``ring_kpos(pos, W) <= pos``, which sees a wrapped ring whole (the
+    reference's ``idx <= slot`` assumes W covers every position; below W
+    the two are equal).  Returns (out (B,1,d), cache_ckv, cache_krope)."""
+    B = x.shape[0]
+    H = cfg.n_heads
+    rope, nope, vh, r = (cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim,
+                         cfg.kv_lora_rank)
+    W = cache_ckv.shape[1]
+    pos = torch.as_tensor(pos, dtype=torch.int32,
+                          device=x.device).expand(B).contiguous()
+    q_nope, q_rope, ckv, k_rope = _mla_qc(p, cfg, x, pos[:, None])
+    rows = torch.arange(B, device=x.device)
+    slot = (pos % W).long()
+    quantized = cache_ckv.dtype == torch.int8
+    if quantized:
+        cache_ckv[rows, slot] = quant_kv(ckv[:, 0])
+        cache_krope[rows, slot] = quant_kv(k_rope[:, 0])
+        ckv_read, krope_read = dequant_kv(cache_ckv), dequant_kv(cache_krope)
+    else:
+        cache_ckv[rows, slot] = ckv[:, 0].to(cache_ckv.dtype)
+        cache_krope[rows, slot] = k_rope[:, 0].to(cache_krope.dtype)
+        ckv_read, krope_read = cache_ckv.float(), cache_krope.float()
+    w_uk = p["w_uk"].reshape(r, H, nope).float()
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk)
+    scores = torch.einsum("bqhr,bsr->bhqs", q_lat, ckv_read)
+    scores = scores + torch.einsum("bqhe,bse->bhqs", q_rope.float(),
+                                   krope_read)
+    scores = scores * (1.0 / math.sqrt(nope + rope))
+    valid = ring_kpos(pos, W) <= pos[:, None]                 # (B, W)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    lat = torch.einsum("bhqs,bsr->bqhr", w, ckv_read)
+    w_uv = p["w_uv"].reshape(r, H, vh).float()
+    out = torch.einsum("bqhr,rhv->bqhv", lat, w_uv)
+    out = out.reshape(B, 1, H * vh).to(x.dtype) @ p["wo"]
+    return out, cache_ckv, cache_krope

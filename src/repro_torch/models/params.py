@@ -79,7 +79,7 @@ def _init_one(s: ParamSpec, gen: torch.Generator) -> torch.Tensor:
     if s.init == "small":
         scale = s.scale / max(1, int(np.sqrt(np.prod(s.shape[:-1]) or 1)))
     x = torch.randn(s.shape, generator=gen, dtype=torch.float32, device=dev)
-    return (x * scale).to(s.dtype)
+    return x.mul_(scale).to(s.dtype)      # in place: one float32 copy
 
 
 def init_params(tree, generator: torch.Generator):

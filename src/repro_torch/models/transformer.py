@@ -1,4 +1,4 @@
-"""Decoder LM of the port, for the ``dense`` family (pre-norm GQA/MQA
+"""Decoder LM of the port, for the ``dense`` family (pre-norm GQA/MQA or MLA
 attention + gated MLP), the ``moe`` family (the same attention and a
 mixture-of-experts FFN, optionally after ``n_dense_layers`` dense prelude
 blocks), the ``ssm`` family (pre-norm Mamba-2 blocks, attention-free) and
@@ -16,7 +16,11 @@ dim; here it is a Python loop.  Entry points: ``prefill`` (-> cache) and
 ``cache["pos"]`` (B,) int32, so rows admitted at different times decode
 side by side.  The dense and moe caches' ``blocks`` is ``(k, v)`` of shape
 ``(L, B, W, KV, hd)`` over all ``n_layers`` attention layers, the prelude's
-first (the reference keeps the prelude's apart, as a list); the ssm and
+first (the reference keeps the prelude's apart, as a list); with MLA
+(``attn_type="mla"``, deepseek-v2-lite) it is the latent cache ``(ckv,
+k_rope)`` of shape ``(L, B, W, r)`` / ``(L, B, W, rope)``, int8 under
+``kv_cache_dtype=torch.int8`` (``prefill`` then returns it quantised with
+``quant_kv``, so the engine copies integers); the ssm and
 hybrid caches' is a dict of the reference's leaves with the stacked layer
 dim and no sequence axis: ``conv_x`` (L, B, c-1, d_inner), ``conv_B`` /
 ``conv_C`` (L, B, c-1, st) and ``state`` (L, B, nh, st, hd) float32.  The
@@ -32,9 +36,11 @@ a ``torch.matmul``) and each MoE block's expert products run
 ``ssm_backend="fused"`` each Mamba-2 block's prefill scan runs the
 ``ssd_scan`` kernel (``"torch"``, the default, runs the chunked scan in
 plain PyTorch); the hybrid family's shared tile takes the attention
-options and the MLP kernel like a dense block.  ``attn_type="mla"`` and the
-training entry points are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+options and the MLP kernel like a dense block.  MLA prefill reaches
+``flash_attention`` through ``attention_core`` (hd_qk 192, hd_v 128 at
+full width); MLA decode is float32 einsums over the latent cache, as in
+the reference.  The training entry points are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -60,10 +66,14 @@ def _stack_specs(tree, n: int):
                                         s.dtype, s.init, s.scale), tree)
 
 
+def _attn_spec(cfg: ArchConfig):
+    return L.mla_spec(cfg) if cfg.attn_type == "mla" else L.gqa_spec(cfg)
+
+
 def _dense_block_spec(cfg: ArchConfig):
     return {
         "attn_norm": L.rms_norm_spec(cfg.d_model),
-        "attn": L.gqa_spec(cfg),
+        "attn": _attn_spec(cfg),
         "mlp_norm": L.rms_norm_spec(cfg.d_model),
         "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff),
     }
@@ -72,7 +82,7 @@ def _dense_block_spec(cfg: ArchConfig):
 def _moe_block_spec(cfg: ArchConfig):
     return {
         "attn_norm": L.rms_norm_spec(cfg.d_model),
-        "attn": L.gqa_spec(cfg),
+        "attn": _attn_spec(cfg),
         "mlp_norm": L.rms_norm_spec(cfg.d_model),
         "moe": MoE.moe_spec(cfg),
     }
@@ -98,12 +108,21 @@ class LM:
         why = not_ported(self.cfg)
         if why:
             raise NotImplementedError(why)
+        if self.kv_cache_dtype == torch.int8 and self.cfg.attn_type != "mla":
+            raise ValueError(
+                "kv_cache_dtype=torch.int8 is the MLA latent cache's "
+                f"(quant_kv); {self.cfg.name} has attn_type "
+                f"{self.cfg.attn_type!r}")
         M.check_backend(self.ssm_backend)
 
     @property
     def _ssm(self) -> bool:
         """The blocks are Mamba-2 blocks (``ssm`` and ``hybrid``)."""
         return self.cfg.family in ("ssm", "hybrid")
+
+    @property
+    def _mla(self) -> bool:
+        return self.cfg.attn_type == "mla"
 
     @property
     def _every(self) -> int:
@@ -210,8 +229,9 @@ class LM:
             h, cache = res if want_cache else (res, None)
             return x + h, cache
         h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
-        res = L.gqa_apply(bp["attn"], cfg, h, positions, self.opts,
-                          return_cache=want_cache)
+        apply = L.mla_apply if self._mla else L.gqa_apply
+        res = apply(bp["attn"], cfg, h, positions, self.opts,
+                    return_cache=want_cache)
         h, cache = res if want_cache else (res, None)
         return self._ffn(bp, x + h), cache
 
@@ -274,11 +294,13 @@ class LM:
             return logits, cache
         ck = cv = None
         for i, bp in enumerate(self._attn_blocks(params)):
-            x, (k, v) = self._block_fwd(bp, x, positions, True)
+            x, kv = self._block_fwd(bp, x, positions, True)
+            if self._mla and self.kv_cache_dtype == torch.int8:
+                kv = tuple(L.quant_kv(a) for a in kv)
+            k, v = self._pad_attn_cache(kv, W, S)
             if ck is None:
-                ck = k.new_empty((cfg.n_layers, B, W) + k.shape[2:])
-                cv = v.new_empty((cfg.n_layers, B, W) + v.shape[2:])
-            k, v = self._pad_attn_cache((k, v), W, S)
+                ck = k.new_empty((cfg.n_layers,) + k.shape)
+                cv = v.new_empty((cfg.n_layers,) + v.shape)
             ck[i], cv[i] = k, v
         cache = {"pos": pos, "blocks": (ck, cv)}
         logits = self._logits(params, x[:, -1:, :])[:, 0, :]
@@ -332,8 +354,8 @@ class LM:
     def _block_decode(self, bp, x, cache_k, cache_v, pos):
         cfg = self.cfg
         h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
-        h, _, _ = L.gqa_decode(bp["attn"], cfg, h, cache_k, cache_v, pos,
-                               self.opts)
+        decode = L.mla_decode if self._mla else L.gqa_decode
+        h, _, _ = decode(bp["attn"], cfg, h, cache_k, cache_v, pos, self.opts)
         return self._ffn(bp, x + h)
 
     # ------------------------------------------------------------ cache mgmt
@@ -345,11 +367,14 @@ class LM:
 
     def _attn_cache_dims(self):
         cfg = self.cfg
+        if self._mla:
+            return (cfg.kv_lora_rank,), (cfg.qk_rope_dim,)
         return (cfg.n_kv_heads, cfg.head_dim), (cfg.n_kv_heads, cfg.head_dim)
 
     def _zero_attn_cache(self, n, batch, W, dtype, device):
-        """Zero ``(k, v)`` of shape ``(n, batch, W, KV, hd)``: ``n`` stacked
-        layers (dense) or sites of the shared tile (hybrid)."""
+        """Zero ``(k, v)`` of shape ``(n, batch, W, KV, hd)`` (MLA: ``(ckv,
+        k_rope)``, ``(n, batch, W, r)`` / ``(n, batch, W, rope)``): ``n``
+        stacked layers (dense, moe) or sites of the shared tile (hybrid)."""
         d0, d1 = self._attn_cache_dims()
         return (torch.zeros((n, batch, W) + d0, dtype=dtype, device=device),
                 torch.zeros((n, batch, W) + d1, dtype=dtype, device=device))

@@ -96,15 +96,24 @@ def test_attention_chunked(window, blk):
 
 
 def test_attention_options_refuse_what_is_not_ported():
+    """The port names the reference's ``"pallas"`` backend ``"fused"`` and
+    refuses the old name.  The folded schedule and MLA, once refused here
+    (queue A items 10.4 and 10.3), run: folded equals the baseline
+    schedule, and ``mla_spec`` builds (``tests/test_torch_mla.py`` holds
+    both against the reference)."""
     with pytest.raises(ValueError, match="fused"):
         PL.AttnOptions(backend="pallas")
     a = [torch.from_numpy(t) for t in attn_args()]
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        PL.attention_chunked(*a, 0, 0.25,
-                             PL.AttnOptions(q_block=16, folded=True))
-    for fn in (PL.mla_spec, PL.mla_apply, PL.mla_decode, PL.quant_kv):
-        with pytest.raises(NotImplementedError, match="MLA"):
-            fn()
+    base = PL.attention_chunked(*a, 0, 0.25, PL.AttnOptions(q_block=16,
+                                                            kv_block=16))
+    folded = PL.attention_chunked(*a, 0, 0.25,
+                                  PL.AttnOptions(q_block=16, kv_block=16,
+                                                 folded=True))
+    torch.testing.assert_close(folded, base, rtol=RTOL, atol=ATOL)
+    cfg = port_configs.get_config("deepseek-v2-lite-16b").reduced()
+    assert sorted(PL.mla_spec(cfg)) == ["kv_norm", "w_dkv", "w_uk", "w_uv",
+                                        "wo", "wq"]
+    assert PL.quant_kv(torch.tensor([1.0])).dtype == torch.int8
 
 
 def gqa_pair(arch, seed=0):
@@ -304,27 +313,35 @@ def test_init_params_scales_and_generator():
 
 
 def test_unported_families_and_entry_points_raise():
-    with pytest.raises(NotImplementedError,
-                       match=r"attn_type 'mla'.*ROADMAP queue A item 10\.3"):
-        port_configs.get_config("deepseek-v2-lite-16b")
-    # the ssm, hybrid and moe families are ported: mamba2-370m, zamba2-7b,
-    # granite-moe-1b-a400m, family="ssm", "hybrid" and "moe" build
+    # the ssm, hybrid and moe families and MLA are ported: mamba2-370m,
+    # zamba2-7b, granite-moe-1b-a400m, deepseek-v2-lite-16b, family="ssm",
+    # "hybrid" and "moe", attn_type="mla" in the dense and moe families
     assert port_configs.get_config("mamba2-370m").family == "ssm"
     assert port_configs.get_config("zamba2-7b").family == "hybrid"
     assert port_configs.get_config("granite-moe-1b-a400m").family == "moe"
+    ds = port_configs.get_config("deepseek-v2-lite-16b")
+    assert (ds.family, ds.attn_type) == ("moe", "mla")
+    assert port_configs.base.UNPORTED == {}
     PT.LM(port_configs.get_config("zamba2-7b"))
     PT.LM(port_configs.get_config("granite-moe-1b-a400m"))
+    PT.LM(ds)
     cfg = port_configs.get_config("granite-8b").reduced()
     PT.LM(dataclasses.replace(cfg, family="ssm"))
     PT.LM(dataclasses.replace(cfg, family="hybrid", shared_attn_every=2))
     PT.LM(dataclasses.replace(cfg, family="moe", n_experts=4, top_k=2,
                               d_ff_expert=64))
-    for change in (dict(attn_type="mla"),
-                   dict(family="moe", attn_type="mla", n_experts=4, top_k=2,
-                        d_ff_expert=64)):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP queue A item 10\.3"):
-            PT.LM(dataclasses.replace(cfg, **change))
+    mla = dict(attn_type="mla", kv_lora_rank=32, qk_rope_dim=8,
+               qk_nope_dim=16, v_head_dim=16)
+    PT.LM(dataclasses.replace(cfg, **mla))
+    PT.LM(dataclasses.replace(cfg, family="moe", n_experts=4, top_k=2,
+                              d_ff_expert=64, **mla))
+    # MLA in the hybrid family's shared tile: no architecture uses it
+    with pytest.raises(NotImplementedError, match="attn_type 'mla'"):
+        PT.LM(dataclasses.replace(cfg, family="hybrid", shared_attn_every=2,
+                                  **mla))
+    # the int8 cache is the MLA latent's (quant_kv)
+    with pytest.raises(ValueError, match="int8"):
+        PT.LM(cfg, kv_cache_dtype=torch.int8)
     lm = PT.LM(cfg)
     with pytest.raises(NotImplementedError, match="queue A item 11"):
         lm.forward({}, tokens=None)
