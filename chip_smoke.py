@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --quick    # device, build, kernel parity only
     python3 chip_smoke.py --serve-only   # ... and the five serving paths
+    python3 chip_smoke.py --train-only   # ... and the training paths
     python3 chip_smoke.py --ptxas    # also nvcc's registers / spills
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
@@ -220,6 +221,35 @@ main path through its public entry points at the size its users run:
                    takes hd_qk != hd_v; the MLP at d 2,048 / F 10,944 and
                    N 4,608 / 4, ``wgmma_tma`` / ``gemv_tma``, beside cuBLAS
                    and the bound).
+12. ``train_kernels`` — the autograd Functions of ``kernels.ops`` (forward:
+                   the kernel; backward: the oracle's autograd) at reduced
+                   shapes in bf16 and f32: forward equal to the raw
+                   kernel's output, one launch, every input's gradient
+                   against autograd through the plain version (f32 within
+                   the forward's atol times max(1, max |ref|), bf16 per row
+                   within 2e-2), one backward call; planted faults that must
+                   be rejected (a backward that zeroes ``dk``, a forward
+                   without a launch), the raw wrappers refusing a CUDA input
+                   that requires grad, and ``torch._grouped_mm``'s
+                   gradients against the per-expert loop's at a granite
+                   microbatch (65,536 rows), which must reject one expert's
+                   rows zeroed.
+    ``train`` / ``train_moe`` / ``train_ssm`` — h2o-danube-1.8b,
+                   granite-moe-1b-a400m and mamba2-370m at full width and
+                   depth (random bf16 weights from a seed) through
+                   ``Trainer``: sequences of 4,096, global batch 4 in two
+                   microbatches, 6 AdamW steps (lr 6e-4, warm-up 2), remat;
+                   the losses, step seconds, tokens/s, MFU (6 N tokens over
+                   989.4 TFLOP/s), peak memory, launches and backward calls
+                   a step, host syncs inside each step (must be 0), step 1's
+                   loss, grad norm and gradient against the plain path's on
+                   the same weights and batch, and one more step under the
+                   profiler (idle share, each Function's backward beside its
+                   forward kernel).
+    ``train_resume`` — the reduced danube in float32 through the kernels:
+                   8 steps saving every 5, the state lost,
+                   ``FaultSupervisor.recover()`` and 5 more, against an
+                   uninterrupted run (1e-5 relative).
 
 Each phase prints one JSON line, with ``t_s``: the seconds since the
 script started.  The line before the last but one is
@@ -234,8 +264,10 @@ three passes at 494 TFLOP/s, with the rest at 67 (``bound_tc_ms``), and
 all of it at 67 (``bound_f32_ms``); published H100 SXM figures); each LLM
 kernel's row carries the hybrid path's as ``hybrid``, the attention
 rows the moe path's as ``moe``, and the attention and MLP rows the MLA
-path's as ``mla``, each with its own launches (the row's ``launches`` are
-the sum over the serving paths).  The
+path's as ``mla``, each with its own launches, and the attention, MLP and
+SSD rows the training paths' as ``train`` (launches, backward calls, each
+run's forward ms a launch and backward ms a call; the row's ``launches``
+are the sum over the serving and training paths).  The
 line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits with a non-zero code; without a CUDA device the
 script stops at once.
@@ -244,6 +276,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4789,6 +4822,706 @@ def card_grouped_matmul(rows, E, K, N, seed):
     assert res["ok"], f"grouped product off its loop: {res}"
 
 
+# ---------------------------------------------------------------------------
+# the training path: the kernels under autograd, three models at full width
+# ---------------------------------------------------------------------------
+
+# a model's training run: train_4k's length, global batch 256 cut to 4 (two
+# microbatches of 2), AdamW at launch/train.py's lr with a warm-up of 2
+TRAIN = {"arch": "h2o-danube-1.8b", "seq_len": 4096, "global_batch": 4,
+         "accum": 2, "steps": 6, "lr": 6e-4, "warmup": 2,
+         "path": ("flash_attention", "fused_mlp")}
+TRAIN_MOE = {**TRAIN, "arch": "granite-moe-1b-a400m",
+             "path": ("flash_attention",)}
+TRAIN_SSM = {**TRAIN, "arch": "mamba2-370m", "path": ("ssd_scan",)}
+# the device kernel each must run in training (bf16 hd 80 / 64, f32 SSD)
+TRAIN_VARIANT = {"flash_attention": "wgmma_tma", "fused_mlp": "wgmma_tma",
+                 "ssd_scan": "tf32x3"}
+TRAIN_LOSS_ATOL = 5e-2          # step 1's loss, kernel path vs plain path
+TRAIN_GNORM_RTOL = LOGIT_REL_TOL    # step 1's grad_norm, relative
+TRAIN_GRAD_RTOL = LOGIT_REL_TOL     # step 1's gradient, ||g - g_plain||
+                                    # / ||g_plain|| (direction included)
+TRAIN_RESUME_RTOL = 1e-5        # a resumed run's losses vs uninterrupted
+# a run whose step 1 starts above the uniform guess (log V) must fall below
+# step 1 by step 6; one that starts at it (danube) cannot show learning on
+# six fresh batches of this stream, and its gate is step 1's gradient
+# against the plain path's
+UNIFORM_MARGIN = 0.1
+# after the counted steps, each run takes FIT_STEPS more AdamW steps on its
+# first microbatch alone (constant learning rate, the phase's); the NLL on
+# it must fall by FIT_MARGIN nats at least: a zero, reversed or misdirected
+# update on the card fails it whatever the stream's loss does
+FIT_STEPS = 6
+FIT_MARGIN = 0.1
+H100_BF16_DENSE = 989.4e12      # MFU's peak: H100 SXM dense bf16, published
+# the Functions of kernels.ops by the kernels' names in the kernels line
+TRAIN_FUNCTIONS = {"flash_attention": "flash_attention",
+                   "fused_mlp": "fused_rmsnorm_mlp", "ssd_scan": "ssd_scan"}
+
+# (Function, dtype name, shape): a reduced case of each kernel under
+# autograd, the bf16 ones at shapes its Hopper variant takes
+TRAIN_KERNEL_CASES = (
+    ("flash_attention", "bfloat16", (2, 256, 2, 2, 80, 128)),
+    ("flash_attention", "float32", (1, 128, 2, 2, 64, 0)),
+    ("fused_rmsnorm_mlp", "bfloat16", (256, 256, 384, "silu")),
+    ("fused_rmsnorm_mlp", "float32", (64, 128, 96, "gelu")),
+    ("ssd_scan", "float32", (2, 512, 4, 64, 128, 256)),
+)
+# the forward's tolerances (float32: absolute, scaled by the tensor's
+# largest |value| where that exceeds 1; bfloat16: per row of the last dim)
+TRAIN_ATOL = {"flash_attention": 2e-5, "fused_rmsnorm_mlp": 2e-5,
+              "ssd_scan": SSD_TOL}
+TRAIN_ROW_RTOL = LLM_ROW_RTOL[torch.bfloat16]
+
+
+def train_path_cases():
+    """(Function, dtype, shape) at the shapes the training phases give each
+    Function: one microbatch (``global_batch // accum`` sequences of
+    ``seq_len`` tokens) of danube's attention and MLP, granite-moe's
+    attention and mamba2's scan, from their configs."""
+    from repro_torch.configs import get_config
+    B = TRAIN["global_batch"] // TRAIN["accum"]
+    S = TRAIN["seq_len"]
+    dn, gr, mb = (get_config(s["arch"]) for s in (TRAIN, TRAIN_MOE,
+                                                   TRAIN_SSM))
+    cases = [("flash_attention", "bfloat16",
+              (B, S, c.n_kv_heads, c.n_heads // c.n_kv_heads, c.head_dim,
+               c.sliding_window)) for c in (dn, gr)]
+    cases.append(("fused_rmsnorm_mlp", "bfloat16",
+                  (B * S, dn.d_model, dn.d_ff, dn.act)))
+    cases.append(("ssd_scan", "float32",
+                  (B, S, mb.n_ssm_heads, mb.ssm_headdim, mb.ssm_state,
+                   mb.ssm_chunk)))
+    return cases
+
+
+def train_kernel_case(name, dtype, shape, device, seed=0):
+    """Inputs of one case: (differentiable inputs, the rest of the
+    arguments, the output gradients' shapes come from the forward)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(*s, scale=1.0):
+        return (torch.randn(s, generator=gen) * scale).to(device=device,
+                                                          dtype=dt)
+    if name == "flash_attention":
+        B, S, KV, G, hd, window = shape
+        pos = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+        return ((rnd(B, S, KV, G, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd)),
+                (pos, pos, window, 1.0 / hd ** 0.5))
+    if name == "fused_rmsnorm_mlp":
+        N, d, F, act = shape
+        return ((rnd(N, d), rnd(d, scale=0.1), rnd(d, F, scale=d ** -0.5),
+                 rnd(d, F, scale=d ** -0.5)), (act, 1e-5))
+    B, L, nh, hd, st, chunk = shape
+    f32 = dict(device=device, dtype=torch.float32)
+    dtv = torch.nn.functional.softplus(
+        torch.randn((B, L, nh), generator=gen) - 1.0).to(**f32)
+    A = -torch.exp(torch.randn((nh,), generator=gen) * 0.5).to(**f32)
+    return ((rnd(B, L, nh, hd), dtv, A, rnd(B, L, st, scale=0.3),
+             rnd(B, L, st, scale=0.3), torch.ones(nh, **f32)), (chunk,))
+
+
+def _train_fns(name):
+    """(ops function, plain version, raw kernel wrapper, its launch)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_mlp as FM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SS
+    return {"flash_attention": (ops.flash_attention, FA.flash_attention_plain,
+                                FA.flash_attention, FA._launch),
+            "fused_rmsnorm_mlp": (ops.fused_rmsnorm_mlp,
+                                  FM.fused_rmsnorm_mlp_plain,
+                                  FM.fused_rmsnorm_mlp, FM._launch),
+            "ssd_scan": (ops.ssd_scan, SS.ssd_scan_plain, SS.ssd_scan,
+                         SS._launch)}[name]
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def grad_check(name, got, ref):
+    """A gradient (or forward output) against the plain version's: float32
+    within ``TRAIN_ATOL`` times max(1, max |ref|); bfloat16 within
+    ``TRAIN_ROW_RTOL`` of each row's largest |value|."""
+    if ref.dtype == torch.bfloat16:
+        err, tol = row_rel_err(got, ref), TRAIN_ROW_RTOL
+    else:
+        scale = max(1.0, float(ref.abs().max())) if ref.numel() else 1.0
+        err, tol = _err(got, ref) / scale, TRAIN_ATOL[name]
+    ok = (tuple(got.shape) == tuple(ref.shape)
+          and bool(torch.isfinite(got.float()).all()) and err <= tol)
+    return {"err": err, "tol": tol, "ok": ok}
+
+
+def train_kernel_check(name, dtype, shape, device=DEV, seed=0):
+    """One Function of ``kernels.ops`` on one case: the forward equals the
+    raw kernel's output (on the card; the plain version's on the CPU) and
+    launches once; the gradient of every differentiable input (random
+    output gradients) agrees with autograd through the plain version; the
+    backward ran once."""
+    from repro_torch.kernels import ops
+    fn, plain, wrapper, launch = _train_fns(name)
+    Fn = ops.FUNCTIONS[name]
+    diff, rest = train_kernel_case(name, dtype, shape, device, seed)
+    card = torch.device(device).type == "cuda"
+    leaves = [t.clone().requires_grad_(True) for t in diff]
+    n0, b0 = wrapper.launches, Fn.backward_calls
+    outs = _as_tuple(fn(*leaves, *rest))
+    launched = wrapper.launches - n0
+    raw = _as_tuple(launch(*diff, *rest) if card else plain(*diff, *rest))
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    gouts = [torch.randn(o.shape, generator=gen).to(o) for o in outs]
+    grads = torch.autograd.grad(outs, leaves, gouts)
+    ref_leaves = [t.clone().requires_grad_(True) for t in diff]
+    ref_outs = _as_tuple(plain(*ref_leaves, *rest))
+    ref_grads = torch.autograd.grad(ref_outs, ref_leaves, gouts)
+    checks = {"forward_vs_plain": [grad_check(name, o.detach(), r.detach())
+                                   for o, r in zip(outs, ref_outs)],
+              "grads": [grad_check(name, g, r)
+                        for g, r in zip(grads, ref_grads)]}
+    res = {"case": [name, dtype, list(shape)],
+           "forward_equals_kernel": all(torch.equal(o.detach(), r)
+                                        for o, r in zip(outs, raw)),
+           "launches": launched, "backward_calls": Fn.backward_calls - b0,
+           "variant": getattr(wrapper, "last_variant", None) if card
+           else None,
+           "max_grad_err": max(c["err"] for c in checks["grads"]),
+           "max_forward_err": max(c["err"]
+                                  for c in checks["forward_vs_plain"])}
+    res["ok"] = (res["forward_equals_kernel"]
+                 and res["launches"] == (1 if card else 0)
+                 and res["backward_calls"] == 1
+                 and all(c["ok"] for v in checks.values() for c in v))
+    return res
+
+
+def train_kernel_faults(device=DEV):
+    """What ``train_kernel_check`` must reject: an attention backward that
+    zeroes ``dk``, and (on the card) a forward that returns the plain
+    output without a launch.  Returns {fault: rejected}."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as FA
+    case = TRAIN_KERNEL_CASES[0]
+    F = ops.FlashAttention
+    orig_bwd, orig_fwd = F.backward, F.forward
+    out = {}
+
+    def zero_dk(ctx, g):
+        dq, dk, dv, *rest = orig_bwd(ctx, g)
+        return (dq, torch.zeros_like(dk), dv, *rest)
+
+    def plain_fwd(ctx, q, k, v, qpos, kpos, window, scale):
+        ctx.save_for_backward(q, k, v, qpos, kpos)
+        ctx.window, ctx.scale = window, scale
+        return FA.flash_attention_plain(q, k, v, qpos, kpos, window, scale)
+
+    faults = {"backward_zeroes_dk": ("backward", zero_dk)}
+    if torch.device(device).type == "cuda":
+        faults["forward_without_launch"] = ("forward", plain_fwd)
+    for label, (attr, bad) in faults.items():
+        setattr(F, attr, staticmethod(bad))
+        try:
+            out[label] = not train_kernel_check(*case, device=device)["ok"]
+        finally:
+            F.backward = staticmethod(orig_bwd)
+            F.forward = staticmethod(orig_fwd)
+    return out
+
+
+def raw_wrappers_refuse_grad(device=DEV):
+    """Each raw kernel wrapper given a CUDA input that requires grad must
+    raise (its output would carry no gradient).  {wrapper: raised}."""
+    out = {}
+    for name, dtype, shape in TRAIN_KERNEL_CASES[::2]:
+        _, _, wrapper, _ = _train_fns(name)
+        diff, rest = train_kernel_case(name, dtype, shape, device)
+        diff = (diff[0].requires_grad_(True),) + diff[1:]
+        try:
+            wrapper(*diff, *rest)
+            out[name] = False
+        except RuntimeError as e:
+            out[name] = "kernels.ops" in str(e)
+    return out
+
+
+def grouped_grad_check(rows=65536, E=32, d=1024, f=512, seed=0):
+    """``grouped_matmul``'s gradients (``torch._grouped_mm`` and its
+    backward) against the per-expert loop's, at a granite training
+    microbatch's rows (2 x 4,096 tokens x top 8): the gate product (d -> f)
+    and the down product (f -> d), rows routed by a random router; each
+    gradient held as ``grouped_check`` holds a product, and the check must
+    reject one expert's rows of ``dxs`` zeroed."""
+    from repro_torch.models import moe as MoE
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((rows // 8, d), generator=gen).to(DEV, torch.bfloat16)
+    router = (torch.randn((d, E), generator=gen) * 0.02).to(DEV)
+    _, ids, _ = MoE._route(router, x, 8)
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    offsets = MoE.group_offsets(flat, E)
+    out = {"rows": rows, "experts": E}
+    for label, (K, N) in (("gate", (d, f)), ("down", (f, d))):
+        xs = (x.index_select(0, order // 8) if K == d else
+              torch.randn((rows, K), generator=gen).to(DEV, torch.bfloat16))
+        w = (torch.randn((E, K, N), generator=gen) / K ** 0.5).to(
+            DEV, torch.bfloat16)
+        g = torch.randn((rows, N), generator=gen).to(DEV, torch.bfloat16)
+        a = [t.clone().requires_grad_(True) for t in (xs, w)]
+        y = MoE.grouped_matmul(*a, offsets)
+        variant = MoE.grouped_matmul.last_variant
+        dx, dw = torch.autograd.grad(y, a, g)
+        b = [t.clone().requires_grad_(True) for t in (xs, w)]
+        rx, rw = torch.autograd.grad(
+            MoE.grouped_matmul_plain(*b, offsets), b, g)
+        cx, cw = grouped_check(dx, rx), grouped_check(dw, rw)
+        sizes = torch.diff(offsets, prepend=offsets.new_zeros(1))
+        e = int(torch.argmax(sizes))
+        lo = int(offsets[e - 1]) if e else 0
+        bad = dx.clone()
+        bad[lo:int(offsets[e])] = 0
+        out[label] = {"variant": variant,
+                      "dxs": {k: cx[k] for k in ("max_abs_err", "rel_err")},
+                      "dw": {k: cw[k] for k in ("max_abs_err", "rel_err")},
+                      "ok": cx["ok"] and cw["ok"],
+                      "expert_rows_zeroed_rejected":
+                          not grouped_check(bad, rx)["ok"]}
+    return out
+
+
+def phase_train_kernels():
+    """Each Function of ``kernels.ops`` on its reduced cases (bf16 and f32)
+    and at the training path's own shapes (``train_path_cases``), the
+    planted faults, the raw wrappers' refusal, and the grouped products'
+    gradients at granite's rows."""
+    cases = [train_kernel_check(*c) for c in TRAIN_KERNEL_CASES]
+    t0 = time.perf_counter()
+    for c in train_path_cases():
+        cases.append(train_kernel_check(*c))
+        torch.cuda.empty_cache()
+    path_s = time.perf_counter() - t0
+    faults = train_kernel_faults()
+    refused = raw_wrappers_refuse_grad()
+    grouped = grouped_grad_check()
+    report = {"phase": "train_kernels", "cases": cases,
+              "path_cases_s": path_s, "planted_faults_rejected": faults,
+              "raw_wrappers_refuse_grad": refused, "grouped_mm": grouped}
+    emit(report)
+    bad = [c["case"] for c in cases if not c["ok"]]
+    if bad or not all(faults.values()) or not all(refused.values()) or \
+            not all(grouped[k]["ok"] and grouped[k]
+                    ["expert_rows_zeroed_rejected"] for k in ("gate",
+                                                              "down")):
+        raise SystemExit(f"train_kernels: a check failed or a planted "
+                         f"fault passed (cases {bad})")
+    if any(grouped[k]["variant"] != "grouped_mm" for k in ("gate", "down")):
+        raise SystemExit("train_kernels: the grouped products did not run "
+                         "torch._grouped_mm")
+    return report
+
+
+def _raw_device_times(prof, suffix):
+    """From the profiler's raw events (no parse into an event tree, which
+    takes over a minute at ~90,000 kernels): every device activity
+    (kernels, copies, fills) as (name, ns), and the kernels inside each
+    ``<name><suffix>`` range, by range name, with the count of host-side
+    ranges.  A kernel belongs to the range whose device-side span (a
+    user annotation on the device) holds its start (one stream: a range's
+    kernels run in a row)."""
+    import bisect
+    evs = prof.profiler.kineto_results.events()
+    device, spans, calls = [], [], {}
+    for e in evs:
+        on_device = str(e.device_type()).endswith("CUDA")
+        if not e.is_user_annotation():
+            if on_device:
+                device.append((e.start_ns(), e.duration_ns(), e.name()))
+        elif e.name().endswith(suffix):
+            if on_device:
+                spans.append((e.start_ns(), e.start_ns() + e.duration_ns(),
+                              e.name()))
+            else:
+                calls[e.name()] = calls.get(e.name(), 0) + 1
+    device.sort()
+    starts = [d[0] for d in device]
+    ranged = {}
+    for lo, hi, name in spans:
+        i, j = bisect.bisect_left(starts, lo), bisect.bisect_right(starts, hi)
+        ranged[name] = ranged.get(name, 0.0) + sum(
+            d[1] for d in device[i:j]) / 1e6
+    return [(n, dur) for _, dur, n in device], ranged, calls
+
+
+def profile_train_step(tr):
+    """One more training step under ``torch.profiler``: wall ms, device ms
+    by kernel group, the device's idle share, and each Function's backward
+    (the kernels inside its ``<name>.backward`` range) per call beside its
+    forward kernel per launch."""
+    from torch.profiler import ProfilerActivity, profile
+    K = all_kernels()
+    n0 = {n: f.launches for n, f in K.items()}
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run(1)
+        sync()
+        wall = time.perf_counter() - t0
+    launched = {n: f.launches - n0[n] for n, f in K.items()}
+    t_post = time.perf_counter()
+    device, bwd_ms, bwd_calls = _raw_device_times(prof, ".backward")
+    groups = {}
+    for name, ns in device:
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ns / 1e6
+    kernels = len(device)
+    device_ms = sum(groups.values())
+    per_fn = {}
+    for n, fname in TRAIN_FUNCTIONS.items():
+        r = f"{fname}.backward"
+        if launched[n] or bwd_calls.get(r):
+            per_fn[n] = {
+                "forward_ms_per_launch": groups.get(n, 0.0)
+                / max(launched[n], 1),
+                "launches": launched[n],
+                "backward_ms_per_call": bwd_ms.get(r, 0.0)
+                / max(bwd_calls.get(r, 0), 1),
+                "backward_calls": bwd_calls.get(r, 0),
+                "backward_ms": bwd_ms.get(r, 0.0)}
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "device_kernels": kernels,
+            "idle_share": 1.0 - device_ms / (wall * 1e3),
+            "postprocess_s": time.perf_counter() - t_post,
+            "device_ms_by_group": dict(sorted(groups.items(),
+                                              key=lambda kv: -kv[1])),
+            "functions": per_fn}
+
+
+def drive_train(spec, lm_kwargs, plain_kwargs, phase):
+    """A model's training path through ``Trainer`` on the card at full
+    width and depth (random bf16 weights from a seed): first the plain
+    path's step 1 on the same weights and batch (its update discarded),
+    then ``spec["steps"]`` steps through the kernels, every count set to 0
+    just before and read just after, each step timed (device synchronised
+    around it) and its host syncs counted (``SyncCount``; the batch's copy
+    happens before it), step 1's gradients (as AdamW receives them) held
+    against the plain path's as vectors; then one step under the
+    profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import adamw
+    import repro_torch.runtime.train as RTM
+    from repro_torch.runtime.train import TrainConfig, Trainer, step_grads
+    K = all_kernels()
+    cfg = get_config(spec["arch"])
+    shape = ShapeConfig("train_4k", spec["seq_len"], spec["global_batch"],
+                        "train")
+    tc = TrainConfig(accum=spec["accum"], log_every=1, ckpt_every=0,
+                     monitor_every=2,
+                     opt=adamw.AdamWConfig(lr=spec["lr"],
+                                           warmup_steps=spec["warmup"],
+                                           total_steps=spec["steps"]))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, shape, tc=tc, lm_kwargs=lm_kwargs, seed=SEED,
+                 device=DEV)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in _leaves(tr.params))
+    tokens = spec["global_batch"] * spec["seq_len"]
+
+    # the plain path's step 1: same weights, same batch; its gradients are
+    # kept for step 1's through the kernels (taken as AdamW receives them)
+    batch0 = tr.place_batch(tr.data.batch_at(0))
+    t0 = time.perf_counter()
+    p_loss, _, p_grads = step_grads(LM(cfg, **plain_kwargs), tr.params,
+                                    batch0, spec["accum"])
+    plain = {"loss": float(p_loss),
+             "grad_norm": float(adamw.global_norm(p_grads))}
+    plain_s = time.perf_counter() - t0
+    del batch0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    update, first_grads = RTM.adamw.update, []
+
+    def keep_first(cfg_, grads, state, params):
+        if not first_grads:
+            first_grads.append(grads)
+        return update(cfg_, grads, state, params)
+
+    step_fn, times, syncs = tr._step, [], []
+
+    def timed(*a):
+        sync()
+        t = time.perf_counter()
+        with SyncCount() as sc:
+            out = step_fn(*a)
+        sync()
+        times.append(time.perf_counter() - t)
+        syncs.append(sc.total)
+        return out
+
+    tr._step = timed
+    RTM.adamw.update = keep_first
+    for f in K.values():                        # counted from here ...
+        f.launches = 0
+    ops.reset_counts()
+    try:
+        hist = tr.run(spec["steps"])
+    finally:
+        RTM.adamw.update = update
+    launches = {n: f.launches for n, f in K.items()}   # ... to here
+    bwd = {n: ops.FUNCTIONS[f].backward_calls
+           for n, f in TRAIN_FUNCTIONS.items()}
+    variants = {n: K[n].last_variant for n in spec["path"]}
+    tr._step = step_fn
+    peak = torch.cuda.max_memory_allocated()
+    gap = grads_gap(first_grads[0], p_grads)
+    del first_grads, p_grads
+    prof = profile_train_step(tr)
+    fit = fit_one_batch(tr, spec)
+
+    losses = [m["loss"] for _, m in hist]
+    step_s = times[1:]
+    mean_s = sum(step_s) / len(step_s)
+    first = hist[0][1]
+    report = {
+        "phase": phase, "arch": cfg.name, "n_params": n_params,
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "seq_len": spec["seq_len"], "global_batch": spec["global_batch"],
+        "accum": spec["accum"], "steps": spec["steps"], "init_s": init_s,
+        "losses": losses, "aux": [m["aux"] for _, m in hist],
+        "grad_norms": [m["grad_norm"] for _, m in hist],
+        "lrs": [m["lr"] for _, m in hist],
+        "step_s": times, "mean_step_s_after_first": mean_s,
+        "tokens_per_step": tokens, "tokens_per_s": tokens / mean_s,
+        "mfu": 6 * n_params * tokens / (mean_s * H100_BF16_DENSE),
+        "mfu_peak_flops": H100_BF16_DENSE,
+        "peak_mem_gb": peak / 2**30,
+        "launches": launches,
+        "launches_per_step": {n: v / spec["steps"]
+                              for n, v in launches.items()},
+        "backward_calls": bwd,
+        "backward_calls_per_step": {n: v / spec["steps"]
+                                    for n, v in bwd.items()},
+        "last_variants": variants,
+        "syncs_per_step": syncs,
+        "plain_step1": {"loss": plain["loss"],
+                        "grad_norm": plain["grad_norm"], "seconds": plain_s,
+                        "loss_err": abs(first["loss"] - plain["loss"]),
+                        "loss_atol": TRAIN_LOSS_ATOL,
+                        "grad_norm_rel_err": abs(first["grad_norm"]
+                                                 - plain["grad_norm"])
+                        / max(abs(plain["grad_norm"]), 1e-30),
+                        "grad_norm_rtol": TRAIN_GNORM_RTOL,
+                        "grad_rel_l2": gap["rel_l2"],
+                        "grad_cosine": gap["cosine"],
+                        "grad_rtol": TRAIN_GRAD_RTOL},
+        "uniform_loss": math.log(cfg.vocab_size),
+        "falls_over_steps": losses[-1] < losses[0],
+        "fit_one_batch": fit, "profile": prof}
+    emit(report)
+    pc = report["plain_step1"]
+    fails = []
+    if not all(np.isfinite(losses)):
+        fails.append("a loss is not finite")
+    if losses[0] > report["uniform_loss"] + UNIFORM_MARGIN and \
+            not report["falls_over_steps"]:
+        fails.append("the loss did not fall from above the uniform guess")
+    if not fit["drop"] >= FIT_MARGIN:
+        fails.append(f"{FIT_STEPS} steps on one microbatch did not fit it: "
+                     f"{fit['losses']}")
+    if pc["loss_err"] > TRAIN_LOSS_ATOL or \
+            pc["grad_norm_rel_err"] > TRAIN_GNORM_RTOL or \
+            not pc["grad_rel_l2"] <= TRAIN_GRAD_RTOL:
+        fails.append("step 1 disagrees with the plain path")
+    if any(syncs):
+        fails.append(f"host syncs inside a step: {syncs}")
+    if any(launches[n] < spec["steps"] or bwd[n] < spec["steps"]
+           for n in spec["path"]):
+        fails.append(f"a kernel of the path did not launch or run its "
+                     f"backward every step: {launches}, {bwd}")
+    if any(variants[n] != TRAIN_VARIANT[n] for n in spec["path"]):
+        fails.append(f"variants {variants}")
+    if fails:
+        raise SystemExit(f"{phase}: " + "; ".join(fails))
+    return report
+
+
+def fit_one_batch(tr, spec) -> dict:
+    """``FIT_STEPS`` AdamW steps through the kernels on the run's first
+    microbatch alone (``global_batch // accum`` sequences), from where the
+    run ended, at the phase's learning rate held constant; the NLL on it
+    before each step and after the last, and its drop."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train import step_grads
+    opt = adamw.AdamWConfig(lr=spec["lr"], warmup_steps=0,
+                            schedule="constant")
+    mb = spec["global_batch"] // spec["accum"]
+    batch = {k: v[:mb] for k, v in
+             tr.place_batch(tr.data.batch_at(0)).items()}
+    params, state, losses = tr.params, tr.opt_state, []
+    t0 = time.perf_counter()
+    for _ in range(FIT_STEPS):
+        _, parts, grads = step_grads(tr.lm, params, batch)
+        params, state, _ = adamw.update(opt, grads, state, params)
+        losses.append(float(parts["nll"]))
+        del grads
+    with torch.no_grad():
+        losses.append(float(tr.lm.loss_fn(params, batch)[1]["nll"]))
+    tr.params, tr.opt_state = params, state
+    return {"steps": FIT_STEPS, "lr": spec["lr"], "losses": losses,
+            "drop": losses[0] - losses[-1], "margin": FIT_MARGIN,
+            "seconds": time.perf_counter() - t0}
+
+
+def grads_gap(got, ref) -> dict:
+    """Two gradients (lists of leaves) as vectors: ``||got - ref|| /
+    ||ref||`` and their cosine, summed in float64 leaf by leaf."""
+    num = den = dot = nrm = 0.0
+    for g, r in zip(got, ref):
+        g, r = g.double(), r.double()
+        num += float(torch.sum((g - r) ** 2))
+        den += float(torch.sum(r * r))
+        nrm += float(torch.sum(g * g))
+        dot += float(torch.sum(g * r))
+    return {"rel_l2": math.sqrt(num / den) if den > 0 else math.sqrt(num),
+            "cosine": dot / math.sqrt(den * nrm) if den * nrm > 0 else 0.0}
+
+
+def _leaves(tree):
+    from repro_torch.models.params import tree_leaves
+    return tree_leaves(tree, torch.is_tensor)
+
+
+def phase_train():
+    """h2o-danube-1.8b at full width and depth: ``flash_attention`` and
+    ``fused_rmsnorm_mlp`` through ``kernels.ops``; the plain path is
+    ``chunked`` attention (the folded schedule) and the plain MLP."""
+    from repro_torch.models.layers import AttnOptions
+    return drive_train(TRAIN, dict(opts=AttnOptions(backend="fused"),
+                                   remat=True),
+                       dict(opts=AttnOptions(backend="chunked", folded=True),
+                            remat=True), "train")
+
+
+def phase_train_moe():
+    """granite-moe-1b-a400m at full width and depth: ``flash_attention``
+    and the expert products through ``torch._grouped_mm``; the plain path
+    ``chunked`` attention (folded) and the per-expert loop."""
+    from repro_torch.models.layers import AttnOptions
+    return drive_train(TRAIN_MOE, dict(opts=AttnOptions(backend="fused"),
+                                       remat=True),
+                       dict(opts=AttnOptions(backend="chunked", folded=True),
+                            remat=True), "train_moe")
+
+
+def phase_train_ssm():
+    """mamba2-370m at full width and depth: ``ssd_scan`` through
+    ``kernels.ops`` (``ssm_backend="fused"``); the plain path the chunked
+    scan in PyTorch."""
+    return drive_train(TRAIN_SSM, dict(ssm_backend="fused", remat=True),
+                       dict(ssm_backend="torch", remat=True), "train_ssm")
+
+
+def phase_train_resume(tmp_root):
+    """Checkpoint and restart on the card: the reduced danube in float32
+    through the kernels; 10 steps uninterrupted, against 8 steps saving
+    every 5, the parameters lost, ``FaultSupervisor.recover()`` and 5 more:
+    steps 6-10's losses within ``TRAIN_RESUME_RTOL`` (the embedding and
+    scatter backward add with atomics on the card, so bit equality is the
+    CPU tests' gate)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.layers import AttnOptions
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import FaultSupervisor
+    from repro_torch.runtime.train import TrainConfig, Trainer
+    cfg = get_config(TRAIN["arch"]).reduced()
+    shape = ShapeConfig("tiny", 64, 4, "train")
+
+    def trainer(ckpt_every, sub):
+        tc = TrainConfig(log_every=1, ckpt_every=ckpt_every,
+                         ckpt_dir=os.path.join(tmp_root, sub),
+                         monitor_every=2,
+                         opt=adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                               total_steps=100))
+        tr = Trainer(cfg, shape, tc=tc, seed=SEED, device=DEV,
+                     lm_kwargs=dict(opts=AttnOptions(backend="fused"),
+                                    remat=True))
+        tr.params = tree_map(lambda a: a.float(), tr.params, torch.is_tensor)
+        tr.opt_state = adamw.init(tr.params)
+        return tr
+
+    ref = {s: m["loss"] for s, m in trainer(0, "a").run(10)}
+    tr = trainer(5, "b")
+    sup = FaultSupervisor(tr)
+    tr.run(8)
+    saved = tr.store().wait()
+    tr.params = None                           # total state loss
+    resumed = sup.recover()
+    t0 = time.perf_counter()
+    got = {s: m["loss"] for s, m in tr.run(10 - tr.step)}
+    worst = max(abs(got[s] - ref[s]) / abs(ref[s]) for s in got)
+    report = {"phase": "train_resume", "arch": cfg.name, "dtype": "float32",
+              "resumed_at": resumed, "steps_rerun": sorted(got),
+              "loss10": got.get(10), "loss10_uninterrupted": ref[10],
+              "max_rel_err": worst, "rtol": TRAIN_RESUME_RTOL,
+              "rerun_s": time.perf_counter() - t0,
+              "save_s": saved.seconds, "save_bytes": saved.nbytes,
+              "events": [e.kind for e in sup.events]}
+    emit(report)
+    if resumed != 5 or 10 not in got or worst > TRAIN_RESUME_RTOL:
+        raise SystemExit("train_resume: the resumed run disagrees with the "
+                         "uninterrupted one")
+    return report
+
+
+def phase_training():
+    """The training phases in turn: the Functions, then danube, granite-moe
+    and mamba2 at full width, then checkpoint / restart; their reports."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    phase_train_kernels()
+    reports = {"train": phase_train(), "train_moe": phase_train_moe(),
+               "train_ssm": phase_train_ssm()}
+    full_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        phase_train_resume(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "training", "seconds": time.perf_counter() - t0,
+          "kernels_and_full_width_s": full_s})
+    return reports
+
+
+def train_row(reports, n):
+    """The kernels line's ``train`` entry of kernel ``n``: its launches and
+    its Function's backward calls over the three training runs, and its
+    forward launch beside its backward call from each run's profile."""
+    runs = {ph: r for ph, r in reports.items() if r["launches"].get(n)}
+    return {"launches": sum(r["launches"][n] for r in reports.values()),
+            "backward_calls": sum(r["backward_calls"][n]
+                                  for r in reports.values()),
+            "by_run": {ph: {"launches_per_step": r["launches_per_step"][n],
+                            **r["profile"]["functions"].get(n, {})}
+                       for ph, r in runs.items()}}
+
+
+def card_train_kernel(name, dtype, shape):
+    """A Function of ``kernels.ops`` on the card: forward equal to the raw
+    kernel's, one launch, gradients against autograd through the plain
+    version (``train_kernel_check``)."""
+    res = train_kernel_check(name, dtype, shape)
+    assert res["ok"], f"autograd Function off its plain version: {res}"
+
+
 # gpu-marked test -> (the function here, its cases as the test's arguments)
 CARD_TESTS = {
     "test_cuda_flash_attention_matches_plain": (
@@ -4839,6 +5572,8 @@ CARD_TESTS = {
                        ("batch32",))),
     "test_cuda_grouped_matmul_matches_plain": (card_grouped_matmul,
                                                CARD_GROUPED),
+    "test_cuda_ops_match_plain_under_autograd": (card_train_kernel,
+                                                 TRAIN_KERNEL_CASES),
 }
 
 
@@ -4912,6 +5647,9 @@ def main() -> int:
     ap.add_argument("--serve-only", action="store_true",
                     help="device, build, kernel parity and the serving "
                          "phases only")
+    ap.add_argument("--train-only", action="store_true",
+                    help="device, build, kernel parity and the training "
+                         "phases only")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/spill report")
     args = ap.parse_args()
@@ -4955,6 +5693,11 @@ def main() -> int:
         print(smi, flush=True)
         emit({"ok": True, "serve_only": True, "device": device})
         return 0
+    if args.train_only:
+        phase_training()
+        print(smi, flush=True)
+        emit({"ok": True, "train_only": True, "device": device})
+        return 0
 
     model, res, _ = phase_sweep()
     phase_sweep_chunked(model)
@@ -4996,6 +5739,8 @@ def main() -> int:
     hyb_launches = hyb_report["launches"]
     moe_launches = moe_report["launches"]
     mla_launches = mla_report["launches"]
+    # the training paths, each counted inside drive_train the same way
+    train_reports = phase_training()
 
     def sub_row(rows, launches, n):
         """A serving path's row of kernel ``n``, with its own launches."""
@@ -5030,7 +5775,8 @@ def main() -> int:
         "name": n, "route": "cuda", "source": LLM_REPLACES[n][0],
         "replaces": LLM_REPLACES[n][1],
         "launches": (path_launches[n] + hyb_launches[n] + moe_launches[n]
-                     + mla_launches[n]),
+                     + mla_launches[n]
+                     + sum(r["launches"][n] for r in train_reports.values())),
         **kernel_row(serve_rows[n]),
         **({"also": kernel_row(serve_rows[n]["also"])}
            if "also" in serve_rows[n] else {}),
@@ -5038,6 +5784,8 @@ def main() -> int:
         **({"moe": sub_row(moe_rows, moe_launches, n)} if n in moe_rows
            else {}),
         **({"mla": sub_row(mla_rows, mla_launches, n)} if n in mla_rows
+           else {}),
+        **({"train": train_row(train_reports, n)} if n in TRAIN_FUNCTIONS
            else {})}
         for n in LLM_REPLACES]})
     print(smi, flush=True)

@@ -236,6 +236,19 @@ def lm_params_from_numpy(tree: Any, device: DeviceSpec = None):
     return _tensor(tree, dev)
 
 
+def adamw_state_from_numpy(state: Any, device: DeviceSpec = None):
+    """The reference's ``AdamWState(step, mu, nu)``, its arrays as NumPy,
+    -> the port's ``optim.adamw.AdamWState`` on ``device``: ``step`` an
+    int32 scalar tensor, ``mu`` / ``nu`` leaf for leaf in float32."""
+    from repro_torch.optim.adamw import AdamWState
+    dev = resolve(device)
+    step, mu, nu = state
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        mu=lm_params_from_numpy(mu, dev), nu=lm_params_from_numpy(nu, dev))
+
+
 def lm_cache_from_numpy(d: Mapping, device: DeviceSpec = None):
     """A reference LM cache ``{"pos": scalar or (B,), "blocks": ...}`` -> the
     port's cache, whose ``pos`` is one int32 position per batch row.

@@ -372,3 +372,23 @@ class NocModel:
         """Cycles for a packet header to traverse, incl. queueing."""
         base = hops(self.cfg, src, dst) * self.cfg.hop_latency
         return base * self.slowdown(src, dst)
+
+
+def collective_bytes_ring_allreduce(size_bytes: float, n: int) -> float:
+    """Per-device wire bytes of a ring all-reduce (2(n-1)/n x size)."""
+    if n <= 1:
+        return 0.0
+    return 2.0 * (n - 1) / n * size_bytes
+
+
+def collective_bytes_allgather(size_bytes: float, n: int) -> float:
+    """Per-device wire bytes to all-gather a sharded tensor of total size."""
+    if n <= 1:
+        return 0.0
+    return (n - 1) / n * size_bytes
+
+
+def collective_bytes_alltoall(size_bytes: float, n: int) -> float:
+    if n <= 1:
+        return 0.0
+    return (n - 1) / n * size_bytes

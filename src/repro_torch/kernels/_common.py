@@ -23,6 +23,20 @@ def on_card(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel and no plain version for device {dev}")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and a CUDA input requires grad: the raw
+    wrappers write their output through a pointer, so autograd would never
+    see the launch and the result would come back cut off from the graph.
+    The autograd Functions of ``repro_torch.kernels.ops`` launch the same
+    kernels with a backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input on the card requires grad, and the kernel's "
+            f"output would carry no gradient; call "
+            f"repro_torch.kernels.ops.{name}, whose backward runs the "
+            f"oracle's autograd")
+
+
 def check(name: str, t: torch.Tensor, ndim: int,
           dtypes: Sequence[torch.dtype] = tuple(DTYPE_CODES)) -> int:
     """Raise unless ``t`` is contiguous, ``ndim``-dimensional and of one of

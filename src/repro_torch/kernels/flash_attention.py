@@ -6,7 +6,10 @@ version, launch count.
 ``flash_attention_pallas``).  On CUDA tensors it launches one of the
 hand-written kernels of ``csrc/flash_attention.cu`` (see its source note
 for the designs), chosen by :func:`_variant` from dtype and shape alone, or
-raises; on CPU tensors it runs :func:`flash_attention_plain`.
+raises (also when an input requires grad with grad mode on: the output
+would carry no gradient, so training goes through
+``kernels.ops.flash_attention``); on CPU tensors it runs
+:func:`flash_attention_plain`.
 ``flash_attention.launches`` counts kernel launches and
 ``flash_attention.last_variant`` names the kernel of the latest one.
 """
@@ -17,7 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels._common import aligned16, check, on_card, \
-    positions, stream_of
+    positions, refuse_grad, stream_of
 from repro_torch.models.layers import NEG_INF, _gqa_out, _gqa_scores, \
     _window_mask
 
@@ -111,6 +114,7 @@ def flash_attention(q, k, v, qpos, kpos, window: int = 0,
     ``kpos[j] <= qpos[i]`` and, with a window, ``qpos[i] - kpos[j] <
     window``.  float32 or bfloat16, accumulation in float32."""
     if on_card(q, k, v):
+        refuse_grad("flash_attention", q, k, v)
         return _launch(q, k, v, qpos, kpos, window, scale)
     return flash_attention_plain(q, k, v, qpos, kpos, window, scale)
 

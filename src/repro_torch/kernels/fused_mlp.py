@@ -6,8 +6,10 @@ and replaces the Pallas kernel of the reference,
 ``repro/kernels/fused_mlp.py`` (``_fused_kernel`` /
 ``fused_rmsnorm_mlp_pallas``).  On CUDA tensors it launches one of the
 hand-written kernels of ``csrc/fused_mlp.cu`` (see its source note), chosen
-by :func:`_variant` from dtype and shape alone, or raises; on CPU tensors it
-runs :func:`fused_rmsnorm_mlp_plain`.  ``fused_rmsnorm_mlp.launches``
+by :func:`_variant` from dtype and shape alone, or raises (also when an
+input requires grad with grad mode on: the output would carry no gradient,
+so training goes through ``kernels.ops.fused_rmsnorm_mlp``); on CPU tensors
+it runs :func:`fused_rmsnorm_mlp_plain`.  ``fused_rmsnorm_mlp.launches``
 counts calls that launched (the ``wgmma_tma`` variant is two kernels: the
 row norms, then the products) and ``fused_rmsnorm_mlp.last_variant`` names
 the kernel of the latest one.
@@ -20,7 +22,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels._common import aligned16, check, on_card, \
-    sm_count, stream_of
+    refuse_grad, sm_count, stream_of
 from repro_torch.models.layers import _act, rms_norm
 
 ACTS = ("silu", "gelu")
@@ -181,6 +183,7 @@ def fused_rmsnorm_mlp(x, scale, wg, wu, act: str = "silu",
     if act not in ACTS:
         raise ValueError(f"act {act!r} not in {ACTS}")
     if on_card(x, scale, wg, wu):
+        refuse_grad("fused_rmsnorm_mlp", x, scale, wg, wu)
         return _launch(x, scale, wg, wu, act, eps)
     return fused_rmsnorm_mlp_plain(x, scale, wg, wu, act, eps)
 

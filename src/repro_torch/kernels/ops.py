@@ -1,10 +1,140 @@
 """Public entry points of the LLM kernels, with the reference's signatures
-(``repro/kernels/ops.py``), forward only.  Each runs its CUDA kernel on CUDA
-tensors and its plain PyTorch version on CPU tensors.  The backward passes
-(``torch.autograd.Function`` through the plain versions, as the reference's
-``custom_vjp`` goes through its oracles) come with the training slice
-(ROADMAP queue A item 11)."""
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+(``repro/kernels/ops.py``), differentiable.
+
+``flash_attention``, ``ssd_scan`` and ``fused_rmsnorm_mlp`` run through
+``torch.autograd.Function``\\ s: the forward launches the hand-written
+kernel on CUDA tensors (its plain version on CPU tensors), and the backward
+recomputes the oracle of :mod:`repro_torch.kernels.ref` from the saved
+inputs and differentiates it with the incoming gradient, as the reference's
+``custom_vjp`` rules do (``_fa_bwd``, ``_ssd_bwd``, ``_fm_bwd``).  The
+forward calls the kernel's own wrapper (grad mode is off inside
+``Function.forward``, so the wrapper's ``refuse_grad`` stays quiet).  Positions,
+``window``, ``scale``, ``chunk``, ``act`` and ``eps`` get no gradient (the
+reference's ``nondiff_argnums``).  Each Function counts its backward calls
+(``backward_calls``); the launches stay counted on the kernel wrappers.
+``flash_decode`` is forward only (serving), as in the reference.
+
+These are the only callers that launch the kernels with autograd live: the
+raw wrappers refuse a CUDA input that requires grad, whose result would
+carry no gradient.
+"""
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fused_mlp as _fm
+from repro_torch.kernels import ref as REF
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: F401
-from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp  # noqa: F401
-from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401
+
+
+def _grad_of(name, fn, inputs, outputs_grad):
+    """Gradients of ``fn(*inputs)`` with respect to every input, given the
+    outputs' gradients (``None`` for an output that received none), inside
+    a profiler range ``"<name>.backward"``."""
+    with torch.enable_grad(), record_function(f"{name}.backward"):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, outputs_grad) if g is not None]
+        return torch.autograd.grad([o for o, _ in pairs],
+                                   leaves, [g for _, g in pairs],
+                                   allow_unused=True, materialize_grads=True)
+
+
+# ----------------------------------------------------------------- attention
+class FlashAttention(torch.autograd.Function):
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, window, scale):
+        out = _fa.flash_attention(q, k, v, qpos, kpos, window, scale)
+        ctx.save_for_backward(q, k, v, qpos, kpos)
+        ctx.window, ctx.scale = window, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        FlashAttention.backward_calls += 1
+        q, k, v, qpos, kpos = ctx.saved_tensors
+        dq, dk, dv = _grad_of(
+            "flash_attention", lambda q, k, v: REF.flash_attention_ref(
+                q, k, v, qpos, kpos, scale=ctx.scale, window=ctx.window),
+            (q, k, v), (g,))
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, qpos, kpos, window: int = 0,
+                    scale: float = 1.0) -> torch.Tensor:
+    """The reference's ``ops.flash_attention``: the kernel's contract
+    (``kernels.flash_attention.flash_attention``) with a backward."""
+    return FlashAttention.apply(q, k, v, qpos, kpos, window, scale)
+
+
+# ----------------------------------------------------------------- SSD scan
+class SSDScan(torch.autograd.Function):
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, xs, dt, A, Bm, Cm, D, chunk):
+        ctx.set_materialize_grads(False)
+        y, h = _ssd.ssd_scan(xs, dt, A, Bm, Cm, D, chunk)
+        ctx.save_for_backward(xs, dt, A, Bm, Cm, D)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        SSDScan.backward_calls += 1
+        grads = _grad_of(
+            "ssd_scan", lambda *a: REF.ssd_scan_ref(*a, chunk=ctx.chunk),
+            ctx.saved_tensors, (gy, gh))
+        return (*grads, None)
+
+
+def ssd_scan(xs, dt, A, Bm, Cm, D, chunk: int = 256):
+    """The reference's ``ops.ssd_scan``: the kernel's contract
+    (``kernels.ssd_scan.ssd_scan``: returns ``(y, h_final)``) with a
+    backward."""
+    return SSDScan.apply(xs, dt, A, Bm, Cm, D, chunk)
+
+
+# ----------------------------------------------------------------- fused MLP
+class FusedRMSNormMLP(torch.autograd.Function):
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, x, scale, wg, wu, act, eps):
+        out = _fm.fused_rmsnorm_mlp(x, scale, wg, wu, act, eps)
+        ctx.save_for_backward(x, scale, wg, wu)
+        ctx.act, ctx.eps = act, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        FusedRMSNormMLP.backward_calls += 1
+        grads = _grad_of(
+            "fused_rmsnorm_mlp",
+            lambda *a: REF.fused_rmsnorm_mlp_ref(*a, act=ctx.act,
+                                                 eps=ctx.eps),
+            ctx.saved_tensors, (g,))
+        return (*grads, None, None)
+
+
+def fused_rmsnorm_mlp(x, scale, wg, wu, act: str = "silu",
+                      eps: float = 1e-5) -> torch.Tensor:
+    """The reference's ``ops.fused_rmsnorm_mlp``: the kernel's contract
+    (``kernels.fused_mlp.fused_rmsnorm_mlp``) with a backward."""
+    return FusedRMSNormMLP.apply(x, scale, wg, wu, act, eps)
+
+
+FUNCTIONS = {"flash_attention": FlashAttention, "ssd_scan": SSDScan,
+             "fused_rmsnorm_mlp": FusedRMSNormMLP}
+
+
+def reset_counts() -> None:
+    """Every Function's ``backward_calls`` to 0."""
+    for fn in FUNCTIONS.values():
+        fn.backward_calls = 0

@@ -5,7 +5,9 @@
 CUDA tensors it launches the kernels of ``csrc/ssd_scan.cu`` (chunk
 states, ``C B^T`` per chunk, the serial state pass, chunk outputs; see its
 source note), the set chosen by :func:`_variant` from shape and alignment
-alone, or raises; on CPU tensors it runs :func:`ssd_scan_plain`.
+alone, or raises (also when an input requires grad with grad mode on: the
+output would carry no gradient, so training goes through
+``kernels.ops.ssd_scan``); on CPU tensors it runs :func:`ssd_scan_plain`.
 ``ssd_scan.launches`` counts calls that launched, one per call (each call is
 three or four kernels in a row), and ``ssd_scan.last_variant`` names the set
 of the latest one.
@@ -17,7 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels._common import aligned16, check, on_card, \
-    stream_of
+    refuse_grad, stream_of
 
 MAX_CHUNK = 256        # Q, tokens of one chunk (the kernels' shared memory)
 MAX_STATE = 128        # st, the state width
@@ -72,12 +74,17 @@ def ssd_chunks_plain(xs, dt, la, Bm, Cm, D, Q: int):
     la = la.reshape(Bb, nc, Q, nh)
     la_last = la[:, :, -1:, :]                             # (b,nc,1,nh)
 
-    # intra-chunk: decay L_ij = exp(la_i - la_j) for i >= j (a select: the
-    # j > i entries overflow to inf for large dt)
+    # intra-chunk: decay L_ij = exp(la_i - la_j) for i >= j.  The j > i
+    # entries overflow to inf for large dt, so they are zeroed before the
+    # exp as well as after: the same values as the reference's one select,
+    # and a finite gradient (the reference's is 0 * inf = NaN in dt and A
+    # once a chunk's decay passes e^88; ROADMAP queue C)
     diff = la[:, :, :, None, :] - la[:, :, None, :, :]     # (b,nc,i,j,nh)
     causal = torch.ones((Q, Q), dtype=torch.bool, device=xs.device).tril()
-    Lmat = torch.where(causal[None, None, :, :, None], torch.exp(diff),
-                       torch.zeros((), dtype=diff.dtype, device=xs.device))
+    causal = causal[None, None, :, :, None]
+    zero = torch.zeros((), dtype=diff.dtype, device=xs.device)
+    Lmat = torch.where(causal, torch.exp(torch.where(causal, diff, zero)),
+                       zero)
     scores = torch.einsum("bcis,bcjs->bcij", Cc, Bc)       # (b,nc,i,j)
     att = scores[..., None] * Lmat * dtc[:, :, None, :, :]  # (b,nc,i,j,nh)
     y_intra = torch.einsum("bcijn,bcjnh->bcinh", att, xc)
@@ -88,11 +95,12 @@ def ssd_chunks_plain(xs, dt, la, Bm, Cm, D, Q: int):
 
     # inter-chunk recurrence
     h = xs.new_zeros((Bb, nh, st, hd))
-    y_inter = torch.empty_like(xc)
+    y_inter = []
     for c in range(nc):
-        y_inter[:, c] = torch.einsum("bis,bnsh,bin->binh", Cc[:, c], h,
-                                     torch.exp(la[:, c]))
+        y_inter.append(torch.einsum("bis,bnsh,bin->binh", Cc[:, c], h,
+                                    torch.exp(la[:, c])))
         h = h * torch.exp(la_last[:, c, 0])[:, :, None, None] + S[:, c]
+    y_inter = torch.stack(y_inter, dim=1)
 
     y = y_intra + y_inter + xc * D[None, None, None, :, None]
     return y.reshape(Bb, L, nh, hd), h
@@ -182,6 +190,7 @@ def ssd_scan(xs, dt, A, Bm, Cm, D, chunk: int = 256):
     Returns (y (B,L,nh,hd), h_final (B,nh,st,hd)), float32.  The kernel
     takes hd <= 64, st <= 128 and Q <= 256 and refuses anything else."""
     if on_card(xs, dt, A, Bm, Cm, D):
+        refuse_grad("ssd_scan", xs, dt, A, Bm, Cm, D)
         return _launch(xs, dt, A, Bm, Cm, D, chunk)
     return ssd_scan_plain(xs, dt, A, Bm, Cm, D, chunk)
 

@@ -12,8 +12,9 @@ Plain functions on tensors; parameters are the nested dicts built from
                 schedule that pairs q-block ``i`` with ``nq - 1 - i``,
 * ``fused``   — the hand-written CUDA kernels of :mod:`repro_torch.kernels`
                 (the reference's ``"pallas"``): ``attention_core`` launches
-                ``flash_attention`` and ``gqa_decode`` launches
-                ``flash_decode``.  On CPU tensors their plain versions run.
+                ``flash_attention`` through ``kernels.ops`` (a backward for
+                training) and ``gqa_decode`` launches ``flash_decode``.  On
+                CPU tensors their plain versions run.
 
 MLA (DeepSeek-V2): ``mla_apply`` expands K and V from the latent and runs
 plain MHA through ``attention_core`` (hd_qk ``nope + rope``, hd_v
@@ -242,7 +243,7 @@ def attention_core(q, k, v, qpos, kpos, window: int, opts: AttnOptions,
     """Dispatch over attention backends.  Shapes as in attention_naive."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if opts.backend == "fused":
-        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.ops import flash_attention
         return flash_attention(q, k, v, qpos, kpos, window, scale)
     if opts.backend == "chunked" and q.shape[1] > opts.q_block:
         return attention_chunked(q, k, v, qpos, kpos, window, scale, opts)

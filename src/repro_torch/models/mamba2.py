@@ -137,7 +137,7 @@ def ssm_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     xsh = xs.reshape(Bb, Lp, nh, hd).float().contiguous()
     Bf, Cf = Bm.float().contiguous(), Cm.float().contiguous()
     if backend == "fused":
-        from repro_torch.kernels.ssd_scan import ssd_scan
+        from repro_torch.kernels.ops import ssd_scan
         y, h_final = ssd_scan(xsh, dt.contiguous(), A, Bf, Cf, p["D"],
                               chunk=cfg.ssm_chunk)
     else:

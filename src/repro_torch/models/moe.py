@@ -13,9 +13,11 @@ no atomics, so the sum is the same from run to run (the reference adds the
 rows into a zero tensor of the activations' dtype; ROADMAP queue C records
 the difference).
 
-Nothing of the dispatch waits for the card: the group ends are counted with
-``scatter_add_`` (no ``bincount``, whose CUDA version reads the input's
-maximum to the host) and handed to the grouped product as a device tensor.
+The gathers are ``index_select`` (their backward an ``index_add_``, no host
+read).  Nothing of the dispatch waits for the card: the group ends are
+counted with ``scatter_add_`` (no ``bincount``, whose CUDA version reads the
+input's maximum to the host) and handed to the grouped product as a device
+tensor.
 :func:`grouped_matmul` runs ``torch._grouped_mm`` on CUDA bf16 operands and
 the per-expert loop :func:`grouped_matmul_plain` otherwise; the loop reads
 the group ends to the host, once per layer under ``experts="loop"``.
@@ -103,18 +105,20 @@ def load_balance_loss(logits: torch.Tensor, top_ids: torch.Tensor,
 def grouped_matmul_plain(xs: torch.Tensor, w: torch.Tensor,
                          offsets) -> torch.Tensor:
     """The per-expert loop: rows ``offsets[e-1]:offsets[e]`` of ``xs``
-    (M, K) times ``w[e]`` (K, N); an empty group is skipped.  ``offsets``
+    (M, K) times ``w[e]`` (K, N), joined by one ``torch.cat`` (no write in
+    place, so autograd follows it); an empty group is skipped.  ``offsets``
     as a tensor is read to the host (one sync per call on a card); a list
     of ints is taken as it is."""
     if torch.is_tensor(offsets):
         offsets = offsets.tolist()
-    out = xs.new_zeros((xs.shape[0], w.shape[-1]))
-    start = 0
+    parts, start = [], 0
     for e, end in enumerate(offsets):
         if end > start:
-            out[start:end] = xs[start:end] @ w[e]
+            parts.append(xs[start:end] @ w[e])
         start = end
-    return out
+    if start < xs.shape[0] or not parts:     # rows after the last group
+        parts.append(xs.new_zeros((xs.shape[0] - start, w.shape[-1])))
+    return torch.cat(parts)
 
 
 def _variant(xs: torch.Tensor, w: torch.Tensor) -> str:
@@ -127,8 +131,9 @@ def grouped_matmul(xs: torch.Tensor, w: torch.Tensor,
                    offsets: torch.Tensor) -> torch.Tensor:
     """Grouped product (the reference's ``jax.lax.ragged_dot``): xs (M, K)
     rows sorted by group, w (E, K, N), offsets (E,) int32 cumulative group
-    ends.  CUDA bf16 operands run ``torch._grouped_mm`` (no host read);
-    anything else the loop :func:`grouped_matmul_plain`.  The choice, made
+    ends.  CUDA bf16 operands run ``torch._grouped_mm`` (no host read; its
+    backward is PyTorch's, two more grouped products); anything else the
+    loop :func:`grouped_matmul_plain`.  The choice, made
     from the device and dtypes alone, is ``grouped_matmul.last_variant``."""
     variant = _variant(xs, w)
     grouped_matmul.last_variant = variant
@@ -166,7 +171,7 @@ def _moe_ffn_local(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     # flatten (token, slot) pairs and sort by expert (stable)
     flat_ids = top_ids.reshape(-1)                        # (N*k,)
     sort_idx = torch.argsort(flat_ids, stable=True)
-    xs = x[sort_idx // k]                                 # (N*k, d)
+    xs = x.index_select(0, sort_idx // k)                 # (N*k, d)
     offsets = group_offsets(flat_ids, E)
     if experts == "grouped":
         ys = expert_ffn(xs, p, offsets, cfg.act)
@@ -174,13 +179,13 @@ def _moe_ffn_local(p: Dict, x: torch.Tensor, cfg: ArchConfig,
         ys = expert_ffn(xs, p, offsets.tolist(), cfg.act,
                         grouped_matmul_plain)
 
-    gate_sorted = gates.reshape(-1)[sort_idx]
+    gate_sorted = gates.reshape(-1).index_select(0, sort_idx)
     ys = ys * gate_sorted[:, None].to(ys.dtype)
     # back to (token, slot) order; the k rows of a token summed in float32
     inv = torch.empty_like(sort_idx).scatter_(
         0, sort_idx, torch.arange(N * k, device=x.device))
-    out = ys[inv].reshape(N, k, d).sum(dim=1, dtype=torch.float32).to(
-        ys.dtype)
+    out = ys.index_select(0, inv).reshape(N, k, d).sum(
+        dim=1, dtype=torch.float32).to(ys.dtype)
     return out, logits, top_ids
 
 

@@ -45,12 +45,15 @@ def is_spec(x) -> bool:
 
 
 def tree_map(fn: Callable, tree: Any, is_leaf: Callable = is_spec):
-    """Map ``fn`` over the leaves of a nested dict / list / tuple (dict keys
-    in sorted order, the order the reference's pytrees flatten in)."""
+    """Map ``fn`` over the leaves of a nested dict / list / tuple /
+    NamedTuple (dict keys in sorted order, the order the reference's
+    pytrees flatten in; a NamedTuple's fields in their order)."""
     if is_leaf(tree):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], is_leaf) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v, is_leaf) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
     if tree is None:
@@ -59,8 +62,21 @@ def tree_map(fn: Callable, tree: Any, is_leaf: Callable = is_spec):
 
 
 def tree_leaves(tree: Any, is_leaf: Callable = is_spec) -> list:
+    """The leaves in the reference's flattening order (``jax.tree_util.
+    tree_leaves``: dict keys sorted, whatever order the dict was built
+    in)."""
     out: list = []
     tree_map(out.append, tree, is_leaf)
+    return out
+
+
+def tree_unflatten(like: Any, leaves) -> Any:
+    """A tree of ``like``'s structure holding ``leaves`` (in
+    :func:`tree_leaves` order) at its tensor leaves."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like, torch.is_tensor)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
     return out
 
 

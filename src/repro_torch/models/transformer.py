@@ -39,8 +39,18 @@ plain PyTorch); the hybrid family's shared tile takes the attention
 options and the MLP kernel like a dense block.  MLA prefill reaches
 ``flash_attention`` through ``attention_core`` (hd_qk 192, hd_v 128 at
 full width); MLA decode is float32 einsums over the latent cache, as in
-the reference.  The training entry points are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+the reference.
+
+Training: ``forward`` (-> float32 logits and the MoE load-balance loss) and
+``loss_fn``.  The kernels run through ``repro_torch.kernels.ops``, whose
+autograd Functions launch them in the forward and differentiate the
+reference's oracles in the backward.  The stacked layer params are
+``unbind``-ed once per forward (one ``stack`` in the backward, not one
+full-size gradient per layer) and, with ``remat`` (the reference's
+``jax.checkpoint`` of its scan body), each block's body (the hybrid tile's
+application before it included) is recomputed in the backward by
+``torch.utils.checkpoint``.  Training takes the no-cache branch of every
+layer: nothing autograd saved is written in place.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, not_ported
 from repro_torch.models import layers as L
@@ -57,7 +68,8 @@ from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MoE
 from repro_torch.models.layers import AttnOptions
 from repro_torch.models.params import (ParamSpec, abstract_params,
-                                       init_params, spec, tree_map)
+                                       init_params, spec, tree_leaves,
+                                       tree_map, tree_unflatten)
 
 
 def _stack_specs(tree, n: int):
@@ -103,11 +115,23 @@ class LM:
     opts: AttnOptions = dataclasses.field(default_factory=AttnOptions)
     kv_cache_dtype: Optional[torch.dtype] = None   # default bfloat16
     ssm_backend: str = "torch"   # torch | fused (reference: xla | pallas)
+    remat: bool = True             # recompute each block in the backward
+    onehot_loss: bool = False      # the reference's sharding knobs
+    moe_ep: bool = False           # (vocab-parallel loss, expert and
+    moe_axes: Any = None           # block sharding): not ported (one
+    block_pspecs: Any = None       # device), only the defaults are taken
 
     def __post_init__(self):
         why = not_ported(self.cfg)
         if why:
             raise NotImplementedError(why)
+        if self.onehot_loss or self.moe_ep or self.moe_axes is not None \
+                or self.block_pspecs is not None:
+            raise NotImplementedError(
+                f"onehot_loss={self.onehot_loss!r}, moe_ep={self.moe_ep!r}, "
+                f"moe_axes={self.moe_axes!r}, "
+                f"block_pspecs={self.block_pspecs!r}: multi-device sharding "
+                "is not ported yet (ROADMAP queue A item 12)")
         if self.kv_cache_dtype == torch.int8 and self.cfg.attn_type != "mla":
             raise ValueError(
                 "kv_cache_dtype=torch.int8 is the MLA latent cache's "
@@ -170,12 +194,18 @@ class LM:
         return abstract_params(self.param_specs())
 
     # ------------------------------------------------------------- embedding
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens=None, embeds=None):
+        """Token embeddings (B, S, d), or the given ``embeds`` as they are.
+        The gather is an ``index_select``, whose backward adds rows on the
+        device with no host read."""
         cfg = self.cfg
-        embeds = params["embed"][tokens]
-        if cfg.tie_embeddings:   # gemma-style scaling for tied embeddings
-            embeds = embeds * torch.tensor(math.sqrt(cfg.d_model),
-                                           dtype=embeds.dtype)
+        if embeds is None:
+            table = params["embed"]
+            embeds = table.index_select(0, tokens.reshape(-1)).reshape(
+                tuple(tokens.shape) + (table.shape[1],))
+            if cfg.tie_embeddings:   # gemma-style scaling for tied embeddings
+                embeds = embeds * torch.tensor(math.sqrt(cfg.d_model),
+                                               dtype=embeds.dtype)
         return embeds
 
     def _logits(self, params, x):
@@ -188,25 +218,26 @@ class LM:
         return logits.float()
 
     # ------------------------------------------------------------------ FFN
-    def _ffn(self, bp, x):
-        """``x`` + the block's FFN of ``rms_norm(x)``: the MoE, or the gated
-        MLP (``_mlp``).  Under ``fused`` the expert products run
-        ``grouped_matmul``, else the per-expert loop; serving asks for no
-        aux loss."""
+    def _ffn(self, bp, x, aux: bool = False):
+        """``(x + the block's FFN of rms_norm(x), aux)``: the MoE, or the
+        gated MLP (``_mlp``).  Under ``fused`` the expert products run
+        ``grouped_matmul``, else the per-expert loop.  ``aux`` asks for the
+        MoE's load-balance loss (training); serving asks for none, and a
+        dense block has none (``None``)."""
         if "moe" not in bp:
-            return self._mlp(bp, x)
+            return self._mlp(bp, x), None
         h = L.rms_norm(x, bp["mlp_norm"], self.cfg.norm_eps)
         experts = "grouped" if self.opts.backend == "fused" else "loop"
-        out, _ = MoE.moe_apply(bp["moe"], self.cfg, h, experts=experts,
-                               aux=False)
-        return x + out
+        out, loss = MoE.moe_apply(bp["moe"], self.cfg, h, experts=experts,
+                                  aux=aux)
+        return x + out, loss
 
     def _mlp(self, bp, x):
         """``x + mlp(rms_norm(x))``; under ``fused`` the norm and the gate/up
         products are one ``fused_rmsnorm_mlp`` launch."""
         cfg = self.cfg
         if self.opts.backend == "fused":
-            from repro_torch.kernels.fused_mlp import fused_rmsnorm_mlp
+            from repro_torch.kernels.ops import fused_rmsnorm_mlp
             mp = bp["mlp"]
             B, S, d = x.shape
             h = fused_rmsnorm_mlp(x.reshape(B * S, d), bp["mlp_norm"],
@@ -217,23 +248,25 @@ class LM:
         return x + L.mlp_apply(bp["mlp"], h, cfg.act)
 
     # ------------------------------------------------------- full-seq blocks
-    def _block_fwd(self, bp, x, positions, want_cache: bool):
+    def _block_fwd(self, bp, x, positions, want_cache: bool,
+                   aux: bool = False):
         """One block forward (a Mamba-2 block, or an attention block with a
         dense or MoE FFN: the hybrid family's shared tile is a dense one);
-        returns (x, cache_or_None)."""
+        returns (x, cache_or_None, the MoE's aux loss or None)."""
         cfg = self.cfg
         if "ssm" in bp:
             h = L.rms_norm(x, bp["norm"], cfg.norm_eps)
             res = M.ssm_apply(bp["ssm"], cfg, h, backend=self.ssm_backend,
                               return_cache=want_cache)
             h, cache = res if want_cache else (res, None)
-            return x + h, cache
+            return x + h, cache, None
         h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
         apply = L.mla_apply if self._mla else L.gqa_apply
         res = apply(bp["attn"], cfg, h, positions, self.opts,
                     return_cache=want_cache)
         h, cache = res if want_cache else (res, None)
-        return self._ffn(bp, x + h), cache
+        x, loss = self._ffn(bp, x + h, aux)
+        return x, cache, loss
 
     def _attn_blocks(self, params):
         """The attention blocks in cache order (dense and moe families): the
@@ -242,15 +275,60 @@ class LM:
         n = self.cfg.n_layers - len(pre)
         return pre + [_layer(params["blocks"], i) for i in range(n)]
 
+    def _train_block(self, bp, shared, x, positions):
+        """The reference's scan body: the shared tile first where it applies
+        (``shared`` not None), then the block; returns (x, aux or None).
+        Under ``remat`` it runs inside ``torch.utils.checkpoint`` (no RNG
+        state to keep: the model draws no random numbers)."""
+        def body(x):
+            if shared is not None:
+                x, _, _ = self._block_fwd(shared, x, positions, False)
+            x, _, a = self._block_fwd(bp, x, positions, False, aux=True)
+            return x, a
+        if self.remat:
+            return checkpoint(body, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        return body(x)
+
     def forward(self, params, tokens=None, embeds=None):
-        raise NotImplementedError(
-            "LM.forward (training / scoring) is not ported yet: it comes "
-            "with the training slice (ROADMAP queue A item 11)")
+        """Training / scoring forward over the whole sequence.  tokens
+        (B, S) (or ``embeds`` (B, S, d)).  Returns (logits (B, S, V)
+        float32, aux loss () float32: the MoE blocks' load-balance losses
+        summed and divided by ``max(n_layers - n_dense_layers, 1)``, as the
+        reference's)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens, embeds)
+        B, S, _ = x.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                  device=x.device).expand(B, S)
+        for bp in params.get("prelude", []):
+            x, _, _ = self._block_fwd(bp, x, positions, False)
+        every, shared = self._every, params.get("shared_attn")
+        blocks = params["blocks"]
+        layers = [a.unbind(0) for a in tree_leaves(blocks, torch.is_tensor)]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(len(layers[0])):
+            bp = tree_unflatten(blocks, [a[i] for a in layers])
+            x, a = self._train_block(
+                bp, shared if every and i % every == 0 else None, x,
+                positions)
+            if a is not None:
+                aux = aux + a
+        n_scan = max(cfg.n_layers - cfg.n_dense_layers, 1)
+        return self._logits(params, x), aux / n_scan
 
     def loss_fn(self, params, batch):
-        raise NotImplementedError(
-            "LM.loss_fn (training) is not ported yet: it comes with the "
-            "training slice (ROADMAP queue A item 11)")
+        """Mean next-token NLL plus ``0.01 * aux``.  ``batch``: ``tokens``
+        (or ``embeds``) and ``labels`` (B, S).  Returns (loss, {"nll",
+        "aux"}), float32 scalars on the device."""
+        logits, aux = self.forward(params, tokens=batch.get("tokens"),
+                                   embeds=batch.get("embeds"))
+        labels = batch["labels"].long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None])[..., 0]
+        nll = torch.mean(logz - gold)
+        loss = nll + 0.01 * aux
+        return loss, {"nll": nll, "aux": aux}
 
     # -------------------------------------------------------------- prefill
     def prefill(self, params, tokens, cache_len: int = 0):
@@ -276,13 +354,14 @@ class LM:
             sh = None
             for i in range(cfg.n_layers):
                 if every and i % every == 0:     # the tile, site i // every
-                    x, kv = self._block_fwd(shared, x, positions, True)
+                    x, kv, _ = self._block_fwd(shared, x, positions, True)
                     kv = self._pad_attn_cache(kv, W, S)
                     if sh is None:
                         sh = tuple(a.new_empty((self.n_apps,) + a.shape)
                                    for a in kv)
                     sh[0][i // every], sh[1][i // every] = kv
-                x, c = self._block_fwd(_layer(blocks, i), x, positions, True)
+                x, c, _ = self._block_fwd(_layer(blocks, i), x, positions,
+                                          True)
                 for k, a in c.items():
                     if k not in stacked:
                         stacked[k] = a.new_empty((cfg.n_layers,) + a.shape)
@@ -294,7 +373,7 @@ class LM:
             return logits, cache
         ck = cv = None
         for i, bp in enumerate(self._attn_blocks(params)):
-            x, kv = self._block_fwd(bp, x, positions, True)
+            x, kv, _ = self._block_fwd(bp, x, positions, True)
             if self._mla and self.kv_cache_dtype == torch.int8:
                 kv = tuple(L.quant_kv(a) for a in kv)
             k, v = self._pad_attn_cache(kv, W, S)
@@ -356,7 +435,7 @@ class LM:
         h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
         decode = L.mla_decode if self._mla else L.gqa_decode
         h, _, _ = decode(bp["attn"], cfg, h, cache_k, cache_v, pos, self.opts)
-        return self._ffn(bp, x + h)
+        return self._ffn(bp, x + h)[0]
 
     # ------------------------------------------------------------ cache mgmt
     def _window(self, requested: int) -> int:

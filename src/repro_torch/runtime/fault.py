@@ -17,17 +17,113 @@ and the straggler streaks stay on the device, each tick's believed-dead and
 straggler-persist masks go into ``(T, A)`` histories, and the event list is
 rebuilt from them after the loop — no value goes to the host per tick.
 
-The trainer half of the reference module (``FaultConfig`` /
-``FaultSupervisor``) comes with the training runtime (ROADMAP queue A
-item 11).
+The trainer half (``FaultConfig`` / ``FaultSupervisor``, the reference's
+first half) wraps a ``runtime.train.Trainer``: a NaN loss in the logged
+metrics restarts it from the latest complete checkpoint, whose
+counter-based data stream makes the replay exact; a straggler in the C3
+telemetry derates the other islands through the DFS actuator's hitless
+commit.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.dfs import DFSActuator, TileTelemetry, \
+    policy_straggler
+from repro_torch.core.islands import IslandConfig
+
+
+@dataclass
+class FaultConfig:
+    step_timeout_s: float = 300.0
+    nan_tolerance: int = 0           # consecutive NaN losses allowed
+    straggler_slack: float = 1.3
+    max_restarts: int = 5
+
+
+@dataclass
+class FaultEvent:
+    step: int
+    kind: str                        # timeout | nan | node_loss | straggler
+    detail: str = ""
+
+
+class FaultSupervisor:
+    """Wraps a Trainer-like object with detection + recovery."""
+
+    def __init__(self, trainer, fc: Optional[FaultConfig] = None):
+        self.trainer = trainer
+        self.fc = fc or FaultConfig()
+        self.events: List[FaultEvent] = []
+        self._nan_streak = 0
+        self.restarts = 0
+
+    # -------------------------------------------------------------- detect
+    def check_metrics(self, step: int, metrics: Dict[str, float]
+                      ) -> Optional[str]:
+        loss = metrics.get("loss", 0.0)
+        if not math.isfinite(loss):
+            self._nan_streak += 1
+            if self._nan_streak > self.fc.nan_tolerance:
+                return "nan"
+        else:
+            self._nan_streak = 0
+        return None
+
+    def check_stragglers(self, telemetry: Dict[str, TileTelemetry],
+                         islands: IslandConfig, actuator: DFSActuator
+                         ) -> Optional[Dict[str, float]]:
+        """Derate-to-match policy; returns the applied rates (or None)."""
+        if not telemetry:
+            return None
+        times = [t.exec_time for t in telemetry.values()]
+        med = float(np.median(times))
+        if med <= 0 or max(times) <= self.fc.straggler_slack * med:
+            return None
+        rates = policy_straggler(islands, telemetry,
+                                 slack=self.fc.straggler_slack)
+        actuator.reconfigure(rates)          # shadow buffer
+        actuator.commit()                    # hitless swap between steps
+        self.events.append(FaultEvent(
+            getattr(self.trainer, "step", -1), "straggler", str(rates)))
+        return rates
+
+    # -------------------------------------------------------------- recover
+    def recover(self) -> int:
+        """Restore the latest complete checkpoint; returns the resume step."""
+        if self.restarts >= self.fc.max_restarts:
+            raise RuntimeError("restart budget exhausted")
+        self.restarts += 1
+        self.trainer.restore()
+        self.events.append(FaultEvent(self.trainer.step, "restart"))
+        return self.trainer.step
+
+    def run_supervised(self, steps: int
+                       ) -> List[Tuple[int, Dict[str, float]]]:
+        """Training loop with NaN detection and auto-restart."""
+        done = 0
+        history: List[Tuple[int, Dict[str, float]]] = []
+        while done < steps:
+            try:
+                hist = self.trainer.run(1)
+            except FloatingPointError as e:   # pragma: no cover
+                self.events.append(FaultEvent(self.trainer.step, "nan",
+                                              str(e)))
+                self.recover()
+                continue
+            done += 1
+            for s, m in hist:
+                history.append((s, m))
+                kind = self.check_metrics(s, m)
+                if kind:
+                    self.events.append(FaultEvent(s, kind))
+                    self.recover()
+        return history
 
 
 @dataclass(frozen=True)

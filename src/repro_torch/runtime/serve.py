@@ -134,7 +134,14 @@ class ServeEngine:
             self.active[slot] = req
 
     def step(self) -> None:
-        """One decode tick for every slot (empty ones included)."""
+        """One decode tick for every slot (empty ones included), under
+        ``torch.inference_mode()``: given a trainer's parameters (which
+        may require grad) the engine builds no graph and launches its
+        kernels as with its own."""
+        with torch.inference_mode():
+            self._tick()
+
+    def _tick(self) -> None:
         self.tick += 1
         self._admit()
         if not self.active:

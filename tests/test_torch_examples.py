@@ -10,6 +10,9 @@ package's examples.
   the Prometheus export).
 * its pipeline scenario at the reference test's size (2,500 ticks) passes
   the gate the example asserts (``pipeline_gate``).
+* ``examples/torch_train_100m.py`` (the ~100M danube-family config of
+  ``examples/train_100m.py``) at a few steps and a short sequence: its
+  mid-run DFS reconfiguration, the simulated failure and the recovery.
 """
 import os
 import re
@@ -66,3 +69,18 @@ def test_closed_loop_example_pipeline_gate():
                             ex.hotspot_trace(ticks=2500), device="cpu")
     sv_dfs, sv_lb = ex.pipeline_gate(runs)
     assert sv_dfs > 0.03 and sv_lb > 0.03
+
+
+def test_train_100m_example_recovers(tmp_path):
+    out = _run("torch_train_100m.py", "--device", "cpu", "--steps", "4",
+               "--seq-len", "32", "--batch", "2", "--ckpt-every", "2",
+               "--ckpt-dir", str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0] == "training 80M params for 4 steps"
+    assert "DFS: derating memory-bound islands (hitless commit next step)" \
+        in lines
+    assert "recovered at step 2" in lines
+    steps = [int(ln.split()[1]) for ln in lines if ln.startswith("  step")]
+    assert steps == [1, 2, 3, 4]       # 1-2, then 3-4 after the recovery
+    assert any(ln.startswith("loss: ") for ln in lines)

@@ -223,8 +223,9 @@ def test_mla_apply_fused_calls_flash_attention_at_mla_shapes(monkeypatch):
     """Under ``fused`` the prefill reaches ``flash_attention`` once, as MHA:
     q (B,S,H,1,nope+rope), k (B,S,H,nope+rope), v (B,S,H,vh), causal, no
     window, scale 1/sqrt(nope+rope), every operand contiguous (the kernel
-    refuses strided ones)."""
-    import repro_torch.kernels.flash_attention as FA
+    refuses strided ones).  ``attention_core`` reaches it through
+    ``kernels.ops`` (the autograd Function)."""
+    import repro_torch.kernels.ops as FA
     calls, real = [], FA.flash_attention
 
     def spy(q, k, v, qpos, kpos, window, scale):

@@ -342,11 +342,17 @@ def test_unported_families_and_entry_points_raise():
     # the int8 cache is the MLA latent's (quant_kv)
     with pytest.raises(ValueError, match="int8"):
         PT.LM(cfg, kv_cache_dtype=torch.int8)
+    # the training entry points are ported (queue A item 11): they run
     lm = PT.LM(cfg)
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        lm.forward({}, tokens=None)
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        lm.loss_fn({}, {})
+    params = lm.init(torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    logits, aux = lm.forward(params, tokens=toks)
+    assert tuple(logits.shape) == (1, 4, cfg.vocab_size) and float(aux) == 0
+    loss, parts = lm.loss_fn(params, {"tokens": toks, "labels": toks})
+    assert sorted(parts) == ["aux", "nll"] and bool(torch.isfinite(loss))
+    # the multi-device knobs name their item
+    with pytest.raises(NotImplementedError, match="queue A item 12"):
+        PT.LM(cfg, moe_ep=True)
     with pytest.raises(KeyError):
         port_configs.get_config("no-such-arch")
 
