@@ -233,7 +233,15 @@ main path through its public entry points at the size its users run:
                    that requires grad, and ``torch._grouped_mm``'s
                    gradients against the per-expert loop's at a granite
                    microbatch (65,536 rows), which must reject one expert's
-                   rows zeroed.
+                   rows zeroed.  At the path's shapes each Function's
+                   backward bound (``backward_bound``: the products its
+                   gradients need over the live pairs, at 989.4 TFLOP/s
+                   bf16, or for the f32 scan the lesser of 3xTF32 tensor
+                   cores and 67 TFLOP/s, against its bytes over HBM; the
+                   oracle backward's counted FLOPs beside it) and, for
+                   attention, SDPA's backward
+                   (``sdpa_backward_ms``: forward + backward captured in a
+                   CUDA graph less the forward's, causal, ``enable_gqa``).
     ``train`` / ``train_moe`` / ``train_ssm`` — h2o-danube-1.8b,
                    granite-moe-1b-a400m and mamba2-370m at full width and
                    depth (random bf16 weights from a seed) through
@@ -250,6 +258,18 @@ main path through its public entry points at the size its users run:
                    8 steps saving every 5, the state lost,
                    ``FaultSupervisor.recover()`` and 5 more, against an
                    uninterrupted run (1e-5 relative).
+13. ``costing`` — the cost model beside the measured paths, re-running
+                   none of them: each training step and each serving
+                   path's longest prefill and decode step counted on meta
+                   inputs (``launch.costing.flops_of_fn``, total and dot),
+                   ``model_flops``, ``hbm_bytes``, the roofline terms on
+                   ``H100_SXM`` at one card, the measured seconds,
+                   ``t_bound / measured``, MFU (the training phase's own,
+                   equal to 1e-9) and counted-FLOP utilisation; counting a
+                   ``flash_attention`` launch on the card must raise and
+                   launch nothing; the dry run's single-pod cells
+                   (``launch.dryrun.run_cell``, abstract, every assigned
+                   architecture) must all pass.
 
 Each phase prints one JSON line, with ``t_s``: the seconds since the
 script started.  The line before the last but one is
@@ -258,7 +278,7 @@ error against the plain version, its time, the plain version's time, the
 library call's time where one PyTorch call computes the same function, and
 the least time the card could take for the same work (the larger of bytes
 over 3.35 TB/s and operations over the peak for their type: 67 TFLOP/s
-float32 for ``tick_sim``, 989 TFLOP/s bf16 for the attention and MLP
+float32 for ``tick_sim``, 989.4 TFLOP/s bf16 for the attention and MLP
 kernels; for ``ssd_scan`` the lesser of its products on TF32 tensor cores,
 three passes at 494 TFLOP/s, with the rest at 67 (``bound_tc_ms``), and
 all of it at 67 (``bound_f32_ms``); published H100 SXM figures); each LLM
@@ -266,8 +286,9 @@ kernel's row carries the hybrid path's as ``hybrid``, the attention
 rows the moe path's as ``moe``, and the attention and MLP rows the MLA
 path's as ``mla``, each with its own launches, and the attention, MLP and
 SSD rows the training paths' as ``train`` (launches, backward calls, each
-run's forward ms a launch and backward ms a call; the row's ``launches``
-are the sum over the serving and training paths).  The
+run's forward ms a launch and backward ms a call beside the backward's
+bound and, for attention, SDPA's backward; the row's ``launches`` are the
+sum over the serving and training paths).  The
 line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits with a non-zero code; without a CUDA device the
 script stops at once.
@@ -275,6 +296,7 @@ script stops at once.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -288,9 +310,16 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-H100_BYTES_PER_S = 3.35e12      # HBM3, published (H100 SXM)
-H100_FP32_PER_S = 67e12         # float32 outside the tensor cores, published
-H100_BF16_PER_S = 989e12        # bf16 tensor cores, dense, published
+try:        # the card's published rates, one source for every bound
+    from repro_torch.core.perfmodel import H100_SXM
+except ImportError as e:
+    print(f"chip_smoke: the repository's src/repro_torch is missing ({e}); "
+          "run from the root of a checkout", file=sys.stderr)
+    sys.exit(2)
+
+H100_BYTES_PER_S = H100_SXM.hbm_bw      # HBM3
+H100_FP32_PER_S = H100_SXM.fp32_flops   # float32 outside the tensor cores
+H100_BF16_PER_S = H100_SXM.peak_flops   # bf16 tensor cores, dense
 RTOL = ATOL = 1e-4              # kernel vs plain version (same float32 math)
 SEED = 1234
 DEV = "cuda"
@@ -2872,9 +2901,13 @@ def drive_serve(spec=SERVE, lm_kwargs=None, phase="serve",
     prefill, decode_step = lm.prefill, lm.decode_step
     admission = iter([r.rid for r in reqs])     # the queue is FIFO
 
+    started = {}                                # rid -> prefill's start
+
     def rec_prefill(params, tokens, cache_len=0):
+        rid = next(admission)
+        started[rid] = time.perf_counter()
         lg, cache = prefill(params, tokens, cache_len=cache_len)
-        logits[(next(admission), 0)] = lg[0]
+        logits[(rid, 0)] = lg[0]
         return lg, cache
 
     def rec_decode(params, cache, tokens):
@@ -2916,6 +2949,9 @@ def drive_serve(spec=SERVE, lm_kwargs=None, phase="serve",
         "max_new": spec["max_new"], "init_s": init_s, "wall_s": wall,
         "ttft_s": [r.t_first - r.t_submit for r in reqs],
         "prefill_s": tm["prefill_s"],
+        # each request's prefill, its start to its first token (the engine
+        # reads the token, which waits for the card)
+        "prefill_s_by_request": [r.t_first - started[r.rid] for r in reqs],
         "prefill_tokens_per_s": tm["prefill_tokens"] / tm["prefill_s"],
         "decode_s": tm["decode_s"], "decode_steps": tm["decode_steps"],
         "decode_tokens": n_decoded,
@@ -4853,7 +4889,6 @@ UNIFORM_MARGIN = 0.1
 # update on the card fails it whatever the stream's loss does
 FIT_STEPS = 6
 FIT_MARGIN = 0.1
-H100_BF16_DENSE = 989.4e12      # MFU's peak: H100 SXM dense bf16, published
 # the Functions of kernels.ops by the kernels' names in the kernels line
 TRAIN_FUNCTIONS = {"flash_attention": "flash_attention",
                    "fused_mlp": "fused_rmsnorm_mlp", "ssd_scan": "ssd_scan"}
@@ -5090,16 +5125,152 @@ def grouped_grad_check(rows=65536, E=32, d=1024, f=512, seed=0):
     return out
 
 
+# the training run each train_path_cases() entry belongs to, in order
+TRAIN_PATH_RUNS = ("train", "train_moe", "train", "train_ssm")
+
+
+def backward_work(name, shape):
+    """(products, other operations) that a Function's backward must do at a
+    path case, from its inputs and the output gradients alone, counting the
+    live (unmasked) pairs only.  flash_attention: five products a live pair
+    and head, 2 hd each (the scores again, dP = dO V^T, dV, dQ, dK; D =
+    rowsum(P dP) needs no O), the softmax's elementwise work not counted.
+    fused_rmsnorm_mlp: six products of 2 N d F (the gate and up products
+    again, then two for dx and two for the weights), the norm and the
+    activation not counted.  ssd_scan: each forward product of
+    ``ssd_bound`` (C B^T, att @ x, C @ h_in, the state update) twice, one
+    gradient per operand, plus C B^T and the chunk states again; six
+    operations a live pair and head besides (the decay-weighted product
+    rebuilt, 3, and its gradient to C B^T, the decay and dt, 3)."""
+    if name == "flash_attention":
+        B, S, KV, G, hd, window = shape
+        w = window if 0 < window < S else S
+        pairs = w * (w + 1) / 2.0 + (S - w) * w       # i - w < j <= i
+        return 5.0 * 2.0 * B * KV * G * hd * pairs, 0.0
+    if name == "fused_rmsnorm_mlp":
+        N, d, F, _ = shape
+        return 6.0 * 2.0 * N * d * F, 0.0
+    B, L, nh, hd, st, chunk = shape
+    Q = min(chunk, L)
+    nc = L // Q
+    pairs = Q * (Q + 1) / 2.0
+    cb = 2.0 * B * nc * pairs * st
+    att_x = 2.0 * B * nh * nc * pairs * hd
+    c_h = state = 2.0 * B * L * nh * st * hd
+    return (3.0 * cb + 2.0 * att_x + 2.0 * c_h + 3.0 * state,
+            6.0 * B * nh * nc * pairs)
+
+
+def backward_bound(name, dtype, shape):
+    """The least time of a Function's backward at a case: the work it must
+    do (``backward_work``) against the bytes it must move (its inputs and
+    the output gradients read once, the input gradients written once) over
+    HBM, whichever is larger.  bf16 products at 989.4 TFLOP/s; float32
+    (``ssd_scan``) the lesser of its products on TF32 tensor cores in three
+    passes with the rest at 67 TFLOP/s (``backward_bound_tc_ms``) and all
+    of it at 67 (``backward_bound_f32_ms``), as its forward row.  Beside it
+    the FLOPs of what the Function's backward runs (the oracle's forward
+    again and its gradients over every pair), counted by
+    ``launch.costing`` on meta inputs (``oracle_backward_*``)."""
+    from repro_torch.launch.costing import flops_of_fn
+    fn = _train_fns(name)[0]
+    diff, rest = train_kernel_case(name, dtype, shape, "meta")
+    n = len(diff)
+
+    def forward(*a):
+        return _as_tuple(fn(*a))
+
+    def forward_backward(*a):
+        leaves = [t.requires_grad_(True) for t in a[:n]]
+        outs = forward(*leaves, *a[n:])
+        return torch.autograd.grad(outs, leaves,
+                                   [torch.ones_like(o) for o in outs])
+    both = flops_of_fn(forward_backward, *diff, *rest)
+    fwd = flops_of_fn(forward, *diff, *rest)
+    if name == "ssd_scan":               # y like xs, and the final state
+        B, L, nh, hd, st, _ = shape
+        out_bytes = _nbytes(diff[0]) + 4.0 * B * nh * st * hd
+    elif name == "fused_rmsnorm_mlp":
+        out_bytes = float(diff[0].shape[0] * diff[2].shape[1]
+                          * diff[0].element_size())
+    else:
+        out_bytes = _nbytes(diff[0])     # hd_v == hd_qk on the path
+    byts = 2.0 * _nbytes(*diff) + out_bytes
+    prod, other = backward_work(name, shape)
+    res = {"backward_flops": prod + other, "backward_dot_flops": prod,
+           "backward_bytes": byts,
+           "oracle_backward_flops": both.total - fwd.total,
+           "oracle_backward_dot_flops": both.dot - fwd.dot}
+    if dtype == "bfloat16":
+        ms, by = _bound(byts, prod + other, H100_BF16_PER_S)
+    else:
+        t_bytes = byts / H100_BYTES_PER_S * 1e3
+        t_tc = (3.0 * prod / H100_TF32_PER_S + other / H100_FP32_PER_S) * 1e3
+        t_f32 = (prod + other) / H100_FP32_PER_S * 1e3
+        tc, f32 = max(t_bytes, t_tc), max(t_bytes, t_f32)
+        res.update(backward_bound_tc_ms=tc, backward_bound_f32_ms=f32)
+        ms = min(tc, f32)
+        by = "bytes" if t_bytes >= min(t_tc, t_f32) else "operations"
+    res.update(backward_bound_ms=ms, backward_bound_by=by)
+    return res
+
+
+def sdpa_backward_ms(shape, reps=None):
+    """SDPA's backward at a training attention case, the library yardstick
+    of the attention Function's backward: q (B,S,KV,G,hd) as (B, KV G, S,
+    hd) bf16, GQA through ``enable_gqa``, causal (a window of S or more is
+    the causal mask).  The backward's graph time is a forward with its
+    ``torch.autograd.grad`` captured together (the backward runs on its
+    forward's stream, so it cannot be captured alone) less the forward
+    captured alone (``graph_ms`` both); ``eager_ms`` is the backward alone
+    under CUDA events (``cuda_ms``: host gaps between its launches
+    included)."""
+    import torch.nn.functional as F
+    reps = reps or SERVE["reps"]
+    B, S, KV, G, hd, window = shape
+    assert window == 0 or window >= S, shape
+    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    def rnd(*sh):
+        return torch.randn(sh, generator=gen).to(
+            DEV, torch.bfloat16).requires_grad_(True)
+    q, k, v = rnd(B, KV * G, S, hd), rnd(B, KV, S, hd), rnd(B, KV, S, hd)
+    g = torch.randn((B, KV * G, S, hd), generator=gen).to(DEV,
+                                                          torch.bfloat16)
+
+    def forward():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              scale=hd ** -0.5,
+                                              enable_gqa=True)
+
+    def forward_backward():
+        return torch.autograd.grad(forward(), (q, k, v), g)
+    fb, f = graph_ms(forward_backward, reps), graph_ms(forward, reps)
+    out = forward()
+    eager = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                                retain_graph=True), reps)
+    res = {"shape_q": [B, KV * G, S, hd], "kv_heads": KV, "causal": True,
+           "ms": fb - f, "forward_ms": f, "forward_backward_ms": fb,
+           "eager_ms": eager}
+    del out, g, q, k, v
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_train_kernels():
     """Each Function of ``kernels.ops`` on its reduced cases (bf16 and f32)
-    and at the training path's own shapes (``train_path_cases``), the
-    planted faults, the raw wrappers' refusal, and the grouped products'
-    gradients at granite's rows."""
+    and at the training path's own shapes (``train_path_cases``, each with
+    its backward's bound, ``backward_bound``, and for attention SDPA's
+    backward, ``sdpa_backward_ms``), the planted faults, the raw wrappers'
+    refusal, and the grouped products' gradients at granite's rows."""
     cases = [train_kernel_check(*c) for c in TRAIN_KERNEL_CASES]
     t0 = time.perf_counter()
-    for c in train_path_cases():
-        cases.append(train_kernel_check(*c))
+    for c, run in zip(train_path_cases(), TRAIN_PATH_RUNS):
+        cases.append({**train_kernel_check(*c), "run": run,
+                      **backward_bound(*c)})
         torch.cuda.empty_cache()
+        if c[0] == "flash_attention":
+            cases[-1]["sdpa_backward"] = sdpa_backward_ms(c[2])
     path_s = time.perf_counter() - t0
     faults = train_kernel_faults()
     refused = raw_wrappers_refuse_grad()
@@ -5298,8 +5469,8 @@ def drive_train(spec, lm_kwargs, plain_kwargs, phase):
         "lrs": [m["lr"] for _, m in hist],
         "step_s": times, "mean_step_s_after_first": mean_s,
         "tokens_per_step": tokens, "tokens_per_s": tokens / mean_s,
-        "mfu": 6 * n_params * tokens / (mean_s * H100_BF16_DENSE),
-        "mfu_peak_flops": H100_BF16_DENSE,
+        "mfu": 6 * n_params * tokens / (mean_s * H100_BF16_PER_S),
+        "mfu_peak_flops": H100_BF16_PER_S,
         "peak_mem_gb": peak / 2**30,
         "launches": launches,
         "launches_per_step": {n: v / spec["steps"]
@@ -5483,11 +5654,12 @@ def phase_train_resume(tmp_root):
 
 def phase_training():
     """The training phases in turn: the Functions, then danube, granite-moe
-    and mamba2 at full width, then checkpoint / restart; their reports."""
+    and mamba2 at full width, then checkpoint / restart; the full-width
+    runs' reports and the Functions' report."""
     import shutil
     import tempfile
     t0 = time.perf_counter()
-    phase_train_kernels()
+    kernels_report = phase_train_kernels()
     reports = {"train": phase_train(), "train_moe": phase_train_moe(),
                "train_ssm": phase_train_ssm()}
     full_s = time.perf_counter() - t0
@@ -5498,19 +5670,238 @@ def phase_training():
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "training", "seconds": time.perf_counter() - t0,
           "kernels_and_full_width_s": full_s})
-    return reports
+    return reports, kernels_report
 
 
-def train_row(reports, n):
+# ---------------------------------------------------------------------------
+# the cost model beside the measured paths (phase ``costing``)
+# ---------------------------------------------------------------------------
+
+# serving phase -> its spec; the LM is built as drive_serve built it
+COST_SERVE = {"serve": SERVE, "serve_ssm": SERVE_SSM,
+              "serve_hybrid": SERVE_HYBRID, "serve_moe": SERVE_MOE,
+              "serve_mla": SERVE_MLA}
+COST_TRAIN = {"train": TRAIN, "train_moe": TRAIN_MOE, "train_ssm": TRAIN_SSM}
+MFU_RTOL = 1e-9                 # the costing MFU vs the training phase's
+
+
+def cost_lm_kwargs(phase):
+    """The LM keywords the phase ran with (``drive_serve`` /
+    ``drive_train``)."""
+    from repro_torch.models.layers import AttnOptions
+    fused = AttnOptions(backend="fused")
+    return {"serve": dict(opts=fused), "serve_ssm": dict(ssm_backend="fused"),
+            "serve_hybrid": dict(opts=fused, ssm_backend="fused"),
+            "serve_moe": dict(opts=fused), "serve_mla": dict(opts=fused),
+            "train": dict(opts=fused, remat=True),
+            "train_moe": dict(opts=fused, remat=True),
+            "train_ssm": dict(ssm_backend="fused", remat=True)}[phase]
+
+
+def cost_row(path, kind, count, n_params, tokens, hbm, measured_s, train,
+             count_s):
+    """One path's counted FLOPs, model FLOPs, HBM bytes and roofline terms
+    on ``H100_SXM`` at one card, beside the seconds the phase measured."""
+    from repro_torch.core.perfmodel import model_flops, roofline_from_counts
+    mf = model_flops(n_params, tokens, train=train)
+    t = roofline_from_counts(count.total, hbm, 0.0, 1)
+    peak = H100_BF16_PER_S
+    return {"path": path, "kind": kind, "flops_total": count.total,
+            "dot_flops": count.dot, "model_flops": mf,
+            "n_params_for_model_flops": n_params, "tokens": tokens,
+            "hbm_bytes": hbm, "t_compute_s": t.t_compute,
+            "t_memory_s": t.t_memory, "dominant": t.dominant,
+            "t_bound_s": t.t_bound, "measured_s": measured_s,
+            "bound_over_measured": t.t_bound / measured_s,
+            "mfu": mf / (measured_s * peak),
+            "counted_flop_util": count.total / (measured_s * peak),
+            "dot_flop_util": count.dot / (measured_s * peak),
+            "count_s": count_s}
+
+
+def cost_train(phase, report):
+    """A training phase's step (the same LM, batch, microbatches and
+    AdamW step) counted on meta inputs, beside its mean step seconds; its
+    MFU is the phase's own, recomputed through ``model_flops``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.tiles import default_plan
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.costing import flops_of_fn, hbm_bytes
+    from repro_torch.models.transformer import LM
+    from repro_torch.runtime.train import TrainConfig, make_train_step
+    spec = COST_TRAIN[phase]
+    cfg = get_config(spec["arch"])
+    lm = LM(cfg, **cost_lm_kwargs(phase))
+    shape = ShapeConfig("train_4k", spec["seq_len"], spec["global_batch"],
+                        "train")
+    plan = default_plan(cfg)
+    p = lm.abstract()
+    t0 = time.perf_counter()
+    count = flops_of_fn(make_train_step(lm, plan, None,
+                                        TrainConfig(accum=spec["accum"])),
+                        p, SP.abstract_opt_state(p),
+                        SP.abstract_batch(cfg, shape),
+                        SP.abstract_counters(plan))
+    row = cost_row(phase, "train", count, report["n_params"],
+                   report["tokens_per_step"], hbm_bytes(cfg, shape),
+                   report["mean_step_s_after_first"], True,
+                   time.perf_counter() - t0)
+    row["mfu_phase"] = report["mfu"]
+    row["mfu_rel_gap"] = abs(row["mfu"] - report["mfu"]) / report["mfu"]
+    return row
+
+
+def cost_serve(phase, report):
+    """A serving phase's longest prefill (one request, B = 1, the cache
+    fitted to the window, as the engine runs it) and its decode step (every
+    slot, over the window's ring), counted on meta inputs, beside the
+    seconds the phase measured for them."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.costing import flops_of_fn, hbm_bytes
+    from repro_torch.models.transformer import LM
+    spec = COST_SERVE[phase]
+    cfg = get_config(spec["arch"])
+    lm = LM(cfg, **cost_lm_kwargs(phase))
+    window = spec.get("window", 256)     # drive_serve's
+    p = lm.abstract()
+    i = int(np.argmax(spec["prompts"]))
+    n = spec["prompts"][i]
+    shape = ShapeConfig("prefill", n, 1, "prefill")
+    t0 = time.perf_counter()
+    count = flops_of_fn(lambda p, t: lm.prefill(p, t, cache_len=window), p,
+                        SP.abstract_prefill_tokens(shape))
+    rows = [cost_row(phase, f"prefill_{n}", count, cfg.n_active_params(), n,
+                     hbm_bytes(cfg, shape),
+                     report["prefill_s_by_request"][i], False,
+                     time.perf_counter() - t0)]
+    shape = ShapeConfig("decode", window, spec["slots"], "decode")
+    cache, tok = SP.abstract_decode_inputs(lm, shape)
+    t0 = time.perf_counter()
+    count = flops_of_fn(lambda p, c, t: lm.decode_step(p, c, t), p, cache,
+                        tok)
+    rows.append(cost_row(phase, f"decode_{spec['slots']}x{window}", count,
+                         cfg.n_active_params(), spec["slots"],
+                         hbm_bytes(cfg, shape),
+                         report["decode_step_ms"] / 1e3, False,
+                         time.perf_counter() - t0))
+    return rows
+
+
+def counting_refuses_a_launch():
+    """The planted fault: counting a step that would launch
+    ``flash_attention`` on the card (real CUDA inputs, which the counter
+    turns into fakes on the card) must raise, naming the kernel, and
+    launch nothing."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.costing import flops_of_fn
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    q = _randn(gen, (1, 128, 2, 2, 64), torch.bfloat16)
+    k = _randn(gen, (1, 128, 2, 64), torch.bfloat16)
+    v = _randn(gen, (1, 128, 2, 64), torch.bfloat16)
+    pos = torch.arange(128, dtype=torch.int32, device=DEV)[None]
+    n0 = flash_attention.launches
+    try:
+        flops_of_fn(ops.flash_attention, q, k, v, pos, pos, 0, 0.125)
+        out = {"raised": False}
+    except RuntimeError as e:
+        out = {"raised": "flash_attention" in str(e),
+               "message": str(e).splitlines()[0][:120]}
+    out["launched"] = flash_attention.launches - n0
+    return out
+
+
+def dryrun_on_card():
+    """The dry run here, abstract: every assigned architecture's cells on
+    the single-pod mesh (256 chips), counted by this machine's torch; the
+    per-cell numbers and the seconds it took."""
+    from repro_torch.launch import dryrun as D
+    t0 = time.perf_counter()
+    cells, fails = [], []
+    for arch, shape in D.iter_cells():
+        try:
+            r = D.run_cell(arch, shape, multi_pod=False, save=False)
+        except Exception as e:                   # reported, then fails
+            fails.append(f"{arch} x {shape}: {e!r}"[:200])
+            continue
+        cells.append({"arch": arch, "shape": shape,
+                      "flops_total": r["flops_total"],
+                      "dot_flops_total": r["dot_flops_total"],
+                      "hbm_bytes_total": r["hbm_bytes_total"],
+                      "argument_size_in_bytes": r["argument_size_in_bytes"],
+                      "t_compute_s": r["roofline"]["t_compute"],
+                      "t_memory_s": r["roofline"]["t_memory"],
+                      "dominant": r["roofline"]["dominant"],
+                      "lower_seconds": r["lower_seconds"]})
+    return {"mesh": "1-pod (16 x 16)", "cells": cells, "failures": fails,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_costing(serve_reports, train_reports):
+    """The cost model on the card: each training path's step and each
+    serving path's longest prefill and decode step counted abstractly
+    (total and dot FLOPs), ``model_flops``, ``hbm_bytes``, the roofline
+    terms on ``H100_SXM`` at one card, beside the seconds the earlier
+    phases measured (``t_bound / measured``, MFU and counted-FLOP
+    utilisation; re-running no path); the planted launch that counting
+    must refuse; the dry run's single-pod cells."""
+    t0 = time.perf_counter()
+    rows = [cost_train(ph, r) for ph, r in train_reports.items()]
+    for ph, r in serve_reports.items():
+        rows += cost_serve(ph, r)
+    planted = counting_refuses_a_launch()
+    dry = dryrun_on_card()
+    report = {"phase": "costing",
+              "device_spec": dataclasses.asdict(H100_SXM),
+              "rows": rows, "planted_launch_refused": planted,
+              "dryrun": dry, "seconds": time.perf_counter() - t0}
+    emit(report)
+    fails = []
+    for r in rows:
+        if not (0 < r["dot_flops"] <= r["flops_total"]
+                and math.isfinite(r["flops_total"])
+                and math.isfinite(r["bound_over_measured"])):
+            fails.append(f"{r['path']} {r['kind']}: counts {r['dot_flops']}"
+                         f" / {r['flops_total']}")
+        if "mfu_rel_gap" in r and not r["mfu_rel_gap"] <= MFU_RTOL:
+            fails.append(f"{r['path']}: MFU {r['mfu']} vs the phase's "
+                         f"{r['mfu_phase']}")
+    if not planted["raised"] or planted["launched"]:
+        fails.append(f"counting did not refuse a launch: {planted}")
+    if dry["failures"]:
+        fails.append(f"dry run: {dry['failures']}")
+    if fails:
+        raise SystemExit("costing: " + "; ".join(fails))
+    return report
+
+
+def train_row(reports, n, kernels_report):
     """The kernels line's ``train`` entry of kernel ``n``: its launches and
     its Function's backward calls over the three training runs, and its
-    forward launch beside its backward call from each run's profile."""
+    forward launch beside its backward call from each run's profile, with
+    the backward's bound at the run's shapes and, for attention, SDPA's
+    backward there (``train_kernels``)."""
     runs = {ph: r for ph, r in reports.items() if r["launches"].get(n)}
+    path = {c["run"]: c for c in kernels_report["cases"]
+            if c.get("run") and c["case"][0] == TRAIN_FUNCTIONS[n]}
+
+    def bound(ph):
+        c = path.get(ph, {})
+        out = {k: c[k] for k in ("backward_bound_ms", "backward_bound_by",
+                                 "backward_bound_tc_ms",
+                                 "backward_bound_f32_ms") if k in c}
+        if "sdpa_backward" in c:
+            out["backward_library_ms"] = c["sdpa_backward"]["ms"]
+        return out
     return {"launches": sum(r["launches"][n] for r in reports.values()),
             "backward_calls": sum(r["backward_calls"][n]
                                   for r in reports.values()),
             "by_run": {ph: {"launches_per_step": r["launches_per_step"][n],
-                            **r["profile"]["functions"].get(n, {})}
+                            **r["profile"]["functions"].get(n, {}),
+                            **bound(ph)}
                        for ph, r in runs.items()}}
 
 
@@ -5694,7 +6085,8 @@ def main() -> int:
         emit({"ok": True, "serve_only": True, "device": device})
         return 0
     if args.train_only:
-        phase_training()
+        train_reports, _ = phase_training()
+        phase_costing({}, train_reports)
         print(smi, flush=True)
         emit({"ok": True, "train_only": True, "device": device})
         return 0
@@ -5740,7 +6132,11 @@ def main() -> int:
     moe_launches = moe_report["launches"]
     mla_launches = mla_report["launches"]
     # the training paths, each counted inside drive_train the same way
-    train_reports = phase_training()
+    train_reports, train_kernels_report = phase_training()
+    # the cost model beside the measured paths (it re-runs none of them)
+    phase_costing({"serve": serve_report, "serve_ssm": ssm_report,
+                   "serve_hybrid": hyb_report, "serve_moe": moe_report,
+                   "serve_mla": mla_report}, train_reports)
 
     def sub_row(rows, launches, n):
         """A serving path's row of kernel ``n``, with its own launches."""
@@ -5785,8 +6181,8 @@ def main() -> int:
            else {}),
         **({"mla": sub_row(mla_rows, mla_launches, n)} if n in mla_rows
            else {}),
-        **({"train": train_row(train_reports, n)} if n in TRAIN_FUNCTIONS
-           else {})}
+        **({"train": train_row(train_reports, n, train_kernels_report)}
+           if n in TRAIN_FUNCTIONS else {})}
         for n in LLM_REPLACES]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

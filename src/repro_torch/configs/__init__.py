@@ -28,3 +28,17 @@ from repro_torch.configs import (  # noqa: F401
     granite_moe_1b_a400m,
     deepseek_v2_lite_16b,
 )
+
+# The architectures the dry run covers (the reference's list).
+ASSIGNED_ARCHS = [
+    "h2o-danube-1.8b",
+    "phi3-medium-14b",
+    "granite-8b",
+    "gemma-2b",
+    "deepseek-v2-lite-16b",
+    "granite-moe-1b-a400m",
+    "mamba2-370m",
+    "zamba2-7b",
+    "chameleon-34b",
+    "musicgen-large",
+]

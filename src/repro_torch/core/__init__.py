@@ -16,7 +16,9 @@ _EXPORTS = {
     **dict.fromkeys(("init_counters", "charge", "charge_boundary",
                      "manual_reset", "MonitorClient"), "monitor"),
     **dict.fromkeys(("replication_area_model",
-                     "replication_throughput_model"), "replication"),
+                     "replication_throughput_model", "TILE_LOGICAL_AXES",
+                     "make_mra_mesh", "mra_rules", "merged_rules",
+                     "data_axes"), "replication"),
     **dict.fromkeys(("IslandConfig", "IslandSpec", "RateLadder",
                      "TILE_LADDER", "NOC_LADDER", "default_islands",
                      "validate_islands", "resync_boundaries"), "islands"),
@@ -34,7 +36,9 @@ _EXPORTS = {
                      "route_max_utilization", "contention_slowdown",
                      "positions_to_indices"), "noc"),
     **dict.fromkeys(("SoCPerfModel", "AccelWorkload", "chip_power",
-                     "chip_power_coeffs"), "perfmodel"),
+                     "chip_power_coeffs", "DeviceSpec", "H100_SXM",
+                     "RooflineTerms", "roofline_from_counts", "model_flops",
+                     "PEAK_FLOPS", "HBM_BW", "ICI_BW"), "perfmodel"),
     **dict.fromkeys(("ChunkedSweepResult", "ClosedLoopScore", "DesignPoint",
                      "SweepResult", "closed_loop_score", "grid_sweep",
                      "pareto_front", "pareto_front_bruteforce",

@@ -15,6 +15,11 @@ Every formula is written ONCE over an array namespace ``xp`` — NumPy for the
 float64 host path (the bit-for-bit ground truth against the reference
 package) or :data:`TORCH_NS` for tensors on the card — so the two paths
 cannot drift.
+
+The module also holds the card's numbers and the pod-scale roofline of the
+reference (``RooflineTerms``, ``roofline_from_counts``, ``model_flops``):
+the reference's ``PEAK_FLOPS`` / ``HBM_BW`` / ``ICI_BW`` keep their names
+here and hold the H100 SXM's values (:data:`H100_SXM`), not a TPU's.
 """
 from __future__ import annotations
 
@@ -26,6 +31,104 @@ import torch
 
 from repro_torch.core.noc import NocConfig, hops, pos_index, routing_tables
 from repro_torch.core.voltage import TechModel
+
+# ---------------------------------------------------------------------------
+# The card: NVIDIA H100 SXM5 80GB, the port's one target.
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DeviceSpec:
+    """Published per-card rates of one accelerator: the roofline's inputs."""
+    name: str
+    peak_flops: float        # dense bf16 tensor-core FLOP/s
+    fp32_flops: float        # float32 FLOP/s outside the tensor cores
+    hbm_bw: float            # HBM bytes/s
+    hbm_bytes: float         # HBM capacity, bytes
+    link_bw: float           # inter-card link bytes/s, one direction
+    power_w: float           # board power limit, W
+
+
+H100_SXM = DeviceSpec(
+    name="NVIDIA H100 80GB HBM3",
+    # NVIDIA H100 Tensor Core GPU datasheet, SXM column: BF16 Tensor Core
+    # 1,979 TFLOPS "with sparsity", so 989.4e12 dense
+    peak_flops=989.4e12,
+    # same datasheet, SXM column: FP32 67 TFLOPS
+    fp32_flops=67e12,
+    # same datasheet, SXM column: GPU memory bandwidth 3.35 TB/s (HBM3)
+    hbm_bw=3.35e12,
+    # same datasheet, SXM column: GPU memory 80 GB
+    hbm_bytes=80e9,
+    # same datasheet, SXM column: NVLink 900 GB/s, both directions summed
+    link_bw=450e9,
+    # same datasheet, SXM column: max thermal design power up to 700 W, the
+    # limit nvidia-smi reports on an uncapped card
+    power_w=700.0,
+)
+
+# The reference's names, holding the card's numbers (per card).
+PEAK_FLOPS = H100_SXM.peak_flops
+HBM_BW = H100_SXM.hbm_bw
+ICI_BW = H100_SXM.link_bw
+
+
+# ---------------------------------------------------------------------------
+# Roofline terms (pod-scale)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class RooflineTerms:
+    """The three roofline terms, in seconds (per step)."""
+    t_compute: float
+    t_memory: float
+    t_collective: float
+    flops: float
+    hbm_bytes: float
+    collective_bytes: float
+    chips: int
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def t_bound(self) -> float:
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    @property
+    def roofline_fraction(self) -> float:
+        """max-term / sum-of-terms: 1.0 = perfectly overlapped/bound by one
+        resource; lower = time wasted on non-dominant resources if nothing
+        overlaps.  (Perfect overlap means step time = t_bound.)"""
+        s = self.t_compute + self.t_memory + self.t_collective
+        return self.t_bound / s if s > 0 else 0.0
+
+
+def roofline_from_counts(flops: float, hbm_bytes: float,
+                         collective_bytes: float, chips: int,
+                         *, f_comp: float = 1.0, f_noc: float = 1.0,
+                         peak_flops: float = PEAK_FLOPS,
+                         hbm_bw: float = HBM_BW,
+                         ici_bw: float = ICI_BW) -> RooflineTerms:
+    """Whole-step counts -> per-step roofline terms.  ``flops`` /
+    ``hbm_bytes`` are whole-program totals; ``collective_bytes`` is
+    per-device wire bytes.  The rates default to :data:`H100_SXM`'s."""
+    return RooflineTerms(
+        t_compute=flops / (chips * peak_flops * f_comp),
+        t_memory=hbm_bytes / (chips * hbm_bw * f_noc),
+        t_collective=collective_bytes / (ici_bw * f_noc),
+        flops=flops, hbm_bytes=hbm_bytes,
+        collective_bytes=collective_bytes, chips=chips)
+
+
+def model_flops(n_params: int, tokens: int, *, train: bool = True) -> float:
+    """The 6·N·D (train) / 2·N·D (inference) convention."""
+    return (6.0 if train else 2.0) * n_params * tokens
+
 
 # ---------------------------------------------------------------------------
 # THE shared energy-model constants block.  Every layer that charges

@@ -1,12 +1,112 @@
-"""Multi-replica accelerator tiles (paper contribution C1): analytic models.
+"""Multi-replica accelerator tiles (paper contribution C1) on a mesh.
 
-The replication knob K trades area for throughput.  These two closed forms
-are what the design-space sweep charges for it; the mesh-sharding half of
-the reference module belongs to the LLM stack and is ported with it.
+The paper instantiates K replicas of an accelerator behind one NoC node,
+with an AXI bridge multiplexing the tile's stream interfaces across
+replicas.  Key invariants preserved here:
+
+* the NoC (global device mesh topology) does not change,
+* the accelerator (module definition) does not change,
+* K is a per-tile design-time parameter,
+* throughput scales ~K for stream-bound tiles at ~K area (weight bytes).
+
+On a mesh the tile's fabric is the ``model`` axis.  MRA-K factors it into
+``(replica=K, shard=model/K)``: the module's weights are sharded over
+``shard`` and *replicated* over ``replica`` (per-device weight bytes x K,
+the paper's area cost), and the tile's input token stream is *split* over
+``replica``.  The meshes are :class:`~repro_torch.launch.mesh.LogicalMesh`
+records (names and sizes, as the reference's rules read them); placing
+tensors over them waits for ROADMAP queue A item 12.  The two closed forms
+at the end are what the design-space sweep charges for the knob.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
+
+from repro_torch.core.tiles import TilePlan
+from repro_torch.launch.mesh import LogicalMesh
+from repro_torch.models.params import Axis, BASE_RULES, rules_with
+
+# Logical weight axes owned by each tile kind; these are the axes whose
+# mesh assignment the MRA bridge rewrites when K > 1.
+TILE_LOGICAL_AXES: Dict[str, Tuple[str, ...]] = {
+    "embed": ("vocab",),
+    "attn": ("qkv", "kv", "heads"),
+    "ffn": ("ff",),
+    "moe": ("expert_ff", "experts"),
+    "ssm": ("d_inner", "ssm_heads", "conv_ch"),
+    "shared_attn": ("qkv", "kv", "heads", "ff"),
+}
+
+
+def make_mra_mesh(k: int, *, multi_pod: bool = False,
+                  model: int = 16, data: int = 16) -> LogicalMesh:
+    """The production mesh with the model axis K-factored: the same chips,
+    only the axis naming changes, mirroring how the paper's MRA changes
+    tile internals but not the NoC.  ``k`` must divide ``model``."""
+    assert model % k == 0, (model, k)
+    if multi_pod:
+        return LogicalMesh((2, data, k, model // k),
+                           ("pod", "data", "replica", "shard"))
+    return LogicalMesh((data, k, model // k), ("data", "replica", "shard"))
+
+
+def mra_rules(plan: TilePlan, mesh: LogicalMesh
+              ) -> Dict[str, Dict[str, Axis]]:
+    """Per-tile logical->mesh rules implementing each tile's K.
+
+    Returns {tile_name: rules_dict}.  On the baseline mesh (axis "model",
+    K=1 everywhere) this reduces to BASE_RULES for every tile.  On an MRA
+    mesh (axes replica/shard) a tile with replication K shards its weight
+    axes over "shard" only (replicated over "replica"); a K=1 tile shards
+    over both (pure TP).
+    """
+    names = set(mesh.axis_names)
+    has_mra = "replica" in names and "shard" in names
+    out: Dict[str, Dict[str, Axis]] = {}
+    for t in plan.tiles:
+        axes = TILE_LOGICAL_AXES.get(t.kind, ())
+        if not has_mra:
+            out[t.name] = dict(BASE_RULES)
+            continue
+        full_model: Axis = ("replica", "shard")
+        overrides: Dict[str, Axis] = {}
+        for logical, base in BASE_RULES.items():
+            if base == "model":
+                overrides[logical] = full_model
+        for ax in axes:
+            if BASE_RULES.get(ax) == "model":
+                # t.replication > 1: weights replicated over "replica"
+                overrides[ax] = "shard" if t.replication > 1 else full_model
+        out[t.name] = rules_with(overrides)
+    return out
+
+
+def merged_rules(plan: TilePlan, mesh: LogicalMesh) -> Dict[str, Axis]:
+    """Single rule dict for the whole model (tile rules merged).
+
+    Each logical axis is owned by exactly one tile kind, so the merge is
+    conflict-free; shared axes (embed/norm/etc.) stay at their base value.
+    """
+    per_tile = mra_rules(plan, mesh)
+    merged: Dict[str, Axis] = {}
+    for t in plan.tiles:
+        for k, v in per_tile[t.name].items():
+            owner_axes = TILE_LOGICAL_AXES.get(t.kind, ())
+            if k in owner_axes or k not in merged:
+                merged[k] = v
+    return merged
+
+
+def data_axes(mesh: LogicalMesh,
+              plan: Optional[TilePlan] = None) -> Tuple[str, ...]:
+    """Axes carrying the batch dimension.  Replica sub-axes of MRA tiles
+    carry batch too (the AXI bridge splits the stream K ways)."""
+    names = mesh.axis_names
+    out = tuple(a for a in ("pod", "data") if a in names)
+    if "replica" in names and plan is not None and any(
+            t.replication > 1 for t in plan.tiles):
+        out = out + ("replica",)
+    return out
 
 
 def replication_area_model(weight_bytes: int, act_bytes: int, k: int,

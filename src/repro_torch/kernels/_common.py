@@ -1,8 +1,9 @@
-"""What the LLM kernel wrappers share: dtype codes, device dispatch and the
-checks made before a launch."""
+"""What the LLM kernel wrappers share: dtype codes, device dispatch, the
+checks made before a launch, and what a FLOP counter asks of the wrappers
+and of the model's loops (``refuse_counting``, ``repeat``, ``unfolded``)."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -79,3 +80,59 @@ def sm_count(device: torch.device) -> int:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# FLOP counting (``repro_torch.launch.costing``): what the wrappers and the
+# model's loops ask of an active counter
+# ---------------------------------------------------------------------------
+
+def active_counter():
+    """The innermost FLOP counter active in this thread, or ``None``.  A
+    counter is active while its dispatch mode is on the stack, which is the
+    thread's own (the autograd engine carries it into the backward), so a
+    counter in one thread changes nothing that another thread computes."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        counter = getattr(mode, "flop_counter", None)
+        if counter is not None:
+            return counter
+    return None
+
+
+def refuse_counting(name: str) -> None:
+    """Raise when a FLOP counter is active: a kernel is launched through
+    ``ctypes``, which dispatch never sees, so its work would drop out of
+    the count without a word."""
+    if active_counter() is not None:
+        raise RuntimeError(
+            f"{name}: a kernel launch while counting FLOPs; dispatch does "
+            f"not see it, so its work would be missing from the count.  "
+            f"Count on abstract inputs (meta, or fakes on the CPU), where "
+            f"the kernel's plain version runs")
+
+
+def repeat(n: int, key=None, fold: bool = True):
+    """``range(n)`` for a loop whose iterations repeat one body (the
+    reference's ``lax.scan``).  Under a folding FLOP counter only the first
+    index of each class ``key(i)`` runs (all one class without ``key``), and
+    its work, backward and recompute included, counts once per index of
+    its class.  ``fold=False`` keeps every iteration: a loop whose carry
+    starts as a constant, where the first iteration's backward is not the
+    others'."""
+    c = active_counter()
+    if c is None or not c.fold or not fold or n <= 1:
+        return range(n)
+    return c.repeat(n, key)
+
+
+def unfolded(outs: list, n: Optional[int] = None) -> list:
+    """The per-iteration outputs of a :func:`repeat` loop, ``n`` long (the
+    list's length without ``n``): a folding counter leaves the iterations
+    it did not run as ``None`` or missing, and these get an uncounted empty
+    tensor of the computed ones' shape.  Without a counter ``outs`` as it
+    is."""
+    c = active_counter()
+    if c is None or not c.fold:
+        return outs
+    return c.unfolded(outs, n)

@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels._common import aligned16, check, on_card, \
-    positions, refuse_grad, stream_of
+    positions, refuse_counting, refuse_grad, stream_of
 from repro_torch.models.layers import NEG_INF, _gqa_out, _gqa_scores, \
     _window_mask
 
@@ -115,6 +115,7 @@ def flash_attention(q, k, v, qpos, kpos, window: int = 0,
     window``.  float32 or bfloat16, accumulation in float32."""
     if on_card(q, k, v):
         refuse_grad("flash_attention", q, k, v)
+        refuse_counting("flash_attention")
         return _launch(q, k, v, qpos, kpos, window, scale)
     return flash_attention_plain(q, k, v, qpos, kpos, window, scale)
 

@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels._common import aligned16, check, on_card, \
-    positions, sm_count as _sm_count, stream_of
+    positions, refuse_counting, sm_count as _sm_count, stream_of
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
                                                  flash_attention_plain)
 
@@ -143,6 +143,7 @@ def flash_decode(q, cache_k, cache_v, qpos, kpos, window: int = 0,
     slots in parallel (``decode_split``) and merges them; q and the cache
     may differ in dtype (float32 / bfloat16)."""
     if on_card(q, cache_k, cache_v):
+        refuse_counting("flash_decode")
         return _launch(q, cache_k, cache_v, qpos, kpos, window, scale,
                        kv_block)
     return flash_decode_plain(q, cache_k, cache_v, qpos, kpos, window, scale)

@@ -22,7 +22,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels._common import aligned16, check, on_card, \
-    refuse_grad, sm_count, stream_of
+    refuse_counting, refuse_grad, sm_count, stream_of
 from repro_torch.models.layers import _act, rms_norm
 
 ACTS = ("silu", "gelu")
@@ -184,6 +184,7 @@ def fused_rmsnorm_mlp(x, scale, wg, wu, act: str = "silu",
         raise ValueError(f"act {act!r} not in {ACTS}")
     if on_card(x, scale, wg, wu):
         refuse_grad("fused_rmsnorm_mlp", x, scale, wg, wu)
+        refuse_counting("fused_rmsnorm_mlp")
         return _launch(x, scale, wg, wu, act, eps)
     return fused_rmsnorm_mlp_plain(x, scale, wg, wu, act, eps)
 

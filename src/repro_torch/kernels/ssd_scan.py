@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels._common import aligned16, check, on_card, \
-    refuse_grad, stream_of
+    refuse_counting, refuse_grad, repeat, stream_of, unfolded
 
 MAX_CHUNK = 256        # Q, tokens of one chunk (the kernels' shared memory)
 MAX_STATE = 128        # st, the state width
@@ -96,11 +96,14 @@ def ssd_chunks_plain(xs, dt, la, Bm, Cm, D, Q: int):
     # inter-chunk recurrence
     h = xs.new_zeros((Bb, nh, st, hd))
     y_inter = []
-    for c in range(nc):
+    # the state starts at zero: with autograd on, chunk 0's backward is not
+    # the others' (no gradient into the state), so a counter folds the loop
+    # only without it
+    for c in repeat(nc, fold=not torch.is_grad_enabled()):
         y_inter.append(torch.einsum("bis,bnsh,bin->binh", Cc[:, c], h,
                                     torch.exp(la[:, c])))
         h = h * torch.exp(la_last[:, c, 0])[:, :, None, None] + S[:, c]
-    y_inter = torch.stack(y_inter, dim=1)
+    y_inter = torch.stack(unfolded(y_inter, nc), dim=1)
 
     y = y_intra + y_inter + xc * D[None, None, None, :, None]
     return y.reshape(Bb, L, nh, hd), h
@@ -191,6 +194,7 @@ def ssd_scan(xs, dt, A, Bm, Cm, D, chunk: int = 256):
     takes hd <= 64, st <= 128 and Q <= 256 and refuses anything else."""
     if on_card(xs, dt, A, Bm, Cm, D):
         refuse_grad("ssd_scan", xs, dt, A, Bm, Cm, D)
+        refuse_counting("ssd_scan")
         return _launch(xs, dt, A, Bm, Cm, D, chunk)
     return ssd_scan_plain(xs, dt, A, Bm, Cm, D, chunk)
 

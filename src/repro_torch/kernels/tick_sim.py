@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.perfmodel import P_DYN_W, P_STATIC_W, V_BASE, V_SLOPE
+from repro_torch.kernels._common import refuse_counting
 
 KINDS = ("none", "guard", "membound", "pid", "ewma")
 
@@ -631,6 +632,7 @@ def fused_tick_sim(arrivals, consts, scalars, init, *,
     """
     plan = plan if plan is not None else ControlPlan()
     if torch.is_tensor(arrivals) and arrivals.device.type == "cuda":
+        refuse_counting("fused_tick_sim")
         return _launch_kernel(arrivals, consts, scalars, init, plan)
     return fused_tick_sim_plain(arrivals, consts, scalars, init, plan=plan)
 

@@ -1,0 +1,219 @@
+"""Abstract inputs and state, and their shardings, for every dry-run cell.
+
+The counterpart of the reference's ``launch/specs.py``.  The abstract trees
+are ``meta`` tensors (shape and dtype, no memory): the parameters
+(``models.params.abstract_params``), the optimizer state, the batch or the
+decode cache (through the port's own ``LM.init_cache`` on the meta
+device) and the C3 counters.  The shardings are
+:class:`~repro_torch.launch.mesh.Sharding` records on a
+:class:`~repro_torch.launch.mesh.LogicalMesh`, worked out by the
+reference's rules; :func:`per_device_bytes` reads what one device would
+hold.  Placing the trees on devices waits for ROADMAP queue A item 12.
+
+All cells feed discrete tokens: the [vlm]/[audio] archs (chameleon,
+musicgen) are early-fusion models over VQ/EnCodec *tokens*, so the modality
+frontend stub is exactly "tokens arrive from an external tokenizer".
+
+The port's decode cache differs from the reference's in two leaves, and
+the shardings follow the port's: ``pos`` is one position per row ``(B,)``
+(replicated, as the reference's scalar), and the moe family's cache is one
+stack over all layers, the prelude's first (the reference keeps the
+prelude's apart, as a list).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core.replication import merged_rules
+from repro_torch.core.tiles import TilePlan, default_plan
+from repro_torch.launch.mesh import LogicalMesh, PartitionSpec as P, \
+    Sharding
+from repro_torch.models.params import pspecs_for, tree_leaves, tree_map
+from repro_torch.models.transformer import LM
+from repro_torch.optim import adamw
+
+META = torch.device("meta")
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=META)
+
+
+# ---------------------------------------------------------------------------
+# Abstract trees
+# ---------------------------------------------------------------------------
+
+
+def abstract_opt_state(params_abs):
+    def f32(p):
+        return _sds(p.shape, torch.float32)
+    return adamw.AdamWState(step=_sds((), torch.int32),
+                            mu=tree_map(f32, params_abs, torch.is_tensor),
+                            nu=tree_map(f32, params_abs, torch.is_tensor))
+
+
+def abstract_batch(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    B, S = shape.global_batch, shape.seq_len
+    return {"tokens": _sds((B, S), torch.int32),
+            "labels": _sds((B, S), torch.int32)}
+
+
+def abstract_decode_inputs(lm: LM, shape: ShapeConfig):
+    """(cache, tokens) for one decode step against a seq_len context."""
+    B, S = shape.global_batch, shape.seq_len
+    cache = lm.init_cache(B, S, device=META)
+    return cache, _sds((B, 1), torch.int32)
+
+
+def abstract_prefill_tokens(shape: ShapeConfig):
+    return _sds((shape.global_batch, shape.seq_len), torch.int32)
+
+
+def abstract_counters(plan: TilePlan):
+    from repro_torch.core.monitor import init_counters
+    return init_counters(plan, device=META)
+
+
+# ---------------------------------------------------------------------------
+# Shardings
+# ---------------------------------------------------------------------------
+
+
+def _dp(mesh: LogicalMesh, extra: Tuple[str, ...] = ()) -> Tuple[str, ...]:
+    """Batch axes: (pod, data) [+ replica on an MRA mesh: the AXI bridge
+    splits the stream across tile replicas] [+ any strategy extras]."""
+    base = ("pod", "data", "replica") + tuple(extra)
+    return tuple(a for a in base if a in mesh.axis_names)
+
+
+def _model_axis(mesh: LogicalMesh):
+    """Axis for model-dim sharding of activations/caches.  On an MRA mesh
+    'replica' carries the batch stream (AXI bridge), so only 'shard' is
+    available for the model dims."""
+    names = mesh.axis_names
+    if "model" in names:
+        return "model"
+    if "shard" in names:           # MRA-factored mesh
+        return "shard"
+    return None
+
+
+def _axsize(mesh: LogicalMesh, ax) -> int:
+    if ax is None:
+        return 1
+    if isinstance(ax, tuple):
+        n = 1
+        for a in ax:
+            n *= mesh.shape[a]
+        return n
+    return mesh.shape[ax]
+
+
+def batch_shardings(batch_abs, mesh: LogicalMesh,
+                    extra: Tuple[str, ...] = ()):
+    dp = _dp(mesh, extra)
+
+    def one(v):
+        if v.dim() < 1:
+            return Sharding(mesh, P())
+        # drop trailing axes until the batch dim divides (e.g. multi-pod
+        # FSDP with global_batch < chips falls back to DP(pod,data) + TP)
+        axes = list(dp)
+        while axes:
+            if v.shape[0] % _axsize(mesh, tuple(axes)) == 0:
+                return Sharding(mesh, P(tuple(axes)))
+            axes.pop()
+        return Sharding(mesh, P())
+    return tree_map(one, batch_abs, torch.is_tensor)
+
+
+def cache_shardings(lm: LM, cache_abs, mesh: LogicalMesh):
+    """Explicit shardings mirroring ``LM.init_cache``'s structure.
+
+    Policy: batch over (pod,data) when divisible; the KV window (sequence)
+    axis over model (sequence-parallel decode attention — flash-decoding's
+    layout); SSM state heads over model.
+    """
+    cfg = lm.cfg
+    dp = _dp(mesh)
+    dp_sz = _axsize(mesh, dp) if dp else 1
+    mdl = _model_axis(mesh)
+    m_sz = _axsize(mesh, mdl)
+
+    def attn_cache_spec(a, stacked_axes: int):
+        # (*stack, B, W, *tail)
+        b_ax, w_ax = stacked_axes, stacked_axes + 1
+        ent = [None] * a.dim()
+        if dp and a.shape[b_ax] % dp_sz == 0 and a.shape[b_ax] > 1:
+            ent[b_ax] = dp
+        if mdl and a.shape[w_ax] % m_sz == 0:
+            ent[w_ax] = mdl
+        return Sharding(mesh, P(*ent))
+
+    def ssm_cache_spec(a, key: str):
+        # conv_*: (L,B,c-1,ch)   state: (L,B,nh,st,hd)
+        ent = [None] * a.dim()
+        if dp and a.shape[1] % dp_sz == 0 and a.shape[1] > 1:
+            ent[1] = dp
+        if key == "state":
+            if mdl and a.shape[2] % m_sz == 0:
+                ent[2] = mdl
+        else:
+            if mdl and a.shape[-1] % m_sz == 0:
+                ent[-1] = mdl
+        return Sharding(mesh, P(*ent))
+
+    out: Dict[str, Any] = {}
+    for k, v in cache_abs.items():
+        if k == "pos":
+            out[k] = Sharding(mesh, P())
+        elif k == "shared_attn":
+            out[k] = tuple(attn_cache_spec(a, 1) for a in v)
+        elif k == "blocks":
+            if cfg.family in ("ssm", "hybrid"):
+                out[k] = {kk: ssm_cache_spec(a, kk) for kk, a in v.items()}
+            else:
+                out[k] = tuple(attn_cache_spec(a, 1) for a in v)
+        else:                                            # pragma: no cover
+            out[k] = tree_map(lambda a: Sharding(mesh, P()), v,
+                              torch.is_tensor)
+    return out
+
+
+def param_shardings(lm: LM, mesh: LogicalMesh,
+                    plan: Optional[TilePlan] = None,
+                    rules_override: Optional[Dict] = None):
+    plan = plan or default_plan(lm.cfg)
+    rules = merged_rules(plan, mesh)
+    if rules_override:
+        rules.update(rules_override)
+    pspecs = pspecs_for(lm.param_specs(), rules, mesh)
+    return tree_map(lambda ps: Sharding(mesh, ps), pspecs,
+                    lambda x: isinstance(x, P))
+
+
+def opt_shardings(param_sh, mesh: LogicalMesh):
+    return adamw.AdamWState(step=Sharding(mesh, P()), mu=param_sh,
+                            nu=param_sh)
+
+
+def counter_shardings(counters_abs, mesh: LogicalMesh):
+    return tree_map(lambda a: Sharding(mesh, P()), counters_abs,
+                    torch.is_tensor)
+
+
+def per_device_bytes(tree, shardings) -> int:
+    """What one device holds of ``tree`` under ``shardings`` (a tree of the
+    same structure): each leaf's bytes over the product of the mesh sizes
+    of its sharded dimensions."""
+    leaves = tree_leaves(tree, torch.is_tensor)
+    shs = tree_leaves(shardings, lambda x: isinstance(x, Sharding))
+    if len(leaves) != len(shs):
+        raise ValueError(f"{len(leaves)} leaves and {len(shs)} shardings")
+    total = 0
+    for t, sh in zip(leaves, shs):
+        total += t.numel() * t.element_size() // sh.shard_factor()
+    return int(total)

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._common import repeat, unfolded
 from repro_torch.models.params import spec
 
 NEG_INF = -1e30
@@ -219,22 +220,22 @@ def attention_chunked(q, k, v, qpos, kpos, window: int, scale: float,
 
     outs = [None] * nq
     if not opts.folded:
-        for i in range(nq):
+        for i in repeat(nq):
             carry = init_carry()
-            for j in range(nk):
+            for j in repeat(nk):
                 carry = step(carry, i, j)
             outs[i] = finish(carry)
     else:
         assert nq == nk and nq % 2 == 0, \
             "folded schedule needs even block grid"
-        for i in range(nq // 2):
+        for i in repeat(nq // 2):
             hi = nq - 1 - i
             carries = {i: init_carry(), hi: init_carry()}
-            for j in range(nq + 1):
+            for j in repeat(nq + 1):
                 qi, kj = (i, j) if j <= i else (hi, j - (i + 1))
                 carries[qi] = step(carries[qi], qi, kj)
             outs[i], outs[hi] = finish(carries[i]), finish(carries[hi])
-    out = torch.cat(outs, dim=3)                               # (B,KV,G,Sq,hd)
+    out = torch.cat(unfolded(outs), dim=3)                     # (B,KV,G,Sq,hd)
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 

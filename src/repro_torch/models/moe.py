@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._common import active_counter
 from repro_torch.models.layers import _act, mlp_apply
 from repro_torch.models.params import spec
 
@@ -135,6 +136,9 @@ def grouped_matmul(xs: torch.Tensor, w: torch.Tensor,
     backward is PyTorch's, two more grouped products); anything else the
     loop :func:`grouped_matmul_plain`.  The choice, made
     from the device and dtypes alone, is ``grouped_matmul.last_variant``."""
+    counter = active_counter()
+    if counter is not None:       # counted by the ragged_dot rule, no read
+        return counter.grouped(xs, w)
     variant = _variant(xs, w)
     grouped_matmul.last_variant = variant
     if variant == "grouped_mm":
@@ -173,7 +177,7 @@ def _moe_ffn_local(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     sort_idx = torch.argsort(flat_ids, stable=True)
     xs = x.index_select(0, sort_idx // k)                 # (N*k, d)
     offsets = group_offsets(flat_ids, E)
-    if experts == "grouped":
+    if experts == "grouped" or active_counter() is not None:
         ys = expert_ffn(xs, p, offsets, cfg.act)
     else:           # the loop reads the offsets once for its three products
         ys = expert_ffn(xs, p, offsets.tolist(), cfg.act,
@@ -209,8 +213,12 @@ def moe_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh=None,
     out, logits, top_ids = _moe_ffn_local(routed, x.reshape(B * S, d), cfg,
                                           experts)
     out = out.reshape(B, S, d)
-    if cfg.n_shared_experts:
-        out = out + mlp_apply(p["shared"], x, cfg.act)
+    # the loss before the shared experts: a checkpoint's recompute runs the
+    # forward only up to the last tensor its backward saved, so the shared
+    # experts' last product, whose output no backward reads, then stays out
+    # of it (as the reference's remat drops it)
     loss = (load_balance_loss(logits, top_ids, cfg.n_experts, cfg.top_k)
             if aux else None)
+    if cfg.n_shared_experts:
+        out = out + mlp_apply(p["shared"], x, cfg.act)
     return out, loss

@@ -8,19 +8,26 @@ dtype, logical axis names, initializer), as in the reference
                         the target device (normal x scale; ``"small"`` divides
                         the scale by sqrt of the fan-in as the reference does),
 * ``abstract_params`` — shapes and dtypes only (``meta`` tensors, no memory),
-* ``count_params``.
+* ``count_params``,
+* ``pspecs_for`` — each leaf's ``PartitionSpec`` on a
+  :class:`~repro_torch.launch.mesh.LogicalMesh` after applying the logical
+  -> mesh rules (``BASE_RULES``; the MRA rules of
+  ``core.replication`` remap a tile's axes onto ``(replica, shard)``).
 
-The logical axis names are kept for the sharding rules, which wait for
-ROADMAP queue A item 12; on one device the reference's ``shard_activation``
-is the identity, so the port's layers have no call to it.
+The rules are the reference's and give the same specs; what waits for
+ROADMAP queue A item 12 is their use on devices.  On one device the
+reference's ``shard_activation`` is the identity, so the port's layers have
+no call to it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.launch.mesh import Axis, LogicalMesh, PartitionSpec
 
 
 @dataclass(frozen=True)
@@ -107,3 +114,91 @@ def init_params(tree, generator: torch.Generator):
 def count_params(tree) -> int:
     return int(sum(int(np.prod(s.shape)) if len(s.shape) else 1
                    for s in tree_leaves(tree)))
+
+
+# ---------------------------------------------------------------------------
+# Logical -> mesh rules
+# ---------------------------------------------------------------------------
+
+# Baseline rule set for the ("data", "model") production mesh.  Tuples mean
+# "sharded over multiple mesh axes".  ``None`` = replicated.
+BASE_RULES: Dict[str, Axis] = {
+    "layers": None,
+    "vocab": "model",
+    "embed": None,
+    "qkv": "model",          # flattened n_heads*head_dim projection dim
+    "kv": "model",           # flattened n_kv_heads*head_dim projection dim
+    "heads": "model",
+    "ff": "model",
+    "ff_in": None,
+    "experts": None,         # baseline: expert-TP (shard expert_ff), EP is a variant
+    "expert_ff": "model",
+    "kv_lora": None,
+    "d_inner": "model",      # mamba inner channels
+    "ssm_state": None,
+    "ssm_heads": "model",
+    "conv_ch": "model",
+    "norm": None,
+}
+
+
+def rules_with(overrides: Dict[str, Axis]) -> Dict[str, Axis]:
+    r = dict(BASE_RULES)
+    r.update(overrides)
+    return r
+
+
+def mesh_axis_size(mesh: LogicalMesh, axis: Axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, tuple):
+        n = 1
+        for a in axis:
+            n *= mesh.shape[a]
+        return n
+    return mesh.shape[axis]
+
+
+def partition_spec_for(axes: Tuple[Optional[str], ...],
+                       shape: Tuple[int, ...],
+                       rules: Dict[str, Axis],
+                       mesh: LogicalMesh) -> PartitionSpec:
+    """Map logical axes to a PartitionSpec, replicating when not divisible."""
+    entries = []
+    used: set = set()
+    for name, dim in zip(axes, shape):
+        ax = rules.get(name) if name is not None else None
+        if ax is None:
+            entries.append(None)
+            continue
+        axt = ax if isinstance(ax, tuple) else (ax,)
+        if any(a in used for a in axt):
+            entries.append(None)        # an axis can shard only one dim
+            continue
+        if dim % mesh_axis_size(mesh, ax) != 0:
+            entries.append(None)        # replicate non-divisible dims
+            continue
+        used.update(axt)
+        entries.append(ax)
+    return PartitionSpec(*entries)
+
+
+def pspecs_for(tree, rules: Dict[str, Axis], mesh: LogicalMesh):
+    return tree_map(lambda s: partition_spec_for(s.axes, s.shape, rules,
+                                                 mesh), tree)
+
+
+# Batch ("stream") axes are swappable at lowering time: the baseline maps
+# batch dims to ("pod", "data"); the FSDP strategy adds "model"; an MRA mesh
+# adds "replica" (the AXI bridge splits the stream across tile replicas).
+_DEFAULT_BATCH_AXES: Tuple[str, ...] = ("pod", "data")
+_BATCH_AXES: Tuple[str, ...] = _DEFAULT_BATCH_AXES
+
+
+def set_batch_axes(axes: Tuple[str, ...]) -> None:
+    global _BATCH_AXES
+    _BATCH_AXES = tuple(axes)
+
+
+def get_batch_axes() -> Tuple[str, ...]:
+    return _BATCH_AXES

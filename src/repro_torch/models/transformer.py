@@ -11,7 +11,8 @@ Parameters are the reference's nested dict: ``embed``, ``final_norm``,
 a leading stacked-layers dim, for ``moe`` the list ``prelude`` of unstacked
 dense blocks (absent without dense layers), and for ``hybrid`` the
 unstacked dense block ``shared_attn``.  The reference scans over the layer
-dim; here it is a Python loop.  Entry points: ``prefill`` (-> cache) and
+dim; here it is a Python loop (``kernels._common.repeat``, which a FLOP
+counter may run once and multiply).  Entry points: ``prefill`` (-> cache) and
 ``decode_step`` (cache -> cache).  Each batch row has its own position
 ``cache["pos"]`` (B,) int32, so rows admitted at different times decode
 side by side.  The dense and moe caches' ``blocks`` is ``(k, v)`` of shape
@@ -63,6 +64,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, not_ported
+from repro_torch.kernels._common import repeat
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MoE
@@ -268,12 +270,22 @@ class LM:
         x, loss = self._ffn(bp, x + h, aux)
         return x, cache, loss
 
-    def _attn_blocks(self, params):
-        """The attention blocks in cache order (dense and moe families): the
-        prelude's dense blocks, then the stacked blocks one by one."""
+    def _attn_layers(self, params):
+        """``(cache index, block params)`` of the attention blocks in cache
+        order (dense and moe families): the prelude's dense blocks, then
+        the stacked blocks one by one (a ``repeat`` loop: the reference's
+        scan, which a FLOP counter may fold)."""
         pre = list(params.get("prelude", []))
-        n = self.cfg.n_layers - len(pre)
-        return pre + [_layer(params["blocks"], i) for i in range(n)]
+        yield from enumerate(pre)
+        for i in repeat(self.cfg.n_layers - len(pre)):
+            yield len(pre) + i, _layer(params["blocks"], i)
+
+    def _layers(self, n: int):
+        """The loop over ``n`` stacked layers (a ``repeat`` loop); with the
+        hybrid family's shared tile its iterations fall into two classes,
+        with and without the tile before them."""
+        every = self._every
+        return repeat(n, (lambda i: i % every == 0) if every else None)
 
     def _train_block(self, bp, shared, x, positions):
         """The reference's scan body: the shared tile first where it applies
@@ -307,7 +319,7 @@ class LM:
         blocks = params["blocks"]
         layers = [a.unbind(0) for a in tree_leaves(blocks, torch.is_tensor)]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(len(layers[0])):
+        for i in self._layers(len(layers[0])):
             bp = tree_unflatten(blocks, [a[i] for a in layers])
             x, a = self._train_block(
                 bp, shared if every and i % every == 0 else None, x,
@@ -352,7 +364,7 @@ class LM:
             stacked: Dict[str, torch.Tensor] = {}
             every, shared = self._every, params.get("shared_attn")
             sh = None
-            for i in range(cfg.n_layers):
+            for i in self._layers(cfg.n_layers):
                 if every and i % every == 0:     # the tile, site i // every
                     x, kv, _ = self._block_fwd(shared, x, positions, True)
                     kv = self._pad_attn_cache(kv, W, S)
@@ -372,7 +384,7 @@ class LM:
                 cache["shared_attn"] = sh
             return logits, cache
         ck = cv = None
-        for i, bp in enumerate(self._attn_blocks(params)):
+        for i, bp in self._attn_layers(params):
             x, kv, _ = self._block_fwd(bp, x, positions, True)
             if self._mla and self.kv_cache_dtype == torch.int8:
                 kv = tuple(L.quant_kv(a) for a in kv)
@@ -408,7 +420,7 @@ class LM:
             sc = cache["blocks"]
             every, shared = self._every, params.get("shared_attn")
             sh = cache.get("shared_attn")
-            for i in range(self.cfg.n_layers):
+            for i in self._layers(self.cfg.n_layers):
                 if every and i % every == 0:
                     x = self._block_decode(shared, x, sh[0][i // every],
                                            sh[1][i // every], pos)
@@ -425,7 +437,7 @@ class LM:
                 out["shared_attn"] = sh
             return logits, out
         ck, cv = cache["blocks"]
-        for i, bp in enumerate(self._attn_blocks(params)):
+        for i, bp in self._attn_layers(params):
             x = self._block_decode(bp, x, ck[i], cv[i], pos)
         logits = self._logits(params, x)[:, 0, :]
         return logits, {"pos": pos + 1, "blocks": (ck, cv)}

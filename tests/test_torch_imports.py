@@ -83,6 +83,11 @@ def test_sources_exist():
                  "src/repro_torch/runtime/train.py",
                  "src/repro_torch/runtime/fault.py",
                  "src/repro_torch/launch/train.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/costing.py",
+                 "src/repro_torch/launch/specs.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/core/replication.py",
                  "examples/torch_train_100m.py"):
         assert must in names, must
     for cu in CUDA_SOURCES:
