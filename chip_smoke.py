@@ -5,6 +5,8 @@
     python3 chip_smoke.py --quick    # device, build, kernel parity only
     python3 chip_smoke.py --serve-only   # ... and the five serving paths
     python3 chip_smoke.py --train-only   # ... and the training paths
+    python3 chip_smoke.py --shard-only   # ... the sweep, the main path and
+                                         # the two multi-device phases
     python3 chip_smoke.py --ptxas    # also nvcc's registers / spills
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
@@ -53,6 +55,29 @@ main path through its public entry points at the size its users run:
 6. ``main_path_a12`` — 1,024 stacked twelve-tile platforms with a two-stage
                    chain and memory-bound DFS, 5,000 ticks, ``"fused"``; the
                    kernel against its plain version at these shapes.
+   ``shard_main_path`` — ``devices=`` on the main path with the forced
+                   device count at 4, every shard on this card (the wall
+                   times at N = 1 and 4 are the split's price on one card,
+                   not a multi-GPU speed): the 1.73 M dense and 20.2 M
+                   chunked sweeps, rerank-A2 (``closed_loop_score``) and
+                   the A12 chain at ``devices=4`` against ``devices=1``,
+                   bit for bit (sets, top-k, completed, energy, swaps,
+                   p50 / p99), ``tick_sim`` launched once a shard; a
+                   63-design float64 loop with the plane (stall counts
+                   exact, the rest within 1e-12), the syncs of each
+                   shard's tick loop the unsharded loop's; two planted
+                   faults (shards out of order, a pad left on) that the
+                   check must reject.
+   ``collectives`` — 4 gloo ranks spawned on this card (``--collectives-
+                   rank``, a file store, each with a time limit):
+                   ``pipeline_apply`` forward and gradient against the
+                   sequential composition, ``compressed_allreduce`` against
+                   the exact sum, one granite-moe-1b-a400m MoE layer at full
+                   width on a (data 2, model 2) mesh, expert-TP and EP, f32
+                   and bf16, against the one-rank layer (and EP's drops
+                   where the buckets overflow against a plain count),
+                   ``device_put_batch``; the backend and device of every
+                   collective call, which must all be CUDA tensors.
    ``closed_loop`` — ``examples/torch_closed_loop.py``'s default scenario
                    through the sequential ``SimEngine``: the 12-tile
                    platform, 1,000,000 requests over 8,700 ticks of 5 ms,
@@ -78,7 +103,7 @@ main path through its public entry points at the size its users run:
                    the sequential float64 runs: energy per request and p99
                    within rtol 2e-3, swaps printed.
    ``closed_loop_faults`` — ``--faults``: the replica-kill scenario (3+3
-                   pipeline, 4,000 ticks, be1 dead on [1,800, 2,600), 50 ms
+                   pipeline, 2,000 ticks, be1 dead on [900, 1,300), 50 ms
                    deadline), five runs, the example's gate; each against
                    the CPU (ledgers within 1e-15, p99 / events / detection
                    tick exact); no sync in an open-loop tick loop, one per
@@ -296,6 +321,7 @@ script stops at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -1728,8 +1754,8 @@ def fault_report(r, syncs=None) -> dict:
 def phase_closed_loop_faults():
     """``--faults`` on the card: the paper's replica-kill scenario
     (``examples/closed_loop.py:137-202``) through ``SimEngine`` — the 3+3
-    chained dfmul pipeline at K 8, 4,000 ticks of 1 ms at 0.45 of stage
-    capacity, be1 killed on [1,800, 2,600), a 50 ms deadline, an even
+    chained dfmul pipeline at K 8, FAULT_TICKS ticks of 1 ms at 0.45 of
+    stage capacity, be1 killed on [0.45 T, 0.65 T), a 50 ms deadline, an even
     balancer; fixed / DFS, each without and with recovery, and DFS with
     recovery and the online detector.  The example's gate; every run
     against the same run on the CPU (ledgers within FAULT_RTOL, p50 / p99
@@ -1740,7 +1766,7 @@ def phase_closed_loop_faults():
     ex = closed_loop_example()
     from repro_torch.sim import LoadBalancer, SimConfig, SimEngine, Trace
     plat = ex.pipeline_platform()
-    tr = ex.surge_trace(plat, device=DEV)
+    tr = ex.surge_trace(plat, FAULT_TICKS, device=DEV)
     ks, ke = ex.kill_window(tr.ticks)
     control_ticks = tr.ticks // CLOSED_LOOP_CI
     report = {"phase": "closed_loop_faults", "A": plat.n_tiles,
@@ -1816,6 +1842,11 @@ def phase_closed_loop_faults():
     report["gate"] = "passed"
     emit(report)
 
+
+# the replica-kill scenario's depth in phases closed_loop_faults and observe
+# (the example's 8,000 ticks cut to 2,000; the kill window is the same share
+# of the run, [0.45 T, 0.65 T), and the example's gate holds there)
+FAULT_TICKS = 2000
 
 RERANK_FAULTS = dict(rate=0.2, link_scale=0.5, deadline_s=0.02,
                      max_drop_rate=0.02, check=64)
@@ -2189,7 +2220,7 @@ def phase_observe(cl_ctx, main_ctx):
 
     # -- closed-loop-faults-pipeline
     fplat = ex.pipeline_platform()
-    ftr = ex.surge_trace(fplat, device=DEV)
+    ftr = ex.surge_trace(fplat, FAULT_TICKS, device=DEV)
     fr = {"T": ftr.ticks}
     for name in ("dfs,rec+detect", "fixed,recovery"):
         rec, dfs, det = ex.FAULT_RUNS[name]
@@ -4455,6 +4486,41 @@ def card_tick_sim(policy):
     assert torch.equal(out["guard"], ref["guard"])
 
 
+def card_shard_fused(policy):
+    """tests/test_torch_shard.py's card case: ``"fused"`` with
+    ``devices=4`` (the forced count 4, every shard on this card) against
+    the unsharded launch at a ragged B = 5, bit for bit, with one launch a
+    shard."""
+    from repro_torch.kernels.tick_sim import fused_tick_sim
+    from repro_torch.sim.batch import BatchSimEngine, BatchSimPlatform
+    from repro_torch.sim.control import BatchControllerHarness
+    from repro_torch.sim.engine import SimConfig
+    from repro_torch.sim.traffic import diurnal_trace
+    cap = BatchSimEngine(BatchSimPlatform.stack([_tick_platform(2)]),
+                         device="cpu").capacity_rps()[0]
+    tr = diurnal_trace(cap * 0.6, 400, 4, dt=1e-3, depth=0.5, seed=3)
+    got = {}
+    for d in (None, 4):
+        plat = BatchSimPlatform.stack([_tick_platform(k)
+                                       for k in (2, 4, 8, 8, 4)])
+        ctl = BatchControllerHarness(plat.islands, plat.rates,
+                                     make_policy(policy),
+                                     tile_names=plat.names,
+                                     queue_guard_ticks=3.0)
+        eng = BatchSimEngine(plat, config=SimConfig(control_interval=25),
+                             controller=ctl, backend="fused", device=DEV,
+                             devices=d)
+        before = fused_tick_sim.launches
+        with forced_devices(4):
+            got[d] = eng.run(tr), ctl
+        sync()
+        assert fused_tick_sim.launches - before == (1 if d is None else 4)
+    (a, ca), (b, cb) = got[None], got[4]
+    assert not shard_gap(a, b), shard_gap(a, b)
+    assert np.array_equal(ca.rates, cb.rates)
+    assert np.array_equal(ca.swaps, cb.swaps)
+
+
 CARD_SWEEP = dict(ks=(1, 2), acc_rates=(0.2, 0.6, 1.0), noc_rates=(0.5, 1.0),
                   tg_rates=(0.5, 1.0), positions=((1, 1), (3, 3), (0, 2)),
                   n_tg=4)
@@ -4884,9 +4950,11 @@ TRAIN_RESUME_RTOL = 1e-5        # a resumed run's losses vs uninterrupted
 # against the plain path's
 UNIFORM_MARGIN = 0.1
 # after the counted steps, each run takes FIT_STEPS more AdamW steps on its
-# first microbatch alone (constant learning rate, the phase's); the NLL on
-# it must fall by FIT_MARGIN nats at least: a zero, reversed or misdirected
-# update on the card fails it whatever the stream's loss does
+# first microbatch alone (constant learning rate, the phase's), from zero
+# moments so that every step follows that microbatch's gradients and not
+# the run's momentum from other batches; the NLL on it must fall by
+# FIT_MARGIN nats at least: a zero, reversed or misdirected update on the
+# card fails it whatever the stream's loss does
 FIT_STEPS = 6
 FIT_MARGIN = 0.1
 # the Functions of kernels.ops by the kernels' names in the kernels line
@@ -5524,8 +5592,10 @@ def drive_train(spec, lm_kwargs, plain_kwargs, phase):
 
 def fit_one_batch(tr, spec) -> dict:
     """``FIT_STEPS`` AdamW steps through the kernels on the run's first
-    microbatch alone (``global_batch // accum`` sequences), from where the
-    run ended, at the phase's learning rate held constant; the NLL on it
+    microbatch alone (``global_batch // accum`` sequences), from the
+    weights where the run ended and zero moments (the run's moments carry
+    other batches' gradients, and its end state is not bit-reproducible on
+    the card), at the phase's learning rate held constant; the NLL on it
     before each step and after the last, and its drop."""
     from repro_torch.optim import adamw
     from repro_torch.runtime.train import step_grads
@@ -5534,7 +5604,8 @@ def fit_one_batch(tr, spec) -> dict:
     mb = spec["global_batch"] // spec["accum"]
     batch = {k: v[:mb] for k, v in
              tr.place_batch(tr.data.batch_at(0)).items()}
-    params, state, losses = tr.params, tr.opt_state, []
+    tr.opt_state = None
+    params, state, losses = tr.params, adamw.init(tr.params), []
     t0 = time.perf_counter()
     for _ in range(FIT_STEPS):
         _, parts, grads = step_grads(tr.lm, params, batch)
@@ -5965,7 +6036,595 @@ CARD_TESTS = {
                                                CARD_GROUPED),
     "test_cuda_ops_match_plain_under_autograd": (card_train_kernel,
                                                  TRAIN_KERNEL_CASES),
+    "test_cuda_fused_devices_match_unsharded": (
+        card_shard_fused, (("pid",), ("membound",))),
 }
+
+
+# ---------------------------------------------------------------------------
+# shard_main_path: devices= on the main path, N shards on one card
+# ---------------------------------------------------------------------------
+
+# The forced device count of repro_torch.shard: N shards, all on cuda:0 on a
+# one-card machine (no multi-GPU speed can be measured here)
+SHARDS = 4
+SHARD_F64 = {"B": 63, "T": 1000}   # the float64 loop: ragged B, syncs, plane
+SHARD_FIELDS = ("completed", "dropped", "residual", "energy_j", "swaps",
+                "p50_latency_s", "p99_latency_s", "energy_per_request_j")
+
+
+class ShardSyncs(SyncCount):
+    """:class:`SyncCount`, plus the syncs of every single engine's run
+    (``per_run``, in order: the unsharded engine's, or each shard's; a
+    ``"fused"`` shard's launch and collect summed) and of every tick loop
+    (``per_loop``)."""
+
+    def __enter__(self):
+        super().__enter__()
+        from repro_torch.sim.batch import BatchSimEngine
+        self._by_engine = {}
+        self._runs = {n: getattr(BatchSimEngine, n)
+                      for n in ("_launch_fused", "_collect_fused",
+                                "_run_torch")}
+        count = self
+
+        def wrap(orig):
+            def run(engine, *a, **kw):
+                n0 = len(count.records)
+                try:
+                    return orig(engine, *a, **kw)
+                finally:
+                    key = id(engine)
+                    count._by_engine[key] = count._by_engine.get(
+                        key, 0) + count._syncs(count.records[n0:])
+            return run
+
+        for n, orig in self._runs.items():
+            setattr(BatchSimEngine, n, wrap(orig))
+        # the syncs inside each tick loop, loop by loop
+        self.per_loop = []
+        inner = BatchSimEngine._ticks
+
+        def ticks(engine, lp, trace):
+            before = count.in_ticks
+            inner(engine, lp, trace)
+            count.per_loop.append(count.in_ticks - before)
+
+        BatchSimEngine._ticks = ticks
+        return self
+
+    def __exit__(self, *exc):
+        for n, orig in self._runs.items():
+            setattr(self._cls, n, orig)
+        self.per_run = list(self._by_engine.values())
+        return super().__exit__(*exc)
+
+
+@contextlib.contextmanager
+def forced_devices(n):
+    """A block with ``REPRO_TORCH_FORCE_DEVICE_COUNT=n``."""
+    from repro_torch.shard import FORCE_ENV
+    old = os.environ.get(FORCE_ENV)
+    os.environ[FORCE_ENV] = str(n)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(FORCE_ENV, None)
+        else:
+            os.environ[FORCE_ENV] = old
+
+
+def shard_gap(a, b):
+    """The fields of result ``b`` that are not result ``a``'s bit for bit
+    (shape included)."""
+    bad = []
+    for f in SHARD_FIELDS:
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        if x.shape != y.shape or not np.array_equal(x, y, equal_nan=True):
+            bad.append(f)
+    return bad
+
+
+def shard_planted_faults(r, n):
+    """Two results the equality check must reject: the first two shards'
+    blocks joined out of order, and the last shard's pad left on."""
+    B = r.n_designs
+    per = -(-B // n)
+    order = np.r_[per:2 * per, 0:per, 2 * per:B]
+    pad = np.r_[0:B, [0] * (per * n - B or 1)]
+    return {name: dataclasses.replace(r, **{
+        f: np.asarray(getattr(r, f))[idx] for f in SHARD_FIELDS})
+        for name, idx in (("shards_out_of_order", order),
+                          ("pad_not_sliced", pad))}
+
+
+def sweep_gap(a, b, chunked):
+    """What differs between two sweeps of one grid: the objective arrays
+    (dense), the Pareto set, the candidates and their values, the top-k."""
+    from repro_torch.core.dse import _TRACKED_OBJECTIVES
+    bad = []
+    if chunked:
+        pairs = [("pareto", a.pareto, b.pareto),
+                 ("cand_indices", a.cand_indices, b.cand_indices),
+                 ("n_valid", a.n_valid, b.n_valid)]
+        pairs += [(f"cand_values.{o}", a.cand_values[o], b.cand_values[o])
+                  for o in a.cand_values]
+        pairs += [(f"topk.{o}", a.topk[o], b.topk[o]) for o in a.topk]
+    else:
+        pairs = [(f, getattr(a, f), getattr(b, f))
+                 for f in ("throughput", "area", "energy_per_unit",
+                           "mem_traffic", "valid", "front_candidates")]
+        pairs.append(("pareto", a.pareto_indices(), b.pareto_indices()))
+        pairs += [(f"topk.{o}", a.topk_indices(64, o), b.topk_indices(64, o))
+                  for o, _ in _TRACKED_OBJECTIVES]
+    return [n for n, x, y in pairs if not np.array_equal(x, y)]
+
+
+def fused_sync_failures(label, syncs):
+    """A ``"fused"`` re-rank's syncs: ``devices=4`` runs one engine a
+    shard, and no shard's run waits for the card more often than the
+    unsharded run does (a shard reads its percentiles back in fewer
+    blocks; everything else is one read a run)."""
+    one, four = syncs[1], syncs[SHARDS]
+    if len(one) != 1 or len(four) != SHARDS or max(four) > one[0]:
+        return [f"{label}: syncs per shard {four} against the unsharded "
+                f"run's {one}"]
+    return []
+
+
+def phase_shard_main_path(model, res, main_ctx, a12_ctx):
+    """``devices=`` on the main path with the forced count at 4 on cuda:0:
+    the dense and chunked sweeps, the A2 re-rank and the A12 chain, each at
+    ``devices=1`` and ``devices=4``, bit for bit; the float64 loop at a
+    ragged B with the observer.  Returns the report and the tick_sim
+    launches of the two ``devices=4`` re-ranks (the path's own drive; the
+    ``devices=1`` runs compare)."""
+    from repro_torch.configs.vespa_soc import CHSTONE
+    from repro_torch.core.dse import closed_loop_score, grid_sweep
+    from repro_torch.core.islands import NOC_LADDER, TILE_LADDER
+    from repro_torch.core.perfmodel import AccelWorkload
+    from repro_torch.kernels.tick_sim import fused_tick_sim
+    from repro_torch.sim.batch import BatchSimEngine
+    from repro_torch.sim.traffic import Trace
+
+    t_phase = time.perf_counter()
+    out = {"phase": "shard_main_path", "shards": SHARDS,
+           "card": "one card: every shard on cuda:0; the wall times are "
+                   "not a multi-GPU speed"}
+    fails = []
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, time.perf_counter() - t0
+
+    with forced_devices(SHARDS):
+        # the sweeps
+        wls = [AccelWorkload("dfsin", *CHSTONE["dfsin"]),
+               AccelWorkload("gsm", *CHSTONE["gsm"])]
+        axes = dict(ks=(1, 2, 4), acc_rates=TILE_LADDER.levels(),
+                    noc_rates=NOC_LADDER.levels(),
+                    tg_rates=TILE_LADDER.levels()[::2], n_tg=4)
+        iwls = [AccelWorkload(n, *CHSTONE[n]) for n in ISLANDS["accels"]]
+        for name, w, ax, kw in (
+                ("sweep_dense", wls, axes, {}),
+                ("sweep_islands", iwls, chunked_axes(ISLANDS),
+                 {"chunk_points": ISLANDS["chunk"]})):
+            one, s1 = timed(lambda: grid_sweep(model, w, **ax, devices=1,
+                                               device=None, **kw))
+            four, s4 = timed(lambda: grid_sweep(model, w, **ax, devices=4,
+                                                device=None, **kw))
+            bad = sweep_gap(one, four, bool(kw))
+            out[name] = {"points": len(one), "wall_s_1": s1, "wall_s_4": s4,
+                         "pareto_size": int(np.size(
+                             one.pareto if kw else one.pareto_indices())),
+                         "differs": bad}
+            if bad:
+                fails.append(f"{name}: {bad}")
+
+        # the re-ranks on the tick kernel, launches counted from 0; the
+        # sharded runs' own launches apart (the devices=1 runs compare)
+        fused_tick_sim.launches = 0
+        shard_launches = 0
+        ctx = main_ctx
+        rerank = dict(model=model, indices=ctx["survivors"],
+                      req_mb=ctx["req_mb"], sim_config=ctx["cfg"],
+                      backend="fused")
+        scores, walls, syncs = {}, {}, {}
+        for d in (1, 4):
+            n0 = fused_tick_sim.launches
+            with ShardSyncs() as sc:
+                scores[d], walls[d] = timed(lambda: closed_loop_score(
+                    res, ctx["trace"], devices=d,
+                    batch_controller_factory=pid_factory(), **rerank))
+            syncs[d] = sc.per_run
+            if d == SHARDS:
+                shard_launches += fused_tick_sim.launches - n0
+        a, b = scores[1].results[0], scores[4].results[0]
+        bad = shard_gap(a, b)
+        if not np.array_equal(scores[1].ranked_indices(),
+                              scores[4].ranked_indices()):
+            bad.append("ranked_indices")
+        planted = {k: shard_gap(a, v)
+                   for k, v in shard_planted_faults(b, SHARDS).items()}
+        launches_a2 = fused_tick_sim.launches
+        out["rerank_A2"] = {
+            "B": a.n_designs, "T": int(ctx["trace"].ticks),
+            "wall_s_1": walls[1], "wall_s_4": walls[4],
+            "loop_s_1": a.timings["loop"], "loop_s_4": b.timings["loop"],
+            "launches": launches_a2, "syncs_per_run": syncs,
+            "differs": bad, "planted_rejected": planted}
+        if bad:
+            fails.append(f"rerank_A2: {bad}")
+        if launches_a2 != 1 + SHARDS:
+            fails.append(f"rerank_A2 launched tick_sim {launches_a2} times, "
+                         f"not 1 + {SHARDS}")
+        if not all(planted.values()):
+            fails.append(f"a planted shard fault passed: {planted}")
+        fails += fused_sync_failures("rerank_A2", syncs)
+
+        before = fused_tick_sim.launches
+        runs, syncs = {}, {}
+        for d in (1, 4):
+            eng = a12_engine(a12_ctx["plat"], a12_ctx["cfg"])
+            eng.devices = d
+            n0 = fused_tick_sim.launches
+            with ShardSyncs() as sc:
+                runs[d], walls[d] = timed(lambda: eng.run(a12_ctx["trace"]))
+            syncs[d] = sc.per_run
+            if d == SHARDS:
+                shard_launches += fused_tick_sim.launches - n0
+        launches_a12 = fused_tick_sim.launches - before
+        bad = shard_gap(runs[1], runs[4])
+        out["rerank_A12_chain"] = {
+            "B": runs[1].n_designs, "T": runs[1].ticks,
+            "wall_s_1": walls[1], "wall_s_4": walls[4],
+            "loop_s_1": runs[1].timings["loop"],
+            "loop_s_4": runs[4].timings["loop"],
+            "launches": launches_a12, "syncs_per_run": syncs,
+            "differs": bad}
+        if bad:
+            fails.append(f"rerank_A12_chain: {bad}")
+        if launches_a12 != 1 + SHARDS:
+            fails.append(f"A12 launched tick_sim {launches_a12} times")
+        fails += fused_sync_failures("rerank_A12_chain", syncs)
+        out["launches_devices_4"] = shard_launches
+
+        # the float64 loop at a ragged B: syncs per shard, the plane
+        n, T = SHARD_F64["B"], SHARD_F64["T"]
+        plat = ctx["plat"].take(np.arange(n))
+        tr = Trace(ctx["trace"].arrivals[:T], ctx["trace"].dt)
+        f64, syncs64, loops64, planes = {}, {}, {}, {}
+        for d in (1, 4):
+            eng = BatchSimEngine(plat, config=ctx["cfg"],
+                                 controller=pid_factory()(plat),
+                                 backend="torch", observe="counters",
+                                 devices=d)
+            with ShardSyncs() as sc:
+                f64[d], walls[d] = timed(lambda: eng.run(tr))
+            syncs64[d], loops64[d] = sc.per_run, sc.per_loop
+            planes[d] = eng.observer.counters
+        bad = shard_gap(f64[1], f64[4])
+        stall_equal = bool(np.array_equal(planes[1].tile["stall_ticks"],
+                                          planes[4].tile["stall_ticks"]))
+        gap = plane_gap(planes[4], planes[1])
+        out["float64_loop"] = {
+            "B": n, "T": T, "wall_s_1": walls[1], "wall_s_4": walls[4],
+            "syncs_per_run": syncs64, "syncs_per_tick_loop": loops64,
+            "control_ticks": T // ctx["cfg"].control_interval,
+            "differs": bad,
+            "stall_ticks_equal": stall_equal, "plane_gap": gap}
+        if bad or not stall_equal or not plane_ok(gap):
+            fails.append(f"float64 loop: {bad}, stall {stall_equal}")
+        if loops64[4] != loops64[1] * SHARDS:
+            fails.append(f"float64 tick loop syncs per shard {loops64[4]} "
+                         f"are not the unsharded loop's {loops64[1]}")
+    out["failures"] = fails
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if fails:
+        raise SystemExit("devices=4 differs from devices=1 on the main path")
+    return out, shard_launches
+
+
+# ---------------------------------------------------------------------------
+# collectives: the explicit-collective bodies on 4 gloo ranks on cuda:0
+# ---------------------------------------------------------------------------
+
+COLL = {"world": 4, "limit_s": 300, "timeout_s": 120,
+        "pipe": {"S": 4, "M": 8, "L": 8, "d": 512, "B": 64},
+        "comp_n": 1 << 20, "moe_mesh": (2, 2), "moe_tokens": (4, 4096),
+        "cf_low": 0.9,
+        "batch": (8, 4096)}
+COLL_TOL = {"pipe_fwd": 1e-5, "pipe_grad": 1e-4, "comp_deq": 1e-6,
+            "comp_rel": 0.02, "aux_rel": 0.15,
+            # moe vs the one-rank local path, over max(1, max|ref|)
+            "moe": {"float32": 2e-4, "bfloat16": 5e-2},
+            # float32 gradients vs the one-rank layer's, over max|ref grad|
+            "moe_grad": 2e-4}
+
+
+def _rel_to_max(out, ref):
+    return float((out.float() - ref.float()).abs().max()
+                 / max(1.0, float(ref.float().abs().max())))
+
+
+def _moe_grad_errs(MoE, P, p, x, cfg, ample, mesh, gen):
+    """The gradients of the router, the expert weights and the tokens
+    through expert-TP and EP (ample capacity) on this rank, under the loss
+    sum(out * R), against the one-rank layer's autograd: the largest error
+    over max |ref grad| of each."""
+    R = torch.randn(x.shape, generator=gen).to(x.device)
+
+    def grads(fn):
+        pg = {k: v.detach().clone().requires_grad_(True)
+              for k, v in p.items()}
+        xg = x.detach().clone().requires_grad_(True)
+        (fn(pg, xg) * R).sum().backward()
+        return {**{k: v.grad for k, v in pg.items()}, "x": xg.grad}
+
+    B, S, d = x.shape
+    ref = grads(lambda pg, xg: MoE._moe_ffn_local(
+        pg, xg.reshape(B * S, d), cfg)[0].reshape(B, S, d))
+    out = {}
+    for name, c, ep in (("tp", cfg, False), ("ep", ample, True)):
+        with P.set_mesh(mesh):
+            got = grads(lambda pg, xg: MoE.moe_apply(pg, c, xg, ep=ep)[0])
+        out[name] = {k: float((got[k] - g).abs().max()
+                              / g.abs().max().clamp_min(1e-30))
+                     for k, g in ref.items()}
+    return out
+
+
+def collectives_rank(rank, world, workdir, device="cuda"):
+    """One rank of phase ``collectives``: its checks, written to
+    ``workdir/rank<rank>.json`` (``device`` "cpu" only to rehearse the
+    phase's code away from the card)."""
+    import torch.distributed as dist
+    from repro_torch import parallel as P
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import device_put_batch
+    from repro_torch.models import moe as MoE
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.compress import (compressed_allreduce,
+                                            dequantize_int8, quantize_int8)
+    from repro_torch.parallel import collectives as C
+
+    backend = C.init_process_group(
+        rank, world, "file://" + os.path.join(workdir, "store"),
+        device=device, timeout_s=COLL["timeout_s"])
+    rep = {"rank": rank, "backend": backend}
+
+    def _sync_dev(d):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    # pipeline_apply against the sequential composition
+    pc = COLL["pipe"]
+    mesh = P.make_mesh((pc["S"],), ("stage",), device=device)
+    dev = mesh.device
+    W = (torch.randn(pc["L"], pc["d"], pc["d"], generator=gen)
+         / math.sqrt(pc["d"])).to(dev)
+    x = torch.randn(pc["B"], pc["d"], generator=gen).to(dev)
+    xs = x.clone().requires_grad_(True)
+    xp = x.clone().requires_grad_(True)
+
+    def stage_fn(wg, h):
+        for i in range(wg.shape[0]):
+            h = torch.tanh(h @ wg[i])
+        return h
+
+    Wseq = W.clone().requires_grad_(True)
+    y_seq = stage_fn(Wseq, xs)
+    (y_seq ** 2).sum().backward()
+    Wst = P.stack_layer_groups(W, pc["S"]).clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    y = P.pipeline_apply(stage_fn, Wst, xp, mesh=mesh, n_micro=pc["M"])
+    (y ** 2).sum().backward()
+    _sync_dev(dev)
+    s = C.axis_index("stage", mesh)
+    g_seq = P.stack_layer_groups(Wseq.grad, pc["S"])[s]
+    others = torch.cat([Wst.grad[:s], Wst.grad[s + 1:]])
+    rep["pipeline"] = {
+        "seconds": time.perf_counter() - t0,
+        "fwd_err": float((y - y_seq).detach().abs().max()),
+        "grad_err": float((Wst.grad[s] - g_seq).abs().max()),
+        "x_grad_err": float((xp.grad - xs.grad).abs().max()),
+        "grad_outside_stage": float(others.abs().max()),
+        "bubble": P.bubble_fraction(pc["S"], pc["M"])}
+
+    # compressed_allreduce over pod on (pod 2, data 2)
+    mesh = P.make_mesh((2, world // 2), ("pod", "data"), device=device)
+    g = torch.randn(2, COLL["comp_n"], generator=gen).to(dev)
+    pod = C.axis_index("pod", mesh)
+    t0 = time.perf_counter()
+    out = compressed_allreduce({"g": g[pod]}, mesh, "pod")["g"]
+    _sync_dev(dev)
+    deq = sum(dequantize_int8(*quantize_int8(g[i])) for i in range(2))
+    exact = g.sum(0)
+    rep["compressed"] = {
+        "seconds": time.perf_counter() - t0,
+        "deq_err": float((out - deq).abs().max()),
+        "rel_to_exact": float((out - exact).norm() / exact.norm())}
+
+    # the MoE layer at granite-moe-1b-a400m's full width, one layer
+    cfg = get_config("granite-moe-1b-a400m")
+    mesh = P.make_mesh(COLL["moe_mesh"], ("data", "model"), device=device)
+    m = mesh.shape["model"]
+    p32 = {k: v.to(dev) for k, v in init_params(
+        MoE.moe_spec(cfg), torch.Generator().manual_seed(SEED)).items()}
+    x32 = torch.randn(*COLL["moe_tokens"], cfg.d_model,
+                      generator=gen).to(dev)
+    rep["moe"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        p = {k: (v.float() if k == "router" else v.to(dtype))
+             for k, v in p32.items()}
+        x = x32.to(dtype)
+        B, S, d = x.shape
+        ref, logits, ids = MoE._moe_ffn_local(p, x.reshape(B * S, d), cfg)
+        ref = ref.reshape(B, S, d)
+        aux_ref = MoE.load_balance_loss(logits, ids, cfg.n_experts,
+                                        cfg.top_k)
+        ample = dataclasses.replace(cfg, capacity_factor=float(m))
+        with P.set_mesh(mesh):
+            t0 = time.perf_counter()
+            tp, tp_aux = MoE.moe_apply(p, cfg, x)
+            _sync_dev(dev)
+            t1 = time.perf_counter()
+            ep, ep_aux = MoE.moe_apply(p, ample, x, ep=True)
+            _sync_dev(dev)
+            t2 = time.perf_counter()
+            ep125, _ = MoE.moe_apply(p, cfg, x, ep=True)
+        n_loc = B * S // mesh.size
+        i = C.axis_index(("data", "model"), mesh)
+        e0 = C.axis_index("model", mesh) * (cfg.n_experts // m)
+        pp = {"router": p["router"],
+              **{w: p[w][e0:e0 + cfg.n_experts // m]
+                 for w in ("wi_gate", "wi_up", "wo")}}
+        # GShard's drops where the buckets overflow (capacity factor
+        # COLL["cf_low"]): this rank's kept rows against a plain count,
+        # first come first served per destination in flat order
+        cap = max(1, math.ceil(n_loc * cfg.top_k / m * COLL["cf_low"]))
+        x_loc = x.reshape(B * S, d)[i * n_loc:(i + 1) * n_loc]
+        _, _, keep = MoE._moe_ep_shard(pp, x_loc, cfg, mesh=mesh,
+                                       model_axis="model", capacity=cap)
+        ids = MoE._route(p["router"], x_loc, cfg.top_k)[1]
+        dest = ids.reshape(-1).cpu().numpy() // (cfg.n_experts // m)
+        order = np.argsort(dest, kind="stable")
+        first = np.searchsorted(dest[order], np.arange(m))
+        pos = np.empty_like(dest)
+        pos[order] = np.arange(dest.size) - first[dest[order]]
+        name = str(dtype).split(".")[-1]
+        grad_err = None
+        if dtype == torch.float32:
+            grad_err = _moe_grad_errs(MoE, P, p, x, cfg, ample, mesh, gen)
+        rep["moe"][name] = {
+            "grad_err": grad_err,
+            "tp_s": t1 - t0, "ep_s": t2 - t1,
+            "tp_err": _rel_to_max(tp, ref), "ep_err": _rel_to_max(ep, ref),
+            "tp_aux_rel": abs(float(tp_aux) / float(aux_ref) - 1.0),
+            "ep_aux_rel": abs(float(ep_aux) / float(aux_ref) - 1.0),
+            "ep125_finite": bool(torch.isfinite(ep125).all()),
+            "low_capacity": cap,
+            "low_dropped_rows": int((~keep).sum().item()),
+            "low_drops_exact": bool(np.array_equal(keep.cpu().numpy(),
+                                                   pos < cap)),
+            "experts": MoE.grouped_matmul.last_variant}
+
+    # device_put_batch over data
+    mesh = P.make_mesh((2, world // 2), ("pod", "data"), device=device)
+    toks = np.arange(np.prod(COLL["batch"])).reshape(COLL["batch"])
+    got = device_put_batch({"tokens": toks, "s": np.float32(2.0)}, mesh,
+                           ("pod", "data"))
+    n = COLL["batch"][0] // world
+    rep["device_put_batch"] = {
+        "exact": bool(np.array_equal(got["tokens"].cpu().numpy(),
+                                     toks[rank * n:(rank + 1) * n])),
+        "device": str(got["tokens"].device),
+        "scalar_replicated": got["s"].shape == () and float(got["s"]) == 2.0}
+    dist.barrier()
+    rep["used"] = {"/".join(k): v for k, v in sorted(C.USED.items())}
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def collectives_failures(reps):
+    """Every check of every rank's report that fails, named."""
+    bad = []
+    for r in reps:
+        k = r["rank"]
+        pl, cp = r["pipeline"], r["compressed"]
+        if pl["fwd_err"] > COLL_TOL["pipe_fwd"] \
+                or pl["grad_err"] > COLL_TOL["pipe_grad"] \
+                or pl["x_grad_err"] > COLL_TOL["pipe_grad"] \
+                or pl["grad_outside_stage"] != 0.0:
+            bad.append(f"rank {k} pipeline {pl}")
+        if cp["deq_err"] > COLL_TOL["comp_deq"] \
+                or cp["rel_to_exact"] > COLL_TOL["comp_rel"]:
+            bad.append(f"rank {k} compressed {cp}")
+        for dt, mo in r["moe"].items():
+            tol = COLL_TOL["moe"][dt]
+            if mo["tp_err"] > tol or mo["ep_err"] > tol \
+                    or (mo["grad_err"] is not None and max(
+                        e for g in mo["grad_err"].values()
+                        for e in g.values()) > COLL_TOL["moe_grad"]) \
+                    or mo["tp_aux_rel"] > COLL_TOL["aux_rel"] \
+                    or mo["ep_aux_rel"] > COLL_TOL["aux_rel"] \
+                    or not mo["ep125_finite"] or not mo["low_drops_exact"] \
+                    or mo["low_dropped_rows"] < 1:
+                bad.append(f"rank {k} moe {dt} {mo}")
+        db = r["device_put_batch"]
+        if not (db["exact"] and db["scalar_replicated"]
+                and db["device"].startswith("cuda")):
+            bad.append(f"rank {k} device_put_batch {db}")
+        off = [u for u in r["used"] if not u.endswith("/cuda")]
+        if off or not r["used"]:
+            bad.append(f"rank {k} ran collectives off the card: {off}")
+    return bad
+
+
+def phase_collectives():
+    """4 gloo ranks as subprocesses on cuda:0 (``collectives_rank``), each
+    with its own time limit; their reports checked here."""
+    import shutil
+    import tempfile
+    world = COLL["world"]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_coll_")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--collectives-rank",
+         str(r), "--world", str(world), "--workdir", workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    outs, timed_out = [], False
+    deadline = time.perf_counter() + COLL["limit_s"]
+    for p in procs:
+        try:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter())))
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            break
+    if timed_out:
+        for p in procs:
+            p.kill()
+        outs = [p.communicate() for p in procs]
+    out = {"phase": "collectives", "ranks": world,
+           "seconds": time.perf_counter() - t0,
+           "card": "4 ranks sharing cuda:0 over gloo: no multi-GPU speed"}
+    try:
+        errs = [(r, p.returncode, e[-2000:]) for r, (p, (_, e))
+                in enumerate(zip(procs, outs)) if p.returncode != 0]
+        if timed_out or errs:
+            out["errors"] = errs
+            out["timed_out"] = timed_out
+            emit(out)
+            raise SystemExit("a collectives rank failed (gloo on CUDA "
+                             "tensors, or a check): see errors")
+        reps = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                reps.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["backend"] = sorted({r["backend"] for r in reps})
+    out["used"] = reps[0]["used"]
+    out["rank0"] = {k: reps[0][k] for k in ("pipeline", "compressed", "moe",
+                                            "device_put_batch")}
+    out["tolerance"] = COLL_TOL
+    bad = collectives_failures(reps)
+    out["failures"] = bad
+    emit(out)
+    if bad:
+        raise SystemExit("the collectives phase failed its checks")
+    return out
 
 
 def card_case(test_name, *args):
@@ -6041,14 +6700,25 @@ def main() -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="device, build, kernel parity and the training "
                          "phases only")
+    ap.add_argument("--shard-only", action="store_true",
+                    help="device, build, kernel parity, the sweep, the main "
+                         "path and the two multi-device phases only")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/spill report")
+    ap.add_argument("--collectives-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)     # one rank of "collectives"
+    ap.add_argument("--world", type=int, default=COLL["world"],
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures on the card "
               "and does not fall back to the CPU", file=sys.stderr)
         return 2
+    if args.collectives_rank is not None:
+        return collectives_rank(args.collectives_rank, args.world,
+                                args.workdir)
 
     from repro_torch.kernels import build
     from repro_torch.kernels.tick_sim import fused_tick_sim
@@ -6092,7 +6762,8 @@ def main() -> int:
         return 0
 
     model, res, _ = phase_sweep()
-    phase_sweep_chunked(model)
+    if not args.shard_only:
+        phase_sweep_chunked(model)
 
     # the main path, counted: every count to 0 just before, read just after
     fused_tick_sim.launches = 0
@@ -6102,9 +6773,21 @@ def main() -> int:
     if launches < 1:
         raise SystemExit("the main path never launched the tick_sim kernel")
 
+    if args.shard_only:
+        phase_shard_main_path(model, res, main_ctx, a12_ctx)
+        phase_collectives()
+        print(smi, flush=True)
+        emit({"ok": True, "shard_only": True, "device": device})
+        return 0
+
     # comparisons and timings (their launches are not the main path's)
     main_report = verify_main_path(main_report, main_ctx)
     a12_report = verify_main_path_a12(a12_report, a12_ctx)
+    # devices= on the main path (N shards on this one card), its tick_sim
+    # launches counted inside and kept apart from the main path's; then the
+    # explicit collectives on 4 ranks
+    _, shard_launches = phase_shard_main_path(model, res, main_ctx, a12_ctx)
+    phase_collectives()
 
     # the sequential engine's paths: examples/torch_closed_loop.py's
     # scenarios at full size (they run no kernel of their own); the B = 1
@@ -6151,6 +6834,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/tick_sim.cu",
         "replaces": "src/repro/kernels/tick_sim.py:350",
         "launches": launches,
+        "shard_main_path": {"launches": shard_launches},
         "max_abs_err": max(lin["max_abs_err"], a12k["max_abs_err"],
                            parity["max_abs_err"]),
         "max_rel_err": max(lin["max_rel_err"], a12k["max_rel_err"],

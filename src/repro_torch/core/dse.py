@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import shard as shard_mod
 from repro_torch.core.noc import pos_index
 from repro_torch.core.perfmodel import (AccelWorkload, NOC_POWER_SHARE,
                                         SoCPerfModel, TORCH_NS, chip_power,
@@ -675,11 +676,13 @@ def _eval_grid(model: SoCPerfModel, workloads, n_tg: int,
 def _eval_flat_points_t(model: SoCPerfModel, workloads, n_tg: int,
                         lay: _AxisLayout, vals: Dict[str, object],
                         shape: Tuple[int, ...], lo: int, hi: int, *,
-                        device, dtype: torch.dtype = torch.float64
+                        device, dtype: torch.dtype = torch.float64,
+                        points: Optional[torch.Tensor] = None
                         ) -> Dict[str, torch.Tensor]:
-    """Evaluate global flat points ``[lo, hi)`` as flat (P,) tensors on
-    ``device``: the four float objectives in float64 and the validity mask,
-    left on the device.
+    """Evaluate global flat points ``[lo, hi)`` (or the flat indices
+    ``points``, an int64 tensor on ``device``, when given) as flat (P,)
+    tensors on ``device``: the four float objectives in float64 and the
+    validity mask, left on the device.
 
     Everything per point runs on the device: the C-order coordinate decode
     (integer floor-divide / remainder, last axis fastest — what
@@ -698,7 +701,9 @@ def _eval_flat_points_t(model: SoCPerfModel, workloads, n_tg: int,
         return torch.as_tensor(np.asarray(v), dtype=dt, device=dev)
 
     # flat index -> per-axis coordinates, last axis fastest
-    rem = torch.arange(lo, hi, dtype=i64, device=dev)
+    rem = (torch.arange(lo, hi, dtype=i64, device=dev) if points is None
+           else points)
+    P = int(rem.numel())
     coords: List[Optional[torch.Tensor]] = [None] * len(shape)
     for dim in range(len(shape) - 1, -1, -1):
         n = int(shape[dim])
@@ -742,10 +747,10 @@ def _eval_flat_points_t(model: SoCPerfModel, workloads, n_tg: int,
     energy = power / torch.clamp(thr, min=1e-9)
 
     area_tab = table(vals["area"], torch.float64)
-    area = torch.zeros(hi - lo, dtype=torch.float64, device=dev)
+    area = torch.zeros(P, dtype=torch.float64, device=dev)
     for a in range(A):
         area = area + area_tab[coords[lay.k(a)]]
-    valid = torch.ones(hi - lo, dtype=torch.bool, device=dev)
+    valid = torch.ones(P, dtype=torch.bool, device=dev)
     for a in range(A):
         for b in range(a + 1, A):
             valid &= posA[a] != posA[b]
@@ -753,6 +758,33 @@ def _eval_flat_points_t(model: SoCPerfModel, workloads, n_tg: int,
     return {"throughput": thr.to(torch.float64), "area": area,
             "energy_per_unit": energy.to(torch.float64),
             "mem_traffic": mem.to(torch.float64), "valid": valid}
+
+
+def _eval_block_t(model: SoCPerfModel, workloads, n_tg: int,
+                  lay: _AxisLayout, vals: Dict[str, object],
+                  shape: Tuple[int, ...], lo: int, hi: int, *, device,
+                  dtype: torch.dtype, n_devices: int
+                  ) -> Dict[str, torch.Tensor]:
+    """One block ``[lo, hi)`` of the flat evaluation: unsharded for
+    ``n_devices == 0`` (``devices=None``), else split over that many shards
+    (``repro_torch.shard``): the point axis padded to a shard multiple with
+    point ``lo``, each shard's points evaluated on its own device, the
+    shards' outputs gathered back to ``device`` in shard order and the pad
+    sliced off.  The evaluation is elementwise, so the result is the
+    unsharded one bit for bit, whatever ``n_devices``."""
+    if not n_devices:
+        return _eval_flat_points_t(model, workloads, n_tg, lay, vals, shape,
+                                   lo, hi, device=device, dtype=dtype)
+    devs = shard_mod.shard_devices(n_devices, device)
+    pts = shard_mod.pad_axis(
+        torch.arange(lo, hi, dtype=torch.int64, device=device), n_devices)
+    n = pts.shape[0] // n_devices
+    parts = [_eval_flat_points_t(model, workloads, n_tg, lay, vals, shape,
+                                 lo, hi, device=d, dtype=dtype,
+                                 points=pts[i * n:(i + 1) * n].to(d))
+             for i, d in enumerate(devs)]
+    return {k: torch.cat([p[k].to(device) for p in parts])[:hi - lo]
+            for k in parts[0]}
 
 
 def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -924,9 +956,18 @@ def grid_sweep(model: SoCPerfModel,
     block's exact front and the running merges run in float64 as in the
     reference.
 
-    Not ported yet: ``devices=`` beyond one device (refused).
+    **Sharding** (``devices=``: ``None``, an int or ``"auto"``, see
+    :mod:`repro_torch.shard`): as in the reference, a ``devices`` that is
+    not ``None`` routes every block through the flat evaluator, whatever
+    ``backend`` says, and splits that elementwise evaluation over the
+    shards (the point axis padded with point 0 of the block); the shards'
+    objectives are gathered back in order, the pad sliced off, and the
+    block pipeline that follows (mask, prefilter, top-k, merges) runs once
+    on the whole block, as unsharded.  The port's evaluator is float64, so
+    ``devices=N`` is bit-equal to ``devices=1`` and to ``devices=None`` on
+    the ``"torch"`` backend for every N, which is stronger than the
+    reference, whose ``devices=`` path is float32.
     """
-    device_mod.require_single(devices)
     dev = device_mod.resolve(device)
     if backend is None:
         backend = "numpy" if dev.type == "cpu" else "torch"
@@ -936,6 +977,10 @@ def grid_sweep(model: SoCPerfModel,
     if backend == "numpy" and dev.type != "cpu":
         raise ValueError("backend='numpy' evaluates on the host; pass "
                          "device='cpu' with it")
+    n_devices = 0
+    if devices is not None:
+        n_devices = shard_mod.resolve_devices(devices)
+        backend = "torch"
     if isinstance(workloads, AccelWorkload):
         workloads = (workloads,)
     workloads = tuple(workloads)
@@ -951,9 +996,9 @@ def grid_sweep(model: SoCPerfModel,
     if chunk_points is None or n_points <= chunk_points:
         cand, pre_s = None, None
         if backend == "torch":
-            out_t = _eval_flat_points_t(model, workloads, n_tg, lay, vals,
-                                        shape, 0, n_points, device=dev,
-                                        dtype=dtype)
+            out_t = _eval_block_t(model, workloads, n_tg, lay, vals, shape,
+                                  0, n_points, device=dev, dtype=dtype,
+                                  n_devices=n_devices)
             _sync(dev)
             t1 = time.perf_counter()
             cand = _valid_front_candidates(out_t)
@@ -1001,9 +1046,9 @@ def grid_sweep(model: SoCPerfModel,
             # the block's evaluation, as the reference profiles it: on the
             # card it ends without a host sync, so a CUDA event pair times it
             with profiled("sweep_chunk", device=dev):
-                out_t = _eval_flat_points_t(model, workloads, n_tg, lay,
-                                            vals, shape, lo, hi, device=dev,
-                                            dtype=dtype)
+                out_t = _eval_block_t(model, workloads, n_tg, lay, vals,
+                                      shape, lo, hi, device=dev, dtype=dtype,
+                                      n_devices=n_devices)
             blk = _block_survivors_t(out_t, lo, topk_track)
         else:
             blk = _block_survivors(model, workloads, n_tg, lay, vals, shape,
@@ -1288,14 +1333,16 @@ def closed_loop_score(result: SweepResult, trace, *,
     ``observe=None`` keeps the replays monitoring-free and is bit-for-bit
     identical to unobserved scoring.
 
-    Not ported yet, accepted for signature parity and refused when set:
-    ``devices=`` beyond one device.
+    Sharding: ``devices=`` reaches the batched engine, which splits the
+    survivors over that many shards (:class:`~repro_torch.sim.batch.
+    BatchSimEngine`); every shard count gives the unsharded scores bit for
+    bit.  The per-point sequential path takes no ``devices``, as in the
+    reference.
     """
     from repro_torch.sim.batch import BatchSimEngine, BatchSimPlatform
     from repro_torch.sim.engine import SimConfig, SimEngine, SimPlatform
     from repro_torch.sim.traffic import BatchTrace
 
-    device_mod.require_single(devices)
     tech = TechModel.coerce(tech)
     if callable(trace):
         trace = trace(trace_seed)

@@ -15,7 +15,7 @@ On a mesh the tile's fabric is the ``model`` axis.  MRA-K factors it into
 the paper's area cost), and the tile's input token stream is *split* over
 ``replica``.  The meshes are :class:`~repro_torch.launch.mesh.LogicalMesh`
 records (names and sizes, as the reference's rules read them); placing
-tensors over them waits for ROADMAP queue A item 12.  The two closed forms
+tensors over them waits for ROADMAP queue A item 12c.  The two closed forms
 at the end are what the design-space sweep charges for the knob.
 """
 from __future__ import annotations

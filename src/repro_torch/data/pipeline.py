@@ -5,9 +5,8 @@ Batch ``i`` is a pure function of the config (a NumPy generator seeded
 from (seed, step, shard)), so any host regenerates any step: resume after a
 failure is exact and every data-parallel shard draws its own slice.  The
 batches are NumPy arrays on the host; :func:`to_device` copies them to the
-card from pinned memory without waiting (the reference's
-``device_put_batch`` places them over a mesh, which waits for ROADMAP
-queue A item 12).
+card from pinned memory without waiting, and :func:`device_put_batch`
+gives one rank of a mesh its slice of the data axes.
 """
 from __future__ import annotations
 
@@ -90,4 +89,28 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t
+    return out
+
+
+def device_put_batch(batch: Dict[str, np.ndarray], mesh, data_axes
+                     ) -> Dict[str, torch.Tensor]:
+    """This rank's part of a host batch sharded over the data axes of
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.ProcessMesh`): the leading
+    axis of every array split into ``axis_size(data_axes)`` equal slices,
+    row-major over a tuple of axes, the rank's slice on its device; rank-0
+    arrays replicated (the reference's ``NamedSharding(mesh, P(data_axes))``
+    seen from one device)."""
+    from repro_torch.parallel.collectives import axis_index, axis_size
+    n, i = axis_size(data_axes, mesh), axis_index(data_axes, mesh)
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        if v.ndim >= 1:
+            if v.shape[0] % n:
+                raise ValueError(f"{k}: leading axis {v.shape[0]} does not "
+                                 f"split over {n} data shards")
+            step = v.shape[0] // n
+            v = v[i * step:(i + 1) * step]
+        # to_device's contiguous copy makes a rank-0 array rank 1
+        out[k] = to_device({k: v}, mesh.device)[k].reshape(v.shape)
     return out

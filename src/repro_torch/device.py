@@ -28,8 +28,11 @@ def resolve(device: DeviceSpec = None) -> torch.device:
 
 
 def require_single(devices: Optional[object]) -> None:
-    """The ``devices=`` knob of the reference: one device only for now."""
+    """One device only, for the surfaces whose multi-device form is the
+    reference's GSPMD placement (``runtime/train.py``'s mesh), which waits
+    for ROADMAP queue A item 12c.  The main path's ``devices=`` runs
+    (:mod:`repro_torch.shard`)."""
     if devices not in (None, 1):
         raise NotImplementedError(
             f"devices={devices!r}: multi-device sharding is not ported yet "
-            "(ROADMAP queue A item 12)")
+            "(ROADMAP queue A item 12c)")

@@ -3,7 +3,7 @@
 The counterpart of the reference's ``launch/dryrun.py``, with its CLI
 flags and ``CellOptions`` knobs.  The reference lowers and compiles each
 cell for 512 host placeholder devices and reads XLA's cost and memory
-analyses; the port has no SPMD partitioner (ROADMAP queue A item 12), so
+analyses; the port has no SPMD partitioner (ROADMAP queue A item 12c), so
 each cell is worked out on a :class:`~repro_torch.launch.mesh.LogicalMesh`
 with nothing allocated and nothing launched:
 
@@ -62,10 +62,10 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 COLLECTIVE_NOTE = (
     "not measured: the reference reads collective bytes from XLA's "
     "partitioned HLO, and the port has no SPMD partitioner until ROADMAP "
-    "queue A item 12 (launch.costing.collective_stats counts the "
+    "queue A item 12c (launch.costing.collective_stats counts the "
     "collectives a sharded step dispatches)")
 
-_ITEM_12 = "multi-device sharding is not ported yet (ROADMAP queue A item 12)"
+_ITEM_12 = "multi-device sharding is not ported yet (ROADMAP queue A item 12c)"
 
 
 @dataclass(frozen=True)

@@ -6,8 +6,17 @@ The counterpart of the reference's ``launch/mesh.py`` and of
 ``mesh.shape`` (axis name -> size) and ``mesh.axis_names``.  A
 :class:`LogicalMesh` is exactly that, so the sharding rules, the specs and
 the dry run work out every cell's layout on a 256- or 512-chip mesh on one
-host.  Placing tensors on real devices over such a mesh waits for ROADMAP
-queue A item 12.
+host.
+
+A :class:`ProcessMesh` (:func:`make_mesh`) is the same named-axis view over
+the ranks of a ``torch.distributed`` process group, one rank per mesh
+position, built with ``torch.distributed.device_mesh.init_device_mesh``; it
+adds the process group of each axis and this rank's coordinates, which the
+explicit collectives of :mod:`repro_torch.parallel` run over.
+:func:`set_mesh` / :func:`get_mesh` hold the ambient mesh, as the
+reference's ``compat.set_mesh`` / ``get_abstract_mesh`` do (the MoE layer
+and ``LM(moe_ep=)`` read it).  Placing parameters by the specs
+(``launch/specs.py``) waits for ROADMAP queue A item 12c.
 
 Production meshes (the reference's):
   single-pod: (data=16, model=16)           = 256 chips
@@ -18,8 +27,9 @@ MRA-factored meshes (paper C1; the model axis split K ways) come from
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -101,3 +111,103 @@ def make_host_mesh(device: DeviceSpec = None) -> LogicalMesh:
     dev = resolve(device)
     n = torch.cuda.device_count() if dev.type == "cuda" else 1
     return LogicalMesh((n,), ("data",))
+
+
+class ProcessMesh:
+    """Named axes over the ranks of the default ``torch.distributed``
+    process group (row-major: the last axis varies fastest over the ranks),
+    with one process group per axis.  ``shape`` / ``axis_names`` /
+    ``axis_shapes`` / ``size`` read as :class:`LogicalMesh`'s; ``device`` is
+    this rank's device and ``backend`` the group's (``"gloo"`` or
+    ``"nccl"``)."""
+
+    def __init__(self, device_mesh, device: torch.device):
+        self.device_mesh = device_mesh
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self.axis_shapes = tuple(int(n) for n in device_mesh.mesh.shape)
+        self.device = torch.device(device)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_shapes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.axis_shapes:
+            n *= s
+        return n
+
+    @property
+    def backend(self) -> str:
+        import torch.distributed as dist
+        return str(dist.get_backend())
+
+    def group(self, axis: str):
+        """The process group of this rank's line along ``axis`` (group rank
+        = the coordinate along it)."""
+        return self.device_mesh.get_group(axis)
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return int(self.device_mesh.get_local_rank(axis))
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh({self.shape}, device={self.device}, "
+                f"backend={self.backend})")
+
+
+def rank_device(device: DeviceSpec = None) -> torch.device:
+    """This rank's device: the CPU, or CUDA device ``rank % count`` (several
+    ranks share a card when there are more ranks than cards)."""
+    import torch.distributed as dist
+    dev = resolve(device)
+    if dev.type != "cuda":
+        return dev
+    return torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+
+
+def make_mesh(shape: Sequence[int], names: Sequence[str], *,
+              device: DeviceSpec = None) -> ProcessMesh:
+    """A :class:`ProcessMesh` of ``shape`` over the initialised default
+    process group (its world size must be the product of ``shape``).
+    ``device=None`` is the card, as for every entry point of the port."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs torch.distributed initialised "
+                           "(repro_torch.parallel.init_process_group)")
+    shape, names = tuple(int(n) for n in shape), tuple(names)
+    if len(shape) != len(names):
+        raise ValueError(f"{len(shape)} sizes for axes {names}")
+    LogicalMesh(shape, names)                   # the same checks
+    n = 1
+    for s in shape:
+        n *= s
+    if n != dist.get_world_size():
+        raise ValueError(f"mesh {dict(zip(names, shape))} has {n} places "
+                         f"for {dist.get_world_size()} ranks")
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dm = init_device_mesh(dev.type, shape, mesh_dim_names=names)
+    return ProcessMesh(dm, dev)
+
+
+_AMBIENT: list = []
+
+
+def get_mesh():
+    """The ambient mesh (:func:`set_mesh`), or ``None``."""
+    return _AMBIENT[-1] if _AMBIENT else None
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """Make ``mesh`` the ambient mesh inside the block (the reference's
+    ``compat.set_mesh``)."""
+    _AMBIENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.pop()

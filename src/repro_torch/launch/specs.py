@@ -8,7 +8,7 @@ device) and the C3 counters.  The shardings are
 :class:`~repro_torch.launch.mesh.Sharding` records on a
 :class:`~repro_torch.launch.mesh.LogicalMesh`, worked out by the
 reference's rules; :func:`per_device_bytes` reads what one device would
-hold.  Placing the trees on devices waits for ROADMAP queue A item 12.
+hold.  Placing the trees on devices waits for ROADMAP queue A item 12c.
 
 All cells feed discrete tokens: the [vlm]/[audio] archs (chameleon,
 musicgen) are early-fusion models over VQ/EnCodec *tokens*, so the modality

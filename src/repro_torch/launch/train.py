@@ -37,7 +37,7 @@ def main(argv=None) -> None:
                     help="use the full published config")
     ap.add_argument("--mesh", default="none",
                     help="'none' (one device); a mesh waits for ROADMAP "
-                         "queue A item 12")
+                         "queue A item 12c")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)

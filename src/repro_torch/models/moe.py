@@ -22,11 +22,31 @@ tensor.
 the per-expert loop :func:`grouped_matmul_plain` otherwise; the loop reads
 the group ends to the host, once per layer under ``experts="loop"``.
 
-Expert parallelism under a mesh (the reference's ``_moe_ep_shard``) waits
-for ROADMAP queue A item 12.
+Under a mesh (``mesh=`` or the ambient one, a
+:class:`~repro_torch.launch.mesh.ProcessMesh`) each rank runs the
+reference's ``shard_map`` body on its shard, with the collectives of
+:mod:`repro_torch.parallel`; inputs and outputs are the global (replicated)
+tensors, as a ``shard_map`` takes and returns global arrays:
+
+* expert-TP (the default): tokens split over the data axes, every expert's
+  ``wi_gate`` / ``wi_up`` split on F over the model axis and ``wo`` on its
+  rows, routing local to each data shard, the output ``psum``-ed over the
+  model axis and gathered over the data axes, ``aux`` the ``pmean`` of the
+  shards' losses;
+* expert-parallel (``ep=True``, :func:`_moe_ep_shard`): GShard's
+  capacity-bounded all-to-all dispatch with the reference's first-come
+  slot order, the grouped expert products over the received rows, the
+  mirror all-to-all back and the gate-weighted sum at the origin.
+
+Gradients: the router, the expert weights and the tokens enter both paths
+through ``replicated`` over the axes the body is split on, so every rank
+ends with the whole gradient of each global tensor (the ranks' partial
+gradients summed, as the transpose of the reference's ``shard_map`` sums
+them), as the unsharded layer's backward gives it.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -34,8 +54,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._common import active_counter
+from repro_torch.launch.mesh import get_mesh
 from repro_torch.models.layers import _act, mlp_apply
-from repro_torch.models.params import spec
+from repro_torch.models.params import get_batch_axes, spec
+from repro_torch.parallel import collectives as C
 
 EXPERTS = ("grouped", "loop")    # moe_apply's expert products
 
@@ -193,6 +215,151 @@ def _moe_ffn_local(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     return out, logits, top_ids
 
 
+def _shard_rows(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """This rank's equal slice of ``x``'s leading axis over ``axes``."""
+    n, i = C.axis_size(axes, mesh), C.axis_index(axes, mesh)
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} tokens do not split over {n} "
+                         f"shards of {axes}")
+    step = x.shape[0] // n
+    return x[i * step:(i + 1) * step]
+
+
+def _gather_rows(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The ranks' row slices over ``axes`` joined back in order."""
+    if not axes:
+        return x
+    g = C.all_gather(x, axes, mesh)
+    return g.reshape((-1,) + tuple(x.shape[1:]))
+
+
+def ep_slots(flat_ids: torch.Tensor, e_loc: int, m: int, capacity: int):
+    """GShard's dispatch plan of a shard's ``(token, slot)`` rows (flat
+    expert ids, in flat order): each row goes to shard ``id // e_loc`` at
+    its position in that shard's bucket in first-come order (the exclusive
+    running count of earlier rows with the same destination).  Returns
+    whether it fits (``keep``: position < ``capacity``) and its send slot
+    (``m * capacity``, one past the buffer, for a dropped row)."""
+    dest = torch.div(flat_ids, e_loc, rounding_mode="floor")
+    onehot = F.one_hot(dest, m).to(torch.int64)
+    pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(dim=1)
+    keep = pos < capacity
+    return keep, torch.where(keep, dest * capacity + pos, m * capacity)
+
+
+def _moe_ep_shard(pp: Dict, x: torch.Tensor, cfg: ArchConfig, *, mesh,
+                  model_axis: str, capacity: int, experts: str = "grouped"):
+    """The reference's GShard expert-parallel body on one rank: ``x`` (n, d)
+    this rank's tokens, ``pp`` the router and this rank's ``E / m``
+    complete experts.  Returns (out (n, d), the shard's aux loss, the
+    ``keep`` mask of its ``(token, slot)`` rows)."""
+    m = C.axis_size(model_axis, mesh)
+    E, k = cfg.n_experts, cfg.top_k
+    e_loc = E // m
+    n, d = x.shape
+    cap = capacity
+    gates, top_ids, logits = _route(pp["router"], x, k)
+    flat_ids = top_ids.reshape(-1)                         # (n*k,)
+    keep, slot = ep_slots(flat_ids, e_loc, m, cap)
+    tok_of_row = torch.arange(n * k, device=x.device) // k
+    # one row past the buffer takes the dropped rows, then is cut off
+    send = x.new_zeros((m * cap + 1, d)).index_copy(
+        0, slot, x.index_select(0, tok_of_row))[:m * cap]
+    send_eid = torch.zeros(m * cap + 1, dtype=torch.int64,
+                           device=x.device).index_copy(
+        0, slot, flat_ids % e_loc)[:m * cap]     # empty slots: expert 0 of
+    #                                   zero rows, whose output is zero
+    recv = C.all_to_all(send.reshape(m, cap, d), model_axis,
+                        mesh).reshape(m * cap, d)
+    eids = C.all_to_all(send_eid.reshape(m, cap), model_axis,
+                        mesh).reshape(m * cap)
+    sort_idx = torch.argsort(eids, stable=True)
+    rows = recv.index_select(0, sort_idx)
+    offsets = group_offsets(eids, e_loc)
+    if experts == "grouped" or active_counter() is not None:
+        y = expert_ffn(rows, pp, offsets, cfg.act)
+    else:
+        y = expert_ffn(rows, pp, offsets.tolist(), cfg.act,
+                       grouped_matmul_plain)
+    inv = torch.empty_like(sort_idx).scatter_(
+        0, sort_idx, torch.arange(m * cap, device=x.device))
+    y = y.index_select(0, inv)                             # back to slots
+    back = C.all_to_all(y.reshape(m, cap, d), model_axis,
+                        mesh).reshape(m * cap, d)
+    y_rows = back.index_select(0, torch.clamp(slot, max=m * cap - 1))
+    w = (gates.reshape(-1) * keep).to(y_rows.dtype)
+    y_rows = torch.where(keep[:, None], y_rows, 0.0) * w[:, None]
+    out = y_rows.reshape(n, k, d).sum(dim=1, dtype=torch.float32).to(
+        y_rows.dtype)
+    aux = load_balance_loss(logits, top_ids, E, k)
+    return out, aux, keep
+
+
+def _model_axis(mesh, model_axes):
+    """The expert / F shard axis: ``model_axes`` if given, else "model" on
+    the production mesh, "shard" on an MRA-factored one, else ``None``."""
+    if model_axes is not None:
+        return model_axes
+    names = mesh.axis_names
+    return "model" if "model" in names else (
+        "shard" if "shard" in names else None)
+
+
+def _moe_mesh(routed: Dict, cfg: ArchConfig, xf: torch.Tensor, mesh, ep,
+              mx, experts: str, aux: bool):
+    """The mesh paths of :func:`moe_apply` over the flat tokens ``xf``:
+    (out (N, d) on every rank, the aux loss or ``None``)."""
+    names = mesh.axis_names
+    mx_set = set(mx) if isinstance(mx, tuple) else {mx}
+    dp = tuple(a for a in get_batch_axes() if a in names and a not in mx_set)
+    # each rank reads a part of these global tensors: their gradients are
+    # summed over every axis the body is split on
+    split = dp + (mx if isinstance(mx, tuple) else (mx,))
+    routed = {k: C.replicated(v, split, mesh) for k, v in routed.items()}
+    xf = C.replicated(xf, split, mesh)
+    N = xf.shape[0]
+    if ep and not isinstance(mx, tuple) \
+            and cfg.n_experts % mesh.shape[mx] == 0:
+        all_axes = dp + (mx,)
+        n_shards = C.axis_size(all_axes, mesh)
+        if N % n_shards == 0:
+            m = mesh.shape[mx]
+            n_loc = N // n_shards
+            capacity = max(1, int(math.ceil(n_loc * cfg.top_k / m
+                                            * cfg.capacity_factor)))
+            e0 = C.axis_index(mx, mesh) * (cfg.n_experts // m)
+            e1 = e0 + cfg.n_experts // m
+            pp = {"router": routed["router"],
+                  **{w: routed[w][e0:e1] for w in ("wi_gate", "wi_up",
+                                                   "wo")}}
+            out, loss, _ = _moe_ep_shard(
+                pp, _shard_rows(xf, all_axes, mesh), cfg, mesh=mesh,
+                model_axis=mx, capacity=capacity, experts=experts)
+            loss = C.pmean(loss, all_axes, mesh) if aux else None
+            return _gather_rows(out, all_axes, mesh), loss
+    # expert-TP: F split over the model axis, tokens over the data axes
+    nf, fi = C.axis_size(mx, mesh), C.axis_index(mx, mesh)
+    F_ = cfg.d_ff_expert
+    if F_ % nf:
+        raise ValueError(f"d_ff_expert {F_} does not split over {nf} "
+                         f"shards of {mx}")
+    f0, f1 = fi * (F_ // nf), (fi + 1) * (F_ // nf)
+    pp = {"router": routed["router"],
+          "wi_gate": routed["wi_gate"][:, :, f0:f1],
+          "wi_up": routed["wi_up"][:, :, f0:f1],
+          "wo": routed["wo"][:, f0:f1]}
+    x_loc = _shard_rows(xf, dp, mesh) if dp else xf
+    out, logits, top_ids = _moe_ffn_local(pp, x_loc, cfg, experts)
+    out = C.psum(out, mx, mesh)
+    loss = None
+    if aux:
+        loss = C.pmean(load_balance_loss(logits, top_ids, cfg.n_experts,
+                                         cfg.top_k), mx, mesh)
+        if dp:
+            loss = C.pmean(loss, dp, mesh)
+    return _gather_rows(out, dp, mesh), loss
+
+
 def moe_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh=None,
               ep: bool = False, model_axes=None, *, experts: str = "grouped",
               aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -200,16 +367,31 @@ def moe_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh=None,
     has them.  Returns (out (B, S, d), the load-balance aux loss; ``None``
     with ``aux=False``, as the serving path asks).  ``experts``: the expert
     products through :func:`grouped_matmul` (``"grouped"``) or the
-    per-expert loop (``"loop"``)."""
-    if mesh is not None or ep or model_axes is not None:
-        raise NotImplementedError(
-            f"mesh={mesh!r}, ep={ep!r}, model_axes={model_axes!r}: "
-            "multi-device sharding is not ported yet (ROADMAP queue A item "
-            "12)")
+    per-expert loop (``"loop"``).
+
+    ``mesh`` (or the ambient :func:`~repro_torch.launch.mesh.get_mesh`)
+    with a model axis (``model_axes``, else "model" or "shard") takes the
+    reference's ``shard_map`` paths on every rank: expert-TP, or GShard
+    expert parallelism with ``ep=True`` where the experts and the tokens
+    split evenly (see the module docstring); ``x`` and the output are the
+    global tensors, the same on every rank.  Without one (a mesh object
+    with no named axes included) the single-device path runs, whatever
+    ``ep`` / ``model_axes`` say, as in the reference."""
     if experts not in EXPERTS:
         raise ValueError(f"experts={experts!r}; one of {EXPERTS}")
     B, S, d = x.shape
     routed = {k: v for k, v in p.items() if k != "shared"}
+    if mesh is None:
+        mesh = get_mesh()
+    names = tuple(getattr(mesh, "axis_names", ()) or ())
+    mx = _model_axis(mesh, model_axes) if names else None
+    if names and mx:
+        out, loss = _moe_mesh(routed, cfg, x.reshape(B * S, d), mesh, ep,
+                              mx, experts, aux)
+        out = out.reshape(B, S, d)
+        if cfg.n_shared_experts:
+            out = out + mlp_apply(p["shared"], x, cfg.act)
+        return out, loss
     out, logits, top_ids = _moe_ffn_local(routed, x.reshape(B * S, d), cfg,
                                           experts)
     out = out.reshape(B, S, d)

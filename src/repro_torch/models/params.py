@@ -15,7 +15,7 @@ dtype, logical axis names, initializer), as in the reference
   ``core.replication`` remap a tile's axes onto ``(replica, shard)``).
 
 The rules are the reference's and give the same specs; what waits for
-ROADMAP queue A item 12 is their use on devices.  On one device the
+ROADMAP queue A item 12c is their use on devices.  On one device the
 reference's ``shard_activation`` is the identity, so the port's layers have
 no call to it.
 """

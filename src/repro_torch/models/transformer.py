@@ -118,22 +118,21 @@ class LM:
     kv_cache_dtype: Optional[torch.dtype] = None   # default bfloat16
     ssm_backend: str = "torch"   # torch | fused (reference: xla | pallas)
     remat: bool = True             # recompute each block in the backward
-    onehot_loss: bool = False      # the reference's sharding knobs
-    moe_ep: bool = False           # (vocab-parallel loss, expert and
-    moe_axes: Any = None           # block sharding): not ported (one
-    block_pspecs: Any = None       # device), only the defaults are taken
+    onehot_loss: bool = False      # vocab-parallel loss: item 12c
+    moe_ep: bool = False           # GShard expert-parallel MoE and explicit
+    moe_axes: Any = None           # MoE shard axes, under an ambient mesh
+    block_pspecs: Any = None       # block placement: item 12c
 
     def __post_init__(self):
         why = not_ported(self.cfg)
         if why:
             raise NotImplementedError(why)
-        if self.onehot_loss or self.moe_ep or self.moe_axes is not None \
-                or self.block_pspecs is not None:
+        if self.onehot_loss or self.block_pspecs is not None:
             raise NotImplementedError(
-                f"onehot_loss={self.onehot_loss!r}, moe_ep={self.moe_ep!r}, "
-                f"moe_axes={self.moe_axes!r}, "
-                f"block_pspecs={self.block_pspecs!r}: multi-device sharding "
-                "is not ported yet (ROADMAP queue A item 12)")
+                f"onehot_loss={self.onehot_loss!r}, "
+                f"block_pspecs={self.block_pspecs!r}: the GSPMD placement "
+                "of the multi-device LLM stack is not ported yet (ROADMAP "
+                "queue A item 12c)")
         if self.kv_cache_dtype == torch.int8 and self.cfg.attn_type != "mla":
             raise ValueError(
                 "kv_cache_dtype=torch.int8 is the MLA latent cache's "
@@ -230,7 +229,8 @@ class LM:
             return self._mlp(bp, x), None
         h = L.rms_norm(x, bp["mlp_norm"], self.cfg.norm_eps)
         experts = "grouped" if self.opts.backend == "fused" else "loop"
-        out, loss = MoE.moe_apply(bp["moe"], self.cfg, h, experts=experts,
+        out, loss = MoE.moe_apply(bp["moe"], self.cfg, h, ep=self.moe_ep,
+                                  model_axes=self.moe_axes, experts=experts,
                                   aux=aux)
         return x + out, loss
 

@@ -3,15 +3,19 @@
 
     q = round(g / scale) : int8, scale = max|g| / 127 per leaf,
 
-4x fewer wire bytes than float32 at an error of at most half a step.  The
-pod-axis reduction that uses it (an int8 all-gather and a float32 sum under
-``shard_map``) needs a mesh, which waits for ROADMAP queue A item 12.
+4x fewer wire bytes than float32 at an error of at most half a step, and
+the pod-axis reduction that uses it: each rank's int8 leaf and its scale
+all-gathered over the axis (:func:`repro_torch.parallel.all_gather`), then
+dequantised and summed in float32 in rank order, on every rank of the axis.
 """
 from __future__ import annotations
 
 from typing import Any, Tuple
 
 import torch
+from torch.utils._pytree import tree_map
+
+from repro_torch.parallel.collectives import all_gather
 
 
 def quantize_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -28,17 +32,22 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def _needs_mesh(what: str):
-    raise NotImplementedError(
-        f"{what}: the pod-axis int8 all-gather runs under a device mesh; "
-        "multi-device sharding is not ported yet (ROADMAP queue A item 12)")
-
-
-def compressed_psum_leaf(g: torch.Tensor, axis: str) -> torch.Tensor:
-    """int8 all-gather + float32 sum over one mesh axis (not ported)."""
-    _needs_mesh("compressed_psum_leaf")
+def compressed_psum_leaf(g: torch.Tensor, axis: str, mesh=None
+                         ) -> torch.Tensor:
+    """int8 all-gather + float32 sum of ``g`` over the mesh axis ``axis``
+    (``mesh``, or the ambient one), in ``g``'s dtype, on every rank."""
+    q, scale = quantize_int8(g)
+    qs = all_gather(q, axis, mesh)                  # (n, ...) int8
+    ss = all_gather(scale.reshape(1), axis, mesh)   # (n, 1)
+    deq = qs.float() * ss.reshape((-1,) + (1,) * g.ndim)
+    total = deq[0]
+    for part in deq[1:]:                            # rank order
+        total = total + part
+    return total.to(g.dtype)
 
 
 def compressed_allreduce(grads: Any, mesh, axis: str = "pod") -> Any:
-    """Compress-reduce a pod-sharded partial gradient tree (not ported)."""
-    _needs_mesh("compressed_allreduce")
+    """Compress-reduce a tree of per-pod partial gradients over ``axis``:
+    every leaf fully summed, on every rank of the axis."""
+    return tree_map(lambda leaf: compressed_psum_leaf(leaf, axis, mesh),
+                    grads)

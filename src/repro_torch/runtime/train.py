@@ -18,7 +18,7 @@ mirroring ``repro/runtime/train.py`` on one device.
   ``FaultSupervisor`` restarts from the latest checkpoint.
 
 A device mesh (``mesh``, the reference's shardings and ``device_put_batch``)
-waits for ROADMAP queue A item 12.
+waits for ROADMAP queue A item 12c.
 """
 from __future__ import annotations
 
@@ -62,7 +62,7 @@ class TrainConfig:
             raise NotImplementedError(
                 f"grad_reduce_dtype={self.grad_reduce_dtype!r}: the "
                 "cross-device gradient reduce is not ported yet (ROADMAP "
-                "queue A item 12)")
+                "queue A item 12c)")
 
 
 def step_grads(lm: LM, params, batch: Dict[str, torch.Tensor],

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import shard as shard_mod
 from repro_torch.core.dfs import (BatchEWMAUtilizationPolicy,
                                   BatchMemoryBoundPolicy, BatchPIDRatePolicy)
 from repro_torch.core.islands import (IslandConfig, IslandSpec, NOC_LADDER,
@@ -79,8 +80,8 @@ from repro_torch.sim.engine import (PKT_BYTES, SimConfig, SimPlatform,
 from repro_torch.sim.faults import (CompiledFaults, SLOConfig,
                                     compile_faults, respill_stranded)
 from repro_torch.sim.flows import FlowPattern, compile_flows
-from repro_torch.sim.observe import (RANK_CONTROL, RANK_END, Observer,
-                                     emit_trace, schedule_entries)
+from repro_torch.sim.observe import (RANK_CONTROL, RANK_END, CounterPlane,
+                                     Observer, emit_trace, schedule_entries)
 from repro_torch.sim.telemetry import (BatchTelemetry, Telemetry,
                                        TelemetrySchema)
 from repro_torch.sim.traffic import BatchTrace
@@ -197,6 +198,15 @@ class BatchSimPlatform:
             req_mb=np.full((B, A), float(req_mb)),
             rates=da["rates"], f_tg=da["f_tg"], n_tg=int(n_tg),
             flows=flows)
+
+    def take(self, rows) -> "BatchSimPlatform":
+        """The designs ``rows`` (an index array; repeats allowed) as a
+        platform of their own — a shard of the design axis."""
+        rows = np.asarray(rows, dtype=np.int64)
+        return dataclasses.replace(
+            self, **{f: getattr(self, f)[rows] for f in
+                     ("base_mbps", "wire_share", "k", "pos_idx", "req_mb",
+                      "rates", "f_tg")})
 
     def design(self, b: int) -> SimPlatform:
         """Materialize design ``b`` as a single :class:`SimPlatform`
@@ -380,6 +390,23 @@ FAULT_HISTORIES = ("dropped", "dropped_slo", "dropped_fault", "retried",
                    "queue", "carry")
 
 
+def _join_events(parts, per: int, B: int):
+    """The event log of a sharded run from its shards' logs: the schedule's
+    events once (every shard logs the same), each tick's commits joined
+    into one event over the global design indices (pad designs left out),
+    in the order the unsharded loop logs them."""
+    commits: Dict[int, list] = {}
+    for i, evs in enumerate(parts):
+        for ev in evs:
+            if ev["kind"] == "dfs_commit":
+                commits.setdefault(ev["tick"], []).extend(
+                    g for g in (i * per + d for d in ev["designs"]) if g < B)
+    joined = [dict(ev) for ev in parts[0] if ev["kind"] != "dfs_commit"]
+    joined += [{"tick": t, "kind": "dfs_commit", "designs": ds}
+               for t, ds in sorted(commits.items()) if ds]
+    return sorted(joined, key=_event_order)
+
+
 def _event_order(ev) -> Tuple[int, int]:
     """Sort key of the event log within a tick, as the reference engine
     logs them: the schedule's transitions at the start of the tick, the
@@ -405,7 +432,19 @@ class BatchSimEngine:
     (a level name or an :class:`~repro_torch.sim.observe.Observer`) records
     the counter plane on ``"torch"`` in both dtypes and the control trace
     in float64, as the reference's NumPy and scan backends do, and is
-    refused on ``"fused"``; ``devices`` accepts ``None`` or ``1``.
+    refused on ``"fused"``.
+
+    ``devices`` (``None``, an int or ``"auto"``, resolved at each run by
+    :func:`repro_torch.shard.resolve_devices`) splits the design axis into
+    that many shards, padded with design 0: each shard is an engine of its
+    own over its designs (its controller rows, its trace rows) on its own
+    device (:func:`repro_torch.shard.shard_devices`), driven from this
+    thread — one ``"fused"`` launch each, all queued before any is read
+    back, or one tick loop each, run one after another.  The
+    shards' outputs are joined in design order with the pad sliced off,
+    and the controller's evolved rows written back, so every shard count
+    gives the unsharded result bit for bit, on both backends and with the
+    balancer, faults, an SLO and the observer.
     """
 
     def __init__(self, platform: BatchSimPlatform, *,
@@ -422,9 +461,12 @@ class BatchSimEngine:
         if dtype not in (torch.float64, torch.float32):
             raise ValueError(f"dtype must be torch.float64 or torch.float32, "
                              f"got {dtype}")
-        device_mod.require_single(devices)
+        shard_mod.resolve_devices(devices)          # a bad knob fails here
         self.platform = platform
         self.devices = devices
+        # the design count whose summation order ``completed`` follows (a
+        # shard of a batch adds as the whole batch does)
+        self._order_designs = platform.n_designs
         self.device = device_mod.resolve(device)
         self.dtype = dtype
         self.config = config
@@ -446,6 +488,7 @@ class BatchSimEngine:
         self.observer = Observer.coerce(observe)
         self._refuse_unported()
         self.last_state: Optional[TickState] = None
+        self.last_capture = None        # the float64 loop's plane capture
         self.last_histories = None      # (admitted, served) (T, B, A)
                                         # tensors on the engine's device
         self.last_fault_histories = None  # per-tick ledgers under faults /
@@ -624,7 +667,7 @@ class BatchSimEngine:
         f64 = torch.float64
         exit_mask = (self._tensors(f64)["exit"]
                      if self._forward is not None else None)
-        if served_hist.shape[1] == 1:
+        if self._order_designs == 1:
             s = served_hist[:, 0].to(f64).cpu().numpy()
             if exit_mask is not None:
                 s = s * self._compiled_flows.exit_mask
@@ -653,9 +696,146 @@ class BatchSimEngine:
         The knobs are checked again here, since a caller may set them after
         construction."""
         self._refuse_unported()
+        if shard_mod.resolve_devices(self.devices) > 1:
+            return self._run_sharded(trace)
         if self.backend == "fused":
             return self._run_fused(trace)
         return self._run_torch(trace)
+
+    # ------------------------------------------------------------ shards
+    def _shard_engine(self, rows: np.ndarray, device) -> "BatchSimEngine":
+        """An unsharded engine over the designs ``rows`` on ``device``,
+        with this engine's knobs (a fresh observer of the same plane)."""
+        ob = self.observer
+        sub = BatchSimEngine(
+            self.platform.take(rows), config=self.config,
+            controller=(self.controller.take_rows(rows)
+                        if self.controller is not None else None),
+            balancer=self.balancer, backend=self.backend, faults=self.faults,
+            slo=self.slo,
+            observe=(Observer("counters", profiler=ob.profiler)
+                     if ob is not None and ob.enabled else None),
+            tech=self.tech, device=device, dtype=self.dtype)
+        sub._order_designs = self.platform.n_designs
+        return sub
+
+    def _run_sharded(self, trace) -> BatchSimResult:
+        """:meth:`run` over the shards of the design axis (see the class
+        docstring), their outputs joined on this engine's device.  On
+        ``"fused"`` every shard's kernel is queued on its device before any
+        shard is read back, so shards on different cards run at once; the
+        ``"torch"`` loops, which wait for the card at each control tick, run
+        one shard after another."""
+        p = self.platform
+        B, T = p.n_designs, trace.ticks
+        self._check_trace(trace)
+        n = shard_mod.resolve_devices(self.devices)
+        rows = shard_mod.pad_axis(np.arange(B), n)
+        per = rows.shape[0] // n
+        # every shard takes its rows before any runs (a shard's pad repeats
+        # design 0, which another shard's run evolves)
+        parts = [rows[i * per:(i + 1) * per] for i in range(n)]
+        subs = [self._shard_engine(r, dev) for r, dev in
+                zip(parts, shard_mod.shard_devices(n, self.device))]
+        traces = [BatchTrace(trace.arrivals[:, r], trace.dt)
+                  if isinstance(trace, BatchTrace) else trace for r in parts]
+        loop_s = None
+        if self.backend == "fused":
+            # every shard's kernel queued before any is read back; the loop
+            # timed from the first launch until every shard's card is done
+            launches = [sub._launch_fused(tr, timed=False)
+                        for sub, tr in zip(subs, traces)]
+            for sub in subs:
+                sub._sync()
+            loop_s = time.perf_counter() - launches[0]["wall0"]
+            results = [sub._collect_fused(la)
+                       for sub, la in zip(subs, launches)]
+        else:
+            results = [sub.run(tr) for sub, tr in zip(subs, traces)]
+        if self.controller is not None:
+            for i, sub in enumerate(subs):
+                pos = np.arange(i * per, (i + 1) * per)
+                real = pos < B
+                self.controller.put_rows(pos[real], sub.controller,
+                                         np.nonzero(real)[0])
+
+        def cat(xs, dim=0):
+            return torch.cat([x.to(self.device) for x in xs],
+                             dim=dim).narrow(dim, 0, B)
+
+        def host(name):
+            return np.concatenate([getattr(r, name) for r in results])[:B]
+
+        f0 = subs[0].last_state
+        self.last_state = TickState(**{
+            f.name: (None if getattr(f0, f.name) is None else
+                     cat([getattr(s.last_state, f.name) for s in subs]))
+            for f in dataclasses.fields(f0)})
+        self.last_histories = tuple(
+            cat([s.last_histories[j] for s in subs], dim=1)
+            for j in range(2))
+        fh = subs[0].last_fault_histories
+        self.last_fault_histories = None if fh is None else {
+            k: (None if fh[k] is None else
+                cat([s.last_fault_histories[k] for s in subs], dim=1))
+            for k in fh}
+        events = None
+        telemetry = None
+        if results[0].telemetry is not None:
+            events = _join_events([r.telemetry.events for r in results],
+                                  per, B)
+            telemetry = BatchTelemetry.concat(
+                [r.telemetry for r in results], B, events)
+        ob = self.observer
+        if ob is not None and ob.enabled:
+            caps = [s.last_capture for s in subs]
+            if caps[0] is not None:
+                # every shard's plane sums over the segments of the whole
+                # batch (a commit anywhere starts one)
+                starts = set().union(*(c.segment_starts() for c in caps))
+                for c in caps:
+                    c.split_at(starts)
+            planes = [s.observer for s in subs]
+            ob.attach_lazy(lambda: CounterPlane.concat(
+                [o.counters for o in planes], B))
+            if self.dtype == torch.float64:
+                ob.begin_run()
+                if ob.tracing:
+                    cf = self._compile_faults(T)
+                    entries = schedule_entries(
+                        cf.events_by_tick() if cf is not None else {}) + [
+                        (ev["tick"], RANK_CONTROL, "dfs_commit", "batch",
+                         {"designs": ev["designs"]})
+                        for ev in events if ev["kind"] == "dfs_commit"]
+                    entries.append((max(T - 1, 0), RANK_END, "run_end",
+                                    "batch-torch", {"designs": B}))
+                    emit_trace(ob, entries, "batch-torch", ticks=T,
+                               dt=trace.dt, designs=B, level=ob.level)
+        r0 = results[0]
+        timings = {k: sum(r.timings[k] for r in results)
+                   for k in r0.timings}
+        if loop_s is not None:
+            timings["loop"] = loop_s
+        completed, energy = host("completed"), host("energy_j")
+        sim_seconds = T * trace.dt
+        ledgers = {k: (None if getattr(r0, k) is None else host(k))
+                   for k in ("dropped_slo", "dropped_fault", "retried")}
+        return BatchSimResult(
+            n_designs=B, ticks=T, dt=trace.dt,
+            offered=self._offered(trace), completed=completed,
+            dropped=host("dropped"), residual=host("residual"),
+            throughput_rps=(completed / sim_seconds if sim_seconds
+                            else np.zeros(B)),
+            p50_latency_s=host("p50_latency_s"),
+            p99_latency_s=host("p99_latency_s"), energy_j=energy,
+            energy_per_request_j=np.where(
+                completed > 0, energy / np.maximum(completed, 1e-9),
+                np.nan),
+            mean_power_w=(energy / sim_seconds if sim_seconds
+                          else np.zeros(B)),
+            swaps=host("swaps"), elapsed_wall_s=timings["loop"],
+            backend=r0.backend, telemetry=telemetry, timings=timings,
+            **ledgers)
 
     def _run_torch(self, trace) -> BatchSimResult:
         p = self.platform
@@ -869,6 +1049,7 @@ class BatchSimEngine:
         elif lp.icap is not None:
             self.observer.attach_lazy(lp.icap.finalize)
         self.last_state = lp.state
+        self.last_capture = lp.ocap
         self.last_histories = (lp.admitted, lp.served)
         self.last_fault_histories = (
             None if lp.fh is None else
@@ -1261,19 +1442,35 @@ class BatchSimEngine:
         service / forward / control tick loop as ONE kernel launch, float32.
         Open-loop replay + the membound / PID / EWMA / guard-only
         controllers."""
-        B, A = self.platform.n_designs, self.platform.n_tiles
-        dev = self.device
+        return self._collect_fused(self._launch_fused(trace))
+
+    def _launch_fused(self, trace, *, timed: bool = True) -> Dict:
+        """The first half of :meth:`_run_fused`: the inputs uploaded and the
+        kernel queued, nothing read back.  ``timed`` waits for the uploads
+        to time them; a sharded run queues every shard's kernel first and
+        times the loop from the first launch to the last collect."""
         timings = {}
         t0 = time.perf_counter()
         arr, consts, scalars, init, plan, swaps_before = \
             self.fused_inputs(trace)
-        self._sync()
+        if timed:
+            self._sync()
         timings["copies"] = time.perf_counter() - t0
-
         wall0 = time.perf_counter()
         out = fused_tick_sim(arr, consts, scalars, init, plan=plan)
+        return {"trace": trace, "out": out, "plan": plan,
+                "swaps_before": swaps_before, "timings": timings,
+                "wall0": wall0}
+
+    def _collect_fused(self, launch: Dict) -> BatchSimResult:
+        """The second half of :meth:`_run_fused`: wait for the kernel, then
+        the controller's write-back and the result."""
+        B, A = self.platform.n_designs, self.platform.n_tiles
+        dev = self.device
+        trace, out, plan = launch["trace"], launch["out"], launch["plan"]
+        swaps_before, timings = launch["swaps_before"], launch["timings"]
         self._sync()
-        timings["loop"] = time.perf_counter() - wall0
+        timings["loop"] = time.perf_counter() - launch["wall0"]
 
         t0 = time.perf_counter()
         swapsF = np.rint(out["swaps"].cpu().numpy()).astype(np.int64)

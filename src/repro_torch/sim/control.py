@@ -31,6 +31,7 @@ splits each tick's arrivals on the engine's device, inside the tick loop.
 """
 from __future__ import annotations
 
+import copy
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Deque, Dict, List, Optional, Tuple
@@ -649,3 +650,59 @@ class BatchControllerHarness:
         self.versions = self.versions + committed
         self.swaps = self.swaps + committed
         return self.rates
+
+    # ------------------------------------------------------- design rows
+    # the harness's per-design state, each with a leading design axis
+    ROW_STATE = ("rates", "versions", "swaps", "last_clamped",
+                 "_guard_active", "_prev_pkts_in", "_prev_pkts_out",
+                 "_prev_rtt", "last_committed")
+
+    @staticmethod
+    def _row_attrs(obj, names, B: int):
+        """``obj``'s attributes among ``names`` (or, for ``names=None``,
+        its private arrays) that hold one row per design."""
+        for k, v in vars(obj).items():
+            if names is not None and k not in names:
+                continue
+            if names is None and not k.startswith("_"):
+                continue
+            if isinstance(v, np.ndarray) and v.ndim >= 1 \
+                    and v.shape[0] == B:
+                yield k, v
+
+    def take_rows(self, rows: np.ndarray) -> "BatchControllerHarness":
+        """A harness over the designs ``rows`` of this one (a shard of the
+        design axis): every per-design array of the harness, and every
+        private per-design array of its policy (PID integrals, EWMA state),
+        sliced; the rest shared.  :meth:`put_rows` writes a run's evolved
+        state back."""
+        rows = np.asarray(rows, dtype=np.int64)
+        B = self.n_designs
+        sub = copy.copy(self)
+        for k, v in self._row_attrs(self, self.ROW_STATE, B):
+            setattr(sub, k, v[rows].copy())
+        if self.policy is not None:
+            sub.policy = copy.copy(self.policy)
+            for k, v in self._row_attrs(self.policy, None, B):
+                setattr(sub.policy, k, v[rows].copy())
+        return sub
+
+    def put_rows(self, positions: np.ndarray, sub: "BatchControllerHarness",
+                 sub_positions: np.ndarray) -> None:
+        """Write rows ``sub_positions`` of ``sub`` (made by
+        :meth:`take_rows`) into this harness's rows ``positions``.  A state
+        array the sub-harness holds and this one does not yet (``None``
+        before a first control step) is created here."""
+        Bs = sub.n_designs
+        for own, other in ((self, sub), (self.policy, sub.policy)):
+            if other is None:
+                continue
+            names = self.ROW_STATE if own is self else None
+            for k, v in list(self._row_attrs(other, names, Bs)):
+                cur = getattr(own, k, None)
+                if not isinstance(cur, np.ndarray) \
+                        or cur.shape[1:] != v.shape[1:]:
+                    cur = np.zeros((self.n_designs,) + v.shape[1:],
+                                   dtype=v.dtype)
+                    setattr(own, k, cur)
+                cur[positions] = v[sub_positions]

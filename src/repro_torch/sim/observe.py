@@ -311,6 +311,23 @@ class CounterPlane:
         cp.ticks = np.asarray(ticks, dtype=np.float64)
         return cp
 
+    @classmethod
+    def concat(cls, planes: Sequence["CounterPlane"],
+               n: int) -> "CounterPlane":
+        """Batched planes of the shards of a design axis joined in order
+        along it, cut to the first ``n`` designs (the shards' pad)."""
+        p0 = planes[0]
+        cp = cls(p0.n_tiles, p0.n_links, p0.n_islands,
+                 lead=(n,) + p0.lead[1:], tile_names=p0.tile_names,
+                 island_names=p0.island_names)
+        for group in ("tile", "link", "island"):
+            for k in getattr(p0, group):
+                getattr(cp, group)[k] = np.concatenate(
+                    [getattr(p, group)[k] for p in planes])[:n]
+        cp.ticks = np.concatenate([np.asarray(p.ticks)
+                                   for p in planes])[:n]
+        return cp
+
     # -- windowing -------------------------------------------------------
     def reset(self, kinds: Optional[Sequence[str]] = None,
               tiles: Optional[Sequence] = None) -> None:
@@ -542,6 +559,22 @@ class DeferredCapture:
 
     def on_tick(self, t_i: int, out) -> None:
         self._dyn[t_i] = out.dyn
+
+    def segment_starts(self) -> List[int]:
+        return sorted({s for s, _ in self._segments})
+
+    def split_at(self, ticks) -> None:
+        """Add segment boundaries at ``ticks``, each keeping the service
+        terms in force there.  The plane's sums over a segment restart at
+        every boundary, so a shard of a design batch, split where any design
+        of the batch committed, sums its designs' ticks in the groups the
+        whole batch's run does."""
+        segs = sorted(self._segments, key=lambda s: s[0])
+        have = {s for s, _ in segs}
+        for t in sorted(set(int(t) for t in ticks) - have):
+            if 0 < t < self.T:
+                self._segments.append(
+                    (t, [svc for s, svc in segs if s <= t][-1]))
 
     # reconstruction -----------------------------------------------------
     def finalize(self, admitted: torch.Tensor, served: torch.Tensor,

@@ -232,6 +232,23 @@ class BatchTelemetry:
     def event(self, tick: int, kind: str, **payload) -> None:
         self.events.append({"tick": int(tick), "kind": kind, **payload})
 
+    @classmethod
+    def concat(cls, parts: Sequence["BatchTelemetry"], n_designs: int,
+               events=()) -> "BatchTelemetry":
+        """The recordings of the shards of a design axis (same rows, same
+        capacity) joined in order along it, cut to the first ``n_designs``
+        (the shards' pad dropped), with the event log ``events``."""
+        p0 = parts[0]
+        out = cls(p0.schema, n_designs, capacity=p0.scalars.capacity)
+        for name in ("scalars", "island_rates", "queue_depth", "busy"):
+            rings = [getattr(p, name) for p in parts]
+            n = len(rings[0])
+            slots = np.concatenate([r._buf[:n] for r in rings], axis=1)
+            getattr(out, name).fill(slots[:, :n_designs],
+                                    rings[0].total_appended)
+        out.events = list(events)
+        return out
+
     # ---------------------------------------------------------- accessors
     def series(self, name: str) -> np.ndarray:
         """One scalar channel as a (rows, B) chronological array."""

@@ -18,6 +18,7 @@ import test_torch_moe
 import test_torch_observe
 import test_torch_sim_batch
 import test_torch_sim_engine
+import test_torch_shard
 import test_torch_sim_faults
 import test_torch_ssd
 import test_torch_telemetry
@@ -29,7 +30,7 @@ from _torch_port_helpers import chip_smoke
 MODULES = (test_torch_llm_kernels, test_torch_ssd, test_torch_tick_sim,
            test_torch_dse_chunked, test_torch_telemetry, test_torch_sim_batch,
            test_torch_sim_engine, test_torch_sim_faults, test_torch_observe,
-           test_torch_moe, test_torch_train_ops)
+           test_torch_moe, test_torch_train_ops, test_torch_shard)
 
 
 def _gpu_tests():

@@ -196,12 +196,20 @@ def test_chunk_points_refused_when_grid_exceeds_it():
     assert isinstance(res, PORT.dse.SweepResult)
 
 
-def test_devices_beyond_one_refused():
+def test_devices_beyond_one_refused(monkeypatch):
+    """``devices=`` is ported (queue A item 12a): a count below one is
+    refused as the reference refuses it, and two shards give the one-shard
+    sweep (``tests/test_torch_shard.py`` holds every count)."""
     names, kw = GRIDS["small_shared"]
     model, wls = PORT.pm.SoCPerfModel(), _wls(PORT, names)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
-        PORT.dse.grid_sweep(model, wls, device="cpu", devices=2, **kw)
-    PORT.dse.grid_sweep(model, wls, device="cpu", devices=1, **kw)
+    with pytest.raises(AssertionError):
+        PORT.dse.grid_sweep(model, wls, device="cpu", devices=0, **kw)
+    monkeypatch.setenv("REPRO_TORCH_FORCE_DEVICE_COUNT", "2")
+    one = PORT.dse.grid_sweep(model, wls, device="cpu", devices=1, **kw)
+    two = PORT.dse.grid_sweep(model, wls, device="cpu", devices=2, **kw)
+    for f in ("throughput", "area", "energy_per_unit", "mem_traffic",
+              "valid"):
+        assert np.array_equal(getattr(two, f), getattr(one, f)), f
 
 
 def test_default_device_is_the_card():

@@ -78,6 +78,10 @@ def test_sources_exist():
                  "src/repro_torch/kernels/ref.py",
                  "src/repro_torch/optim/adamw.py",
                  "src/repro_torch/optim/compress.py",
+                 "src/repro_torch/shard.py",
+                 "src/repro_torch/parallel/__init__.py",
+                 "src/repro_torch/parallel/collectives.py",
+                 "src/repro_torch/parallel/pipeline.py",
                  "src/repro_torch/data/pipeline.py",
                  "src/repro_torch/checkpoint/store.py",
                  "src/repro_torch/runtime/train.py",

@@ -30,7 +30,9 @@ import repro_torch.models.transformer as PT
 from repro_torch.convert import lm_cache_from_numpy, lm_params_from_numpy
 
 RTOL, ATOL = 1e-4, 1e-6
-ARCHS = ("h2o-danube-1.8b", "gemma-2b")     # SWA + GQA; tied + MQA + GeGLU
+ARCHS = ("h2o-danube-1.8b", "gemma-2b",    # SWA + GQA; tied + MQA + GeGLU
+         "phi3-medium-14b", "granite-8b",  # GQA kv 10, hd 128; GQA
+         "chameleon-34b", "musicgen-large")  # GQA; MHA + gelu, vocab 2,048
 
 
 def np32(x):
@@ -352,7 +354,7 @@ def test_unported_families_and_entry_points_raise():
     assert sorted(parts) == ["aux", "nll"] and bool(torch.isfinite(loss))
     # the multi-device knobs name their item
     with pytest.raises(NotImplementedError, match="queue A item 12"):
-        PT.LM(cfg, moe_ep=True)
+        PT.LM(cfg, onehot_loss=True)
     with pytest.raises(KeyError):
         port_configs.get_config("no-such-arch")
 

@@ -239,11 +239,17 @@ def test_moe_apply_bf16_matches_the_reference(E, k):
 
 
 def test_moe_apply_refuses_a_mesh_and_expert_parallelism():
+    """The mesh knobs are ported (queue A item 12b,
+    ``tests/test_torch_parallel.py``): without a mesh that names axes they
+    leave the single-device path, as in the reference; a bad ``experts``
+    is still refused."""
     _, pcfg, _, pp = moe_layer(4, 2, 0)
-    x = torch.zeros(1, 2, pcfg.d_model)
+    x = torch.randn(1, 2, pcfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    want, want_aux = PM.moe_apply(pp, pcfg, x)
     for kw in (dict(mesh=object()), dict(ep=True), dict(model_axes="model")):
-        with pytest.raises(NotImplementedError, match="queue A item 12"):
-            PM.moe_apply(pp, pcfg, x, **kw)
+        out, aux = PM.moe_apply(pp, pcfg, x, **kw)
+        assert torch.equal(out, want) and torch.equal(aux, want_aux)
     with pytest.raises(ValueError, match="experts"):
         PM.moe_apply(pp, pcfg, x, experts="ragged")
 

@@ -199,9 +199,12 @@ def test_int8_quantization_equals_the_reference():
 
 
 def test_compressed_reduce_waits_for_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """Ported (queue A item 12b; run over a gloo mesh in
+    ``tests/test_torch_parallel.py``): with no mesh, given or ambient, the
+    all-gather has nothing to run over and says so."""
+    with pytest.raises(RuntimeError, match="needs a mesh"):
         compressed_psum_leaf(torch.ones(3), "pod")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(RuntimeError, match="needs a mesh"):
         compressed_allreduce({"a": torch.ones(3)}, None)
 
 

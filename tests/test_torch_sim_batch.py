@@ -363,8 +363,9 @@ def test_bad_backend_devices_and_default_device():
     plat = PORT.sim.BatchSimPlatform.stack([make_platform(PORT, 4)])
     with pytest.raises(ValueError, match="backend"):
         PORT.sim.BatchSimEngine(plat, backend="numpy", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PORT.sim.BatchSimEngine(plat, devices=4, device="cpu")
+    with pytest.raises(AssertionError):      # as the reference refuses it
+        PORT.sim.BatchSimEngine(plat, devices=0, device="cpu")
+    PORT.sim.BatchSimEngine(plat, devices=4, device="cpu")   # item 12a
     PORT.sim.BatchSimEngine(plat, devices=1, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -122,7 +122,8 @@ REFUSED = [
 # packages and must give the reference's indices and ranking, scores within
 # 1e-12, and the reference's counter summaries (the "fused" batched path
 # still refuses the balancer, the fault schedule, the SLO and the observer)
-PORTED = ("balancer", "sequential", "fault", "SLO", "observer")
+PORTED = ("balancer", "sequential", "fault", "SLO", "observer",
+          "multi-device")
 FUSED_REFUSES = ("balancer", "fault", "SLO", "observer")
 # what "fused" says for each knob it refuses, where its words are fixed
 FUSED_WORDS = {
@@ -157,7 +158,8 @@ def _knob(pkg, kw):
 @pytest.mark.parametrize("kw,word", REFUSED,
                          ids=[w + str(i) for i, (_, w) in enumerate(REFUSED)])
 @pytest.mark.parametrize("backend", ["torch", "fused"])
-def test_closed_loop_score_refuses_unported_knobs(kw, word, backend):
+def test_closed_loop_score_refuses_unported_knobs(kw, word, backend,
+                                                  monkeypatch):
     """What is not ported is refused, naming its ROADMAP item; the
     balancer, the per-point sequential path, fault-aware scoring and the
     observer (queue A items 7, 4, 8 and 9) run and are held to the
@@ -166,6 +168,21 @@ def test_closed_loop_score_refuses_unported_knobs(kw, word, backend):
     which refuses them."""
     tr = {pkg.name: pkg.sim.diurnal_trace(2000.0, 20, 2, dt=DT, seed=5)
           for pkg in (REF, PORT)}
+    if word == "multi-device":
+        # ported (queue A item 12a): two shards give the one-device scores
+        # bit for bit on both backends (tests/test_torch_shard.py holds the
+        # shards against the reference)
+        monkeypatch.setenv("REPRO_TORCH_FORCE_DEVICE_COUNT", "2")
+        m, res = _sweep(PORT)
+        one, two = (PORT.dse.closed_loop_score(
+            res, tr["repro_torch"], model=m, top=3, req_mb=REQ_MB,
+            sim_config=PORT.sim.SimConfig(control_interval=5),
+            device="cpu", backend=backend, devices=d) for d in (None, 2))
+        np.testing.assert_array_equal(two.ranked_indices(),
+                                      one.ranked_indices())
+        for f in ("p99_latency_s", "energy_per_request_j", "throughput_rps"):
+            np.testing.assert_array_equal(getattr(two, f), getattr(one, f))
+        return
     if word in PORTED and not (word in FUSED_REFUSES and backend == "fused"):
         got = {}
         for pkg in (REF, PORT):
