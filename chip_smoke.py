@@ -2111,9 +2111,17 @@ def results_equal(a, b) -> bool:
 # the order of a phase's observed and unobserved runs: in turns, so that a
 # drift of the host's speed over the phase does not read as the plane's cost
 # observe's runs of closed-loop-12tile-1M: these levels in turns, over the
-# first OBSERVE_TICKS ticks of the day (a third: 96 control ticks)
+# first OBSERVE_TICKS ticks of the day (58 control ticks; the whole day
+# runs unobserved in closed_loop)
 TURNS = ("off", "counters", "full", "off")
-OBSERVE_TICKS = 2900
+OBSERVE_TICKS = 1450
+# rerank-A2 with the plane: B 4,096 over the day's first 1,450 ticks (the
+# full 8,700 run unobserved in main_path and with faults in rerank_faults)
+OBSERVE_RERANK_TICKS = 1450
+# observe's replica-kill pipeline: half of FAULT_TICKS (its checks are
+# equalities with the CPU's run; closed_loop_faults holds the example's
+# gates at FAULT_TICKS)
+OBSERVE_FAULT_TICKS = FAULT_TICKS // 2
 
 
 def _in_turns(make, levels, want_syncs, fails, label, *, strict=False):
@@ -2152,15 +2160,16 @@ def phase_observe(cl_ctx, main_ctx):
     turns); the plane's reconstruction (``finalize``) and
     ``export_metrics`` timed; the plane within PLANE_RTOL of the CPU run's
     (stall counts exact) and the trace the CPU's JSONL, a check that must
-    reject ``plane_planted_faults``.  closed-loop-faults-pipeline: DFS +
+    reject ``plane_planted_faults``.  closed-loop-faults-pipeline
+    (``OBSERVE_FAULT_TICKS`` ticks, the kill window the same share): DFS +
     recovery + detector and the open-loop fixed + recovery run, each off
     and at ``"full"``, the same checks (no sync at all in the open-loop
     loop, under sync-debug "error").  rerank-A2: ``closed_loop_score`` at
-    B 4,096 x T 8,700 on the float64 ``"torch"`` loop, unobserved then
+    B 4,096 x T 1,450 on the float64 ``"torch"`` loop, unobserved then
     ``observe="counters"``, and on the float32 loop
-    unobserved then observed (loop s, finalize s, device peak memory); 64
-    designs' float64 planes against the CPU's, the float32 plane against
-    the float64 one.
+    unobserved then observed (loop s, finalize s, device peak memory), over
+    the first ``OBSERVE_RERANK_TICKS`` ticks; 64 designs' float64 planes
+    against the CPU's, the float32 plane against the float64 one.
     ``"fused"`` refuses ``observe=`` and launches nothing; the chunked
     sweep's ``sweep_chunk`` phases are timed by CUDA events."""
     ex = closed_loop_example()
@@ -2220,7 +2229,7 @@ def phase_observe(cl_ctx, main_ctx):
 
     # -- closed-loop-faults-pipeline
     fplat = ex.pipeline_platform()
-    ftr = ex.surge_trace(fplat, FAULT_TICKS, device=DEV)
+    ftr = ex.surge_trace(fplat, OBSERVE_FAULT_TICKS, device=DEV)
     fr = {"T": ftr.ticks}
     for name in ("dfs,rec+detect", "fixed,recovery"):
         rec, dfs, det = ex.FAULT_RUNS[name]
@@ -2249,7 +2258,9 @@ def phase_observe(cl_ctx, main_ctx):
     # -- rerank-A2: the float64 loop with counters, and float32 at full B
     model, res, survivors = main_ctx["model"], main_ctx["res"], \
         main_ctx["survivors"]
-    rtrace, rcfg = main_ctx["trace"], main_ctx["cfg"]
+    rtrace = Trace(main_ctx["trace"].arrivals[:OBSERVE_RERANK_TICKS],
+                   main_ctx["trace"].dt)
+    rcfg = main_ctx["cfg"]
     common = dict(model=model, req_mb=main_ctx["req_mb"], sim_config=rcfg,
                   batch_controller_factory=pid_factory(), backend="torch")
     want = rtrace.ticks // rcfg.control_interval
@@ -5437,7 +5448,7 @@ def profile_train_step(tr):
             "functions": per_fn}
 
 
-def drive_train(spec, lm_kwargs, plain_kwargs, phase):
+def drive_train(spec, lm_kwargs, plain_kwargs, phase, keep=False):
     """A model's training path through ``Trainer`` on the card at full
     width and depth (random bf16 weights from a seed): first the plain
     path's step 1 on the same weights and batch (its update discarded),
@@ -5446,7 +5457,9 @@ def drive_train(spec, lm_kwargs, plain_kwargs, phase):
     around it) and its host syncs counted (``SyncCount``; the batch's copy
     happens before it), step 1's gradients (as AdamW receives them) held
     against the plain path's as vectors; then one step under the
-    profiler."""
+    profiler.  ``keep``: the report also holds (not printed) step 1's
+    gradient leaves that ``train_mesh`` holds its own against
+    (``kept_grads``)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
@@ -5519,6 +5532,7 @@ def drive_train(spec, lm_kwargs, plain_kwargs, phase):
     tr._step = step_fn
     peak = torch.cuda.max_memory_allocated()
     gap = grads_gap(first_grads[0], p_grads)
+    kept = kept_grads(tr.params, first_grads[0]) if keep else None
     del first_grads, p_grads
     prof = profile_train_step(tr)
     fit = fit_one_batch(tr, spec)
@@ -5587,6 +5601,8 @@ def drive_train(spec, lm_kwargs, plain_kwargs, phase):
         fails.append(f"variants {variants}")
     if fails:
         raise SystemExit(f"{phase}: " + "; ".join(fails))
+    if keep:
+        report["step1_grads"] = kept
     return report
 
 
@@ -5642,12 +5658,70 @@ def _leaves(tree):
 def phase_train():
     """h2o-danube-1.8b at full width and depth: ``flash_attention`` and
     ``fused_rmsnorm_mlp`` through ``kernels.ops``; the plain path is
-    ``chunked`` attention (the folded schedule) and the plain MLP."""
+    ``chunked`` attention (the folded schedule) and the plain MLP.  Both
+    take the iota-compare loss (``onehot_loss``), as ``train_mesh`` does,
+    whose one-device numbers these are (step 1's gradient leaves kept for
+    it).  Then the attention backward's head grouping timed
+    (``attention_backward_groups``)."""
     from repro_torch.models.layers import AttnOptions
-    return drive_train(TRAIN, dict(opts=AttnOptions(backend="fused"),
-                                   remat=True),
-                       dict(opts=AttnOptions(backend="chunked", folded=True),
-                            remat=True), "train")
+    report = drive_train(TRAIN, _train_lm_kwargs(),
+                         dict(opts=AttnOptions(backend="chunked",
+                                               folded=True),
+                              remat=True, onehot_loss=True), "train",
+                         keep=True)
+    from repro_torch.kernels.ops import FlashAttention
+    emit({"phase": "train_attention_backward",
+          "path_heads_per_group": FlashAttention.last_heads,
+          **attention_backward_groups(TRAIN, report)})
+    return report
+
+
+def attention_backward_groups(spec, report) -> dict:
+    """The attention oracle's backward (``kernels.ops.attention_grads``) at
+    the phase's microbatch shapes, one kv head at a time (as ``train_mesh``'s
+    ranks run it) and all kv heads at once (as a card of its own does),
+    timed in turn with CUDA events; the split's cost to a step is the
+    difference times the backward's calls a step (a layer a
+    microbatch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import attention_grads
+    cfg = get_config(spec["arch"])
+    B, S = spec["global_batch"] // spec["accum"], spec["seq_len"]
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    G = cfg.n_heads // KV
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV).bfloat16()
+    q, g = rnd(B, S, KV, G, hd), rnd(B, S, KV, G, hd)
+    k, v = rnd(B, S, KV, hd), rnd(B, S, KV, hd)
+    pos = torch.arange(S, device=DEV).expand(B, S)
+
+    def run(heads):
+        return attention_grads(q, k, v, pos, pos, g, hd ** -0.5,
+                               cfg.sliding_window, heads=heads)
+    gap = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(run(1), run(KV)))
+    ms = {1: [], KV: []}
+    for _ in range(3):
+        for h in (1, KV):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            run(h)
+            e1.record()
+            e1.synchronize()
+            ms[h].append(e0.elapsed_time(e1))
+    one, whole = sorted(ms[1])[1], sorted(ms[KV])[1]
+    calls = report["backward_calls_per_step"]["flash_attention"]
+    torch.cuda.empty_cache()
+    return {"shape": [B, S, KV, G, hd], "one_head_ms": ms[1],
+            "all_heads_ms": ms[KV], "one_head_median_ms": one,
+            "all_heads_median_ms": whole, "ratio": one / whole,
+            "calls_per_step": calls,
+            "step_cost_ms": (one - whole) * calls,
+            "step_share": (one - whole) * calls
+            / (1e3 * report["mean_step_s_after_first"]),
+            "max_abs_gap": gap}
 
 
 def phase_train_moe():
@@ -5764,7 +5838,7 @@ def cost_lm_kwargs(phase):
     return {"serve": dict(opts=fused), "serve_ssm": dict(ssm_backend="fused"),
             "serve_hybrid": dict(opts=fused, ssm_backend="fused"),
             "serve_moe": dict(opts=fused), "serve_mla": dict(opts=fused),
-            "train": dict(opts=fused, remat=True),
+            "train": dict(opts=fused, remat=True, onehot_loss=True),
             "train_moe": dict(opts=fused, remat=True),
             "train_ssm": dict(ssm_backend="fused", remat=True)}[phase]
 
@@ -6627,6 +6701,579 @@ def phase_collectives():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the GSPMD half of the training stack: 4 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# danube at full width and depth on (data 2, model 2), TRAIN's shape and
+# schedule (its lr at steps 1 and 2), onehot_loss as the train phase's
+TRAIN_MESH = {**TRAIN, "mesh": (2, 2), "axes": ("data", "model"),
+              "world": 4, "mesh_steps": 2, "limit_s": 420, "timeout_s": 300}
+TRAIN_MESH_LOSS_ATOL = 2e-2     # the reference's gate (test_distributed.py)
+# at random init danube's loss sits at log V whatever the layers compute,
+# and a norm barely moves when a rank is handed the wrong block: step 1's
+# gradient leaves below (layers 0 and L-1 of the column-parallel wq /
+# wi_gate and the row-parallel wo's), gathered whole on every rank, are held
+# against one device's, ||g - g_one|| / ||g_one|| over them together
+TRAIN_MESH_GRAD_LEAVES = ("blocks/attn/wq", "blocks/attn/wo",
+                          "blocks/mlp/wi_gate", "blocks/mlp/wo")
+TRAIN_MESH_GRAD_LAYERS = (0, -1)
+TRAIN_MESH_GRAD_RTOL = TRAIN_GRAD_RTOL
+TRAIN_MESH_GNORM_RTOL = 1e-3    # step 1's grad_norm, relative
+TRAIN_MESH_FAULT_ARCH = TRAIN["arch"]     # planted faults at reduced size
+
+
+def _train_lm_kwargs():
+    from repro_torch.models.layers import AttnOptions
+    return dict(opts=AttnOptions(backend="fused"), remat=True,
+                onehot_loss=True)
+
+
+def kept_grads(params, grads) -> dict:
+    """Step 1's gradient leaves ``TRAIN_MESH_GRAD_LEAVES`` at layers
+    ``TRAIN_MESH_GRAD_LAYERS`` (``grads`` in ``params``' leaf order, as
+    AdamW receives them): on one device float32 copies on the host; placed,
+    this rank's blocks (float32 copies on its device) with their specs and
+    shapes, for ``gathered_grads``."""
+    from repro_torch.checkpoint.store import _flatten_with_paths
+    from repro_torch.parallel import placement as PL
+    rows = list(TRAIN_MESH_GRAD_LAYERS)
+    out = {}
+    for (path, p), g in zip(_flatten_with_paths(params), grads):
+        if path not in TRAIN_MESH_GRAD_LEAVES:
+            continue
+        if not PL.is_placed(g):
+            out[path] = g.detach()[rows].float().cpu()
+            continue
+        sp = tuple(PL.spec_of(g))
+        if sp and sp[0] is not None:
+            raise ValueError(f"{path}: its layers are split ({sp})")
+        out[path] = (PL.local(g).detach()[rows].float().clone(), sp,
+                     (len(rows),) + tuple(g.shape[1:]), PL.mesh_of(g))
+    return out
+
+
+def gathered_grads(kept) -> dict:
+    """``kept_grads``' placed blocks gathered whole on every rank."""
+    from repro_torch.parallel import placement as PL
+    return {p: PL.full_tensor(PL.from_block(loc, sp, mesh, shape))
+            for p, (loc, sp, shape, mesh) in kept.items()}
+
+
+def grads_vs(got, ref) -> dict:
+    """``grads_gap`` of two ``{leaf: tensor}`` sets, and each leaf's."""
+    paths = sorted(ref)
+    dev = [got[p].device for p in paths]
+    pairs = [(got[p], ref[p].to(d)) for p, d in zip(paths, dev)]
+    out = grads_gap([a for a, _ in pairs], [b for _, b in pairs])
+    out["per_leaf"] = {p: grads_gap([a], [b])["rel_l2"]
+                       for p, (a, b) in zip(paths, pairs)}
+    return out
+
+
+class first_grads_kept:
+    """Within it, the first AdamW update's gradient leaves are kept
+    (``kept_grads``) in ``.kept``."""
+
+    def __enter__(self):
+        import repro_torch.runtime.train as RTM
+        self.kept, self._update = {}, RTM.adamw.update
+
+        def keep(cfg_, grads, state, params):
+            if not self.kept:
+                self.kept.update(kept_grads(params, grads))
+            return self._update(cfg_, grads, state, params)
+        RTM.adamw.update = keep
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.runtime.train as RTM
+        RTM.adamw.update = self._update
+
+
+def one_device_grads(cfg, shape, spec, device) -> dict:
+    """Step 1's kept gradient leaves of the same run on one device (the
+    same seed, weights and batch): the reduced runs' reference."""
+    tr = _mesh_trainer(cfg, shape, None, spec, 10, device=device)
+    with first_grads_kept() as fk:
+        tr.run(1)
+    return fk.kept
+
+
+def placement_failures(params, full, mesh) -> list:
+    """The leaves whose block here is not the slice of ``full`` (the same
+    tree, unsharded) that their spec names."""
+    from repro_torch.checkpoint.store import _flatten_with_paths
+    from repro_torch.parallel import placement as PL
+    whole = dict(_flatten_with_paths(full))
+    return [p for p, t in _flatten_with_paths(params)
+            if not torch.equal(PL.local(t), PL.local_block(
+                whole[p], PL.spec_of(t), mesh))]
+
+
+def peer_gap(params, mesh, axes) -> float:
+    """max |difference| between the blocks this rank's peers along the
+    batch ``axes`` hold (they hold the same block: 0 bit for bit)."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import placement as PL
+    from repro_torch.models.params import tree_leaves
+    gap = 0.0
+    for t in tree_leaves(params, torch.is_tensor):
+        x = PL.local(t).detach()
+        for a in axes:
+            parts = C._all_gather(x, mesh.group(a), mesh.shape[a])
+            gap = max(gap, float((parts.float() - x.float()).abs().max()))
+    return gap
+
+
+def _mesh_trainer(cfg, shape, mesh, spec, steps_total, device=None):
+    """The phase's trainer on ``mesh`` (``None``: one ``device``)."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train import TrainConfig, Trainer
+    tc = TrainConfig(accum=spec["accum"], log_every=1, ckpt_every=0,
+                     monitor_every=2,
+                     opt=adamw.AdamWConfig(lr=spec["lr"],
+                                           warmup_steps=spec["warmup"],
+                                           total_steps=steps_total))
+    kw = {} if device is None else {"device": device}
+    return Trainer(cfg, shape, mesh=mesh, tc=tc,
+                   lm_kwargs=_train_lm_kwargs(), seed=SEED, **kw)
+
+
+def mesh_planted_faults(mesh) -> dict:
+    """The two faults the phase's checks must reject, at reduced size:
+    rank 0 keeping its own gradient (it joins the reduce and drops the sum:
+    its parameters leave its data peer's), and rank 1 handed its model
+    neighbour's block of one weight (the placement check, and step 1's
+    gradient leaves against one device's: ``grads_vs``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.layers import batch_axes
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import placement as PL
+    cfg = get_config(TRAIN_MESH_FAULT_ARCH).reduced()
+    shape = ShapeConfig("tiny", 64, 4, "train")
+    spec = {**TRAIN_MESH, "accum": 1}
+    me = C.axis_index(mesh.axis_names, mesh)
+    out = {}
+    one = one_device_grads(cfg, shape, spec, mesh.device)
+    # the control: the same run without a fault
+    tr = _mesh_trainer(cfg, shape, mesh, spec, 10)
+    with first_grads_kept() as fk:
+        tr.run(1)
+    out["control_peer_gap"] = peer_gap(tr.params, mesh, batch_axes(mesh))
+    out["control_grad_rel_l2"] = grads_vs(gathered_grads(fk.kept),
+                                          one)["rel_l2"]
+    # rank 0 keeps its own gradient
+    real = C.sum_into
+
+    def keeps_own(x, axis, mesh=None):
+        if x.numel() > 16:                # a gradient, not a norm or metric
+            real(x.clone(), axis, mesh)
+            return x
+        return real(x, axis, mesh)
+    tr = _mesh_trainer(cfg, shape, mesh, spec, 10)
+    C.sum_into = keeps_own if me == 0 else real
+    try:
+        tr.run(1)
+    finally:
+        C.sum_into = real
+    out["skipped_reduce_peer_gap"] = peer_gap(tr.params, mesh,
+                                              batch_axes(mesh))
+    # rank 1 holds its model neighbour's block of one weight
+    tr = _mesh_trainer(cfg, shape, mesh, spec, 10)
+    full = tr.lm.init(torch.Generator(device=mesh.device).manual_seed(SEED))
+    leaf = tr.params["blocks"]["mlp"]["wi_gate"]
+    if me == 1:
+        n, c = mesh.shape["model"], mesh.coord("model")
+        f = full["blocks"]["mlp"]["wi_gate"]
+        step = f.shape[-1] // n
+        wrong = f.narrow(-1, ((c + 1) % n) * step, step).contiguous()
+        tr.params["blocks"]["mlp"]["wi_gate"] = PL.like_placed(wrong, leaf)
+    out["neighbour_slice_failures"] = placement_failures(tr.params, full,
+                                                         mesh)
+    with first_grads_kept() as fk:
+        tr.run(1)
+    out["neighbour_slice_grad_rel_l2"] = grads_vs(gathered_grads(fk.kept),
+                                                  one)["rel_l2"]
+    return out
+
+
+def train_mesh_rank(rank, world, workdir, device="cuda", reduced=False):
+    """One rank of phase ``train_mesh``: danube at full width on (data 2,
+    model 2) through ``Trainer(mesh=)``, 2 steps, step 1's gradient leaves
+    held against one device's (the ``train`` phase's, in
+    ``workdir/one_device_grads.pt``); its report written to
+    ``workdir/rank<rank>.json`` (``device`` "cpu" with ``reduced`` only to
+    rehearse the phase's code away from the card: its one-device leaves
+    then come from a run of its own)."""
+    import torch.distributed as dist
+    from repro_torch import parallel as P
+    from repro_torch.checkpoint.store import CheckpointStore, \
+        _flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.replication import merged_rules
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_mlp as FM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as REF
+    from repro_torch.launch.costing import _Collectives
+    from repro_torch.models.layers import batch_axes
+    from repro_torch.models.params import shardings_for
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import placement as PL
+    spec = TRAIN_MESH
+    backend = C.init_process_group(
+        rank, world, "file://" + os.path.join(workdir, "store"),
+        device=device, timeout_s=spec["timeout_s"])
+    mesh = P.make_mesh(spec["mesh"], spec["axes"], device=device)
+    rep = {"rank": rank, "backend": backend, "device": str(mesh.device),
+           "coords": {a: mesh.coord(a) for a in mesh.axis_names},
+           "marks_s": {}}
+    t_rank = time.perf_counter()
+
+    def mark(name):                     # seconds since the group formed
+        rep["marks_s"][name] = time.perf_counter() - t_rank
+
+    # the plain versions on CUDA tensors: never in place of a kernel (the
+    # forward runs with grad off, inside the autograd Function); the MLP's
+    # backward is its oracle's autograd, which is the plain version (grad
+    # on), counted apart; the attention's oracle is attention_naive
+    plain_cuda = {"flash_attention": 0, "fused_mlp": 0}
+    oracle_cuda = {"flash_attention": 0, "fused_mlp": 0}
+
+    def counting(name, fn):
+        def f(*a, **k):
+            if any(torch.is_tensor(x) and x.is_cuda for x in a):
+                (oracle_cuda if torch.is_grad_enabled()
+                 else plain_cuda)[name] += 1
+            return fn(*a, **k)
+        return f
+    FA.flash_attention_plain = counting("flash_attention",
+                                        FA.flash_attention_plain)
+    FM.fused_rmsnorm_mlp_plain = counting("fused_mlp",
+                                          FM.fused_rmsnorm_mlp_plain)
+    # the MLP's oracle reads the plain version through its own name
+    REF.fused_rmsnorm_mlp_plain = FM.fused_rmsnorm_mlp_plain
+
+    cfg = get_config(spec["arch"])
+    shape = ShapeConfig("train_4k", spec["seq_len"], spec["global_batch"],
+                        "train")
+    if reduced:
+        cfg, shape = cfg.reduced(), ShapeConfig("tiny", 64, 4, "train")
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = _mesh_trainer(cfg, shape, mesh, spec, TRAIN["steps"])
+    empty_cache(sync_only=True)
+    rep["init_s"] = time.perf_counter() - t0
+    full = tr.lm.init(torch.Generator(device=mesh.device).manual_seed(SEED))
+    rep["placement_failures"] = placement_failures(tr.params, full, mesh)
+    del full
+    empty_cache()
+    mark("placed_and_checked")
+    rep["local_params"] = sum(PL.local(t).numel() for t in
+                              _leaves(tr.params))
+
+    K = {"flash_attention": FA.flash_attention,
+         "fused_mlp": FM.fused_rmsnorm_mlp}
+    step_fn, times, syncs, stats, calls = tr._step, [], [], {}, []
+
+    def timed(*a):
+        empty_cache(sync_only=True)
+        dist.barrier()
+        n0 = sum(C.USED.values())
+        t = time.perf_counter()
+        if not times and cuda:          # step 1: host syncs counted
+            with SyncCount() as sc:
+                out = step_fn(*a)
+            syncs.append(sc.total)
+        elif not times:
+            out = step_fn(*a)
+        else:                           # step 2: its collectives counted
+            mode = _Collectives()
+            with mode:
+                out = step_fn(*a)
+            stats.update(collective_bytes=sum(mode.per_op.values()),
+                         per_op_bytes=dict(mode.per_op),
+                         op_counts=dict(mode.counts))
+        empty_cache(sync_only=True)
+        times.append(time.perf_counter() - t)
+        calls.append(sum(C.USED.values()) - n0)
+        dist.barrier()
+        return out
+
+    tr._step = timed
+    for f in K.values():                        # counted from here ...
+        f.launches = 0
+    ops.reset_counts()
+    for d in (plain_cuda, oracle_cuda):
+        d.update({n: 0 for n in d})
+    C.USED.clear()
+    with first_grads_kept() as fk:
+        hist = tr.run(spec["mesh_steps"])
+    launches = {n: f.launches for n, f in K.items()}   # ... to here
+    mlp_backward = ops.FusedRMSNormMLP.backward_calls
+    rep["attention_heads_per_group"] = ops.FlashAttention.last_heads
+    plain_run, oracle_run = dict(plain_cuda), dict(oracle_cuda)
+    mark("steps")
+    tr._step = step_fn
+    got = gathered_grads(fk.kept)
+    del fk
+    one = (one_device_grads(cfg, shape, spec, mesh.device) if reduced else
+           torch.load(os.path.join(workdir, "one_device_grads.pt"),
+                      map_location=mesh.device))
+    rep["step1_grad"] = grads_vs(got, one)
+    del got, one
+    empty_cache()
+    mark("step1_grad")
+    rep.update(
+        losses=[m["loss"] for _, m in hist],
+        grad_norms=[m["grad_norm"] for _, m in hist],
+        lrs=[m["lr"] for _, m in hist], step_s=times, syncs_per_step=syncs,
+        gloo_calls_per_step=calls,
+        collective_stats_step2=stats, launches=launches,
+        variants={n: f.last_variant for n, f in K.items()},
+        plain_on_cuda=plain_run, backward_oracle_on_cuda=oracle_run,
+        mlp_backward_calls=mlp_backward,
+        peak_gib=(torch.cuda.max_memory_allocated() / 2**30 if cuda
+                  else None),
+        used={"/".join(k): v for k, v in sorted(C.USED.items())})
+    rep["peer_gap"] = peer_gap(tr.params, mesh, batch_axes(mesh))
+    mark("peer_gap")
+
+    # elastic restore: save, then (model 4) on the same ranks and whole on
+    # rank 0, each against the saved state leaf by leaf
+    tr.opt_state = None
+    empty_cache()
+    store = CheckpointStore(os.path.join(workdir, "ckpt"), level=0)
+    t0 = time.perf_counter()
+    store.save(tr.step, {"params": tr.params})
+    rep["save_s"] = time.perf_counter() - t0
+    mesh4 = P.make_mesh((4,), ("model",), device=device)
+    like = {"params": tr.lm.abstract()}
+    sh4 = {"params": shardings_for(tr.lm.param_specs(),
+                                   merged_rules(tr.plan, mesh4), mesh4)}
+    t0 = time.perf_counter()
+    r4 = dict(_flatten_with_paths(store.restore(like, shardings=sh4)))
+    rep["restore_model4_s"] = time.perf_counter() - t0
+    whole = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        whole = dict(_flatten_with_paths(store.restore(like,
+                                                       device=mesh.device)))
+        rep["restore_one_s"] = time.perf_counter() - t0
+    bad4, bad1, split4 = [], [], 0
+    for p, t in _flatten_with_paths({"params": tr.params}):
+        f = PL.full_tensor(t)
+        s4 = PL.spec_of(r4[p])
+        split4 += any(e is not None for e in s4)
+        if not torch.equal(PL.local(r4[p]), PL.local_block(f, s4, mesh4)):
+            bad4.append(p)
+        if whole is not None and not torch.equal(whole[p], f):
+            bad1.append(p)
+        del f
+    mark("elastic")
+    rep["elastic"] = {"model4_mismatch": bad4, "one_rank_mismatch": bad1,
+                      "model4_split_leaves": split4,
+                      "one_rank_checked": whole is not None}
+    del r4, whole
+    tr.params = None
+    empty_cache()
+    rep["planted"] = mesh_planted_faults(mesh)
+    mark("planted")
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def empty_cache(sync_only=False) -> None:
+    """Wait for the card (and return its cached blocks); nothing on a CPU
+    rehearsal."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        if not sync_only:
+            torch.cuda.empty_cache()
+
+
+def train_mesh_failures(reps, single) -> list:
+    """Every check of phase ``train_mesh`` that fails, named."""
+    spec = TRAIN_MESH
+    n_steps = spec["mesh_steps"]
+    want = 2 * spec["accum"] * get_n_layers(spec["arch"]) * n_steps
+    bad = []
+    r0 = reps[0]
+    l1, l2 = r0["losses"][0], r0["losses"][1]
+    if not (abs(l1 - single["losses"][0]) <= TRAIN_MESH_LOSS_ATOL
+            and abs(l2 - single["losses"][1]) <= TRAIN_MESH_LOSS_ATOL):
+        bad.append(f"losses {r0['losses']} vs one device "
+                   f"{single['losses'][:2]}")
+    g, g1 = r0["grad_norms"][0], single["grad_norms"][0]
+    if not abs(g - g1) <= TRAIN_MESH_GNORM_RTOL * abs(g1):
+        bad.append(f"step 1 grad_norm {g} vs one device {g1}")
+    for r in reps:
+        k = r["rank"]
+        if not r["step1_grad"]["rel_l2"] <= TRAIN_MESH_GRAD_RTOL:
+            bad.append(f"rank {k}'s step 1 gradient vs one device: "
+                       f"{r['step1_grad']}")
+        if r["losses"] != r0["losses"] or \
+                r["grad_norms"] != r0["grad_norms"]:
+            bad.append(f"rank {k}'s metrics differ from rank 0's")
+        if any(v != want for v in r["launches"].values()):
+            bad.append(f"rank {k} launches {r['launches']}, not {want}")
+        if any(v != "wgmma_tma" for v in r["variants"].values()):
+            bad.append(f"rank {k} variants {r['variants']}")
+        if any(r["plain_on_cuda"].values()):
+            bad.append(f"rank {k} ran a plain version on CUDA tensors: "
+                       f"{r['plain_on_cuda']}")
+        # the MLP's backward is its oracle's autograd, once a backward;
+        # the attention's oracle is the reference's, not the plain version
+        if r["backward_oracle_on_cuda"] != {
+                "flash_attention": 0, "fused_mlp": r["mlp_backward_calls"]}:
+            bad.append(f"rank {k} backward oracle calls on CUDA tensors "
+                       f"{r['backward_oracle_on_cuda']}, not the MLP's "
+                       f"{r['mlp_backward_calls']} backward calls")
+        off = [u for u in r["used"] if not u.endswith("/gloo/cuda")]
+        if off or not r["used"]:
+            bad.append(f"rank {k} collectives off gloo/cuda: {off}")
+        if r["placement_failures"]:
+            bad.append(f"rank {k} placement {r['placement_failures']}")
+        if r["peer_gap"] != 0.0:
+            bad.append(f"rank {k}'s blocks differ from its data peer's "
+                       f"({r['peer_gap']})")
+        el = r["elastic"]
+        if el["model4_mismatch"] or el["one_rank_mismatch"] \
+                or el["model4_split_leaves"] < 1:
+            bad.append(f"rank {k} elastic restore {el}")
+        if r["planted"]["control_peer_gap"] != 0.0 or \
+                not r["planted"]["control_grad_rel_l2"] \
+                <= TRAIN_MESH_GRAD_RTOL:
+            bad.append(f"rank {k}: the unfaulted reduced run diverged")
+    if not any(r["elastic"]["one_rank_checked"] for r in reps):
+        bad.append("no rank restored the parameters whole")
+    if not any(r["planted"]["skipped_reduce_peer_gap"] > 0 for r in reps):
+        bad.append("a rank keeping its own gradient passed the check")
+    if not any(r["planted"]["neighbour_slice_failures"] for r in reps):
+        bad.append("a neighbour's slice passed the placement check")
+    if not all(r["planted"]["neighbour_slice_grad_rel_l2"]
+               > TRAIN_MESH_GRAD_RTOL for r in reps):
+        bad.append("a neighbour's slice passed the gradient check")
+    return bad
+
+
+def get_n_layers(arch) -> int:
+    from repro_torch.configs import get_config
+    return get_config(arch).n_layers
+
+
+def phase_train_mesh(single, smi):
+    """4 gloo ranks as subprocesses on cuda:0 (``train_mesh_rank``) under
+    a hard limit; ``single``: the ``train`` phase's report (the one-device
+    numbers on the same seed, weights and batches).  Prints the price of
+    four ranks sharing one card, not a multi-GPU speed."""
+    import gc
+    import shutil
+    import tempfile
+    spec = TRAIN_MESH
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+              "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    world = spec["world"]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    torch.save(single.pop("step1_grads"),
+               os.path.join(workdir, "one_device_grads.pt"))
+    # four ranks' state and activations fill the card: no room is lost to
+    # the allocator's fragmentation
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-mesh-rank",
+         str(r), "--world", str(world), "--workdir", workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(world)]
+    outs, timed_out = [], False
+    deadline = time.perf_counter() + spec["limit_s"]
+    for p in procs:
+        try:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter())))
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            break
+    if timed_out:
+        for p in procs:
+            p.kill()
+        outs = [p.communicate() for p in procs]
+    out = {"phase": "train_mesh", "ranks": world,
+           "mesh": dict(zip(spec["axes"], spec["mesh"])),
+           "arch": spec["arch"], "seconds": time.perf_counter() - t0,
+           "nvidia_smi": smi, "parent_memory": parent,
+           "card": "4 ranks sharing one H100 over gloo: the price of "
+                   "sharing the card, not a multi-GPU speed"}
+    try:
+        errs = [(r, p.returncode, e[-3000:]) for r, (p, (_, e))
+                in enumerate(zip(procs, outs)) if p.returncode != 0]
+        if timed_out or errs:
+            out["errors"] = errs
+            out["timed_out"] = timed_out
+            emit(out)
+            raise SystemExit("a train_mesh rank failed: see errors")
+        reps = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                reps.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    r0 = reps[0]
+    tokens = spec["global_batch"] * spec["seq_len"]
+    out.update({
+        "losses": r0["losses"], "grad_norms": r0["grad_norms"],
+        "one_device": {"losses": single["losses"][:2],
+                       "grad_norm": single["grad_norms"][0]},
+        "loss_err": [abs(a - b) for a, b in zip(r0["losses"],
+                                                single["losses"])],
+        "loss_atol": TRAIN_MESH_LOSS_ATOL,
+        "grad_norm_rel_err": abs(r0["grad_norms"][0]
+                                 - single["grad_norms"][0])
+        / abs(single["grad_norms"][0]),
+        "grad_norm_rtol": TRAIN_MESH_GNORM_RTOL,
+        "step1_grad_by_rank": [r["step1_grad"] for r in reps],
+        "grad_rtol": TRAIN_MESH_GRAD_RTOL,
+        "step_s": r0["step_s"],
+        "tokens_per_s": [tokens / s for s in r0["step_s"]],
+        "step2_under_collective_counter": True,
+        "peak_gib_by_rank": [r["peak_gib"] for r in reps],
+        "init_s_by_rank": [r["init_s"] for r in reps],
+        "local_params_by_rank": [r["local_params"] for r in reps],
+        "collective_stats_step2": r0["collective_stats_step2"],
+        # torch's sync-debug mode does not see gloo's copies (its C++
+        # backend moves CUDA tensors through the host); each gloo call on
+        # CUDA tensors waits for the card
+        "host_syncs_step1": r0["syncs_per_step"],
+        "gloo_calls_per_step": r0["gloo_calls_per_step"],
+        "launches_by_rank": [r["launches"] for r in reps],
+        "backward_oracle_calls": r0["backward_oracle_on_cuda"],
+        "attention_heads_per_group": [r["attention_heads_per_group"]
+                                      for r in reps],
+        "mlp_backward_calls": r0["mlp_backward_calls"],
+        "variants": r0["variants"], "used": r0["used"],
+        "save_s": r0["save_s"], "restore_model4_s": r0["restore_model4_s"],
+        "restore_one_s": r0.get("restore_one_s"),
+        "elastic": r0["elastic"], "rank0_marks_s": r0["marks_s"],
+        "planted": [r["planted"] for r in reps]})
+    bad = train_mesh_failures(reps, single)
+    out["failures"] = bad
+    emit(out)
+    if bad:
+        raise SystemExit("train_mesh: " + "; ".join(bad))
+    return out
+
+
 def card_case(test_name, *args):
     """Run one case of the gpu-marked test ``test_name`` (its arguments, in
     its signature's order, the card fixture left out)."""
@@ -6703,10 +7350,15 @@ def main() -> int:
     ap.add_argument("--shard-only", action="store_true",
                     help="device, build, kernel parity, the sweep, the main "
                          "path and the two multi-device phases only")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="device, build, the danube training phase and "
+                         "train_mesh only")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/spill report")
     ap.add_argument("--collectives-rank", type=int, default=None,
                     help=argparse.SUPPRESS)     # one rank of "collectives"
+    ap.add_argument("--train-mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)     # one rank of "train_mesh"
     ap.add_argument("--world", type=int, default=COLL["world"],
                     help=argparse.SUPPRESS)
     ap.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
@@ -6719,6 +7371,9 @@ def main() -> int:
     if args.collectives_rank is not None:
         return collectives_rank(args.collectives_rank, args.world,
                                 args.workdir)
+    if args.train_mesh_rank is not None:
+        return train_mesh_rank(args.train_mesh_rank, args.world,
+                               args.workdir)
 
     from repro_torch.kernels import build
     from repro_torch.kernels.tick_sim import fused_tick_sim
@@ -6739,12 +7394,17 @@ def main() -> int:
     if args.ptxas:
         for src, log in build.last_build_log.items():
             print(f"--- nvcc {src} ---\n{log}", flush=True)
+    device = {"platform": "gpu", "kind": name,
+              "count": torch.cuda.device_count()}
+    if args.mesh_only:
+        phase_train_mesh(phase_train(), smi)
+        print(smi, flush=True)
+        emit({"ok": True, "mesh_only": True, "device": device})
+        return 0
 
     parity = phase_kernels()
     phase_llm_kernels()
     phase_card_tests()
-    device = {"platform": "gpu", "kind": name,
-              "count": torch.cuda.device_count()}
     if args.quick:
         print(smi, flush=True)
         emit({"ok": True, "quick": True, "device": device})
@@ -6757,6 +7417,7 @@ def main() -> int:
     if args.train_only:
         train_reports, _ = phase_training()
         phase_costing({}, train_reports)
+        phase_train_mesh(train_reports["train"], smi)
         print(smi, flush=True)
         emit({"ok": True, "train_only": True, "device": device})
         return 0
@@ -6820,6 +7481,13 @@ def main() -> int:
     phase_costing({"serve": serve_report, "serve_ssm": ssm_report,
                    "serve_hybrid": hyb_report, "serve_moe": moe_report,
                    "serve_mla": mla_report}, train_reports)
+    # the GSPMD half on 4 ranks sharing the card, each rank counting its
+    # launches from 0 just before its steps and reading them just after;
+    # the card is theirs (the contexts no later phase reads are dropped)
+    del main_ctx, a12_ctx, cl_ctx, cl_runs
+    mesh_report = phase_train_mesh(train_reports["train"], smi)
+    mesh_launches = {n: sum(r[n] for r in mesh_report["launches_by_rank"])
+                     for n in mesh_report["launches_by_rank"][0]}
 
     def sub_row(rows, launches, n):
         """A serving path's row of kernel ``n``, with its own launches."""
@@ -6856,7 +7524,8 @@ def main() -> int:
         "replaces": LLM_REPLACES[n][1],
         "launches": (path_launches[n] + hyb_launches[n] + moe_launches[n]
                      + mla_launches[n]
-                     + sum(r["launches"][n] for r in train_reports.values())),
+                     + sum(r["launches"][n] for r in train_reports.values())
+                     + mesh_launches.get(n, 0)),
         **kernel_row(serve_rows[n]),
         **({"also": kernel_row(serve_rows[n]["also"])}
            if "also" in serve_rows[n] else {}),
@@ -6866,7 +7535,10 @@ def main() -> int:
         **({"mla": sub_row(mla_rows, mla_launches, n)} if n in mla_rows
            else {}),
         **({"train": train_row(train_reports, n, train_kernels_report)}
-           if n in TRAIN_FUNCTIONS else {})}
+           if n in TRAIN_FUNCTIONS else {}),
+        **({"train_mesh": {"launches": mesh_launches[n],
+                           "ranks": TRAIN_MESH["world"]}}
+           if n in mesh_launches else {})}
         for n in LLM_REPLACES]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

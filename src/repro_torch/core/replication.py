@@ -13,10 +13,14 @@ On a mesh the tile's fabric is the ``model`` axis.  MRA-K factors it into
 ``(replica=K, shard=model/K)``: the module's weights are sharded over
 ``shard`` and *replicated* over ``replica`` (per-device weight bytes x K,
 the paper's area cost), and the tile's input token stream is *split* over
-``replica``.  The meshes are :class:`~repro_torch.launch.mesh.LogicalMesh`
-records (names and sizes, as the reference's rules read them); placing
-tensors over them waits for ROADMAP queue A item 12c.  The two closed forms
-at the end are what the design-space sweep charges for the knob.
+``replica``.  The rules read only a mesh's ``shape`` and ``axis_names``, so
+they work alike on a :class:`~repro_torch.launch.mesh.LogicalMesh` (the dry
+run's) and on a :class:`~repro_torch.launch.mesh.ProcessMesh` (the
+trainer's, whose ranks hold the placed tensors).  The port's layers keep
+the batch on the data axes: a K > 1 tile's weights are replicated over
+``replica`` as the rules say, but its stream is not split over it yet
+(ROADMAP queue A item 12c, second half).  The two closed forms at the end
+are what the design-space sweep charges for the knob.
 """
 from __future__ import annotations
 

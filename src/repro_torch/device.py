@@ -8,7 +8,7 @@ differential tests do) say ``device="cpu"`` explicitly.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -25,14 +25,3 @@ def resolve(device: DeviceSpec = None) -> torch.device:
             "repro_torch runs on a CUDA device and none is available; pass "
             "device='cpu' explicitly to run the plain CPU path")
     return dev
-
-
-def require_single(devices: Optional[object]) -> None:
-    """One device only, for the surfaces whose multi-device form is the
-    reference's GSPMD placement (``runtime/train.py``'s mesh), which waits
-    for ROADMAP queue A item 12c.  The main path's ``devices=`` runs
-    (:mod:`repro_torch.shard`)."""
-    if devices not in (None, 1):
-        raise NotImplementedError(
-            f"devices={devices!r}: multi-device sharding is not ported yet "
-            "(ROADMAP queue A item 12c)")

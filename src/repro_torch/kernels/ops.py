@@ -12,6 +12,10 @@ forward calls the kernel's own wrapper (grad mode is off inside
 ``window``, ``scale``, ``chunk``, ``act`` and ``eps`` get no gradient (the
 reference's ``nondiff_argnums``).  Each Function counts its backward calls
 (``backward_calls``); the launches stay counted on the kernel wrappers.
+The attention oracle's backward runs over as many kv heads at once as
+its float32 score transients leave room for on a card of its own
+(:func:`heads_that_fit`: all of them at the training shapes), and one at a
+time where several ranks share the card.
 ``flash_decode`` is forward only (serving), as in the reference.
 
 These are the only callers that launch the kernels with autograd live: the
@@ -30,11 +34,11 @@ from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: F401
 
 
-def _grad_of(name, fn, inputs, outputs_grad):
+def _grad_of(fn, inputs, outputs_grad):
     """Gradients of ``fn(*inputs)`` with respect to every input, given the
-    outputs' gradients (``None`` for an output that received none), inside
-    a profiler range ``"<name>.backward"``."""
-    with torch.enable_grad(), record_function(f"{name}.backward"):
+    outputs' gradients (``None`` for an output that received none).  Each
+    backward runs it inside its profiler range ``"<name>.backward"``."""
+    with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in inputs]
         out = fn(*leaves)
         outs = out if isinstance(out, tuple) else (out,)
@@ -45,8 +49,61 @@ def _grad_of(name, fn, inputs, outputs_grad):
 
 
 # ----------------------------------------------------------------- attention
+# the float32 tensors of the scores' size the attention oracle's backward
+# holds at once (the probabilities, their gradient, the scores' gradient
+# and one temporary)
+SCORE_TENSORS = 4
+
+
+def _ranks_per_card() -> int:
+    """The processes of the default group that share this host's cards
+    (one when no group is formed)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return -(-dist.get_world_size() // max(1, torch.cuda.device_count()))
+
+
+def heads_that_fit(q: torch.Tensor, k: torch.Tensor) -> int:
+    """The kv heads whose backward transients (``SCORE_TENSORS`` float32
+    tensors of (B, G, Sq, Sk) a head) fit at once: all of them off the
+    card; on a card of its own, those that fit in the card's free memory
+    plus what this process's allocator holds unused (at least one); one
+    where ranks share the card, whose free memory the others' allocations
+    move between this reading and its use."""
+    B, Sq, KV, G = q.shape[:4]
+    if not q.is_cuda:
+        return KV
+    if _ranks_per_card() > 1:
+        return 1
+    per_head = SCORE_TENSORS * B * G * Sq * k.shape[1] * 4
+    free, _ = torch.cuda.mem_get_info(q.device)
+    room = free + torch.cuda.memory_reserved(q.device) \
+        - torch.cuda.memory_allocated(q.device)
+    return max(1, min(KV, room // per_head))
+
+
+def attention_grads(q, k, v, qpos, kpos, g, scale, window, heads: int):
+    """(dq, dk, dv) of the attention oracle given the output's gradient
+    ``g``, over groups of ``heads`` kv heads in turn: the kv heads are
+    independent, so each group's float32 score tensors (B, heads, G, Sq,
+    Sk) are made and freed before the next group's (the same sums for each
+    head as over all of them at once)."""
+    def grads(sl):
+        return _grad_of(
+            lambda q, k, v: REF.flash_attention_ref(
+                q, k, v, qpos, kpos, scale=scale, window=window),
+            (q[:, :, sl], k[:, :, sl], v[:, :, sl]), (g[:, :, sl],))
+    KV = q.shape[2]
+    if heads >= KV:
+        return grads(slice(None))
+    parts = [grads(slice(j, j + heads)) for j in range(0, KV, heads)]
+    return tuple(torch.cat([p[i] for p in parts], dim=2) for i in range(3))
+
+
 class FlashAttention(torch.autograd.Function):
     backward_calls = 0
+    last_heads = None           # the kv heads of a group, last backward
 
     @staticmethod
     def forward(ctx, q, k, v, qpos, kpos, window, scale):
@@ -59,10 +116,10 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         FlashAttention.backward_calls += 1
         q, k, v, qpos, kpos = ctx.saved_tensors
-        dq, dk, dv = _grad_of(
-            "flash_attention", lambda q, k, v: REF.flash_attention_ref(
-                q, k, v, qpos, kpos, scale=ctx.scale, window=ctx.window),
-            (q, k, v), (g,))
+        heads = FlashAttention.last_heads = heads_that_fit(q, k)
+        with record_function("flash_attention.backward"):
+            dq, dk, dv = attention_grads(q, k, v, qpos, kpos, g, ctx.scale,
+                                         ctx.window, heads)
         return dq, dk, dv, None, None, None, None
 
 
@@ -88,9 +145,10 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gh):
         SSDScan.backward_calls += 1
-        grads = _grad_of(
-            "ssd_scan", lambda *a: REF.ssd_scan_ref(*a, chunk=ctx.chunk),
-            ctx.saved_tensors, (gy, gh))
+        with record_function("ssd_scan.backward"):
+            grads = _grad_of(
+                lambda *a: REF.ssd_scan_ref(*a, chunk=ctx.chunk),
+                ctx.saved_tensors, (gy, gh))
         return (*grads, None)
 
 
@@ -115,11 +173,11 @@ class FusedRMSNormMLP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         FusedRMSNormMLP.backward_calls += 1
-        grads = _grad_of(
-            "fused_rmsnorm_mlp",
-            lambda *a: REF.fused_rmsnorm_mlp_ref(*a, act=ctx.act,
-                                                 eps=ctx.eps),
-            ctx.saved_tensors, (g,))
+        with record_function("fused_rmsnorm_mlp.backward"):
+            grads = _grad_of(
+                lambda *a: REF.fused_rmsnorm_mlp_ref(*a, act=ctx.act,
+                                                     eps=ctx.eps),
+                ctx.saved_tensors, (g,))
         return (*grads, None, None)
 
 

@@ -342,6 +342,7 @@ _FUNCTIONAL = {"all_reduce": "all-reduce",
                "reduce_scatter_tensor": "reduce-scatter",
                "all_to_all_single": "all-to-all"}
 _INPLACE = {"allreduce_": "all-reduce", "_allgather_base_": "all-gather",
+            "allgather_": "all-gather",
             "_reduce_scatter_base_": "reduce-scatter",
             "alltoall_base_": "all-to-all"}
 

@@ -3,9 +3,9 @@
 The counterpart of the reference's ``launch/dryrun.py``, with its CLI
 flags and ``CellOptions`` knobs.  The reference lowers and compiles each
 cell for 512 host placeholder devices and reads XLA's cost and memory
-analyses; the port has no SPMD partitioner (ROADMAP queue A item 12c), so
-each cell is worked out on a :class:`~repro_torch.launch.mesh.LogicalMesh`
-with nothing allocated and nothing launched:
+analyses; the port has no SPMD partitioner, so each cell is worked out on a
+:class:`~repro_torch.launch.mesh.LogicalMesh` with nothing allocated and
+nothing launched:
 
 * ``flops_total`` / ``dot_flops_total`` — the step's FLOPs counted by
   ``launch.costing.flops_of_fn`` on meta inputs (the reference's
@@ -22,9 +22,13 @@ with nothing allocated and nothing launched:
   ``collective_bytes`` is ``null`` and ``collective_note`` says why.
 
 The keys that name XLA artefacts (``compile_seconds``, ``hlo_*_bodyonce``,
-``temp_size_in_bytes``) have no counterpart.  The knobs that need the
-mesh's device side (``--onehot-loss``, ``--grad-rs``, an ``ep`` strategy)
-raise ``NotImplementedError``.
+``temp_size_in_bytes``) have no counterpart.  ``--onehot-loss`` counts the
+iota-compare loss; ``--grad-rs`` counts the bf16 gradient cast, with the
+per-layer ``block_pspecs`` and the gradients' specs from ``pspecs_for`` on
+the cell's mesh, as the reference builds them (on a logical mesh they
+move no data).  An ``ep`` strategy raises ``NotImplementedError``: the
+expert-parallel step over a 256- or 512-rank mesh in one process, and the
+collective term, wait for ROADMAP queue A item 12c's second half.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k
@@ -46,13 +50,15 @@ import torch
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, shapes_for
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.perfmodel import H100_SXM, roofline_from_counts
-from repro_torch.core.replication import make_mra_mesh
+from repro_torch.core.replication import make_mra_mesh, merged_rules
 from repro_torch.core.tiles import default_plan
 from repro_torch.launch import specs as SP
 from repro_torch.launch.costing import flops_of_fn, hbm_bytes
-from repro_torch.launch.mesh import LogicalMesh, make_production_mesh
+from repro_torch.launch.mesh import (LogicalMesh, PartitionSpec,
+                                     make_production_mesh)
 from repro_torch.models.layers import AttnOptions
-from repro_torch.models.params import get_batch_axes, set_batch_axes
+from repro_torch.models.params import (get_batch_axes, pspecs_for,
+                                       set_batch_axes, tree_map)
 from repro_torch.models.transformer import LM
 from repro_torch.runtime.train import TrainConfig, make_train_step
 
@@ -61,11 +67,13 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 
 COLLECTIVE_NOTE = (
     "not measured: the reference reads collective bytes from XLA's "
-    "partitioned HLO, and the port has no SPMD partitioner until ROADMAP "
-    "queue A item 12c (launch.costing.collective_stats counts the "
-    "collectives a sharded step dispatches)")
+    "partitioned HLO; the port counts the collectives a step dispatches on "
+    "a ProcessMesh (launch.costing.collective_stats), and a 256- or "
+    "512-rank step in one process waits for ROADMAP queue A item 12c's "
+    "second half")
 
-_ITEM_12 = "multi-device sharding is not ported yet (ROADMAP queue A item 12c)"
+_ITEM_12 = ("the expert-parallel dry run is not ported yet (ROADMAP queue A "
+            "item 12c, second half)")
 
 
 @dataclass(frozen=True)
@@ -118,22 +126,35 @@ class CellOptions:
 
 
 def _refuse_device_knobs(co: CellOptions) -> None:
-    if co.onehot_loss or co.grad_rs or co.ep:
-        raise NotImplementedError(
-            f"onehot_loss={co.onehot_loss!r}, grad_rs={co.grad_rs!r}, "
-            f"ep={co.ep!r}: {_ITEM_12}")
+    if co.ep:
+        raise NotImplementedError(f"ep={co.ep!r} ({co.strategy}): {_ITEM_12}")
 
 
-def build_lm(cfg: ArchConfig, co: CellOptions) -> LM:
+def _grad_pspecs(lm: LM, plan, mesh):
+    return pspecs_for(lm.param_specs(), merged_rules(plan, mesh), mesh)
+
+
+def build_lm(cfg: ArchConfig, co: CellOptions, mesh=None, plan=None) -> LM:
     """The cell's model, with the reference's dry-run attention schedule
-    (``chunked`` at ``q_block``, every rectangle unless ``folded``).  The
-    MRA attention-only strategy's expert sharding (the reference's
+    (``chunked`` at ``q_block``, every rectangle unless ``folded``), its
+    ``onehot_loss`` and, under ``grad_rs`` on a mesh, its per-layer
+    ``block_pspecs`` (the stacked specs less the layer dim).  The MRA
+    attention-only strategy's expert sharding (the reference's
     ``moe_axes``) acts only on devices and is not taken."""
     _refuse_device_knobs(co)
     opts = AttnOptions(backend="chunked", q_block=co.q_block,
                        kv_block=co.q_block, folded=co.folded)
+    block_pspecs = None
+    if co.grad_rs and mesh is not None:
+        lm0 = LM(cfg, opts=opts, remat=co.remat)
+        stacked = _grad_pspecs(lm0, plan or default_plan(cfg), mesh)[
+            "blocks"]
+        block_pspecs = tree_map(lambda ps: PartitionSpec(*tuple(ps)[1:]),
+                                stacked,
+                                lambda x: isinstance(x, PartitionSpec))
     kv_dtype = torch.int8 if co.kv_int8 else None
-    return LM(cfg, opts=opts, remat=co.remat, kv_cache_dtype=kv_dtype)
+    return LM(cfg, opts=opts, remat=co.remat, kv_cache_dtype=kv_dtype,
+              onehot_loss=co.onehot_loss, block_pspecs=block_pspecs)
 
 
 def make_cell_mesh(co: CellOptions, multi_pod: bool) -> LogicalMesh:
@@ -159,7 +180,7 @@ def lower_cell(arch: str, shape_name: str, mesh: LogicalMesh, *,
         for t in plan.tiles:
             if t.kind in kinds:
                 plan = plan.with_replication(t.name, co.mra_k)
-    lm = build_lm(cfg, co)
+    lm = build_lm(cfg, co, mesh=mesh, plan=plan)
     param_sh = SP.param_shardings(lm, mesh, plan)
     params_abs = lm.abstract()
 
@@ -198,7 +219,8 @@ def lower_cell(arch: str, shape_name: str, mesh: LogicalMesh, *,
             "tokens": shape.global_batch * (shape.seq_len
                                             if shape.kind != "decode"
                                             else 1)}
-        count = _flops_for(lm, plan, cfg, shape, accum=co.accum)
+        count = _flops_for(lm, plan, cfg, shape, accum=co.accum,
+                           grad_rs=co.grad_rs, mesh=mesh)
         meta["flops_total"] = count.total
         meta["dot_flops_total"] = count.dot
         meta["hbm_bytes_total"] = hbm_bytes(cfg, shape,
@@ -211,11 +233,15 @@ def lower_cell(arch: str, shape_name: str, mesh: LogicalMesh, *,
     return meta
 
 
-def _flops_for(lm: LM, plan, cfg, shape, *, accum: int = 1):
-    """Count the same step abstractly (no mesh needed)."""
+def _flops_for(lm: LM, plan, cfg, shape, *, accum: int = 1,
+               grad_rs: bool = False, mesh=None):
+    """Count the same step abstractly (a logical mesh moves no data)."""
     params_abs = lm.abstract()
     if shape.kind == "train":
-        step = make_train_step(lm, plan, None, TrainConfig(accum=accum))
+        tc = TrainConfig(accum=accum,
+                         grad_reduce_dtype="bf16" if grad_rs else "")
+        gps = _grad_pspecs(lm, plan, mesh) if grad_rs and mesh else None
+        step = make_train_step(lm, plan, None, tc, grad_pspecs=gps)
         return flops_of_fn(step, params_abs,
                            SP.abstract_opt_state(params_abs),
                            SP.abstract_batch(cfg, shape),

@@ -12,11 +12,14 @@ A :class:`ProcessMesh` (:func:`make_mesh`) is the same named-axis view over
 the ranks of a ``torch.distributed`` process group, one rank per mesh
 position, built with ``torch.distributed.device_mesh.init_device_mesh``; it
 adds the process group of each axis and this rank's coordinates, which the
-explicit collectives of :mod:`repro_torch.parallel` run over.
+explicit collectives of :mod:`repro_torch.parallel` run over, and its
+``DeviceMesh`` (``device_mesh``), which the placed tensors
+(:mod:`repro_torch.parallel.placement`, DTensors) live on.
 :func:`set_mesh` / :func:`get_mesh` hold the ambient mesh, as the
-reference's ``compat.set_mesh`` / ``get_abstract_mesh`` do (the MoE layer
-and ``LM(moe_ep=)`` read it).  Placing parameters by the specs
-(``launch/specs.py``) waits for ROADMAP queue A item 12c.
+reference's ``compat.set_mesh`` / ``get_abstract_mesh`` do (the MoE layer,
+``LM(moe_ep=)``, ``shard_activation`` and the layers under placed
+parameters read it).  :func:`placements_for` turns a spec into DTensor
+placements.
 
 Production meshes (the reference's):
   single-pod: (data=16, model=16)           = 256 chips
@@ -104,11 +107,17 @@ def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
     return LogicalMesh(shape, axes)
 
 
-def make_host_mesh(device: DeviceSpec = None) -> LogicalMesh:
-    """The devices present, as a 1-D ``("data",)`` mesh: every CUDA device
-    (``device=None``, which raises without one, as every entry point of the
-    port does), or one for ``device="cpu"``."""
+def make_host_mesh(device: DeviceSpec = None):
+    """What exists right now, as a 1-D ``("data",)`` mesh (the reference's
+    ``make_host_mesh``): the launched ranks as a :class:`ProcessMesh` once
+    ``torch.distributed`` is initialised, else the devices present as a
+    :class:`LogicalMesh` — every CUDA device (``device=None``, which raises
+    without one, as every entry point of the port does), or one for
+    ``device="cpu"``."""
+    import torch.distributed as dist
     dev = resolve(device)
+    if dist.is_available() and dist.is_initialized():
+        return make_mesh((dist.get_world_size(),), ("data",), device=dev)
     n = torch.cuda.device_count() if dev.type == "cuda" else 1
     return LogicalMesh((n,), ("data",))
 
@@ -118,8 +127,8 @@ class ProcessMesh:
     process group (row-major: the last axis varies fastest over the ranks),
     with one process group per axis.  ``shape`` / ``axis_names`` /
     ``axis_shapes`` / ``size`` read as :class:`LogicalMesh`'s; ``device`` is
-    this rank's device and ``backend`` the group's (``"gloo"`` or
-    ``"nccl"``)."""
+    this rank's device, ``backend`` the group's (``"gloo"`` or ``"nccl"``)
+    and ``device_mesh`` the ``torch.distributed`` ``DeviceMesh``."""
 
     def __init__(self, device_mesh, device: torch.device):
         self.device_mesh = device_mesh
@@ -157,14 +166,73 @@ class ProcessMesh:
                 f"backend={self.backend})")
 
 
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry: ``None`` -> ``()``, a name -> a
+    1-tuple, a tuple as it is."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _entry(axes: Sequence[str]):
+    axes = tuple(axes)
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
+def check_spec(spec, mesh, ndim: int) -> None:
+    """Raise ``ValueError`` unless ``spec`` fits a rank-``ndim`` tensor on
+    ``mesh``: known axes, each used once, a tuple in the mesh's order."""
+    names = tuple(mesh.axis_names)
+    if len(spec) > ndim:
+        raise ValueError(f"{spec!r} has {len(spec)} entries for a "
+                         f"rank-{ndim} tensor")
+    used: set = set()
+    for ent in spec:
+        axes = entry_axes(ent)
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"{spec!r}: no axis {a!r} in mesh "
+                                 f"{names}")
+            if a in used:
+                raise ValueError(f"{spec!r}: axis {a!r} shards two dims")
+            used.add(a)
+        order = [names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(
+                f"the tuple {tuple(axes)!r} of {spec!r} does not follow the "
+                f"mesh's axis order {names}: DTensor splits a dim over its "
+                "axes in mesh order, so the block order would change")
+
+
+def placements_for(spec, mesh, ndim: Optional[int] = None) -> list:
+    """The DTensor placements of ``spec`` on ``mesh`` for a rank-``ndim``
+    tensor (``len(spec)`` by default), one per mesh axis: ``Shard(d)`` on
+    every axis entry ``d`` names, several in mesh order for a tuple (which
+    must follow the mesh's axis order, else ``ValueError`` naming it),
+    ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    check_spec(spec, mesh, len(spec) if ndim is None else ndim)
+    out: list = [Replicate() for _ in mesh.axis_names]
+    for d, ent in enumerate(spec):
+        for a in entry_axes(ent):
+            out[mesh.axis_names.index(a)] = Shard(d)
+    return out
+
+
 def rank_device(device: DeviceSpec = None) -> torch.device:
-    """This rank's device: the CPU, or CUDA device ``rank % count`` (several
-    ranks share a card when there are more ranks than cards)."""
+    """This rank's device: the CPU, a CUDA device given with its index, or
+    CUDA device ``local rank % count`` (the ``LOCAL_RANK`` a launcher such
+    as ``torchrun`` sets, else the rank; several ranks share a card when
+    there are more ranks than cards)."""
+    import os
     import torch.distributed as dist
     dev = resolve(device)
-    if dev.type != "cuda":
+    if dev.type != "cuda" or dev.index is not None:
         return dev
-    return torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    return torch.device("cuda", local % torch.cuda.device_count())
 
 
 def make_mesh(shape: Sequence[int], names: Sequence[str], *,

@@ -6,9 +6,11 @@ are ``meta`` tensors (shape and dtype, no memory): the parameters
 decode cache (through the port's own ``LM.init_cache`` on the meta
 device) and the C3 counters.  The shardings are
 :class:`~repro_torch.launch.mesh.Sharding` records on a
-:class:`~repro_torch.launch.mesh.LogicalMesh`, worked out by the
-reference's rules; :func:`per_device_bytes` reads what one device would
-hold.  Placing the trees on devices waits for ROADMAP queue A item 12c.
+:class:`~repro_torch.launch.mesh.LogicalMesh` or a
+:class:`~repro_torch.launch.mesh.ProcessMesh` (the rules read only its
+``shape`` and ``axis_names``), worked out by the reference's rules;
+:func:`per_device_bytes` reads what one device would hold, and
+``models.params.place_params`` places a tree by them on a ``ProcessMesh``.
 
 All cells feed discrete tokens: the [vlm]/[audio] archs (chameleon,
 musicgen) are early-fusion models over VQ/EnCodec *tokens*, so the modality

@@ -16,6 +16,19 @@ Plain functions on tensors; parameters are the nested dicts built from
                 training) and ``gqa_decode`` launches ``flash_decode``.  On
                 CPU tensors their plain versions run.
 
+Placed parameters (a ``ProcessMesh``; ``ps``: each leaf's ``PartitionSpec``
+beside its local block): ``gqa_apply`` and the transformer's MLP run
+tensor-parallel on each rank's blocks with explicit collectives.  At the
+reference's ``shard_activation`` sites (q, k, v and the MLP hidden over
+``(DATA, None, MODEL)``) :func:`site` computes the reference's spec, and the
+layer holds exactly that block: the kv heads (with their q groups) or the
+hidden columns over the spec's axes, the batch over the batch axes.  A
+weight whose spec differs from the block it feeds is relaid out to it
+(:func:`~repro_torch.parallel.placement.relayout`, counted collectives).
+The input, replicated over those axes, enters through
+``collectives.replicated`` (its gradient summed over them) and the
+row-parallel output leaves through ``psum``.
+
 MLA (DeepSeek-V2): ``mla_apply`` expands K and V from the latent and runs
 plain MHA through ``attention_core`` (hd_qk ``nope + rope``, hd_v
 ``v_head_dim``); ``mla_decode`` runs the absorbed products over the latent
@@ -33,7 +46,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._common import repeat, unfolded
-from repro_torch.models.params import spec
+from repro_torch.launch.mesh import get_mesh
+from repro_torch.models.params import activation_spec, get_batch_axes, spec
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.placement import entry_axes, relayout
+
+DATA = ("pod", "data")     # batch sharding axes (filtered to the live mesh)
+MODEL = "model"            # intra-tile model fabric ("shard" on MRA meshes)
+MODEL_FULL = "__model_full__"   # full model fabric (K=1 tiles, e.g. vocab)
 
 NEG_INF = -1e30
 UNWRITTEN = 1_000_000_000     # key position of a ring slot not written yet
@@ -106,6 +126,42 @@ def mlp_apply(p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
     gate = _act(x @ p["wi_gate"], act)
     h = gate * (x @ p["wi_up"])
     return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Placed parameters: the sites and the weights' blocks
+# ---------------------------------------------------------------------------
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The mesh axes the activations' batch dim is split over: the current
+    batch axes (``params.get_batch_axes``) present in ``mesh``."""
+    return tuple(a for a in get_batch_axes() if a in mesh.axis_names)
+
+
+def site(local_shape: Tuple[int, ...], mesh, *axes) -> tuple:
+    """The reference's ``shard_activation(x, *axes)`` spec at a site, for a
+    tensor whose local block has ``local_shape`` (the batch dim this rank's
+    share of the batch axes); each entry as a tuple of axes.  The port's
+    layers keep the batch on the batch axes: a spec that moves it raises."""
+    bax = batch_axes(mesh)
+    n = 1
+    for a in bax:
+        n *= mesh.shape[a]
+    shape = (local_shape[0] * n,) + tuple(local_shape[1:])
+    spec = activation_spec(shape, *axes, mesh=mesh)
+    ents = tuple(entry_axes(e) for e in spec)
+    if ents[0] != bax:
+        raise ValueError(f"the site {axes} puts the batch of {shape} on "
+                         f"{ents[0]}; the layers keep it on {bax}")
+    return ents
+
+
+def blocks_as(p: Dict, ps: Dict, want: Dict, mesh) -> Dict:
+    """``p``'s leaves named in ``want`` as the blocks of the specs there
+    (relaid out where their own spec ``ps`` differs)."""
+    return {k: relayout(p[k], ps[k], want[k], mesh) for k in want}
+
 
 
 # ---------------------------------------------------------------------------
@@ -281,8 +337,14 @@ def gqa_project(p: Dict, cfg: ArchConfig, x: torch.Tensor,
 
 def gqa_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, opts: AttnOptions,
-              return_cache: bool = False):
-    """Full-sequence (prefill) GQA attention."""
+              return_cache: bool = False, ps: Optional[Dict] = None):
+    """Full-sequence (prefill) GQA attention.  ``ps``: the specs of placed
+    parameters (``p`` then holds this rank's blocks; training only)."""
+    if ps is not None:
+        if return_cache:
+            raise NotImplementedError("a cache from placed parameters: "
+                                      "serving runs on one device")
+        return _gqa_apply_placed(p, cfg, x, positions, opts, ps)
     B, S, _ = x.shape
     q, k, v = gqa_project(p, cfg, x, positions)
     out = attention_core(q, k, v, positions, positions, cfg.sliding_window,
@@ -291,6 +353,34 @@ def gqa_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     if return_cache:
         return out, (k, v)
     return out
+
+
+def _gqa_apply_placed(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+                      positions: torch.Tensor, opts: AttnOptions,
+                      ps: Dict) -> torch.Tensor:
+    """GQA attention on this rank's kv heads: the reference's q / k / v
+    site ``(DATA, None, MODEL)`` on the kv-heads dim names the axes ``tp``
+    (none when they do not divide the kv heads); ``wq`` / ``wk`` / ``wv``
+    as their column blocks over ``tp``, ``wo`` as its row block; the kernel
+    (or plain version) on the local heads; the output summed over ``tp``."""
+    mesh = get_mesh()
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    tp = site((B, S, KV, G, hd), mesh, DATA, None, MODEL)[2]
+    kvl = KV // C.axis_size(tp, mesh)
+    w = blocks_as(p, ps, {"wq": (None, tp), "wk": (None, tp),
+                          "wv": (None, tp), "wo": (tp, None)}, mesh)
+    h = C.replicated(x, tp, mesh)
+    q = (h @ w["wq"]).reshape(B, S, kvl * G, hd)
+    k = (h @ w["wk"]).reshape(B, S, kvl, hd)
+    v = (h @ w["wv"]).reshape(B, S, kvl, hd)
+    q = apply_rope(q, positions, cfg.rope_theta).reshape(B, S, kvl, G, hd)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = attention_core(q, k, v, positions, positions, cfg.sliding_window,
+                         opts)
+    out = out.reshape(B, S, kvl * G * hd) @ w["wo"]
+    return C.psum(out, tp, mesh)
 
 
 def ring_kpos(pos: torch.Tensor, W: int) -> torch.Tensor:

@@ -13,6 +13,16 @@ in the reference.  Dtype order as there: ``dt`` goes to float32 before the
 softplus; ``xs``/``Bm``/``Cm`` go to float32 only for the scan; ``y`` comes
 back to the activation dtype before the gated ``rms_norm``.
 
+Placed parameters (``ps``, training on a ``ProcessMesh``): the mixer runs on
+this rank's SSM heads.  The reference's sites (``xs`` and the gated ``y``
+over ``(DATA, None, MODEL)`` on the ``d_inner`` dim) name the axes ``tp``
+(none unless they divide the heads); ``w_z`` / ``w_x`` / ``conv_x`` /
+``w_dt`` / ``dt_bias`` / ``A_log`` / ``D`` and the gated norm's scale are
+taken as their blocks over ``tp``, ``out_proj`` as its row block; ``w_B`` /
+``w_C`` and their convs whole (the state dim is not split), their outputs
+entering the local scan through ``collectives.replicated``; the gated
+norm's mean square summed over ``tp``; the output summed over ``tp``.
+
 One difference, on purpose: the conv cache of a prompt shorter than
 ``ssm_conv - 1`` tokens.  The reference keeps ``xs[:, L-(c-1):]``, which for
 such a prompt is fewer than ``c - 1`` rows (ROADMAP queue C); the port keeps
@@ -21,15 +31,18 @@ causal conv of the full sequence saw.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
-from repro_torch.models.layers import rms_norm, rms_norm_spec
+from repro_torch.launch.mesh import get_mesh
+from repro_torch.models.layers import (DATA, MODEL, blocks_as, rms_norm,
+                                       rms_norm_spec, site)
 from repro_torch.models.params import spec
+from repro_torch.parallel import collectives as C
 
 SSM_BACKENDS = ("torch", "fused")
 
@@ -112,11 +125,16 @@ ssd_scan_ref = ssd_scan_plain
 
 
 def ssm_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
-              backend: str = "torch", return_cache: bool = False):
-    """Full-sequence Mamba-2 block.  x: (B,L,d) -> (B,L,d) [, cache]."""
+              backend: str = "torch", return_cache: bool = False,
+              ps: Optional[Dict] = None):
+    """Full-sequence Mamba-2 block.  x: (B,L,d) -> (B,L,d) [, cache].
+    ``ps``: the specs of placed parameters (training only)."""
     check_backend(backend)
-    Bb, L, d = x.shape
-    nh, hd = cfg.n_ssm_heads, cfg.ssm_headdim
+    if ps is not None:
+        if return_cache:
+            raise NotImplementedError("a cache from placed parameters: "
+                                      "serving runs on one device")
+        return _ssm_apply_placed(p, cfg, x, backend, ps)
     c = cfg.ssm_conv
     z, xs, Bm, Cm, dt = _ssd_inputs(p, x)
     xs_raw, Bm_raw, Cm_raw = xs, Bm, Cm          # pre-conv (cache tails)
@@ -126,24 +144,8 @@ def ssm_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
 
     dt = F.softplus(dt + p["dt_bias"])                     # (B,L,nh) f32
     A = -torch.exp(p["A_log"])                             # (nh,)
-
-    # pad to a chunk multiple; padded positions get dt=0 so they neither
-    # emit output nor perturb the carried state (a = exp(0*A) = 1, upd = 0)
-    Q = min(cfg.ssm_chunk, max(L, 1))
-    Lp = -(-L // Q) * Q
-    if Lp != L:
-        pad = (0, 0, 0, Lp - L)
-        xs, Bm, Cm, dt = (F.pad(t, pad) for t in (xs, Bm, Cm, dt))
-    xsh = xs.reshape(Bb, Lp, nh, hd).float().contiguous()
-    Bf, Cf = Bm.float().contiguous(), Cm.float().contiguous()
-    if backend == "fused":
-        from repro_torch.kernels.ops import ssd_scan
-        y, h_final = ssd_scan(xsh, dt.contiguous(), A, Bf, Cf, p["D"],
-                              chunk=cfg.ssm_chunk)
-    else:
-        y, h_final = ssd_scan_ref(xsh, dt, A, Bf, Cf, p["D"],
-                                  chunk=cfg.ssm_chunk)
-    y = y.reshape(Bb, Lp, nh * hd)[:, :L, :].to(x.dtype)
+    y, h_final = _scan(cfg, xs, Bm, Cm, dt, A, p["D"], backend)
+    y = y.to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"]
     if not return_cache:
@@ -153,6 +155,68 @@ def ssm_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                  conv_C=_conv_tail(Cm_raw, c - 1),
                  state=h_final)
     return out, cache
+
+
+def _scan(cfg: ArchConfig, xs, Bm, Cm, dt, A, D, backend: str):
+    """The chunked scan over (B, L, nh * hd) inputs; returns y (B, L,
+    nh * hd) float32 and the final state.  The inputs are padded to a chunk
+    multiple; padded positions get dt = 0, so they neither emit output nor
+    perturb the carried state (a = exp(0 A) = 1, update 0)."""
+    Bb, L, _ = xs.shape
+    hd = cfg.ssm_headdim
+    nh = xs.shape[-1] // hd
+    Q = min(cfg.ssm_chunk, max(L, 1))
+    Lp = -(-L // Q) * Q
+    if Lp != L:
+        pad = (0, 0, 0, Lp - L)
+        xs, Bm, Cm, dt = (F.pad(t, pad) for t in (xs, Bm, Cm, dt))
+    xsh = xs.reshape(Bb, Lp, nh, hd).float().contiguous()
+    Bf, Cf = Bm.float().contiguous(), Cm.float().contiguous()
+    if backend == "fused":
+        from repro_torch.kernels.ops import ssd_scan
+        y, h = ssd_scan(xsh, dt.contiguous(), A, Bf, Cf, D,
+                        chunk=cfg.ssm_chunk)
+    else:
+        y, h = ssd_scan_ref(xsh, dt, A, Bf, Cf, D, chunk=cfg.ssm_chunk)
+    return y.reshape(Bb, Lp, nh * hd)[:, :L, :], h
+
+
+def _ssm_apply_placed(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+                      backend: str, ps: Dict) -> torch.Tensor:
+    mesh = get_mesh()
+    Bb, L, d = x.shape
+    nh, di = cfg.n_ssm_heads, cfg.d_inner
+    tp = site((Bb, L, di), mesh, DATA, None, MODEL)[2]
+    if nh % C.axis_size(tp, mesh):
+        tp = ()                    # a split inside a head: whole heads
+    col, row, vec = (None, tp), (tp, None), (tp,)
+    w = blocks_as(p, ps, {"w_z": col, "w_x": col, "w_dt": col,
+                          "conv_x": col, "dt_bias": vec, "A_log": vec,
+                          "D": vec, "norm": vec, "out_proj": row,
+                          "w_B": (), "w_C": (), "conv_B": (), "conv_C": ()},
+                  mesh)
+    h = C.replicated(x, tp, mesh)           # feeds this rank's heads only
+    z, xs = h @ w["w_z"], h @ w["w_x"]
+    dt = (h @ w["w_dt"]).float()
+    xs = F.silu(_causal_conv(xs, w["conv_x"]))
+    # B and C are whole on every rank (from x itself: the same on each);
+    # each rank's heads read them, so their gradients sum over tp
+    Bm = C.replicated(F.silu(_causal_conv(x @ w["w_B"], w["conv_B"])), tp,
+                      mesh)
+    Cm = C.replicated(F.silu(_causal_conv(x @ w["w_C"], w["conv_C"])), tp,
+                      mesh)
+    dt = F.softplus(dt + w["dt_bias"])
+    A = -torch.exp(w["A_log"])
+    y, _ = _scan(cfg, xs, Bm, Cm, dt, A, w["D"], backend)
+    y = y.to(x.dtype) * F.silu(z)
+    # the gated rms_norm over all d_inner channels: the mean square summed
+    # over tp, used by each rank's channels alone
+    yf = y.float()
+    ms = C.replicated(C.psum(yf.square().sum(-1, keepdim=True), tp, mesh),
+                      tp, mesh) / di
+    y = (yf * torch.rsqrt(ms + cfg.norm_eps)
+         * (1.0 + w["norm"].float())).to(x.dtype)
+    return C.psum(y @ w["out_proj"], tp, mesh)
 
 
 def ssm_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: Dict

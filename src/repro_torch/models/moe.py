@@ -42,7 +42,10 @@ Gradients: the router, the expert weights and the tokens enter both paths
 through ``replicated`` over the axes the body is split on, so every rank
 ends with the whole gradient of each global tensor (the ranks' partial
 gradients summed, as the transpose of the reference's ``shard_map`` sums
-them), as the unsharded layer's backward gives it.
+them), as the unsharded layer's backward gives it.  Under placed
+parameters (``blocks=True``) the expert weights come in as this rank's
+blocks (:func:`expert_specs`), and their gradients stay this rank's
+blocks: no expert weight or its gradient crosses the wire.
 """
 from __future__ import annotations
 
@@ -55,8 +58,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._common import active_counter
 from repro_torch.launch.mesh import get_mesh
-from repro_torch.models.layers import _act, mlp_apply
-from repro_torch.models.params import get_batch_axes, spec
+from repro_torch.models.layers import DATA, _act, mlp_apply
+from repro_torch.models.params import get_batch_axes, shard_activation, spec
 from repro_torch.parallel import collectives as C
 
 EXPERTS = ("grouped", "loop")    # moe_apply's expert products
@@ -305,38 +308,71 @@ def _model_axis(mesh, model_axes):
         "shard" if "shard" in names else None)
 
 
-def _moe_mesh(routed: Dict, cfg: ArchConfig, xf: torch.Tensor, mesh, ep,
-              mx, experts: str, aux: bool):
-    """The mesh paths of :func:`moe_apply` over the flat tokens ``xf``:
-    (out (N, d) on every rank, the aux loss or ``None``)."""
-    names = mesh.axis_names
+def _data_axes(mesh, mx, batch_axes):
+    """The batch axes the body splits the tokens over (not the model's)."""
     mx_set = set(mx) if isinstance(mx, tuple) else {mx}
-    dp = tuple(a for a in get_batch_axes() if a in names and a not in mx_set)
+    if batch_axes is None:
+        batch_axes = get_batch_axes()
+    return tuple(a for a in batch_axes
+                 if a in mesh.axis_names and a not in mx_set)
+
+
+def _ep_fits(cfg: ArchConfig, mesh, ep, mx, n_tokens: int, dp) -> bool:
+    """Whether the expert-parallel path runs: asked for, one model axis
+    that splits the experts, and tokens that split over the shards."""
+    return bool(ep) and not isinstance(mx, tuple) \
+        and cfg.n_experts % mesh.shape[mx] == 0 \
+        and n_tokens % C.axis_size(dp + (mx,), mesh) == 0
+
+
+def expert_specs(cfg: ArchConfig, mesh, ep: bool = False, model_axes=None,
+                 n_tokens: int = 0, batch_axes=None) -> Dict:
+    """The specs of the blocks of ``wi_gate`` / ``wi_up`` / ``wo`` that
+    :func:`moe_apply`'s mesh path reads on each rank for ``n_tokens``
+    tokens: ``E / m`` whole experts under expert parallelism, else every
+    expert's columns of F (rows for ``wo``) over the model axis; whole
+    without a model axis."""
+    from repro_torch.launch.mesh import PartitionSpec as P
+    mx = _model_axis(mesh, model_axes) if mesh.axis_names else None
+    if not mx:
+        return {w: P() for w in ("wi_gate", "wi_up", "wo")}
+    if _ep_fits(cfg, mesh, ep, mx, n_tokens,
+                _data_axes(mesh, mx, batch_axes)):
+        return {w: P(mx, None, None) for w in ("wi_gate", "wi_up", "wo")}
+    return {"wi_gate": P(None, None, mx), "wi_up": P(None, None, mx),
+            "wo": P(None, mx, None)}
+
+
+def _moe_mesh(routed: Dict, cfg: ArchConfig, xf: torch.Tensor, mesh, ep,
+              mx, experts: str, aux: bool, batch_axes=None,
+              blocks: bool = False):
+    """The mesh paths of :func:`moe_apply` over the flat tokens ``xf``:
+    (out (N, d) on every rank, the aux loss or ``None``).  ``blocks``: the
+    expert weights are already this rank's blocks (:func:`expert_specs`)."""
+    dp = _data_axes(mesh, mx, batch_axes)
     # each rank reads a part of these global tensors: their gradients are
     # summed over every axis the body is split on
     split = dp + (mx if isinstance(mx, tuple) else (mx,))
-    routed = {k: C.replicated(v, split, mesh) for k, v in routed.items()}
+    routed = {k: v if blocks and k != "router" else
+              C.replicated(v, split, mesh) for k, v in routed.items()}
     xf = C.replicated(xf, split, mesh)
     N = xf.shape[0]
-    if ep and not isinstance(mx, tuple) \
-            and cfg.n_experts % mesh.shape[mx] == 0:
+    if _ep_fits(cfg, mesh, ep, mx, N, dp):
         all_axes = dp + (mx,)
-        n_shards = C.axis_size(all_axes, mesh)
-        if N % n_shards == 0:
-            m = mesh.shape[mx]
-            n_loc = N // n_shards
-            capacity = max(1, int(math.ceil(n_loc * cfg.top_k / m
-                                            * cfg.capacity_factor)))
-            e0 = C.axis_index(mx, mesh) * (cfg.n_experts // m)
-            e1 = e0 + cfg.n_experts // m
-            pp = {"router": routed["router"],
-                  **{w: routed[w][e0:e1] for w in ("wi_gate", "wi_up",
-                                                   "wo")}}
-            out, loss, _ = _moe_ep_shard(
-                pp, _shard_rows(xf, all_axes, mesh), cfg, mesh=mesh,
-                model_axis=mx, capacity=capacity, experts=experts)
-            loss = C.pmean(loss, all_axes, mesh) if aux else None
-            return _gather_rows(out, all_axes, mesh), loss
+        m = mesh.shape[mx]
+        n_loc = N // C.axis_size(all_axes, mesh)
+        capacity = max(1, int(math.ceil(n_loc * cfg.top_k / m
+                                        * cfg.capacity_factor)))
+        e0 = C.axis_index(mx, mesh) * (cfg.n_experts // m)
+        e1 = e0 + cfg.n_experts // m
+        pp = {"router": routed["router"],
+              **{w: routed[w] if blocks else routed[w][e0:e1]
+                 for w in ("wi_gate", "wi_up", "wo")}}
+        out, loss, _ = _moe_ep_shard(
+            pp, _shard_rows(xf, all_axes, mesh), cfg, mesh=mesh,
+            model_axis=mx, capacity=capacity, experts=experts)
+        loss = C.pmean(loss, all_axes, mesh) if aux else None
+        return _gather_rows(out, all_axes, mesh), loss
     # expert-TP: F split over the model axis, tokens over the data axes
     nf, fi = C.axis_size(mx, mesh), C.axis_index(mx, mesh)
     F_ = cfg.d_ff_expert
@@ -344,10 +380,13 @@ def _moe_mesh(routed: Dict, cfg: ArchConfig, xf: torch.Tensor, mesh, ep,
         raise ValueError(f"d_ff_expert {F_} does not split over {nf} "
                          f"shards of {mx}")
     f0, f1 = fi * (F_ // nf), (fi + 1) * (F_ // nf)
-    pp = {"router": routed["router"],
-          "wi_gate": routed["wi_gate"][:, :, f0:f1],
-          "wi_up": routed["wi_up"][:, :, f0:f1],
-          "wo": routed["wo"][:, f0:f1]}
+    pp = {"router": routed["router"]}
+    if blocks:
+        pp.update({w: routed[w] for w in ("wi_gate", "wi_up", "wo")})
+    else:
+        pp.update(wi_gate=routed["wi_gate"][:, :, f0:f1],
+                  wi_up=routed["wi_up"][:, :, f0:f1],
+                  wo=routed["wo"][:, f0:f1])
     x_loc = _shard_rows(xf, dp, mesh) if dp else xf
     out, logits, top_ids = _moe_ffn_local(pp, x_loc, cfg, experts)
     out = C.psum(out, mx, mesh)
@@ -362,7 +401,8 @@ def _moe_mesh(routed: Dict, cfg: ArchConfig, xf: torch.Tensor, mesh, ep,
 
 def moe_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh=None,
               ep: bool = False, model_axes=None, *, experts: str = "grouped",
-              aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+              aux: bool = True, batch_axes=None, blocks: bool = False
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """MoE FFN over x (B, S, d), plus the shared experts where the config
     has them.  Returns (out (B, S, d), the load-balance aux loss; ``None``
     with ``aux=False``, as the serving path asks).  ``experts``: the expert
@@ -376,7 +416,12 @@ def moe_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh=None,
     split evenly (see the module docstring); ``x`` and the output are the
     global tensors, the same on every rank.  Without one (a mesh object
     with no named axes included) the single-device path runs, whatever
-    ``ep`` / ``model_axes`` say, as in the reference."""
+    ``ep`` / ``model_axes`` say, as in the reference.  ``batch_axes``
+    (default ``params.get_batch_axes()``) are the axes the body splits the
+    tokens over; ``()`` when ``x`` is already a rank's share of the batch
+    (the model under placed parameters).  ``blocks``: ``p``'s expert
+    weights are this rank's blocks of :func:`expert_specs` (placed
+    parameters), not the global tensors."""
     if experts not in EXPERTS:
         raise ValueError(f"experts={experts!r}; one of {EXPERTS}")
     B, S, d = x.shape
@@ -387,8 +432,9 @@ def moe_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh=None,
     mx = _model_axis(mesh, model_axes) if names else None
     if names and mx:
         out, loss = _moe_mesh(routed, cfg, x.reshape(B * S, d), mesh, ep,
-                              mx, experts, aux)
-        out = out.reshape(B, S, d)
+                              mx, experts, aux, batch_axes, blocks)
+        # the reference's output constraint after its expert-parallel body
+        out = shard_activation(out.reshape(B, S, d), DATA, None, None)
         if cfg.n_shared_experts:
             out = out + mlp_apply(p["shared"], x, cfg.act)
         return out, loss

@@ -9,15 +9,22 @@ dtype, logical axis names, initializer), as in the reference
                         the scale by sqrt of the fan-in as the reference does),
 * ``abstract_params`` — shapes and dtypes only (``meta`` tensors, no memory),
 * ``count_params``,
-* ``pspecs_for`` — each leaf's ``PartitionSpec`` on a
-  :class:`~repro_torch.launch.mesh.LogicalMesh` after applying the logical
-  -> mesh rules (``BASE_RULES``; the MRA rules of
-  ``core.replication`` remap a tile's axes onto ``(replica, shard)``).
+* ``pspecs_for`` / ``shardings_for`` — each leaf's ``PartitionSpec`` (a
+  ``Sharding`` record with its mesh) after applying the logical -> mesh
+  rules (``BASE_RULES``; the MRA rules of ``core.replication`` remap a
+  tile's axes onto ``(replica, shard)``), on a
+  :class:`~repro_torch.launch.mesh.LogicalMesh` or a
+  :class:`~repro_torch.launch.mesh.ProcessMesh`,
+* ``place_params`` — the tree placed on a ``ProcessMesh``: DTensor leaves,
+  each rank holding its block (:mod:`repro_torch.parallel.placement`).
 
-The rules are the reference's and give the same specs; what waits for
-ROADMAP queue A item 12c is their use on devices.  On one device the
-reference's ``shard_activation`` is the identity, so the port's layers have
-no call to it.
+``shard_activation`` is the reference's: the identity without an ambient
+``ProcessMesh``; under one, a placed (DTensor) activation is redistributed
+to the spec :func:`activation_spec` computes with the reference's rules.
+The port's layers run on each rank's local blocks (explicit collectives,
+:mod:`repro_torch.models.layers`): at the reference's sites they lay their
+blocks out as :func:`activation_spec` says, and a plain tensor passes
+through ``shard_activation`` unchanged.
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import Axis, LogicalMesh, PartitionSpec
+from repro_torch.launch.mesh import (Axis, LogicalMesh, PartitionSpec,
+                                     ProcessMesh, Sharding, get_mesh)
+from repro_torch.parallel import placement as PL
 
 
 @dataclass(frozen=True)
@@ -202,3 +211,111 @@ def set_batch_axes(axes: Tuple[str, ...]) -> None:
 
 def get_batch_axes() -> Tuple[str, ...]:
     return _BATCH_AXES
+
+
+def shardings_for(tree, rules: Dict[str, Axis], mesh):
+    """Each leaf's :class:`~repro_torch.launch.mesh.Sharding` (its spec on
+    ``mesh``), the reference's ``NamedSharding`` tree."""
+    return tree_map(lambda s: Sharding(mesh, partition_spec_for(
+        s.axes, s.shape, rules, mesh)), tree)
+
+
+def place_params(tree, shardings):
+    """The tensors of ``tree`` (the same full values on every rank) placed
+    by ``shardings`` (a tree of ``Sharding`` records on a ``ProcessMesh``):
+    DTensor leaves whose blocks equal the full tensors' slices bit for
+    bit.  Leaves of other types pass through."""
+    flat_s = tree_leaves(shardings, lambda x: hasattr(x, "spec")
+                         and hasattr(x, "mesh"))
+    flat_t = tree_leaves(tree, torch.is_tensor)
+    if len(flat_s) != len(flat_t):
+        raise ValueError(f"{len(flat_s)} shardings for {len(flat_t)} "
+                         "tensors")
+    return tree_unflatten(tree, [PL.place(t, s.spec, s.mesh)
+                                 for t, s in zip(flat_t, flat_s)])
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding (the reference's shard_activation)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_size(mesh, names) -> int:
+    n = 1
+    for a in names:
+        n *= mesh.shape[a]
+    return n
+
+
+def activation_spec(shape: Tuple[int, ...], *axes: Axis,
+                    mesh=None) -> Optional[PartitionSpec]:
+    """The spec the reference's ``shard_activation(x, *axes)`` constrains a
+    tensor of global ``shape`` to on ``mesh`` (the ambient mesh by default;
+    ``None`` without one): the default batch axes replaced by the current
+    ones; on an MRA-factored mesh (``shard`` and no ``model``) ``"model"``
+    becomes ``"shard"`` and ``"__model_full__"`` ``("replica", "shard")``,
+    with ``"replica"`` leaving the other entries of that tensor; axes not in
+    the mesh dropped; then, dim by dim, axes an earlier dim took dropped
+    (the first dim wins) and trailing axes dropped until the dim divides."""
+    if mesh is None:
+        mesh = get_mesh()
+    if mesh is None or not getattr(mesh, "axis_names", ()):
+        return None
+    axes = tuple(_BATCH_AXES if a == _DEFAULT_BATCH_AXES else a
+                 for a in axes)
+    names = set(mesh.axis_names)
+    if "model" not in names and "shard" in names:
+        if "__model_full__" in axes:
+            axes = tuple(
+                tuple(n for n in a if n != "replica") if isinstance(a, tuple)
+                else a for a in axes)
+        axes = tuple("shard" if a == "model" else a for a in axes)
+        axes = tuple(("replica", "shard") if a == "__model_full__" else a
+                     for a in axes)
+    else:
+        axes = tuple("model" if a == "__model_full__" else a for a in axes)
+    ents = []
+    for a in axes[:len(shape)]:
+        if a is None:
+            ents.append(None)
+        elif isinstance(a, tuple):
+            present = tuple(n for n in a if n in names)
+            ents.append(present if present else None)
+        else:
+            ents.append(a if a in names else None)
+    ents += [None] * (len(shape) - len(ents))
+    fixed: list = []
+    used: set = set()
+    for dim, a in zip(shape, ents):
+        if a is None:
+            fixed.append(None)
+            continue
+        names_a = [n for n in (list(a) if isinstance(a, tuple) else [a])
+                   if n not in used]
+        while names_a and dim % _mesh_size(mesh, names_a):
+            names_a.pop()
+        if names_a:
+            fixed.append(tuple(names_a) if len(names_a) > 1 else names_a[0])
+            used.update(names_a)
+        else:
+            fixed.append(None)
+    return PartitionSpec(*fixed)
+
+
+def shard_activation(x: torch.Tensor, *axes: Axis) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` helper: the identity
+    without an ambient :class:`~repro_torch.launch.mesh.ProcessMesh` (or
+    under a logical one); under one, a placed (DTensor) ``x`` is
+    redistributed to :func:`activation_spec`'s spec (explicit collectives,
+    :func:`~repro_torch.parallel.placement.relayout`), and a plain ``x`` —
+    a rank's block in a layer that lays its blocks out by that spec itself
+    — is returned as it is."""
+    mesh = get_mesh()
+    if not isinstance(mesh, ProcessMesh) or not PL.is_placed(x):
+        return x
+    spec = activation_spec(tuple(x.shape), *axes, mesh=mesh)
+    src = PL.spec_of(x)
+    if PL.same_spec(src, spec, x.dim()):
+        return x
+    loc = PL.relayout(x.to_local(), src, spec, mesh)
+    return PL.from_block(loc, spec, mesh, tuple(x.shape))

@@ -43,18 +43,37 @@ full width); MLA decode is float32 einsums over the latent cache, as in
 the reference.
 
 Training: ``forward`` (-> float32 logits and the MoE load-balance loss) and
-``loss_fn``.  The kernels run through ``repro_torch.kernels.ops``, whose
-autograd Functions launch them in the forward and differentiate the
-reference's oracles in the backward.  The stacked layer params are
+``loss_fn``; ``onehot_loss=True`` takes the gold logit by the reference's
+iota compare instead of a gather.  The kernels run through
+``repro_torch.kernels.ops``, whose autograd Functions launch them in the
+forward and differentiate the reference's oracles in the backward.  The stacked layer params are
 ``unbind``-ed once per forward (one ``stack`` in the backward, not one
 full-size gradient per layer) and, with ``remat`` (the reference's
 ``jax.checkpoint`` of its scan body), each block's body (the hybrid tile's
 application before it included) is recomputed in the backward by
 ``torch.utils.checkpoint``.  Training takes the no-cache branch of every
 layer: nothing autograd saved is written in place.
+
+**Placed parameters** (DTensor leaves on a ``ProcessMesh``, from
+``params.place_params``; the dense, moe and ssm families): ``forward`` and
+``loss_fn`` run on each rank's blocks, the batch split over the batch axes
+(``layers.batch_axes``), with the layers' explicit tensor parallelism
+(``layers.gqa_apply``, ``_mlp``, ``mamba2.ssm_apply``; the MoE runs
+``moe_apply``'s mesh path on the rank's tokens and its blocks of the expert
+weights, ``moe.expert_specs``).
+The embedding looks up the rank's vocab rows and sums over the table's
+vocab axes; the logits are the rank's block of the reference's ``(DATA,
+None, MODEL_FULL)`` site.  The loss over vocab-split logits: with
+``onehot_loss`` the max, the sum of exponentials and the gold logit are
+reduced across the vocab shards (the logits stay split); without it the
+logits are all-gathered first, as the reference's gather forces under
+GSPMD.  ``block_pspecs`` (the per-layer specs, no layer dim) relays each
+block's leaves out inside the remat body.  Each rank's loss is its own
+batch's; the trainer averages the gradients over the batch axes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -68,10 +87,15 @@ from repro_torch.kernels._common import repeat
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MoE
-from repro_torch.models.layers import AttnOptions
+from repro_torch.launch.mesh import PartitionSpec, ProcessMesh, get_mesh, \
+    set_mesh
+from repro_torch.models.layers import (DATA, MODEL, MODEL_FULL, AttnOptions,
+                                       site)
 from repro_torch.models.params import (ParamSpec, abstract_params,
                                        init_params, spec, tree_leaves,
                                        tree_map, tree_unflatten)
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import placement as PL
 
 
 def _stack_specs(tree, n: int):
@@ -111,6 +135,63 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree, is_leaf=torch.is_tensor)
 
 
+def _is_pspec(x) -> bool:
+    return isinstance(x, PartitionSpec)
+
+
+def _unplace(params):
+    """``(mesh, local blocks, specs)`` of placed parameters (autograd flows
+    from the blocks back to the placed leaves); ``(None, params, None)``
+    when no leaf is placed."""
+    first = next((t for t in tree_leaves(params, torch.is_tensor)
+                  if PL.is_placed(t)), None)
+    if first is None:
+        return None, params, None
+    return (PL.mesh_of(first), tree_map(PL.local, params, torch.is_tensor),
+            tree_map(PL.spec_of, params, torch.is_tensor))
+
+
+def _serve_unplaced(params) -> None:
+    if PL.is_placed(params["embed"]):
+        raise NotImplementedError("serving from placed parameters: prefill "
+                                  "and decode run on one device")
+
+
+def _ambient(mesh):
+    """``mesh`` as the ambient mesh, unless one over the same device mesh
+    already is."""
+    cur = get_mesh()
+    if isinstance(cur, ProcessMesh) and cur.device_mesh is mesh.device_mesh:
+        return contextlib.nullcontext()
+    return set_mesh(mesh)
+
+
+def _layer_spec(sp: PartitionSpec) -> PartitionSpec:
+    """A stacked leaf's spec without its layers dim (never split)."""
+    if sp and PL.entry_axes(sp[0]):
+        raise ValueError(f"a stacked leaf placed {sp!r}: the layers dim "
+                         "is not split")
+    return PartitionSpec(*tuple(sp)[1:])
+
+
+def _whole(t, sp):
+    """A leaf whole on every rank (``t`` itself when ``sp`` is ``None``,
+    the unplaced case, or already replicates it)."""
+    if sp is None:
+        return t
+    return PL.relayout(t, sp, (), get_mesh())
+
+
+def _relayout_tree(tree, specs, want):
+    """Each leaf of ``tree`` (blocks under ``specs``) as its block under
+    ``want`` (the same structure, ``PartitionSpec`` leaves)."""
+    mesh = get_mesh()
+    got = [PL.relayout(t, s, w, mesh) for t, s, w in zip(
+        tree_leaves(tree, torch.is_tensor), tree_leaves(specs, _is_pspec),
+        tree_leaves(want, _is_pspec))]
+    return tree_unflatten(tree, got)
+
+
 @dataclass
 class LM:
     cfg: ArchConfig
@@ -118,21 +199,18 @@ class LM:
     kv_cache_dtype: Optional[torch.dtype] = None   # default bfloat16
     ssm_backend: str = "torch"   # torch | fused (reference: xla | pallas)
     remat: bool = True             # recompute each block in the backward
-    onehot_loss: bool = False      # vocab-parallel loss: item 12c
+    onehot_loss: bool = False      # vocab-parallel gold extraction
     moe_ep: bool = False           # GShard expert-parallel MoE and explicit
     moe_axes: Any = None           # MoE shard axes, under an ambient mesh
-    block_pspecs: Any = None       # block placement: item 12c
+    # per-layer PartitionSpec tree (block structure, no layer dim): under
+    # placed parameters each block's leaves are relaid out to it inside the
+    # remat body (the reference's use-site constraint); else the identity
+    block_pspecs: Any = None
 
     def __post_init__(self):
         why = not_ported(self.cfg)
         if why:
             raise NotImplementedError(why)
-        if self.onehot_loss or self.block_pspecs is not None:
-            raise NotImplementedError(
-                f"onehot_loss={self.onehot_loss!r}, "
-                f"block_pspecs={self.block_pspecs!r}: the GSPMD placement "
-                "of the multi-device LLM stack is not ported yet (ROADMAP "
-                "queue A item 12c)")
         if self.kv_cache_dtype == torch.int8 and self.cfg.attn_type != "mla":
             raise ValueError(
                 "kv_cache_dtype=torch.int8 is the MLA latent cache's "
@@ -195,11 +273,14 @@ class LM:
         return abstract_params(self.param_specs())
 
     # ------------------------------------------------------------- embedding
-    def _embed(self, params, tokens=None, embeds=None):
+    def _embed(self, params, tokens=None, embeds=None, ps=None):
         """Token embeddings (B, S, d), or the given ``embeds`` as they are.
         The gather is an ``index_select``, whose backward adds rows on the
-        device with no host read."""
+        device with no host read.  ``ps``: the specs of placed parameters
+        (the table's vocab rows on each rank, summed over its axes)."""
         cfg = self.cfg
+        if ps is not None and embeds is None:
+            return self._embed_placed(params, tokens, ps)
         if embeds is None:
             table = params["embed"]
             embeds = table.index_select(0, tokens.reshape(-1)).reshape(
@@ -209,8 +290,31 @@ class LM:
                                                dtype=embeds.dtype)
         return embeds
 
-    def _logits(self, params, x):
+    def _embed_placed(self, params, tokens, ps):
+        cfg, mesh = self.cfg, get_mesh()
+        site(tuple(tokens.shape) + (cfg.d_model,), mesh, DATA, None, None)
+        vax = PL.entry_axes(ps["embed"][0]) if len(ps["embed"]) else ()
+        table = PL.relayout(params["embed"], ps["embed"], (vax, None), mesh)
+        n = table.shape[0]
+        lo = C.axis_index(vax, mesh) * n if vax else 0
+        ids = tokens.reshape(-1).long() - lo
+        hit = (ids >= 0) & (ids < n)
+        rows = table.index_select(0, torch.where(hit, ids, 0))
+        rows = rows * hit[:, None].to(rows.dtype)
+        embeds = C.psum(rows, vax, mesh).reshape(
+            tuple(tokens.shape) + (table.shape[1],))
+        if cfg.tie_embeddings:
+            embeds = embeds * torch.tensor(math.sqrt(cfg.d_model),
+                                           dtype=embeds.dtype)
+        return embeds
+
+    def _logits(self, params, x, ps=None):
+        """float32 logits; under placed parameters this rank's block of
+        the reference's ``(DATA, None, MODEL_FULL)`` site (the vocab split
+        over its axes)."""
         cfg = self.cfg
+        if ps is not None:
+            return self._logits_placed(params, x, ps)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         if cfg.tie_embeddings:
             logits = x @ params["embed"].T
@@ -218,26 +322,64 @@ class LM:
             logits = x @ params["lm_head"]
         return logits.float()
 
+    def _vocab_axes(self, B: int, S: int):
+        return site((B, S, self.cfg.vocab_size), get_mesh(), DATA, None,
+                    MODEL_FULL)[2]
+
+    def _logits_placed(self, params, x, ps):
+        cfg, mesh = self.cfg, get_mesh()
+        vax = self._vocab_axes(x.shape[0], x.shape[1])
+        h = L.rms_norm(x, _whole(params["final_norm"], ps["final_norm"]),
+                       cfg.norm_eps)
+        h = C.replicated(h, vax, mesh)
+        if cfg.tie_embeddings:
+            w = PL.relayout(params["embed"], ps["embed"], (vax, None),
+                            mesh).T
+        else:
+            w = PL.relayout(params["lm_head"], ps["lm_head"], (None, vax), mesh)
+        return (h @ w).float()
+
     # ------------------------------------------------------------------ FFN
-    def _ffn(self, bp, x, aux: bool = False):
+    def _ffn(self, bp, x, aux: bool = False, ps=None):
         """``(x + the block's FFN of rms_norm(x), aux)``: the MoE, or the
         gated MLP (``_mlp``).  Under ``fused`` the expert products run
         ``grouped_matmul``, else the per-expert loop.  ``aux`` asks for the
         MoE's load-balance loss (training); serving asks for none, and a
-        dense block has none (``None``)."""
+        dense block has none (``None``).  Under placed parameters
+        ``moe_apply``'s mesh path runs on this rank's tokens and its blocks
+        of the expert weights (``moe.expert_specs``: the experts or their
+        columns of F the path reads); the router, the norm and any shared
+        experts whole."""
         if "moe" not in bp:
-            return self._mlp(bp, x), None
-        h = L.rms_norm(x, bp["mlp_norm"], self.cfg.norm_eps)
+            return self._mlp(bp, x, ps), None
+        moe, extra = bp["moe"], {}
+        norm = bp["mlp_norm"]
+        if ps is not None:
+            want = {**tree_map(lambda _: PartitionSpec(), ps["moe"],
+                               _is_pspec),
+                    **MoE.expert_specs(self.cfg, get_mesh(), self.moe_ep,
+                                       self.moe_axes,
+                                       x.shape[0] * x.shape[1], ())}
+            moe = _relayout_tree(moe, ps["moe"], want)
+            norm = _whole(norm, ps["mlp_norm"])
+            extra = {"batch_axes": (), "blocks": True}
+        h = L.rms_norm(x, norm, self.cfg.norm_eps)
         experts = "grouped" if self.opts.backend == "fused" else "loop"
-        out, loss = MoE.moe_apply(bp["moe"], self.cfg, h, ep=self.moe_ep,
+        out, loss = MoE.moe_apply(moe, self.cfg, h, ep=self.moe_ep,
                                   model_axes=self.moe_axes, experts=experts,
-                                  aux=aux)
+                                  aux=aux, **extra)
         return x + out, loss
 
-    def _mlp(self, bp, x):
+    def _mlp(self, bp, x, ps=None):
         """``x + mlp(rms_norm(x))``; under ``fused`` the norm and the gate/up
-        products are one ``fused_rmsnorm_mlp`` launch."""
+        products are one ``fused_rmsnorm_mlp`` launch.  Under placed
+        parameters the hidden's site ``(DATA, None, MODEL)`` names the axes
+        ``tp``: the gate / up products on this rank's columns (the kernel on
+        its blocks of ``Wg`` / ``Wu``, ``x`` and the norm's scale replicated
+        over ``tp``), ``wo`` row-parallel, the output summed over ``tp``."""
         cfg = self.cfg
+        if ps is not None:
+            return self._mlp_placed(bp, x, ps)
         if self.opts.backend == "fused":
             from repro_torch.kernels.ops import fused_rmsnorm_mlp
             mp = bp["mlp"]
@@ -249,25 +391,52 @@ class LM:
         h = L.rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
         return x + L.mlp_apply(bp["mlp"], h, cfg.act)
 
+    def _mlp_placed(self, bp, x, ps):
+        cfg, mesh = self.cfg, get_mesh()
+        B, S, d = x.shape
+        tp = site((B, S, cfg.d_ff), mesh, DATA, None, MODEL)[2]
+        w = L.blocks_as(bp["mlp"], ps["mlp"], {
+            "wi_gate": (None, tp), "wi_up": (None, tp), "wo": (tp, None)},
+            mesh)
+        scale = _whole(bp["mlp_norm"], ps["mlp_norm"])
+        if self.opts.backend == "fused":
+            from repro_torch.kernels.ops import fused_rmsnorm_mlp
+            h = fused_rmsnorm_mlp(C.replicated(x.reshape(B * S, d), tp, mesh),
+                                  C.replicated(scale, tp, mesh),
+                                  w["wi_gate"], w["wi_up"], cfg.act,
+                                  cfg.norm_eps)
+            out = (h @ w["wo"]).reshape(B, S, d)
+        else:
+            h = C.replicated(L.rms_norm(x, scale, cfg.norm_eps), tp, mesh)
+            out = L.mlp_apply(w, h, cfg.act)
+        return x + C.psum(out, tp, mesh)
+
     # ------------------------------------------------------- full-seq blocks
     def _block_fwd(self, bp, x, positions, want_cache: bool,
-                   aux: bool = False):
+                   aux: bool = False, ps=None):
         """One block forward (a Mamba-2 block, or an attention block with a
         dense or MoE FFN: the hybrid family's shared tile is a dense one);
-        returns (x, cache_or_None, the MoE's aux loss or None)."""
+        returns (x, cache_or_None, the MoE's aux loss or None).  ``ps``: the
+        specs of placed parameters (``bp`` then holds this rank's
+        blocks)."""
         cfg = self.cfg
+        sub = (lambda k: ps[k]) if ps is not None else (lambda k: None)
         if "ssm" in bp:
-            h = L.rms_norm(x, bp["norm"], cfg.norm_eps)
+            h = L.rms_norm(x, _whole(bp["norm"], sub("norm")), cfg.norm_eps)
             res = M.ssm_apply(bp["ssm"], cfg, h, backend=self.ssm_backend,
-                              return_cache=want_cache)
+                              return_cache=want_cache, ps=sub("ssm"))
             h, cache = res if want_cache else (res, None)
             return x + h, cache, None
-        h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
-        apply = L.mla_apply if self._mla else L.gqa_apply
-        res = apply(bp["attn"], cfg, h, positions, self.opts,
-                    return_cache=want_cache)
+        h = L.rms_norm(x, _whole(bp["attn_norm"], sub("attn_norm")),
+                       cfg.norm_eps)
+        if self._mla:
+            res = L.mla_apply(bp["attn"], cfg, h, positions, self.opts,
+                              return_cache=want_cache)
+        else:
+            res = L.gqa_apply(bp["attn"], cfg, h, positions, self.opts,
+                              return_cache=want_cache, ps=sub("attn"))
         h, cache = res if want_cache else (res, None)
-        x, loss = self._ffn(bp, x + h, aux)
+        x, loss = self._ffn(bp, x + h, aux, ps)
         return x, cache, loss
 
     def _attn_layers(self, params):
@@ -287,60 +456,129 @@ class LM:
         every = self._every
         return repeat(n, (lambda i: i % every == 0) if every else None)
 
-    def _train_block(self, bp, shared, x, positions):
+    def _train_block(self, bp, shared, x, positions, bps=None, sps=None):
         """The reference's scan body: the shared tile first where it applies
         (``shared`` not None), then the block; returns (x, aux or None).
         Under ``remat`` it runs inside ``torch.utils.checkpoint`` (no RNG
-        state to keep: the model draws no random numbers)."""
+        state to keep: the model draws no random numbers).  ``bps`` /
+        ``sps``: the specs of placed block / shared-tile parameters; with
+        ``block_pspecs`` the block's leaves are relaid out to them first,
+        inside the body, which holds the ambient mesh itself (the remat
+        recompute runs it again in the backward)."""
+        mesh = get_mesh() if bps is not None else None
+
         def body(x):
-            if shared is not None:
-                x, _, _ = self._block_fwd(shared, x, positions, False)
-            x, _, a = self._block_fwd(bp, x, positions, False, aux=True)
-            return x, a
+            with (_ambient(mesh) if mesh is not None
+                  else contextlib.nullcontext()):
+                b, bs = bp, bps
+                if bs is not None and self.block_pspecs is not None:
+                    b = _relayout_tree(b, bs, self.block_pspecs)
+                    bs = self.block_pspecs
+                if shared is not None:
+                    x, _, _ = self._block_fwd(shared, x, positions, False,
+                                              ps=sps)
+                x, _, a = self._block_fwd(b, x, positions, False, aux=True,
+                                          ps=bs)
+                return x, a
         if self.remat:
             return checkpoint(body, x, use_reentrant=False,
                               preserve_rng_state=False)
         return body(x)
+
+    def _check_placed(self) -> None:
+        if self.cfg.family == "hybrid" or self._mla:
+            raise NotImplementedError(
+                f"placed parameters for {self.cfg.name} (family "
+                f"{self.cfg.family!r}, attention {self.cfg.attn_type!r}): "
+                "the hybrid tile and MLA run on one device (ROADMAP queue A "
+                "item 12c, second half)")
 
     def forward(self, params, tokens=None, embeds=None):
         """Training / scoring forward over the whole sequence.  tokens
         (B, S) (or ``embeds`` (B, S, d)).  Returns (logits (B, S, V)
         float32, aux loss () float32: the MoE blocks' load-balance losses
         summed and divided by ``max(n_layers - n_dense_layers, 1)``, as the
-        reference's)."""
+        reference's).  Under placed parameters the tokens are this rank's
+        share of the batch and the logits this rank's block (the module's
+        notes)."""
+        mesh, params, ps = _unplace(params)
+        if mesh is None:
+            return self._forward(params, tokens, embeds, None)
+        self._check_placed()
+        with _ambient(mesh):
+            return self._forward(params, tokens, embeds, ps)
+
+    def _forward(self, params, tokens, embeds, ps):
         cfg = self.cfg
-        x = self._embed(params, tokens, embeds)
+        x = self._embed(params, tokens, embeds, ps)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                   device=x.device).expand(B, S)
-        for bp in params.get("prelude", []):
-            x, _, _ = self._block_fwd(bp, x, positions, False)
+        for j, bp in enumerate(params.get("prelude", [])):
+            x, _, _ = self._block_fwd(bp, x, positions, False,
+                                      ps=ps["prelude"][j] if ps else None)
         every, shared = self._every, params.get("shared_attn")
+        sps = ps.get("shared_attn") if ps else None
         blocks = params["blocks"]
+        bps = None if ps is None else tree_map(_layer_spec, ps["blocks"],
+                                               _is_pspec)
         layers = [a.unbind(0) for a in tree_leaves(blocks, torch.is_tensor)]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in self._layers(len(layers[0])):
             bp = tree_unflatten(blocks, [a[i] for a in layers])
             x, a = self._train_block(
                 bp, shared if every and i % every == 0 else None, x,
-                positions)
+                positions, bps, sps)
             if a is not None:
                 aux = aux + a
         n_scan = max(cfg.n_layers - cfg.n_dense_layers, 1)
-        return self._logits(params, x), aux / n_scan
+        return self._logits(params, x, ps), aux / n_scan
 
     def loss_fn(self, params, batch):
         """Mean next-token NLL plus ``0.01 * aux``.  ``batch``: ``tokens``
         (or ``embeds``) and ``labels`` (B, S).  Returns (loss, {"nll",
-        "aux"}), float32 scalars on the device."""
-        logits, aux = self.forward(params, tokens=batch.get("tokens"),
-                                   embeds=batch.get("embeds"))
-        labels = batch["labels"].long()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[..., None])[..., 0]
-        nll = torch.mean(logz - gold)
+        "aux"}), float32 scalars on the device.  ``onehot_loss`` takes the
+        gold logit by the reference's iota compare (``labels == iota``,
+        summed), else by a gather.  Under placed parameters the loss is
+        this rank's batch's (the module's notes)."""
+        mesh, params, ps = _unplace(params)
+        if mesh is not None:
+            self._check_placed()
+        with (_ambient(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            logits, aux = self._forward(params, batch.get("tokens"),
+                                        batch.get("embeds"), ps)
+            nll = self._nll(logits, batch["labels"].long(), ps is not None)
         loss = nll + 0.01 * aux
         return loss, {"nll": nll, "aux": aux}
+
+    def _nll(self, logits, labels, placed: bool):
+        """Mean of ``logsumexp - gold`` over the (rank's) tokens; placed:
+        the logits are this rank's vocab block."""
+        B, S, n = logits.shape
+        vax = self._vocab_axes(B, S) if placed else ()
+        mesh = get_mesh()
+        if vax and not self.onehot_loss:
+            # the gather wants whole rows: every rank gathers the logits
+            g = C.all_gather(logits, vax, mesh)          # (m, B, S, n)
+            logits = g.permute(1, 2, 0, 3).reshape(B, S, -1)
+            vax, n = (), logits.shape[-1]
+        if not vax:
+            logz = torch.logsumexp(logits, dim=-1)
+        else:
+            m = C.pmax(logits.amax(-1, keepdim=True), vax, mesh)
+            logz = torch.log(C.psum(torch.exp(logits - m).sum(-1), vax,
+                                    mesh)) + m[..., 0]
+        if self.onehot_loss:
+            lo = C.axis_index(vax, mesh) * n if vax else 0
+            iota = torch.arange(lo, lo + n, device=logits.device)
+            hit = labels[..., None] == iota
+            gold = torch.where(hit, logits, 0.0).sum(-1)
+            if vax:
+                gold = C.psum(gold, vax, mesh)
+        else:
+            gold = logits.gather(-1, labels[..., None])[..., 0]
+        return torch.mean(logz - gold)
 
     # -------------------------------------------------------------- prefill
     def prefill(self, params, tokens, cache_len: int = 0):
@@ -352,6 +590,7 @@ class LM:
         sequence axis and ignores ``cache_len``; the hybrid tile's KV history
         of each site is fitted to the window on its own.
         """
+        _serve_unplaced(params)
         cfg = self.cfg
         x = self._embed(params, tokens)
         B, S, _ = x.shape
@@ -413,6 +652,7 @@ class LM:
         hybrid family's shared tile, before block ``i``, attends over site
         ``i // shared_attn_every`` of ``cache["shared_attn"]`` and writes its
         new K/V there in place, as a dense block does."""
+        _serve_unplaced(params)
         x = self._embed(params, tokens)
         pos = cache["pos"]
         blocks = params["blocks"]

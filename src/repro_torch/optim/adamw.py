@@ -10,6 +10,14 @@ Leaves are taken in the reference's order (``tree_leaves``: dict keys
 sorted), which fixes the order of ``global_norm``'s sum.  ``update``
 returns new parameter tensors and writes the moments in place (``mul_``,
 ``add_``): the same values as the reference's, with less memory.
+
+Placed leaves (DTensors on a ``ProcessMesh``): the moments are placed like
+their parameters, the update runs on each rank's blocks, and
+``global_norm`` is the whole tree's: each rank adds its blocks' sums of
+squares, a leaf counted once however many ranks hold it alike (weighted by
+its shard count over the world size), in one all-reduce over the world.
+The gradients must be the same on the ranks that hold a block alike (the
+trainer reduces them over the batch axes first).
 """
 from __future__ import annotations
 
@@ -20,6 +28,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.placement import (is_placed, like_placed, local,
+                                            mesh_of)
 
 
 class AdamWState(NamedTuple):
@@ -65,7 +76,8 @@ def init(params) -> AdamWState:
     dev = leaves[0].device if leaves else None
 
     def f32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        z = torch.zeros(local(p).shape, dtype=torch.float32, device=p.device)
+        return like_placed(z, p)
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=tree_map(f32, params, torch.is_tensor),
                       nu=tree_map(f32, params, torch.is_tensor))
@@ -73,13 +85,22 @@ def init(params) -> AdamWState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (in the reference's order) of each
-    leaf's float32 sum of squares; no float32 copy of a leaf is made."""
-    total = None
+    leaf's float32 sum of squares; no float32 copy of a leaf is made.
+    Placed leaves: the whole tree's norm on every rank (module notes)."""
+    total, mesh = None, None
     for leaf in tree_leaves(tree, torch.is_tensor):
+        w = 1.0
+        if is_placed(leaf):
+            mesh = mesh_of(leaf)
+            w = leaf.numel() / local(leaf).numel() / mesh.size
+            leaf = local(leaf)
         sq = torch.linalg.vector_norm(leaf, dtype=torch.float32).square()
+        sq = sq * w if w != 1.0 else sq
         total = sq if total is None else total + sq
     if total is None:
         return torch.zeros((), dtype=torch.float32)
+    if mesh is not None:
+        total = C.sum_into(total.contiguous(), mesh.axis_names, mesh)
     return torch.sqrt(total)
 
 
@@ -105,8 +126,8 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params
     state."""
     flat_p = tree_leaves(params, torch.is_tensor)
     flat_g = tree_leaves(grads, torch.is_tensor)
-    flat_m = tree_leaves(state.mu, torch.is_tensor)
-    flat_v = tree_leaves(state.nu, torch.is_tensor)
+    flat_m = [local(m) for m in tree_leaves(state.mu, torch.is_tensor)]
+    flat_v = [local(v) for v in tree_leaves(state.nu, torch.is_tensor)]
     gnorm = global_norm(flat_g)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state.step + 1
@@ -117,6 +138,7 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params
     bc2 = 1 - torch.pow(b2, s)
     new_p = []
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+        p, g, placed = local(p), local(g), p
         g32 = (g.float() * scale).to(g.dtype).float()
         m.mul_(b1).add_((1 - b1) * g32)
         v.mul_(b2).add_((1 - b2) * torch.square(g32))
@@ -124,7 +146,7 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params
         upd = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
         p32 = p.float()
         upd.add_(cfg.weight_decay * p32)
-        new_p.append((p32 - lr * upd).to(p.dtype))
+        new_p.append(like_placed((p32 - lr * upd).to(p.dtype), placed))
     return (tree_unflatten(params, new_p),
             AdamWState(step=step, mu=state.mu, nu=state.nu),
             {"lr": lr, "grad_norm": gnorm})

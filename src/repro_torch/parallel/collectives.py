@@ -128,10 +128,11 @@ def axis_size(axis: Axis, mesh=None) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
     y = x.detach().clone().contiguous()
     _record("all_reduce", group, y)
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(y, op=dist.ReduceOp.SUM if op is None else op,
+                    group=group)
     return y
 
 
@@ -241,6 +242,29 @@ def pmean(x: torch.Tensor, axis: Axis, mesh=None) -> torch.Tensor:
     m = _mesh(mesh)
     for a in _axes(axis):
         x = _PSum.apply(x, m.group(a), 1.0 / m.shape[a])
+    return x
+
+
+def pmax(x: torch.Tensor, axis: Axis, mesh=None) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ranks of ``axis`` (no
+    gradient: the callers use it as a shift, e.g. a logsumexp's max)."""
+    m = _mesh(mesh)
+    x = x.detach()
+    for a in _axes(axis):
+        x = _all_reduce(x, m.group(a), dist.ReduceOp.MAX)
+    return x
+
+
+def sum_into(x: torch.Tensor, axis: Axis, mesh=None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``axis`` in place (no copy, no
+    gradient: the trainer's gradient reduce); returns ``x``."""
+    m = _mesh(mesh)
+    if not x.is_contiguous():
+        raise ValueError("sum_into needs a contiguous tensor")
+    for a in _axes(axis):
+        g = m.group(a)
+        _record("all_reduce", g, x)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
     return x
 
 

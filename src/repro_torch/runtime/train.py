@@ -17,8 +17,23 @@ mirroring ``repro/runtime/train.py`` on one device.
   actuator's hitless commit, async checkpoints; ``runtime.fault``'s
   ``FaultSupervisor`` restarts from the latest checkpoint.
 
-A device mesh (``mesh``, the reference's shardings and ``device_put_batch``)
-waits for ROADMAP queue A item 12c.
+**On a mesh** (``Trainer(mesh=)``, a
+:class:`~repro_torch.launch.mesh.ProcessMesh`, one rank per position): the
+parameters are drawn from the seed unsharded, then placed by the MRA rules
+(``core.replication.merged_rules``, ``models.params.shardings_for`` /
+``place_params``: DTensor leaves, each rank its block); the AdamW moments
+are placed alike; each rank's batch is its share over the batch axes
+(``data.pipeline.device_put_batch``).  A step's gradients are born as the
+parameters' blocks (the model's explicit tensor parallelism), so the
+reduce over the batch axes moves each rank's blocks only (the reference's
+reduce-scatter to the shards): an in-place all-reduce a leaf, divided by
+the batch axes' size, after the cast to bf16 under
+``grad_reduce_dtype="bf16"``.  ``grad_norm`` and the clip scale are the
+whole tree's (``adamw.global_norm``); the loss and its parts are averaged
+over the batch axes.  ``save`` gathers each leaf to rank 0, which writes
+the one file; ``restore`` lays the state out on the trainer's own mesh,
+whichever mesh saved it (elastic restore).  The batch axes must not split
+a weight (the FSDP layout is the dry run's alone).
 """
 from __future__ import annotations
 
@@ -35,11 +50,17 @@ from repro_torch.core.dfs import DFSActuator
 from repro_torch.core.islands import IslandConfig, default_islands
 from repro_torch.core.noc import collective_bytes_ring_allreduce
 from repro_torch.core.tiles import TilePlan, default_plan
-from repro_torch.data.pipeline import for_arch, to_device
-from repro_torch.device import DeviceSpec, require_single, resolve
-from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
+from repro_torch.core.replication import merged_rules
+from repro_torch.data.pipeline import device_put_batch, for_arch, to_device
+from repro_torch.device import DeviceSpec, resolve
+from repro_torch.launch.mesh import ProcessMesh, Sharding, PartitionSpec
+from repro_torch.models.layers import batch_axes
+from repro_torch.models.params import (place_params, shardings_for,
+                                       tree_leaves, tree_map, tree_unflatten)
 from repro_torch.models.transformer import LM
 from repro_torch.optim import adamw
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import placement as PL
 
 COMPUTE_TILES = ("attn", "ffn", "moe", "ssm", "shared_attn")
 
@@ -52,17 +73,14 @@ class TrainConfig:
     ckpt_dir: str = field(default_factory=lambda: os.path.join(
         tempfile.gettempdir(), "vespa_ckpt_torch"))
     monitor_every: int = 10
-    grad_reduce_dtype: str = ""        # the reference's cast before its
-                                       # cross-device reduce: only "" until
-                                       # the mesh is ported
+    grad_reduce_dtype: str = ""        # "bf16": cast grads before the
+                                       # cross-device reduce (2x wire bytes)
     opt: adamw.AdamWConfig = field(default_factory=adamw.AdamWConfig)
 
     def __post_init__(self):
-        if self.grad_reduce_dtype:
-            raise NotImplementedError(
-                f"grad_reduce_dtype={self.grad_reduce_dtype!r}: the "
-                "cross-device gradient reduce is not ported yet (ROADMAP "
-                "queue A item 12c)")
+        if self.grad_reduce_dtype not in ("", "bf16"):
+            raise ValueError(f"grad_reduce_dtype={self.grad_reduce_dtype!r}"
+                             "; '' or 'bf16'")
 
 
 def step_grads(lm: LM, params, batch: Dict[str, torch.Tensor],
@@ -74,7 +92,9 @@ def step_grads(lm: LM, params, batch: Dict[str, torch.Tensor],
     ``accum`` microbatches along its first dim; their gradients are added
     into float32 buffers and divided by ``accum``, and the loss and parts
     are the microbatches' means (the reference's scan).  Otherwise the
-    gradients are in the parameters' dtypes."""
+    gradients are in the parameters' dtypes.  Placed parameters: the
+    gradients are this rank's blocks (plain tensors), its share of the
+    batch's, and the loss its batch's."""
     leaves = tree_leaves(params, torch.is_tensor)
 
     def one(micro):
@@ -83,7 +103,7 @@ def step_grads(lm: LM, params, batch: Dict[str, torch.Tensor],
         grads = torch.autograd.grad(loss, req, allow_unused=True,
                                     materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
-            grads
+            [PL.local(g) for g in grads]
 
     if accum <= 1:
         return one(batch)
@@ -92,8 +112,8 @@ def step_grads(lm: LM, params, batch: Dict[str, torch.Tensor],
         raise ValueError(f"batch of {b} rows does not split into {accum} "
                          f"microbatches")
     mb = b // accum
-    grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for p in leaves]
+    grads = [torch.zeros(PL.local(p).shape, dtype=torch.float32,
+                         device=p.device) for p in leaves]
     losses: List[torch.Tensor] = []
     parts_all: List[Dict[str, torch.Tensor]] = []
     for j in range(accum):
@@ -112,20 +132,59 @@ def step_grads(lm: LM, params, batch: Dict[str, torch.Tensor],
 
 
 def make_train_step(lm: LM, plan: TilePlan, mesh: Any,
-                    tc: TrainConfig) -> Callable:
+                    tc: TrainConfig, grad_pspecs=None) -> Callable:
     """The train step ``(params, opt_state, batch, counters) -> (params,
     opt_state, counters, metrics)``; metrics are float32 scalars on the
-    device (``loss``, ``nll``, ``aux``, ``lr``, ``grad_norm``)."""
-    if mesh is not None:
-        require_single(mesh)
+    device (``loss``, ``nll``, ``aux``, ``lr``, ``grad_norm``).
+
+    ``mesh``: ``None``, a ``LogicalMesh`` (counted only: its size enters
+    the counters) or the ``ProcessMesh`` the parameters are placed on (the
+    gradients reduced over its batch axes).  ``grad_pspecs``: the specs the
+    gradients end in (the reference's reduce-scatter to the shards); the
+    port's gradients are born as their parameters' blocks, so they must be
+    the parameters' own specs (checked on the first step)."""
     cfg = lm.cfg
     n_params = cfg.n_params()
+    placed = isinstance(mesh, ProcessMesh)
+    bax = batch_axes(mesh) if placed else ()
+    n_batch = 1
+    for a in bax:
+        n_batch *= mesh.shape[a]
+    dp_sz = 1
+    if mesh is not None:
+        for a in ("pod", "data"):
+            if a in mesh.axis_names:
+                dp_sz *= mesh.shape[a]
+
+    def treat_grads(grads, leaves):
+        """The reference's ``_treat_grads``: the cast to bf16 (on one
+        device too) where it applies, then the reduce over the batch axes
+        (the mean: each rank's loss is its batch's mean)."""
+        if tc.grad_reduce_dtype == "bf16" and tc.accum <= 1:
+            grads = [g.to(torch.bfloat16) for g in grads]
+        if not placed:
+            return grads
+        if grad_pspecs is not None:
+            for p, sp in zip(leaves, tree_leaves(
+                    grad_pspecs, lambda x: isinstance(x, PartitionSpec))):
+                if not PL.same_spec(PL.spec_of(p), sp, p.dim()):
+                    raise ValueError(
+                        f"grad_pspecs {sp!r} for a parameter placed "
+                        f"{PL.spec_of(p)!r}: the gradients are born as "
+                        "their parameters' blocks")
+        out = []
+        for g, p in zip(grads, leaves):
+            g = g.contiguous()
+            if bax:
+                C.sum_into(g, bax, mesh).div_(n_batch)
+            out.append(PL.like_placed(g, p))
+        return out
 
     def charge_counters(counters, batch, gnorm):
         # static per-step NoC / memory traffic, charged to the C3 counters;
         # Python numbers are filled on the device (no copy that waits)
-        toks = batch["labels"].numel()
-        grad_bytes = collective_bytes_ring_allreduce(2.0 * n_params, 1)
+        toks = batch["labels"].numel() * n_batch
+        grad_bytes = collective_bytes_ring_allreduce(2.0 * n_params, dp_sz)
         counters = mon.charge(counters, "noc",
                               pkts_in=grad_bytes / mon.PKT_BYTES,
                               pkts_out=grad_bytes / mon.PKT_BYTES)
@@ -142,10 +201,18 @@ def make_train_step(lm: LM, plan: TilePlan, mesh: Any,
         return counters
 
     def train_step(params, opt_state, batch, counters):
+        leaves = tree_leaves(params, torch.is_tensor)
         loss, parts, grads = step_grads(lm, params, batch, tc.accum)
+        grads = treat_grads(list(grads), leaves)
         new_params, new_opt, om = adamw.update(tc.opt, grads, opt_state,
                                                params)
         counters = charge_counters(counters, batch, om["grad_norm"])
+        if bax:                # the loss and its parts: the batch's means
+            keys = sorted(parts)
+            vals = torch.stack([loss] + [parts[k] for k in keys]).float()
+            vals = C.sum_into(vals, bax, mesh) / n_batch
+            loss, parts = vals[0], {k: vals[i + 1]
+                                    for i, k in enumerate(keys)}
         metrics = {"loss": loss, **parts, **om}
         return new_params, new_opt, counters, metrics
 
@@ -156,7 +223,9 @@ class Trainer:
     """End-to-end training loop (``examples/torch_train_100m.py`` and
     ``launch/train.py`` use it).  ``device=None`` is the CUDA card (raises
     without one); the weights are drawn from
-    ``torch.Generator(device).manual_seed(seed)``."""
+    ``torch.Generator(device).manual_seed(seed)``.  ``mesh``: a
+    ``ProcessMesh`` to train on (its device is the rank's; the module's
+    notes)."""
 
     def __init__(self, cfg: ArchConfig, shape: ShapeConfig, *,
                  mesh: Any = None, tc: Optional[TrainConfig] = None,
@@ -164,9 +233,10 @@ class Trainer:
                  islands: Optional[IslandConfig] = None,
                  lm_kwargs: Optional[Dict] = None, seed: int = 0,
                  device: DeviceSpec = None):
-        if mesh is not None:
-            require_single(mesh)
-        self.device = resolve(device)
+        if mesh is not None and not isinstance(mesh, ProcessMesh):
+            raise TypeError(f"Trainer(mesh={mesh!r}): a ProcessMesh "
+                            "(launch.mesh.make_mesh / make_host_mesh)")
+        self.device = mesh.device if mesh is not None else resolve(device)
         self.cfg = cfg
         self.shape = shape
         self.mesh = mesh
@@ -182,6 +252,24 @@ class Trainer:
 
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = self.lm.init(gen)
+        self.param_sh = None
+        self._bax: Tuple[str, ...] = ()
+        if mesh is not None:
+            self._bax = batch_axes(mesh)
+            # a rule naming an axis the mesh lacks (a 1-D data mesh has no
+            # "model") replicates that dim
+            rules = {k: (v if all(a in mesh.axis_names
+                                  for a in PL.entry_axes(v)) else None)
+                     for k, v in merged_rules(self.plan, mesh).items()}
+            self.param_sh = shardings_for(self.lm.param_specs(), rules, mesh)
+            for sh in tree_leaves(self.param_sh,
+                                  lambda x: isinstance(x, Sharding)):
+                hit = set(self._bax) & {a for e in sh.spec
+                                        for a in PL.entry_axes(e)}
+                if hit:
+                    raise ValueError(f"the rules split a weight over the "
+                                     f"batch axes {sorted(hit)}")
+            self.params = place_params(self.params, self.param_sh)
         self.opt_state = adamw.init(self.params)
         self.counters = mon.init_counters(self.plan, self.device)
         self._remember_template()
@@ -217,17 +305,30 @@ class Trainer:
     def restore(self, step: Optional[int] = None):
         """Restore the parameters, the optimizer state and the step counter
         from a checkpoint (the latest by default) onto this device, in the
-        dtypes of the live state (of the last save's, once it is lost)."""
+        dtypes of the live state (of the last save's, once it is lost).  On
+        a mesh the state is laid out on this trainer's mesh, whichever mesh
+        saved it (elastic restore)."""
         if self.params is not None and self.opt_state is not None:
             self._remember_template()
+        shardings = None
+        if self.param_sh is not None:
+            shardings = {"params": self.param_sh,
+                         "opt": adamw.AdamWState(step=None, mu=self.param_sh,
+                                                 nu=self.param_sh),
+                         "step": None}
+            self.store().wait()
         t = self.store().restore(self._template, step=step,
-                                 device=self.device)
+                                 device=self.device, shardings=shardings)
         self.params, self.opt_state = t["params"], t["opt"]
         self.step = int(t["step"])
 
     # ------------------------------------------------------------------ loop
     def place_batch(self, np_batch) -> Dict[str, torch.Tensor]:
-        return to_device(np_batch, self.device)
+        """The batch on the device; on a mesh, this rank's share over the
+        batch axes."""
+        if self.mesh is None:
+            return to_device(np_batch, self.device)
+        return device_put_batch(np_batch, self.mesh, self._bax)
 
     def run(self, steps: int, on_metrics: Optional[Callable] = None
             ) -> List[Tuple[int, Dict[str, float]]]:

@@ -2,6 +2,7 @@
 abstractly on a logical mesh, with the reference's keys where the meaning
 is the same, and the refusals of the knobs that need the device side of
 the mesh (ROADMAP queue A item 12)."""
+import dataclasses
 import json
 import os
 
@@ -89,16 +90,43 @@ def test_folded_option_halves_attention():
     D.CellOptions(onehot_loss=True), D.CellOptions(grad_rs=True),
     D.CellOptions(strategy="tp-ep")])
 def test_device_knobs_raise_naming_item_12(co):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        D.run_cell("granite-8b", "train_4k", multi_pod=False, co=co,
-                   save=False)
+    """``onehot_loss`` and ``grad_rs`` are counted (item 12c): the
+    iota-compare loss adds work to the plain cell's, the bf16 gradient cast
+    of bf16 gradients none; an ``ep`` strategy still names its item."""
+    if co.ep:
+        with pytest.raises(NotImplementedError, match="item 12c"):
+            D.run_cell("granite-8b", "train_4k", multi_pod=False, co=co,
+                       save=False)
+        return
+    cfg = get_config("granite-8b").reduced()
+    shape = ShapeConfig("t", 64, 4, "train")
+    kw = dict(multi_pod=False, save=False, cfg=cfg, shape=shape)
+    base = D.run_cell("granite-8b", "t", co=D.CellOptions(q_block=16), **kw)
+    got = D.run_cell("granite-8b", "t",
+                     co=dataclasses.replace(co, q_block=16), **kw)
+    assert got["strategy"] == "tp-" + ("vploss" if co.onehot_loss
+                                       else "gradrs")
+    if co.onehot_loss:          # the compare, select and sum over V
+        assert got["flops_total"] > base["flops_total"]
+    else:                       # bf16 gradients already: the cast is no op
+        assert got["flops_total"] == base["flops_total"]
+    assert got["dot_flops_total"] == base["dot_flops_total"]
+    assert got["collective_bytes"] is None
 
 
 @pytest.mark.parametrize("flag", [["--onehot-loss"], ["--grad-rs"],
                                   ["--strategy", "mra2-ep"]])
-def test_cli_refuses_device_knobs(flag):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        D.main(["--arch", "granite-8b", "--shape", "train_4k"] + flag)
+def test_cli_refuses_device_knobs(flag, tmp_path, capsys):
+    """The CLI counts ``--onehot-loss`` and ``--grad-rs`` cells (item 12c);
+    an ``ep`` strategy still names its item."""
+    argv = ["--arch", "mamba2-370m", "--shape", "long_500k", "--single-pod",
+            "--out-dir", str(tmp_path)] + flag
+    if "mra2-ep" in flag:
+        with pytest.raises(NotImplementedError, match="item 12c"):
+            D.main(argv)
+        return
+    D.main(argv)
+    assert "ALL CELLS PASSED" in capsys.readouterr().out
 
 
 def test_cli_one_cell(tmp_path, capsys):

@@ -352,9 +352,11 @@ def test_unported_families_and_entry_points_raise():
     assert tuple(logits.shape) == (1, 4, cfg.vocab_size) and float(aux) == 0
     loss, parts = lm.loss_fn(params, {"tokens": toks, "labels": toks})
     assert sorted(parts) == ["aux", "nll"] and bool(torch.isfinite(loss))
-    # the multi-device knobs name their item
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        PT.LM(cfg, onehot_loss=True)
+    # the multi-device knobs run (queue A item 12c): on one device the
+    # iota-compare loss is the gather's
+    loss1, _ = PT.LM(cfg, onehot_loss=True).loss_fn(
+        params, {"tokens": toks, "labels": toks})
+    assert torch.allclose(loss1, loss, rtol=1e-6, atol=0)
     with pytest.raises(KeyError):
         port_configs.get_config("no-such-arch")
 

@@ -266,16 +266,33 @@ def test_counters_charged_on_the_device(tmp_path):
 
 
 def test_mesh_waits_for_item_12(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """``Trainer(mesh=)`` is ported (item 12c): it takes a ``ProcessMesh``
+    (``tests/test_torch_distributed.py`` trains on one); anything else is
+    refused by name."""
+    with pytest.raises(TypeError, match="ProcessMesh"):
         _trainer(tmp_path, mesh="host")
 
 
-def test_grad_reduce_dtype_waits_for_item_12():
-    """The reference rounds gradients before its cross-device reduce; one
-    device has no such reduce, so only the default is taken."""
+def test_grad_reduce_dtype_waits_for_item_12(tmp_path, monkeypatch):
+    """``grad_reduce_dtype="bf16"`` is ported (item 12c): the gradients are
+    cast before the (here absent) cross-device reduce, on one device too,
+    as the reference's; other values are refused."""
     assert TrainConfig().grad_reduce_dtype == ""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TrainConfig(grad_reduce_dtype="bf16")
+    with pytest.raises(ValueError, match="bf16"):
+        TrainConfig(grad_reduce_dtype="fp8")
+    seen = []
+    orig = adamw.update
+
+    def spy(cfg, grads, state, params):
+        seen.extend(g.dtype for g in grads)
+        return orig(cfg, grads, state, params)
+    import repro_torch.runtime.train as RTM
+    monkeypatch.setattr(RTM.adamw, "update", spy)
+    tr = _f32(_trainer(tmp_path, arch="h2o-danube-1.8b"))
+    tr.tc = TrainConfig(grad_reduce_dtype="bf16", opt=tr.tc.opt)
+    tr._step = RTM.make_train_step(tr.lm, tr.plan, None, tr.tc)
+    tr.run(1)
+    assert seen and set(seen) == {torch.bfloat16}
 
 
 def test_serving_a_trainers_parameters(tmp_path):
@@ -353,6 +370,38 @@ def test_launch_train_on_the_cpu(tmp_path, capsys):
     launch.main(["--device", "cpu", "--steps", "4", "--seq-len", "32",
                  "--batch", "2", "--ckpt-dir", str(tmp_path), "--resume"])
     assert "resumed from step 3" in capsys.readouterr().out
+
+
+def _torchrun(argv, nproc=4, limit_s=120):
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={nproc}", "-m", "repro_torch.launch.train",
+         "--device", "cpu"] + argv,
+        capture_output=True, text=True, env=env, timeout=limit_s)
+    assert p.returncode == 0, p.stderr[-3000:]
+    return p.stdout
+
+
+def test_launch_train_under_torchrun_on_a_mesh(tmp_path):
+    """``launch/train.py --mesh`` on four gloo ranks under torchrun: two
+    steps on (data 2, model 2) write their checkpoint (rank 0 alone
+    prints), then a resume on (model 4) restores it onto the new mesh and
+    takes the third step."""
+    argv = ["--seq-len", "32", "--batch", "4", "--ckpt-dir", str(tmp_path)]
+    out = _torchrun(["--mesh", "data=2,model=2", "--steps", "2"] + argv)
+    assert out.count("done at step 2") == 1
+    assert "ProcessMesh({'data': 2, 'model': 2}" in out
+    assert (tmp_path / "step_000002" / "manifest.json").exists()
+    out = _torchrun(["--mesh", "model=4", "--steps", "3", "--resume"]
+                    + argv)
+    assert "resumed from step 2" in out and "done at step 3" in out
+    assert (tmp_path / "step_000003" / "manifest.json").exists()
 
 
 def test_launch_train_without_a_card_raises(tmp_path):

@@ -237,3 +237,56 @@ def test_opt_and_counter_trees():
         P.tree_leaves(ctr, torch.is_tensor))
     with pytest.raises(ValueError):
         SP.per_device_bytes(params, csh)
+
+
+@pytest.mark.parametrize("mesh_shape,names,batch,shape,axes,want", [
+    # the reference's DATA / MODEL / MODEL_FULL sites on the production mesh
+    ((2, 4), ("data", "model"), None, (8, 16, 64),
+     (("pod", "data"), None, "model"), ("data", None, "model")),
+    ((2, 4), ("data", "model"), None, (8, 16, 6),         # 6 % 4: dropped
+     (("pod", "data"), None, "model"), ("data", None, None)),
+    ((2, 4), ("data", "model"), None, (8, 16, 64),
+     (("pod", "data"), None, "__model_full__"), ("data", None, "model")),
+    # FSDP batch axes: the first dim takes "model", the hidden loses it
+    ((2, 4), ("data", "model"), ("data", "model"), (8, 16, 64),
+     (("pod", "data"), None, "model"), (("data", "model"), None, None)),
+    # ... and drops trailing axes until the batch divides
+    ((2, 4), ("data", "model"), ("data", "model"), (2, 16, 64),
+     (("pod", "data"), None, "model"), ("data", None, "model")),
+    # MRA: model -> shard, MODEL_FULL -> (replica, shard), replica leaves
+    # the batch of such a tensor
+    ((2, 2, 2), ("data", "replica", "shard"), None, (8, 16, 64),
+     (("pod", "data"), None, "model"), ("data", None, "shard")),
+    ((2, 2, 2), ("data", "replica", "shard"), ("data", "replica"),
+     (8, 16, 64), (("pod", "data"), None, "__model_full__"),
+     ("data", None, ("replica", "shard"))),
+    ((2, 2, 2), ("data", "replica", "shard"), ("data", "replica"),
+     (8, 16, 64), (("pod", "data"), None, "model"),
+     (("data", "replica"), None, "shard")),
+    # axes the mesh lacks are dropped
+    ((4,), ("data",), None, (8, 16, 64), (("pod", "data"), None, "model"),
+     ("data", None, None)),
+])
+def test_activation_spec_follows_the_reference_rules(mesh_shape, names,
+                                                     batch, shape, axes,
+                                                     want):
+    """``params.activation_spec``: the spec the reference's
+    ``shard_activation`` constrains to (``repro/models/params.py:184-253``),
+    case by case."""
+    prev = P.get_batch_axes()
+    if batch is not None:
+        P.set_batch_axes(batch)
+    try:
+        got = P.activation_spec(shape, *axes,
+                                mesh=M.LogicalMesh(mesh_shape, names))
+    finally:
+        P.set_batch_axes(prev)
+    assert tuple(got) == want
+
+
+def test_shard_activation_is_the_identity_without_a_process_mesh():
+    x = torch.arange(6.0).reshape(2, 3)
+    assert P.shard_activation(x, ("pod", "data"), "model") is x
+    with M.set_mesh(M.LogicalMesh((2, 4), ("data", "model"))):
+        assert P.shard_activation(x, ("pod", "data"), "model") is x
+    assert P.activation_spec((2, 3), "model") is None

@@ -166,21 +166,21 @@ def test_embeds_in_place_of_tokens(reference):
                                   dict(block_pspecs={}),
                                   dict(onehot_loss=True)])
 def test_sharding_knobs_name_their_roadmap_item(knob):
-    """The GSPMD knobs still name their item (queue A item 12c); the MoE
-    knobs are ported (item 12b) and, with no mesh set, leave the forward
-    the single-device one (``tests/test_torch_parallel.py`` runs them under
-    a mesh)."""
-    if "moe_ep" in knob or "moe_axes" in knob:
-        lm, plain = (port_lm("granite-moe-1b-a400m", **kw)
-                     for kw in (knob, {}))
-        params = plain.init(torch.Generator().manual_seed(0))
-        toks = torch.arange(8).reshape(1, 8)
-        with torch.no_grad():
-            assert torch.equal(lm.forward(params, tokens=toks)[0],
-                               plain.forward(params, tokens=toks)[0])
-        return
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_lm("granite-moe-1b-a400m", **knob)
+    """Every sharding knob is ported: the MoE knobs (item 12b) and the
+    GSPMD ones (item 12c) leave the single-device forward and loss as they
+    are without placed parameters (``tests/test_torch_parallel.py`` and
+    ``tests/test_torch_distributed.py`` run them on a mesh); the
+    iota-compare loss equals the gather's."""
+    lm, plain = (port_lm("granite-moe-1b-a400m", **kw) for kw in (knob, {}))
+    params = plain.init(torch.Generator().manual_seed(0))
+    toks = torch.arange(8).reshape(1, 8)
+    batch = {"tokens": toks, "labels": (toks + 1) % 7}
+    with torch.no_grad():
+        assert torch.equal(lm.forward(params, tokens=toks)[0],
+                           plain.forward(params, tokens=toks)[0])
+        got, want = lm.loss_fn(params, batch)[0], plain.loss_fn(params,
+                                                                batch)[0]
+    assert torch.allclose(got, want, rtol=1e-6, atol=0)
 
 
 def test_layer_params_unbound_once_per_forward(reference, monkeypatch):

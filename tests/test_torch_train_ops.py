@@ -201,6 +201,29 @@ def test_ops_outputs_carry_their_function():
     assert type(out.grad_fn).__name__ == "FusedRMSNormMLPBackward"
 
 
+@pytest.mark.parametrize("budget_heads", [1, 2, 3])
+def test_attention_backward_by_kv_head_groups(budget_heads):
+    """The attention oracle's backward over groups of kv heads
+    (``budget_heads`` heads at a time, a 3-head group leaving a ragged last
+    one) gives the whole-tensor backward's gradients to float32 rounding,
+    and the Function's backward (off the card every head at once) gives
+    the same."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 12, 4, 2, 8, generator=gen)
+    k, v = (torch.randn(2, 12, 4, 8, generator=gen) for _ in range(2))
+    g = torch.randn(2, 12, 4, 2, 8, generator=gen)
+    pos = torch.arange(12).expand(2, 12)
+    whole = POPS.attention_grads(q, k, v, pos, pos, g, 0.3, 5, heads=4)
+    for a, b in zip(POPS.attention_grads(q, k, v, pos, pos, g, 0.3, 5,
+                                         heads=budget_heads), whole):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert POPS.heads_that_fit(q, k) == 4
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    POPS.flash_attention(*leaves, pos, pos, 5, 0.3).backward(g)
+    for t, b in zip(leaves, whole):
+        torch.testing.assert_close(t.grad, b, rtol=1e-6, atol=1e-6)
+
+
 def test_ssd_oracle_gradient_is_finite_where_the_reference_is_nan():
     """A chunk whose decay passes e^88: the reference's select after the
     exp gives the masked entries inf, and its gradient 0 * inf = NaN in dt
