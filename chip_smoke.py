@@ -7,6 +7,8 @@
     python3 chip_smoke.py --train-only   # ... and the training paths
     python3 chip_smoke.py --shard-only   # ... the sweep, the main path and
                                          # the two multi-device phases
+    python3 chip_smoke.py --mesh-only    # ... train_mesh
+    python3 chip_smoke.py --families-only  # ... mesh_families
     python3 chip_smoke.py --ptxas    # also nvcc's registers / spills
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
@@ -246,7 +248,18 @@ main path through its public entry points at the size its users run:
                    takes hd_qk != hd_v; the MLP at d 2,048 / F 10,944 and
                    N 4,608 / 4, ``wgmma_tma`` / ``gemv_tma``, beside cuBLAS
                    and the bound).
-12. ``train_kernels`` — the autograd Functions of ``kernels.ops`` (forward:
+12. ``train_mesh`` — danube at full width, cut to 4 layers, through
+                   ``Trainer(mesh=)`` on (data 2, model 2), 4 gloo ranks on
+                   this card, against the same cut on one device.
+13. ``mesh_families`` — every family from placed parameters on (data 2,
+                   model 2), 4 gloo ranks on this card: ``flash_decode``
+                   with the lse timed at the rank slices; zamba2 (7
+                   blocks) and deepseek (3 layers) 2 training steps, and
+                   the five families' prefill of 4 slots and 32 decode
+                   steps over the window-split cache, each held to the
+                   same run on one device (``--families-only``: build, the
+                   LLM kernels' parity and this phase).
+14. ``train_kernels`` — the autograd Functions of ``kernels.ops`` (forward:
                    the kernel; backward: the oracle's autograd) at reduced
                    shapes in bf16 and f32: forward equal to the raw
                    kernel's output, one launch, every input's gradient
@@ -283,7 +296,7 @@ main path through its public entry points at the size its users run:
                    8 steps saving every 5, the state lost,
                    ``FaultSupervisor.recover()`` and 5 more, against an
                    uninterrupted run (1e-5 relative).
-13. ``costing`` — the cost model beside the measured paths, re-running
+15. ``costing`` — the cost model beside the measured paths, re-running
                    none of them: each training step and each serving
                    path's longest prefill and decode step counted on meta
                    inputs (``launch.costing.flops_of_fn``, total and dot),
@@ -294,7 +307,8 @@ main path through its public entry points at the size its users run:
                    ``flash_attention`` launch on the card must raise and
                    launch nothing; the dry run's single-pod cells
                    (``launch.dryrun.run_cell``, abstract, every assigned
-                   architecture) must all pass.
+                   architecture; in a process of its own, started after
+                   the main path) must all pass.
 
 Each phase prints one JSON line, with ``t_s``: the seconds since the
 script started.  The line before the last but one is
@@ -313,7 +327,9 @@ path's as ``mla``, each with its own launches, and the attention, MLP and
 SSD rows the training paths' as ``train`` (launches, backward calls, each
 run's forward ms a launch and backward ms a call beside the backward's
 bound and, for attention, SDPA's backward; the row's ``launches`` are the
-sum over the serving and training paths).  The
+sum over the serving and training paths and the two mesh phases, each
+also apart), and ``flash_decode``'s its calls with the lse as ``lse``
+(their launches in ``mesh_families``, times at the rank slices).  The
 line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits with a non-zero code; without a CUDA device the
 script stops at once.
@@ -350,7 +366,10 @@ RTOL = ATOL = 1e-4              # kernel vs plain version (same float32 math)
 SEED = 1234
 DEV = "cuda"
 
-SIZES = {"kernel_T": 500, "kernel_big_B": 1000,
+# kernel_T: the ticks of each tick_sim parity case (10 control intervals;
+# cut from 500 for the script's 1,200 s limit: the plain version's Python
+# loop over the ticks is most of the kernels phase)
+SIZES = {"kernel_T": 250, "kernel_big_B": 1000,
          "main_B": 4096, "main_T": 8700, "check_T": 2000,
          "a12_B": 1024, "a12_T": 5000, "reps": 5}
 
@@ -1503,6 +1522,12 @@ def seq_report(r, syncs=None) -> dict:
     return out
 
 
+# the ticks of each sequential run profiled by tick_loop_profile (its
+# numbers are per tick; cut from 500 for the script's 1,200 s limit: the
+# profiler's own processing of every kernel it saw took most of the time)
+PROFILE_TICKS = 100
+
+
 def tick_loop_profile(make_run, ticks):
     """Where a sequential run's time goes: one warm call of ``make_run()``
     (a ``SimEngine`` run over ``ticks`` ticks) under ``torch.profiler`` —
@@ -1571,13 +1596,13 @@ def phase_closed_loop():
             emit(report)
             raise SystemExit(f"closed_loop[{name}]: the card disagrees "
                              f"with the CPU")
-    # the first 500 ticks of the membound and pipeline LB+DFS runs, profiled
+    # the first PROFILE_TICKS ticks of the membound run, profiled
     from repro_torch.sim import Trace
-    short = Trace(trace.arrivals[:500], trace.dt)
-    report["profile_membound_500"] = tick_loop_profile(
+    short = Trace(trace.arrivals[:PROFILE_TICKS], trace.dt)
+    report[f"profile_membound_{PROFILE_TICKS}"] = tick_loop_profile(
         lambda: SimEngine(plat, config=cfg,
                           controller=ex.controllers(plat)["dfs-membound"],
-                          device=DEV).run(short), 500)
+                          device=DEV).run(short), PROFILE_TICKS)
     try:
         report["membound_saving"] = ex.default_gate(runs)
     except AssertionError as e:
@@ -1620,9 +1645,9 @@ def phase_closed_loop_pipeline():
             device=device).run(trace)
 
     from repro_torch.sim import Trace
-    short = Trace(tr.arrivals[:500], tr.dt)
-    report["profile_lb_dfs_500"] = tick_loop_profile(
-        lambda: lb_dfs(DEV, short), 500)
+    short = Trace(tr.arrivals[:PROFILE_TICKS], tr.dt)
+    report[f"profile_lb_dfs_{PROFILE_TICKS}"] = tick_loop_profile(
+        lambda: lb_dfs(DEV, short), PROFILE_TICKS)
     t0 = time.perf_counter()
     host = lb_dfs("cpu")
     gap = seq_gap(runs["lb+dfs"], host)
@@ -1762,7 +1787,8 @@ def phase_closed_loop_faults():
     / swaps / events exact, the same detection tick); syncs in the tick
     loops (none open loop, exactly one per control tick with DFS); ticks/s
     against the fault-free runs of the same platform and trace; kernels
-    launched per tick (500 ticks profiled) with faults on and off."""
+    launched per tick (PROFILE_TICKS ticks profiled) with faults on and
+    off."""
     ex = closed_loop_example()
     from repro_torch.sim import LoadBalancer, SimConfig, SimEngine, Trace
     plat = ex.pipeline_platform()
@@ -1827,12 +1853,12 @@ def phase_closed_loop_faults():
                             report[twin]["ticks_per_s"],
                         "slowdown": (r.ticks_per_s_wall
                                      / report[twin]["ticks_per_s"])}
-    short = Trace(tr.arrivals[:500], tr.dt)
-    report["profile_faults_500"] = tick_loop_profile(
+    short = Trace(tr.arrivals[:PROFILE_TICKS], tr.dt)
+    report[f"profile_faults_{PROFILE_TICKS}"] = tick_loop_profile(
         lambda: ex.fault_run(plat, short, recover=True, dfs=True,
-                             detect=True, device=DEV)[1], 500)
-    report["profile_fault_free_500"] = tick_loop_profile(
-        lambda: fault_free(True, short), 500)
+                             detect=True, device=DEV)[1], PROFILE_TICKS)
+    report[f"profile_fault_free_{PROFILE_TICKS}"] = tick_loop_profile(
+        lambda: fault_free(True, short), PROFILE_TICKS)
     try:
         ex.fault_gate(runs, tr)
     except AssertionError as e:
@@ -1843,10 +1869,11 @@ def phase_closed_loop_faults():
     emit(report)
 
 
-# the replica-kill scenario's depth in phases closed_loop_faults and observe
-# (the example's 8,000 ticks cut to 2,000; the kill window is the same share
-# of the run, [0.45 T, 0.65 T), and the example's gate holds there)
-FAULT_TICKS = 2000
+# the replica-kill scenario's depth in phase closed_loop_faults (the
+# example's 8,000 ticks cut to 500 for the script's 1,200 s limit; the kill
+# window is the same share of the run, [0.45 T, 0.65 T), and the example's
+# gate holds there: 8.65 % dropped without recovery, none with it)
+FAULT_TICKS = 500
 
 RERANK_FAULTS = dict(rate=0.2, link_scale=0.5, deadline_s=0.02,
                      max_drop_rate=0.02, check=64)
@@ -2118,10 +2145,9 @@ OBSERVE_TICKS = 1450
 # rerank-A2 with the plane: B 4,096 over the day's first 1,450 ticks (the
 # full 8,700 run unobserved in main_path and with faults in rerank_faults)
 OBSERVE_RERANK_TICKS = 1450
-# observe's replica-kill pipeline: half of FAULT_TICKS (its checks are
-# equalities with the CPU's run; closed_loop_faults holds the example's
-# gates at FAULT_TICKS)
-OBSERVE_FAULT_TICKS = FAULT_TICKS // 2
+# observe's replica-kill pipeline (its checks are equalities with the
+# CPU's run; closed_loop_faults holds the example's gates at FAULT_TICKS)
+OBSERVE_FAULT_TICKS = 500
 
 
 def _in_turns(make, levels, want_syncs, fails, label, *, strict=False):
@@ -2156,8 +2182,8 @@ def phase_observe(cl_ctx, main_ctx):
     runs at ``observe`` off / ``"counters"`` / ``"full"`` in turns
     (``TURNS``) — outputs bit for bit
     equal, syncs in the tick loop one per control tick at every level,
-    ticks/s per level, kernels per tick (500 ticks profiled, off and full in
-    turns); the plane's reconstruction (``finalize``) and
+    ticks/s per level, kernels per tick (PROFILE_TICKS profiled, off and
+    full in turns); the plane's reconstruction (``finalize``) and
     ``export_metrics`` timed; the plane within PLANE_RTOL of the CPU run's
     (stall counts exact) and the trace the CPU's JSONL, a check that must
     reject ``plane_planted_faults``.  closed-loop-faults-pipeline
@@ -2221,10 +2247,11 @@ def phase_observe(cl_ctx, main_ctx):
         fails.append("closed_loop: the plane or trace differs from the CPU's")
     if cl["planted_faults_passed"]:
         fails.append("the plane check passed a planted fault")
-    short = Trace(trace.arrivals[:500], trace.dt)
+    short = Trace(trace.arrivals[:PROFILE_TICKS], trace.dt)
     for level in ("off", "full", "full", "off"):
-        cl.setdefault(f"profile_500_{level}", []).append(tick_loop_profile(
-            lambda level=level: membound(level, tr=short)[1], 500))
+        cl.setdefault(f"profile_{PROFILE_TICKS}_{level}", []).append(
+            tick_loop_profile(lambda level=level: membound(level, tr=short)[1],
+                              PROFILE_TICKS))
     report["closed_loop_12tile_1M"] = cl
 
     # -- closed-loop-faults-pipeline
@@ -2865,6 +2892,29 @@ def phase_llm_kernels():
     run("flash_decode", "attention",
         (a[0], misaligned(a[1]), misaligned(a[2])) + a[3:],
         flash_decode_plain, (MISALIGNED_DECODE[8],), want="cuda_cores")
+    # the lse at a window-split cache's rank slices (danube, zamba2), the
+    # planted faults its check must reject, and the halves merged by it
+    for c in LSE_SLICES:
+        a = decode_lse_case(*c, "bfloat16")
+        out, lse = K["flash_decode"](*a, return_lse=True)
+        sync()
+        ref, ref_lse = flash_decode_plain(*a, return_lse=True)
+        res = lse_check(out, lse, ref, ref_lse, bf16)
+        rejected = {f: not lse_check(o, l, ref, ref_lse, bf16)["ok"]
+                    for f, (o, l) in lse_faults(out, lse, ref_lse).items()}
+        case = {"kernel": "flash_decode", "lse": True, "shape": list(
+            a[0].shape), "cache": list(a[1].shape), "part": c[-1],
+            "dtype": "bfloat16", "variant": K["flash_decode"].last_variant,
+            "max_row_rel_err": row_rel_err(out, ref), **res,
+            "faults_rejected": rejected}
+        cases.append(case)
+        if not res["ok"] or not all(rejected.values()) or \
+                case["variant"] != "cp_async":
+            bad.append(case)
+        del a, out, lse, ref, ref_lse
+    comb = lse_combine_check(gen)
+    if not all(v["ok"] for v in comb.values()):
+        bad.append({"kernel": "flash_decode", "lse_combine": comb})
     edge_ssd = ([c + (None, False) for c in SSD_CASES]
                 + [c + ("tf32x3", False) for c in EDGE_SSD]
                 + [MISALIGNED_SSD + ("cuda_cores", True)])
@@ -2895,6 +2945,13 @@ def phase_llm_kernels():
                            if c["kernel"] == n) for n in names},
           "worst_row_rel": {n: max(c["max_row_rel_err"] for c in cases
                                    if c["kernel"] == n) for n in names},
+          "decode_lse": {"cases": sum(1 for c in cases if c.get("lse")),
+                         "worst_lse_abs_err": max(
+                             c["lse_max_abs_err"] for c in cases
+                             if c.get("lse")), "lse_atol": LSE_ATOL,
+                         "dead_rows": [c["dead_rows"] for c in cases
+                                       if c.get("lse")],
+                         "combine": comb},
           "first_failures": bad[:5]})
     if bad:
         raise SystemExit("an LLM kernel disagrees with its plain version")
@@ -3672,6 +3729,22 @@ def phase_serve_hybrid():
     return report, rows
 
 
+def sync_sites(sc, per=1):
+    """Where the syncs a ``SyncCount(stacks=True)`` block counted were
+    raised (``file:line`` -> count over ``per`` calls) and, for a site
+    outside the repo, the last repo frames it came through."""
+    sites, via = {}, {}
+    for r, stack in zip(sc.records, sc.stacks):
+        if "synchroniz" in str(r.message):
+            at = f"{os.path.relpath(r.filename, ROOT)}:{r.lineno}"
+            sites[at] = sites.get(at, 0) + 1 / per
+            if at.startswith("..") and stack:  # raised outside: by what
+                via[at] = [f"{os.path.relpath(f.filename, ROOT)}:"
+                           f"{f.lineno} {f.name}" for f in stack
+                           if f.filename.startswith(ROOT)][-4:]
+    return sites, via
+
+
 def decode_syncs(ctx, plain_kwargs, steps=4):
     """Operations that wait for the card (torch's sync debug mode "warn", as
     ``SyncCount`` counts them) per decode step of the engine with every
@@ -3708,15 +3781,7 @@ def decode_syncs(ctx, plain_kwargs, steps=4):
         finally:
             lm.decode_step = decode_step
         eng.run(4)                       # the requests finish
-        sites, via = {}, {}
-        for r, stack in zip(sc.records, sc.stacks):
-            if "synchroniz" in str(r.message):
-                at = f"{os.path.relpath(r.filename, ROOT)}:{r.lineno}"
-                sites[at] = sites.get(at, 0) + 1 / steps
-                if at.startswith(".."):    # raised outside the repo: by what
-                    via[at] = [f"{os.path.relpath(f.filename, ROOT)}:"
-                               f"{f.lineno} {f.name}" for f in stack
-                               if f.filename.startswith(ROOT)][-4:]
+        sites, via = sync_sites(sc, steps)
         out[label] = {"per_step": sc.total / steps,
                       "in_decode_step": inner[0] / steps,
                       "sites_per_step": sites,
@@ -4184,6 +4249,19 @@ CARD_DECODE = ((3, 32, 2, 4, 80, 16, 8, (5, 31, 50)),
                (2, 32, 1, 8, 16, 0, 16, (0, 95)),
                (2, 24, 4, 1, 32, 0, 8, (11, 23)),
                (2, 24, 2, 1, 112, 0, 8, (7, 40)))
+# flash_decode(return_lse=True): B, W, KV, G, hd, window, positions, part,
+# dtype (part -1: a ring of W slots; 0 / 1: that half of a ring of 2 W
+# slots, as a rank of a window-split cache holds it); float32 takes the
+# cuda_cores sweep, bf16 cp_async; part 1 of (2, 256, ..) and of (2, 64, ..)
+# has no live key
+CARD_DECODE_LSE = ((3, 32, 2, 4, 80, 16, (5, 31, 50), -1, "float32"),
+                   (2, 64, 1, 8, 16, 0, (3, 10), 1, "float32"),
+                   (2, 500, 2, 2, 72, 0, (100, 900), 0, "bfloat16"),
+                   (2, 256, 2, 4, 80, 0, (3, 100), 1, "bfloat16"),
+                   (4, 2048, 8, 4, 80, 4096, (4638, 4639, 3103, 2300), 1,
+                    "bfloat16"),
+                   (4, 2048, 32, 1, 112, 0, (4608, 4000, 30, 1), 0,
+                    "bfloat16"))
 # N, d, F of the MLP's parity cases
 CARD_MLP = ((32, 64, 96), (4, 80, 64), (70, 300, 130), (12, 64, 130),
             (3, 100, 77))
@@ -4252,6 +4330,136 @@ def card_flash_decode(B, W, KV, G, hd, win, blk, pos, dtype):
     _close(out, FD.flash_decode_plain(q, ck, cv, qp, kp, win,
                                       1 / np.sqrt(hd)),
            LLM_ATOL[("attention", getattr(torch, dtype))])
+
+
+def lse_check(out, lse, ref, ref_lse, dtype) -> dict:
+    """flash_decode(return_lse=True) against its plain version: the
+    output within the attention limit of its dtype, -inf exactly where the
+    plain lse is (those rows' output 0), the finite lse within 1e-4
+    absolute (float32 sums of one row's scores; bf16 inputs give both the
+    same rounded values)."""
+    dead = torch.isneginf(ref_lse)
+    fin = ~dead
+    err = (float((lse[fin] - ref_lse[fin]).abs().max()) if fin.any()
+           else 0.0)
+    out_err = _err(out, ref)
+    res = {"lse_max_abs_err": err, "lse_atol": LSE_ATOL,
+           "dead_rows": int(dead.sum()),
+           "dead_match": bool(torch.equal(torch.isneginf(lse), dead)),
+           "dead_out_zero": bool((out.float()[dead] == 0).all()),
+           "max_abs_err": out_err,
+           "tolerance": LLM_ATOL[("attention", dtype)]}
+    res["ok"] = bool(err <= LSE_ATOL and res["dead_match"]
+                     and res["dead_out_zero"]
+                     and out_err <= res["tolerance"]
+                     and not torch.isnan(lse).any())
+    return res
+
+
+LSE_ATOL = 1e-4
+
+
+def decode_lse_case(B, W, KV, G, hd, win, pos, part, dtype, seed=1):
+    """(q, cache_k, cache_v, qpos, kpos, window, scale) of a
+    ``CARD_DECODE_LSE`` case on the card."""
+    from repro_torch.models.layers import ring_kpos
+    rng = np.random.default_rng(seed)
+    q, ck, cv = (_on_card(rng.standard_normal(sh), dtype)
+                 for sh in ((B, KV, G, hd), (B, W, KV, hd), (B, W, KV, hd)))
+    qp = torch.tensor(pos, dtype=torch.int32, device=DEV)
+    kp = (ring_kpos(qp, W) if part < 0 else
+          ring_kpos(qp, 2 * W)[:, part * W:(part + 1) * W].contiguous())
+    return q, ck, cv, qp, kp, win, 1 / np.sqrt(hd)
+
+
+# flash_decode(return_lse=True) at a window-split cache's rank slice (a
+# data rank's 2 rows, one half of the 4,096-slot ring, every kv head):
+# danube's and zamba2's decode shapes, B, W, KV, G, hd, window, positions,
+# part; danube's second at positions below half the ring: no live key
+LSE_SLICES = ((2, 2048, 8, 4, 80, 4096, (4638, 4639), 1),
+              (2, 2048, 8, 4, 80, 4096, (1000, 1031), 1),
+              (2, 2048, 32, 1, 112, 0, (3000, 3031), 0),
+              (2, 2048, 32, 1, 112, 0, (3000, 3031), 1))
+
+
+def lse_faults(out, lse, ref_lse) -> dict:
+    """Planted faults of ``flash_decode(return_lse=True)``'s pair, each of
+    which ``lse_check`` must reject: one row's lse off by 1e-2, one row
+    live where it is dead or dead where it is live, a NaN, and a dead
+    row's output made non-zero (where the case has one)."""
+    out_f = {}
+    live = torch.isfinite(ref_lse)
+    if live.any():
+        shifted = lse.clone()
+        shifted[tuple(live.nonzero()[0])] += 1e-2
+        out_f["lse_shifted"] = (out, shifted)
+    flip = lse.clone()
+    first = flip.view(-1)
+    first[0] = 0.0 if torch.isneginf(ref_lse.view(-1)[0]) else -torch.inf
+    out_f["dead_flipped"] = (out, flip)
+    nan = lse.clone()
+    nan.view(-1)[-1] = torch.nan
+    out_f["lse_nan"] = (out, nan)
+    if (~live).any():
+        o = out.clone()
+        o[tuple((~live).nonzero()[0])] = 0.5
+        out_f["dead_row_output"] = (o, lse)
+    return out_f
+
+
+def lse_combine_check(gen) -> dict:
+    """The kernel over each half of danube's 4,096-slot ring with its
+    lse, merged as placed decode merges its ranks' slices
+    (``layers.merge_by_lse``), against the kernel over the whole ring (the
+    attention checks): a wrapped ring (both halves live) and an early one
+    (the second half empty: no NaN, weight 0); a planted wrong lse (the
+    second half's + 1) must be rejected."""
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.models.layers import merge_by_lse
+    bf16 = torch.bfloat16
+    res = {}
+    for tag, pos in (("wrapped", [4638, 4639]), ("half_empty", [1000, 1031])):
+        a = decode_case(gen, 2, 4096, 8, 4, 80, 80, 4096, bf16, pos)
+        q, ck, cv, qp, kp, win, scale = a
+        whole = FD.flash_decode(*a)
+        parts = [FD.flash_decode(q, ck[:, sl].contiguous(),
+                                 cv[:, sl].contiguous(), qp,
+                                 kp[:, sl].contiguous(), win, scale,
+                                 return_lse=True)
+                 for sl in (slice(0, 2048), slice(2048, 4096))]
+        sync()
+        outs = torch.stack([o for o, _ in parts])
+        merged = merge_by_lse(outs, torch.stack([l for _, l in parts]))
+        c = llm_check("attention", merged.to(bf16), whole, bf16)
+        wrong = merge_by_lse(outs, torch.stack([parts[0][1],
+                                                parts[1][1] + 1.0]))
+        w = llm_check("attention", wrong.to(bf16), whole, bf16)
+        res[tag] = {"max_abs_err": c["max_abs_err"],
+                    "max_row_rel_err": c["max_row_rel_err"],
+                    "finite": bool(torch.isfinite(merged).all()),
+                    "second_half_dead_rows": int(
+                        torch.isneginf(parts[1][1]).sum()),
+                    "wrong_lse_rejected": (not w["ok"]) or tag == "half_empty",
+                    "ok": c["ok"] and bool(torch.isfinite(merged).all())}
+        res[tag]["ok"] &= res[tag]["wrong_lse_rejected"]
+    # at 1,000 the second half holds no live key: its rows must be dead
+    res["half_empty"]["ok"] &= res["half_empty"][
+        "second_half_dead_rows"] == 2 * 8 * 4
+    return res
+
+
+def card_flash_decode_lse(B, W, KV, G, hd, win, pos, part, dtype):
+    from repro_torch.kernels import flash_decode as FD
+    args = decode_lse_case(B, W, KV, G, hd, win, pos, part, dtype)
+    before = FD.flash_decode.launches
+    out, lse = FD.flash_decode(*args, return_lse=True)
+    sync()
+    _launched_once(FD.flash_decode, before,
+                   "cuda_cores" if dtype == "float32" else "cp_async")
+    ref, ref_lse = FD.flash_decode_plain(*args, return_lse=True)
+    res = lse_check(out, lse, ref, ref_lse, getattr(torch, dtype))
+    assert res["ok"], res
+    assert (res["dead_rows"] > 0) == (part == 1 and max(pos) < W), res
 
 
 def _mlp_ok(out, args):
@@ -5448,7 +5656,7 @@ def profile_train_step(tr):
             "functions": per_fn}
 
 
-def drive_train(spec, lm_kwargs, plain_kwargs, phase, keep=False):
+def drive_train(spec, lm_kwargs, plain_kwargs, phase):
     """A model's training path through ``Trainer`` on the card at full
     width and depth (random bf16 weights from a seed): first the plain
     path's step 1 on the same weights and batch (its update discarded),
@@ -5457,9 +5665,7 @@ def drive_train(spec, lm_kwargs, plain_kwargs, phase, keep=False):
     around it) and its host syncs counted (``SyncCount``; the batch's copy
     happens before it), step 1's gradients (as AdamW receives them) held
     against the plain path's as vectors; then one step under the
-    profiler.  ``keep``: the report also holds (not printed) step 1's
-    gradient leaves that ``train_mesh`` holds its own against
-    (``kept_grads``)."""
+    profiler."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
@@ -5532,7 +5738,6 @@ def drive_train(spec, lm_kwargs, plain_kwargs, phase, keep=False):
     tr._step = step_fn
     peak = torch.cuda.max_memory_allocated()
     gap = grads_gap(first_grads[0], p_grads)
-    kept = kept_grads(tr.params, first_grads[0]) if keep else None
     del first_grads, p_grads
     prof = profile_train_step(tr)
     fit = fit_one_batch(tr, spec)
@@ -5601,8 +5806,6 @@ def drive_train(spec, lm_kwargs, plain_kwargs, phase, keep=False):
         fails.append(f"variants {variants}")
     if fails:
         raise SystemExit(f"{phase}: " + "; ".join(fails))
-    if keep:
-        report["step1_grads"] = kept
     return report
 
 
@@ -5659,16 +5862,14 @@ def phase_train():
     """h2o-danube-1.8b at full width and depth: ``flash_attention`` and
     ``fused_rmsnorm_mlp`` through ``kernels.ops``; the plain path is
     ``chunked`` attention (the folded schedule) and the plain MLP.  Both
-    take the iota-compare loss (``onehot_loss``), as ``train_mesh`` does,
-    whose one-device numbers these are (step 1's gradient leaves kept for
-    it).  Then the attention backward's head grouping timed
+    take the iota-compare loss (``onehot_loss``), as ``train_mesh`` does.
+    Then the attention backward's head grouping timed
     (``attention_backward_groups``)."""
     from repro_torch.models.layers import AttnOptions
     report = drive_train(TRAIN, _train_lm_kwargs(),
                          dict(opts=AttnOptions(backend="chunked",
                                                folded=True),
-                              remat=True, onehot_loss=True), "train",
-                         keep=True)
+                              remat=True, onehot_loss=True), "train")
     from repro_torch.kernels.ops import FlashAttention
     emit({"phase": "train_attention_backward",
           "path_heads_per_group": FlashAttention.last_heads,
@@ -5985,20 +6186,66 @@ def dryrun_on_card():
             "seconds": time.perf_counter() - t0}
 
 
-def phase_costing(serve_reports, train_reports):
+DRYRUN_LIMIT_S = 600    # the dry run's process, from its start
+
+
+def start_dryrun():
+    """Start ``dryrun_on_card`` in a process of its own (``--dryrun-out``):
+    it counts on fakes and never waits for the card, so it runs beside the
+    card's phases; ``dryrun_result`` collects it.  The process is killed if
+    the script ends first."""
+    import atexit
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    path = os.path.join(workdir, "dryrun.json")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dryrun-out", path],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(workdir, ignore_errors=True)
+    atexit.register(stop)
+    return {"proc": proc, "path": path, "t0": time.perf_counter()}
+
+
+def dryrun_result(job) -> dict:
+    """The report of ``start_dryrun``'s process (waiting for it, up to its
+    limit; its folder goes when the script ends); a process that failed or
+    ran out of time is the dry run's failure."""
+    proc = job["proc"]
+    left = DRYRUN_LIMIT_S - (time.perf_counter() - job["t0"])
+    try:
+        _, err = proc.communicate(timeout=max(1.0, left))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        err = f"no result in {DRYRUN_LIMIT_S} s"
+    if proc.returncode:
+        return {"mesh": "1-pod (16 x 16)", "cells": [], "seconds": None,
+                "failures": [f"the dry run's process: {err[-600:]}"]}
+    with open(job["path"]) as f:
+        return json.load(f)
+
+
+def phase_costing(serve_reports, train_reports, dry_job):
     """The cost model on the card: each training path's step and each
     serving path's longest prefill and decode step counted abstractly
     (total and dot FLOPs), ``model_flops``, ``hbm_bytes``, the roofline
     terms on ``H100_SXM`` at one card, beside the seconds the earlier
     phases measured (``t_bound / measured``, MFU and counted-FLOP
     utilisation; re-running no path); the planted launch that counting
-    must refuse; the dry run's single-pod cells."""
+    must refuse; the dry run's single-pod cells (``dry_job``: its process,
+    started by ``start_dryrun``)."""
     t0 = time.perf_counter()
     rows = [cost_train(ph, r) for ph, r in train_reports.items()]
     for ph, r in serve_reports.items():
         rows += cost_serve(ph, r)
     planted = counting_refuses_a_launch()
-    dry = dryrun_on_card()
+    dry = dryrun_result(dry_job)
     report = {"phase": "costing",
               "device_spec": dataclasses.asdict(H100_SXM),
               "rows": rows, "planted_launch_refused": planted,
@@ -6084,6 +6331,8 @@ CARD_TESTS = {
         card_flash_decode_cp_async_edges, EDGE_DECODE),
     "test_cuda_misaligned_decode_cache_takes_the_cuda_core_sweep": (
         card_misaligned_decode_cache, ((),)),
+    "test_cuda_flash_decode_lse_matches_plain": (card_flash_decode_lse,
+                                                 CARD_DECODE_LSE),
     "test_cuda_ssd_scan_matches_plain": (card_ssd_scan, CARD_SSD),
     "test_cuda_ssd_scan_tf32x3_edges": (card_ssd_scan_tf32x3_edges,
                                         EDGE_SSD),
@@ -6705,10 +6954,13 @@ def phase_collectives():
 # the GSPMD half of the training stack: 4 ranks sharing the card
 # ---------------------------------------------------------------------------
 
-# danube at full width and depth on (data 2, model 2), TRAIN's shape and
-# schedule (its lr at steps 1 and 2), onehot_loss as the train phase's
+# danube at full width on (data 2, model 2), TRAIN's shape and schedule
+# (its lr at steps 1 and 2), onehot_loss as the train phase's; cut to 4 of
+# its 24 layers for time (the script's 1,200 s limit; the train phase
+# runs the full depth on one device), held to the same cut on one device
 TRAIN_MESH = {**TRAIN, "mesh": (2, 2), "axes": ("data", "model"),
-              "world": 4, "mesh_steps": 2, "limit_s": 420, "timeout_s": 300}
+              "world": 4, "n_layers": 4, "mesh_steps": 2, "limit_s": 420,
+              "timeout_s": 300}
 TRAIN_MESH_LOSS_ATOL = 2e-2     # the reference's gate (test_distributed.py)
 # at random init danube's loss sits at log V whatever the layers compute,
 # and a norm barely moves when a rank is handed the wrong block: step 1's
@@ -6729,27 +6981,49 @@ def _train_lm_kwargs():
                 onehot_loss=True)
 
 
-def kept_grads(params, grads) -> dict:
-    """Step 1's gradient leaves ``TRAIN_MESH_GRAD_LEAVES`` at layers
-    ``TRAIN_MESH_GRAD_LAYERS`` (``grads`` in ``params``' leaf order, as
-    AdamW receives them): on one device float32 copies on the host; placed,
-    this rank's blocks (float32 copies on its device) with their specs and
-    shapes, for ``gathered_grads``."""
+# the routed experts' gradient leaves are kept for their first experts
+# only (a whole (layers, 64, 2048, 1408) leaf is 1.5 GB in float32)
+KEPT_EXPERTS = 4
+
+
+def kept_grads(params, grads, leaves=TRAIN_MESH_GRAD_LEAVES) -> dict:
+    """Step 1's gradient ``leaves`` (a stacked leaf, ``blocks/..``, at
+    layers ``TRAIN_MESH_GRAD_LAYERS``, a routed expert leaf of those at its
+    first ``KEPT_EXPERTS`` experts; any other whole) (``grads`` in
+    ``params``' leaf order, as AdamW receives them): on one device float32
+    copies on the host; placed, this rank's blocks (float32 copies on its
+    device) with their specs and shapes, for ``gathered_grads``."""
     from repro_torch.checkpoint.store import _flatten_with_paths
     from repro_torch.parallel import placement as PL
-    rows = list(TRAIN_MESH_GRAD_LAYERS)
     out = {}
     for (path, p), g in zip(_flatten_with_paths(params), grads):
-        if path not in TRAIN_MESH_GRAD_LEAVES:
+        if path not in leaves:
             continue
+        stacked = path.startswith("blocks/")
+        experts = stacked and path.split("/")[-2:] in (
+            ["moe", "wi_gate"], ["moe", "wi_up"], ["moe", "wo"])
+
+        def pick(t):
+            """The kept part of ``t``, by basic indexing only (a list
+            index would copy it to the card, a copy that waits)."""
+            if not stacked:
+                return t
+            return torch.stack([t[r, :KEPT_EXPERTS] if experts else t[r]
+                                for r in TRAIN_MESH_GRAD_LAYERS])
         if not PL.is_placed(g):
-            out[path] = g.detach()[rows].float().cpu()
+            out[path] = pick(g.detach()).float().cpu()
             continue
         sp = tuple(PL.spec_of(g))
-        if sp and sp[0] is not None:
+        if stacked and sp and sp[0] is not None:
             raise ValueError(f"{path}: its layers are split ({sp})")
-        out[path] = (PL.local(g).detach()[rows].float().clone(), sp,
-                     (len(rows),) + tuple(g.shape[1:]), PL.mesh_of(g))
+        if experts and len(sp) > 1 and sp[1] is not None:
+            raise ValueError(f"{path}: its experts are split ({sp})")
+        loc = pick(PL.local(g).detach()).float().clone()
+        shape = tuple(g.shape)
+        if stacked:
+            shape = (len(TRAIN_MESH_GRAD_LAYERS),) + (
+                (KEPT_EXPERTS,) + shape[2:] if experts else shape[1:])
+        out[path] = (loc, sp, shape, PL.mesh_of(g))
     return out
 
 
@@ -6772,8 +7046,11 @@ def grads_vs(got, ref) -> dict:
 
 
 class first_grads_kept:
-    """Within it, the first AdamW update's gradient leaves are kept
+    """Within it, the first AdamW update's gradient ``leaves`` are kept
     (``kept_grads``) in ``.kept``."""
+
+    def __init__(self, leaves=TRAIN_MESH_GRAD_LEAVES):
+        self.leaves = leaves
 
     def __enter__(self):
         import repro_torch.runtime.train as RTM
@@ -6781,7 +7058,7 @@ class first_grads_kept:
 
         def keep(cfg_, grads, state, params):
             if not self.kept:
-                self.kept.update(kept_grads(params, grads))
+                self.kept.update(kept_grads(params, grads, self.leaves))
             return self._update(cfg_, grads, state, params)
         RTM.adamw.update = keep
         return self
@@ -6902,7 +7179,7 @@ def mesh_planted_faults(mesh) -> dict:
 def train_mesh_rank(rank, world, workdir, device="cuda", reduced=False):
     """One rank of phase ``train_mesh``: danube at full width on (data 2,
     model 2) through ``Trainer(mesh=)``, 2 steps, step 1's gradient leaves
-    held against one device's (the ``train`` phase's, in
+    held against one device's (``train_mesh_one_device``'s, in
     ``workdir/one_device_grads.pt``); its report written to
     ``workdir/rank<rank>.json`` (``device`` "cpu" with ``reduced`` only to
     rehearse the phase's code away from the card: its one-device leaves
@@ -6911,8 +7188,6 @@ def train_mesh_rank(rank, world, workdir, device="cuda", reduced=False):
     from repro_torch import parallel as P
     from repro_torch.checkpoint.store import CheckpointStore, \
         _flatten_with_paths
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.replication import merged_rules
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_mlp as FM
@@ -6957,11 +7232,8 @@ def train_mesh_rank(rank, world, workdir, device="cuda", reduced=False):
     # the MLP's oracle reads the plain version through its own name
     REF.fused_rmsnorm_mlp_plain = FM.fused_rmsnorm_mlp_plain
 
-    cfg = get_config(spec["arch"])
-    shape = ShapeConfig("train_4k", spec["seq_len"], spec["global_batch"],
-                        "train")
-    if reduced:
-        cfg, shape = cfg.reduced(), ShapeConfig("tiny", 64, 4, "train")
+    cfg = _cut(spec["arch"], spec["n_layers"], reduced)
+    shape = _train_mesh_shape(reduced)
     cuda = mesh.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -7104,7 +7376,7 @@ def train_mesh_failures(reps, single) -> list:
     """Every check of phase ``train_mesh`` that fails, named."""
     spec = TRAIN_MESH
     n_steps = spec["mesh_steps"]
-    want = 2 * spec["accum"] * get_n_layers(spec["arch"]) * n_steps
+    want = 2 * spec["accum"] * spec["n_layers"] * n_steps
     bad = []
     r0 = reps[0]
     l1, l2 = r0["losses"][0], r0["losses"][1]
@@ -7165,20 +7437,44 @@ def train_mesh_failures(reps, single) -> list:
     return bad
 
 
-def get_n_layers(arch) -> int:
-    from repro_torch.configs import get_config
-    return get_config(arch).n_layers
+def _train_mesh_shape(reduced=False):
+    from repro_torch.configs.base import ShapeConfig
+    spec = TRAIN_MESH
+    if reduced:
+        return ShapeConfig("tiny", 64, 4, "train")
+    return ShapeConfig("train_4k", spec["seq_len"], spec["global_batch"],
+                       "train")
 
 
-def phase_train_mesh(single, smi):
+def train_mesh_one_device(device=DEV) -> dict:
+    """The numbers ``train_mesh``'s ranks are held to: the same cut of
+    danube, seed, weights and batches through the same ``Trainer`` on one
+    device, 2 steps (losses, grad norms, step 1's kept gradient leaves)."""
+    spec = TRAIN_MESH
+    t0 = time.perf_counter()
+    tr = _mesh_trainer(_cut(spec["arch"], spec["n_layers"]),
+                       _train_mesh_shape(), None, spec, TRAIN["steps"],
+                       device=device)
+    with first_grads_kept() as fk:
+        hist = tr.run(spec["mesh_steps"])
+    out = {"losses": [m["loss"] for _, m in hist],
+           "grad_norms": [m["grad_norm"] for _, m in hist],
+           "step1_grads": fk.kept, "seconds": time.perf_counter() - t0}
+    del tr, fk
+    empty_cache()
+    return out
+
+
+def phase_train_mesh(smi):
     """4 gloo ranks as subprocesses on cuda:0 (``train_mesh_rank``) under
-    a hard limit; ``single``: the ``train`` phase's report (the one-device
+    a hard limit, held to ``train_mesh_one_device`` (the one-device
     numbers on the same seed, weights and batches).  Prints the price of
     four ranks sharing one card, not a multi-GPU speed."""
     import gc
     import shutil
     import tempfile
     spec = TRAIN_MESH
+    single = train_mesh_one_device()
     gc.collect()
     torch.cuda.empty_cache()
     parent = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
@@ -7211,7 +7507,9 @@ def phase_train_mesh(single, smi):
         outs = [p.communicate() for p in procs]
     out = {"phase": "train_mesh", "ranks": world,
            "mesh": dict(zip(spec["axes"], spec["mesh"])),
-           "arch": spec["arch"], "seconds": time.perf_counter() - t0,
+           "arch": spec["arch"], "layers": spec["n_layers"],
+           "seconds": time.perf_counter() - t0,
+           "one_device_s": single["seconds"],
            "nvidia_smi": smi, "parent_memory": parent,
            "card": "4 ranks sharing one H100 over gloo: the price of "
                    "sharing the card, not a multi-GPU speed"}
@@ -7274,6 +7572,715 @@ def phase_train_mesh(single, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# every model family from placed parameters: 4 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# (data 2, model 2) as train_mesh; TRAIN's shape, lr and microbatches.
+# Training: zamba2-7b cut to 7 Mamba-2 blocks (the shared tile's two sites,
+# before blocks 0 and 6) and deepseek-v2-lite-16b cut to 3 layers (the
+# dense first layer and 2 MoE layers), full width, 2 steps, remat and the
+# iota-compare loss, each held to the same configuration on one device.
+# Serving: each family at full width, 4 slots of one prompt length (the
+# rows of one prefill share it), window 4,096, 32 teacher-forced decode
+# steps, held to the one-device LM on the same weights and tokens.
+MESH_FAMILIES = {"mesh": (2, 2), "axes": ("data", "model"), "world": 4,
+                 "seq_len": TRAIN["seq_len"],
+                 "global_batch": TRAIN["global_batch"],
+                 "accum": TRAIN["accum"], "steps": 2, "lr": TRAIN["lr"],
+                 "warmup": TRAIN["warmup"], "window": 4096,
+                 "decode_steps": 32, "limit_s": 600, "timeout_s": 300}
+# (arch, n_layers, step 1's gradient leaves held whole against one
+# device's): column- and row-split weights, leaves every rank reads whole
+# (Mamba-2's w_B, MLA's latent down-projection), the shared tile's
+# weights (one leaf read at both sites), the expert and shared-expert
+# weights and the dense first layer's
+MESH_TRAIN_CASES = (
+    ("zamba2-7b", 7, ("blocks/ssm/w_x", "blocks/ssm/out_proj",
+                      "blocks/ssm/w_B", "shared_attn/attn/wq",
+                      "shared_attn/attn/wo", "shared_attn/mlp/wi_gate")),
+    ("deepseek-v2-lite-16b", 3, ("blocks/attn/wq", "blocks/attn/w_uk",
+                                 "blocks/attn/w_dkv", "blocks/attn/wo",
+                                 "blocks/moe/wi_gate",
+                                 "blocks/moe/shared/wo",
+                                 "prelude/0/mlp/wi_gate",
+                                 "prelude/0/attn/w_uv")))
+# (tag, arch, n_layers (None: full depth), prompt length): danube's
+# prompt crosses its 4,096-token sliding window (the ring wraps), granite's
+# leaves model rank 1's half of every ring empty through all 32 steps,
+# deepseek's gives rank 1 its first key at the first step.  Cut for time
+# (each decode step's collectives wait for the card, which the 4 ranks
+# time-share: ~4 ms a call; the script's 1,200 s limit): zamba2 81 -> 12
+# blocks (the tile's 2 sites), mamba2 48 -> 24 blocks (0.82 s a decode
+# step at 48), granite 24 -> 12 layers; deepseek to 4 layers (four ranks
+# each drawing the 16 B parameters whole do not fit the card).  danube,
+# whose planted fault the gates are set from, keeps its full depth
+MESH_SERVE_CASES = (("dense", "h2o-danube-1.8b", None, 4608),
+                    ("moe", "granite-moe-1b-a400m", 12, 1000),
+                    ("ssm", "mamba2-370m", 24, 4096),
+                    ("hybrid", "zamba2-7b", 12, 3000),
+                    ("mla", "deepseek-v2-lite-16b", 4, 2048))
+# served once more with a fault planted in the placed decode (the merge
+# of the ranks' partial outputs drops model rank 1's): both halves of
+# their rings hold live keys, so the serving gates must reject it
+MESH_FAULT_CASES = ("dense", "hybrid")
+# each serving case's logit-error gate: the serve phases' own
+# (LOGIT_REL_TOL), tightened for danube, whose planted fault (above) reads
+# 4.2e-2 under it against 1.3e-2 unplanted (PERF.md section 6)
+MESH_LOGIT_REL_TOL = {"dense": 2.5e-2}
+
+
+def mesh_logit_tol(tag) -> float:
+    return MESH_LOGIT_REL_TOL.get(tag, LOGIT_REL_TOL)
+
+
+def _cut(arch, n_layers, reduced=False):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if reduced:
+        return cfg.reduced()
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def _families_lm_kwargs():
+    from repro_torch.models.layers import AttnOptions
+    return dict(opts=AttnOptions(backend="fused"), ssm_backend="fused")
+
+
+def _serve_shapes(reduced):
+    """(prompt length, window, decode steps) of each serving case."""
+    spec = MESH_FAMILIES
+    if reduced:
+        return {t: (12 if t != "moe" else 3, 16, 4)
+                for t, _, _, _ in MESH_SERVE_CASES}
+    return {t: (S, spec["window"], spec["decode_steps"])
+            for t, _, _, S in MESH_SERVE_CASES}
+
+
+def _train_shape(reduced):
+    from repro_torch.configs.base import ShapeConfig
+    spec = MESH_FAMILIES
+    if reduced:
+        return ShapeConfig("tiny", 64, 4, "train")
+    return ShapeConfig("train_4k", spec["seq_len"], spec["global_batch"],
+                       "train")
+
+
+def _families_trainer(cfg, shape, mesh, device=None):
+    """The training case's ``Trainer`` on ``mesh``, or (``mesh`` None) on
+    one device with a rank's microbatch, one row a microbatch (accum times
+    the data axis): the MoE's load-balance loss, a microbatch's, then
+    covers the same tokens as a data rank's, and the one device computes
+    the mesh's function."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train import TrainConfig, Trainer
+    spec = MESH_FAMILIES
+    accum = spec["accum"] * (1 if mesh is not None else dict(zip(
+        spec["axes"], spec["mesh"]))["data"])
+    tc = TrainConfig(accum=accum, log_every=1, ckpt_every=0,
+                     monitor_every=2,
+                     opt=adamw.AdamWConfig(lr=spec["lr"],
+                                           warmup_steps=spec["warmup"],
+                                           total_steps=spec["steps"]))
+    kw = {} if device is None else {"device": device}
+    return Trainer(cfg, shape, mesh=mesh, tc=tc,
+                   lm_kwargs={**_families_lm_kwargs(), "remat": True,
+                              "onehot_loss": True}, seed=SEED, **kw)
+
+
+def families_one_device(workdir, device=DEV, reduced=False) -> dict:
+    """The one-device numbers ``mesh_families``' ranks are held to, each
+    configuration on ``device`` from the same seed: 2 training steps
+    (losses, grad norms, step 1's kept gradient leaves, written to
+    ``workdir``) and each serving case's prefill and greedy decode
+    (tokens and float32 logits written to ``workdir``)."""
+    from repro_torch.models.transformer import LM
+    out = {"train": {}, "serve": {}}
+    shape = _train_shape(reduced)
+    for arch, n, leaves in MESH_TRAIN_CASES:
+        t0 = time.perf_counter()
+        tr = _families_trainer(_cut(arch, n, reduced), shape, None, device)
+        with first_grads_kept(leaves) as fk:
+            hist = tr.run(MESH_FAMILIES["steps"])
+        torch.save(fk.kept, os.path.join(workdir, f"grads_{arch}.pt"))
+        out["train"][arch] = {
+            "losses": [m["loss"] for _, m in hist],
+            "grad_norms": [m["grad_norm"] for _, m in hist],
+            "seconds": time.perf_counter() - t0}
+        del tr, fk
+        empty_cache()
+    rng = np.random.default_rng(SEED)
+    for tag, arch, n, _ in MESH_SERVE_CASES:
+        S, W, steps = _serve_shapes(reduced)[tag]
+        cfg = _cut(arch, n, reduced)
+        lm = LM(cfg, **_families_lm_kwargs())
+        t0 = time.perf_counter()
+        params = lm.init(torch.Generator(device=device).manual_seed(SEED))
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, S)),
+                               device=device)
+        logits = []
+        with torch.no_grad():
+            lg, cache = lm.prefill(params, toks, cache_len=W)
+            for _ in range(steps):
+                nxt = torch.argmax(lg, -1)[:, None]
+                toks = torch.cat([toks, nxt], 1)
+                logits.append(lg.cpu())
+                lg, cache = lm.decode_step(params, cache, nxt)
+            logits.append(lg.cpu())
+        torch.save({"tokens": toks.cpu(), "logits": torch.stack(logits)},
+                   os.path.join(workdir, f"serve_{tag}.pt"))
+        out["serve"][tag] = {"seconds": time.perf_counter() - t0,
+                             "layers": cfg.n_layers, "prompt": S,
+                             "window": W, "steps": steps}
+        del params, cache, lg, lm
+        empty_cache()
+    return out
+
+
+def _count_plain_on_cuda(counts):
+    """Wrap every kernel's plain version so a call on CUDA tensors is
+    counted in ``counts`` (by kernel); returns the undo."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import fused_mlp as FM
+    from repro_torch.kernels import ref as REF
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models import mamba2 as M2
+    saved = [(FA, "flash_attention_plain"), (FD, "flash_decode_plain"),
+             (FM, "fused_rmsnorm_mlp_plain"), (SSD, "ssd_scan_plain"),
+             (REF, "fused_rmsnorm_mlp_plain"), (M2, "ssd_scan_ref")]
+    orig = [getattr(m, n) for m, n in saved]
+    names = {"flash_attention_plain": "flash_attention",
+             "flash_decode_plain": "flash_decode",
+             "fused_rmsnorm_mlp_plain": "fused_mlp",
+             "ssd_scan_plain": "ssd_scan", "ssd_scan_ref": "ssd_scan"}
+
+    def counting(name, fn):
+        def f(*a, **k):
+            if any(torch.is_tensor(x) and x.is_cuda for x in a):
+                key = name if not torch.is_grad_enabled() else \
+                    name + ".oracle"
+                counts[key] = counts.get(key, 0) + 1
+            return fn(*a, **k)
+        return f
+    for (m, n), fn in zip(saved, orig):
+        setattr(m, n, counting(names[n], fn))
+
+    def undo():
+        for (m, n), fn in zip(saved, orig):
+            setattr(m, n, fn)
+    return undo
+
+
+def mesh_families_rank(rank, world, workdir, device="cuda", reduced=False):
+    """One rank of phase ``mesh_families`` on (data 2, model 2): the two
+    training cases through ``Trainer(mesh=)`` and the five serving cases
+    through ``LM.prefill`` / ``LM.decode_step`` from placed parameters,
+    each held to the one-device numbers the parent left in ``workdir``
+    (``families_one_device``); its report written to
+    ``workdir/rank<rank>.json`` (``device`` "cpu" with ``reduced`` only to
+    rehearse the phase's code away from the card)."""
+    import torch.distributed as dist
+    from repro_torch import parallel as P
+    from repro_torch.checkpoint.store import _flatten_with_paths
+    from repro_torch.core.replication import merged_rules
+    from repro_torch.core.tiles import default_plan
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import cache_specs
+    from repro_torch.models import layers as L
+    from repro_torch.models.layers import batch_axes
+    from repro_torch.models.params import place_params, shardings_for
+    from repro_torch.models.transformer import LM
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import placement as PL
+    spec = MESH_FAMILIES
+    backend = C.init_process_group(
+        rank, world, "file://" + os.path.join(workdir, "store"),
+        device=device, timeout_s=spec["timeout_s"])
+    mesh = P.make_mesh(spec["mesh"], spec["axes"], device=device)
+    cuda = mesh.device.type == "cuda"
+    rep = {"rank": rank, "backend": backend, "device": str(mesh.device),
+           "coords": {a: mesh.coord(a) for a in mesh.axis_names},
+           "train": {}, "serve": {}}
+    K = all_kernels()
+    plain = {}
+    undo = _count_plain_on_cuda(plain)
+    rep["reduced"] = reduced
+
+    def reset():
+        for f in K.values():
+            f.launches = 0
+        FD.flash_decode.lse_launches = 0
+        ops.reset_counts()
+        plain.clear()
+        C.USED.clear()
+
+    def oracle_calls():
+        """The backward oracles' calls on CUDA tensors a run may make:
+        one a backward of the MLP and of the scan."""
+        n = {"fused_mlp.oracle": ops.FusedRMSNormMLP.backward_calls,
+             "ssd_scan.oracle": ops.SSDScan.backward_calls}
+        return {k: v for k, v in n.items() if v}
+
+    shape = _train_shape(reduced)
+    for arch, n, leaves in MESH_TRAIN_CASES:
+        t0 = time.perf_counter()
+        tr = _families_trainer(_cut(arch, n, reduced), shape, mesh)
+        empty_cache(sync_only=True)
+        init_s = time.perf_counter() - t0
+        step_fn, times, syncs, sites = tr._step, [], [], []
+
+        def timed(*a):
+            empty_cache(sync_only=True)
+            dist.barrier()
+            t = time.perf_counter()
+            if not times and cuda:      # step 1: host syncs counted
+                with SyncCount(stacks=True) as sc:
+                    out = step_fn(*a)
+                syncs.append(sc.total)
+                sites.append(sync_sites(sc))
+            else:
+                out = step_fn(*a)
+            empty_cache(sync_only=True)
+            times.append(time.perf_counter() - t)
+            dist.barrier()
+            return out
+        tr._step = timed
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset()
+        with first_grads_kept(leaves) as fk:
+            hist = tr.run(spec["steps"])
+        rep["train"][arch] = {
+            "layers": tr.cfg.n_layers,
+            "losses": [m["loss"] for _, m in hist],
+            "grad_norms": [m["grad_norm"] for _, m in hist],
+            "step_s": times, "init_s": init_s, "syncs_step1": syncs,
+            "sync_sites_step1": sites,
+            "launches": {k: f.launches for k, f in K.items()},
+            "oracle_calls": oracle_calls(), "plain_on_cuda": dict(plain),
+            "used": {"/".join(k): v for k, v in sorted(C.USED.items())},
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                         else None)}
+        got = gathered_grads(fk.kept)
+        del tr, fk
+        empty_cache()
+        one = torch.load(os.path.join(workdir, f"grads_{arch}.pt"),
+                         map_location=mesh.device)
+        rep["train"][arch]["step1_grad"] = grads_vs(got, one)
+        del got, one
+        empty_cache()
+        dist.barrier()              # every rank's state is gone
+
+    bax = batch_axes(mesh)
+    shapes = _serve_shapes(reduced)
+
+    def serve(tag, arch, n):
+        """One serving case: prefill of this rank's rows and the decode
+        steps from placed parameters, held to the one-device logits."""
+        S, W, steps = shapes[tag]
+        cfg = _cut(arch, n, reduced)
+        lm = LM(cfg, **_families_lm_kwargs())
+        t0 = time.perf_counter()
+        sh = shardings_for(lm.param_specs(),
+                           merged_rules(default_plan(cfg), mesh), mesh)
+        params = place_params(
+            lm.init(torch.Generator(device=mesh.device).manual_seed(SEED)),
+            sh)
+        empty_cache()
+        init_s = time.perf_counter() - t0
+        ref = torch.load(os.path.join(workdir, f"serve_{tag}.pt"))
+        B = ref["tokens"].shape[0] // C.axis_size(bax, mesh)
+        r0 = C.axis_index(bax, mesh) * B
+        toks = ref["tokens"][r0:r0 + B].to(mesh.device)
+        want = ref["logits"][:, r0:r0 + B]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        worst, agree, finite, calls = 0.0, 0, True, 0
+        reset()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg, cache = lm.prefill(params, toks[:, :S], cache_len=W)
+            empty_cache(sync_only=True)
+            prefill_s = time.perf_counter() - t0
+            prefill_gib = (torch.cuda.max_memory_allocated() / 2**30
+                           if cuda else None)
+            specs_ok = all(PL.same_spec(PL.spec_of(t), sp, t.dim())
+                           for t, sp in zip(_leaves(cache), _spec_leaves(
+                               cache_specs(lm, ref["tokens"].shape[0], W,
+                                           mesh))))
+            t1 = time.perf_counter()
+            for i in range(steps + 1):
+                if i:
+                    lg, cache = lm.decode_step(params, cache,
+                                               toks[:, S + i - 1:S + i])
+                w = want[i].to(lg.device)
+                finite &= bool(torch.isfinite(lg).all())
+                for b in range(B):
+                    worst = max(worst, _err(lg[b], w[b])
+                                / float(w[b].abs().max()))
+                agree += int((torch.argmax(lg, -1).cpu()
+                              == torch.argmax(w, -1).cpu()).sum())
+                calls += B
+            empty_cache(sync_only=True)
+        decode_s = time.perf_counter() - t1
+        out = {
+            "layers": cfg.n_layers, "prompt": S, "window": W,
+            "decode_steps": steps, "init_s": init_s, "prefill_s": prefill_s,
+            "decode_s_per_step": decode_s / max(steps, 1),
+            "max_rel_logit_err": worst, "token_agreement": agree / calls,
+            "agreed": agree, "positions": calls,
+            "finite": finite, "cache_specs_ok": specs_ok,
+            "cache_specs": {p: repr(PL.spec_of(t))
+                            for p, t in _flatten_with_paths(cache)},
+            "launches": {k: f.launches for k, f in K.items()},
+            "variants": {k: getattr(f, "last_variant", None)
+                         for k, f in K.items()},
+            "lse_launches": FD.flash_decode.lse_launches,
+            "plain_on_cuda": dict(plain),
+            "used": {"/".join(k): v for k, v in sorted(C.USED.items())},
+            "prefill_peak_gib": prefill_gib,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                         else None)}
+        del params, cache, lg, ref, want, lm
+        empty_cache()
+        dist.barrier()              # every rank's model is gone
+        return out
+
+    for tag, arch, n, _ in MESH_SERVE_CASES:
+        rep["serve"][tag] = serve(tag, arch, n)
+    # the planted fault: the merge of the ranks' partial outputs drops
+    # model rank 1's (its lse -inf: weight 0)
+    merge = L.merge_by_lse
+    L.merge_by_lse = lambda outs, lses: merge(outs, torch.cat(
+        [lses[:1], torch.full_like(lses[1:], -torch.inf)]))
+    try:
+        rep["fault"] = {tag: serve(tag, arch, n)
+                        for tag, arch, n, _ in MESH_SERVE_CASES
+                        if tag in MESH_FAULT_CASES}
+    finally:
+        L.merge_by_lse = merge
+    undo()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _spec_leaves(tree):
+    from repro_torch.launch.mesh import PartitionSpec
+    from repro_torch.models.params import tree_leaves
+    return tree_leaves(tree, lambda x: isinstance(x, PartitionSpec))
+
+
+def _want_serve_launches(tag, cfg, steps) -> dict:
+    """Each kernel's launches on a rank in a serving case: the prefill's
+    (one call a layer or site) and each decode step's."""
+    L, every = cfg.n_layers, cfg.shared_attn_every
+    sites = -(-L // every) if cfg.family == "hybrid" else 0
+    attn = sites if cfg.family == "hybrid" else (
+        0 if cfg.family == "ssm" else L)
+    dense = (sites if cfg.family == "hybrid" else
+             cfg.n_dense_layers if cfg.family == "moe" else
+             0 if cfg.family == "ssm" else L)
+    mla = cfg.attn_type == "mla"
+    ssd = L if cfg.family in ("ssm", "hybrid") else 0
+    return {"flash_attention": attn, "fused_mlp": dense * (1 + steps),
+            "flash_decode": 0 if mla else attn * steps, "ssd_scan": ssd}
+
+
+def _want_train_launches(cfg) -> dict:
+    """Each kernel's launches on a rank over the steps: every block's
+    forward and its remat recompute, a microbatch at a time (the moe
+    family's dense prelude runs outside the remat body: once)."""
+    spec = MESH_FAMILIES
+    n = spec["accum"] * spec["steps"]
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        sites = -(-L // cfg.shared_attn_every)
+        return {"flash_attention": 2 * n * sites, "fused_mlp": 2 * n * sites,
+                "flash_decode": 0, "ssd_scan": 2 * n * L}
+    pre = cfg.n_dense_layers
+    return {"flash_attention": n * (pre + 2 * (L - pre)),
+            "fused_mlp": n * pre, "flash_decode": 0, "ssd_scan": 0}
+
+
+def run_agreement(reps, kind, tag) -> float:
+    """Greedy agreement over every row of the run, as the serve phases
+    count it: each data coordinate's rows, from its model rank 0 (its
+    model peers compute the same rows: held equal in the checks)."""
+    rows = [r[kind][tag] for r in reps if r["coords"]["model"] == 0]
+    return (sum(x["agreed"] for x in rows)
+            / max(1, sum(x["positions"] for x in rows)))
+
+
+def fault_gates(reps, tag) -> dict:
+    """The serving gates on the run with the planted fault: whether the
+    logit error (or a non-finite logit) and the greedy agreement reject
+    it, with their readings."""
+    worst = max(r["fault"][tag]["max_rel_logit_err"] for r in reps)
+    finite = all(r["fault"][tag]["finite"] for r in reps)
+    agree = run_agreement(reps, "fault", tag)
+    return {"max_rel_logit_err": worst, "token_agreement": agree,
+            "logits_rejected": not (finite and worst <= mesh_logit_tol(tag)),
+            "agreement_rejected": agree < AGREE_MIN}
+
+
+def mesh_families_failures(reps, single) -> list:
+    """Every check of phase ``mesh_families`` that fails, named."""
+    bad = []
+    r0 = reps[0]
+    reduced = r0["reduced"]
+    for arch, n, leaves in MESH_TRAIN_CASES:
+        one, t0 = single["train"][arch], r0["train"][arch]
+        for i, (a, b) in enumerate(zip(t0["losses"], one["losses"])):
+            if not abs(a - b) <= TRAIN_MESH_LOSS_ATOL:
+                bad.append(f"{arch} step {i + 1} loss {a} vs one device {b}")
+        g, g1 = t0["grad_norms"][0], one["grad_norms"][0]
+        if not abs(g - g1) <= TRAIN_MESH_GNORM_RTOL * abs(g1):
+            bad.append(f"{arch} step 1 grad_norm {g} vs one device {g1}")
+        want = _want_train_launches(_cut(arch, n, reduced))
+        for r in reps:
+            t, k = r["train"][arch], r["rank"]
+            # each kept leaf on its own: a fault in a small leaf (MLA's
+            # latent down-projection) must not hide under the large ones
+            if not max(t["step1_grad"]["per_leaf"].values(),
+                       default=math.inf) <= TRAIN_MESH_GRAD_RTOL:
+                bad.append(f"{arch} rank {k}'s step 1 gradient vs one "
+                           f"device: {t['step1_grad']}")
+            if sorted(t["step1_grad"]["per_leaf"]) != sorted(leaves):
+                bad.append(f"{arch} rank {k} kept {t['step1_grad']}")
+            if t["losses"] != t0["losses"] or \
+                    t["grad_norms"] != t0["grad_norms"]:
+                bad.append(f"{arch} rank {k}'s metrics differ from rank 0's")
+            if t["launches"] != want:
+                bad.append(f"{arch} rank {k} launches {t['launches']}, not "
+                           f"{want}")
+            if t["syncs_step1"] != [0]:
+                bad.append(f"{arch} rank {k} host syncs in step 1: "
+                           f"{t['syncs_step1']}")
+            # the plain versions on CUDA tensors: only as the backward's
+            # oracles, once a backward call
+            if t["plain_on_cuda"] != t["oracle_calls"]:
+                bad.append(f"{arch} rank {k} plain versions on CUDA "
+                           f"tensors: {t['plain_on_cuda']}, not the "
+                           f"backward oracles' {t['oracle_calls']}")
+            off = [u for u in t["used"] if not u.endswith("/gloo/cuda")]
+            if off or not t["used"]:
+                bad.append(f"{arch} rank {k} collectives off gloo/cuda: "
+                           f"{off}")
+    for tag in MESH_FAULT_CASES:
+        gates = fault_gates(reps, tag)
+        if not (gates["logits_rejected"] or gates["agreement_rejected"]):
+            bad.append(f"{tag}: the planted fault passed the serving gates "
+                       f"{gates}")
+    for tag, arch, n, _ in MESH_SERVE_CASES:
+        cfg = _cut(arch, n, reduced)
+        agree = run_agreement(reps, "serve", tag)
+        if agree < AGREE_MIN:
+            bad.append(f"{tag} greedy agreement {agree} over the run's "
+                       f"rows, under {AGREE_MIN}")
+        for r in reps:
+            s, k = r["serve"][tag], r["rank"]
+            want = _want_serve_launches(tag, cfg, s["decode_steps"])
+            peer = next(x["serve"][tag] for x in reps
+                        if x["coords"]["data"] == r["coords"]["data"]
+                        and x["coords"]["model"] == 0)
+            if (s["max_rel_logit_err"], s["agreed"]) != (
+                    peer["max_rel_logit_err"], peer["agreed"]):
+                bad.append(f"{tag} rank {k}'s rows differ from its model "
+                           "peer's")
+            if not s["finite"] or s["max_rel_logit_err"] > mesh_logit_tol(
+                    tag):
+                bad.append(f"{tag} rank {k} vs one device: logit error "
+                           f"{s['max_rel_logit_err']}, finite {s['finite']}")
+            if not s["cache_specs_ok"]:
+                bad.append(f"{tag} rank {k} cache placed {s['cache_specs']}")
+            if s["launches"] != want:
+                bad.append(f"{tag} rank {k} launches {s['launches']}, not "
+                           f"{want}")
+            if s["lse_launches"] != want["flash_decode"]:
+                bad.append(f"{tag} rank {k}: {s['lse_launches']} "
+                           "flash_decode launches with the lse, not "
+                           f"{want['flash_decode']}")
+            if s["plain_on_cuda"]:
+                bad.append(f"{tag} rank {k} plain versions on CUDA tensors "
+                           f"{s['plain_on_cuda']}")
+            off = [u for u in s["used"] if not u.endswith("/gloo/cuda")]
+            if off or not s["used"]:
+                bad.append(f"{tag} rank {k} collectives off gloo/cuda: "
+                           f"{off}")
+    return bad
+
+
+def time_decode_lse() -> dict:
+    """``flash_decode(return_lse=True)`` at the placed decode's rank
+    slices (``LSE_SLICES``' danube and zamba2 shapes with live keys in
+    both halves) beside the call without the lse on the same inputs, both
+    graph-timed (``graph_ms``), the plain version eagerly; the bound from
+    the live slots' bytes and the two products; the library call that
+    gives the output and the log-sum-exp (memory-efficient attention, its
+    ``compute_log_sumexp``, over the kv heads expanded to every q head and
+    the mask as a bias, made before the timing)."""
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.models.layers import _window_mask
+    rows = {}
+    for c in (LSE_SLICES[0], LSE_SLICES[2]):
+        B, W, KV, G, hd, win, pos, part = c
+        a = decode_lse_case(*c, "bfloat16")
+        q, ck, cv, qp, kp, _, scale = a
+        fd = FD.flash_decode
+        out, lse = fd(*a, return_lse=True)
+        ref, ref_lse = FD.flash_decode_plain(*a, return_lse=True)
+        sync()
+        live = _window_mask(qp[:, None], kp, win)[:, 0]            # (B, W)
+        n_live = float(live.sum())
+        byts = n_live * KV * 2 * hd * ck.element_size() + _nbytes(
+            q, out, lse, qp, kp)
+        ops = 2.0 * n_live * KV * G * (hd + hd)
+        qt = q.reshape(B, KV * G, 1, hd)
+        kt, vt = (x.transpose(1, 2).repeat_interleave(G, 1).contiguous()
+                  for x in (ck, cv))
+        bias = torch.zeros((B, KV * G, 1, W), dtype=q.dtype, device=DEV)
+        bias.masked_fill_(~live[:, None, None, :], -torch.inf)
+
+        def library():
+            return torch.ops.aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, bias, True, scale=scale)
+        library()
+        r = {"shape": f"q ({B},{KV},{G},{hd}), cache ({B},{W},{KV},{hd}) "
+                      f"bf16, half {part} of a {2 * W}-slot ring",
+             "variant": fd.last_variant, "live_slots": n_live,
+             **lse_check(out, lse, ref, ref_lse, torch.bfloat16),
+             "ms": graph_ms(lambda: fd(*a, return_lse=True), SERVE["reps"]),
+             "no_lse_ms": graph_ms(lambda: fd(*a), SERVE["reps"]),
+             "plain_ms": cuda_ms(lambda: FD.flash_decode_plain(
+                 *a, return_lse=True), 2),
+             "library_ms": graph_ms(library, SERVE["reps"]),
+             "library_call": "aten._scaled_dot_product_efficient_attention"
+                             "(compute_log_sumexp=True)", "operations": ops}
+        r.update(zip(("bound_ms", "bound_by"), _bound(byts, ops)))
+        rows["danube" if hd == 80 else "zamba2"] = r
+        del a, out, lse, ref, ref_lse, kt, vt, bias
+    return rows
+
+
+def phase_mesh_families(smi):
+    """4 gloo ranks as subprocesses on cuda:0 (``mesh_families_rank``)
+    under a hard limit, after the one-device numbers they are held to
+    (``families_one_device``).  Prints the price of four ranks sharing one
+    card, not a multi-GPU speed."""
+    import gc
+    import shutil
+    import tempfile
+    spec = MESH_FAMILIES
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+              "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    world = spec["world"]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    t0 = time.perf_counter()
+    lse_rows = time_decode_lse()
+    empty_cache()
+    try:
+        single = families_one_device(workdir)
+        one_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        env = dict(os.environ,
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--mesh-families-rank", str(r), "--world", str(world),
+             "--workdir", workdir],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env) for r in range(world)]
+        outs, timed_out = [], False
+        deadline = time.perf_counter() + spec["limit_s"]
+        for p in procs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.perf_counter())))
+            except subprocess.TimeoutExpired:
+                timed_out = True
+                break
+        if timed_out:
+            for p in procs:
+                p.kill()
+            outs = [p.communicate() for p in procs]
+        out = {"phase": "mesh_families", "ranks": world,
+               "mesh": dict(zip(spec["axes"], spec["mesh"])),
+               "seconds": time.perf_counter() - t0, "one_device_s": one_s,
+               "ranks_s": time.perf_counter() - t1, "nvidia_smi": smi,
+               "parent_memory": parent, "one_device": single,
+               "decode_lse": lse_rows,
+               "card": "4 ranks sharing one H100 over gloo: the price of "
+                       "sharing the card, not a multi-GPU speed"}
+        errs = [(r, p.returncode, e[-3000:]) for r, (p, (_, e))
+                in enumerate(zip(procs, outs)) if p.returncode != 0]
+        if timed_out or errs:
+            out["errors"] = errs
+            out["timed_out"] = timed_out
+            emit(out)
+            raise SystemExit("a mesh_families rank failed: see errors")
+        reps = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                reps.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["train"] = {arch: {
+        "layers": reps[0]["train"][arch]["layers"],
+        "losses": reps[0]["train"][arch]["losses"],
+        "one_device_losses": single["train"][arch]["losses"],
+        "grad_norms": reps[0]["train"][arch]["grad_norms"],
+        "one_device_grad_norm": single["train"][arch]["grad_norms"][0],
+        **{f"{k}_by_rank": [r["train"][arch][k] for r in reps]
+           for k in ("step1_grad", "step_s", "syncs_step1",
+                     "sync_sites_step1", "launches", "peak_gib", "init_s")}}
+        for arch, _, _ in MESH_TRAIN_CASES}
+    out["serve"] = {tag: {
+        **{k: reps[0]["serve"][tag][k] for k in (
+            "layers", "prompt", "window", "decode_steps", "cache_specs",
+            "variants")},
+        **{f"{k}_by_rank": [r["serve"][tag][k] for r in reps]
+           for k in ("max_rel_logit_err", "token_agreement", "launches",
+                     "lse_launches", "prefill_s", "decode_s_per_step",
+                     "prefill_peak_gib", "peak_gib", "init_s")}}
+        for tag, _, _, _ in MESH_SERVE_CASES}
+    out["fault"] = {"planted": "the merge of the ranks' partial outputs "
+                               "drops model rank 1's",
+                    **{tag: fault_gates(reps, tag)
+                       for tag in MESH_FAULT_CASES}}
+    out.update(logit_rel_tol={t: mesh_logit_tol(t)
+                              for t, _, _, _ in MESH_SERVE_CASES},
+               agree_min=AGREE_MIN,
+               loss_atol=TRAIN_MESH_LOSS_ATOL,
+               grad_norm_rtol=TRAIN_MESH_GNORM_RTOL,
+               grad_rtol=TRAIN_MESH_GRAD_RTOL)
+    bad = mesh_families_failures(reps, single)
+    out["failures"] = bad
+    out["launches"] = {n: sum(
+        r["train"][a]["launches"][n] for r in reps
+        for a, _, _ in MESH_TRAIN_CASES) + sum(
+        r["serve"][t]["launches"][n] for r in reps
+        for t, _, _, _ in MESH_SERVE_CASES) for n in all_kernels()}
+    out["lse_launches"] = sum(r["serve"][t]["lse_launches"] for r in reps
+                              for t, _, _, _ in MESH_SERVE_CASES)
+    bad += [f"decode_lse {k}: {v}" for k, v in lse_rows.items()
+            if not v["ok"] or v["variant"] != "cp_async"]
+    emit(out)
+    if bad:
+        raise SystemExit("mesh_families: " + "; ".join(bad[:8]))
+    return out
+
+
 def card_case(test_name, *args):
     """Run one case of the gpu-marked test ``test_name`` (its arguments, in
     its signature's order, the card fixture left out)."""
@@ -7329,6 +8336,14 @@ def serve_row(rows, key):
 SSD_VARIANT = "tf32x3"
 
 
+def kernel_lse_row(r):
+    """``time_decode_lse``'s row in the kernels line."""
+    return {k: r[k] for k in ("shape", "variant", "max_abs_err",
+                              "lse_max_abs_err", "ms", "no_lse_ms",
+                              "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}
+
+
 def kernel_row(r):
     return {**{k: r[k] for k in KERNEL_KEYS},
             **{k: r[k] for k in KERNEL_EXTRA_KEYS if r.get(k) is not None}}
@@ -7351,19 +8366,29 @@ def main() -> int:
                     help="device, build, kernel parity, the sweep, the main "
                          "path and the two multi-device phases only")
     ap.add_argument("--mesh-only", action="store_true",
-                    help="device, build, the danube training phase and "
-                         "train_mesh only")
+                    help="device, build and train_mesh only")
+    ap.add_argument("--families-only", action="store_true",
+                    help="device, build, the LLM kernels' parity and "
+                         "mesh_families only")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/spill report")
     ap.add_argument("--collectives-rank", type=int, default=None,
                     help=argparse.SUPPRESS)     # one rank of "collectives"
     ap.add_argument("--train-mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)     # one rank of "train_mesh"
+    ap.add_argument("--mesh-families-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)     # one of "mesh_families"
+    ap.add_argument("--dryrun-out", default=None,
+                    help=argparse.SUPPRESS)     # the dry run's process
     ap.add_argument("--world", type=int, default=COLL["world"],
                     help=argparse.SUPPRESS)
     ap.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
+    if args.dryrun_out is not None:        # counts on fakes: no card
+        with open(args.dryrun_out, "w") as f:
+            json.dump(dryrun_on_card(), f)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures on the card "
               "and does not fall back to the CPU", file=sys.stderr)
@@ -7374,6 +8399,9 @@ def main() -> int:
     if args.train_mesh_rank is not None:
         return train_mesh_rank(args.train_mesh_rank, args.world,
                                args.workdir)
+    if args.mesh_families_rank is not None:
+        return mesh_families_rank(args.mesh_families_rank, args.world,
+                                  args.workdir)
 
     from repro_torch.kernels import build
     from repro_torch.kernels.tick_sim import fused_tick_sim
@@ -7397,9 +8425,15 @@ def main() -> int:
     device = {"platform": "gpu", "kind": name,
               "count": torch.cuda.device_count()}
     if args.mesh_only:
-        phase_train_mesh(phase_train(), smi)
+        phase_train_mesh(smi)
         print(smi, flush=True)
         emit({"ok": True, "mesh_only": True, "device": device})
+        return 0
+    if args.families_only:
+        phase_llm_kernels()
+        phase_mesh_families(smi)
+        print(smi, flush=True)
+        emit({"ok": True, "families_only": True, "device": device})
         return 0
 
     parity = phase_kernels()
@@ -7415,9 +8449,10 @@ def main() -> int:
         emit({"ok": True, "serve_only": True, "device": device})
         return 0
     if args.train_only:
+        dry_job = start_dryrun()
         train_reports, _ = phase_training()
-        phase_costing({}, train_reports)
-        phase_train_mesh(train_reports["train"], smi)
+        phase_costing({}, train_reports, dry_job)
+        phase_train_mesh(smi)
         print(smi, flush=True)
         emit({"ok": True, "train_only": True, "device": device})
         return 0
@@ -7441,6 +8476,9 @@ def main() -> int:
         emit({"ok": True, "shard_only": True, "device": device})
         return 0
 
+    # the dry run counts on fakes in a process of its own, beside the
+    # card's phases; phase_costing collects it
+    dry_job = start_dryrun()
     # comparisons and timings (their launches are not the main path's)
     main_report = verify_main_path(main_report, main_ctx)
     a12_report = verify_main_path_a12(a12_report, a12_ctx)
@@ -7475,19 +8513,23 @@ def main() -> int:
     hyb_launches = hyb_report["launches"]
     moe_launches = moe_report["launches"]
     mla_launches = mla_report["launches"]
+    # the GSPMD half on 4 ranks sharing the card, each rank counting its
+    # launches from 0 just before its steps and reading them just after;
+    # the card is theirs (the contexts no later phase reads are dropped)
+    del main_ctx, a12_ctx, cl_ctx, cl_runs
+    mesh_report = phase_train_mesh(smi)
+    mesh_launches = {n: sum(r[n] for r in mesh_report["launches_by_rank"])
+                     for n in mesh_report["launches_by_rank"][0]}
+    # every family from placed parameters, training and serving, on 4
+    # ranks sharing the card, each rank counting from 0 just before each
+    # case and reading just after
+    families = phase_mesh_families(smi)
     # the training paths, each counted inside drive_train the same way
     train_reports, train_kernels_report = phase_training()
     # the cost model beside the measured paths (it re-runs none of them)
     phase_costing({"serve": serve_report, "serve_ssm": ssm_report,
                    "serve_hybrid": hyb_report, "serve_moe": moe_report,
-                   "serve_mla": mla_report}, train_reports)
-    # the GSPMD half on 4 ranks sharing the card, each rank counting its
-    # launches from 0 just before its steps and reading them just after;
-    # the card is theirs (the contexts no later phase reads are dropped)
-    del main_ctx, a12_ctx, cl_ctx, cl_runs
-    mesh_report = phase_train_mesh(train_reports["train"], smi)
-    mesh_launches = {n: sum(r[n] for r in mesh_report["launches_by_rank"])
-                     for n in mesh_report["launches_by_rank"][0]}
+                   "serve_mla": mla_report}, train_reports, dry_job)
 
     def sub_row(rows, launches, n):
         """A serving path's row of kernel ``n``, with its own launches."""
@@ -7525,7 +8567,8 @@ def main() -> int:
         "launches": (path_launches[n] + hyb_launches[n] + moe_launches[n]
                      + mla_launches[n]
                      + sum(r["launches"][n] for r in train_reports.values())
-                     + mesh_launches.get(n, 0)),
+                     + mesh_launches.get(n, 0)
+                     + families["launches"][n]),
         **kernel_row(serve_rows[n]),
         **({"also": kernel_row(serve_rows[n]["also"])}
            if "also" in serve_rows[n] else {}),
@@ -7538,7 +8581,13 @@ def main() -> int:
            if n in TRAIN_FUNCTIONS else {}),
         **({"train_mesh": {"launches": mesh_launches[n],
                            "ranks": TRAIN_MESH["world"]}}
-           if n in mesh_launches else {})}
+           if n in mesh_launches else {}),
+        "mesh_families": {"launches": families["launches"][n],
+                          "ranks": MESH_FAMILIES["world"]},
+        **({"lse": {"launches": families["lse_launches"],
+                    **{k: kernel_lse_row(v) for k, v in
+                       families["decode_lse"].items()}}}
+           if n == "flash_decode" else {})}
         for n in LLM_REPLACES]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

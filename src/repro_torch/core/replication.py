@@ -19,8 +19,8 @@ run's) and on a :class:`~repro_torch.launch.mesh.ProcessMesh` (the
 trainer's, whose ranks hold the placed tensors).  The port's layers keep
 the batch on the data axes: a K > 1 tile's weights are replicated over
 ``replica`` as the rules say, but its stream is not split over it yet
-(ROADMAP queue A item 12c, second half).  The two closed forms at the end
-are what the design-space sweep charges for the knob.
+(ROADMAP queue A item 12d, the rest of item 12c).  The two closed forms
+at the end are what the design-space sweep charges for the knob.
 """
 from __future__ import annotations
 

@@ -30,6 +30,11 @@
 //    slots are all dead (unwritten or out of the window) is not loaded.
 //  * Masking keeps the form p = live ? exp(s - m) : 0 and out = acc /
 //    max(l, 1e-30): a split, or a row, with no live slot adds nothing.
+//  * On request (a non-null lse) the combine also writes each row's
+//    log-sum-exp, M + log L in natural units, or -inf for a row with no
+//    live slot (whose output is 0).  A caller that splits the ring over
+//    ranks (flash-decoding across devices) merges the ranks' outputs by it;
+//    the sweep is unchanged, and a null lse costs one branch.
 //
 // Two sweeps, each with its combine; the wrapper picks one by dtype and
 // shape (kernels/flash_decode.py:_variant):
@@ -71,6 +76,8 @@
 #define FD_THREADS 128
 #define FD_ACC 16          // G * hd_v <= FD_THREADS * FD_ACC = 2048
 #define FD_NEG_INF (-1e30f)
+// the log-sum-exp of a row with no live slot: -inf
+#define FD_LSE_NONE (__int_as_float(0xff800000))
 
 __device__ __forceinline__ float fd_load(const float* p) { return *p; }
 __device__ __forceinline__ float fd_load(const __nv_bfloat16* p) {
@@ -227,7 +234,8 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TC* __restrict__ ck,
 template <typename TQ>
 __global__ void __launch_bounds__(FD_THREADS)
 flash_decode_combine_kernel(const float* __restrict__ part,
-                            TQ* __restrict__ out, int ns, int G, int hdv) {
+                            TQ* __restrict__ out, float* __restrict__ lse,
+                            int ns, int G, int hdv) {
   const int bk = blockIdx.x;
   const int nout = G * hdv;
   const size_t stride = (size_t)G * (hdv + 2);
@@ -244,6 +252,8 @@ flash_decode_combine_kernel(const float* __restrict__ part,
       A += ps[2 * G + i] * w;
     }
     fd_store(out + (size_t)bk * nout + i, A / fmaxf(L, 1e-30f));
+    if (lse != nullptr && i - g * hdv == 0)
+      lse[(size_t)bk * G + g] = L > 0.f ? M + logf(L) : FD_LSE_NONE;
   }
 }
 
@@ -639,7 +649,7 @@ flash_decode_warp_kernel(const TQ* __restrict__ q,
 template <typename TQ>
 __global__ void __launch_bounds__(FD2_THREADS)
 fd2_combine_kernel(const float* __restrict__ part, TQ* __restrict__ out,
-                   int ns, int G, int hdv) {
+                   float* __restrict__ lse, int ns, int G, int hdv) {
   extern __shared__ float fd2_w[];           // [G][ns] m, then weights
   float* lw = fd2_w + G * ns;                // [G][ns] l
   __shared__ float red[4][32];
@@ -683,6 +693,10 @@ fd2_combine_kernel(const float* __restrict__ part, TQ* __restrict__ out,
       L += __shfl_xor_sync(0xffffffffu, L, off);
     const float inv = 1.f / fmaxf(L, 1e-30f);
     for (int sp = lane; sp < ns; sp += 32) wg[sp] *= inv;
+    // the row's log-sum-exp in natural units (m is in log2 units)
+    if (lse != nullptr && blockIdx.y == 0 && lane == 0)
+      lse[(size_t)bk * G + g] =
+          L > 0.f ? (M + log2f(L)) * 0.6931471805599453f : FD_LSE_NONE;
   }
   __syncthreads();
   float a = 0.f;
@@ -706,8 +720,8 @@ fd2_combine_kernel(const float* __restrict__ part, TQ* __restrict__ out,
 template <typename TQ, int D>
 static int launch_warp_t(const void* q, const void* ck, const void* cv,
                          const int* qpos, const int* kpos, float* part,
-                         void* out, int B, int W, int KV, int G, int hd,
-                         int hdv, int window, int split, float scale,
+                         void* out, float* lse, int B, int W, int KV, int G,
+                         int hd, int hdv, int window, int split, float scale,
                          cudaStream_t stream) {
   const int ns = (W + split - 1) / split;
   const size_t smem = fd2_smem_bytes(hd, hdv, split);
@@ -733,32 +747,35 @@ static int launch_warp_t(const void* q, const void* ck, const void* cv,
                            (int)csmem);
   if (e != cudaSuccess) return (int)e;
   fd2_combine_kernel<TQ><<<dim3(B * KV, (G * hdv + 31) / 32), FD2_THREADS,
-                           csmem, stream>>>(part, (TQ*)out, parts, G, hdv);
+                           csmem, stream>>>(part, (TQ*)out, lse, parts, G,
+                                            hdv);
   return (int)cudaGetLastError();
 }
 
 template <typename TQ>
 static int launch_warp_d(const void* q, const void* ck, const void* cv,
                          const int* qpos, const int* kpos, float* part,
-                         void* out, int B, int W, int KV, int G, int hd,
-                         int hdv, int window, int split, float scale,
+                         void* out, float* lse, int B, int W, int KV, int G,
+                         int hd, int hdv, int window, int split, float scale,
                          cudaStream_t stream) {
   const int d = hd > hdv ? hd : hdv;
   if (d <= 64)
-    return launch_warp_t<TQ, 64>(q, ck, cv, qpos, kpos, part, out, B, W, KV,
-                                 G, hd, hdv, window, split, scale, stream);
+    return launch_warp_t<TQ, 64>(q, ck, cv, qpos, kpos, part, out, lse, B, W,
+                                 KV, G, hd, hdv, window, split, scale,
+                                 stream);
   if (d <= 80)
-    return launch_warp_t<TQ, 80>(q, ck, cv, qpos, kpos, part, out, B, W, KV,
-                                 G, hd, hdv, window, split, scale, stream);
-  return launch_warp_t<TQ, 128>(q, ck, cv, qpos, kpos, part, out, B, W, KV,
-                                G, hd, hdv, window, split, scale, stream);
+    return launch_warp_t<TQ, 80>(q, ck, cv, qpos, kpos, part, out, lse, B, W,
+                                 KV, G, hd, hdv, window, split, scale,
+                                 stream);
+  return launch_warp_t<TQ, 128>(q, ck, cv, qpos, kpos, part, out, lse, B, W,
+                                KV, G, hd, hdv, window, split, scale, stream);
 }
 
 template <typename TQ, typename TC>
 static int launch_t(const void* q, const void* ck, const void* cv,
                     const int* qpos, const int* kpos, float* part, void* out,
-                    int B, int W, int KV, int G, int hd, int hdv, int window,
-                    int split, float scale, cudaStream_t stream) {
+                    float* lse, int B, int W, int KV, int G, int hd, int hdv,
+                    int window, int split, float scale, cudaStream_t stream) {
   const int ns = (W + split - 1) / split;
   const size_t smem = sizeof(float) *
       ((size_t)G * hd + (size_t)FD_TILE * (hd + 1) + (size_t)FD_TILE * hdv +
@@ -774,7 +791,7 @@ static int launch_t(const void* q, const void* ck, const void* cv,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_decode_combine_kernel<TQ><<<B * KV, FD_THREADS, 0, stream>>>(
-      part, (TQ*)out, ns, G, hdv);
+      part, (TQ*)out, lse, ns, G, hdv);
   return (int)cudaGetLastError();
 }
 
@@ -783,13 +800,16 @@ static int launch_t(const void* q, const void* ck, const void* cv,
 // (flash_decode_warp_kernel: bf16 cache, hd and hd_v multiples of 8 up to
 // 128, G <= 16, split <= 1024, 16-byte aligned q and cache).  part: float32
 // scratch of B * KV * ceil(W / split) * G * (hd_v + 2), times 4 (a partial
-// per warp) for variant 1.  Returns a cudaError_t (0 = both
-// kernels launched); a variant whose conditions fail is refused.
+// per warp) for variant 1.  lse: float32 (B, KV, G), each row's
+// log-sum-exp of its scaled live scores in natural units (-inf for a row
+// with no live slot), or null when the caller does not want it; both
+// combines write it.  Returns a cudaError_t (0 = both kernels launched); a
+// variant whose conditions fail is refused.
 extern "C" int flash_decode_launch(const void* q, const void* ck,
                                    const void* cv, const int* qpos,
                                    const int* kpos, float* part, void* out,
-                                   int B, int W, int KV, int G, int hd,
-                                   int hdv, int window, int split,
+                                   float* lse, int B, int W, int KV, int G,
+                                   int hd, int hdv, int window, int split,
                                    float scale, int qdtype, int cdtype,
                                    int variant, cudaStream_t stream) {
   if (hd < 1 || hd > 256 || hdv < 1 || hdv > 256 ||
@@ -804,24 +824,27 @@ extern "C" int flash_decode_launch(const void* q, const void* ck,
          reinterpret_cast<uintptr_t>(cv)) % 16)
       return (int)cudaErrorInvalidValue;
     if (qdtype == 0)
-      return launch_warp_d<float>(q, ck, cv, qpos, kpos, part, out, B, W, KV,
-                                  G, hd, hdv, window, split, scale, stream);
-    return launch_warp_d<__nv_bfloat16>(q, ck, cv, qpos, kpos, part, out, B,
-                                        W, KV, G, hd, hdv, window, split,
+      return launch_warp_d<float>(q, ck, cv, qpos, kpos, part, out, lse, B, W,
+                                  KV, G, hd, hdv, window, split, scale,
+                                  stream);
+    return launch_warp_d<__nv_bfloat16>(q, ck, cv, qpos, kpos, part, out, lse,
+                                        B, W, KV, G, hd, hdv, window, split,
                                         scale, stream);
   }
   if (qdtype == 0 && cdtype == 0)
-    return launch_t<float, float>(q, ck, cv, qpos, kpos, part, out, B, W, KV,
-                                  G, hd, hdv, window, split, scale, stream);
+    return launch_t<float, float>(q, ck, cv, qpos, kpos, part, out, lse, B, W,
+                                  KV, G, hd, hdv, window, split, scale,
+                                  stream);
   if (qdtype == 0)
     return launch_t<float, __nv_bfloat16>(q, ck, cv, qpos, kpos, part, out,
-                                          B, W, KV, G, hd, hdv, window, split,
-                                          scale, stream);
+                                          lse, B, W, KV, G, hd, hdv, window,
+                                          split, scale, stream);
   if (cdtype == 0)
     return launch_t<__nv_bfloat16, float>(q, ck, cv, qpos, kpos, part, out,
-                                          B, W, KV, G, hd, hdv, window, split,
-                                          scale, stream);
+                                          lse, B, W, KV, G, hd, hdv, window,
+                                          split, scale, stream);
   return launch_t<__nv_bfloat16, __nv_bfloat16>(q, ck, cv, qpos, kpos, part,
-                                                out, B, W, KV, G, hd, hdv,
-                                                window, split, scale, stream);
+                                                out, lse, B, W, KV, G, hd,
+                                                hdv, window, split, scale,
+                                                stream);
 }

@@ -8,8 +8,13 @@ plain version, launch count.
 sweep chosen by :func:`_variant` from dtype and shape alone and its split
 by :func:`decode_split`, or raises; on CPU tensors it runs
 :func:`flash_decode_plain`.  ``flash_decode.launches`` counts launches of
-the pair, ``flash_decode.last_variant`` / ``last_split`` name the sweep
-and the split of the latest one.
+the pair (``lse_launches`` those with ``return_lse``),
+``flash_decode.last_variant`` / ``last_split`` name the sweep and the
+split of the latest one.  ``return_lse=True`` adds each row's
+log-sum-exp ``(B, KV, G)`` float32 (``-inf`` for a row with no live slot,
+whose output is 0), written by either sweep's combine: the weight by which
+a caller merges the outputs of several slices of one ring (placed decode,
+``models/layers.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from repro_torch.kernels._common import aligned16, check, on_card, \
     positions, refuse_counting, sm_count as _sm_count, stream_of
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
                                                  flash_attention_plain)
+from repro_torch.models.layers import _gqa_scores, _window_mask
 
 MAX_GROUP_OUT = 2048       # G * hd_v per kv head, the kernel's register bound
 # The split sweeps, by the code csrc/flash_decode.cu takes.
@@ -63,26 +69,33 @@ def decode_split(bkv: int, W: int, kv_block: int, n_sm: int) -> int:
 
 
 def flash_decode_plain(q, cache_k, cache_v, qpos, kpos, window: int = 0,
-                       scale: float = 1.0, kv_block: int = 512
-                       ) -> torch.Tensor:
+                       scale: float = 1.0, kv_block: int = 512,
+                       return_lse: bool = False):
     """The kernel's function in plain PyTorch: the reference's oracle
     (attention over the cache, ``kernels/ref.py:flash_decode_ref``) in the
     kernel's masked form (:func:`flash_attention_plain`).  ``kv_block`` only
-    sets the kernel's split length and does not change the function."""
+    sets the kernel's split length and does not change the function.  With
+    ``return_lse`` also each row's log-sum-exp of its scaled live scores,
+    ``(B, KV, G)`` float32, ``-inf`` where no slot is live."""
     out = flash_attention_plain(q[:, None], cache_k, cache_v, qpos[:, None],
-                                kpos, window, scale)
-    return out[:, 0]
+                                kpos, window, scale)[:, 0]
+    if not return_lse:
+        return out
+    s = _gqa_scores(q[:, None], cache_k)[..., 0, :] * scale   # (B,KV,G,W)
+    live = _window_mask(qpos[:, None], kpos, window)[:, 0][:, None, None]
+    lse = torch.logsumexp(torch.where(live, s, -torch.inf), dim=-1)
+    return out, lse
 
 
 _FN = None
 
 
 def _launch(q, cache_k, cache_v, qpos, kpos, window, scale, kv_block,
-            split=None, variant=None):
+            split=None, variant=None, return_lse=False):
     """One launch.  ``variant`` defaults to :func:`_variant` and ``split``
     (slots per block) to the variant's rule; both are given only to time
     the other sweep, or the split ``kv_block`` against the rule's, on the
-    same inputs."""
+    same inputs.  ``return_lse``: ``(out, lse)``."""
     global _FN
     qcode = check("q", q, 4)
     ccode = check("cache_k", cache_k, 4)
@@ -101,8 +114,11 @@ def _launch(q, cache_k, cache_v, qpos, kpos, window, scale, kv_block,
         raise ValueError(f"kv_block must be >= 1, got {kv_block}")
     qp, kp = positions(qpos, (B,)), positions(kpos, (B, W))
     out = torch.empty((B, KV, G, hd_v), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0 or W == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(-torch.inf)) if return_lse else out
     if variant is None:
         variant = _variant(cache_k.dtype, hd, hd_v, G,
                            aligned16(q, cache_k, cache_v), W)
@@ -117,11 +133,12 @@ def _launch(q, cache_k, cache_v, qpos, kpos, window, scale, kv_block,
         from repro_torch.kernels import build
         P, I = ctypes.c_void_p, ctypes.c_int
         _FN = build.function("flash_decode", "flash_decode_launch",
-                             [P] * 7 + [I] * 8 + [ctypes.c_float, I, I, I, P])
+                             [P] * 8 + [I] * 8 + [ctypes.c_float, I, I, I, P])
     with torch.cuda.device(q.device):
         rc = _FN(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
                  qp.data_ptr(), kp.data_ptr(), part.data_ptr(),
-                 out.data_ptr(), B, W, KV, G, hd, hd_v, int(window),
+                 out.data_ptr(), lse.data_ptr() if return_lse else None,
+                 B, W, KV, G, hd, hd_v, int(window),
                  int(split), float(scale), qcode, ccode, VARIANTS[variant],
                  stream_of(q))
     if rc != 0:
@@ -129,26 +146,31 @@ def _launch(q, cache_k, cache_v, qpos, kpos, window, scale, kv_block,
                            f"{rc}, {variant}, split {split}) for q "
                            f"{tuple(q.shape)}, W={W}")
     flash_decode.launches += 1
+    flash_decode.lse_launches += bool(return_lse)
     flash_decode.last_variant = variant
     flash_decode.last_split = split
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_decode(q, cache_k, cache_v, qpos, kpos, window: int = 0,
-                 scale: float = 1.0, kv_block: int = 512) -> torch.Tensor:
+                 scale: float = 1.0, kv_block: int = 512,
+                 return_lse: bool = False):
     """Same contract as the reference's ``ops.flash_decode``: q (B,KV,G,hd),
     cache_k (B,W,KV,hd), cache_v (B,W,KV,hd_v), qpos (B,), kpos (B,W) (slots
     not written yet carry a position above ``qpos``) -> (B,KV,G,hd_v) in q's
     dtype.  The kernel sweeps the cache in splits of at most ``kv_block``
     slots in parallel (``decode_split``) and merges them; q and the cache
-    may differ in dtype (float32 / bfloat16)."""
+    may differ in dtype (float32 / bfloat16).  ``return_lse``: ``(out,
+    lse)``, lse (B,KV,G) float32 as :func:`flash_decode_plain` gives it."""
     if on_card(q, cache_k, cache_v):
         refuse_counting("flash_decode")
         return _launch(q, cache_k, cache_v, qpos, kpos, window, scale,
-                       kv_block)
-    return flash_decode_plain(q, cache_k, cache_v, qpos, kpos, window, scale)
+                       kv_block, return_lse=return_lse)
+    return flash_decode_plain(q, cache_k, cache_v, qpos, kpos, window, scale,
+                              return_lse=return_lse)
 
 
 flash_decode.launches = 0
+flash_decode.lse_launches = 0      # the launches that asked for the lse
 flash_decode.last_variant = None
 flash_decode.last_split = None

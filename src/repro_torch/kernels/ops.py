@@ -16,7 +16,9 @@ The attention oracle's backward runs over as many kv heads at once as
 its float32 score transients leave room for on a card of its own
 (:func:`heads_that_fit`: all of them at the training shapes), and one at a
 time where several ranks share the card.
-``flash_decode`` is forward only (serving), as in the reference.
+``flash_decode`` is forward only (serving), as in the reference, with its
+signature (the kernel wrapper's ``return_lse`` is the placed decode's, in
+``models/layers.py``).
 
 These are the only callers that launch the kernels with autograd live: the
 raw wrappers refuse a CUDA input that requires grad, whose result would
@@ -31,7 +33,16 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_mlp as _fm
 from repro_torch.kernels import ref as REF
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.kernels.flash_decode import flash_decode  # noqa: F401
+from repro_torch.kernels import flash_decode as _fd
+
+
+def flash_decode(q, cache_k, cache_v, qpos, kpos, window: int = 0,
+                 scale: float = 1.0, kv_block: int = 512) -> torch.Tensor:
+    """The reference's ``ops.flash_decode``:
+    :func:`repro_torch.kernels.flash_decode.flash_decode` (the kernel on
+    CUDA tensors, its plain version on CPU ones), the output alone."""
+    return _fd.flash_decode(q, cache_k, cache_v, qpos, kpos, window, scale,
+                            kv_block)
 
 
 def _grad_of(fn, inputs, outputs_grad):

@@ -27,8 +27,11 @@ iota-compare loss; ``--grad-rs`` counts the bf16 gradient cast, with the
 per-layer ``block_pspecs`` and the gradients' specs from ``pspecs_for`` on
 the cell's mesh, as the reference builds them (on a logical mesh they
 move no data).  An ``ep`` strategy raises ``NotImplementedError``: the
-expert-parallel step over a 256- or 512-rank mesh in one process, and the
-collective term, wait for ROADMAP queue A item 12c's second half.
+expert-parallel cells, the collective term (the step of one rank of the
+256- or 512-rank mesh run in one process) and the MRA stream split over
+``replica`` wait for ROADMAP queue A item 12d, the rest of item 12c.  Every
+family's train step, ``prefill`` and ``decode_step`` run from placed
+parameters (a ``ProcessMesh``), so that step can be counted.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k
@@ -68,12 +71,13 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 COLLECTIVE_NOTE = (
     "not measured: the reference reads collective bytes from XLA's "
     "partitioned HLO; the port counts the collectives a step dispatches on "
-    "a ProcessMesh (launch.costing.collective_stats), and a 256- or "
-    "512-rank step in one process waits for ROADMAP queue A item 12c's "
-    "second half")
+    "a ProcessMesh (launch.costing.collective_stats), and the step of one "
+    "rank of a 256- or 512-rank mesh run in one process waits for ROADMAP "
+    "queue A item 12d, the rest of item 12c")
 
 _ITEM_12 = ("the expert-parallel dry run is not ported yet (ROADMAP queue A "
-            "item 12c, second half)")
+            "item 12d, the rest of item 12c, with the collective term and "
+            "the MRA stream split)")
 
 
 @dataclass(frozen=True)

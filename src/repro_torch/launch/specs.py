@@ -10,7 +10,8 @@ device) and the C3 counters.  The shardings are
 :class:`~repro_torch.launch.mesh.ProcessMesh` (the rules read only its
 ``shape`` and ``axis_names``), worked out by the reference's rules;
 :func:`per_device_bytes` reads what one device would hold, and
-``models.params.place_params`` places a tree by them on a ``ProcessMesh``.
+``models.params.place_params`` places a tree by them on a ``ProcessMesh``
+(:func:`place_cache` a decode cache, by :func:`cache_specs`).
 
 All cells feed discrete tokens: the [vlm]/[audio] archs (chameleon,
 musicgen) are early-fusion models over VQ/EnCodec *tokens*, so the modality
@@ -33,7 +34,8 @@ from repro_torch.core.replication import merged_rules
 from repro_torch.core.tiles import TilePlan, default_plan
 from repro_torch.launch.mesh import LogicalMesh, PartitionSpec as P, \
     Sharding
-from repro_torch.models.params import pspecs_for, tree_leaves, tree_map
+from repro_torch.models.params import (pspecs_for, tree_leaves, tree_map,
+                                       tree_unflatten)
 from repro_torch.models.transformer import LM
 from repro_torch.optim import adamw
 
@@ -183,6 +185,38 @@ def cache_shardings(lm: LM, cache_abs, mesh: LogicalMesh):
             out[k] = tree_map(lambda a: Sharding(mesh, P()), v,
                               torch.is_tensor)
     return out
+
+
+def cache_specs(lm: LM, batch: int, window: int, mesh):
+    """Each leaf's ``PartitionSpec`` in ``lm``'s decode cache for ``batch``
+    rows and a ``window``-slot ring on ``mesh`` (a ``ProcessMesh`` or a
+    ``LogicalMesh``): :func:`cache_shardings`' policy, in the tree of
+    ``LM.init_cache``."""
+    sh = cache_shardings(lm, lm.init_cache(batch, window, device=META), mesh)
+    return tree_map(lambda x: x.spec, sh, lambda x: isinstance(x, Sharding))
+
+
+def place_cache(lm: LM, blocks, mesh, window: int):
+    """The decode cache of a ``window``-slot ring on the ``ProcessMesh``,
+    placed by :func:`cache_specs`: DTensor leaves over ``blocks``, the tree
+    of ``LM.init_cache`` holding this rank's block of each leaf under its
+    spec (``pos`` whole).  ``LM.prefill`` from placed parameters builds its
+    cache so, a layer at a time; ``LM.decode_step`` from placed parameters
+    takes it.  No collective."""
+    from repro_torch.parallel import placement as PL
+    B = blocks["pos"].shape[0]
+    whole = lm.init_cache(B, window, device=META)
+    specs = tree_leaves(cache_specs(lm, B, window, mesh),
+                        lambda x: isinstance(x, P))
+    got = []
+    for t, sp, w in zip(tree_leaves(blocks, torch.is_tensor), specs,
+                        tree_leaves(whole, torch.is_tensor)):
+        want = PL.local_block(w, sp, mesh).shape
+        if t.shape != want:
+            raise ValueError(f"a cache block {tuple(t.shape)}, not "
+                             f"{tuple(want)}: {tuple(w.shape)} placed {sp!r}")
+        got.append(PL.from_block(t.contiguous(), sp, mesh, tuple(w.shape)))
+    return tree_unflatten(blocks, got)
 
 
 def param_shardings(lm: LM, mesh: LogicalMesh,

@@ -29,6 +29,20 @@ The input, replicated over those axes, enters through
 ``collectives.replicated`` (its gradient summed over them) and the
 row-parallel output leaves through ``psum``.
 
+Placed serving: ``gqa_apply`` with ``return_cache`` gives this rank's
+rows' k / v on its own kv heads, ``mla_apply`` its rows' latent cache
+whole; the model moves each layer's to its block of the decode cache
+(``launch.specs.cache_shardings``) as the layer makes it
+(:func:`cache_to_window`: one all-to-all from the heads to the window).
+``gqa_decode`` / ``mla_decode`` under ``ps`` take this rank's block of a
+*window-split* cache (flash-decoding's layout: the ring's slots split over
+the ``wax`` axes, every kv head on every rank): q of every head is
+gathered (one token), each rank attends over its own slots and returns its
+partial output with its log-sum-exp, :func:`combine_by_lse` merges the
+ranks' partials, and ``wo`` runs on the rank's own heads; the new token's
+K/V (MLA: its latent) is written only by the rank that holds ring slot
+``pos % W`` (:func:`ring_write`).
+
 MLA (DeepSeek-V2): ``mla_apply`` expands K and V from the latent and runs
 plain MHA through ``attention_core`` (hd_qk ``nope + rope``, hd_v
 ``v_head_dim``); ``mla_decode`` runs the absorbed products over the latent
@@ -49,7 +63,7 @@ from repro_torch.kernels._common import repeat, unfolded
 from repro_torch.launch.mesh import get_mesh
 from repro_torch.models.params import activation_spec, get_batch_axes, spec
 from repro_torch.parallel import collectives as C
-from repro_torch.parallel.placement import entry_axes, relayout
+from repro_torch.parallel.placement import entry_axes, relayout, swap_split
 
 DATA = ("pod", "data")     # batch sharding axes (filtered to the live mesh)
 MODEL = "model"            # intra-tile model fabric ("shard" on MRA meshes)
@@ -162,6 +176,82 @@ def blocks_as(p: Dict, ps: Dict, want: Dict, mesh) -> Dict:
     (relaid out where their own spec ``ps`` differs)."""
     return {k: relayout(p[k], ps[k], want[k], mesh) for k in want}
 
+
+def merge_by_lse(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Normalised partial outputs ``outs`` (n, ..., D) over n slices of
+    the keys merged by their log-sum-exps ``lses`` (n, ...) into the output
+    over all the keys, float32: the maximum of the lse over the slices,
+    then the sum of the outputs rescaled by ``exp(lse - max)`` over the sum
+    of those weights.  A slice with no live key (``lse`` -inf, output 0)
+    weighs exactly 0: the maximum is taken with a finite floor, so
+    ``exp(lse - m)`` is ``exp(-inf) = 0`` there and never ``nan``."""
+    w = torch.exp(lses - torch.clamp(lses, min=NEG_INF).amax(0))
+    return (outs.float() * w[..., None]).sum(0) / torch.clamp(
+        w.sum(0), min=1e-30)[..., None]
+
+
+def combine_by_lse(out: torch.Tensor, lse: torch.Tensor, axes,
+                   mesh) -> torch.Tensor:
+    """The ranks of ``axes`` each attended over their own slice of the
+    keys: their partial outputs ``out`` (..., D) and log-sum-exps ``lse``
+    (...) brought to every rank in one all-gather and merged there
+    (:func:`merge_by_lse`), float32."""
+    if not axes:
+        return out.float()
+    both = C.all_gather(torch.cat([out.float(), lse[..., None]], -1), axes,
+                        mesh)                             # (n, ..., D + 1)
+    return merge_by_lse(both[..., :-1], both[..., -1])
+
+
+def gather_last(parts, axes, mesh):
+    """Tensors split on their last dim over ``axes`` (this rank's blocks,
+    one leading shape), each gathered whole with one all-gather for all."""
+    if not axes:
+        return list(parts)
+    sizes = [t.shape[-1] for t in parts]
+    g = C.all_gather(torch.cat(parts, -1), axes, mesh)   # (n, ..., sum)
+    g = g.movedim(0, -2)                                 # (..., n, sum)
+    out, at = [], 0
+    for k in sizes:
+        out.append(g[..., at:at + k].reshape(g.shape[:-2] + (-1,)))
+        at += k
+    return out
+
+
+def ring_write(cache: torch.Tensor, new: torch.Tensor,
+               local: torch.Tensor) -> None:
+    """Row ``b`` of ``new`` (B, ...) into this rank's slice ``cache`` (B,
+    W_l, ...) of a ring at local slot ``local[b]``, **in place**, for the
+    rows whose slot lies in the slice (``0 <= local < W_l``); the others
+    keep what they hold (another rank holds their slot).  No host read."""
+    W_l = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = torch.clamp(local, 0, W_l - 1).long()
+    mine = ((local >= 0) & (local < W_l)).reshape(
+        (-1,) + (1,) * (new.dim() - 1))
+    cache[rows, at] = torch.where(mine, new.to(cache.dtype), cache[rows, at])
+
+
+def window_slice(pos: torch.Tensor, W_l: int, wax, mesh):
+    """(this rank's first ring slot, the ring's length W, the slots' key
+    positions (B, W_l)) for a ring of ``W_l`` slots a rank split over
+    ``wax``."""
+    lo = C.axis_index(wax, mesh) * W_l if wax else 0
+    W = W_l * (C.axis_size(wax, mesh) if wax else 1)
+    return lo, W, ring_kpos(pos, W)[:, lo:lo + W_l]
+
+
+def cache_to_window(a: torch.Tensor, heads, wax, mesh) -> torch.Tensor:
+    """A prefill's ring (B, W, H, ...) of this rank's rows, dim 2 split
+    over ``heads`` (a placed layer's kv heads; ``()``: whole), as the
+    decode cache's block: this rank's slice of the window over ``wax``,
+    every head.  One all-to-all where both are the same one axis (each
+    rank sends each peer the peer's slots of its own heads), else by
+    ``relayout`` (no collective where the heads are whole)."""
+    heads, wax = tuple(heads), tuple(wax)
+    if heads and heads == wax and len(heads) == 1:
+        return swap_split(a, 2, 1, heads[0], mesh)
+    return relayout(a, (None, None, heads), (None, wax), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -339,12 +429,11 @@ def gqa_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, opts: AttnOptions,
               return_cache: bool = False, ps: Optional[Dict] = None):
     """Full-sequence (prefill) GQA attention.  ``ps``: the specs of placed
-    parameters (``p`` then holds this rank's blocks; training only)."""
+    parameters (``p`` then holds this rank's blocks; the cache is then
+    this rank's rows' on its kv heads)."""
     if ps is not None:
-        if return_cache:
-            raise NotImplementedError("a cache from placed parameters: "
-                                      "serving runs on one device")
-        return _gqa_apply_placed(p, cfg, x, positions, opts, ps)
+        return _gqa_apply_placed(p, cfg, x, positions, opts, ps,
+                                 return_cache)
     B, S, _ = x.shape
     q, k, v = gqa_project(p, cfg, x, positions)
     out = attention_core(q, k, v, positions, positions, cfg.sliding_window,
@@ -355,22 +444,37 @@ def gqa_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     return out
 
 
-def _gqa_apply_placed(p: Dict, cfg: ArchConfig, x: torch.Tensor,
-                      positions: torch.Tensor, opts: AttnOptions,
-                      ps: Dict) -> torch.Tensor:
-    """GQA attention on this rank's kv heads: the reference's q / k / v
-    site ``(DATA, None, MODEL)`` on the kv-heads dim names the axes ``tp``
-    (none when they do not divide the kv heads); ``wq`` / ``wk`` / ``wv``
-    as their column blocks over ``tp``, ``wo`` as its row block; the kernel
-    (or plain version) on the local heads; the output summed over ``tp``."""
+def kv_heads_axes(cfg: ArchConfig, B: int, mesh) -> Tuple[str, ...]:
+    """The axes placed GQA splits the kv heads over, for ``B`` rows a
+    rank: the reference's q / k / v site ``(DATA, None, MODEL)`` on the
+    kv-heads dim names them (none when they do not divide the kv heads)."""
+    KV = cfg.n_kv_heads
+    return site((B, 1, KV, cfg.n_heads // KV, cfg.head_dim), mesh, DATA,
+                None, MODEL)[2]
+
+
+def _gqa_heads(p: Dict, cfg: ArchConfig, x: torch.Tensor, ps: Dict):
+    """(the axes ``tp`` the kv heads are split over
+    (:func:`kv_heads_axes`), this rank's kv heads, ``wq`` / ``wk`` / ``wv``
+    as their column blocks over ``tp`` and ``wo`` as its row block)."""
     mesh = get_mesh()
-    B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    G = H // KV
-    tp = site((B, S, KV, G, hd), mesh, DATA, None, MODEL)[2]
-    kvl = KV // C.axis_size(tp, mesh)
+    KV = cfg.n_kv_heads
+    tp = kv_heads_axes(cfg, x.shape[0], mesh)
     w = blocks_as(p, ps, {"wq": (None, tp), "wk": (None, tp),
                           "wv": (None, tp), "wo": (tp, None)}, mesh)
+    return tp, KV // C.axis_size(tp, mesh), w
+
+
+def _gqa_apply_placed(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+                      positions: torch.Tensor, opts: AttnOptions,
+                      ps: Dict, return_cache: bool = False):
+    """GQA attention on this rank's kv heads (:func:`_gqa_heads`); the
+    kernel (or plain version) on the local heads; the output summed over
+    ``tp``.  The cache: this rank's k / v, its kv heads."""
+    mesh = get_mesh()
+    B, S, _ = x.shape
+    G, hd = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    tp, kvl, w = _gqa_heads(p, cfg, x, ps)
     h = C.replicated(x, tp, mesh)
     q = (h @ w["wq"]).reshape(B, S, kvl * G, hd)
     k = (h @ w["wk"]).reshape(B, S, kvl, hd)
@@ -379,8 +483,10 @@ def _gqa_apply_placed(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     k = apply_rope(k, positions, cfg.rope_theta)
     out = attention_core(q, k, v, positions, positions, cfg.sliding_window,
                          opts)
-    out = out.reshape(B, S, kvl * G * hd) @ w["wo"]
-    return C.psum(out, tp, mesh)
+    out = C.psum(out.reshape(B, S, kvl * G * hd) @ w["wo"], tp, mesh)
+    if return_cache:
+        return out, (k, v)
+    return out
 
 
 def ring_kpos(pos: torch.Tensor, W: int) -> torch.Tensor:
@@ -396,15 +502,21 @@ def ring_kpos(pos: torch.Tensor, W: int) -> torch.Tensor:
 
 def gqa_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                cache_k: torch.Tensor, cache_v: torch.Tensor,
-               pos: torch.Tensor, opts: AttnOptions
+               pos: torch.Tensor, opts: AttnOptions,
+               ps: Optional[Dict] = None, wax=()
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token decode with a (ring-buffered when SWA) KV cache.
 
     x: (B,1,d); cache_k/v: (B,W,KV,hd); pos: (B,) int32, each row's current
     position (a scalar is broadcast).  Row b's new K/V is written at ring
     slot ``pos[b] % W`` **in place** (``cache_k``/``cache_v`` are modified
-    and returned).  Returns (out (B,1,d), cache_k, cache_v).
+    and returned).  Returns (out (B,1,d), cache_k, cache_v).  ``ps``: the
+    specs of placed parameters; the cache is then this rank's slice of the
+    ring over ``wax`` (the module's notes).
     """
+    if ps is not None:
+        return _gqa_decode_placed(p, cfg, x, cache_k, cache_v, pos, opts, ps,
+                                  wax)
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
     W = cache_k.shape[1]
@@ -430,6 +542,46 @@ def gqa_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     return out, cache_k, cache_v
 
 
+def _decode_attn(opts: AttnOptions):
+    """The window slice's attention with its log-sum-exp: the kernel under
+    ``fused`` (its plain version on CPU tensors), else the plain version."""
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    return flash_decode if opts.backend == "fused" else flash_decode_plain
+
+
+def _gqa_decode_placed(p, cfg, x, cache_k, cache_v, pos, opts, ps, wax):
+    mesh = get_mesh()
+    B = x.shape[0]
+    G, hd = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    tp, kvl, w = _gqa_heads(p, cfg, x, ps)
+    pos = torch.as_tensor(pos, dtype=torch.int32,
+                          device=x.device).expand(B).contiguous()
+    q = (x @ w["wq"]).reshape(B, 1, kvl * G, hd)
+    k = (x @ w["wk"]).reshape(B, 1, kvl, hd)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta).reshape(B, kvl, G, hd)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)[:, 0]
+    v = (x @ w["wv"]).reshape(B, kvl, hd)
+    # every head's q, k and v on every rank (one token each), gathered at
+    # once: (B, kv heads, G + 2, hd) split on the kv heads
+    heads = (None, tp)
+    qkv = relayout(torch.cat([q, k[:, :, None], v[:, :, None]], 2), heads,
+                   (), mesh)
+    q, k, v = qkv[:, :, :G].contiguous(), qkv[:, :, G], qkv[:, :, G + 1]
+    lo, W, kpos = window_slice(pos, cache_k.shape[1], wax, mesh)
+    local = pos % W - lo
+    ring_write(cache_k, k, local)
+    ring_write(cache_v, v, local)
+    out, lse = _decode_attn(opts)(q, cache_k, cache_v, pos, kpos,
+                                  cfg.sliding_window or 0,
+                                  1.0 / math.sqrt(hd), opts.kv_block,
+                                  return_lse=True)
+    out = relayout(combine_by_lse(out, lse, wax, mesh).to(x.dtype), (), heads,
+                   mesh)
+    out = out.reshape(B, 1, kvl * G * hd) @ w["wo"]
+    return C.psum(out, tp, mesh), cache_k, cache_v
+
+
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V2 multi-head latent attention)
 # ---------------------------------------------------------------------------
@@ -450,14 +602,15 @@ def mla_spec(cfg: ArchConfig):
 
 
 def _mla_qc(p: Dict, cfg: ArchConfig, x: torch.Tensor,
-            positions: torch.Tensor):
+            positions: torch.Tensor, xq: Optional[torch.Tensor] = None):
     """Queries and the compressed KV stream: q_nope (B,S,H,nope), rotated
     q_rope (B,S,H,rope), the normed latent ckv (B,S,r) and the rotated
-    shared key k_rope (B,S,rope)."""
+    shared key k_rope (B,S,rope).  ``xq``: the queries' input where it is
+    not ``x`` (placed: ``x`` entering this rank's heads), H then the heads
+    of ``p["wq"]``'s block."""
     B, S, _ = x.shape
-    H = cfg.n_heads
     rope, nope, r = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.kv_lora_rank
-    q = (x @ p["wq"]).reshape(B, S, H, nope + rope)
+    q = ((x if xq is None else xq) @ p["wq"]).reshape(B, S, -1, nope + rope)
     q_nope = q[..., :nope]
     q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
     dkv = x @ p["w_dkv"]                                   # (B,S,r+rope)
@@ -469,12 +622,15 @@ def _mla_qc(p: Dict, cfg: ArchConfig, x: torch.Tensor,
 
 def mla_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, opts: AttnOptions,
-              return_cache: bool = False):
+              return_cache: bool = False, ps: Optional[Dict] = None):
     """Full-sequence (prefill) MLA, not absorbed: K and V are expanded from
     the latent and attention runs as MHA (KV = H, G = 1) at hd_qk
     ``nope + rope`` and hd_v ``v_head_dim``, scale ``1/sqrt(nope + rope)``.
     ``return_cache`` adds the compressed cache ``(ckv (B,S,r), k_rope
-    (B,S,rope))``."""
+    (B,S,rope))``.  ``ps``: the specs of placed parameters
+    (:func:`_mla_apply_placed`)."""
+    if ps is not None:
+        return _mla_apply_placed(p, cfg, x, positions, opts, ps, return_cache)
     B, S, _ = x.shape
     H = cfg.n_heads
     rope, nope, vh = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
@@ -487,6 +643,54 @@ def mla_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     out = attention_core(q, k, v, positions, positions, 0, opts,
                          scale=1.0 / math.sqrt(nope + rope))
     out = out.reshape(B, S, H * vh) @ p["wo"]
+    if return_cache:
+        return out, (ckv, k_rope)
+    return out
+
+
+def _mla_heads(p: Dict, cfg: ArchConfig, x: torch.Tensor, ps: Dict):
+    """(the axes ``tp`` the heads are split over, this rank's heads, the
+    weights as their blocks): the reference's q site ``(DATA, None, MODEL)``
+    on the heads dim (MHA: G 1) names ``tp``; ``wq`` / ``w_uk`` / ``w_uv``
+    as their column blocks over ``tp``, ``wo`` as its row block, the latent
+    down-projection ``w_dkv`` and ``kv_norm`` whole (every rank reads the
+    latent whole: the rules put ``kv_lora`` on no axis)."""
+    mesh = get_mesh()
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    tp = site((B, S, H, 1, cfg.qk_nope_dim + cfg.qk_rope_dim), mesh, DATA,
+              None, MODEL)[2]
+    col = (None, tp)
+    w = blocks_as(p, ps, {"wq": col, "w_uk": col, "w_uv": col,
+                          "wo": (tp, None), "w_dkv": (), "kv_norm": ()},
+                  mesh)
+    return tp, H // C.axis_size(tp, mesh), w
+
+
+def _mla_apply_placed(p, cfg, x, positions, opts, ps, return_cache):
+    """MLA prefill on this rank's heads.  The queries' input enters the
+    rank's heads through ``replicated``; the latent and the rope key, which
+    every rank computes whole from ``x`` and each rank's heads read, enter
+    them through ``replicated`` once, after the down-projection: their
+    gradients are the ranks' partial ones summed, and the gradient they
+    send back to ``x`` and ``w_dkv`` is then whole on every rank (counted
+    once).  The cache: the latent and the rope key, whole."""
+    mesh = get_mesh()
+    B, S, _ = x.shape
+    rope, nope, vh = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    tp, hl, w = _mla_heads(p, cfg, x, ps)
+    q_nope, q_rope, ckv, k_rope = _mla_qc(w, cfg, x, positions,
+                                          xq=C.replicated(x, tp, mesh))
+    ckv_h, krope_h = C.replicated(ckv, tp, mesh), C.replicated(k_rope, tp,
+                                                               mesh)
+    k_nope = (ckv_h @ w["w_uk"]).reshape(B, S, hl, nope)
+    v = (ckv_h @ w["w_uv"]).reshape(B, S, hl, vh)
+    q = torch.cat([q_nope, q_rope], dim=-1).reshape(B, S, hl, 1, nope + rope)
+    k = torch.cat([k_nope, krope_h[:, :, None, :].expand(B, S, hl, rope)],
+                  dim=-1)
+    out = attention_core(q, k, v, positions, positions, 0, opts,
+                         scale=1.0 / math.sqrt(nope + rope))
+    out = C.psum(out.reshape(B, S, hl * vh) @ w["wo"], tp, mesh)
     if return_cache:
         return out, (ckv, k_rope)
     return out
@@ -510,7 +714,8 @@ def dequant_kv(q: torch.Tensor) -> torch.Tensor:
 
 def mla_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                cache_ckv: torch.Tensor, cache_krope: torch.Tensor,
-               pos: torch.Tensor, opts: AttnOptions
+               pos: torch.Tensor, opts: AttnOptions,
+               ps: Optional[Dict] = None, wax=()
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token MLA decode over the compressed cache, absorbed: W_uk
     goes into the query and W_uv after the weights, so attention reads
@@ -524,7 +729,12 @@ def mla_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     from the reference, both on purpose: per-row positions, and the mask
     ``ring_kpos(pos, W) <= pos``, which sees a wrapped ring whole (the
     reference's ``idx <= slot`` assumes W covers every position; below W
-    the two are equal).  Returns (out (B,1,d), cache_ckv, cache_krope)."""
+    the two are equal).  Returns (out (B,1,d), cache_ckv, cache_krope).
+    ``ps``: the specs of placed parameters; the cache is then this rank's
+    slice of the ring over ``wax`` (:func:`_mla_decode_placed`)."""
+    if ps is not None:
+        return _mla_decode_placed(p, cfg, x, cache_ckv, cache_krope, pos, ps,
+                                  wax)
     B = x.shape[0]
     H = cfg.n_heads
     rope, nope, vh, r = (cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim,
@@ -558,3 +768,47 @@ def mla_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     out = torch.einsum("bqhr,rhv->bqhv", lat, w_uv)
     out = out.reshape(B, 1, H * vh).to(x.dtype) @ p["wo"]
     return out, cache_ckv, cache_krope
+
+
+def _mla_decode_placed(p, cfg, x, cache_ckv, cache_krope, pos, ps, wax):
+    """Absorbed MLA decode over this rank's slice of the latent ring, in
+    float32 as :func:`mla_decode`: each rank absorbs ``w_uk`` into the q of
+    its own heads, gathers every head's (one token), scores its slots for
+    all heads and returns its partial latent read with its log-sum-exp;
+    :func:`combine_by_lse` merges them; ``w_uv`` and ``wo`` run on the
+    rank's heads, the output summed over them.  The new latent, which every
+    rank computes whole, is written by the rank holding its slot."""
+    mesh = get_mesh()
+    B = x.shape[0]
+    rope, nope, vh, r = (cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim,
+                         cfg.kv_lora_rank)
+    tp, hl, w = _mla_heads(p, cfg, x, ps)
+    pos = torch.as_tensor(pos, dtype=torch.int32,
+                          device=x.device).expand(B).contiguous()
+    q_nope, q_rope, ckv, k_rope = _mla_qc(w, cfg, x, pos[:, None])
+    lo, W, kpos = window_slice(pos, cache_ckv.shape[1], wax, mesh)
+    local = pos % W - lo
+    quantized = cache_ckv.dtype == torch.int8
+    enc = quant_kv if quantized else (lambda a: a)
+    ring_write(cache_ckv, enc(ckv[:, 0]), local)
+    ring_write(cache_krope, enc(k_rope[:, 0]), local)
+    dec = dequant_kv if quantized else (lambda a: a.float())
+    ckv_read, krope_read = dec(cache_ckv), dec(cache_krope)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(),
+                         w["w_uk"].reshape(r, hl, nope).float())
+    qq = relayout(torch.cat([q_lat, q_rope.float()], -1), (None, None, tp),
+                  (), mesh)                               # (B,1,H,r+rope)
+    scores = (torch.einsum("bqhr,bsr->bhqs", qq[..., :r], ckv_read)
+              + torch.einsum("bqhe,bse->bhqs", qq[..., r:], krope_read))
+    scores = scores * (1.0 / math.sqrt(nope + rope))
+    valid = (kpos <= pos[:, None])[:, None, None, :]
+    scores = torch.where(valid, scores, -torch.inf)
+    lse = torch.logsumexp(scores, dim=-1)                  # (B,H,1)
+    wts = torch.where(valid, torch.exp(scores - torch.clamp(
+        lse, min=NEG_INF)[..., None]), 0.0)
+    lat = torch.einsum("bhqs,bsr->bhqr", wts, ckv_read)
+    lat = relayout(combine_by_lse(lat, lse, wax, mesh), (), (None, tp), mesh)
+    out = torch.einsum("bhqr,rhv->bqhv", lat,
+                       w["w_uv"].reshape(r, hl, vh).float())
+    out = out.reshape(B, 1, hl * vh).to(x.dtype) @ w["wo"]
+    return C.psum(out, tp, mesh), cache_ckv, cache_krope

@@ -13,7 +13,7 @@ in the reference.  Dtype order as there: ``dt`` goes to float32 before the
 softplus; ``xs``/``Bm``/``Cm`` go to float32 only for the scan; ``y`` comes
 back to the activation dtype before the gated ``rms_norm``.
 
-Placed parameters (``ps``, training on a ``ProcessMesh``): the mixer runs on
+Placed parameters (``ps``, on a ``ProcessMesh``): the mixer runs on
 this rank's SSM heads.  The reference's sites (``xs`` and the gated ``y``
 over ``(DATA, None, MODEL)`` on the ``d_inner`` dim) name the axes ``tp``
 (none unless they divide the heads); ``w_z`` / ``w_x`` / ``conv_x`` /
@@ -22,6 +22,15 @@ taken as their blocks over ``tp``, ``out_proj`` as its row block; ``w_B`` /
 ``w_C`` and their convs whole (the state dim is not split), their outputs
 entering the local scan through ``collectives.replicated``; the gated
 norm's mean square summed over ``tp``; the output summed over ``tp``.
+Serving: the cache is placed by ``launch.specs.cache_shardings`` (``cs``:
+a layer's specs: the state's heads and each conv buffer's channels over
+the model axis).  ``ssm_apply(return_cache=True, cs=)`` gives this rank's
+blocks of its rows' cache: ``conv_x`` and the state from the mixer's heads
+(no collective where the heads split as the cache's channels), B's and
+C's buffers cut to the rank's channels.  ``ssm_decode`` under ``ps`` takes
+those blocks: ``conv_x`` and the state as the mixer's heads read them; B
+and C, which the mixer reads whole, step their convs on the rank's
+channels and are gathered after.
 
 One difference, on purpose: the conv cache of a prompt shorter than
 ``ssm_conv - 1`` tokens.  The reference keeps ``xs[:, L-(c-1):]``, which for
@@ -39,10 +48,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.launch.mesh import get_mesh
-from repro_torch.models.layers import (DATA, MODEL, blocks_as, rms_norm,
-                                       rms_norm_spec, site)
+from repro_torch.models.layers import (DATA, MODEL, blocks_as,
+                                       gather_last, rms_norm, rms_norm_spec,
+                                       site)
 from repro_torch.models.params import spec
 from repro_torch.parallel import collectives as C
+from repro_torch.parallel.placement import entry_axes, relayout
 
 SSM_BACKENDS = ("torch", "fused")
 
@@ -126,15 +137,13 @@ ssd_scan_ref = ssd_scan_plain
 
 def ssm_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor,
               backend: str = "torch", return_cache: bool = False,
-              ps: Optional[Dict] = None):
+              ps: Optional[Dict] = None, cs: Optional[Dict] = None):
     """Full-sequence Mamba-2 block.  x: (B,L,d) -> (B,L,d) [, cache].
-    ``ps``: the specs of placed parameters (training only)."""
+    ``ps``: the specs of placed parameters; the cache is then this rank's
+    blocks of its rows' under the cache's specs ``cs``."""
     check_backend(backend)
     if ps is not None:
-        if return_cache:
-            raise NotImplementedError("a cache from placed parameters: "
-                                      "serving runs on one device")
-        return _ssm_apply_placed(p, cfg, x, backend, ps)
+        return _ssm_apply_placed(p, cfg, x, backend, ps, return_cache, cs)
     c = cfg.ssm_conv
     z, xs, Bm, Cm, dt = _ssd_inputs(p, x)
     xs_raw, Bm_raw, Cm_raw = xs, Bm, Cm          # pre-conv (cache tails)
@@ -181,13 +190,14 @@ def _scan(cfg: ArchConfig, xs, Bm, Cm, dt, A, D, backend: str):
     return y.reshape(Bb, Lp, nh * hd)[:, :L, :], h
 
 
-def _ssm_apply_placed(p: Dict, cfg: ArchConfig, x: torch.Tensor,
-                      backend: str, ps: Dict) -> torch.Tensor:
+def _ssm_blocks(p: Dict, cfg: ArchConfig, x: torch.Tensor, ps: Dict):
+    """(the axes ``tp`` the heads are split over, the weights as the
+    mixer's blocks): the site of ``xs`` over ``(DATA, None, MODEL)`` on
+    ``d_inner``, none unless they split whole heads."""
     mesh = get_mesh()
-    Bb, L, d = x.shape
-    nh, di = cfg.n_ssm_heads, cfg.d_inner
-    tp = site((Bb, L, di), mesh, DATA, None, MODEL)[2]
-    if nh % C.axis_size(tp, mesh):
+    Bb, L, _ = x.shape
+    tp = site((Bb, L, cfg.d_inner), mesh, DATA, None, MODEL)[2]
+    if cfg.n_ssm_heads % C.axis_size(tp, mesh):
         tp = ()                    # a split inside a head: whole heads
     col, row, vec = (None, tp), (tp, None), (tp,)
     w = blocks_as(p, ps, {"w_z": col, "w_x": col, "w_dt": col,
@@ -195,36 +205,72 @@ def _ssm_apply_placed(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                           "D": vec, "norm": vec, "out_proj": row,
                           "w_B": (), "w_C": (), "conv_B": (), "conv_C": ()},
                   mesh)
-    h = C.replicated(x, tp, mesh)           # feeds this rank's heads only
-    z, xs = h @ w["w_z"], h @ w["w_x"]
-    dt = (h @ w["w_dt"]).float()
-    xs = F.silu(_causal_conv(xs, w["conv_x"]))
-    # B and C are whole on every rank (from x itself: the same on each);
-    # each rank's heads read them, so their gradients sum over tp
-    Bm = C.replicated(F.silu(_causal_conv(x @ w["w_B"], w["conv_B"])), tp,
-                      mesh)
-    Cm = C.replicated(F.silu(_causal_conv(x @ w["w_C"], w["conv_C"])), tp,
-                      mesh)
-    dt = F.softplus(dt + w["dt_bias"])
-    A = -torch.exp(w["A_log"])
-    y, _ = _scan(cfg, xs, Bm, Cm, dt, A, w["D"], backend)
-    y = y.to(x.dtype) * F.silu(z)
-    # the gated rms_norm over all d_inner channels: the mean square summed
-    # over tp, used by each rank's channels alone
+    return tp, w
+
+
+def _gated_norm_out(w: Dict, cfg: ArchConfig, y: torch.Tensor, tp, mesh,
+                    dtype) -> torch.Tensor:
+    """The gated rms_norm over all ``d_inner`` channels (the mean square
+    summed over ``tp``, used by each rank's channels alone), then
+    ``out_proj``'s row block, summed over ``tp``."""
     yf = y.float()
     ms = C.replicated(C.psum(yf.square().sum(-1, keepdim=True), tp, mesh),
-                      tp, mesh) / di
+                      tp, mesh) / cfg.d_inner
     y = (yf * torch.rsqrt(ms + cfg.norm_eps)
-         * (1.0 + w["norm"].float())).to(x.dtype)
+         * (1.0 + w["norm"].float())).to(dtype)
     return C.psum(y @ w["out_proj"], tp, mesh)
 
 
-def ssm_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: Dict
+def _mixer_specs(cs: Dict, tp) -> Dict:
+    """The specs of the cache's leaves as the mixer holds them: ``conv_x``
+    and the state on its heads (over ``tp``), B's and C's buffers whole;
+    the batch as the cache's (``cs``)."""
+    bax = cs["state"][0] if len(cs["state"]) else None
+    return {"conv_x": (bax, None, tp), "state": (bax, tp), "conv_B": (bax,),
+            "conv_C": (bax,)}
+
+
+def _ssm_apply_placed(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+                      backend: str, ps: Dict, return_cache: bool = False,
+                      cs: Optional[Dict] = None):
+    mesh = get_mesh()
+    tp, w = _ssm_blocks(p, cfg, x, ps)
+    h = C.replicated(x, tp, mesh)           # feeds this rank's heads only
+    z, xs = h @ w["w_z"], h @ w["w_x"]
+    dt = (h @ w["w_dt"]).float()
+    xs_raw = xs
+    xs = F.silu(_causal_conv(xs, w["conv_x"]))
+    # B and C are whole on every rank (from x itself: the same on each);
+    # each rank's heads read them, so their gradients sum over tp
+    Bm_raw, Cm_raw = x @ w["w_B"], x @ w["w_C"]
+    Bm = C.replicated(F.silu(_causal_conv(Bm_raw, w["conv_B"])), tp, mesh)
+    Cm = C.replicated(F.silu(_causal_conv(Cm_raw, w["conv_C"])), tp, mesh)
+    dt = F.softplus(dt + w["dt_bias"])
+    A = -torch.exp(w["A_log"])
+    y, h_final = _scan(cfg, xs, Bm, Cm, dt, A, w["D"], backend)
+    out = _gated_norm_out(w, cfg, y.to(x.dtype) * F.silu(z), tp, mesh,
+                          x.dtype)
+    if not return_cache:
+        return out
+    c = cfg.ssm_conv
+    got = dict(conv_x=_conv_tail(xs_raw, c - 1),
+               conv_B=_conv_tail(Bm_raw, c - 1),
+               conv_C=_conv_tail(Cm_raw, c - 1), state=h_final)
+    want = _mixer_specs(cs, tp)
+    return out, {k: relayout(a, want[k], cs[k], mesh) for k, a in got.items()}
+
+
+def ssm_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: Dict,
+               ps: Optional[Dict] = None, cs: Optional[Dict] = None
                ) -> Tuple[torch.Tensor, Dict]:
     """Single-token decode.  x: (B,1,d); cache keys: conv_x/conv_B/conv_C
     (B,c-1,·) and state (B,nh,st,hd) f32.  O(1) in context length.
     Returns (out (B,1,d), a new cache dict: new tensors, the given cache is
-    not written)."""
+    not written).  ``ps``: the specs of placed parameters; ``cache`` then
+    holds this rank's blocks under the specs ``cs``, and so does the new
+    one."""
+    if ps is not None:
+        return _ssm_decode_placed(p, cfg, x, cache, ps, cs)
     Bb = x.shape[0]
     nh, hd = cfg.n_ssm_heads, cfg.ssm_headdim
     z, xs, Bm, Cm, dt = _ssd_inputs(p, x[:, 0:1, :])
@@ -249,6 +295,45 @@ def ssm_decode(p: Dict, cfg: ArchConfig, x: torch.Tensor, cache: Dict
     out = (y @ p["out_proj"])[:, None, :]
     new_cache = dict(conv_x=conv_x, conv_B=conv_B, conv_C=conv_C, state=h)
     return out, new_cache
+
+
+def _ssm_decode_placed(p, cfg, x, cache, ps, cs):
+    """The mixer's step on this rank's heads.  ``conv_x`` and the state
+    are relaid out to the mixer's heads where their cache specs differ
+    (the identity when the heads and the channels split alike).  B and C
+    step their depthwise convs on the rank's channels of their buffers
+    (the cache's split), and their outputs are gathered whole in one
+    all-gather: the buffers never leave the rank."""
+    mesh = get_mesh()
+    Bb, hd = x.shape[0], cfg.ssm_headdim
+    tp, w = _ssm_blocks(p, cfg, x, ps)
+    cax = entry_axes(cs["conv_B"][-1])
+    want = _mixer_specs(cs, tp)
+    c = {k: relayout(cache[k], cs[k], want[k], mesh)
+         for k in ("conv_x", "state")}
+    h = x[:, 0]
+    z, xs, dt = h @ w["w_z"], h @ w["w_x"], (h @ w["w_dt"]).float()
+    xs, conv_x = _conv_step(xs, c["conv_x"], w["conv_x"])
+    chans = {k: relayout(w[k], (), (None, cax), mesh)
+             for k in ("w_B", "w_C", "conv_B", "conv_C")}
+    Bm, conv_B = _conv_step(h @ chans["w_B"], cache["conv_B"],
+                            chans["conv_B"])
+    Cm, conv_C = _conv_step(h @ chans["w_C"], cache["conv_C"],
+                            chans["conv_C"])
+    Bm, Cm = gather_last((Bm, Cm), cax, mesh)
+    xs, Bm, Cm = F.silu(xs), F.silu(Bm), F.silu(Cm)
+    dt = F.softplus(dt + w["dt_bias"])                     # (B,nh_l)
+    a = torch.exp(dt * -torch.exp(w["A_log"]))
+    xh = xs.reshape(Bb, -1, hd).float()
+    upd = torch.einsum("bn,bs,bnh->bnsh", dt, Bm.float(), xh)
+    state = c["state"] * a[:, :, None, None] + upd
+    y = torch.einsum("bs,bnsh->bnh", Cm.float(), state)
+    y = (y + xh * w["D"][None, :, None]).reshape(Bb, -1).to(x.dtype)
+    out = _gated_norm_out(w, cfg, y * F.silu(z), tp, mesh, x.dtype)
+    new = dict(conv_x=relayout(conv_x, want["conv_x"], cs["conv_x"], mesh),
+               conv_B=conv_B, conv_C=conv_C,
+               state=relayout(state, want["state"], cs["state"], mesh))
+    return out[:, None, :], new
 
 
 def ssm_cache_init(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,

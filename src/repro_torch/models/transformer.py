@@ -55,12 +55,14 @@ application before it included) is recomputed in the backward by
 layer: nothing autograd saved is written in place.
 
 **Placed parameters** (DTensor leaves on a ``ProcessMesh``, from
-``params.place_params``; the dense, moe and ssm families): ``forward`` and
-``loss_fn`` run on each rank's blocks, the batch split over the batch axes
+``params.place_params``; every family): ``forward`` and ``loss_fn`` run on
+each rank's blocks, the batch split over the batch axes
 (``layers.batch_axes``), with the layers' explicit tensor parallelism
-(``layers.gqa_apply``, ``_mlp``, ``mamba2.ssm_apply``; the MoE runs
-``moe_apply``'s mesh path on the rank's tokens and its blocks of the expert
-weights, ``moe.expert_specs``).
+(``layers.gqa_apply`` / ``mla_apply``, ``_mlp``, ``mamba2.ssm_apply``; the
+MoE runs ``moe_apply``'s mesh path on the rank's tokens and its blocks of
+the expert weights, ``moe.expert_specs``, its shared experts whole).  The
+hybrid family's shared tile is one placed leaf set read at every site:
+autograd sums its gradient over the sites.
 The embedding looks up the rank's vocab rows and sums over the table's
 vocab axes; the logits are the rank's block of the reference's ``(DATA,
 None, MODEL_FULL)`` site.  The loss over vocab-split logits: with
@@ -70,6 +72,20 @@ logits are all-gathered first, as the reference's gather forces under
 GSPMD.  ``block_pspecs`` (the per-layer specs, no layer dim) relays each
 block's leaves out inside the remat body.  Each rank's loss is its own
 batch's; the trainer averages the gradients over the batch axes.
+
+``prefill`` and ``decode_step`` from placed parameters take this rank's
+rows of the batch (its share over the batch axes) and return those rows'
+logits whole over the vocab.  The cache is placed (DTensor leaves) as
+``launch.specs.cache_shardings`` says: the batch over the batch axes, each
+attention ring's window over the model axis (flash-decoding's layout: a
+rank holds every kv head of its slots), the SSM state's heads and the
+conv buffers' channels over it; ``pos`` whole.  ``prefill`` moves each
+layer's cache to its block as the layer makes it (a GQA layer's K/V from
+the rank's kv heads to its window slice in one all-to-all,
+``layers.cache_to_window``; MLA's latent and the SSM cache cut where they
+are made) and never holds a whole one.  ``decode_step`` writes the
+cache's blocks in place, as on one device (``layers.gqa_decode`` /
+``mla_decode`` / ``mamba2.ssm_decode`` under ``ps``).
 """
 from __future__ import annotations
 
@@ -151,12 +167,6 @@ def _unplace(params):
             tree_map(PL.spec_of, params, torch.is_tensor))
 
 
-def _serve_unplaced(params) -> None:
-    if PL.is_placed(params["embed"]):
-        raise NotImplementedError("serving from placed parameters: prefill "
-                                  "and decode run on one device")
-
-
 def _ambient(mesh):
     """``mesh`` as the ambient mesh, unless one over the same device mesh
     already is."""
@@ -172,6 +182,12 @@ def _layer_spec(sp: PartitionSpec) -> PartitionSpec:
         raise ValueError(f"a stacked leaf placed {sp!r}: the layers dim "
                          "is not split")
     return PartitionSpec(*tuple(sp)[1:])
+
+
+def _block_specs(ps):
+    """The per-layer specs of placed stacked blocks (``None`` unplaced)."""
+    return None if ps is None else tree_map(_layer_spec, ps["blocks"],
+                                            _is_pspec)
 
 
 def _whole(t, sp):
@@ -413,25 +429,26 @@ class LM:
 
     # ------------------------------------------------------- full-seq blocks
     def _block_fwd(self, bp, x, positions, want_cache: bool,
-                   aux: bool = False, ps=None):
+                   aux: bool = False, ps=None, cs=None):
         """One block forward (a Mamba-2 block, or an attention block with a
         dense or MoE FFN: the hybrid family's shared tile is a dense one);
         returns (x, cache_or_None, the MoE's aux loss or None).  ``ps``: the
-        specs of placed parameters (``bp`` then holds this rank's
+        specs of placed parameters (``bp`` then holds this rank's blocks;
+        ``cs``: a Mamba-2 block's cache specs, its cache then their
         blocks)."""
         cfg = self.cfg
         sub = (lambda k: ps[k]) if ps is not None else (lambda k: None)
         if "ssm" in bp:
             h = L.rms_norm(x, _whole(bp["norm"], sub("norm")), cfg.norm_eps)
             res = M.ssm_apply(bp["ssm"], cfg, h, backend=self.ssm_backend,
-                              return_cache=want_cache, ps=sub("ssm"))
+                              return_cache=want_cache, ps=sub("ssm"), cs=cs)
             h, cache = res if want_cache else (res, None)
             return x + h, cache, None
         h = L.rms_norm(x, _whole(bp["attn_norm"], sub("attn_norm")),
                        cfg.norm_eps)
         if self._mla:
             res = L.mla_apply(bp["attn"], cfg, h, positions, self.opts,
-                              return_cache=want_cache)
+                              return_cache=want_cache, ps=sub("attn"))
         else:
             res = L.gqa_apply(bp["attn"], cfg, h, positions, self.opts,
                               return_cache=want_cache, ps=sub("attn"))
@@ -439,15 +456,18 @@ class LM:
         x, loss = self._ffn(bp, x + h, aux, ps)
         return x, cache, loss
 
-    def _attn_layers(self, params):
-        """``(cache index, block params)`` of the attention blocks in cache
-        order (dense and moe families): the prelude's dense blocks, then
-        the stacked blocks one by one (a ``repeat`` loop: the reference's
-        scan, which a FLOP counter may fold)."""
+    def _attn_layers(self, params, ps=None):
+        """``(cache index, block params, their specs)`` of the attention
+        blocks in cache order (dense and moe families): the prelude's dense
+        blocks, then the stacked blocks one by one (a ``repeat`` loop: the
+        reference's scan, which a FLOP counter may fold).  ``ps``: the specs
+        of placed parameters (else the specs are ``None``)."""
         pre = list(params.get("prelude", []))
-        yield from enumerate(pre)
+        for j, bp in enumerate(pre):
+            yield j, bp, ps["prelude"][j] if ps else None
+        bps = _block_specs(ps)
         for i in repeat(self.cfg.n_layers - len(pre)):
-            yield len(pre) + i, _layer(params["blocks"], i)
+            yield len(pre) + i, _layer(params["blocks"], i), bps
 
     def _layers(self, n: int):
         """The loop over ``n`` stacked layers (a ``repeat`` loop); with the
@@ -485,14 +505,6 @@ class LM:
                               preserve_rng_state=False)
         return body(x)
 
-    def _check_placed(self) -> None:
-        if self.cfg.family == "hybrid" or self._mla:
-            raise NotImplementedError(
-                f"placed parameters for {self.cfg.name} (family "
-                f"{self.cfg.family!r}, attention {self.cfg.attn_type!r}): "
-                "the hybrid tile and MLA run on one device (ROADMAP queue A "
-                "item 12c, second half)")
-
     def forward(self, params, tokens=None, embeds=None):
         """Training / scoring forward over the whole sequence.  tokens
         (B, S) (or ``embeds`` (B, S, d)).  Returns (logits (B, S, V)
@@ -504,7 +516,6 @@ class LM:
         mesh, params, ps = _unplace(params)
         if mesh is None:
             return self._forward(params, tokens, embeds, None)
-        self._check_placed()
         with _ambient(mesh):
             return self._forward(params, tokens, embeds, ps)
 
@@ -520,8 +531,7 @@ class LM:
         every, shared = self._every, params.get("shared_attn")
         sps = ps.get("shared_attn") if ps else None
         blocks = params["blocks"]
-        bps = None if ps is None else tree_map(_layer_spec, ps["blocks"],
-                                               _is_pspec)
+        bps = _block_specs(ps)
         layers = [a.unbind(0) for a in tree_leaves(blocks, torch.is_tensor)]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in self._layers(len(layers[0])):
@@ -542,8 +552,6 @@ class LM:
         summed), else by a gather.  Under placed parameters the loss is
         this rank's batch's (the module's notes)."""
         mesh, params, ps = _unplace(params)
-        if mesh is not None:
-            self._check_placed()
         with (_ambient(mesh) if mesh is not None
               else contextlib.nullcontext()):
             logits, aux = self._forward(params, batch.get("tokens"),
@@ -560,8 +568,7 @@ class LM:
         mesh = get_mesh()
         if vax and not self.onehot_loss:
             # the gather wants whole rows: every rank gathers the logits
-            g = C.all_gather(logits, vax, mesh)          # (m, B, S, n)
-            logits = g.permute(1, 2, 0, 3).reshape(B, S, -1)
+            logits = self._whole_vocab(logits)
             vax, n = (), logits.shape[-1]
         if not vax:
             logz = torch.logsumexp(logits, dim=-1)
@@ -580,6 +587,16 @@ class LM:
             gold = logits.gather(-1, labels[..., None])[..., 0]
         return torch.mean(logz - gold)
 
+    def _whole_vocab(self, logits):
+        """This rank's vocab block of placed logits (B, S, n) gathered
+        whole over the vocab axes (B, S, V)."""
+        B, S, _ = logits.shape
+        vax = self._vocab_axes(B, S)
+        if not vax:
+            return logits
+        g = C.all_gather(logits, vax, get_mesh())       # (m, B, S, n)
+        return g.permute(1, 2, 0, 3).reshape(B, S, -1)
+
     # -------------------------------------------------------------- prefill
     def prefill(self, params, tokens, cache_len: int = 0):
         """Full-sequence forward that also builds the decode cache.
@@ -588,53 +605,103 @@ class LM:
         ``cache_len`` sizes the KV cache to the serving window (default: the
         prompt length), capped at the sliding window.  The ssm cache has no
         sequence axis and ignores ``cache_len``; the hybrid tile's KV history
-        of each site is fitted to the window on its own.
+        of each site is fitted to the window on its own.  Under placed
+        parameters ``tokens`` are this rank's rows and the cache is placed
+        (the module's notes).
         """
-        _serve_unplaced(params)
+        mesh, params, ps = _unplace(params)
+        if mesh is None:
+            return self._prefill(params, tokens, cache_len, None)
+        with _ambient(mesh):
+            logits, cache = self._prefill(params, tokens, cache_len, ps)
+            return self._whole_vocab(logits[:, None])[:, 0], cache
+
+    def _prefill(self, params, tokens, cache_len, ps):
+        """``prefill`` on one device, or on this rank's blocks (``ps``: the
+        parameters' specs): each layer's cache is then moved to its block
+        of the placed cache as the layer makes it (:meth:`_to_cache`)."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, ps=ps)
         B, S, _ = x.shape
         W = self._window(cache_len or S)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
         blocks = params["blocks"]
+        put, cs = self._to_cache(B, W, ps)
         pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
         if self._ssm:
             stacked: Dict[str, torch.Tensor] = {}
             every, shared = self._every, params.get("shared_attn")
+            sps, bps = (ps or {}).get("shared_attn"), _block_specs(ps)
+            scs = None if cs is None else {
+                k: _layer_spec(sp) for k, sp in cs["blocks"].items()}
             sh = None
             for i in self._layers(cfg.n_layers):
                 if every and i % every == 0:     # the tile, site i // every
-                    x, kv, _ = self._block_fwd(shared, x, positions, True)
-                    kv = self._pad_attn_cache(kv, W, S)
+                    x, kv, _ = self._block_fwd(shared, x, positions, True,
+                                               ps=sps)
+                    kv = put(self._pad_attn_cache(kv, W, S), "shared_attn")
                     if sh is None:
                         sh = tuple(a.new_empty((self.n_apps,) + a.shape)
                                    for a in kv)
                     sh[0][i // every], sh[1][i // every] = kv
                 x, c, _ = self._block_fwd(_layer(blocks, i), x, positions,
-                                          True)
+                                          True, ps=bps, cs=scs)
                 for k, a in c.items():
                     if k not in stacked:
                         stacked[k] = a.new_empty((cfg.n_layers,) + a.shape)
                     stacked[k][i] = a
-            logits = self._logits(params, x[:, -1:, :])[:, 0, :]
+            logits = self._logits(params, x[:, -1:, :], ps)[:, 0, :]
             cache = {"pos": pos, "blocks": stacked}
             if sh is not None:
                 cache["shared_attn"] = sh
-            return logits, cache
+            return logits, (cache if cs is None
+                            else self._placed_cache(cache, W))
         ck = cv = None
-        for i, bp in self._attn_layers(params):
-            x, kv, _ = self._block_fwd(bp, x, positions, True)
+        for i, bp, bs in self._attn_layers(params, ps):
+            x, kv, _ = self._block_fwd(bp, x, positions, True, ps=bs)
             if self._mla and self.kv_cache_dtype == torch.int8:
                 kv = tuple(L.quant_kv(a) for a in kv)
-            k, v = self._pad_attn_cache(kv, W, S)
+            k, v = put(self._pad_attn_cache(kv, W, S), "blocks")
             if ck is None:
                 ck = k.new_empty((cfg.n_layers,) + k.shape)
                 cv = v.new_empty((cfg.n_layers,) + v.shape)
             ck[i], cv[i] = k, v
         cache = {"pos": pos, "blocks": (ck, cv)}
-        logits = self._logits(params, x[:, -1:, :])[:, 0, :]
-        return logits, cache
+        logits = self._logits(params, x[:, -1:, :], ps)[:, 0, :]
+        return logits, (cache if cs is None
+                        else self._placed_cache(cache, W))
+
+    def _to_cache(self, B: int, W: int, ps):
+        """(``put``, the placed cache's specs) for a prefill of ``B`` rows a
+        rank into a ``W``-slot ring: ``put(kv, key)`` moves a layer's ring
+        pair, of this rank's rows and its kv heads (MLA: the latent, whole),
+        to its block of ring ``key`` of the cache (``layers.cache_to_window``:
+        one all-to-all from the heads to the window).  Unplaced: the
+        identity and ``None``."""
+        if ps is None:
+            return (lambda kv, key: kv), None
+        from repro_torch.launch.specs import cache_specs
+        mesh = get_mesh()
+        cs = cache_specs(self, B * C.axis_size(L.batch_axes(mesh), mesh), W,
+                         mesh)
+        heads = (L.kv_heads_axes(self.cfg, B, mesh)
+                 if self.cfg.n_kv_heads and not self._mla else ())
+
+        def put(kv, key):
+            wax = PL.entry_axes(cs[key][0][2])
+            return tuple(L.cache_to_window(a, heads, wax, mesh) for a in kv)
+        return put, cs
+
+    def _placed_cache(self, cache, W: int):
+        """The cache of this rank's blocks placed (``launch.specs.
+        place_cache``)."""
+        from repro_torch.launch.specs import place_cache
+        mesh = get_mesh()
+        n = C.axis_size(L.batch_axes(mesh), mesh)
+        # pos is placed whole: every row of the batch is at the prompt's end
+        return place_cache(self, dict(cache, pos=cache["pos"].repeat(n)),
+                           mesh, W)
 
     # ---------------------------------------------------------- decode step
     def decode_step(self, params, cache, tokens):
@@ -651,43 +718,77 @@ class LM:
         returned cache holds the same tensors (no new state per step).  The
         hybrid family's shared tile, before block ``i``, attends over site
         ``i // shared_attn_every`` of ``cache["shared_attn"]`` and writes its
-        new K/V there in place, as a dense block does."""
-        _serve_unplaced(params)
-        x = self._embed(params, tokens)
+        new K/V there in place, as a dense block does.  Under placed
+        parameters ``tokens`` are this rank's rows and ``cache`` the placed
+        one ``prefill`` returns (the module's notes)."""
+        mesh, params, ps = _unplace(params)
+        if mesh is None:
+            return self._decode(params, cache, tokens, None, None)
+        _, local, cs = _unplace(cache)
+        with _ambient(mesh):
+            pos = local["pos"]
+            B = tokens.shape[0]
+            r0 = C.axis_index(L.batch_axes(mesh), mesh) * B
+            logits, _ = self._decode(params, {**local, "pos": pos[r0:r0 + B]},
+                                     tokens, ps, cs)
+            out = dict(cache, pos=PL.from_block(pos + 1, cs["pos"], mesh,
+                                                tuple(pos.shape)))
+            return self._whole_vocab(logits[:, None])[:, 0], out
+
+    def _decode(self, params, cache, tokens, ps, cs):
+        """``decode_step`` on one device, or on this rank's blocks (``ps``
+        and ``cs``: the parameters' and the cache's specs)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens, ps=ps)
         pos = cache["pos"]
         blocks = params["blocks"]
         if self._ssm:
             sc = cache["blocks"]
             every, shared = self._every, params.get("shared_attn")
             sh = cache.get("shared_attn")
-            for i in self._layers(self.cfg.n_layers):
+            bps = _block_specs(ps) or {}
+            sps, scs, sax = (ps or {}).get("shared_attn"), None, ()
+            if ps is not None:
+                scs = {k: _layer_spec(s) for k, s in cs["blocks"].items()}
+                if sh is not None:
+                    sax = PL.entry_axes(cs["shared_attn"][0][2])
+            for i in self._layers(cfg.n_layers):
                 if every and i % every == 0:
                     x = self._block_decode(shared, x, sh[0][i // every],
-                                           sh[1][i // every], pos)
+                                           sh[1][i // every], pos, sps, sax)
                 bp = _layer(blocks, i)
-                h = L.rms_norm(x, bp["norm"], self.cfg.norm_eps)
-                h, c2 = M.ssm_decode(bp["ssm"], self.cfg, h,
-                                     {k: a[i] for k, a in sc.items()})
+                h = L.rms_norm(x, _whole(bp["norm"], bps.get("norm")),
+                               cfg.norm_eps)
+                h, c2 = M.ssm_decode(bp["ssm"], cfg, h,
+                                     {k: a[i] for k, a in sc.items()},
+                                     ps=bps.get("ssm"), cs=scs)
                 x = x + h
                 for k, a in c2.items():
                     sc[k][i].copy_(a)               # casts to the cache dtype
-            logits = self._logits(params, x)[:, 0, :]
+            logits = self._logits(params, x, ps)[:, 0, :]
             out = {"pos": pos + 1, "blocks": sc}
             if sh is not None:
                 out["shared_attn"] = sh
             return logits, out
         ck, cv = cache["blocks"]
-        for i, bp in self._attn_layers(params):
-            x = self._block_decode(bp, x, ck[i], cv[i], pos)
-        logits = self._logits(params, x)[:, 0, :]
+        wax = PL.entry_axes(cs["blocks"][0][2]) if ps is not None else ()
+        for i, bp, bs in self._attn_layers(params, ps):
+            x = self._block_decode(bp, x, ck[i], cv[i], pos, bs, wax)
+        logits = self._logits(params, x, ps)[:, 0, :]
         return logits, {"pos": pos + 1, "blocks": (ck, cv)}
 
-    def _block_decode(self, bp, x, cache_k, cache_v, pos):
+    def _block_decode(self, bp, x, cache_k, cache_v, pos, ps=None, wax=()):
+        """One attention block's decode; ``ps``: the block's specs (placed:
+        ``cache_k`` / ``cache_v`` this rank's slice of the ring over
+        ``wax``)."""
         cfg = self.cfg
-        h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+        sub = (lambda k: ps[k]) if ps is not None else (lambda k: None)
+        h = L.rms_norm(x, _whole(bp["attn_norm"], sub("attn_norm")),
+                       cfg.norm_eps)
         decode = L.mla_decode if self._mla else L.gqa_decode
-        h, _, _ = decode(bp["attn"], cfg, h, cache_k, cache_v, pos, self.opts)
-        return self._ffn(bp, x + h)[0]
+        h, _, _ = decode(bp["attn"], cfg, h, cache_k, cache_v, pos, self.opts,
+                         ps=sub("attn"), wax=wax)
+        return self._ffn(bp, x + h, ps=ps)[0]
 
     # ------------------------------------------------------------ cache mgmt
     def _window(self, requested: int) -> int:

@@ -197,6 +197,21 @@ def relayout(x: torch.Tensor, src, dst, mesh) -> torch.Tensor:
     return x
 
 
+def swap_split(x: torch.Tensor, src: int, dst: int, axis: str,
+               mesh) -> torch.Tensor:
+    """This rank's block of a tensor split on dim ``src`` over the mesh
+    axis ``axis`` (whole on ``dst``) as its block split on dim ``dst`` over
+    it instead (whole on ``src``), in one all-to-all: each rank sends each
+    peer the peer's block of ``dst`` cut from its own block of ``src``.
+    :func:`relayout` would gather the whole tensor first.  With autograd."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x
+    block(n, 0, x.shape[dst], f"{tuple(x.shape)} over {axis!r}: ")
+    got = C.all_to_all(torch.stack(x.chunk(n, dst)), axis, mesh)
+    return torch.cat(got.unbind(0), src)
+
+
 def same_spec(a, b, ndim: int) -> bool:
     pa = tuple(entry_axes(e) for e in tuple(a) + (None,) * (ndim - len(a)))
     pb = tuple(entry_axes(e) for e in tuple(b) + (None,) * (ndim - len(b)))

@@ -1,10 +1,12 @@
 """One rank of the ``tests/test_torch_distributed.py`` process group.
 
-    python _torch_distributed_worker.py RANK WORLD WORKDIR
+    python _torch_distributed_worker.py RANK WORLD WORKDIR [SUITE]
 
 joins a gloo group of WORLD ranks through a file store in WORKDIR, runs
-every case on the CPU and writes each case's outputs to
-``WORKDIR/<case>_rank<RANK>.npz`` (inputs from ``WORKDIR/inputs.npz``,
+every case of SUITE (``main``, the default: 8 ranks on (data 2, model 4);
+``families``: 4 ranks on (data 2, model 2), every model family trained and
+served from placed parameters) on the CPU and writes each case's outputs
+to ``WORKDIR/<case>_rank<RANK>.npz`` (inputs from ``WORKDIR/inputs.npz``,
 written by the test).  It imports torch and ``repro_torch`` only.
 """
 import json
@@ -62,7 +64,7 @@ def _cast(tree, dtype_tree):
     return tree_unflatten(dtype_tree, got)
 
 
-def _trainer(arch, mesh, inputs, *, dtype=None, **tkw):
+def _trainer(arch, mesh, inputs, *, dtype=None, remat=False, **tkw):
     """granite-8b (or ``arch``) reduced, the reference test's setup, on
     ``mesh``, with the reference's initial weights carried."""
     from repro_torch.configs import get_config
@@ -78,7 +80,7 @@ def _trainer(arch, mesh, inputs, *, dtype=None, **tkw):
                      opt=adamw.AdamWConfig(**opt), **tkw)
     tr = Trainer(cfg, ShapeConfig("tiny", 32, 4, "train"), mesh=mesh, tc=tc,
                  lm_kwargs=dict(opts=AttnOptions(backend="naive"),
-                                remat=False), device=DEV)
+                                remat=remat), device=DEV)
     full = _cast(_unflat(inputs, f"init/{arch}"), tr.lm.abstract())
     if dtype is not None:
         full = tree_map(lambda a: a.to(dtype), full, torch.is_tensor)
@@ -378,21 +380,153 @@ def case_elastic(rank, inputs, workdir, mesh):
     _save(workdir, "elastic", rank, **res)
 
 
+# ------------------------------------------- the families suite, (2, 2)
+FAMILY_STEPS = ("zamba2-7b", "deepseek-v2-lite-16b")
+# (tag, arch, prompt length, cache_len): each family served from placed
+# parameters; "empty" leaves model rank 1's half of the ring unwritten
+# through every decode step, "wrap" rolls a longer prompt into the ring
+SERVE_CASES = (("dense", "h2o-danube-1.8b", 12, 16),
+               ("wrap", "h2o-danube-1.8b", 40, 24),
+               ("empty", "h2o-danube-1.8b", 3, 16),
+               ("moe", "granite-moe-1b-a400m", 12, 16),
+               ("ssm", "mamba2-370m", 12, 16),
+               ("hybrid", "zamba2-7b", 12, 16),
+               ("mla", "deepseek-v2-lite-16b", 12, 16),
+               ("mla_empty", "deepseek-v2-lite-16b", 3, 16))
+DECODE_STEPS = 4
+
+
+def case_family_steps(rank, inputs, workdir, mesh):
+    """2 steps of zamba2 and deepseek-v2-lite reduced on (data 2, model 2):
+    bf16 (the reference's dtypes) and float32, the float32 zamba2 run also
+    with remat (the shared tile inside each block's checkpoint); deepseek
+    in float32 on (data 1, model 4) too, where its load-balance loss is
+    the whole batch's as on one device.  The float32 runs' parameters after
+    the steps, gathered whole."""
+    out = {}
+    m14 = P.make_mesh((1, 4), ("data", "model"), device=DEV)
+    own = {"zamba2-7b": "f32remat", "deepseek-v2-lite-16b": "f32m4"}
+    for arch in FAMILY_STEPS:
+        for tag, dtype, remat, m in (
+                ("bf16", None, False, mesh),
+                ("f32", torch.float32, False, mesh),
+                ("f32remat", torch.float32, True, mesh),
+                ("f32m4", torch.float32, False, m14)):
+            if tag in ("f32remat", "f32m4") and tag != own[arch]:
+                continue
+            tr = _trainer(arch, m, inputs, dtype=dtype, remat=remat)
+            out.update({f"{arch}/{tag}_{k}": v
+                        for k, v in _hist(tr.run(2)).items()})
+            if dtype is not None:
+                out.update({f"{arch}/{tag}_p/{p}": v
+                            for p, v in _full_flat(tr.params).items()})
+    _save(workdir, "family_steps", rank, **out)
+
+
+def case_family_serve(rank, inputs, workdir, mesh):
+    """Each SERVE_CASES model (float32, naive attention) placed by the MRA
+    rules: ``prefill`` of this rank's rows of the 4 prompts, then
+    ``DECODE_STEPS`` ``decode_step``s on the placed cache, teacher-forced
+    by the inputs' next tokens; the logits of every call, each cache leaf's
+    spec and its block after the prefill and after the last step."""
+    from repro_torch.checkpoint.store import _flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.core.replication import merged_rules
+    from repro_torch.core.tiles import default_plan
+    from repro_torch.launch.mesh import PartitionSpec
+    from repro_torch.launch.specs import cache_specs
+    from repro_torch.models.layers import AttnOptions, batch_axes
+    from repro_torch.models.params import place_params, shardings_for, \
+        tree_map
+    from repro_torch.models.transformer import LM
+    bax = batch_axes(mesh)
+    n, i = C.axis_size(bax, mesh), C.axis_index(bax, mesh)
+    out = {}
+    for tag, arch, S, W in SERVE_CASES:
+        cfg = get_config(arch).reduced()
+        lm = LM(cfg, opts=AttnOptions(backend="naive"))
+        sh = shardings_for(lm.param_specs(),
+                           merged_rules(default_plan(cfg), mesh), mesh)
+        full = tree_map(lambda a: a.float(), _unflat(inputs, f"init/{arch}"),
+                        torch.is_tensor)
+        params = place_params(full, sh)
+        toks = torch.from_numpy(inputs[f"serve_tokens/{tag}"])
+        B = toks.shape[0]
+        rows = slice(i * B // n, (i + 1) * B // n)
+        with torch.no_grad():
+            before = dict(C.USED)
+            logits, cache = lm.prefill(params, toks[rows, :S], cache_len=W)
+            out[f"{tag}/prefill_used"] = json.dumps(
+                {k[0]: v - before.get(k, 0) for k, v in C.USED.items()
+                 if v != before.get(k, 0)})
+            out[f"{tag}/logits0"] = _np(logits)
+            ndim = {p: t.dim() for p, t in _flatten_with_paths(cache)}
+
+            def dims(p, sp):        # each dim's axes, whatever the spelling
+                return [list(PL.entry_axes(e)) for e in
+                        tuple(sp) + (None,) * (ndim[p] - len(sp))]
+            got = {p: dims(p, PL.spec_of(t))
+                   for p, t in _flatten_with_paths(cache)}
+            want = {p: dims(p, sp) for p, sp in _flatten_with_paths(
+                cache_specs(lm, B, W, mesh),
+                is_leaf=lambda x: isinstance(x, PartitionSpec))}
+            out[f"{tag}/specs"] = json.dumps([got, want])
+            out.update({f"{tag}/c0/{p}": _np(PL.local(t)).copy()
+                        for p, t in _flatten_with_paths(cache)})
+            for j in range(DECODE_STEPS):
+                logits, cache = lm.decode_step(params, cache,
+                                               toks[rows, S + j:S + j + 1])
+                out[f"{tag}/logits{j + 1}"] = _np(logits)
+            out.update({f"{tag}/c1/{p}": _np(PL.local(t))
+                        for p, t in _flatten_with_paths(cache)})
+        out[f"{tag}/rows"] = np.arange(B)[rows]
+    # LM.init_cache's cache, this rank's block of each leaf placed by
+    # place_cache: decode from position 0, model rank 1's half of the ring
+    # never written
+    from repro_torch.launch.specs import place_cache
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    cfg = get_config("h2o-danube-1.8b").reduced()
+    lm = LM(cfg, opts=AttnOptions(backend="naive"))
+    params = place_params(tree_map(
+        lambda a: a.float(), _unflat(inputs, "init/h2o-danube-1.8b"),
+        torch.is_tensor), shardings_for(lm.param_specs(), merged_rules(
+            default_plan(cfg), mesh), mesh))
+    toks = torch.from_numpy(inputs["serve_tokens/dense"])
+    whole = lm.init_cache(toks.shape[0], 16, dtype=torch.float32)
+    specs = tree_leaves(cache_specs(lm, toks.shape[0], 16, mesh),
+                        lambda x: isinstance(x, PartitionSpec))
+    cache = place_cache(lm, tree_unflatten(whole, [
+        PL.local_block(t, sp, mesh) for t, sp in zip(
+            tree_leaves(whole, torch.is_tensor), specs)]), mesh, 16)
+    with torch.no_grad():
+        for j in range(DECODE_STEPS):
+            logits, cache = lm.decode_step(params, cache,
+                                           toks[rows, j:j + 1])
+            out[f"init/logits{j}"] = _np(logits)
+    out["coords"] = json.dumps({a: mesh.coord(a) for a in mesh.axis_names})
+    _save(workdir, "family_serve", rank, **out)
+
+
+SUITES = {"main": ((2, 4), ("placement", "forwards", "mra", "steps",
+                            "ssm_steps", "moe_steps", "elastic")),
+          "families": ((2, 2), ("family_serve", "family_steps"))}
+
+
 def main():
     rank, world, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    suite = sys.argv[4] if len(sys.argv) > 4 else "main"
     torch.manual_seed(0)
     torch.set_num_threads(1)
     backend = C.init_process_group(
         rank, world, "file://" + os.path.join(workdir, "store"), device=DEV)
     inputs = np.load(os.path.join(workdir, "inputs.npz"))
-    mesh = P.make_mesh((2, 4), ("data", "model"), device=DEV)
+    shape, cases = SUITES[suite]
+    mesh = P.make_mesh(shape, ("data", "model"), device=DEV)
     times = {}
-    for fn, args in ((case_placement, (mesh,)), (case_forwards, (mesh,)),
-                     (case_mra, ()), (case_steps, (mesh,)),
-                     (case_ssm_steps, (mesh,)), (case_moe_steps, (mesh,)),
-                     (case_elastic, (mesh,))):
+    for case in cases:
+        fn = globals()[f"case_{case}"]
         t0 = time.perf_counter()
-        fn(rank, inputs, workdir, *args)
+        fn(rank, inputs, workdir, *(() if case == "mra" else (mesh,)))
         times[fn.__name__] = time.perf_counter() - t0
     import torch.distributed as dist
     dist.barrier()

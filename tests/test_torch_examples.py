@@ -13,6 +13,12 @@ package's examples.
 * ``examples/torch_train_100m.py`` (the ~100M danube-family config of
   ``examples/train_100m.py``) at a few steps and a short sequence: its
   mid-run DFS reconfiguration, the simulated failure and the recovery.
+* ``examples/torch_quickstart.py`` prints what ``examples/quickstart.py``
+  prints but for the next tokens (the weights are random and each package
+  draws its own) and the monitor's wall time;
+  ``examples/torch_serve_batched.py`` prints exactly what
+  ``examples/serve_batched.py`` prints (the schedule does not depend on the
+  weights).
 """
 import os
 import re
@@ -84,3 +90,38 @@ def test_train_100m_example_recovers(tmp_path):
     steps = [int(ln.split()[1]) for ln in lines if ln.startswith("  step")]
     assert steps == [1, 2, 3, 4]       # 1-2, then 3-4 after the recovery
     assert any(ln.startswith("loss: ") for ln in lines)
+
+
+WEIGHT_BOUND = re.compile(r"next tokens \[[0-9, ]+\]|t=[0-9.]+")
+
+
+def _run_pair(ref_script, port_script):
+    """The reference example and the port's (``--device cpu``) run side by
+    side: (reference, port) ``CompletedProcess``es."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", script), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=e,
+        cwd=ROOT) for script, args, e in (
+            (ref_script, (), env), (port_script, ("--device", "cpu"),
+                                    dict(os.environ)))]
+    out = []
+    for p in procs:
+        o, e = p.communicate(timeout=300)
+        out.append(subprocess.CompletedProcess(p.args, p.returncode, o, e))
+    return out
+
+
+def test_quickstart_example_prints_the_reference_output():
+    ref, port = _run_pair("quickstart.py", "torch_quickstart.py")
+    assert ref.returncode == 0 and port.returncode == 0, port.stderr
+    assert WEIGHT_BOUND.sub("", port.stdout) == \
+        WEIGHT_BOUND.sub("", ref.stdout)
+    assert re.search(r"next tokens \[[0-9]+, [0-9]+\]", port.stdout)
+
+
+def test_serve_batched_example_prints_the_reference_output():
+    ref, port = _run_pair("serve_batched.py", "torch_serve_batched.py")
+    assert ref.returncode == 0 and port.returncode == 0, port.stderr
+    assert port.stdout == ref.stdout
+    assert port.stdout.startswith("completed 8/8 requests")

@@ -246,6 +246,68 @@ def test_flash_decode_plain_matches_pallas_and_oracle(B, W, KV, G, hd, win,
     close(port, oracle, atol, sides=sides)
 
 
+def lse64(q, k, qpos, kpos, window, scale):
+    """Each decode row's log-sum-exp of its scaled live scores in float64
+    (-inf without a live key).  q (B,KV,G,hd), k (B,W,KV,hd)."""
+    s = np.einsum("bkgh,bskh->bkgs", q.double().numpy(),
+                  k.double().numpy()) * scale
+    qp, kp = qpos.numpy()[:, None], kpos.numpy()
+    live = kp <= qp
+    if window:
+        live &= (qp - kp) < window
+    s = np.where(live[:, None, None], s, -np.inf)
+    m = np.max(s, axis=-1)
+    safe = np.where(np.isfinite(m), m, 0.0)
+    with np.errstate(divide="ignore"):
+        return safe + np.log(np.sum(np.exp(s - safe[..., None]), axis=-1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,W,KV,G,hd,win,blk,pos", DECODE_CASES)
+def test_flash_decode_plain_lse_halves_combine_to_pallas(B, W, KV, G, hd, win,
+                                                         blk, pos, dtype):
+    """``return_lse``: each window half's (out, lse), merged by the lse as
+    placed decode merges its ranks' slices (``layers.merge_by_lse``: the
+    max with a finite floor, then the weighted sum), equals the
+    reference's kernel over the whole
+    window (interpret mode) at the file's tolerance; each lse is its half's
+    float64 log-sum-exp (1e-5 in float32, 1e-2 in bf16, whose q / k round
+    to 8 bits), and a half with no live key gives lse -inf and 0."""
+    rng = np.random.default_rng(1)
+    q = both(rng.standard_normal((B, KV, G, hd)), dtype)
+    ck = both(rng.standard_normal((B, W, KV, hd)), dtype)
+    cv = both(rng.standard_normal((B, W, KV, hd)), dtype)
+    qp, kp = ints(pos), ints(ring_kpos(pos, W))
+    scale = 1 / np.sqrt(hd)
+    h = W // 2
+    halves = [FD.flash_decode_plain(q[1], ck[1][:, sl], cv[1][:, sl], qp[1],
+                                    kp[1][:, sl], win, scale, blk,
+                                    return_lse=True)
+              for sl in (slice(0, h), slice(h, W))]
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for (out, lse), sl in zip(halves, (slice(0, h), slice(h, W))):
+        assert lse.dtype == torch.float32 and lse.shape == (B, KV, G)
+        want = lse64(q[1], ck[1][:, sl], qp[1], kp[1][:, sl], win, scale)
+        dead = np.isneginf(want)
+        assert np.array_equal(np.isneginf(lse.numpy()), dead)
+        np.testing.assert_allclose(lse.numpy()[~dead], want[~dead], rtol=0,
+                                   atol=tol * max(1.0, np.abs(want[~dead])
+                                                  .max(initial=0)))
+        assert torch.all(out.float()[torch.from_numpy(dead)] == 0)
+    lses = torch.stack([lse for _, lse in halves])
+    merged = L.merge_by_lse(torch.stack([o for o, _ in halves]), lses)
+    assert torch.isfinite(merged).all()
+    pallas = flash_decode_pallas(q[0], ck[0], cv[0], qp[0], kp[0],
+                                 scale=scale, window=win, kv_block=blk,
+                                 interpret=True)
+    close(merged.to(getattr(torch, dtype)), np.asarray(
+        jax.block_until_ready(pallas), np.float32), ATOL[("attention", dtype)])
+    whole = FD.flash_decode(q[1], ck[1], cv[1], qp[1], kp[1], win, scale, blk,
+                            return_lse=True)
+    torch.testing.assert_close(whole[1], torch.logaddexp(*lses),
+                               rtol=0, atol=tol)
+
+
 # ------------------------------------------------------------------ fused MLP
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("act", ["silu", "gelu"])
@@ -875,6 +937,36 @@ def test_cuda_flash_decode_cp_async_edges(B, W, KV, G, hd, hdv, win, pos,
     (``card_flash_decode_cp_async_edges``)."""
     chip_smoke().card_case("test_cuda_flash_decode_cp_async_edges", B, W,
                             KV, G, hd, hdv, win, pos, blk, qd, ring)
+
+
+# B, W, KV, G, hd, window, positions, part (-1 a ring of W, 0 / 1 a half
+# of a ring of 2 W), dtype
+CARD_DECODE_LSE = [
+    (3, 32, 2, 4, 80, 16, (5, 31, 50), -1, "float32"),
+    (2, 64, 1, 8, 16, 0, (3, 10), 1, "float32"),              # no live key
+    (2, 500, 2, 2, 72, 0, (100, 900), 0, "bfloat16"),
+    (2, 256, 2, 4, 80, 0, (3, 100), 1, "bfloat16"),           # no live key
+    (4, 2048, 8, 4, 80, 4096, (4638, 4639, 3103, 2300), 1,
+     "bfloat16"),                                             # danube's
+    (4, 2048, 32, 1, 112, 0, (4608, 4000, 30, 1), 0, "bfloat16"),  # zamba2
+]
+
+
+def test_decode_lse_cases_match_chip_smoke():
+    assert [tuple(c) for c in CARD_DECODE_LSE] == list(
+        chip_smoke().CARD_DECODE_LSE)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,W,KV,G,hd,win,pos,part,dtype", CARD_DECODE_LSE)
+def test_cuda_flash_decode_lse_matches_plain(B, W, KV, G, hd, win, pos, part,
+                                             dtype, cuda_device):
+    """``flash_decode(return_lse=True)`` on the card against its plain
+    version, out and lse: both sweeps (a float32 cache takes
+    ``cuda_cores``, bf16 ``cp_async``), a window, a wrapped ring and a
+    slice with no live key (lse -inf, output 0) (``card_flash_decode_lse``)."""
+    chip_smoke().card_case("test_cuda_flash_decode_lse_matches_plain", B, W,
+                            KV, G, hd, win, pos, part, dtype)
 
 
 def test_chip_smoke_misaligned_cases_pick_the_older_kernels():
