@@ -255,10 +255,19 @@ main path through its public entry points at the size its users run:
                    model 2), 4 gloo ranks on this card: ``flash_decode``
                    with the lse timed at the rank slices; zamba2 (7
                    blocks) and deepseek (3 layers) 2 training steps, and
-                   the five families' prefill of 4 slots and 32 decode
+                   the five families' prefill of 4 slots and 16 decode
                    steps over the window-split cache, each held to the
                    same run on one device (``--families-only``: build, the
                    LLM kernels' parity and this phase).
+    ``mesh_mra`` — the paper's multi-replica tile on the LLM stack: danube
+                   cut as ``train_mesh`` on (data 1, replica 2, shard 2),
+                   the attention tile replicated twice (each replica rank
+                   on its own rows, the MLP on its group's over (replica,
+                   shard)): 2 training steps against the same cut on one
+                   device, the rows each tile ran on, step 1's collectives
+                   against the fake mesh's count, a prefill and 8 decode
+                   steps against one device, two planted faults
+                   (``--mra-only``: build and this phase).
 14. ``train_kernels`` — the autograd Functions of ``kernels.ops`` (forward:
                    the kernel; backward: the oracle's autograd) at reduced
                    shapes in bf16 and f32: forward equal to the raw
@@ -289,9 +298,13 @@ main path through its public entry points at the size its users run:
                    989.4 TFLOP/s), peak memory, launches and backward calls
                    a step, host syncs inside each step (must be 0), step 1's
                    loss, grad norm and gradient against the plain path's on
-                   the same weights and batch, and one more step under the
+                   the same weights and batch, one more step under the
                    profiler (idle share, each Function's backward beside its
-                   forward kernel).
+                   forward kernel), and the first AdamW step from zero
+                   moments on the first microbatch checked as a descent
+                   step (``fit_one_batch``), its zero, reversed and
+                   misdirected versions rejected, and the step of the
+                   reversed gradient rejected by the line.
     ``train_resume`` — the reduced danube in float32 through the kernels:
                    8 steps saving every 5, the state lost,
                    ``FaultSupervisor.recover()`` and 5 more, against an
@@ -5168,14 +5181,31 @@ TRAIN_RESUME_RTOL = 1e-5        # a resumed run's losses vs uninterrupted
 # six fresh batches of this stream, and its gate is step 1's gradient
 # against the plain path's
 UNIFORM_MARGIN = 0.1
-# after the counted steps, each run takes FIT_STEPS more AdamW steps on its
-# first microbatch alone (constant learning rate, the phase's), from zero
-# moments so that every step follows that microbatch's gradients and not
-# the run's momentum from other batches; the NLL on it must fall by
-# FIT_MARGIN nats at least: a zero, reversed or misdirected update on the
-# card fails it whatever the stream's loss does
-FIT_STEPS = 6
-FIT_MARGIN = 0.1
+# after the counted steps, the trainer's first AdamW step from zero moments
+# is checked on the run's first microbatch (``fit_one_batch``), from the
+# weights where the run ended: g the NLL's gradient there, u the step the
+# trainer applied (its new parameters less theta).  Its premise holds by
+# construction: a first AdamW step from zero moments moves each coordinate
+# against the sign of its gradient (m-hat = g, v-hat = g^2: -lr sign(g),
+# the decay lr wd theta aside), and the cast to bf16 keeps that sign where
+# it does not round the move away, so each leaf's g.u is about
+# -sum |g_i u_i|; and by Taylor's theorem a small enough multiple of any
+# descent direction lowers the loss by at least half its first-order
+# prediction.  So (a) every leaf must have g.u <= -LEAF_DESCENT sum
+# |g_i u_i| (a reversed step, or one leaf's update written into another's,
+# fails it), (b) g.u < 0 over the whole tree (a zero step fails it), and
+# (c) for some s of ARMIJO_SCALES the NLL at theta + s u, cast to the
+# parameters' dtype as the trainer casts (delta the real displacement),
+# must fall by ARMIJO_C |g.delta| at least.  The scales run
+# from the step itself down to where the line is linear and its drop above
+# the bf16 loss's own noise: on granite-moe at full width (six end states,
+# examples/torch_fit_study.py) the NLL rises at every s >= 1/64 and falls
+# by 1.0x its prediction, 0.0084-0.0100 nats, at 1/1024, where theta - s u
+# rises as much; below 1/4096 the prediction (< 6e-4) is under the noise
+# (2-5e-4 nats either way), so no smaller s is taken
+ARMIJO_SCALES = (1.0, 1 / 4, 1 / 16, 1 / 64, 1 / 256, 1 / 1024)
+ARMIJO_C = 0.5
+LEAF_DESCENT = 0.5
 # the Functions of kernels.ops by the kernels' names in the kernels line
 TRAIN_FUNCTIONS = {"flash_attention": "flash_attention",
                    "fused_mlp": "fused_rmsnorm_mlp", "ssd_scan": "ssd_scan"}
@@ -5789,9 +5819,12 @@ def drive_train(spec, lm_kwargs, plain_kwargs, phase):
     if losses[0] > report["uniform_loss"] + UNIFORM_MARGIN and \
             not report["falls_over_steps"]:
         fails.append("the loss did not fall from above the uniform guess")
-    if not fit["drop"] >= FIT_MARGIN:
-        fails.append(f"{FIT_STEPS} steps on one microbatch did not fit it: "
-                     f"{fit['losses']}")
+    if not fit["ok"]:
+        fails.append(f"the first AdamW step on one microbatch is not a "
+                     f"descent step: {fit['why']}")
+    if not all(fit["faults_rejected"].values()):
+        fails.append(f"the step check passed a planted fault: "
+                     f"{fit['faults_rejected']}")
     if pc["loss_err"] > TRAIN_LOSS_ATOL or \
             pc["grad_norm_rel_err"] > TRAIN_GNORM_RTOL or \
             not pc["grad_rel_l2"] <= TRAIN_GRAD_RTOL:
@@ -5809,34 +5842,133 @@ def drive_train(spec, lm_kwargs, plain_kwargs, phase):
     return report
 
 
-def fit_one_batch(tr, spec) -> dict:
-    """``FIT_STEPS`` AdamW steps through the kernels on the run's first
-    microbatch alone (``global_batch // accum`` sequences), from the
-    weights where the run ended and zero moments (the run's moments carry
-    other batches' gradients, and its end state is not bit-reproducible on
-    the card), at the phase's learning rate held constant; the NLL on it
-    before each step and after the last, and its drop."""
-    from repro_torch.optim import adamw
-    from repro_torch.runtime.train import step_grads
-    opt = adamw.AdamWConfig(lr=spec["lr"], warmup_steps=0,
-                            schedule="constant")
+def first_step(tr, spec) -> dict:
+    """The trainer's first AdamW step from zero moments on the run's first
+    microbatch (``global_batch // accum`` sequences), from the weights where
+    the run ended (its moments carry other batches' gradients, and its end
+    state is not bit-reproducible on the card), at the phase's learning rate
+    held constant: the batch, the weights theta, the gradient g of the NLL
+    (``step_grads``, as AdamW receives it), the step u (``adamw.update``'s
+    new parameters less theta, float32) and the NLL at theta."""
+    import repro_torch.runtime.train as RTM
     mb = spec["global_batch"] // spec["accum"]
     batch = {k: v[:mb] for k, v in
              tr.place_batch(tr.data.batch_at(0)).items()}
     tr.opt_state = None
-    params, state, losses = tr.params, adamw.init(tr.params), []
+    _, parts, grads = RTM.step_grads(tr.lm, tr.params, batch)
+    return {"batch": batch, "grads": list(grads),
+            "u": adamw_first_step(tr, spec["lr"], grads),
+            "nll": float(parts["nll"])}
+
+
+def adamw_first_step(tr, lr, grads) -> list:
+    """The step (float32 leaves: ``adamw.update``'s new parameters less
+    ``tr.params``) of AdamW's first update from zero moments on ``grads``,
+    at ``lr`` held constant."""
+    from repro_torch.optim import adamw
+    opt = adamw.AdamWConfig(lr=lr, warmup_steps=0, schedule="constant")
+    new, _, _ = adamw.update(opt, grads, adamw.init(tr.params), tr.params)
+    return [n.float() - p.float() for n, p in zip(_leaves(new),
+                                                    _leaves(tr.params))]
+
+
+def step_verdict(tr, st, u, scales=ARMIJO_SCALES, every=False) -> dict:
+    """``fit_one_batch``'s conditions (a)-(c) on the step ``u`` (a list of
+    float32 leaves) from ``st`` (:func:`first_step`): each leaf's g.u and
+    sum |g_i u_i| in float64, the whole g.u, and along the line,
+    for each s until one passes (every s with ``every``, as the study
+    asks), the displacement's g.delta, the NLL at theta + delta and its
+    drop against ARMIJO_C |g.delta|."""
+    from repro_torch.models.params import tree_unflatten
+    leaves = _leaves(tr.params)
+    rows, gu = [], 0.0
+    for g, d in zip(st["grads"], u):
+        prod = g.double() * d.double()
+        dot, mag = float(prod.sum()), float(prod.abs().sum())
+        del prod
+        rows.append({"gu": dot, "gu_abs": mag,
+                     "ratio": dot / mag if mag > 0 else 0.0})
+        gu += dot
+    out = {"gu": gu, "leaves": rows, "line": [],
+           "leaf_max_ratio": max(r["ratio"] for r in rows)}
+    bad = [i for i, r in enumerate(rows)
+           if not r["gu"] <= -LEAF_DESCENT * r["gu_abs"]]
+    if bad:
+        out.update(ok=False, why=f"leaves {bad} do not descend their own "
+                   f"gradient (g.u / sum |g_i u_i| "
+                   f"{[rows[i]['ratio'] for i in bad]})")
+        return out
+    if not gu < 0:
+        out.update(ok=False, why=f"g.u = {gu} is not negative")
+        return out
+    ok = False
+    for s in scales:
+        moved = [(p.float() + s * d).to(p.dtype) for p, d in zip(leaves, u)]
+        g_delta = float(sum(torch.sum(g.double() * (m.double() - p.double()))
+                            for g, m, p in zip(st["grads"], moved, leaves)))
+        with torch.no_grad():
+            nll = float(tr.lm.loss_fn(tree_unflatten(tr.params, moved),
+                                      st["batch"])[1]["nll"])
+        del moved
+        drop = st["nll"] - nll
+        hit = g_delta < 0 and drop >= ARMIJO_C * abs(g_delta)
+        out["line"].append({"s": s, "g_delta": g_delta, "nll": nll,
+                            "drop": drop, "need": ARMIJO_C * abs(g_delta),
+                            "ok": hit})
+        ok = ok or hit
+        if ok and not every:
+            break
+    out.update(ok=ok, why="" if ok else
+               f"no s of {list(scales)} lowers the NLL by {ARMIJO_C} "
+               f"|g.delta|: {out['line']}")
+    return out
+
+
+def planted_steps(st) -> dict:
+    """The step ``u`` of ``st`` made wrong three ways: zero, reversed, and
+    misdirected (the update of one leaf written into the first other leaf
+    of its shape, which keeps its own)."""
+    u = st["u"]
+    pair = next(((i, j) for i in range(len(u)) for j in range(i + 1, len(u))
+                 if u[i].shape == u[j].shape and u[i].numel() > 1), None)
+    mis = list(u)
+    if pair is not None:
+        mis[pair[1]] = u[pair[0]]
+    return {"zero": [torch.zeros_like(d) for d in u],
+            "reversed": [-d for d in u], "misdirected": mis,
+            "pair": pair}
+
+
+def fit_one_batch(tr, spec) -> dict:
+    """The check of the trainer's first AdamW step on one microbatch
+    (ARMIJO_SCALES' notes): :func:`first_step`, then :func:`step_verdict`
+    on it and on its three planted faults (:func:`planted_steps`), each of
+    which must fail, and on a fourth that only the line can see: the
+    AdamW step of the reversed gradient, which descends that gradient
+    leaf by leaf, so (a) and (b) hold, and must fail at (c), every s of
+    the line tried (its drop and need kept, ``reversed_gradient_line``).
+    The weights are left as the run ended them."""
     t0 = time.perf_counter()
-    for _ in range(FIT_STEPS):
-        _, parts, grads = step_grads(tr.lm, params, batch)
-        params, state, _ = adamw.update(opt, grads, state, params)
-        losses.append(float(parts["nll"]))
-        del grads
-    with torch.no_grad():
-        losses.append(float(tr.lm.loss_fn(params, batch)[1]["nll"]))
-    tr.params, tr.opt_state = params, state
-    return {"steps": FIT_STEPS, "lr": spec["lr"], "losses": losses,
-            "drop": losses[0] - losses[-1], "margin": FIT_MARGIN,
-            "seconds": time.perf_counter() - t0}
+    st = first_step(tr, spec)
+    out = step_verdict(tr, st, st["u"])
+    plants = planted_steps(st)
+    out["faults_rejected"] = {k: not step_verdict(tr, st, plants[k])["ok"]
+                              for k in ("zero", "reversed", "misdirected")}
+    out["misdirected_pair"] = plants["pair"]
+    del plants
+    neg = [-g for g in st["grads"]]
+    rev = dict(st, grads=neg, u=adamw_first_step(tr, spec["lr"], neg))
+    del neg
+    v = step_verdict(tr, rev, rev["u"])
+    out["faults_rejected"]["reversed_gradient"] = (
+        not v["ok"] and len(v["line"]) == len(ARMIJO_SCALES))
+    out["reversed_gradient_line"] = [
+        {k: p[k] for k in ("s", "drop", "need")} for p in v["line"]]
+    out["reversed_gradient_why"] = v["why"][:300]
+    out.update(lr=spec["lr"], nll=st["nll"],
+               seconds=time.perf_counter() - t0)
+    del st, rev
+    return out
 
 
 def grads_gap(got, ref) -> dict:
@@ -6160,29 +6292,82 @@ def counting_refuses_a_launch():
     return out
 
 
+# the dry run's cells beyond the 33 single-pod tp ones: expert parallelism
+# on the moe family's cells; the reference's pod_domain rows (deepseek
+# decode_32k at mra1/2/4/8: per-device weight bytes beside collective
+# bytes); the attention tiles replicated four ways on one train cell a
+# family
+DRY_EP_ARCHS = ("granite-moe-1b-a400m", "deepseek-v2-lite-16b")
+DRY_K_SWEEP = ("deepseek-v2-lite-16b", "decode_32k", (1, 2, 4, 8))
+DRY_MRA_ATTN = ("h2o-danube-1.8b", "granite-moe-1b-a400m", "mamba2-370m",
+                "zamba2-7b")
+
+
+def _dry_cell(r) -> dict:
+    """The keys of one dry-run cell that the card's report keeps."""
+    return {"arch": r["arch"], "shape": r["shape"],
+            "strategy": r["strategy"], "mesh": r["mesh"],
+            "flops_total": r["flops_total"],
+            "dot_flops_total": r["dot_flops_total"],
+            "hbm_bytes_total": r["hbm_bytes_total"],
+            "argument_size_in_bytes": r["argument_size_in_bytes"],
+            "param_bytes_per_device": r["param_bytes_per_device"],
+            "collective_bytes": r["collective_bytes"],
+            "per_op_bytes": r["per_op_bytes"],
+            "op_counts": r["op_counts"],
+            "t_compute_s": r["roofline"]["t_compute"],
+            "t_memory_s": r["roofline"]["t_memory"],
+            "t_collective_s": r["roofline"]["t_collective"],
+            "dominant": r["roofline"]["dominant"],
+            "lower_seconds": r["lower_seconds"],
+            "count_seconds": r["count_seconds"]}
+
+
 def dryrun_on_card():
     """The dry run here, abstract: every assigned architecture's cells on
-    the single-pod mesh (256 chips), counted by this machine's torch; the
-    per-cell numbers and the seconds it took."""
+    the single-pod mesh (256 chips), each with its collective term (one
+    rank's placed step on a fake process group of the mesh, this process
+    its rank 0), then the ``ep``, K-sweep and ``mra4-attn`` cells above,
+    counted by this machine's torch; the per-cell numbers and the seconds
+    it took."""
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.core.replication import replication_area_model
     from repro_torch.launch import dryrun as D
     t0 = time.perf_counter()
+    jobs = [(a, sh, "tp") for a, sh in D.iter_cells()]
+    jobs += [(a, sh, "ep") for a in DRY_EP_ARCHS
+             for sh in shapes_for(get_config(a))]
+    arch, shape, ks = DRY_K_SWEEP
+    jobs += [(arch, shape, f"mra{k}") for k in ks]
+    jobs += [(a, "train_4k", "mra4-attn") for a in DRY_MRA_ATTN]
     cells, fails = [], []
-    for arch, shape in D.iter_cells():
+    for arch_, shape_, strategy in jobs:
         try:
-            r = D.run_cell(arch, shape, multi_pod=False, save=False)
+            r = D.run_cell(arch_, shape_, multi_pod=False, save=False,
+                           co=D.CellOptions(strategy=strategy))
         except Exception as e:                   # reported, then fails
-            fails.append(f"{arch} x {shape}: {e!r}"[:200])
+            fails.append(f"{arch_} x {shape_} x {strategy}: {e!r}"[:200])
             continue
-        cells.append({"arch": arch, "shape": shape,
-                      "flops_total": r["flops_total"],
-                      "dot_flops_total": r["dot_flops_total"],
-                      "hbm_bytes_total": r["hbm_bytes_total"],
-                      "argument_size_in_bytes": r["argument_size_in_bytes"],
-                      "t_compute_s": r["roofline"]["t_compute"],
-                      "t_memory_s": r["roofline"]["t_memory"],
-                      "dominant": r["roofline"]["dominant"],
-                      "lower_seconds": r["lower_seconds"]})
-    return {"mesh": "1-pod (16 x 16)", "cells": cells, "failures": fails,
+        if not (r["collective_bytes"] or 0) > 0:
+            fails.append(f"{arch_} x {shape_} x {strategy}: collective "
+                         f"bytes {r['collective_bytes']}")
+        cells.append(_dry_cell(r))
+    sweep = []
+    for c in cells:
+        if (c["arch"], c["shape"]) == (arch, shape) and \
+                c["strategy"].startswith("mra"):
+            k = int(c["strategy"][3:])
+            area = replication_area_model(get_config(arch).n_params() * 2,
+                                          0, k)
+            sweep.append({"k": k, "collective_bytes": c["collective_bytes"],
+                          "param_bytes_per_device":
+                              c["param_bytes_per_device"],
+                          "area_model_weight_bytes_per_dev":
+                              area["weight_bytes_per_dev"],
+                          "t_memory_s": c["t_memory_s"],
+                          "t_collective_s": c["t_collective_s"]})
+    return {"mesh": "1-pod (16 x 16; K-factored for mra<K>)",
+            "cells": cells, "k_sweep": sweep, "failures": fails,
             "seconds": time.perf_counter() - t0}
 
 
@@ -7103,8 +7288,10 @@ def peer_gap(params, mesh, axes) -> float:
     return gap
 
 
-def _mesh_trainer(cfg, shape, mesh, spec, steps_total, device=None):
-    """The phase's trainer on ``mesh`` (``None``: one ``device``)."""
+def _mesh_trainer(cfg, shape, mesh, spec, steps_total, device=None,
+                  plan=None):
+    """The phase's trainer on ``mesh`` (``None``: one ``device``), under
+    ``plan`` (the default one by default)."""
     from repro_torch.optim import adamw
     from repro_torch.runtime.train import TrainConfig, Trainer
     tc = TrainConfig(accum=spec["accum"], log_every=1, ckpt_every=0,
@@ -7113,7 +7300,7 @@ def _mesh_trainer(cfg, shape, mesh, spec, steps_total, device=None):
                                            warmup_steps=spec["warmup"],
                                            total_steps=steps_total))
     kw = {} if device is None else {"device": device}
-    return Trainer(cfg, shape, mesh=mesh, tc=tc,
+    return Trainer(cfg, shape, mesh=mesh, tc=tc, plan=plan,
                    lm_kwargs=_train_lm_kwargs(), seed=SEED, **kw)
 
 
@@ -7465,23 +7652,24 @@ def train_mesh_one_device(device=DEV) -> dict:
     return out
 
 
-def phase_train_mesh(smi):
+def phase_train_mesh(smi, single=None):
     """4 gloo ranks as subprocesses on cuda:0 (``train_mesh_rank``) under
     a hard limit, held to ``train_mesh_one_device`` (the one-device
-    numbers on the same seed, weights and batches).  Prints the price of
-    four ranks sharing one card, not a multi-GPU speed."""
+    numbers on the same seed, weights and batches: ``single`` where the
+    caller has them).  Prints the price of four ranks sharing one card, not
+    a multi-GPU speed."""
     import gc
     import shutil
     import tempfile
     spec = TRAIN_MESH
-    single = train_mesh_one_device()
+    single = dict(single or train_mesh_one_device())
     gc.collect()
     torch.cuda.empty_cache()
     parent = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
               "reserved_gib": torch.cuda.memory_reserved() / 2**30}
     world = spec["world"]
     workdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    torch.save(single.pop("step1_grads"),
+    torch.save(single["step1_grads"],
                os.path.join(workdir, "one_device_grads.pt"))
     # four ranks' state and activations fill the card: no room is lost to
     # the allocator's fragmentation
@@ -7573,6 +7761,546 @@ def phase_train_mesh(smi):
 
 
 # ---------------------------------------------------------------------------
+# the paper's multi-replica tile on the LLM stack: 4 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# (data 1, replica 2, shard 2): train_mesh's danube cut, tokens, accum and
+# remat, the attention tile replicated twice (mra2-attn: its weights over
+# shard, each replica rank on its own rows of the stream, the gradients of
+# its leaves summed over replica) beside the K = 1 MLP over (replica,
+# shard) on the replica group's rows; 2 training steps held to train_mesh's
+# one-device run within train_mesh's gates, then a prefill of 4 slots (the
+# ring wraps) and 8 teacher-forced decode steps held to one device within
+# mesh_families' gates.  Step 1's collectives, read on these ranks, must be
+# the fake mesh's count of the same step (launch.costing.
+# placed_step_count, in the parent: no process group there).  Planted at
+# reduced size: both replica ranks fed the same rows, and the replica
+# reduce of the replicated leaves skipped
+MESH_MRA = {**TRAIN_MESH, "mesh": (1, 2, 2),
+            "axes": ("data", "replica", "shard"), "strategy": "mra2-attn",
+            "prompt": 4608, "window": 4096, "decode_steps": 8,
+            "limit_s": 420, "timeout_s": 300}
+
+
+def _mra_plan(cfg):
+    """The dry run's plan for ``MESH_MRA``'s strategy."""
+    from repro_torch.launch import dryrun as D
+    return D.cell_plan(cfg, D.CellOptions(strategy=MESH_MRA["strategy"]))
+
+
+def _mra_serve_shape(reduced):
+    """(prompt length, window, decode steps)."""
+    spec = MESH_MRA
+    return (12, 16, 4) if reduced else (spec["prompt"], spec["window"],
+                                        spec["decode_steps"])
+
+
+def mra_one_device_serve(workdir, device=DEV, reduced=False) -> dict:
+    """The serving numbers ``mesh_mra``'s ranks are held to: the cut
+    danube on ``device`` from the seed, 4 prompts prefilled and greedily
+    decoded (tokens and float32 logits written to ``workdir``)."""
+    from repro_torch.models.transformer import LM
+    S, W, steps = _mra_serve_shape(reduced)
+    cfg = _cut(MESH_MRA["arch"], MESH_MRA["n_layers"], reduced)
+    lm = LM(cfg, **_families_lm_kwargs())
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=device).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, S)),
+                           device=device)
+    logits = []
+    with torch.no_grad():
+        lg, cache = lm.prefill(params, toks, cache_len=W)
+        for _ in range(steps):
+            nxt = torch.argmax(lg, -1)[:, None]
+            toks = torch.cat([toks, nxt], 1)
+            logits.append(lg.cpu())
+            lg, cache = lm.decode_step(params, cache, nxt)
+        logits.append(lg.cpu())
+    torch.save({"tokens": toks.cpu(), "logits": torch.stack(logits)},
+               os.path.join(workdir, "serve_mra.pt"))
+    del params, cache, lg, lm
+    empty_cache()
+    return {"seconds": time.perf_counter() - t0, "prompt": S, "window": W,
+            "steps": steps}
+
+
+def replica_gap(params, mesh) -> float:
+    """``peer_gap`` over ``replica`` of the leaves not split over it (the
+    replicated tile's, and those every rank holds whole): 0 bit for bit."""
+    from repro_torch.parallel import placement as PL
+    kept = [t for t in _leaves(params) if "replica" not in
+            [a for e in PL.spec_of(t) for a in PL.entry_axes(e)]]
+    return peer_gap(kept, mesh, ("replica",))
+
+
+def _rows_of(t) -> list:
+    """Token rows as tuples (a tile's rows, compared by content)."""
+    return [tuple(r) for r in t.detach().cpu().tolist()]
+
+
+def mra_planted_faults(mesh) -> dict:
+    """The two faults the phase's checks must reject, at reduced size,
+    with a control run: both replica ranks fed replica rank 0's rows, and
+    the replica reduce of the replicated tile's gradients skipped; each
+    run's step 1 gradient leaves against one device's, the rows each tile
+    ran on, and the gap between the replica peers' blocks after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import device_put_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import group_axes
+    import repro_torch.runtime.train as RTM
+    cfg = get_config(TRAIN_MESH_FAULT_ARCH).reduced()
+    shape = ShapeConfig("tiny", 64, 4, "train")
+    spec = {**MESH_MRA, "accum": 1}
+    plan = _mra_plan(cfg)
+    one = one_device_grads(cfg, shape, spec, mesh.device)
+    out = {}
+
+    def run(tag, tr):
+        with first_grads_kept() as fk, T.recording_rows() as rows:
+            tr.run(1)
+        out[tag] = {"grad_rel_l2": grads_vs(gathered_grads(fk.kept),
+                                            one)["rel_l2"],
+                    "replica_gap": replica_gap(tr.params, mesh),
+                    "rows": {k: _rows_of(v) for k, v in rows.items()}}
+    run("control", _mesh_trainer(cfg, shape, mesh, spec, 10, plan=plan))
+    # both replica ranks fed replica rank 0's rows
+    tr = _mesh_trainer(cfg, shape, mesh, spec, 10, plan=plan)
+
+    def same_rows(np_batch):
+        got = device_put_batch(np_batch, mesh, group_axes(mesh))
+        n = mesh.shape["replica"]
+        return {k: v[:v.shape[0] // n] for k, v in got.items()}
+    tr.place_batch = same_rows
+    run("same_rows", tr)
+    # the replicated leaves' gradients not summed over replica
+    grad_axes = RTM.grad_axes
+    RTM.grad_axes = lambda lm, m: [tuple(a for a in ax if a != "replica")
+                                   for ax in grad_axes(lm, m)]
+    try:
+        run("no_replica_reduce",
+            _mesh_trainer(cfg, shape, mesh, spec, 10, plan=plan))
+    finally:
+        RTM.grad_axes = grad_axes
+    return out
+
+
+def mesh_mra_rank(rank, world, workdir, device="cuda", reduced=False):
+    """One rank of phase ``mesh_mra`` (``MESH_MRA``'s notes): the training
+    steps, step 1's collectives and gradient leaves, the rows each tile ran
+    on, the placed prefill and decode, the planted faults; its report
+    written to ``workdir/rank<rank>.json`` (``device`` "cpu" with
+    ``reduced`` only to rehearse the phase's code away from the card)."""
+    import torch.distributed as dist
+    from repro_torch import parallel as P
+    from repro_torch.checkpoint.store import _flatten_with_paths
+    from repro_torch.core.replication import merged_rules, split_kinds
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import ops
+    from repro_torch.launch.costing import _Collectives
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import place_params, shardings_for
+    from repro_torch.models.transformer import LM
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import placement as PL
+    spec = MESH_MRA
+    backend = C.init_process_group(
+        rank, world, "file://" + os.path.join(workdir, "store"),
+        device=device, timeout_s=spec["timeout_s"])
+    mesh = P.make_mesh(spec["mesh"], spec["axes"], device=device)
+    cuda = mesh.device.type == "cuda"
+    rep = {"rank": rank, "backend": backend, "device": str(mesh.device),
+           "coords": {a: mesh.coord(a) for a in mesh.axis_names},
+           "reduced": reduced}
+    K = all_kernels()
+    plain = {}
+    undo = _count_plain_on_cuda(plain)
+
+    def reset():
+        for f in K.values():
+            f.launches = 0
+        FD.flash_decode.lse_launches = 0
+        ops.reset_counts()
+        plain.clear()
+        C.USED.clear()
+
+    cfg = _cut(spec["arch"], spec["n_layers"], reduced)
+    plan = _mra_plan(cfg)
+    shape = _train_mesh_shape(reduced)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = _mesh_trainer(cfg, shape, mesh, spec, TRAIN["steps"], plan=plan)
+    empty_cache(sync_only=True)
+    rep["init_s"] = time.perf_counter() - t0
+    rep["mra_split"] = list(tr.lm.mra_split)
+    rep["rows_axes"] = list(tr.lm.rows_axes(mesh))
+    rep["specs"] = {p: repr(PL.spec_of(t)) for p, t in
+                    _flatten_with_paths(tr.params)
+                    if p in ("blocks/attn/wq", "blocks/mlp/wi_gate")}
+    rep["local_shapes"] = {p: list(PL.local(t).shape) for p, t in
+                           _flatten_with_paths(tr.params)
+                           if p in ("blocks/attn/wq", "blocks/mlp/wi_gate")}
+    step_fn, times, stats = tr._step, [], {}
+
+    def timed(*a):
+        empty_cache(sync_only=True)
+        dist.barrier()
+        t = time.perf_counter()
+        if not times:                   # step 1: its collectives counted
+            mode = _Collectives()
+            with mode:
+                out = step_fn(*a)
+            stats.update(collective_bytes=sum(mode.per_op.values()),
+                         per_op_bytes=dict(mode.per_op),
+                         op_counts=dict(mode.counts))
+        else:
+            out = step_fn(*a)
+        empty_cache(sync_only=True)
+        times.append(time.perf_counter() - t)
+        dist.barrier()
+        return out
+    tr._step = timed
+    reset()
+    with first_grads_kept() as fk, T.recording_rows() as rows:
+        hist = tr.run(spec["mesh_steps"])
+    rep["rows"] = {k: _rows_of(v[:, :16]) for k, v in rows.items()}
+    del rows
+    tr._step = step_fn
+    rep.update(losses=[m["loss"] for _, m in hist],
+               grad_norms=[m["grad_norm"] for _, m in hist], step_s=times,
+               collective_stats_step1=stats,
+               launches={k: f.launches for k, f in K.items()},
+               variants={k: getattr(f, "last_variant", None)
+                         for k, f in K.items()},
+               oracle_calls={k: v for k, v in {
+                   "fused_mlp.oracle": ops.FusedRMSNormMLP.backward_calls
+               }.items() if v},
+               plain_on_cuda=dict(plain),
+               used={"/".join(k): v for k, v in sorted(C.USED.items())},
+               train_peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                               if cuda else None))
+    got = gathered_grads(fk.kept)
+    del fk
+    one = (one_device_grads(cfg, shape, spec, mesh.device) if reduced else
+           torch.load(os.path.join(workdir, "one_device_grads.pt"),
+                      map_location=mesh.device))
+    rep["step1_grad"] = grads_vs(got, one)
+    rep["replica_gap"] = replica_gap(tr.params, mesh)
+    del got, one, tr
+    empty_cache()
+    dist.barrier()
+
+    # serving: the cut danube from the seed, placed, this rank's rows
+    S, W, steps = _mra_serve_shape(reduced)
+    lm = LM(cfg, **_families_lm_kwargs(), mra_split=split_kinds(plan, mesh))
+    params = place_params(
+        lm.init(torch.Generator(device=mesh.device).manual_seed(SEED)),
+        shardings_for(lm.param_specs(), merged_rules(plan, mesh), mesh))
+    empty_cache()
+    ref = torch.load(os.path.join(workdir, "serve_mra.pt"))
+    ax = lm.rows_axes(mesh)
+    B = ref["tokens"].shape[0] // C.axis_size(ax, mesh)
+    r0 = C.axis_index(ax, mesh) * B
+    toks = ref["tokens"][r0:r0 + B].to(mesh.device)
+    want = ref["logits"][:, r0:r0 + B]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    worst, agree, finite, calls = 0.0, 0, True, 0
+    reset()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        with T.recording_rows() as rows:
+            lg, cache = lm.prefill(params, toks[:, :S], cache_len=W)
+        empty_cache(sync_only=True)
+        prefill_s = time.perf_counter() - t0
+        serve_rows = {k: _rows_of(v[:, :16]) for k, v in rows.items()}
+        t1 = time.perf_counter()
+        for i in range(steps + 1):
+            if i:
+                lg, cache = lm.decode_step(params, cache,
+                                           toks[:, S + i - 1:S + i])
+            w = want[i].to(lg.device)
+            finite &= bool(torch.isfinite(lg).all())
+            for b in range(B):
+                worst = max(worst, _err(lg[b], w[b])
+                            / float(w[b].abs().max()))
+            agree += int((torch.argmax(lg, -1).cpu()
+                          == torch.argmax(w, -1).cpu()).sum())
+            calls += B
+        empty_cache(sync_only=True)
+    rep["serve"] = {
+        "layers": cfg.n_layers, "prompt": S, "window": W,
+        "decode_steps": steps, "rows": r0, "prefill_s": prefill_s,
+        "decode_s_per_step": (time.perf_counter() - t1) / max(steps, 1),
+        "max_rel_logit_err": worst, "agreed": agree, "positions": calls,
+        "finite": finite, "prefill_rows": serve_rows,
+        "cache_spec": repr(PL.spec_of(cache["blocks"][0])),
+        "launches": {k: f.launches for k, f in K.items()},
+        "lse_launches": FD.flash_decode.lse_launches,
+        "variants": {k: getattr(f, "last_variant", None)
+                     for k, f in K.items()},
+        "plain_on_cuda": dict(plain),
+        "used": {"/".join(k): v for k, v in sorted(C.USED.items())},
+        "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                     else None)}
+    del params, cache, lg, ref, want, lm
+    empty_cache()
+    dist.barrier()
+    rep["planted"] = mra_planted_faults(mesh)
+    undo()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mra_fake_count(reduced=False) -> dict:
+    """Step 1 of ``mesh_mra``'s training counted on a fake process group of
+    its mesh's shape (``launch.costing.placed_step_count``: the same model,
+    plan, rules, microbatches and rows a rank): run where no process group
+    is (the parent)."""
+    from repro_torch.core.replication import split_kinds
+    from repro_torch.launch.costing import placed_step_count
+    from repro_torch.launch.mesh import counting_mesh
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train import TrainConfig
+    spec = MESH_MRA
+    cfg = _cut(spec["arch"], spec["n_layers"], reduced)
+    shape = _train_mesh_shape(reduced)
+    plan = _mra_plan(cfg)
+    tc = TrainConfig(accum=spec["accum"],
+                     opt=adamw.AdamWConfig(lr=spec["lr"]))
+    t0 = time.perf_counter()
+    with counting_mesh(spec["mesh"], spec["axes"]) as pm:
+        lm = LM(cfg, **_train_lm_kwargs(), mra_split=split_kinds(plan, pm))
+        c = placed_step_count(lm, "train", shape.global_batch, shape.seq_len,
+                              pm, plan, tc=tc)
+    return {"collective_bytes": c.collective_bytes,
+            "per_op_bytes": dict(c.per_op_bytes),
+            "op_counts": dict(c.op_counts),
+            "seconds": time.perf_counter() - t0}
+
+
+def _want_mra_launches(cfg, steps) -> dict:
+    """Each kernel's launches on a rank: training (every block's forward
+    and its remat recompute, a microbatch at a time), and serving (the
+    prefill's one a layer, each decode step's)."""
+    spec = MESH_MRA
+    L = cfg.n_layers
+    train = 2 * spec["accum"] * L * spec["mesh_steps"]
+    return {"train": {"flash_attention": train, "fused_mlp": train,
+                      "flash_decode": 0, "ssd_scan": 0},
+            "serve": {"flash_attention": L, "fused_mlp": L * (1 + steps),
+                      "flash_decode": L * steps, "ssd_scan": 0}}
+
+
+def mra_rows_failures(reps, rows_key="rows") -> list:
+    """The stream split, by the token rows each tile ran on: the attention
+    tile's are half of its replica group's rows, disjoint across the two
+    replica ranks, and together the MLP's, which every rank of the group
+    sees whole (``rows_key``: the training run's rows, or a planted
+    run's ``planted/<tag>/rows``)."""
+    def rows(r):
+        x = r
+        for k in rows_key.split("/"):
+            x = x[k]
+        return {k: [tuple(row) for row in v] for k, v in x.items()}
+    bad = []
+    groups = {}
+    for r in reps:
+        groups.setdefault((r["coords"]["data"], r["coords"]["shard"]),
+                          []).append(r)
+    for key, members in sorted(groups.items()):
+        mlp = [rows(r)["ffn"] for r in members]
+        attn = [rows(r)["attn"] for r in members]
+        if any(m != mlp[0] for m in mlp):
+            bad.append(f"{rows_key} {key}: the MLP's rows differ across the "
+                       "replica group")
+        if any(len(a) * len(members) != len(mlp[0]) for a in attn):
+            bad.append(f"{rows_key} {key}: the attention ran on "
+                       f"{[len(a) for a in attn]} rows of the group's "
+                       f"{len(mlp[0])}")
+        flat = [row for a in attn for row in a]
+        if len(set(flat)) != len(flat):
+            bad.append(f"{rows_key} {key}: the replica ranks' attention "
+                       "rows overlap")
+        if sorted(flat) != sorted(mlp[0]):
+            bad.append(f"{rows_key} {key}: the attention rows are not the "
+                       "MLP's")
+    return bad
+
+
+def mesh_mra_failures(reps, single, fake) -> list:
+    """Every check of phase ``mesh_mra`` that fails, named."""
+    bad = []
+    r0 = reps[0]
+    reduced = r0["reduced"]
+    cfg = _cut(MESH_MRA["arch"], MESH_MRA["n_layers"], reduced)
+    want = _want_mra_launches(cfg, r0["serve"]["decode_steps"])
+    for i, (a, b) in enumerate(zip(r0["losses"], single["losses"])):
+        if not abs(a - b) <= TRAIN_MESH_LOSS_ATOL:
+            bad.append(f"step {i + 1} loss {a} vs one device {b}")
+    g, g1 = r0["grad_norms"][0], single["grad_norms"][0]
+    if not abs(g - g1) <= TRAIN_MESH_GNORM_RTOL * abs(g1):
+        bad.append(f"step 1 grad_norm {g} vs one device {g1}")
+    bad += mra_rows_failures(reps)
+    for r in reps:
+        k = r["rank"]
+        if r["mra_split"] != ["attn"]:
+            bad.append(f"rank {k} splits {r['mra_split']}")
+        if not r["step1_grad"]["rel_l2"] <= TRAIN_MESH_GRAD_RTOL:
+            bad.append(f"rank {k}'s step 1 gradient vs one device: "
+                       f"{r['step1_grad']}")
+        if r["losses"] != r0["losses"] or \
+                r["grad_norms"] != r0["grad_norms"]:
+            bad.append(f"rank {k}'s metrics differ from rank 0's")
+        if r["replica_gap"] != 0.0:
+            bad.append(f"rank {k}'s replicated blocks differ from its "
+                       f"replica peer's ({r['replica_gap']})")
+        if r["launches"] != want["train"]:
+            bad.append(f"rank {k} training launches {r['launches']}, not "
+                       f"{want['train']}")
+        if r["serve"]["launches"] != want["serve"] or \
+                r["serve"]["lse_launches"] != want["serve"]["flash_decode"]:
+            bad.append(f"rank {k} serving launches {r['serve']['launches']}"
+                       f" (lse {r['serve']['lse_launches']}), not "
+                       f"{want['serve']}")
+        if r["plain_on_cuda"] != r["oracle_calls"] or \
+                r["serve"]["plain_on_cuda"]:
+            bad.append(f"rank {k} plain versions on CUDA tensors "
+                       f"{r['plain_on_cuda']} / "
+                       f"{r['serve']['plain_on_cuda']}")
+        for what, used in (("training", r["used"]),
+                           ("serving", r["serve"]["used"])):
+            off = [u for u in used if not u.endswith("/gloo/cuda")]
+            if off or not used:
+                bad.append(f"rank {k} {what} collectives off gloo/cuda: "
+                           f"{off}")
+        s = r["serve"]
+        if not s["finite"] or s["max_rel_logit_err"] > mesh_logit_tol(
+                "dense"):
+            bad.append(f"rank {k} serving vs one device: logit error "
+                       f"{s['max_rel_logit_err']}, finite {s['finite']}")
+        if s["cache_spec"] != ("PartitionSpec(None, ('data', 'replica'), "
+                               "'shard', None, None)"):
+            bad.append(f"rank {k} cache placed {s['cache_spec']}")
+        st = r["collective_stats_step1"]
+        if (st.get("per_op_bytes"), st.get("op_counts")) != (
+                fake["per_op_bytes"], fake["op_counts"]):
+            bad.append(f"rank {k} step 1 collectives {st} vs the fake "
+                       f"mesh's count {fake}")
+        pl = r["planted"]
+        if pl["control"]["grad_rel_l2"] > TRAIN_MESH_GRAD_RTOL or \
+                pl["control"]["replica_gap"] != 0.0:
+            bad.append(f"rank {k}: the unfaulted reduced run diverged")
+    agree = (sum(r["serve"]["agreed"] for r in reps if r["coords"]["shard"]
+                 == 0) / max(1, sum(r["serve"]["positions"] for r in reps
+                                    if r["coords"]["shard"] == 0)))
+    if agree < AGREE_MIN:
+        bad.append(f"greedy agreement {agree} over the run's rows")
+    bad += mra_rows_failures(reps, "planted/control/rows")
+    if not mra_rows_failures(reps, "planted/same_rows/rows"):
+        bad.append("both replica ranks fed the same rows passed the rows "
+                   "check")
+    if not any(r["planted"]["no_replica_reduce"]["grad_rel_l2"]
+               > TRAIN_MESH_GRAD_RTOL for r in reps):
+        bad.append("the skipped replica reduce passed the gradient check")
+    return bad
+
+
+def phase_mesh_mra(smi, single, mesh_report=None):
+    """4 gloo ranks as subprocesses on cuda:0 (``mesh_mra_rank``) under a
+    hard limit, held to ``train_mesh_one_device``'s numbers (``single``)
+    and to ``mra_one_device_serve``'s; step 1's collectives held to
+    ``mra_fake_count``'s; beside train_mesh's (data 2, model 2) step's
+    collectives (``mesh_report``)."""
+    import shutil
+    import tempfile
+    spec = MESH_MRA
+    world = spec["world"]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_mra_")
+    torch.save(single["step1_grads"],
+               os.path.join(workdir, "one_device_grads.pt"))
+    serve_one = mra_one_device_serve(workdir)
+    fake = mra_fake_count()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-mra-rank",
+         str(r), "--world", str(world), "--workdir", workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(world)]
+    outs, timed_out = [], False
+    deadline = time.perf_counter() + spec["limit_s"]
+    for p in procs:
+        try:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter())))
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            break
+    if timed_out:
+        for p in procs:
+            p.kill()
+        outs = [p.communicate() for p in procs]
+    out = {"phase": "mesh_mra", "ranks": world,
+           "mesh": dict(zip(spec["axes"], spec["mesh"])),
+           "arch": spec["arch"], "layers": spec["n_layers"],
+           "strategy": spec["strategy"],
+           "seconds": time.perf_counter() - t0, "serve_one_device": serve_one,
+           "fake_count_step1": fake, "nvidia_smi": smi,
+           "card": "4 ranks sharing one H100 over gloo: the price of "
+                   "sharing the card, not a multi-GPU speed"}
+    try:
+        errs = [(r, p.returncode, e[-3000:]) for r, (p, (_, e))
+                in enumerate(zip(procs, outs)) if p.returncode != 0]
+        if timed_out or errs:
+            out["errors"] = errs
+            out["timed_out"] = timed_out
+            emit(out)
+            raise SystemExit("a mesh_mra rank failed: see errors")
+        reps = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                reps.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    r0 = reps[0]
+    out.update({
+        "losses": r0["losses"], "grad_norms": r0["grad_norms"],
+        "one_device": {"losses": single["losses"][:2],
+                       "grad_norm": single["grad_norms"][0]},
+        "step1_grad_by_rank": [r["step1_grad"] for r in reps],
+        "step_s": r0["step_s"], "init_s_by_rank": [r["init_s"] for r in reps],
+        "specs": r0["specs"], "local_shapes": r0["local_shapes"],
+        "rows_by_rank": [{k: len(v) for k, v in r["rows"].items()}
+                         for r in reps],
+        "collective_stats_step1": r0["collective_stats_step1"],
+        "train_mesh_collective_stats_step2": (
+            mesh_report or {}).get("collective_stats_step2"),
+        "train_peak_gib_by_rank": [r["train_peak_gib"] for r in reps],
+        "serve_by_rank": [{k: v for k, v in r["serve"].items()
+                           if k not in ("prefill_rows", "used")}
+                          for r in reps],
+        "launches_by_rank": [r["launches"] for r in reps],
+        "serve_launches_by_rank": [r["serve"]["launches"] for r in reps],
+        "planted": [{k: {kk: vv for kk, vv in v.items() if kk != "rows"}
+                     for k, v in r["planted"].items()} for r in reps]})
+    bad = mesh_mra_failures(reps, single, fake)
+    out["failures"] = bad
+    emit(out)
+    if bad:
+        raise SystemExit("mesh_mra: " + "; ".join(bad))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # every model family from placed parameters: 4 ranks sharing the card
 # ---------------------------------------------------------------------------
 
@@ -7582,14 +8310,17 @@ def phase_train_mesh(smi):
 # dense first layer and 2 MoE layers), full width, 2 steps, remat and the
 # iota-compare loss, each held to the same configuration on one device.
 # Serving: each family at full width, 4 slots of one prompt length (the
-# rows of one prefill share it), window 4,096, 32 teacher-forced decode
-# steps, held to the one-device LM on the same weights and tokens.
+# rows of one prefill share it), window 4,096, 16 teacher-forced decode
+# steps (32 until PR 28; cut for the script's time when mesh_mra joined:
+# danube's prompt crosses the window, so both halves of every ring hold
+# live keys from the first step and the planted lse fault shows at once),
+# held to the one-device LM on the same weights and tokens.
 MESH_FAMILIES = {"mesh": (2, 2), "axes": ("data", "model"), "world": 4,
                  "seq_len": TRAIN["seq_len"],
                  "global_batch": TRAIN["global_batch"],
                  "accum": TRAIN["accum"], "steps": 2, "lr": TRAIN["lr"],
                  "warmup": TRAIN["warmup"], "window": 4096,
-                 "decode_steps": 32, "limit_s": 600, "timeout_s": 300}
+                 "decode_steps": 16, "limit_s": 600, "timeout_s": 300}
 # (arch, n_layers, step 1's gradient leaves held whole against one
 # device's): column- and row-split weights, leaves every rank reads whole
 # (Mamba-2's w_B, MLA's latent down-projection), the shared tile's
@@ -7607,7 +8338,7 @@ MESH_TRAIN_CASES = (
                                  "prelude/0/attn/w_uv")))
 # (tag, arch, n_layers (None: full depth), prompt length): danube's
 # prompt crosses its 4,096-token sliding window (the ring wraps), granite's
-# leaves model rank 1's half of every ring empty through all 32 steps,
+# leaves model rank 1's half of every ring empty through all 16 steps,
 # deepseek's gives rank 1 its first key at the first step.  Cut for time
 # (each decode step's collectives wait for the card, which the 4 ranks
 # time-share: ~4 ms a call; the script's 1,200 s limit): zamba2 81 -> 12
@@ -8378,6 +9109,10 @@ def main() -> int:
                     help=argparse.SUPPRESS)     # one rank of "train_mesh"
     ap.add_argument("--mesh-families-rank", type=int, default=None,
                     help=argparse.SUPPRESS)     # one of "mesh_families"
+    ap.add_argument("--mesh-mra-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)     # one rank of "mesh_mra"
+    ap.add_argument("--mra-only", action="store_true",
+                    help="device, build and mesh_mra only")
     ap.add_argument("--dryrun-out", default=None,
                     help=argparse.SUPPRESS)     # the dry run's process
     ap.add_argument("--world", type=int, default=COLL["world"],
@@ -8402,6 +9137,8 @@ def main() -> int:
     if args.mesh_families_rank is not None:
         return mesh_families_rank(args.mesh_families_rank, args.world,
                                   args.workdir)
+    if args.mesh_mra_rank is not None:
+        return mesh_mra_rank(args.mesh_mra_rank, args.world, args.workdir)
 
     from repro_torch.kernels import build
     from repro_torch.kernels.tick_sim import fused_tick_sim
@@ -8428,6 +9165,11 @@ def main() -> int:
         phase_train_mesh(smi)
         print(smi, flush=True)
         emit({"ok": True, "mesh_only": True, "device": device})
+        return 0
+    if args.mra_only:
+        phase_mesh_mra(smi, train_mesh_one_device())
+        print(smi, flush=True)
+        emit({"ok": True, "mra_only": True, "device": device})
         return 0
     if args.families_only:
         phase_llm_kernels()
@@ -8517,9 +9259,18 @@ def main() -> int:
     # launches from 0 just before its steps and reading them just after;
     # the card is theirs (the contexts no later phase reads are dropped)
     del main_ctx, a12_ctx, cl_ctx, cl_runs
-    mesh_report = phase_train_mesh(smi)
+    single = train_mesh_one_device()
+    mesh_report = phase_train_mesh(smi, single)
     mesh_launches = {n: sum(r[n] for r in mesh_report["launches_by_rank"])
                      for n in mesh_report["launches_by_rank"][0]}
+    # the multi-replica tile: the stream split on (data 1, replica 2,
+    # shard 2), each rank counting from 0 just before its steps and its
+    # serving and reading just after
+    mra_report = phase_mesh_mra(smi, single, mesh_report)
+    del single
+    mra_launches = {n: sum(r[n] + s[n] for r, s in zip(
+        mra_report["launches_by_rank"], mra_report["serve_launches_by_rank"]))
+        for n in mra_report["launches_by_rank"][0]}
     # every family from placed parameters, training and serving, on 4
     # ranks sharing the card, each rank counting from 0 just before each
     # case and reading just after
@@ -8568,6 +9319,7 @@ def main() -> int:
                      + mla_launches[n]
                      + sum(r["launches"][n] for r in train_reports.values())
                      + mesh_launches.get(n, 0)
+                     + mra_launches.get(n, 0)
                      + families["launches"][n]),
         **kernel_row(serve_rows[n]),
         **({"also": kernel_row(serve_rows[n]["also"])}
@@ -8584,6 +9336,9 @@ def main() -> int:
            if n in mesh_launches else {}),
         "mesh_families": {"launches": families["launches"][n],
                           "ranks": MESH_FAMILIES["world"]},
+        **({"mesh_mra": {"launches": mra_launches[n],
+                         "ranks": MESH_MRA["world"]}}
+           if mra_launches.get(n) else {}),
         **({"lse": {"launches": families["lse_launches"],
                     **{k: kernel_lse_row(v) for k, v in
                        families["decode_lse"].items()}}}

@@ -16,11 +16,19 @@ the paper's area cost), and the tile's input token stream is *split* over
 ``replica``.  The rules read only a mesh's ``shape`` and ``axis_names``, so
 they work alike on a :class:`~repro_torch.launch.mesh.LogicalMesh` (the dry
 run's) and on a :class:`~repro_torch.launch.mesh.ProcessMesh` (the
-trainer's, whose ranks hold the placed tensors).  The port's layers keep
-the batch on the data axes: a K > 1 tile's weights are replicated over
-``replica`` as the rules say, but its stream is not split over it yet
-(ROADMAP queue A item 12d, the rest of item 12c).  The two closed forms
-at the end are what the design-space sweep charges for the knob.
+trainer's, whose ranks hold the placed tensors).
+
+On a ``ProcessMesh`` the stream is split as the bridge splits it
+(:func:`stream_split`, ``LM(mra_split=)``): the batch is placed over
+:func:`data_axes` (``replica`` among them once a tile has K > 1); a K > 1
+tile runs on the rank's own rows, tensor-parallel over ``shard``; a K = 1
+tile (the embedding and the vocab / loss tile always) takes its replica
+group's rows whole, gathered over ``replica``, tensor-parallel over
+``(replica, shard)``, and hands each rank its rows back after
+(``parallel.collectives.gather_stream`` / ``split_stream``).  A K > 1
+tile's gradients are the rank's rows' share and are summed over
+``replica`` too (``runtime.train.grad_axes``).  The two closed forms at the
+end are what the design-space sweep charges for the knob.
 """
 from __future__ import annotations
 
@@ -101,16 +109,44 @@ def merged_rules(plan: TilePlan, mesh: LogicalMesh) -> Dict[str, Axis]:
     return merged
 
 
-def data_axes(mesh: LogicalMesh,
-              plan: Optional[TilePlan] = None) -> Tuple[str, ...]:
-    """Axes carrying the batch dimension.  Replica sub-axes of MRA tiles
-    carry batch too (the AXI bridge splits the stream K ways)."""
+def data_axes(mesh, plan: Optional[TilePlan] = None) -> Tuple[str, ...]:
+    """Axes carrying the batch dimension (a ``LogicalMesh`` or a
+    ``ProcessMesh``).  Replica sub-axes of MRA tiles carry batch too (the
+    AXI bridge splits the stream K ways)."""
     names = mesh.axis_names
     out = tuple(a for a in ("pod", "data") if a in names)
     if "replica" in names and plan is not None and any(
             t.replication > 1 for t in plan.tiles):
         out = out + ("replica",)
     return out
+
+
+# the tiles whose stream the bridge can split (the embedding / vocab tile,
+# the NoC, MEM and IO never: K = 1)
+STREAM_TILES = ("attn", "ffn", "moe", "ssm", "shared_attn")
+
+
+def is_mra_mesh(mesh) -> bool:
+    names = set(mesh.axis_names)
+    return "replica" in names and "shard" in names
+
+
+def stream_split(plan: TilePlan, mesh) -> Dict[str, bool]:
+    """For each tile of ``plan`` (by name) on ``mesh``: whether its stream
+    is split over ``replica`` (K > 1 on an MRA mesh: each replica on its
+    own rows, its weights over ``shard``) or taken whole over ``(replica,
+    shard)`` (K = 1; every tile off an MRA mesh, and the embedding / vocab
+    tile always)."""
+    mra = is_mra_mesh(mesh)
+    return {t.name: mra and t.replication > 1 and t.kind in STREAM_TILES
+            for t in plan.tiles}
+
+
+def split_kinds(plan: TilePlan, mesh) -> Tuple[str, ...]:
+    """The kinds of the tiles :func:`stream_split` splits (what
+    ``LM(mra_split=)`` takes)."""
+    split = stream_split(plan, mesh)
+    return tuple(sorted({t.kind for t in plan.tiles if split[t.name]}))
 
 
 def replication_area_model(weight_bytes: int, act_bytes: int, k: int,

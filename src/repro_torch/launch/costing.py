@@ -32,7 +32,13 @@ so it watches the aten operators a step dispatches:
   the reference's ring wire-byte rule and the size of each op's own group.
   The reference's HLO parser (computations, while-loop trip counts, call
   multipliers) has no counterpart: the port produces no HLO, and an eager
-  loop dispatches every iteration's collective as it runs.
+  loop dispatches every iteration's collective as it runs.  The folding
+  counter counts them too, at the iteration multipliers, as the parser's
+  trip counts do: :func:`placed_step_count` counts one rank's placed step
+  (a train step, ``prefill`` or ``decode_step``) on fake tensors over a
+  fake process group (``launch.mesh.counting_mesh``) — the dry run's
+  collective term, equal op by op to what the same step dispatches on real
+  ranks.
 * **HBM bytes** — :func:`hbm_bytes`, the reference's formula as it is.
 """
 from __future__ import annotations
@@ -102,6 +108,13 @@ class FlopCount:
     total: float = 0.0
     dot: float = 0.0
     by_op: Dict[str, float] = field(default_factory=dict)
+    # the collectives dispatched: per-device ring wire bytes and calls by op
+    per_op_bytes: Dict[str, float] = field(default_factory=dict)
+    op_counts: Dict[str, float] = field(default_factory=dict)
+
+    @property
+    def collective_bytes(self) -> float:
+        return float(sum(self.per_op_bytes.values()))
 
 
 class _Frame(NamedTuple):
@@ -185,6 +198,13 @@ class FlopCounter:
 
     def _count(self, func, args, out) -> None:
         if self._paused:
+            return
+        coll = _collective(func, args, out)
+        if coll is not None:
+            op, wire = coll
+            c = self.count
+            c.per_op_bytes[op] = c.per_op_bytes.get(op, 0.0) + wire * self.mult
+            c.op_counts[op] = c.op_counts.get(op, 0.0) + self.mult
             return
         dot = _dot_flops(func, args)
         name = str(getattr(func, "overloadpacket", func))
@@ -388,6 +408,21 @@ def _group_size_of(args) -> int:
     return _resolve_process_group(names[-1]).size()
 
 
+def _collective(func, args, out):
+    """``(op, per-device wire bytes)`` of a collective operator, ``None``
+    for any other."""
+    ns = getattr(func, "namespace", "")
+    name = func.overloadpacket.__name__ if hasattr(
+        func, "overloadpacket") else ""
+    if ns == "_c10d_functional" and name in _FUNCTIONAL:
+        op, result = _FUNCTIONAL[name], out
+    elif ns == "c10d" and name in _INPLACE:
+        op, result = _INPLACE[name], args[0]
+    else:
+        return None
+    return op, _wire_bytes(op, _bytes(result), _group_size_of(args))
+
+
 class _Collectives(TorchDispatchMode):
     def __init__(self):
         super().__init__()
@@ -396,16 +431,9 @@ class _Collectives(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        ns = getattr(func, "namespace", "")
-        name = func.overloadpacket.__name__ if hasattr(
-            func, "overloadpacket") else ""
-        op = None
-        if ns == "_c10d_functional" and name in _FUNCTIONAL:
-            op, result = _FUNCTIONAL[name], out
-        elif ns == "c10d" and name in _INPLACE:
-            op, result = _INPLACE[name], args[0]
-        if op is not None:
-            wb = _wire_bytes(op, _bytes(result), _group_size_of(args))
+        coll = _collective(func, args, out)
+        if coll is not None:
+            op, wb = coll
             self.per_op[op] = self.per_op.get(op, 0.0) + wb
             self.counts[op] = self.counts.get(op, 0) + 1
         return out
@@ -421,6 +449,85 @@ def collective_stats(fn: Callable, *args, **kwargs) -> Dict[str, Any]:
         fn(*args, **kwargs)
     return {"collective_bytes": sum(mode.per_op.values()),
             "per_op_bytes": dict(mode.per_op), "op_counts": dict(mode.counts)}
+
+
+def placed_inputs(lm, kind: str, batch: int, seq_len: int, mesh, plan,
+                  rules_override: Optional[Dict] = None,
+                  device="cpu") -> tuple:
+    """The arguments of one rank's placed step on ``mesh`` (a
+    ``ProcessMesh``; call under ``FakeTensorMode`` for fakes): the
+    parameters placed by the plan's rules (``rules_override`` on top, the
+    dry run's expert parallelism), and for ``kind`` ``"train"`` the AdamW
+    state placed alike, this rank's rows of a ``batch`` x ``seq_len``
+    batch and the C3 counters; ``"prefill"`` this rank's rows of the
+    prompts; ``"decode"`` the placed cache of a ``seq_len`` context
+    (``launch.specs.place_cache``) and this rank's rows of one token.  The
+    values are zeros (only their shapes, and the layout, matter here)."""
+    from repro_torch.core.monitor import init_counters
+    from repro_torch.core.replication import merged_rules
+    from repro_torch.launch.mesh import PartitionSpec
+    from repro_torch.launch.specs import cache_specs, place_cache
+    from repro_torch.models.params import (place_params, shardings_for,
+                                           tree_leaves, tree_map,
+                                           tree_unflatten)
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import placement as PL
+    from repro_torch.parallel.collectives import axis_size
+    rules = merged_rules(plan, mesh)
+    rules.update(rules_override or {})
+    rules = {k: (v if all(a in mesh.axis_names for a in PL.entry_axes(v))
+                 else None) for k, v in rules.items()}
+    full = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device=device), lm.param_specs())
+    params = place_params(full, shardings_for(lm.param_specs(), rules, mesh))
+    rows = batch // axis_size(lm.rows_axes(mesh), mesh)
+    tok = torch.zeros((rows, seq_len if kind != "decode" else 1),
+                      dtype=torch.int32, device=device)
+    if kind == "train":
+        return (params, adamw.init(params), {"tokens": tok, "labels": tok},
+                init_counters(plan, device))
+    if kind == "prefill":
+        return params, tok
+    whole = lm.init_cache(batch, seq_len, device=device)
+    specs = tree_leaves(cache_specs(lm, batch, lm._window(seq_len), mesh),
+                        lambda x: isinstance(x, PartitionSpec))
+    blocks = tree_unflatten(whole, [
+        PL.local_block(t, sp, mesh).contiguous()
+        for t, sp in zip(tree_leaves(whole, torch.is_tensor), specs)])
+    return params, place_cache(lm, blocks, mesh, lm._window(seq_len)), tok
+
+
+def placed_step(lm, kind: str, plan, mesh, tc=None) -> Callable:
+    """One rank's placed step of ``kind`` (``make_train_step``'s, ``LM.
+    prefill`` or ``LM.decode_step``), taking :func:`placed_inputs`'s
+    arguments."""
+    if kind == "train":
+        from repro_torch.runtime.train import TrainConfig, make_train_step
+        return make_train_step(lm, plan, mesh, tc or TrainConfig())
+    if kind == "prefill":
+        return lambda p, t: lm.prefill(p, t)
+    return lambda p, c, t: lm.decode_step(p, c, t)
+
+
+def placed_step_count(lm, kind: str, batch: int, seq_len: int, mesh, plan,
+                      *, tc=None, rules_override=None,
+                      fold: bool = True) -> FlopCount:
+    """One rank's placed step (:func:`placed_step`) counted on fake
+    tensors: its collectives (``per_op_bytes``, ``op_counts``) and its
+    FLOPs, ``repeat`` loops folded.  ``mesh`` is a ``ProcessMesh``, a fake
+    one (``launch.mesh.counting_mesh``) for a mesh of any size in one
+    process.  Nothing is allocated and nothing is read back: the step's
+    host reads (the trainer's logging loop) are not in it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    with mode:
+        args = placed_inputs(lm, kind, batch, seq_len, mesh, plan,
+                             rules_override)
+    step = placed_step(lm, kind, plan, mesh, tc)
+    counter = FlopCounter(fold=fold)
+    with mode, counter:
+        step(*args)
+    return counter.count
 
 
 # ---------------------------------------------------------------------------

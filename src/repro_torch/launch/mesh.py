@@ -262,6 +262,36 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], *,
     return ProcessMesh(dm, dev)
 
 
+@contextlib.contextmanager
+def counting_mesh(shape: Sequence[int], names: Sequence[str]):
+    """A :class:`ProcessMesh` of ``shape`` over a *fake* process group of
+    ``prod(shape)`` ranks, this process its rank 0: PyTorch's ``"fake"``
+    backend (``torch.testing._internal.distributed.fake_pg``) returns every
+    collective at once, moving nothing, so one rank's placed step runs on
+    fake tensors and its collectives are counted (``launch.costing.
+    placed_step_count``) for a mesh of any size on one host.  The default
+    process group is set up inside and torn down after; a process holds one
+    default group at a time, so this runs only in a process that has none
+    (the dry run's, or a test's subprocess), never beside real ranks."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, names = tuple(int(n) for n in shape), tuple(names)
+    LogicalMesh(shape, names)                   # the same checks
+    if dist.is_initialized():
+        raise RuntimeError("counting_mesh needs a process with no process "
+                           "group: it makes the default one fake")
+    n = 1
+    for s in shape:
+        n *= s
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        dm = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        yield ProcessMesh(dm, torch.device("cpu"))
+    finally:
+        dist.destroy_process_group()
+
+
 _AMBIENT: list = []
 
 

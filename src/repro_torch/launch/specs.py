@@ -34,7 +34,8 @@ from repro_torch.core.replication import merged_rules
 from repro_torch.core.tiles import TilePlan, default_plan
 from repro_torch.launch.mesh import LogicalMesh, PartitionSpec as P, \
     Sharding
-from repro_torch.models.params import (pspecs_for, tree_leaves, tree_map,
+from repro_torch.models.params import (get_batch_axes, pspecs_for,
+                                       tree_leaves, tree_map,
                                        tree_unflatten)
 from repro_torch.models.transformer import LM
 from repro_torch.optim import adamw
@@ -134,21 +135,42 @@ def batch_shardings(batch_abs, mesh: LogicalMesh,
     return tree_map(one, batch_abs, torch.is_tensor)
 
 
+def _tile_axes(lm: LM, mesh, kind: str):
+    """(batch axes, model axis) of the cache of tile ``kind``: the
+    reference's on a production mesh; on an MRA mesh the tile's own — the
+    batch over (pod, data, replica) and the model dims over ``shard`` where
+    its stream is split (K > 1, the reference's layout), the batch over
+    (pod, data) and the model dims over ``(replica, shard)`` where it takes
+    the stream whole (K = 1); a replicated tile whose rows are not split
+    (``LM.mra_rows``) its group's rows, its model dims over ``shard``.  Of
+    (pod, data) only the current batch axes (``params.get_batch_axes``):
+    the axes the placed model splits its rows over."""
+    rows = get_batch_axes() + ("replica",)
+    dp = tuple(a for a in _dp(mesh) if a in rows)
+    if "replica" not in mesh.axis_names:
+        return dp, _model_axis(mesh)
+    if not lm._rows_split(kind, mesh):
+        dp = tuple(a for a in dp if a != "replica")
+    return dp, ("shard" if lm._is_split(kind, mesh) else ("replica", "shard"))
+
+
 def cache_shardings(lm: LM, cache_abs, mesh: LogicalMesh):
     """Explicit shardings mirroring ``LM.init_cache``'s structure.
 
     Policy: batch over (pod,data) when divisible; the KV window (sequence)
     axis over model (sequence-parallel decode attention — flash-decoding's
-    layout); SSM state heads over model.
+    layout); SSM state heads over model.  On an MRA mesh each entry
+    follows its tile (:func:`_tile_axes`).
     """
     cfg = lm.cfg
-    dp = _dp(mesh)
-    dp_sz = _axsize(mesh, dp) if dp else 1
-    mdl = _model_axis(mesh)
-    m_sz = _axsize(mesh, mdl)
 
-    def attn_cache_spec(a, stacked_axes: int):
+    def axes_of(kind):
+        dp, mdl = _tile_axes(lm, mesh, kind)
+        return dp, (_axsize(mesh, dp) if dp else 1), mdl, _axsize(mesh, mdl)
+
+    def attn_cache_spec(a, stacked_axes: int, kind: str = "attn"):
         # (*stack, B, W, *tail)
+        dp, dp_sz, mdl, m_sz = axes_of(kind)
         b_ax, w_ax = stacked_axes, stacked_axes + 1
         ent = [None] * a.dim()
         if dp and a.shape[b_ax] % dp_sz == 0 and a.shape[b_ax] > 1:
@@ -159,6 +181,7 @@ def cache_shardings(lm: LM, cache_abs, mesh: LogicalMesh):
 
     def ssm_cache_spec(a, key: str):
         # conv_*: (L,B,c-1,ch)   state: (L,B,nh,st,hd)
+        dp, dp_sz, mdl, m_sz = axes_of("ssm")
         ent = [None] * a.dim()
         if dp and a.shape[1] % dp_sz == 0 and a.shape[1] > 1:
             ent[1] = dp
@@ -175,7 +198,7 @@ def cache_shardings(lm: LM, cache_abs, mesh: LogicalMesh):
         if k == "pos":
             out[k] = Sharding(mesh, P())
         elif k == "shared_attn":
-            out[k] = tuple(attn_cache_spec(a, 1) for a in v)
+            out[k] = tuple(attn_cache_spec(a, 1, "shared_attn") for a in v)
         elif k == "blocks":
             if cfg.family in ("ssm", "hybrid"):
                 out[k] = {kk: ssm_cache_spec(a, kk) for kk, a in v.items()}

@@ -27,7 +27,12 @@ weight whose spec differs from the block it feeds is relaid out to it
 (:func:`~repro_torch.parallel.placement.relayout`, counted collectives).
 The input, replicated over those axes, enters through
 ``collectives.replicated`` (its gradient summed over them) and the
-row-parallel output leaves through ``psum``.
+row-parallel output leaves through ``psum``.  On an MRA mesh the sites
+are the current tile's (:func:`tile_stream`): a tile replicated over
+``replica`` holds the rank's own rows and reads ``MODEL`` as ``shard``; a
+tile of K = 1 holds its replica group's rows and reads ``MODEL`` as
+``(replica, shard)``, its whole fabric (the model moves the stream
+between them).
 
 Placed serving: ``gqa_apply`` with ``return_cache`` gives this rank's
 rows' k / v on its own kv heads, ``mla_apply`` its rows' latent cache
@@ -51,6 +56,7 @@ cache in float32, as the reference does (no kernel), optionally int8
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -153,21 +159,71 @@ def batch_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in get_batch_axes() if a in mesh.axis_names)
 
 
+def group_axes(mesh) -> Tuple[str, ...]:
+    """The batch axes of ``mesh`` less ``replica``: the rows a replica
+    group of an MRA mesh shares (its tiles of K = 1 run on them whole)."""
+    return tuple(a for a in batch_axes(mesh) if a != "replica")
+
+
+def stream_axes(mesh, split: bool) -> Tuple[str, ...]:
+    """The axes a tile's rows are split over: :func:`group_axes`, and
+    ``replica`` too where the tile's stream is split over its replicas (K >
+    1 on an MRA mesh; the paper's AXI bridge)."""
+    g = group_axes(mesh)
+    return g + ("replica",) if split and "replica" in mesh.axis_names else g
+
+
+_SPLIT: list = [(False, False)]
+
+
+@contextlib.contextmanager
+def tile_stream(split: bool, rows: Optional[bool] = None):
+    """Inside, the placed layers run as a tile replicated over ``replica``
+    (``split``: K > 1, its fabric ``shard``), each rank on its own rows of
+    the stream (``rows``, by default ``split``) or on its replica group's
+    (a batch too small to split: the replicas compute alike), or as a tile
+    that takes the stream whole (K = 1: the group's rows, its fabric
+    ``(replica, shard)``); on a mesh with no ``replica`` axis they are all
+    the same."""
+    _SPLIT.append((bool(split), bool(split if rows is None else rows)))
+    try:
+        yield
+    finally:
+        _SPLIT.pop()
+
+
+def tile_split() -> bool:
+    """Whether the current tile is replicated, its fabric ``shard``
+    (:func:`tile_stream`)."""
+    return _SPLIT[-1][0]
+
+
+def tile_rows() -> bool:
+    """Whether the current tile runs on the rank's own rows of a split
+    stream (:func:`tile_stream`)."""
+    return _SPLIT[-1][1]
+
+
 def site(local_shape: Tuple[int, ...], mesh, *axes) -> tuple:
-    """The reference's ``shard_activation(x, *axes)`` spec at a site, for a
-    tensor whose local block has ``local_shape`` (the batch dim this rank's
-    share of the batch axes); each entry as a tuple of axes.  The port's
-    layers keep the batch on the batch axes: a spec that moves it raises."""
-    bax = batch_axes(mesh)
+    """The reference's ``shard_activation(x, *axes)`` spec at a site of the
+    current tile (:func:`tile_stream`), for a tensor whose local block has
+    ``local_shape`` (the batch dim this rank's share of the tile's rows,
+    :func:`stream_axes`); each entry as a tuple of axes.  A tile that takes
+    the stream whole reads ``MODEL`` as ``MODEL_FULL``, its whole fabric.
+    The port's layers keep the batch on the tile's rows: a spec that moves
+    it raises."""
+    if not tile_split():
+        axes = tuple(MODEL_FULL if a == MODEL else a for a in axes)
+    rows = stream_axes(mesh, tile_rows())
     n = 1
-    for a in bax:
+    for a in rows:
         n *= mesh.shape[a]
     shape = (local_shape[0] * n,) + tuple(local_shape[1:])
-    spec = activation_spec(shape, *axes, mesh=mesh)
+    spec = activation_spec(shape, *axes, mesh=mesh, batch_axes=rows)
     ents = tuple(entry_axes(e) for e in spec)
-    if ents[0] != bax:
+    if ents[0] != rows:
         raise ValueError(f"the site {axes} puts the batch of {shape} on "
-                         f"{ents[0]}; the layers keep it on {bax}")
+                         f"{ents[0]}; the tile keeps it on {rows}")
     return ents
 
 

@@ -22,6 +22,8 @@ taken as their blocks over ``tp``, ``out_proj`` as its row block; ``w_B`` /
 ``w_C`` and their convs whole (the state dim is not split), their outputs
 entering the local scan through ``collectives.replicated``; the gated
 norm's mean square summed over ``tp``; the output summed over ``tp``.
+On an MRA mesh ``tp`` is the SSM tile's fabric and its rows the tile's
+(``layers.tile_stream``), as for every placed layer.
 Serving: the cache is placed by ``launch.specs.cache_shardings`` (``cs``:
 a layer's specs: the state's heads and each conv buffer's channels over
 the model axis).  ``ssm_apply(return_cache=True, cs=)`` gives this rank's

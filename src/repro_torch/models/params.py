@@ -248,11 +248,13 @@ def _mesh_size(mesh, names) -> int:
 
 
 def activation_spec(shape: Tuple[int, ...], *axes: Axis,
-                    mesh=None) -> Optional[PartitionSpec]:
+                    mesh=None, batch_axes: Optional[Tuple[str, ...]] = None
+                    ) -> Optional[PartitionSpec]:
     """The spec the reference's ``shard_activation(x, *axes)`` constrains a
     tensor of global ``shape`` to on ``mesh`` (the ambient mesh by default;
     ``None`` without one): the default batch axes replaced by the current
-    ones; on an MRA-factored mesh (``shard`` and no ``model``) ``"model"``
+    ones (``batch_axes``, else :func:`get_batch_axes`'s); on an MRA-factored
+    mesh (``shard`` and no ``model``) ``"model"``
     becomes ``"shard"`` and ``"__model_full__"`` ``("replica", "shard")``,
     with ``"replica"`` leaving the other entries of that tensor; axes not in
     the mesh dropped; then, dim by dim, axes an earlier dim took dropped
@@ -261,8 +263,8 @@ def activation_spec(shape: Tuple[int, ...], *axes: Axis,
         mesh = get_mesh()
     if mesh is None or not getattr(mesh, "axis_names", ()):
         return None
-    axes = tuple(_BATCH_AXES if a == _DEFAULT_BATCH_AXES else a
-                 for a in axes)
+    cur = _BATCH_AXES if batch_axes is None else tuple(batch_axes)
+    axes = tuple(cur if a == _DEFAULT_BATCH_AXES else a for a in axes)
     names = set(mesh.axis_names)
     if "model" not in names and "shard" in names:
         if "__model_full__" in axes:

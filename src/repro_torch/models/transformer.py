@@ -86,6 +86,22 @@ the rank's kv heads to its window slice in one all-to-all,
 are made) and never holds a whole one.  ``decode_step`` writes the
 cache's blocks in place, as on one device (``layers.gqa_decode`` /
 ``mla_decode`` / ``mamba2.ssm_decode`` under ``ps``).
+
+**The MRA stream split** (``mra_split``, the paper's C1): on a mesh with a
+``replica`` axis each tile of those kinds (K > 1, ``core.replication.
+split_kinds``) runs on the rank's own rows of the stream, its weights over
+``shard``, and every other tile (K = 1: the embedding and the vocab / loss
+tile always) on its replica group's rows, gathered over ``replica``, over
+``(replica, shard)``; the stream moves only where two tiles in a row
+differ (``gather_stream`` / ``split_stream``, :meth:`LM._move`).  The rows
+given to the entry points are the rank's over :meth:`LM.rows_axes`; the
+loss, the logits and ``forward``'s output are the replica group's rows;
+``prefill`` and ``decode_step`` hand each rank its own rows' logits.  A
+replicated MoE tile's load-balance losses are averaged over ``replica``.
+Inside :func:`recording_rows` the token rows each tile ran on are recorded.
+``mra_rows=False``
+keeps the replicated tiles on their group's rows (a batch that does not
+split over ``replica``).
 """
 from __future__ import annotations
 
@@ -112,6 +128,25 @@ from repro_torch.models.params import (ParamSpec, abstract_params,
                                        tree_map, tree_unflatten)
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import placement as PL
+
+
+# the open recording_rows(): (tile kind -> rows, split -> token rows)
+_RECORDING: list = []
+
+
+@contextlib.contextmanager
+def recording_rows():
+    """Inside, record the token rows each tile of a placed call runs on:
+    yields a dict tile kind -> the token rows (rows, S) of its last placed
+    call (a reference, no copy), the rank's own rows where the tile splits
+    the stream, its replica group's where it takes it whole.  A call given
+    ``embeds`` in place of tokens records nothing."""
+    rows: Dict[str, torch.Tensor] = {}
+    _RECORDING.append((rows, {}))
+    try:
+        yield rows
+    finally:
+        _RECORDING.pop()
 
 
 def _stack_specs(tree, n: int):
@@ -222,6 +257,15 @@ class LM:
     # placed parameters each block's leaves are relaid out to it inside the
     # remat body (the reference's use-site constraint); else the identity
     block_pspecs: Any = None
+    # the tile kinds whose stream is split over an MRA mesh's ``replica``
+    # axis (K > 1: ``core.replication.split_kinds``); under placed
+    # parameters they run on the rank's own rows, the others on its replica
+    # group's rows (the module's notes)
+    mra_split: Tuple[str, ...] = ()
+    # whether the replicated tiles split their rows over ``replica`` (False
+    # for a batch that does not split that far: they then take their
+    # group's rows whole on ``shard``, every replica alike)
+    mra_rows: bool = True
 
     def __post_init__(self):
         why = not_ported(self.cfg)
@@ -255,6 +299,95 @@ class LM:
         ``i`` with ``i % shared_attn_every == 0``."""
         every = self._every
         return -(-self.cfg.n_layers // every) if every else 0
+
+    # ------------------------------------------------------ the MRA stream
+    def tile_kinds(self) -> Tuple[str, ...]:
+        """The compute tiles of the model (``core.tiles`` kinds)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return ("ssm",)
+        if cfg.family == "hybrid":
+            return ("ssm", "shared_attn")
+        if cfg.family == "moe":
+            return ("attn", "moe") + (("ffn",) if cfg.n_dense_layers else ())
+        return ("attn", "ffn")
+
+    def leaf_tiles(self):
+        """The tile kind of every parameter leaf (the tree of
+        :meth:`param_specs`): the tile whose stream the leaf is read on;
+        ``"embed"`` for the embedding, the final norm and the head."""
+        def kinds(block: Dict, shared: bool = False):
+            if shared:
+                return {k: tree_map(lambda _: "shared_attn", v)
+                        for k, v in block.items()}
+            out = {}
+            for k, v in block.items():
+                kind = ("ssm" if k in ("norm", "ssm") else
+                        "attn" if k in ("attn_norm", "attn") else
+                        "moe" if "moe" in block else "ffn")
+                out[k] = tree_map(lambda _, kind=kind: kind, v)
+            return out
+        sp = self.param_specs()
+        out = {k: tree_map(lambda _: "embed", v) for k, v in sp.items()
+               if k not in ("blocks", "prelude", "shared_attn")}
+        out["blocks"] = kinds(sp["blocks"])
+        if "prelude" in sp:
+            out["prelude"] = [kinds(b) for b in sp["prelude"]]
+        if "shared_attn" in sp:
+            out["shared_attn"] = kinds(sp["shared_attn"], shared=True)
+        return out
+
+    def split_leaves(self, mesh):
+        """Per leaf: whether its gradient is a replica rank's share (the
+        leaf read on the rank's own rows of a split stream) on ``mesh``."""
+        return tree_map(lambda k: self._rows_split(k, mesh),
+                        self.leaf_tiles(), lambda x: isinstance(x, str))
+
+    def _is_split(self, kind: str, mesh=None) -> bool:
+        """Whether tile ``kind`` runs on the rank's own rows (K > 1 on a
+        mesh with a ``replica`` axis)."""
+        mesh = mesh if mesh is not None else get_mesh()
+        return (kind in self.mra_split and kind in self.tile_kinds()
+                and mesh is not None and "replica" in mesh.axis_names)
+
+    def _rows_split(self, kind: str, mesh=None) -> bool:
+        """Whether tile ``kind`` runs on the rank's own rows of a split
+        stream (``_is_split`` and ``mra_rows``)."""
+        return self.mra_rows and self._is_split(kind, mesh)
+
+    def _streams(self, kinds, ps):
+        """``(replicated, own rows)`` of each tile kind of ``kinds`` (never
+        either unplaced)."""
+        return [(ps is not None and self._is_split(k),
+                 ps is not None and self._rows_split(k)) for k in kinds]
+
+    def _home_split(self, mesh) -> bool:
+        """Whether a tile of the model splits its stream on ``mesh``."""
+        return any(self._rows_split(k, mesh) for k in self.tile_kinds())
+
+    def rows_axes(self, mesh) -> Tuple[str, ...]:
+        """The axes the rows given to the placed entry points are split
+        over: the batch axes, with ``replica`` where a tile of the model
+        splits its stream (``data.pipeline.device_put_batch`` takes them)."""
+        return L.stream_axes(mesh, self._home_split(mesh))
+
+    def _move(self, x, own: bool, split: bool):
+        """``x`` (the rank's own rows if ``own``, else its group's) as the
+        rows of a tile that splits its stream or not: one
+        ``gather_stream`` / ``split_stream`` over ``replica`` where the two
+        differ."""
+        if own == split:
+            return x
+        mesh = get_mesh()
+        return (C.split_stream(x, "replica", mesh) if split
+                else C.gather_stream(x, "replica", mesh))
+
+    def _ran(self, kind: str, split: bool) -> None:
+        """Record the token rows tile ``kind`` ran on (inside
+        :func:`recording_rows`)."""
+        if _RECORDING and _RECORDING[-1][1]:
+            rows, tokens = _RECORDING[-1]
+            rows[kind] = tokens[split]
 
     # ----------------------------------------------------------- param specs
     def param_specs(self):
@@ -293,10 +426,20 @@ class LM:
         """Token embeddings (B, S, d), or the given ``embeds`` as they are.
         The gather is an ``index_select``, whose backward adds rows on the
         device with no host read.  ``ps``: the specs of placed parameters
-        (the table's vocab rows on each rank, summed over its axes)."""
+        (the table's vocab rows on each rank, summed over its axes); placed
+        ``embeds``, like tokens, are the rank's rows, gathered over
+        ``replica`` where the stream is split (the embedding a K = 1 tile)."""
         cfg = self.cfg
+        if _RECORDING:
+            _RECORDING[-1][1].clear()
         if ps is not None and embeds is None:
             return self._embed_placed(params, tokens, ps)
+        if ps is not None:
+            mesh = get_mesh()
+            if self._home_split(mesh):
+                embeds = C.gather_stream(embeds, "replica", mesh)
+            site(tuple(embeds.shape), mesh, DATA, None, None)
+            return embeds
         if embeds is None:
             table = params["embed"]
             embeds = table.index_select(0, tokens.reshape(-1)).reshape(
@@ -307,7 +450,17 @@ class LM:
         return embeds
 
     def _embed_placed(self, params, tokens, ps):
+        """The embedding of the replica group's rows (a K = 1 tile: the
+        rank's rows gathered over ``replica`` first where the stream is
+        split), the table's vocab rows on each rank, summed over its
+        axes."""
         cfg, mesh = self.cfg, get_mesh()
+        rec = _RECORDING[-1][1] if _RECORDING else {}
+        if self._home_split(mesh):
+            rec[True] = tokens
+            tokens = C.gather_stream(tokens, "replica", mesh)
+        rec[False] = tokens
+        self._ran("embed", False)
         site(tuple(tokens.shape) + (cfg.d_model,), mesh, DATA, None, None)
         vax = PL.entry_axes(ps["embed"][0]) if len(ps["embed"]) else ()
         table = PL.relayout(params["embed"], ps["embed"], (vax, None), mesh)
@@ -364,17 +517,22 @@ class LM:
         dense block has none (``None``).  Under placed parameters
         ``moe_apply``'s mesh path runs on this rank's tokens and its blocks
         of the expert weights (``moe.expert_specs``: the experts or their
-        columns of F the path reads); the router, the norm and any shared
-        experts whole."""
+        columns of F the path reads; a tile of K = 1 on an MRA mesh over
+        its whole fabric ``(replica, shard)`` unless ``moe_axes`` says
+        otherwise); the router, the norm and any shared experts whole."""
         if "moe" not in bp:
             return self._mlp(bp, x, ps), None
         moe, extra = bp["moe"], {}
         norm = bp["mlp_norm"]
+        axes = self.moe_axes
         if ps is not None:
+            mesh = get_mesh()
+            if axes is None and not L.tile_split() and \
+                    "replica" in mesh.axis_names:
+                axes = ("replica", "shard")     # K = 1: the whole fabric
             want = {**tree_map(lambda _: PartitionSpec(), ps["moe"],
                                _is_pspec),
-                    **MoE.expert_specs(self.cfg, get_mesh(), self.moe_ep,
-                                       self.moe_axes,
+                    **MoE.expert_specs(self.cfg, mesh, self.moe_ep, axes,
                                        x.shape[0] * x.shape[1], ())}
             moe = _relayout_tree(moe, ps["moe"], want)
             norm = _whole(norm, ps["mlp_norm"])
@@ -382,7 +540,7 @@ class LM:
         h = L.rms_norm(x, norm, self.cfg.norm_eps)
         experts = "grouped" if self.opts.backend == "fused" else "loop"
         out, loss = MoE.moe_apply(moe, self.cfg, h, ep=self.moe_ep,
-                                  model_axes=self.moe_axes, experts=experts,
+                                  model_axes=axes, experts=experts,
                                   aux=aux, **extra)
         return x + out, loss
 
@@ -428,32 +586,63 @@ class LM:
         return x + C.psum(out, tp, mesh)
 
     # ------------------------------------------------------- full-seq blocks
+    def _block_tiles(self, bp, shared: bool = False) -> Tuple[str, ...]:
+        """The tile kinds a block runs, in order."""
+        if shared:
+            return ("shared_attn", "shared_attn")
+        if "ssm" in bp:
+            return ("ssm",)
+        return ("attn", "moe" if "moe" in bp else "ffn")
+
+    def _exit_own(self, bp, ps, shared: bool = False) -> bool:
+        """Whether a block's output holds the rank's own rows (its last
+        tile splits the stream); never unplaced."""
+        return ps is not None and self._rows_split(
+            self._block_tiles(bp, shared)[-1])
+
     def _block_fwd(self, bp, x, positions, want_cache: bool,
-                   aux: bool = False, ps=None, cs=None):
+                   aux: bool = False, ps=None, cs=None, own: bool = False,
+                   shared: bool = False):
         """One block forward (a Mamba-2 block, or an attention block with a
-        dense or MoE FFN: the hybrid family's shared tile is a dense one);
-        returns (x, cache_or_None, the MoE's aux loss or None).  ``ps``: the
-        specs of placed parameters (``bp`` then holds this rank's blocks;
-        ``cs``: a Mamba-2 block's cache specs, its cache then their
-        blocks)."""
+        dense or MoE FFN: the hybrid family's shared tile, ``shared``, is a
+        dense one); returns (x, cache_or_None, the MoE's aux loss or None).
+        ``ps``: the specs of placed parameters (``bp`` then holds this
+        rank's blocks; ``cs``: a Mamba-2 block's cache specs, its cache then
+        their blocks); ``x`` holds the rank's own rows if ``own``, else its
+        replica group's, and each tile takes the rows it runs on
+        (:meth:`_move`); the output holds :meth:`_exit_own`'s, the cache
+        its tile's."""
         cfg = self.cfg
         sub = (lambda k: ps[k]) if ps is not None else (lambda k: None)
+        kinds = self._block_tiles(bp, shared)
+        st = self._streams(kinds, ps)
+        split = [r for _, r in st]
+        x = self._move(x, own, split[0])
+        self._ran(kinds[0], split[0])
         if "ssm" in bp:
-            h = L.rms_norm(x, _whole(bp["norm"], sub("norm")), cfg.norm_eps)
-            res = M.ssm_apply(bp["ssm"], cfg, h, backend=self.ssm_backend,
-                              return_cache=want_cache, ps=sub("ssm"), cs=cs)
+            with L.tile_stream(*st[0]):
+                h = L.rms_norm(x, _whole(bp["norm"], sub("norm")),
+                               cfg.norm_eps)
+                res = M.ssm_apply(bp["ssm"], cfg, h, backend=self.ssm_backend,
+                                  return_cache=want_cache, ps=sub("ssm"),
+                                  cs=cs)
             h, cache = res if want_cache else (res, None)
             return x + h, cache, None
-        h = L.rms_norm(x, _whole(bp["attn_norm"], sub("attn_norm")),
-                       cfg.norm_eps)
-        if self._mla:
-            res = L.mla_apply(bp["attn"], cfg, h, positions, self.opts,
-                              return_cache=want_cache, ps=sub("attn"))
-        else:
-            res = L.gqa_apply(bp["attn"], cfg, h, positions, self.opts,
-                              return_cache=want_cache, ps=sub("attn"))
+        pos = positions[:x.shape[0]]
+        with L.tile_stream(*st[0]):
+            h = L.rms_norm(x, _whole(bp["attn_norm"], sub("attn_norm")),
+                           cfg.norm_eps)
+            apply = L.mla_apply if self._mla else L.gqa_apply
+            res = apply(bp["attn"], cfg, h, pos, self.opts,
+                        return_cache=want_cache, ps=sub("attn"))
         h, cache = res if want_cache else (res, None)
-        x, loss = self._ffn(bp, x + h, aux, ps)
+        x = self._move(x + h, split[0], split[1])
+        self._ran(kinds[1], split[1])
+        with L.tile_stream(*st[1]):
+            x, loss = self._ffn(bp, x, aux, ps)
+        if loss is not None and split[1]:
+            # the replicas' load-balance losses: their mean, on each
+            loss = C.pmean(loss, "replica", get_mesh())
         return x, cache, loss
 
     def _attn_layers(self, params, ps=None):
@@ -476,9 +665,11 @@ class LM:
         every = self._every
         return repeat(n, (lambda i: i % every == 0) if every else None)
 
-    def _train_block(self, bp, shared, x, positions, bps=None, sps=None):
+    def _train_block(self, bp, shared, x, positions, bps=None, sps=None,
+                     own: bool = False):
         """The reference's scan body: the shared tile first where it applies
-        (``shared`` not None), then the block; returns (x, aux or None).
+        (``shared`` not None), then the block; returns (x, aux or None), x
+        holding the rows :meth:`_exit_own` says (``own``: the input's).
         Under ``remat`` it runs inside ``torch.utils.checkpoint`` (no RNG
         state to keep: the model draws no random numbers).  ``bps`` /
         ``sps``: the specs of placed block / shared-tile parameters; with
@@ -490,15 +681,16 @@ class LM:
         def body(x):
             with (_ambient(mesh) if mesh is not None
                   else contextlib.nullcontext()):
-                b, bs = bp, bps
+                b, bs, o = bp, bps, own
                 if bs is not None and self.block_pspecs is not None:
                     b = _relayout_tree(b, bs, self.block_pspecs)
                     bs = self.block_pspecs
                 if shared is not None:
                     x, _, _ = self._block_fwd(shared, x, positions, False,
-                                              ps=sps)
+                                              ps=sps, own=o, shared=True)
+                    o = self._exit_own(shared, sps, True)
                 x, _, a = self._block_fwd(b, x, positions, False, aux=True,
-                                          ps=bs)
+                                          ps=bs, own=o)
                 return x, a
         if self.remat:
             return checkpoint(body, x, use_reentrant=False,
@@ -511,7 +703,8 @@ class LM:
         float32, aux loss () float32: the MoE blocks' load-balance losses
         summed and divided by ``max(n_layers - n_dense_layers, 1)``, as the
         reference's).  Under placed parameters the tokens are this rank's
-        share of the batch and the logits this rank's block (the module's
+        share of the batch (its rows over :meth:`rows_axes`) and the logits
+        this rank's vocab block of its replica group's rows (the module's
         notes)."""
         mesh, params, ps = _unplace(params)
         if mesh is None:
@@ -520,14 +713,19 @@ class LM:
             return self._forward(params, tokens, embeds, ps)
 
     def _forward(self, params, tokens, embeds, ps):
+        """The logits and aux of ``forward``; placed, the logits are the
+        replica group's rows (a K = 1 tile), this rank's vocab block."""
         cfg = self.cfg
         x = self._embed(params, tokens, embeds, ps)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                   device=x.device).expand(B, S)
+        own = False
         for j, bp in enumerate(params.get("prelude", [])):
-            x, _, _ = self._block_fwd(bp, x, positions, False,
-                                      ps=ps["prelude"][j] if ps else None)
+            bs = ps["prelude"][j] if ps else None
+            x, _, _ = self._block_fwd(bp, x, positions, False, ps=bs,
+                                      own=own)
+            own = self._exit_own(bp, bs)
         every, shared = self._every, params.get("shared_attn")
         sps = ps.get("shared_attn") if ps else None
         blocks = params["blocks"]
@@ -538,10 +736,12 @@ class LM:
             bp = tree_unflatten(blocks, [a[i] for a in layers])
             x, a = self._train_block(
                 bp, shared if every and i % every == 0 else None, x,
-                positions, bps, sps)
+                positions, bps, sps, own)
+            own = self._exit_own(bp, bps)
             if a is not None:
                 aux = aux + a
         n_scan = max(cfg.n_layers - cfg.n_dense_layers, 1)
+        x = self._move(x, own, False)
         return self._logits(params, x, ps), aux / n_scan
 
     def loss_fn(self, params, batch):
@@ -556,7 +756,10 @@ class LM:
               else contextlib.nullcontext()):
             logits, aux = self._forward(params, batch.get("tokens"),
                                         batch.get("embeds"), ps)
-            nll = self._nll(logits, batch["labels"].long(), ps is not None)
+            labels = batch["labels"]
+            if ps is not None and self._home_split(mesh):
+                labels = C.gather_stream(labels, "replica", mesh)
+            nll = self._nll(logits, labels.long(), ps is not None)
         loss = nll + 0.01 * aux
         return loss, {"nll": nll, "aux": aux}
 
@@ -614,12 +817,14 @@ class LM:
             return self._prefill(params, tokens, cache_len, None)
         with _ambient(mesh):
             logits, cache = self._prefill(params, tokens, cache_len, ps)
-            return self._whole_vocab(logits[:, None])[:, 0], cache
+            logits = self._whole_vocab(logits[:, None])[:, 0]
+            return self._move(logits, False, self._home_split(mesh)), cache
 
     def _prefill(self, params, tokens, cache_len, ps):
         """``prefill`` on one device, or on this rank's blocks (``ps``: the
-        parameters' specs): each layer's cache is then moved to its block
-        of the placed cache as the layer makes it (:meth:`_to_cache`)."""
+        parameters' specs; the logits then the replica group's rows): each
+        layer's cache is then moved to its block of the placed cache as the
+        layer makes it (:meth:`_to_cache`)."""
         cfg = self.cfg
         x = self._embed(params, tokens, ps=ps)
         B, S, _ = x.shape
@@ -629,6 +834,7 @@ class LM:
         blocks = params["blocks"]
         put, cs = self._to_cache(B, W, ps)
         pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        own = False
         if self._ssm:
             stacked: Dict[str, torch.Tensor] = {}
             every, shared = self._every, params.get("shared_attn")
@@ -639,18 +845,22 @@ class LM:
             for i in self._layers(cfg.n_layers):
                 if every and i % every == 0:     # the tile, site i // every
                     x, kv, _ = self._block_fwd(shared, x, positions, True,
-                                               ps=sps)
+                                               ps=sps, own=own, shared=True)
+                    own = self._exit_own(shared, sps, True)
                     kv = put(self._pad_attn_cache(kv, W, S), "shared_attn")
                     if sh is None:
                         sh = tuple(a.new_empty((self.n_apps,) + a.shape)
                                    for a in kv)
                     sh[0][i // every], sh[1][i // every] = kv
-                x, c, _ = self._block_fwd(_layer(blocks, i), x, positions,
-                                          True, ps=bps, cs=scs)
+                bp = _layer(blocks, i)
+                x, c, _ = self._block_fwd(bp, x, positions, True, ps=bps,
+                                          cs=scs, own=own)
+                own = self._exit_own(bp, bps)
                 for k, a in c.items():
                     if k not in stacked:
                         stacked[k] = a.new_empty((cfg.n_layers,) + a.shape)
                     stacked[k][i] = a
+            x = self._move(x, own, False)
             logits = self._logits(params, x[:, -1:, :], ps)[:, 0, :]
             cache = {"pos": pos, "blocks": stacked}
             if sh is not None:
@@ -659,7 +869,8 @@ class LM:
                             else self._placed_cache(cache, W))
         ck = cv = None
         for i, bp, bs in self._attn_layers(params, ps):
-            x, kv, _ = self._block_fwd(bp, x, positions, True, ps=bs)
+            x, kv, _ = self._block_fwd(bp, x, positions, True, ps=bs, own=own)
+            own = self._exit_own(bp, bs)
             if self._mla and self.kv_cache_dtype == torch.int8:
                 kv = tuple(L.quant_kv(a) for a in kv)
             k, v = put(self._pad_attn_cache(kv, W, S), "blocks")
@@ -668,37 +879,46 @@ class LM:
                 cv = v.new_empty((cfg.n_layers,) + v.shape)
             ck[i], cv[i] = k, v
         cache = {"pos": pos, "blocks": (ck, cv)}
+        x = self._move(x, own, False)
         logits = self._logits(params, x[:, -1:, :], ps)[:, 0, :]
         return logits, (cache if cs is None
                         else self._placed_cache(cache, W))
 
+    def _cache_tile(self, key: str) -> str:
+        """The tile whose rows and fabric a cache entry follows."""
+        if key == "shared_attn":
+            return "shared_attn"
+        return "ssm" if self._ssm else "attn"
+
     def _to_cache(self, B: int, W: int, ps):
         """(``put``, the placed cache's specs) for a prefill of ``B`` rows a
-        rank into a ``W``-slot ring: ``put(kv, key)`` moves a layer's ring
-        pair, of this rank's rows and its kv heads (MLA: the latent, whole),
-        to its block of ring ``key`` of the cache (``layers.cache_to_window``:
-        one all-to-all from the heads to the window).  Unplaced: the
-        identity and ``None``."""
+        replica group into a ``W``-slot ring: ``put(kv, key)`` moves a
+        layer's ring pair, of its tile's rows and its kv heads (MLA: the
+        latent, whole), to its block of ring ``key`` of the cache
+        (``layers.cache_to_window``: one all-to-all from the heads to the
+        window).  Unplaced: the identity and ``None``."""
         if ps is None:
             return (lambda kv, key: kv), None
         from repro_torch.launch.specs import cache_specs
         mesh = get_mesh()
-        cs = cache_specs(self, B * C.axis_size(L.batch_axes(mesh), mesh), W,
+        cs = cache_specs(self, B * C.axis_size(L.group_axes(mesh), mesh), W,
                          mesh)
-        heads = (L.kv_heads_axes(self.cfg, B, mesh)
-                 if self.cfg.n_kv_heads and not self._mla else ())
 
         def put(kv, key):
             wax = PL.entry_axes(cs[key][0][2])
+            tile = self._cache_tile(key)
+            with L.tile_stream(self._is_split(tile), self._rows_split(tile)):
+                heads = (L.kv_heads_axes(self.cfg, kv[0].shape[0], mesh)
+                         if self.cfg.n_kv_heads and not self._mla else ())
             return tuple(L.cache_to_window(a, heads, wax, mesh) for a in kv)
         return put, cs
 
     def _placed_cache(self, cache, W: int):
         """The cache of this rank's blocks placed (``launch.specs.
-        place_cache``)."""
+        place_cache``); ``pos`` holds the replica group's rows."""
         from repro_torch.launch.specs import place_cache
         mesh = get_mesh()
-        n = C.axis_size(L.batch_axes(mesh), mesh)
+        n = C.axis_size(L.group_axes(mesh), mesh)
         # pos is placed whole: every row of the batch is at the prompt's end
         return place_cache(self, dict(cache, pos=cache["pos"].repeat(n)),
                            mesh, W)
@@ -728,20 +948,24 @@ class LM:
         with _ambient(mesh):
             pos = local["pos"]
             B = tokens.shape[0]
-            r0 = C.axis_index(L.batch_axes(mesh), mesh) * B
-            logits, _ = self._decode(params, {**local, "pos": pos[r0:r0 + B]},
+            g = B * (mesh.shape["replica"] if self._home_split(mesh) else 1)
+            r0 = C.axis_index(L.group_axes(mesh), mesh) * g
+            logits, _ = self._decode(params, {**local, "pos": pos[r0:r0 + g]},
                                      tokens, ps, cs)
             out = dict(cache, pos=PL.from_block(pos + 1, cs["pos"], mesh,
                                                 tuple(pos.shape)))
-            return self._whole_vocab(logits[:, None])[:, 0], out
+            logits = self._whole_vocab(logits[:, None])[:, 0]
+            return self._move(logits, False, self._home_split(mesh)), out
 
     def _decode(self, params, cache, tokens, ps, cs):
         """``decode_step`` on one device, or on this rank's blocks (``ps``
-        and ``cs``: the parameters' and the cache's specs)."""
+        and ``cs``: the parameters' and the cache's specs; ``cache["pos"]``
+        then the replica group's rows', the logits theirs)."""
         cfg = self.cfg
         x = self._embed(params, tokens, ps=ps)
         pos = cache["pos"]
         blocks = params["blocks"]
+        own = False
         if self._ssm:
             sc = cache["blocks"]
             every, shared = self._every, params.get("shared_attn")
@@ -752,19 +976,26 @@ class LM:
                 scs = {k: _layer_spec(s) for k, s in cs["blocks"].items()}
                 if sh is not None:
                     sax = PL.entry_axes(cs["shared_attn"][0][2])
+            (rep, split), = self._streams(("ssm",), ps)
             for i in self._layers(cfg.n_layers):
                 if every and i % every == 0:
-                    x = self._block_decode(shared, x, sh[0][i // every],
-                                           sh[1][i // every], pos, sps, sax)
+                    x, own = self._block_decode(
+                        shared, x, sh[0][i // every], sh[1][i // every], pos,
+                        sps, sax, own, shared=True)
                 bp = _layer(blocks, i)
-                h = L.rms_norm(x, _whole(bp["norm"], bps.get("norm")),
-                               cfg.norm_eps)
-                h, c2 = M.ssm_decode(bp["ssm"], cfg, h,
-                                     {k: a[i] for k, a in sc.items()},
-                                     ps=bps.get("ssm"), cs=scs)
+                x = self._move(x, own, split)
+                own = split
+                self._ran("ssm", split)
+                with L.tile_stream(rep, split):
+                    h = L.rms_norm(x, _whole(bp["norm"], bps.get("norm")),
+                                   cfg.norm_eps)
+                    h, c2 = M.ssm_decode(bp["ssm"], cfg, h,
+                                         {k: a[i] for k, a in sc.items()},
+                                         ps=bps.get("ssm"), cs=scs)
                 x = x + h
                 for k, a in c2.items():
                     sc[k][i].copy_(a)               # casts to the cache dtype
+            x = self._move(x, own, False)
             logits = self._logits(params, x, ps)[:, 0, :]
             out = {"pos": pos + 1, "blocks": sc}
             if sh is not None:
@@ -773,22 +1004,38 @@ class LM:
         ck, cv = cache["blocks"]
         wax = PL.entry_axes(cs["blocks"][0][2]) if ps is not None else ()
         for i, bp, bs in self._attn_layers(params, ps):
-            x = self._block_decode(bp, x, ck[i], cv[i], pos, bs, wax)
+            x, own = self._block_decode(bp, x, ck[i], cv[i], pos, bs, wax,
+                                        own)
+        x = self._move(x, own, False)
         logits = self._logits(params, x, ps)[:, 0, :]
         return logits, {"pos": pos + 1, "blocks": (ck, cv)}
 
-    def _block_decode(self, bp, x, cache_k, cache_v, pos, ps=None, wax=()):
-        """One attention block's decode; ``ps``: the block's specs (placed:
-        ``cache_k`` / ``cache_v`` this rank's slice of the ring over
-        ``wax``)."""
+    def _block_decode(self, bp, x, cache_k, cache_v, pos, ps=None, wax=(),
+                      own: bool = False, shared: bool = False):
+        """One attention block's decode; returns (x, whether it holds the
+        rank's own rows).  ``ps``: the block's specs (placed: ``cache_k`` /
+        ``cache_v`` this rank's slice of the ring over ``wax``, of the
+        attention tile's rows; ``pos`` the replica group's rows', ``x``
+        the rank's own rows' if ``own``)."""
         cfg = self.cfg
         sub = (lambda k: ps[k]) if ps is not None else (lambda k: None)
-        h = L.rms_norm(x, _whole(bp["attn_norm"], sub("attn_norm")),
-                       cfg.norm_eps)
-        decode = L.mla_decode if self._mla else L.gqa_decode
-        h, _, _ = decode(bp["attn"], cfg, h, cache_k, cache_v, pos, self.opts,
-                         ps=sub("attn"), wax=wax)
-        return self._ffn(bp, x + h, ps=ps)[0]
+        kinds = self._block_tiles(bp, shared)
+        st = self._streams(kinds, ps)
+        split = [r for _, r in st]
+        x = self._move(x, own, split[0])
+        self._ran(kinds[0], split[0])
+        p = self._move(pos, False, split[0])
+        with L.tile_stream(*st[0]):
+            h = L.rms_norm(x, _whole(bp["attn_norm"], sub("attn_norm")),
+                           cfg.norm_eps)
+            decode = L.mla_decode if self._mla else L.gqa_decode
+            h, _, _ = decode(bp["attn"], cfg, h, cache_k, cache_v, p,
+                             self.opts, ps=sub("attn"), wax=wax)
+        x = self._move(x + h, split[0], split[1])
+        self._ran(kinds[1], split[1])
+        with L.tile_stream(*st[1]):
+            x = self._ffn(bp, x, ps=ps)[0]
+        return x, split[1]
 
     # ------------------------------------------------------------ cache mgmt
     def _window(self, requested: int) -> int:

@@ -41,7 +41,14 @@ reference's ``jax.grad`` of a loss taken outside the ``shard_map``):
   for its own tokens); its backward sums the ranks' partial gradients, as
   the transpose of a ``shard_map`` input sums its cotangent over the axes
   the input is not split on.  A body's global inputs pass through it at
-  entry, so every rank ends with the whole gradient of each.
+  entry, so every rank ends with the whole gradient of each;
+* ``gather_stream`` / ``split_stream`` (the MRA bridge, paper C1): the rows
+  of the ranks of an axis concatenated on dim 0 before a tile that takes
+  the stream whole, and this rank's rows of it after: the gather's backward
+  takes the rank's rows of the (replicated) cotangent, once; the split's
+  gathers the ranks' row cotangents, so every rank holds the whole
+  cotangent of the replicated stream (``all_gather`` and ``replicated``
+  above, on rows).
 
 Every rank must call the same collectives in the same order, forward and
 backward; the callers keep their graphs identical on every rank (masks, not
@@ -202,6 +209,31 @@ class _AllGather(torch.autograd.Function):
         return g[ctx.me], None, None, None
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, me):
+        ctx.args = (group, n, me, x.shape[0])
+        return _all_gather(x, group, n).flatten(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        _, _, me, b = ctx.args
+        return g[me * b:(me + 1) * b], None, None, None
+
+
+class _SplitRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, me):
+        ctx.args = (group, n)
+        b = x.shape[0] // n
+        return x[me * b:(me + 1) * b]
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n = ctx.args
+        return _all_gather(g, group, n).flatten(0, 1), None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -287,6 +319,27 @@ def all_gather(x: torch.Tensor, axis: Axis, mesh=None) -> torch.Tensor:
     if len(axes) > 1:
         x = x.reshape((axis_size(axes, m),) + tuple(x.shape[len(axes):]))
     return x
+
+
+def gather_stream(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """The rows (dim 0) of the ranks of ``axis`` concatenated in coordinate
+    order, on every one of them: the stream taken whole before a tile that
+    runs on its group's rows (the module's notes for the gradient)."""
+    m = _mesh(mesh)
+    return _GatherRows.apply(x, m.group(axis), m.shape[axis], m.coord(axis))
+
+
+def split_stream(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """This rank's rows of ``x`` (dim 0, the same on every rank of
+    ``axis``), split evenly in coordinate order: the stream split after a
+    tile that ran on its group's rows (the module's notes for the
+    gradient)."""
+    m = _mesh(mesh)
+    n = m.shape[axis]
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} rows do not split over {n} ranks "
+                         f"of {axis!r}")
+    return _SplitRows.apply(x, m.group(axis), n, m.coord(axis))
 
 
 def all_to_all(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:

@@ -181,19 +181,21 @@ class _Slice(torch.autograd.Function):
 def relayout(x: torch.Tensor, src, dst, mesh) -> torch.Tensor:
     """This rank's block under spec ``dst`` from its block ``x`` under
     ``src`` (the identity where the two agree): each dim whose entry
-    differs is gathered whole over ``src``'s axes, then cut by ``dst``'s.
-    With autograd (see the module's notes)."""
+    differs is gathered whole over ``src``'s axes, then, every gather done,
+    cut by ``dst``'s (a dim cut first over an axis another dim is gathered
+    over would gather the peers' other cuts).  With autograd (see the
+    module's notes)."""
     nd = x.dim()
     src = tuple(src) + (None,) * (nd - len(src))
     dst = tuple(dst) + (None,) * (nd - len(dst))
-    for d in range(nd):
-        s, t = entry_axes(src[d]), entry_axes(dst[d])
-        if s == t:
-            continue
-        if s:
-            x = _Gather.apply(x, d, s, mesh)
-        if t:
-            x = _Slice.apply(x, d, t, mesh)
+    moved = [d for d in range(nd)
+             if entry_axes(src[d]) != entry_axes(dst[d])]
+    for d in moved:
+        if entry_axes(src[d]):
+            x = _Gather.apply(x, d, entry_axes(src[d]), mesh)
+    for d in moved:
+        if entry_axes(dst[d]):
+            x = _Slice.apply(x, d, entry_axes(dst[d]), mesh)
     return x
 
 

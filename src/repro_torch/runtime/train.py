@@ -50,11 +50,12 @@ from repro_torch.core.dfs import DFSActuator
 from repro_torch.core.islands import IslandConfig, default_islands
 from repro_torch.core.noc import collective_bytes_ring_allreduce
 from repro_torch.core.tiles import TilePlan, default_plan
-from repro_torch.core.replication import merged_rules
+from repro_torch.core.replication import (STREAM_TILES, merged_rules,
+                                          split_kinds)
 from repro_torch.data.pipeline import device_put_batch, for_arch, to_device
 from repro_torch.device import DeviceSpec, resolve
 from repro_torch.launch.mesh import ProcessMesh, Sharding, PartitionSpec
-from repro_torch.models.layers import batch_axes
+from repro_torch.models.layers import group_axes
 from repro_torch.models.params import (place_params, shardings_for,
                                        tree_leaves, tree_map, tree_unflatten)
 from repro_torch.models.transformer import LM
@@ -62,7 +63,6 @@ from repro_torch.optim import adamw
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import placement as PL
 
-COMPUTE_TILES = ("attn", "ffn", "moe", "ssm", "shared_attn")
 
 
 @dataclass
@@ -131,6 +131,20 @@ def step_grads(lm: LM, params, batch: Dict[str, torch.Tensor],
     return loss, parts, grads
 
 
+def grad_axes(lm: LM, mesh) -> List[Tuple[str, ...]]:
+    """The axes each gradient leaf (``tree_leaves`` order) is summed over on
+    a ``ProcessMesh``: the batch axes less ``replica`` (the replica groups'
+    rows), and ``replica`` too for a leaf read on the rank's own rows of a
+    split stream (``LM.split_leaves``: a K > 1 tile's, replicated over
+    ``replica`` and computed on different rows there).  A K = 1 tile's
+    leaves are not summed over ``replica``: their blocks differ there, and
+    each rank's is the whole group's already."""
+    group = group_axes(mesh)
+    return [group + ("replica",) if split else group
+            for split in tree_leaves(lm.split_leaves(mesh),
+                                     lambda x: isinstance(x, bool))]
+
+
 def make_train_step(lm: LM, plan: TilePlan, mesh: Any,
                     tc: TrainConfig, grad_pspecs=None) -> Callable:
     """The train step ``(params, opt_state, batch, counters) -> (params,
@@ -146,10 +160,10 @@ def make_train_step(lm: LM, plan: TilePlan, mesh: Any,
     cfg = lm.cfg
     n_params = cfg.n_params()
     placed = isinstance(mesh, ProcessMesh)
-    bax = batch_axes(mesh) if placed else ()
-    n_batch = 1
-    for a in bax:
-        n_batch *= mesh.shape[a]
+    gax = group_axes(mesh) if placed else ()
+    n_group = C.axis_size(gax, mesh) if gax else 1
+    n_batch = C.axis_size(lm.rows_axes(mesh), mesh) if placed else 1
+    axes = grad_axes(lm, mesh) if placed else []
     dp_sz = 1
     if mesh is not None:
         for a in ("pod", "data"):
@@ -159,7 +173,8 @@ def make_train_step(lm: LM, plan: TilePlan, mesh: Any,
     def treat_grads(grads, leaves):
         """The reference's ``_treat_grads``: the cast to bf16 (on one
         device too) where it applies, then the reduce over the batch axes
-        (the mean: each rank's loss is its batch's mean)."""
+        (:func:`grad_axes`; the mean over the replica groups: each rank's
+        loss is its group's mean)."""
         if tc.grad_reduce_dtype == "bf16" and tc.accum <= 1:
             grads = [g.to(torch.bfloat16) for g in grads]
         if not placed:
@@ -173,10 +188,12 @@ def make_train_step(lm: LM, plan: TilePlan, mesh: Any,
                         f"{PL.spec_of(p)!r}: the gradients are born as "
                         "their parameters' blocks")
         out = []
-        for g, p in zip(grads, leaves):
+        for g, p, ax in zip(grads, leaves, axes):
             g = g.contiguous()
-            if bax:
-                C.sum_into(g, bax, mesh).div_(n_batch)
+            if ax:
+                C.sum_into(g, ax, mesh)
+            if n_group > 1:
+                g.div_(n_group)
             out.append(PL.like_placed(g, p))
         return out
 
@@ -195,7 +212,7 @@ def make_train_step(lm: LM, plan: TilePlan, mesh: Any,
                               pkts_out=opt_bytes / 2 / mon.PKT_BYTES)
         counters = mon.charge(counters, "io", exec_time=float(toks))
         for t in plan.tiles:
-            if t.kind in COMPUTE_TILES:
+            if t.kind in STREAM_TILES:
                 counters = mon.charge(counters, t.name,
                                       exec_time=gnorm * 0 + 1.0)
         return counters
@@ -207,10 +224,10 @@ def make_train_step(lm: LM, plan: TilePlan, mesh: Any,
         new_params, new_opt, om = adamw.update(tc.opt, grads, opt_state,
                                                params)
         counters = charge_counters(counters, batch, om["grad_norm"])
-        if bax:                # the loss and its parts: the batch's means
+        if gax:                # the loss and its parts: the batch's means
             keys = sorted(parts)
             vals = torch.stack([loss] + [parts[k] for k in keys]).float()
-            vals = C.sum_into(vals, bax, mesh) / n_batch
+            vals = C.sum_into(vals, gax, mesh) / n_group
             loss, parts = vals[0], {k: vals[i + 1]
                                     for i, k in enumerate(keys)}
         metrics = {"loss": loss, **parts, **om}
@@ -245,7 +262,10 @@ class Trainer:
         self.islands = islands or default_islands(self.plan)
         self.actuator = DFSActuator(self.islands)
         self.monitor = mon.MonitorClient()
-        self.lm = LM(cfg, **(lm_kwargs or {}))
+        kw = dict(lm_kwargs or {})
+        if mesh is not None:
+            kw.setdefault("mra_split", split_kinds(self.plan, mesh))
+        self.lm = LM(cfg, **kw)
         self.data = for_arch(cfg, shape, seed=seed)
         self.step = 0
         self._store = None
@@ -255,7 +275,7 @@ class Trainer:
         self.param_sh = None
         self._bax: Tuple[str, ...] = ()
         if mesh is not None:
-            self._bax = batch_axes(mesh)
+            self._bax = self.lm.rows_axes(mesh)
             # a rule naming an axis the mesh lacks (a 1-D data mesh has no
             # "model") replicates that dim
             rules = {k: (v if all(a in mesh.axis_names
@@ -264,8 +284,8 @@ class Trainer:
             self.param_sh = shardings_for(self.lm.param_specs(), rules, mesh)
             for sh in tree_leaves(self.param_sh,
                                   lambda x: isinstance(x, Sharding)):
-                hit = set(self._bax) & {a for e in sh.spec
-                                        for a in PL.entry_axes(e)}
+                hit = set(group_axes(mesh)) & {a for e in sh.spec
+                                               for a in PL.entry_axes(e)}
                 if hit:
                     raise ValueError(f"the rules split a weight over the "
                                      f"batch axes {sorted(hit)}")

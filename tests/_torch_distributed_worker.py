@@ -5,7 +5,8 @@
 joins a gloo group of WORLD ranks through a file store in WORKDIR, runs
 every case of SUITE (``main``, the default: 8 ranks on (data 2, model 4);
 ``families``: 4 ranks on (data 2, model 2), every model family trained and
-served from placed parameters) on the CPU and writes each case's outputs
+served from placed parameters, and the dry run's reduced steps' collectives
+counted) on the CPU and writes each case's outputs
 to ``WORKDIR/<case>_rank<RANK>.npz`` (inputs from ``WORKDIR/inputs.npz``,
 written by the test).  It imports torch and ``repro_torch`` only.
 """
@@ -64,9 +65,11 @@ def _cast(tree, dtype_tree):
     return tree_unflatten(dtype_tree, got)
 
 
-def _trainer(arch, mesh, inputs, *, dtype=None, remat=False, **tkw):
+def _trainer(arch, mesh, inputs, *, dtype=None, remat=False, plan=None,
+             **tkw):
     """granite-8b (or ``arch``) reduced, the reference test's setup, on
-    ``mesh``, with the reference's initial weights carried."""
+    ``mesh`` (under ``plan``), with the reference's initial weights
+    carried."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models.layers import AttnOptions
@@ -79,8 +82,8 @@ def _trainer(arch, mesh, inputs, *, dtype=None, remat=False, **tkw):
     tc = TrainConfig(log_every=1, ckpt_dir=tkw.pop("ckpt_dir", "/nonexist"),
                      opt=adamw.AdamWConfig(**opt), **tkw)
     tr = Trainer(cfg, ShapeConfig("tiny", 32, 4, "train"), mesh=mesh, tc=tc,
-                 lm_kwargs=dict(opts=AttnOptions(backend="naive"),
-                                remat=remat), device=DEV)
+                 plan=plan, lm_kwargs=dict(opts=AttnOptions(backend="naive"),
+                                           remat=remat), device=DEV)
     full = _cast(_unflat(inputs, f"init/{arch}"), tr.lm.abstract())
     if dtype is not None:
         full = tree_map(lambda a: a.to(dtype), full, torch.is_tensor)
@@ -187,7 +190,7 @@ def _forward_case(arch, mesh, inputs, *, plan=None, lm_kw=None):
     from repro_torch.configs import get_config
     from repro_torch.core.replication import merged_rules
     from repro_torch.core.tiles import default_plan
-    from repro_torch.models.layers import AttnOptions, batch_axes
+    from repro_torch.models.layers import AttnOptions, group_axes
     from repro_torch.models.params import (place_params, shardings_for,
                                            tree_map)
     from repro_torch.models.transformer import LM
@@ -200,11 +203,15 @@ def _forward_case(arch, mesh, inputs, *, plan=None, lm_kw=None):
                     torch.is_tensor)
     params = place_params(full, sh)
     toks = torch.from_numpy(inputs["tokens"])
-    bax = batch_axes(mesh)
+    bax = lm.rows_axes(mesh)
     n, i = C.axis_size(bax, mesh), C.axis_index(bax, mesh)
     rows = slice(i * toks.shape[0] // n, (i + 1) * toks.shape[0] // n)
     with torch.no_grad():
         logits, _ = lm.forward(params, tokens=toks[rows])
+    # the logits are the replica group's rows
+    gax = group_axes(mesh)
+    n, i = C.axis_size(gax, mesh), C.axis_index(gax, mesh)
+    rows = slice(i * toks.shape[0] // n, (i + 1) * toks.shape[0] // n)
     return lm, cfg, rules, params, logits, rows, toks
 
 
@@ -261,19 +268,147 @@ def case_forwards(rank, inputs, workdir, mesh):
     _save(workdir, "forwards", rank, **out)
 
 
-def case_mra(rank, inputs, workdir):
-    """(data 2, replica 2, shard 2) with the ffn tile replicated twice."""
-    from repro_torch.configs import get_config
+def _first_grads(tr, steps):
+    """``tr.run(steps)``'s history and step 1's gradients (as AdamW
+    receives them: reduced, this rank's blocks), each gathered whole."""
+    import repro_torch.runtime.train as RTM
+    from repro_torch.checkpoint.store import _flatten_with_paths
+    update, first = RTM.adamw.update, []
+
+    def keep(cfg_, grads, state, params):
+        if not first:
+            first.append(grads)
+        return update(cfg_, grads, state, params)
+    RTM.adamw.update = keep
+    try:
+        h = _hist(tr.run(steps))
+    finally:
+        RTM.adamw.update = update
+    paths = [p for p, _ in _flatten_with_paths(tr.params)]
+    return h, {p: _np(PL.full_tensor(g)) for p, g in zip(paths, first[0])}
+
+
+# the MRA suite's plans: the tile kind replicated twice on (data 2,
+# replica 2, shard 2)
+MRA_PLANS = ("ffn", "attn")
+MRA_EMBEDS_ARCH = "musicgen-large"      # a batch of embeds, not tokens
+
+
+def _mra_plan(cfg, kinds):
     from repro_torch.core.tiles import default_plan
+    plan = default_plan(cfg)
+    for t in plan.tiles:
+        if t.kind in kinds:
+            plan = plan.with_replication(t.name, 2)
+    return plan
+
+
+def case_mra(rank, inputs, workdir):
+    """(data 2, replica 2, shard 2), granite-8b reduced with the ffn tile
+    replicated twice, then the attention tile: the rules and a float32
+    forward (the ffn plan), 3 training steps in float32 (the losses, the
+    norms, step 1's gradients whole, and the token rows each tile ran on)
+    and in bf16; musicgen-large (embeds in place of tokens) 2 float32
+    steps under each plan; danube's placed prefill and 4 teacher-forced decode steps
+    with the attention tile replicated, then the ffn tile; granite-moe's attention and MoE
+    tiles replicated, expert-parallel over ``shard`` (ample capacity), the
+    MoE layer on the rank's own rows: its output and its gradients."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.replication import merged_rules, split_kinds
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import AttnOptions
+    from repro_torch.models.params import (place_params, shardings_for,
+                                           tree_map)
+    from repro_torch.models.transformer import LM
     mesh = P.make_mesh((2, 2, 2), ("data", "replica", "shard"), device=DEV)
     cfg = get_config("granite-8b").reduced()
-    plan = default_plan(cfg).with_replication("ffn", 2)
+    plan = _mra_plan(cfg, ("ffn",))
     lm, _, rules, params, logits, rows, toks = _forward_case(
-        "granite-8b", mesh, inputs, plan=plan)
-    _save(workdir, "mra", rank, logits=_np(_vocab_whole(lm, logits, mesh)),
-          rows=np.arange(toks.shape[0])[rows],
-          rules=json.dumps({k: rules[k] for k in ("ff", "qkv")}),
-          wq_spec=repr(PL.spec_of(params["blocks"]["attn"]["wq"])))
+        "granite-8b", mesh, inputs, plan=plan,
+        lm_kw={"mra_split": split_kinds(plan, mesh)})
+    out = {"logits": _np(_vocab_whole(lm, logits, mesh)),
+           "rows": np.arange(toks.shape[0])[rows],
+           "rules": json.dumps({k: rules[k] for k in ("ff", "qkv")}),
+           "wq_spec": repr(PL.spec_of(params["blocks"]["attn"]["wq"]))}
+    for kind in MRA_PLANS:
+        plan = _mra_plan(cfg, (kind,))
+        for tag, dtype in (("f32", torch.float32), ("bf16", None)):
+            tr = _trainer("granite-8b", mesh, inputs, dtype=dtype, plan=plan)
+            with T.recording_rows() as ran:
+                h, g = _first_grads(tr, 3)
+            out.update({f"{kind}/{tag}_{k}": v for k, v in h.items()})
+            if dtype is not None:
+                out.update({f"{kind}/g/{p}": v for p, v in g.items()})
+                out[f"{kind}/split"] = json.dumps(tr.lm.mra_split)
+                out.update({f"{kind}/rows/{k}": _np(v)
+                            for k, v in ran.items()})
+    # a modality arch, whose batches carry embeds in place of tokens: 2
+    # float32 steps under each plan, the losses and step 1's gradients
+    acfg = get_config(MRA_EMBEDS_ARCH).reduced()
+    for kind in MRA_PLANS:
+        tr = _trainer(MRA_EMBEDS_ARCH, mesh, inputs, dtype=torch.float32,
+                      plan=_mra_plan(acfg, (kind,)))
+        with T.recording_rows() as ran:
+            h, g = _first_grads(tr, 2)
+        out.update({f"embeds/{kind}/{k}": v for k, v in h.items()})
+        out.update({f"embeds/{kind}/g/{p}": v for p, v in g.items()})
+        out[f"embeds/{kind}/recorded"] = json.dumps(sorted(ran))
+    # serving: danube with the attention tile replicated twice, and with
+    # the ffn tile (the attention then K = 1: its ring's window over
+    # (replica, shard), its kv heads over replica)
+    dcfg = get_config("h2o-danube-1.8b").reduced()
+    full = tree_map(lambda a: a.float(),
+                    _unflat(inputs, "init/h2o-danube-1.8b"), torch.is_tensor)
+    stoks = torch.from_numpy(inputs["serve_tokens/dense"])
+    for kind in MRA_PLANS:
+        plan = _mra_plan(dcfg, (kind,))
+        slm = LM(dcfg, opts=AttnOptions(backend="naive"),
+                 mra_split=split_kinds(plan, mesh))
+        sp = place_params(full, shardings_for(
+            slm.param_specs(), merged_rules(plan, mesh), mesh))
+        ax = slm.rows_axes(mesh)
+        n, i = C.axis_size(ax, mesh), C.axis_index(ax, mesh)
+        srows = slice(i * 4 // n, (i + 1) * 4 // n)
+        tag = f"serve_{kind}"
+        with torch.no_grad():
+            with T.recording_rows() as ran:
+                lg, cache = slm.prefill(sp, stoks[srows, :12], cache_len=16)
+            out[f"{tag}/logits0"] = _np(lg)
+            out[f"{tag}/attn_rows"] = _np(ran["attn"])
+            for j in range(4):
+                lg, cache = slm.decode_step(sp, cache,
+                                            stoks[srows, 12 + j:13 + j])
+                out[f"{tag}/logits{j + 1}"] = _np(lg)
+        out[f"{tag}/rows"] = np.arange(4)[srows]
+        out[f"{tag}/cache_spec"] = repr(PL.spec_of(cache["blocks"][0]))
+    # mra2-ep: the MoE tile on the rank's own rows, its experts over shard
+    mcfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                               capacity_factor=8.0)
+    moe = {k: v.float() for k, v in
+           _unflat(inputs, "init/granite-moe-1b-a400m")["blocks"][
+               "moe"].items() if k != "shared"}
+    moe = {k: v[0] for k, v in moe.items()}              # layer 0
+    x = torch.from_numpy(inputs["mra_moe_x"])
+    cot = torch.from_numpy(inputs["mra_moe_cot"])
+    own = slice(C.axis_index(("data", "replica"), mesh) * 2,
+                C.axis_index(("data", "replica"), mesh) * 2 + 2)
+    pg = {k: v.clone().requires_grad_(True) for k, v in moe.items()}
+    xg = x[own].clone().requires_grad_(True)
+    with set_mesh(mesh):
+        y, _ = MoE.moe_apply(pg, mcfg, xg, ep=True, batch_axes=(),
+                             experts="loop")
+        specs = MoE.expert_specs(mcfg, mesh, True, None, xg.shape[0] *
+                                 xg.shape[1], ())
+    (y * cot[own]).sum().backward()
+    out["ep/out"], out["ep/rows"] = _np(y), np.arange(x.shape[0])[own]
+    out["ep/x_grad"] = _np(xg.grad)
+    for k, v in pg.items():        # the rank's rows' share, summed here
+        out[f"ep/g/{k}"] = _np(C.psum(v.grad, ("data", "replica"), mesh))
+    out["ep/specs"] = json.dumps({k: repr(v) for k, v in specs.items()})
+    _save(workdir, "mra", rank, **out)
 
 
 def case_placement(rank, inputs, workdir, mesh):
@@ -507,9 +642,53 @@ def case_family_serve(rank, inputs, workdir, mesh):
     _save(workdir, "family_serve", rank, **out)
 
 
+# the dry run's reduced cells whose collectives the families suite counts
+# on its 4 ranks: (tag, arch, kind, strategy, mesh shape, axis names); the
+# test counts the same steps on a fake process group of the same shape
+DRY_CELLS = (("tp_train", "granite-moe-1b-a400m", "train", "tp", (2, 2),
+              ("data", "model")),
+             ("ep_train", "granite-moe-1b-a400m", "train", "tp-ep", (2, 2),
+              ("data", "model")),
+             ("tp_decode", "h2o-danube-1.8b", "decode", "tp", (2, 2),
+              ("data", "model")),
+             ("mra_train", "h2o-danube-1.8b", "train", "mra2-attn",
+              (1, 2, 2), ("data", "replica", "shard")),
+             ("mra_prefill", "zamba2-7b", "prefill", "mra2", (1, 2, 2),
+              ("data", "replica", "shard")),
+             ("mra_decode", "deepseek-v2-lite-16b", "decode", "mra2",
+              (1, 2, 2), ("data", "replica", "shard")))
+DRY_SEQ, DRY_BATCH = 32, 4
+
+
+def case_dry_count(rank, inputs, workdir, mesh):
+    """``launch.costing.collective_stats`` of each ``DRY_CELLS`` step (the
+    dry run's model, plan and rules for the strategy; zeros placed as the
+    dry run places them) on these gloo ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.costing import (collective_stats, placed_inputs,
+                                            placed_step)
+    from repro_torch.runtime.train import TrainConfig
+    out = {}
+    for tag, arch, kind, strategy, shape, names in DRY_CELLS:
+        m = mesh if tuple(shape) == mesh.axis_shapes else P.make_mesh(
+            shape, names, device=DEV)
+        cfg = get_config(arch).reduced()
+        co = D.CellOptions(strategy=strategy, q_block=16)
+        plan = D.cell_plan(cfg, co)
+        lm = D.build_lm(cfg, co, mesh=m, plan=plan)
+        args = placed_inputs(lm, kind, DRY_BATCH, DRY_SEQ, m, plan,
+                             D.rules_override(co, m))
+        out[tag] = json.dumps(collective_stats(
+            placed_step(lm, kind, plan, m, TrainConfig()), *args))
+    _save(workdir, "dry_count", rank, **out)
+
+
 SUITES = {"main": ((2, 4), ("placement", "forwards", "mra", "steps",
                             "ssm_steps", "moe_steps", "elastic")),
-          "families": ((2, 2), ("family_serve", "family_steps"))}
+          "families": ((2, 2), ("family_serve", "family_steps",
+                                "dry_count"))}
 
 
 def main():

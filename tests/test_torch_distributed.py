@@ -106,6 +106,9 @@ ROOT = os.path.dirname(HERE)
 WORLD = 8
 LIMIT_S = 150
 ARCHS = ("granite-8b", "mamba2-370m", "granite-moe-1b-a400m")
+# the MRA suite's serving model, and its modality arch (embeds, no tokens)
+MRA_ARCHS = ("h2o-danube-1.8b", "musicgen-large")
+MRA_PLANS = ("ffn", "attn")
 SHAPE = ShapeConfig("tiny", 32, 4, "train")
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=50)
 KEYS = ("loss", "grad_norm")
@@ -172,9 +175,13 @@ def group(tmp_path_factory):
     rng = np.random.default_rng(0)
     inputs = {"tokens": rng.integers(0, 256, (4, 32)),
               "labels": rng.integers(0, 256, (4, 32))}
-    inits = {a: _ref_init(a) for a in ARCHS}
-    for a in ARCHS:
+    inits = {a: _ref_init(a) for a in ARCHS + MRA_ARCHS}
+    for a in ARCHS + MRA_ARCHS:
         inputs.update(_flat_np(inits[a], f"init/{a}"))
+    inputs["serve_tokens/dense"] = rng.integers(0, 256, (4, 16))
+    d = get_config("granite-moe-1b-a400m").reduced().d_model
+    inputs["mra_moe_x"] = rng.normal(size=(8, 4, d)).astype(np.float32)
+    inputs["mra_moe_cot"] = rng.normal(size=(8, 4, d)).astype(np.float32)
     wd = str(tmp_path_factory.mktemp("dist8"))
     recs = launch(wd, inputs)
     return wd, recs, inputs, inits
@@ -397,6 +404,207 @@ def test_mra_mesh_rules_and_forward(group):
         assert gap < 1e-5, (r, gap)
 
 
+def _port_first_grads(tr, steps):
+    """The one-device trainer's history and step 1's gradients (as AdamW
+    receives them), by path."""
+    import repro_torch.runtime.train as RTM
+    update, first = RTM.adamw.update, []
+
+    def keep(cfg_, grads, state, params):
+        if not first:
+            first.append(grads)
+        return update(cfg_, grads, state, params)
+    RTM.adamw.update = keep
+    try:
+        h = _hist(tr.run(steps))
+    finally:
+        RTM.adamw.update = update
+    return h, {p: g.float().numpy() for (p, _), g in zip(
+        _flatten_with_paths(tr.params), first[0])}
+
+
+@pytest.fixture(scope="module")
+def mra_one(group):
+    """The port's one-device float32 trainer: 3 steps of granite-8b reduced
+    and step 1's gradients."""
+    return _port_first_grads(_port_trainer("granite-8b", group[3]), 3)
+
+
+@pytest.mark.parametrize("kind", MRA_PLANS)
+def test_mra_steps_match_one_device(group, mra_one, kind):
+    """The stream split (the ``kind`` tile replicated twice on (data 2,
+    replica 2, shard 2)): 3 float32 steps, each loss and grad norm within
+    1e-5 relative of one device's, and every leaf of step 1's gradient
+    (reduced over the replica groups, and over ``replica`` for the
+    replicated tile's leaves) within 1e-5 of its norm in L2."""
+    wd = group[0]
+    h1, g1 = mra_one
+    for r in range(WORLD):
+        got = _load(wd, "mra", r)
+        assert json.loads(str(got[f"{kind}/split"])) == [kind]
+        for k in KEYS:
+            np.testing.assert_allclose(got[f"{kind}/f32_{k}"], h1[k],
+                                       rtol=1e-5, err_msg=f"{kind} {k} {r}")
+        for p, want in g1.items():
+            gap = np.linalg.norm(got[f"{kind}/g/{p}"] - want)
+            assert gap <= 1e-5 * np.linalg.norm(want), (kind, r, p, gap)
+
+
+@pytest.fixture(scope="module")
+def mra_embeds_one(group):
+    """The port's one-device float32 trainer: 2 steps of musicgen-large
+    reduced (its batches carry embeds) and step 1's gradients."""
+    return _port_first_grads(_port_trainer("musicgen-large", group[3]), 2)
+
+
+@pytest.mark.parametrize("kind", MRA_PLANS)
+def test_mra_embeds_steps_match_one_device(group, mra_embeds_one, kind):
+    """The stream split with a batch of embeds (musicgen-large, the
+    ``kind`` tile replicated twice): the embeds enter through the K = 1
+    embedding tile like tokens, gathered over ``replica`` with the labels;
+    2 float32 steps' losses and grad norms within 1e-5 relative of one
+    device's, step 1's gradient leaves within 1e-5 of their norm in L2, and
+    no token rows recorded."""
+    wd = group[0]
+    h1, g1 = mra_embeds_one
+    for r in range(WORLD):
+        got = _load(wd, "mra", r)
+        assert json.loads(str(got[f"embeds/{kind}/recorded"])) == []
+        for k in KEYS:
+            np.testing.assert_allclose(got[f"embeds/{kind}/{k}"], h1[k],
+                                       rtol=1e-5, err_msg=f"{kind} {k} {r}")
+        for p, want in g1.items():
+            gap = np.linalg.norm(got[f"embeds/{kind}/g/{p}"] - want)
+            assert gap <= 1e-5 * np.linalg.norm(want), (kind, r, p, gap)
+
+
+@pytest.mark.parametrize("kind", MRA_PLANS)
+def test_mra_steps_match_the_reference_single_device(group, kind):
+    """The reference test's gate on the MRA mesh: the bf16 trainer against
+    the reference's on one device, the same weights and batches."""
+    wd = group[0]
+    ref = _hist(_ref_trainer("granite-8b").run(3))
+    for r in range(WORLD):
+        got = _load(wd, "mra", r)[f"{kind}/bf16_loss"]
+        assert np.all(np.abs(got - ref["loss"]) < 2e-2), (kind, got,
+                                                          ref["loss"])
+
+
+def _row_ids(rows, batch):
+    """The indices into ``batch`` (B, S) of each row of ``rows``."""
+    return [int(np.flatnonzero((batch == row).all(1))[0]) for row in rows]
+
+
+@pytest.mark.parametrize("kind", MRA_PLANS)
+def test_mra_stream_rows(group, kind):
+    """The rows each tile ran on in step 3 (the tokens its stream carried):
+    the replicated tile's half of its replica group's rows, disjoint across
+    the two replica ranks; the others (the embedding and the K = 1 tile)
+    the group's rows whole."""
+    from repro_torch.data.pipeline import for_arch
+    wd = group[0]
+    batch = for_arch(get_config("granite-8b").reduced(), SHAPE,
+                     seed=0).batch_at(2)["tokens"]
+    other = {"ffn": "attn", "attn": "ffn"}[kind]
+    for d in range(2):
+        group_rows = list(range(2 * d, 2 * d + 2))
+        for s in range(2):
+            seen = []
+            for rep in range(2):
+                got = _load(wd, "mra", 4 * d + 2 * rep + s)
+                mine = _row_ids(got[f"{kind}/rows/{kind}"], batch)
+                assert len(mine) == 1 and mine[0] in group_rows
+                seen += mine
+                for k in ("embed", other):
+                    assert _row_ids(got[f"{kind}/rows/{k}"],
+                                    batch) == group_rows
+            assert sorted(seen) == group_rows       # disjoint, and whole
+
+
+# the serving plans: the rows a rank serves, the rows its attention ran
+# on, and the decode cache's spec
+MRA_SERVE = {
+    "attn": (lambda r: [r // 2], lambda r: [r // 2],
+             "PartitionSpec(None, ('data', 'replica'), 'shard', None, None)"),
+    "ffn": (lambda r: [r // 2], lambda r: [2 * (r // 4), 2 * (r // 4) + 1],
+            "PartitionSpec(None, 'data', ('replica', 'shard'), None, "
+            "None)")}
+
+
+@pytest.mark.parametrize("kind", MRA_PLANS)
+def test_mra_placed_prefill_and_decode_match_unplaced(group, kind):
+    """danube with the attention tile replicated twice, then the ffn tile:
+    each rank's prefill (its own row of 4 prompts) and 4 teacher-forced
+    decode steps equal the unplaced port (float32, 1e-5 of max |logit|).
+    A replicated attention tile runs on the rank's own row, its cache's
+    batch over (data, replica) and its window over shard; a K = 1 one on
+    the replica group's rows, its cache's batch over data and its window
+    over (replica, shard) (its kv heads over replica: the prefill's
+    relayout from heads to window gathers before it cuts)."""
+    wd, _, inputs, inits = group
+    serves, ran, cache_spec = MRA_SERVE[kind]
+    tag = f"serve_{kind}"
+    toks = torch.from_numpy(inputs["serve_tokens/dense"])
+    lm, params = _unsharded("h2o-danube-1.8b", inits, toks)
+    with torch.no_grad():
+        logits, cache = lm.prefill(params, toks[:, :12], cache_len=16)
+        want = [logits.numpy()]
+        for j in range(4):
+            logits, cache = lm.decode_step(params, cache,
+                                           toks[:, 12 + j:13 + j])
+            want.append(logits.numpy())
+    for r in range(WORLD):
+        got = _load(wd, "mra", r)
+        rows = got[f"{tag}/rows"]
+        assert list(rows) == serves(r)
+        assert _row_ids(got[f"{tag}/attn_rows"], inputs[
+            "serve_tokens/dense"][:, :12]) == ran(r)
+        assert str(got[f"{tag}/cache_spec"]) == cache_spec
+        for j, w in enumerate(want):
+            gap = np.max(np.abs(got[f"{tag}/logits{j}"] - w[rows])) / \
+                np.max(np.abs(w[rows]))
+            assert gap < 1e-5, (kind, r, j, gap)
+
+
+def test_mra_ep_moe_matches_the_local_layer(group):
+    """mra2-ep: granite-moe's MoE layer on each rank's own rows of the
+    split stream, its experts over ``shard`` (expert parallelism, ample
+    capacity): the output and the tokens' gradient equal the local layer's
+    on those rows, and the router's and the experts' gradients, summed over
+    the ranks' rows, the local layer's on all of them (float32, 1e-5 of
+    max |.|)."""
+    import dataclasses
+    from repro_torch.models import moe as MoE
+    wd, _, inputs, inits = group
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                              capacity_factor=8.0)
+    p = {k: torch.from_numpy(np.array(v, dtype=np.float32)[0])
+         .requires_grad_(True)
+         for k, v in inits["granite-moe-1b-a400m"]["blocks"]["moe"].items()
+         if k != "shared"}
+    x = torch.from_numpy(inputs["mra_moe_x"]).requires_grad_(True)
+    cot = torch.from_numpy(inputs["mra_moe_cot"])
+    B, S, d = x.shape
+    out, _, _ = MoE._moe_ffn_local(p, x.reshape(B * S, d), cfg, "loop")
+    out = out.reshape(B, S, d)
+    (out * cot).sum().backward()
+    want = {"out": out.detach().numpy(), "x": x.grad.numpy(),
+            **{k: v.grad.numpy() for k, v in p.items()}}
+
+    def close(got, w, what):
+        err = float(np.max(np.abs(got - w))) / float(np.max(np.abs(w)))
+        assert err < 1e-5, (what, err)
+    for r in range(WORLD):
+        got = _load(wd, "mra", r)
+        rows = got["ep/rows"]
+        assert json.loads(str(got["ep/specs"]))["wi_gate"] == \
+            "PartitionSpec('shard', None, None)"
+        close(got["ep/out"], want["out"][rows], ("out", r))
+        close(got["ep/x_grad"], want["x"][rows], ("x", r))
+        for k in p:
+            close(got[f"ep/g/{k}"], want[k], (k, r))
+
+
 def test_sharded_ssm_steps_match_one_device(group):
     wd, _, _, inits = group
     one = _port_trainer("mamba2-370m", inits)
@@ -590,6 +798,12 @@ def families(tmp_path_factory):
             0, 256, (4, S + DECODE_STEPS))
     wd = str(tmp_path_factory.mktemp("families4"))
     procs = spawn(wd, inputs, FAMILY_WORLD, "families")
+    fake = subprocess.Popen(
+        [sys.executable, "-c", _FAKE_COUNT], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=dict(
+            os.environ, PYTHONPATH=os.pathsep.join(
+                [os.path.join(ROOT, "src"), HERE]), OMP_NUM_THREADS="1",
+            CUDA_VISIBLE_DEVICES=""))
     try:
         ref = {a: _hist(_ref_trainer(a).run(2)) for a in STEP_ARCHS}
         one = {}
@@ -600,11 +814,35 @@ def families(tmp_path_factory):
             inputs[f"serve_tokens/{tag}"])) for tag, arch, S, W in SERVE_CASES}
     finally:
         recs = collect(procs)
-    return wd, recs, ref, one, serve
+        out, err = fake.communicate(timeout=LIMIT_S)
+    assert fake.returncode == 0, err[-3000:]
+    counts = json.loads(next(x for x in out.splitlines()
+                             if x.startswith("FAKE "))[5:])
+    return wd, recs, ref, one, serve, counts
+
+
+# the dry run's count of each DRY_CELLS step on a fake process group of its
+# mesh's shape, in a process of its own (the fake group is the process's)
+_FAKE_COUNT = """
+import json
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import LogicalMesh
+import _torch_distributed_worker as W
+out = {}
+for tag, arch, kind, strategy, shape, names in W.DRY_CELLS:
+    out[tag] = D.count_collectives(
+        arch, kind, LogicalMesh(shape, names),
+        co=D.CellOptions(strategy=strategy, q_block=16),
+        cfg=get_config(arch).reduced(),
+        shape=ShapeConfig(kind, W.DRY_SEQ, W.DRY_BATCH, kind))
+print("FAKE " + json.dumps(out))
+"""
 
 
 def test_family_ranks_ran_gloo_on_cpu_tensors_in_time(families):
-    _, recs, _, _, _ = families
+    _, recs, _, _, _, _ = families
     for r in recs:
         assert r["backend"] == "gloo"
         assert r["used"] and all(k.endswith("/gloo/cpu") for k in r["used"])
@@ -614,7 +852,7 @@ def test_family_ranks_ran_gloo_on_cpu_tensors_in_time(families):
 @pytest.mark.parametrize("arch", STEP_ARCHS)
 def test_placed_family_steps_match_the_reference_single_device(families,
                                                                arch):
-    wd, _, ref, _, _ = families
+    wd, _, ref, _, _, _ = families
     for r in range(FAMILY_WORLD):
         got = _load(wd, "family_steps", r)[f"{arch}/bf16_loss"]
         assert np.all(np.abs(got - ref[arch]["loss"]) < 2e-2), (
@@ -633,7 +871,7 @@ def test_placed_family_float32_steps_match_the_port_on_one_device(
     deepseek on (data 2, model 2), whose load-balance loss is the data
     shards' mean (grad norm within 1e-4); on (data 1, model 4) it is the
     whole batch's, and every gradient is one device's."""
-    wd, _, _, one, _ = families
+    wd, _, _, one, _, _ = families
     shard_aux = (arch, tag) == ("deepseek-v2-lite-16b", "f32")
     for r in range(FAMILY_WORLD):
         got = _load(wd, "family_steps", r)
@@ -668,7 +906,7 @@ def test_placed_prefill_and_decode_match_unplaced(families, tag, arch, S, W):
     placed as ``cache_specs`` says, each block the unplaced cache's block
     after the prefill and after the last step (1e-5 of its max |.|); in the
     ``empty`` cases model rank 1's half of every ring is never written."""
-    wd, _, _, _, serve = families
+    wd, _, _, _, serve, _ = families
     want, c0, c1 = serve[tag]
     for r in range(FAMILY_WORLD):
         got = _load(wd, "family_serve", r)
@@ -705,7 +943,7 @@ def test_placed_prefill_moves_each_layers_cache_in_one_all_to_all(
     vocab-split logits' one and, for deepseek, each MoE layer's shared
     experts' three weights (read whole).  MLA's latent and the SSM cache
     are cut where they are made: no all-to-all."""
-    wd, _, _, _, _ = families
+    wd, _, _, _, _, _ = families
     cfg = get_config(arch).reduced()
     if cfg.family == "hybrid":
         n = -(-cfg.n_layers // cfg.shared_attn_every)
@@ -727,7 +965,7 @@ def test_decode_from_a_whole_cache_placed_by_place_cache(families):
     ``LM.init_cache``'s cache: the decode steps from position 0 equal the
     unplaced port's (1e-5 of max |logit|), model rank 1's half of the ring
     empty."""
-    wd, _, _, _, _ = families
+    wd, _, _, _, _, _ = families
     inputs = np.load(os.path.join(wd, "inputs.npz"))
     lm = LM(get_config("h2o-danube-1.8b").reduced(),
             opts=AttnOptions(backend="naive"))
@@ -748,3 +986,25 @@ def test_decode_from_a_whole_cache_placed_by_place_cache(families):
             gap = np.max(np.abs(got[f"init/logits{j}"] - ref)) / np.max(
                 np.abs(ref))
             assert gap < 1e-5, (r, j, gap)
+
+
+def test_fake_mesh_count_equals_the_gloo_ranks_op_by_op(families):
+    """The dry run's collective term: each reduced step of ``DRY_CELLS``
+    (tp, expert parallelism, and the MRA stream split: train, prefill and
+    decode) counted by ``dryrun.count_collectives`` on a fake process group
+    of the mesh's shape (a subprocess, repeat loops folded) equals what
+    ``collective_stats`` reads from the same step on the four gloo ranks,
+    op by op: the wire bytes and the calls of every collective."""
+    import _torch_distributed_worker as W
+    wd, _, _, _, _, fake = families
+    assert set(fake) == {c[0] for c in W.DRY_CELLS}
+    for r in range(FAMILY_WORLD):
+        got = _load(wd, "dry_count", r)
+        for tag, _, _, strategy, _, _ in W.DRY_CELLS:
+            real = json.loads(str(got[tag]))
+            assert real["collective_bytes"] > 0, tag
+            assert real["per_op_bytes"] == fake[tag]["per_op_bytes"], (
+                tag, r, real, fake[tag])
+            assert real["op_counts"] == fake[tag]["op_counts"], (tag, r)
+            if strategy == "tp-ep":
+                assert real["op_counts"]["all-to-all"] > 0
