@@ -9,6 +9,8 @@
                                          # the two multi-device phases
     python3 chip_smoke.py --mesh-only    # ... train_mesh
     python3 chip_smoke.py --families-only  # ... mesh_families
+    python3 chip_smoke.py --analysis-only  # ... the moe / MLA serving
+                                           # paths, mesh_families, analysis
     python3 chip_smoke.py --ptxas    # also nvcc's registers / spills
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
@@ -268,6 +270,21 @@ main path through its public entry points at the size its users run:
                    against the fake mesh's count, a prefill and 8 decode
                    steps against one device, two planted faults
                    (``--mra-only``: build and this phase).
+    ``analysis`` — ``repro_torch.analysis`` linted in-process (AST only,
+                   against ``analysis/baseline_torch.json``; a new finding
+                   fails), then held to the host syncs this run observed:
+                   the ``SyncCount(stacks=True)`` blocks of the moe and MLA
+                   decode steps, ``mesh_families``' step 1 on each rank, a
+                   100-tick sequential PID replay, a chunked sweep (10.1 M
+                   points, blocks of 10^6) and the batched ``"torch"`` loop
+                   under PID (3 designs, 200 ticks).  Every sync whose
+                   innermost ``src/repro_torch`` frame lies in a function
+                   the hot scope marks must lie on a line TPR001 flags
+                   (new, baselined or noqa'd); the others are counted as
+                   ``outside_scope``; one observed site dropped from the
+                   flagged lines must come back missed
+                   (``--analysis-only``: build, ``serve_moe``,
+                   ``serve_mla``, ``mesh_families`` and this phase).
 14. ``train_kernels`` — the autograd Functions of ``kernels.ops`` (forward:
                    the kernel; backward: the oracle's autograd) at reduced
                    shapes in bf16 and f32: forward equal to the raw
@@ -3758,6 +3775,37 @@ def sync_sites(sc, per=1):
     return sites, via
 
 
+# the innermost src/repro_torch frame of every sync a SyncCount(stacks=True)
+# block recorded in this run, for phase "analysis" (package_frames)
+OBSERVED_SYNCS = []
+PKG_ROOT = os.path.join(ROOT, "src", "repro_torch") + os.sep
+
+
+def package_frames(sc, source):
+    """The innermost frame inside ``src/repro_torch`` of each sync a
+    ``SyncCount(stacks=True)`` block counted: ``{"source", "path" (relative
+    to the checkout, None when no frame of the package was on the stack),
+    "line", "function", "raised_at"}``.  A lambda's or a generator
+    expression's frame stands for the call that ran it (the linter indexes
+    functions, not expressions), so the frame taken is the innermost one
+    of a ``def``."""
+    out = []
+    for r, stack in zip(sc.records, sc.stacks):
+        if "synchroniz" not in str(r.message):
+            continue
+        frame = next((f for f in reversed(stack or [])
+                      if os.path.abspath(f.filename).startswith(PKG_ROOT)
+                      and not f.name.startswith("<")), None)
+        out.append({
+            "source": source,
+            "path": (os.path.relpath(frame.filename, ROOT).replace(
+                os.sep, "/") if frame is not None else None),
+            "line": frame.lineno if frame is not None else None,
+            "function": frame.name if frame is not None else None,
+            "raised_at": f"{os.path.relpath(r.filename, ROOT)}:{r.lineno}"})
+    return out
+
+
 def decode_syncs(ctx, plain_kwargs, steps=4):
     """Operations that wait for the card (torch's sync debug mode "warn", as
     ``SyncCount`` counts them) per decode step of the engine with every
@@ -3795,6 +3843,8 @@ def decode_syncs(ctx, plain_kwargs, steps=4):
             lm.decode_step = decode_step
         eng.run(4)                       # the requests finish
         sites, via = sync_sites(sc, steps)
+        OBSERVED_SYNCS.extend(package_frames(
+            sc, f"decode_syncs:{eng.cfg.name}:{label}"))
         out[label] = {"per_step": sc.total / steps,
                       "in_decode_step": inner[0] / steps,
                       "sites_per_step": sites,
@@ -8561,7 +8611,7 @@ def mesh_families_rank(rank, world, workdir, device="cuda", reduced=False):
         tr = _families_trainer(_cut(arch, n, reduced), shape, mesh)
         empty_cache(sync_only=True)
         init_s = time.perf_counter() - t0
-        step_fn, times, syncs, sites = tr._step, [], [], []
+        step_fn, times, syncs, sites, frames = tr._step, [], [], [], []
 
         def timed(*a):
             empty_cache(sync_only=True)
@@ -8572,6 +8622,8 @@ def mesh_families_rank(rank, world, workdir, device="cuda", reduced=False):
                     out = step_fn(*a)
                 syncs.append(sc.total)
                 sites.append(sync_sites(sc))
+                frames.extend(package_frames(
+                    sc, f"mesh_families:{arch}:step1:rank{rank}"))
             else:
                 out = step_fn(*a)
             empty_cache(sync_only=True)
@@ -8589,7 +8641,7 @@ def mesh_families_rank(rank, world, workdir, device="cuda", reduced=False):
             "losses": [m["loss"] for _, m in hist],
             "grad_norms": [m["grad_norm"] for _, m in hist],
             "step_s": times, "init_s": init_s, "syncs_step1": syncs,
-            "sync_sites_step1": sites,
+            "sync_sites_step1": sites, "sync_frames_step1": frames,
             "launches": {k: f.launches for k, f in K.items()},
             "oracle_calls": oracle_calls(), "plain_on_cuda": dict(plain),
             "used": {"/".join(k): v for k, v in sorted(C.USED.items())},
@@ -9004,11 +9056,206 @@ def phase_mesh_families(smi):
         for t, _, _, _ in MESH_SERVE_CASES) for n in all_kernels()}
     out["lse_launches"] = sum(r["serve"][t]["lse_launches"] for r in reps
                               for t, _, _, _ in MESH_SERVE_CASES)
+    OBSERVED_SYNCS.extend(f for r in reps for a, _, _ in MESH_TRAIN_CASES
+                          for f in r["train"][a].get("sync_frames_step1",
+                                                     ()))
     bad += [f"decode_lse {k}: {v}" for k, v in lse_rows.items()
             if not v["ok"] or v["variant"] != "cp_async"]
     emit(out)
     if bad:
         raise SystemExit("mesh_families: " + "; ".join(bad[:8]))
+    return out
+
+
+# phase "analysis": the runs whose syncs it observes besides the serving
+# and mesh phases' — the sequential replay (the example's platform under
+# PID, DFS on; control every 10 ticks), the chunked sweep's blocks and the
+# batched "torch" loop under PID
+ANALYSIS = {"replay_ticks": 100, "replay_ci": 10, "chunk": 1_000_000,
+            "rerank_ticks": 200, "baseline": "analysis/baseline_torch.json"}
+
+
+def analysis_replay():
+    """One short sequential replay with DFS on, under
+    ``SyncCount(stacks=True)``: its sync frames (the control window's copy
+    each control tick, and what the run reads after its loop)."""
+    ex = closed_loop_example()
+    from repro_torch.sim import SimConfig, SimEngine, Trace
+    plat = ex.build_platform()
+    trace = ex.default_trace(plat, device=DEV)
+    short = Trace(trace.arrivals[:ANALYSIS["replay_ticks"]], trace.dt)
+    cfg = SimConfig(control_interval=ANALYSIS["replay_ci"])
+    with SyncCount(stacks=True) as sc:
+        r = SimEngine(plat, config=cfg, controller=ex.controllers(plat)[
+            "dfs-pid"], device=DEV).run(short)
+    frames = package_frames(sc, "analysis_replay:dfs-pid")
+    return frames, {"ticks": short.ticks, "control_ticks": short.ticks
+                    // ANALYSIS["replay_ci"], "syncs": sc.total,
+                    "syncs_in_ticks": sc.in_ticks,
+                    "completed": r.completed}
+
+
+def analysis_sweep():
+    """The chunked sweep's block loop on the card under
+    ``SyncCount(stacks=True)``: the islands grid of ``sweep_chunked`` cut
+    to four positions and one TG rate (10.1 M points), chunks of 10^6."""
+    from repro_torch.configs.vespa_soc import CHSTONE
+    from repro_torch.core.dse import grid_sweep
+    from repro_torch.core.perfmodel import AccelWorkload, SoCPerfModel
+    wls = [AccelWorkload(n, *CHSTONE[n]) for n in ISLANDS["accels"]]
+    axes = dict(chunked_axes(ISLANDS), positions=ISLANDS["positions"][:4],
+                tg_rates=ISLANDS["tg_rates"][:1])
+    with SyncCount(stacks=True) as sc:
+        r = grid_sweep(SoCPerfModel(), wls, **axes, device=None,
+                       backend="torch", chunk_points=ANALYSIS["chunk"])
+    return package_frames(sc, "analysis_sweep"), {
+        "points": r.n_points, "chunks": r.n_chunks, "syncs": sc.total}
+
+
+def analysis_rerank():
+    """The batched ``"torch"`` loop with PID control on the card under
+    ``SyncCount(stacks=True)``: three designs, 200 ticks, a control every
+    25."""
+    from repro_torch.sim.batch import BatchSimEngine, BatchSimPlatform
+    from repro_torch.sim.control import BatchControllerHarness
+    from repro_torch.sim.engine import SimConfig
+    from repro_torch.sim.traffic import mmpp_trace
+    plat = BatchSimPlatform.stack([_tick_platform(k) for k in (2, 4, 8)])
+    ctl = BatchControllerHarness(plat.islands, plat.rates,
+                                 make_policy("pid"), tile_names=plat.names)
+    cap = BatchSimEngine(BatchSimPlatform.stack([_tick_platform(2)]),
+                         device="cpu").capacity_rps()[0]
+    tr = mmpp_trace(cap * 0.1, cap * 1.3, ANALYSIS["rerank_ticks"], 4,
+                    dt=1e-3, seed=3)
+    eng = BatchSimEngine(plat, config=SimConfig(control_interval=25),
+                         controller=ctl, backend="torch", device=DEV)
+    with SyncCount(stacks=True) as sc:
+        eng.run(tr)
+    return package_frames(sc, "analysis_rerank:pid"), {
+        "designs": plat.n_designs, "ticks": tr.ticks, "syncs": sc.total,
+        "syncs_in_ticks": sc.in_ticks}
+
+
+def hot_scope(ctxs):
+    """``{path: [(first, last, hot, region)]}`` of every function of the
+    linted modules (``region``: a part entry's (first, last) lines)."""
+    hot = ctxs[0].hotindex if ctxs else None
+    out = {}
+    for c in ctxs:
+        for rec in c.funcindex.records:
+            info = hot.info(rec)
+            reg = info.region if info is not None else None
+            out.setdefault(c.relpath, []).append((
+                rec.node.lineno, rec.node.end_lineno, info is not None,
+                None if reg is None else (reg.lineno, reg.end_lineno)))
+    return out
+
+
+def match_syncs(frames, findings, scope):
+    """Each observed sync against the static rule: a frame inside a
+    function the hot scope marks (inside its part, for a part entry) must
+    lie on a line a TPR001 finding covers (``findings``: (path, first,
+    last)).  Returns ``{"hot", "flagged", "missed" {site: n},
+    "outside_scope" {site: n}, "outside_package" n}``."""
+    spans = {}
+    for path, lo, hi in findings:
+        spans.setdefault(path, []).append((lo, hi))
+    res = {"hot": 0, "flagged": 0, "missed": {}, "outside_scope": {},
+           "outside_package": 0, "hot_sites": []}
+    for f in frames:
+        if f["path"] is None:
+            res["outside_package"] += 1
+            continue
+        site, line = f"{f['path']}:{f['line']}", f["line"]
+        fns = [(hi - lo, is_hot, reg) for lo, hi, is_hot, reg
+               in scope.get(f["path"], ()) if lo <= line <= hi]
+        _, is_hot, reg = min(fns) if fns else (0, False, None)
+        if is_hot and reg is not None and not reg[0] <= line <= reg[1]:
+            is_hot = False
+        if not is_hot:
+            res["outside_scope"][site] = res["outside_scope"].get(site,
+                                                                  0) + 1
+            continue
+        res["hot"] += 1
+        if site not in res["hot_sites"]:
+            res["hot_sites"].append(site)
+        if any(lo <= line <= hi for lo, hi in spans.get(f["path"], ())):
+            res["flagged"] += 1
+        else:
+            res["missed"][site] = res["missed"].get(site, 0) + 1
+    return res
+
+
+def phase_analysis(smi, t_script):
+    """``repro_torch.analysis`` in-process (AST only) over the checkout's
+    ``src/repro_torch`` against its baseline, then held to the syncs this
+    run observed (the serving and mesh phases', and those of
+    :func:`analysis_replay`, :func:`analysis_sweep` and
+    :func:`analysis_rerank`): every sync whose innermost ``src/repro_torch``
+    frame lies in a hot function must lie on a line TPR001 flags (new,
+    baselined or noqa'd); the frames outside the hot scope are counted
+    (``outside_scope``).  A planted fault (one observed site dropped from
+    the flagged lines) must come back as missed."""
+    from repro_torch.analysis import analyze_paths, load_baseline
+    from repro_torch.analysis.engine import load_modules
+    from pathlib import Path
+    t0 = time.perf_counter()
+    runs = {}
+    for name, fn in (("replay", analysis_replay), ("sweep", analysis_sweep),
+                     ("rerank", analysis_rerank)):
+        frames, runs[name] = fn()
+        OBSERVED_SYNCS.extend(frames)
+    t1 = time.perf_counter()
+    pkg = Path(ROOT) / "src" / "repro_torch"
+    report = analyze_paths([pkg], root=Path(ROOT), baseline=load_baseline(
+        Path(ROOT) / ANALYSIS["baseline"]))
+    scope = hot_scope(load_modules([pkg], Path(ROOT)))
+    lint_s = time.perf_counter() - t1
+    flagged = [(f.path, f.line, max(f.line, f.end_line))
+               for f in report.findings if f.rule == "TPR001"]
+    res = match_syncs(OBSERVED_SYNCS, flagged, scope)
+    by_source = {}
+    for f in OBSERVED_SYNCS:
+        by_source[f["source"]] = by_source.get(f["source"], 0) + 1
+    sites = sorted({f"{f['path']}:{f['line']}" for f in OBSERVED_SYNCS
+                    if f["path"] is not None})
+    # the planted fault: the findings covering one observed hot site go
+    hot_sites = sorted(res["hot_sites"])
+    planted = {"dropped": None, "missed": {}}
+    if hot_sites:
+        planted["dropped"] = hot_sites[0]
+        path, line = hot_sites[0].rsplit(":", 1)
+        cut = [x for x in flagged
+               if not (x[0] == path and x[1] <= int(line) <= x[2])]
+        planted["missed"] = match_syncs(OBSERVED_SYNCS, cut, scope)["missed"]
+    out = {"phase": "analysis", "nvidia_smi": smi,
+           "modules": report.modules, "lint_s": lint_s,
+           "counts": {"new": len(report.new),
+                      "baselined": len(report.baselined),
+                      "suppressed": len(report.suppressed)},
+           "tpr001_findings": len(flagged),
+           "new": [f"{f.location()} {f.rule} {f.message}"
+                   for f in report.new][:20],
+           "observed": {"syncs": len(OBSERVED_SYNCS), "sites": len(sites),
+                        "by_source": by_source, **res},
+           "planted": planted, "runs": runs,
+           "seconds": time.perf_counter() - t0,
+           "script_s_so_far": time.perf_counter() - t_script}
+    emit(out)
+    bad = []
+    if report.modules < 1:
+        bad.append(f"the linter found no module under {pkg}")
+    if report.new:
+        bad.append(f"{len(report.new)} new lint finding(s)")
+    if res["missed"]:
+        bad.append(f"syncs in hot functions on lines TPR001 does not flag: "
+                   f"{res['missed']}")
+    if hot_sites and planted["dropped"] not in planted["missed"]:
+        bad.append(f"the planted miss {planted['dropped']} was not caught")
+    if not hot_sites:
+        bad.append("no observed sync lies in the hot scope: nothing held")
+    if bad:
+        raise SystemExit("analysis: " + "; ".join(bad))
     return out
 
 
@@ -9101,6 +9348,9 @@ def main() -> int:
     ap.add_argument("--families-only", action="store_true",
                     help="device, build, the LLM kernels' parity and "
                          "mesh_families only")
+    ap.add_argument("--analysis-only", action="store_true",
+                    help="device, build, the moe and MLA serving paths, "
+                         "mesh_families and analysis only")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/spill report")
     ap.add_argument("--collectives-rank", type=int, default=None,
@@ -9143,6 +9393,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.tick_sim import fused_tick_sim
 
+    t_script = time.perf_counter()
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "name": name,
@@ -9170,6 +9421,14 @@ def main() -> int:
         phase_mesh_mra(smi, train_mesh_one_device())
         print(smi, flush=True)
         emit({"ok": True, "mra_only": True, "device": device})
+        return 0
+    if args.analysis_only:
+        phase_serve_moe()
+        phase_serve_mla()
+        phase_mesh_families(smi)
+        phase_analysis(smi, t_script)
+        print(smi, flush=True)
+        emit({"ok": True, "analysis_only": True, "device": device})
         return 0
     if args.families_only:
         phase_llm_kernels()
@@ -9275,6 +9534,8 @@ def main() -> int:
     # ranks sharing the card, each rank counting from 0 just before each
     # case and reading just after
     families = phase_mesh_families(smi)
+    # the static host-sync rule held to the syncs this run observed
+    analysis = phase_analysis(smi, t_script)
     # the training paths, each counted inside drive_train the same way
     train_reports, train_kernels_report = phase_training()
     # the cost model beside the measured paths (it re-runs none of them)
@@ -9288,6 +9549,18 @@ def main() -> int:
                 **({"also": kernel_row(rows[n]["also"])}
                    if "also" in rows[n] else {})}
 
+    # the analysis phase's numbers again, short, near the end of the output
+    obs = analysis["observed"]
+    emit({"phase": "analysis_summary", "nvidia_smi": smi,
+          "syncs": obs["syncs"], "sites": obs["sites"], "hot": obs["hot"],
+          "hot_sites": len(obs["hot_sites"]), "flagged": obs["flagged"],
+          "missed": obs["missed"], "outside_scope": obs["outside_scope"],
+          "outside_package": obs["outside_package"],
+          "planted": {"dropped": analysis["planted"]["dropped"],
+                      "caught": analysis["planted"]["dropped"]
+                      in analysis["planted"]["missed"]},
+          "tpr001_findings": analysis["tpr001_findings"],
+          "lint_s": analysis["lint_s"], "seconds": analysis["seconds"]})
     lin = main_report["kernel_vs_plain"]["linear"]
     a12k = a12_report["kernel_vs_plain"]
     emit({"kernels": [{

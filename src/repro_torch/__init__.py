@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("configs", "convert", "core", "device", "kernels", "launch",
-               "models", "runtime", "sim")
+_SUBMODULES = ("analysis", "compat", "configs", "convert", "core", "device",
+               "kernels", "launch", "models", "runtime", "sim")
 
 __all__ = list(_SUBMODULES)
 

@@ -223,16 +223,17 @@ def _front_prefilter(thr, area, energy, max_classes: int = 1024):
     sorts, by energy and then by ``-thr`` (the same permutation)."""
     xp = _TORCH_SORT if torch.is_tensor(thr) else _NP_SORT
     n = thr.shape[0]
-    uniq = xp.unique(area)
+    uniq = xp.unique(area)  # repro: noqa[TPR001] the area classes: one read a block on the card (none on the NumPy path)
     if n == 0 or len(uniq) > max_classes:
         return xp.arange(n, like=thr)
     keep = []
     for av in uniq:
-        sel = xp.flatnonzero(area == av)
+        sel = xp.flatnonzero(area == av)  # repro: noqa[TPR001] one read a class a block, at most max_classes
         o = sel[xp.argsort_stable(energy[sel])]
         o = o[xp.argsort_stable(-thr[o])]
         e = energy[o]
-        keep.append(o[e <= xp.cummin(e)])   # over-keeps ties; exact scan next
+        # over-keeps ties; the exact scan is next
+        keep.append(o[e <= xp.cummin(e)])  # repro: noqa[TPR001] the class's staircase: one read a class a block, at most max_classes
     return xp.concatenate(keep)
 
 
@@ -383,7 +384,7 @@ def _topk_select_t(key: torch.Tensor, k: int) -> torch.Tensor:
         return torch.empty(0, dtype=torch.int64, device=key.device)
     if k < n:
         kth = torch.topk(key, k, largest=False, sorted=False).values.max()
-        cand = torch.nonzero(key <= kth).flatten()
+        cand = torch.nonzero(key <= kth).flatten()  # repro: noqa[TPR001] the top-k candidates: one read a block and tracked objective
     else:
         cand = torch.arange(n, device=key.device)
     return cand[torch.sort(key[cand], stable=True).indices[:k]]
@@ -1146,7 +1147,7 @@ def _block_survivors_t(out: Dict[str, torch.Tensor], lo: int,
     those copied rows)."""
     nbytes = (sum(v.element_size() * v.numel() for v in out.values())
               + out["throughput"].element_size() * out["throughput"].numel())
-    vpos = torch.nonzero(out["valid"]).flatten()
+    vpos = torch.nonzero(out["valid"]).flatten()  # repro: noqa[TPR001] the block's valid count sizes every later pass: one read a block
     nv = int(vpos.numel())
     if nv == 0:
         return {"bytes": nbytes, "n_valid": 0, "rows": None}
@@ -1157,9 +1158,10 @@ def _block_survivors_t(out: Dict[str, torch.Tensor], lo: int,
         parts.append(_topk_select_t(-vals[o] if maximize else vals[o],
                                     topk_track))
     pos = torch.cat(parts)
-    floats = torch.stack([vals[o][pos] for o in _FLOAT_OBJECTIVES]
+    floats = torch.stack([vals[o][pos] for o in _FLOAT_OBJECTIVES]  # repro: noqa[TPR001] the block's survivors to the host, where the exact front and the merges run in float64
                          ).cpu().numpy()
-    rows = {"i": lo + vpos[pos].cpu().numpy(),
+    rows = {"i": lo + vpos[pos].cpu().numpy(),  # repro: noqa[TPR001] their global indices, with the survivors' copy
+
             **{o: np.ascontiguousarray(floats[j])
                for j, o in enumerate(_FLOAT_OBJECTIVES)}}
     bounds = np.cumsum([0] + [int(p.numel()) for p in parts])

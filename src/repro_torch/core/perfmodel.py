@@ -337,7 +337,8 @@ def _memory_traffic_math_per_accel(xp, f_acc_terms, f_noc, f_tg, n_tg, *,
 
 
 def _as_tensors(values, device, dtype):
-    return [torch.as_tensor(v, dtype=dtype, device=device) for v in values]
+    return [torch.as_tensor(v, dtype=dtype, device=device)  # repro: noqa[TPR001] device tensors (the tick loop's service terms) stay where they are; a host value is its caller's one upload
+            for v in values]
 
 
 @dataclass

@@ -24,18 +24,21 @@ def on_card(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel and no plain version for device {dev}")
 
 
-def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+def refuse_grad(name: str, *tensors: torch.Tensor,
+                backward: bool = True) -> None:
     """Raise when grad mode is on and a CUDA input requires grad: the raw
     wrappers write their output through a pointer, so autograd would never
     see the launch and the result would come back cut off from the graph.
     The autograd Functions of ``repro_torch.kernels.ops`` launch the same
-    kernels with a backward."""
+    kernels with a backward; a kernel without one (``backward=False``:
+    the decode and the tick loop) names its plain version instead."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        fix = (f"call repro_torch.kernels.ops.{name}, whose backward runs "
+               f"the oracle's autograd" if backward else
+               f"the kernel has no backward: differentiate {name}_plain")
         raise RuntimeError(
             f"{name}: an input on the card requires grad, and the kernel's "
-            f"output would carry no gradient; call "
-            f"repro_torch.kernels.ops.{name}, whose backward runs the "
-            f"oracle's autograd")
+            f"output would carry no gradient; {fix}")
 
 
 def check(name: str, t: torch.Tensor, ndim: int,
@@ -65,7 +68,7 @@ def aligned16(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-_SM_COUNT = {}
+_SM_COUNT = {}  # repro: noqa[TPR003] one entry per CUDA device index of the process, at most torch.cuda.device_count()
 
 
 def sm_count(device: torch.device) -> int:

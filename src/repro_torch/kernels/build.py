@@ -32,9 +32,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCE_FLAGS = {"tick_sim": ("-fmad=false",)}
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
-last_build_seconds: Dict[str, float] = {}       # absent: loaded from cache
-last_build_log: Dict[str, str] = {}
+# one entry per csrc/*.cu source of the checkout ("absent" in the seconds:
+# loaded from the on-disk cache)
+_libs: Dict[str, ctypes.CDLL] = {}  # repro: noqa[TPR003] one loaded library per csrc/*.cu source, bounded by the checkout
+last_build_seconds: Dict[str, float] = {}  # repro: noqa[TPR003] one entry per csrc/*.cu source, rewritten by each build
+last_build_log: Dict[str, str] = {}  # repro: noqa[TPR003] one entry per csrc/*.cu source, rewritten by each build
 
 
 def sources() -> List[Path]:

@@ -23,7 +23,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels._common import aligned16, check, on_card, \
-    positions, refuse_counting, sm_count as _sm_count, stream_of
+    positions, refuse_counting, refuse_grad, sm_count as _sm_count, \
+    stream_of
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
                                                  flash_attention_plain)
 from repro_torch.models.layers import _gqa_scores, _window_mask
@@ -163,6 +164,7 @@ def flash_decode(q, cache_k, cache_v, qpos, kpos, window: int = 0,
     may differ in dtype (float32 / bfloat16).  ``return_lse``: ``(out,
     lse)``, lse (B,KV,G) float32 as :func:`flash_decode_plain` gives it."""
     if on_card(q, cache_k, cache_v):
+        refuse_grad("flash_decode", q, cache_k, cache_v, backward=False)
         refuse_counting("flash_decode")
         return _launch(q, cache_k, cache_v, qpos, kpos, window, scale,
                        kv_block, return_lse=return_lse)

@@ -107,7 +107,7 @@ def fused_rmsnorm_mlp_plain(x, scale, wg, wu, act: str = "silu",
 
 
 _FN = None
-_COUNTERS: Dict[int, torch.Tensor] = {}
+_COUNTERS: Dict[int, torch.Tensor] = {}  # repro: noqa[TPR003] one counter tensor per CUDA device index, grown in place
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
@@ -118,7 +118,7 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     have = _COUNTERS.get(idx)
     if have is None or have.numel() < n:
         have = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[idx] = have
+        _COUNTERS[idx] = have  # repro: noqa[TPR002] keyed by the device's index, which names the device; grown in place to the largest n asked
     return have
 
 

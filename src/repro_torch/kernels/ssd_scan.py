@@ -15,6 +15,7 @@ of the latest one.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -119,7 +120,8 @@ def ssd_scan_plain(xs, dt, A, Bm, Cm, D, chunk: int = 256):
     return ssd_chunks_plain(xs, dt, chunk_cumsum(dt * A, Q), Bm, Cm, D, Q)
 
 
-def _check(xs, dt, A, Bm, Cm, D, chunk):
+def _check(xs, dt, A, Bm, Cm, D, chunk
+           ) -> Tuple[int, int, int, int, int, int]:
     """The checks made before a launch; returns (B, L, nh, hd, st, Q)."""
     f32 = (torch.float32,)
     for name, t, nd in (("xs", xs, 4), ("dt", dt, 3), ("A", A, 1),

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.perfmodel import P_DYN_W, P_STATIC_W, V_BASE, V_SLOPE
-from repro_torch.kernels._common import refuse_counting
+from repro_torch.kernels._common import on_card, refuse_counting, \
+    refuse_grad
 
 KINDS = ("none", "guard", "membound", "pid", "ewma")
 
@@ -174,7 +175,8 @@ def _scalar_params(scalars, plan: ControlPlan) -> Dict[str, float]:
         tech_hi=float(plan.tech_hi) if clamp_on else 0.0)
 
 
-def _check_inputs(arrivals, consts, scalars, init, plan: ControlPlan):
+def _check_inputs(arrivals, consts, scalars, init, plan: ControlPlan
+                  ) -> Tuple[int, int, int, int, int, bool]:
     """Device / dtype / shape / contiguity checks shared by both versions.
     Returns ``(T, B, A, I, L, shared)``."""
     if not torch.is_tensor(arrivals):
@@ -571,7 +573,7 @@ def _launch_kernel(arrivals, consts, scalars, init, plan: ControlPlan):
     has_out = e(B, dtype=torch.uint8) if pol else None
     redo = e(B, dtype=torch.uint8)      # designs the exact pass runs again
 
-    def ptr(t):
+    def ptr(t) -> Optional[int]:
         return None if t is None else t.data_ptr()
 
     # The launch is asynchronous and the temporaries above are dropped when
@@ -631,7 +633,10 @@ def fused_tick_sim(arrivals, consts, scalars, init, *,
     ``fused_tick_sim.launches`` counts calls that launched.
     """
     plan = plan if plan is not None else ControlPlan()
-    if torch.is_tensor(arrivals) and arrivals.device.type == "cuda":
+    if torch.is_tensor(arrivals) and on_card(arrivals):
+        refuse_grad("fused_tick_sim", arrivals,
+                    *[t for t in consts.values() if torch.is_tensor(t)],
+                    backward=False)
         refuse_counting("fused_tick_sim")
         return _launch_kernel(arrivals, consts, scalars, init, plan)
     return fused_tick_sim_plain(arrivals, consts, scalars, init, plan=plan)

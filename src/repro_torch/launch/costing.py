@@ -50,6 +50,8 @@ import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch import compat
+
 
 # ---------------------------------------------------------------------------
 # FLOP counting
@@ -120,15 +122,6 @@ class FlopCount:
 class _Frame(NamedTuple):
     mult: float      # how many iterations the running code stands for
     seq: int         # autograd sequence number when the frame opened
-
-
-def _sequence_nr() -> int:
-    get = getattr(torch._C._autograd, "_get_sequence_nr", None)
-    if get is not None:
-        return int(get())
-    with torch.enable_grad():                 # a throwaway node's number
-        return torch.zeros((), requires_grad=True).view(
-            ()).grad_fn._sequence_nr() + 1
 
 
 class _Dispatch(TorchDispatchMode):
@@ -224,7 +217,7 @@ class FlopCounter:
 
     # ------------------------------------------------------------- folding
     def _push(self, mult: float) -> None:
-        self.frames.append(_Frame(mult, _sequence_nr()))
+        self.frames.append(_Frame(mult, compat.sequence_nr()))
 
     def _pop(self) -> None:
         self.frames.pop()
@@ -266,7 +259,7 @@ class FlopCounter:
             nd = todo.pop()
             if nd is None or self._MARK in nd.metadata \
                     or type(nd).__name__ == "AccumulateGrad" \
-                    or nd._sequence_nr() < frame.seq:
+                    or compat.node_sequence_nr(nd) < frame.seq:
                 continue
             nd.metadata[self._MARK] = frame.mult
             mult = frame.mult

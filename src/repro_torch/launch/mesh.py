@@ -36,6 +36,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch import compat
 from repro_torch.device import DeviceSpec, resolve
 
 Axis = Optional[Union[str, Tuple[str, ...]]]
@@ -212,7 +213,8 @@ def placements_for(spec, mesh, ndim: Optional[int] = None) -> list:
     every axis entry ``d`` names, several in mesh order for a tuple (which
     must follow the mesh's axis order, else ``ValueError`` naming it),
     ``Replicate()`` elsewhere."""
-    from torch.distributed.tensor import Replicate, Shard
+    T = compat.dtensor()
+    Replicate, Shard = T.Replicate, T.Shard
     check_spec(spec, mesh, len(spec) if ndim is None else ndim)
     out: list = [Replicate() for _ in mesh.axis_names]
     for d, ent in enumerate(spec):

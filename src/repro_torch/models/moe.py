@@ -55,6 +55,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._common import active_counter
 from repro_torch.launch.mesh import get_mesh
@@ -136,7 +137,7 @@ def grouped_matmul_plain(xs: torch.Tensor, w: torch.Tensor,
     as a tensor is read to the host (one sync per call on a card); a list
     of ints is taken as it is."""
     if torch.is_tensor(offsets):
-        offsets = offsets.tolist()
+        offsets = offsets.tolist()  # repro: noqa[TPR001] the plain loop's group ends: it slices on the host
     parts, start = [], 0
     for e, end in enumerate(offsets):
         if end > start:
@@ -167,7 +168,7 @@ def grouped_matmul(xs: torch.Tensor, w: torch.Tensor,
     variant = _variant(xs, w)
     grouped_matmul.last_variant = variant
     if variant == "grouped_mm":
-        return torch._grouped_mm(xs, w, offs=offsets)
+        return compat.grouped_mm(xs, w, offsets)
     return grouped_matmul_plain(xs, w, offsets)
 
 
@@ -205,7 +206,7 @@ def _moe_ffn_local(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     if experts == "grouped" or active_counter() is not None:
         ys = expert_ffn(xs, p, offsets, cfg.act)
     else:           # the loop reads the offsets once for its three products
-        ys = expert_ffn(xs, p, offsets.tolist(), cfg.act,
+        ys = expert_ffn(xs, p, offsets.tolist(), cfg.act,  # repro: noqa[TPR001] experts="loop" (the plain path) reads the group ends once for its three products; "grouped" reads nothing
                         grouped_matmul_plain)
 
     gate_sorted = gates.reshape(-1).index_select(0, sort_idx)
@@ -282,7 +283,7 @@ def _moe_ep_shard(pp: Dict, x: torch.Tensor, cfg: ArchConfig, *, mesh,
     if experts == "grouped" or active_counter() is not None:
         y = expert_ffn(rows, pp, offsets, cfg.act)
     else:
-        y = expert_ffn(rows, pp, offsets.tolist(), cfg.act,
+        y = expert_ffn(rows, pp, offsets.tolist(), cfg.act,  # repro: noqa[TPR001] experts="loop" (the plain path) reads the group ends once for its three products; "grouped" reads nothing
                        grouped_matmul_plain)
     inv = torch.empty_like(sort_idx).scatter_(
         0, sort_idx, torch.arange(m * cap, device=x.device))

@@ -28,6 +28,7 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch import compat
 from repro_torch.launch.mesh import (PartitionSpec, ProcessMesh, _entry,
                                      check_spec, entry_axes,  # noqa: F401
                                      placements_for)
@@ -37,7 +38,8 @@ from repro_torch.parallel import collectives as C
 def spec_of(t: torch.Tensor) -> PartitionSpec:
     """The spec of a placed tensor, one entry a dim (``PartitionSpec()``
     for a plain one)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    T = compat.dtensor()
+    DTensor, Replicate, Shard = T.DTensor, T.Replicate, T.Shard
     if not isinstance(t, DTensor):
         return PartitionSpec()
     names = t.device_mesh.mesh_dim_names
@@ -52,11 +54,13 @@ def spec_of(t: torch.Tensor) -> PartitionSpec:
 
 
 def is_placed(t) -> bool:
-    from torch.distributed.tensor import DTensor
-    return isinstance(t, DTensor)
+    return isinstance(t, compat.dtensor().DTensor)
 
 
+# the ProcessMesh of each device mesh seen, the oldest dropped past the
+# bound (a dropped entry is made again on its next use)
 _MESHES: dict = {}
+_MESHES_MAX = 16
 
 
 def mesh_of(t) -> ProcessMesh:
@@ -64,7 +68,9 @@ def mesh_of(t) -> ProcessMesh:
     dm = t.device_mesh
     m = _MESHES.get(id(dm))
     if m is None or m.device_mesh is not dm:
-        m = _MESHES[id(dm)] = ProcessMesh(dm, t.device)
+        while len(_MESHES) >= _MESHES_MAX:
+            _MESHES.pop(next(iter(_MESHES)))
+        m = _MESHES[id(dm)] = ProcessMesh(dm, t.device)  # repro: noqa[TPR002] a placed tensor lies on its mesh's device type at this rank's index: dm decides t.device
     return m
 
 
@@ -101,8 +107,7 @@ def place(full: torch.Tensor, spec, mesh) -> torch.Tensor:
 
 def from_block(loc: torch.Tensor, spec, mesh, shape) -> torch.Tensor:
     """A DTensor of global ``shape`` whose block here is ``loc``."""
-    from torch.distributed.tensor import DTensor
-    return DTensor.from_local(loc, mesh.device_mesh,
+    return compat.dtensor().DTensor.from_local(loc, mesh.device_mesh,
                               placements_for(spec, mesh, len(shape)),
                               run_check=False, shape=torch.Size(shape),
                               stride=torch.empty(shape, device="meta")

@@ -276,9 +276,9 @@ class SimFaultSupervisor:
         assert self._run is not None, "begin_device_run not called"
         return self._run.alive
 
-    def observe_device(self, tick: int, *, served: torch.Tensor,
-                       queue: torch.Tensor, cap: torch.Tensor,
-                       busy: torch.Tensor) -> None:
+    def observe_device(  # repro: hot
+            self, tick: int, *, served: torch.Tensor, queue: torch.Tensor,
+            cap: torch.Tensor, busy: torch.Tensor) -> None:
         """:meth:`observe` on ``(A,)`` float64 tensors, without a value
         going to the host: the detector and straggler state update on the
         device and the tick's masks are recorded for

@@ -116,11 +116,11 @@ class ServeEngine:
                 continue
             req = self.queue.pop(0)
             t0 = time.perf_counter()
-            prompt = torch.as_tensor(np.asarray(req.prompt)[None, :],
+            prompt = torch.as_tensor(np.asarray(req.prompt)[None, :],  # repro: noqa[TPR001] a request's prompt onto the card at its admission: once a request
                                      dtype=torch.long, device=self.device)
             logits, cache1 = self.lm.prefill(self.params, prompt,
                                              cache_len=self.window)
-            tok = int(torch.argmax(logits[0]))        # synchronises
+            tok = int(torch.argmax(logits[0]))  # repro: noqa[TPR001] a prefill's first token goes to its request: the time to first token ends here
             req.t_first = time.perf_counter()
             self.timings["prefill_s"] += req.t_first - t0
             self.timings["prefill_tokens"] += int(prompt.shape[1])
@@ -150,7 +150,7 @@ class ServeEngine:
         logits, self.cache = self.lm.decode_step(self.params, self.cache,
                                                  self.tokens)
         self.tokens = torch.argmax(logits, dim=-1, keepdim=True)  # (slots, 1)
-        ntok_host = self.tokens[:, 0].tolist()                    # synchronises
+        ntok_host = self.tokens[:, 0].tolist()  # repro: noqa[TPR001] the step's tokens go to their requests: the server's one read a decode step
         now = time.perf_counter()
         self.timings["decode_s"] += now - t0
         self.timings["decode_steps"] += 1

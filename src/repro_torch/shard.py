@@ -108,7 +108,7 @@ def shard_devices(n_devices: int, device) -> Tuple[torch.device, ...]:
                          for i in range(int(n_devices)))
         else:
             devs = (dev,) * int(n_devices)
-        _DEVICE_CACHE[key] = devs
+        _DEVICE_CACHE[key] = devs  # repro: noqa[TPR002] dev is (dev.type, first = dev.index or 0), both in the key
     return devs
 
 

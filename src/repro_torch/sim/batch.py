@@ -515,7 +515,8 @@ class BatchSimEngine:
             self._noc_island = isl_names.index("noc_mem")
         except ValueError:
             self._noc_island = -1
-        self._dev_cache: Dict[torch.dtype, Dict[str, torch.Tensor]] = {}
+        # the platform on the device: float64 and the engine's own dtype
+        self._dev_cache: Dict[torch.dtype, Dict[str, torch.Tensor]] = {}  # repro: noqa[TPR003] one entry per dtype the engine reads (float64 and its own: at most two)
 
     # ------------------------------------------------------------ refusals
     def _refuse_unported(self) -> None:
@@ -548,7 +549,7 @@ class BatchSimEngine:
             p = self.platform
 
             def t(a):
-                return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,  # repro: noqa[TPR001] the platform's arrays onto the card once an engine and dtype (memoised)
                                        device=self.device)
 
             self._dev_cache[dtype] = {
@@ -556,7 +557,7 @@ class BatchSimEngine:
                 "w": t(p.wire_share), "k": t(p.k),
                 "hop": t(self._hop_counts), "tcr": t(self._t_comp_ref),
                 "inc": t(self._inc), "ftg": t(p.f_tg[:, None]),
-                "iot": torch.as_tensor(self._island_of_tile,
+                "iot": torch.as_tensor(self._island_of_tile,  # repro: noqa[TPR001] once an engine and dtype (memoised)
                                        device=self.device),
                 "demand": (t(self._flow_demand)
                            if np.ndim(self._flow_demand) > 0 else None),
@@ -848,7 +849,7 @@ class BatchSimEngine:
             rates = ctl.live_rates()
             swaps0 = ctl.swaps.copy()
 
-            def control(t_i, window, dead=None, stuck=None):
+            def control(t_i, window, dead=None, stuck=None):  # repro: hot
                 busy, bound, pin, pout, rtt, qticks = window
                 new_rates = ctl.step(
                     tick=t_i, busy=busy, boundness=bound, pkts_in=pin,
@@ -1219,7 +1220,7 @@ class BatchSimEngine:
                 # the harness lives on the host: one window's counters
                 # down, the committed rates (if any) back up
                 t_wire_now = lp.svc["t_wire"] * out.dyn
-                window = torch.stack([
+                window = torch.stack([  # repro: noqa[TPR001] the control window: the loop's one copy to the host a control tick (the harness runs on the host)
                     lp.ctl_busy / max(lp.ctl_ticks, 1),
                     t_wire_now / (lp.tcr + t_wire_now),
                     st.pkts_in, st.pkts_out, st.rtt_acc,

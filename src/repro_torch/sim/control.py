@@ -124,9 +124,10 @@ class ControllerHarness:
             for i, n in enumerate(names)}
 
     # ---------------------------------------------------------------- step
-    def step(self, *, tick: int, names, busy, boundness, pkts_in, pkts_out,
-             rtt, queue_ticks, dead=None,
-             stuck=None) -> Optional[IslandConfig]:
+    def step(  # repro: hot
+            self, *, tick: int, names, busy, boundness, pkts_in, pkts_out,
+            rtt, queue_ticks, dead=None,
+            stuck=None) -> Optional[IslandConfig]:
         """One control interval: sample -> policy -> guard -> commit.
 
         ``dead``/``stuck`` are optional ``(I,)`` boolean masks in island
@@ -335,7 +336,7 @@ class LoadBalancer:
             self.group_of[ids] = gi
         # (G, 2, L) member order of each group's sum, padding mask
         self.sum_index, self.sum_keep = group_sum_index(self.membership)
-        self._dev: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+        self._dev: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}  # repro: noqa[TPR003] one entry per (device, dtype) a run splits on: the shards' devices times two dtypes
 
     def layout(self, device: torch.device, dtype: torch.dtype
                 ) -> Tuple[Optional[torch.Tensor], ...]:
@@ -346,11 +347,11 @@ class LoadBalancer:
         key = (device, dtype)
         if key not in self._dev:
             out = (
-                torch.as_tensor(self.sum_index, device=device),
-                (None if self.sum_keep is None else torch.as_tensor(
+                torch.as_tensor(self.sum_index, device=device),  # repro: noqa[TPR001] the group layout onto the card once a device and dtype (memoised)
+                (None if self.sum_keep is None else torch.as_tensor(  # repro: noqa[TPR001] once a device and dtype (memoised)
                     self.sum_keep, dtype=dtype, device=device)),
-                torch.as_tensor(self.covered, device=device),
-                torch.as_tensor(self.group_of, device=device))
+                torch.as_tensor(self.covered, device=device),  # repro: noqa[TPR001] once a device and dtype (memoised)
+                torch.as_tensor(self.group_of, device=device))  # repro: noqa[TPR001] once a device and dtype (memoised)
             self._dev[key] = self._dev[(out[0].device, dtype)] = out
         return self._dev[key]
 
@@ -363,9 +364,9 @@ class LoadBalancer:
             return cap.to(dtype)
         return cap.to(dtype) / (1.0 + queue)
 
-    def split(self, arr: torch.Tensor, queue: torch.Tensor,
-              cap: torch.Tensor, alive: Optional[torch.Tensor] = None
-              ) -> torch.Tensor:
+    def split(self, arr: torch.Tensor,  # repro: hot
+              queue: torch.Tensor, cap: torch.Tensor,
+              alive: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Redistribute one tick's arrivals within each group.
 
         ``arr``/``queue``/``cap`` are ``(..., A)`` tensors on one device;
@@ -563,8 +564,9 @@ class BatchControllerHarness:
         self._prev_rtt = None
 
     # ---------------------------------------------------------------- step
-    def step(self, *, tick: int, busy, boundness, pkts_in, pkts_out, rtt,
-             queue_ticks, dead=None, stuck=None) -> Optional[np.ndarray]:
+    def step(  # repro: hot
+            self, *, tick: int, busy, boundness, pkts_in, pkts_out, rtt,
+            queue_ticks, dead=None, stuck=None) -> Optional[np.ndarray]:
         """One control interval over all designs.
 
         ``dead``/``stuck`` are optional ``(I,)`` boolean masks shared by

@@ -146,7 +146,7 @@ class MetricsRegistry:
         if m is None:
             m = Metric(name=name, kind=kind, help=help,
                        buckets=tuple(buckets) if buckets else DEFAULT_BUCKETS)
-            self._metrics[name] = m
+            self._metrics[name] = m  # repro: noqa[TPR002] a registry by family name, as Prometheus keeps one: the kind is checked on every call, the first registration's buckets stand
         elif m.kind != kind:
             raise ValueError(f"metric {name!r} already registered as {m.kind}, not {kind}")
         if help and not m.help:

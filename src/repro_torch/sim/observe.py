@@ -550,14 +550,15 @@ class DeferredCapture:
         self.plane: Optional[CounterPlane] = None
 
     # hot path -----------------------------------------------------------
-    def on_service(self, start_tick: int, svc: Mapping[str, object]) -> None:
+    def on_service(  # repro: hot
+            self, start_tick: int, svc: Mapping[str, object]) -> None:
         """Record a service-term segment starting at ``start_tick``
         (run start, stuck-actuator apply, or the tick after a commit)."""
         self._segments.append((int(start_tick), {
             k: svc[k] for k in ("t_comp", "t_wire", "t_ref", "f_tile",
                                 "f_noc")}))
 
-    def on_tick(self, t_i: int, out) -> None:
+    def on_tick(self, t_i: int, out) -> None:  # repro: hot
         self._dyn[t_i] = out.dyn
 
     def segment_starts(self) -> List[int]:
@@ -769,9 +770,10 @@ class IncrementalCapture:
         self.ticks = 0
         self.plane: Optional[CounterPlane] = None
 
-    def on_tick(self, out, *, queue: torch.Tensor, busy: torch.Tensor,
-                svc: Mapping[str, torch.Tensor],
-                alive: Optional[torch.Tensor] = None) -> None:
+    def on_tick(  # repro: hot
+            self, out, *, queue: torch.Tensor, busy: torch.Tensor,
+            svc: Mapping[str, torch.Tensor],
+            alive: Optional[torch.Tensor] = None) -> None:
         ctx, t = self.ctx, self._tile
         if svc is not self._svc:        # the rates changed: new factors
             self._svc = svc

@@ -93,6 +93,21 @@ def test_sources_exist():
                  "src/repro_torch/launch/specs.py",
                  "src/repro_torch/launch/dryrun.py",
                  "src/repro_torch/core/replication.py",
+                 "src/repro_torch/compat.py",
+                 "src/repro_torch/analysis/__init__.py",
+                 "src/repro_torch/analysis/__main__.py",
+                 "src/repro_torch/analysis/astutil.py",
+                 "src/repro_torch/analysis/bench.py",
+                 "src/repro_torch/analysis/engine.py",
+                 "src/repro_torch/analysis/findings.py",
+                 "src/repro_torch/analysis/rules/__init__.py",
+                 "src/repro_torch/analysis/rules/tpr001_host_sync.py",
+                 "src/repro_torch/analysis/rules/tpr002_cache_key.py",
+                 "src/repro_torch/analysis/rules/tpr003_cache_bounds.py",
+                 "src/repro_torch/analysis/rules/tpr004_dtype.py",
+                 "src/repro_torch/analysis/rules/"
+                 "tpr005_kernel_wrappers.py",
+                 "src/repro_torch/analysis/rules/tpr006_parity.py",
                  "examples/torch_train_100m.py"):
         assert must in names, must
     for cu in CUDA_SOURCES:
@@ -164,6 +179,30 @@ def test_importing_every_submodule_leaves_jax_and_repro_out():
     assert proc.stdout.startswith("imported")
     # importing builds nothing
     assert proc.stdout.split()[-1] == str(existed)
+
+
+def test_linting_imports_neither_jax_repro_nor_torch():
+    """``repro_torch.analysis`` reads source as AST only: importing it, and
+    linting the whole port through its CLI entry point, loads no ``jax``,
+    no ``repro`` and no ``torch`` (so no CUDA is initialised and no kernel
+    built)."""
+    code = textwrap.dedent("""
+        import sys
+        from pathlib import Path
+        import repro_torch.analysis
+        from repro_torch.analysis import analyze_paths
+        from repro_torch.analysis.__main__ import main
+        rep = analyze_paths([Path(%r)], root=Path(%r))
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "jaxlib", "repro", "torch", "triton")]
+        assert not bad, bad
+        print("modules", rep.modules)
+    """ % (PKG, ROOT))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 80
 
 
 def test_device_rule():
